@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Smoke run of polyphemus_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
+   versions, and builds the CUDA kernels from the sources in the checkout.
+2. Holds each kernel against its plain PyTorch version on the card, at the
+   flagship shapes (batch 256 = 512 bars, d = 512) on realistic and edge-case
+   masks: `gcl_eval` at K = 1 and K = 2 (rtol = atol = 2e-4) and
+   `chord_tail` (ids equal except where the plain top-2 logit gap is below
+   1e-4). Times each (CUDA events, warm) beside its bound: the larger of
+   bytes over 3.35 TB/s and the fp32 flops these masks need (active cells;
+   `dense_bound_ms` counts every cell) over 67 TFLOP/s.
+3. Seeds a random-init flagship model (d = 512, 8 GNN layers, 2 bars,
+   batch-norm on), saves it as a port model directory and serves it over
+   HTTP on localhost with tiers [1, 8, 64, 256]: n = 1, 8 and 256, one
+   structure-conditioned request and a burst of 8 concurrent n = 1 requests
+   that must coalesce. Checks shapes, dtypes, vocabularies, non-empty bars,
+   MIDI headers, that both kernels launched (4 `gcl_eval` launches and 1
+   `chord_tail` launch per device call), and that the n = 8 result equals
+   the same request on the CPU by the threshold and tie rules.
+4. Batch-256 throughput by bench.py's protocol (20 calls, median of 3).
+5. Prints the `kernels` JSON line, the card line, and last
+   {"ok": true, "device": {...}}.
+
+Any failure exits non-zero before the last line. Without a CUDA device, or
+without the package beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TOL = 2e-4            # gcl_eval vs plain: rtol = atol
+TIE = 1e-4            # chord_tail: ids may differ below this top-2 gap
+FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
+HBM_TBPS = 3.35       # H100 SXM device memory
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops = flops / (FP32_TFLOPS * 1e12) * 1e3
+    t_mem = nbytes / (HBM_TBPS * 1e12) * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Mean device time of fn() over reps warm runs (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ------------------------------------------------------------------ inputs
+def bar_masks(nbar: int, t: int, s: int, seed: int) -> np.ndarray:
+    """Realistic densities plus the lattice's edge cases: empty (fixed to
+    cell [0, 0]), a single node off track 0, full bars, one full column."""
+    rng = np.random.default_rng(seed)
+    dens = rng.choice([0.05, 0.3, 0.5, 0.9], size=nbar)
+    mask = rng.random((nbar, t, s)) < dens[:, None, None]
+    edge = [np.zeros((t, s), bool) for _ in range(4)]
+    edge[0][0, 0] = True                 # empty bar after the fix
+    edge[1][min(2, t - 1), s // 2 + 1] = True   # single node, track 2
+    edge[2][:] = True                    # full bar
+    edge[3][:, s // 3] = True            # one full column
+    for i, e in enumerate(edge[:nbar]):
+        mask[i] = e
+    empty = ~mask.any(axis=(1, 2))
+    mask[empty, 0, 0] = True
+    return mask
+
+
+def kernel_inputs(nbar, d, k_layers, device, seed):
+    """Seeded random x, aux, gates and K layers of packed weights."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl
+
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
+    x = torch.randn(nbar, 4, 32, d, generator=g) * mask[..., None]
+    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, 128)
+    gates = torch.randn(32, d, generator=g) * 0.3
+    wb = [gcl.pack_weights(torch.randn(6, d, d, generator=g) * d ** -0.5,
+                           torch.randn(d, d, generator=g) * d ** -0.5, 4)
+          for _ in range(k_layers)]
+    lay = [torch.stack(wb)] + [
+        torch.randn(k_layers, d, generator=g) * sc + off
+        for sc, off in ((0.1, 0.0), (0.1, 1.0), (0.1, 0.0))]
+    return mask.to(device), [v.contiguous().to(device) for v in
+                             [x.reshape(nbar, 128, d), aux, gates] + lay]
+
+
+# ----------------------------------------------------------- phase 2: kernels
+def check_gcl(nbar, d, k_layers, device, timing=True):
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl
+
+    mask, args = kernel_inputs(nbar, d, k_layers, device, SEED + k_layers)
+    before = gcl.launches
+    out = gcl.gcl_eval(*args)
+    ref = gcl.gcl_eval_plain(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    bad = err > TOL + TOL * ref.abs()
+    check(torch.isfinite(out).all().item(), "gcl_eval output not finite")
+    check(not bad.any().item(),
+          f"gcl_eval K={k_layers} nbar={nbar}: {int(bad.sum())} values off, "
+          f"max abs err {err.max().item():.3e}")
+    res = {"max_abs_err": err.max().item(),
+           "max_rel_err": (err / ref.abs().clamp(min=1e-3)).max().item()}
+    if timing:
+        res["ms"] = time_ms(lambda: gcl.gcl_eval(*args))
+        res["plain_ms"] = time_ms(lambda: gcl.gcl_eval_plain(*args), reps=2)
+        # an inactive cell's row of A is zero and its output is its input:
+        # only active rows need the (5d x d) product
+        flops = 2.0 * int(mask.sum()) * 5 * d * d * k_layers
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + out.numel() * 4
+        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes)
+        res["dense_bound_ms"] = bound_ms(
+            flops * mask.numel() / int(mask.sum()), nbytes)[0]
+    gcl.launches = before  # comparison launches do not count
+    return res
+
+
+def chord_inputs(nbar, d, device, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h = d // 2
+    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
+    x = (torch.randn(nbar, 4, 32, d, generator=g) * mask[..., None])
+    p = [torch.randn(d, 15 * d, generator=g) * d ** -0.5,
+         torch.randn(15 * d, generator=g) * 0.1,
+         torch.randn(h, 131, generator=g) * h ** -0.5,
+         torch.randn(131, generator=g) * 0.1,
+         torch.randn(h, 131, generator=g) * h ** -0.5,
+         torch.randn(131, generator=g) * 0.1,
+         torch.randn(h, 99, generator=g) * h ** -0.5,
+         torch.randn(99, generator=g) * 0.1]
+    return mask.to(device), [v.contiguous().to(device) for v in [x] + p]
+
+
+def chord_gaps(x, ck, cb, pkd, pbd, pkn, pbn, dk, db):
+    """Top-2 logit gaps (..., T, S, 15, 2) of the plain chord tail."""
+    import torch
+
+    d = x.shape[-1]
+    h = d // 2
+    gaps = []
+    for s in range(15):
+        sh = x @ ck[:, s * d:(s + 1) * d] + cb[s * d:(s + 1) * d]
+        pitch = torch.cat([sh[..., :1, :, :h] @ pkd + pbd,
+                           sh[..., 1:, :, :h] @ pkn + pbn], dim=-3)
+        dur = sh[..., h:] @ dk + db
+        g2 = [v.topk(2, dim=-1).values for v in (pitch, dur)]
+        gaps.append(torch.stack([v[..., 0] - v[..., 1] for v in g2], -1))
+    return torch.stack(gaps, dim=-2)
+
+
+def check_chord(nbar, d, device, timing=True):
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import chord_tail
+
+    mask, args = chord_inputs(nbar, d, device, SEED + 7)
+    before = chord_tail.launches
+    out = chord_tail.chord_tail_tokens(*args, n_slots=15)
+    ref = chord_tail.chord_tail_plain(*args, n_slots=15)
+    gaps = chord_gaps(*args)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == torch.int32,
+          f"chord_tail output {out.dtype} {tuple(out.shape)}")
+    tie = gaps < TIE
+    diff = out != ref
+    check(not (diff & ~tie).any().item(),
+          f"chord_tail nbar={nbar}: {int((diff & ~tie).sum())} ids differ "
+          f"outside near-ties")
+    check(tie.float().mean().item() < 1e-3, "too many chord-tail near-ties")
+    res = {"max_abs_err": (out - ref)[~tie].abs().max().item(),
+           "tie_mismatches": int((diff & tie).sum()),
+           "near_ties": int(tie.sum())}
+    if timing:
+        res["ms"] = time_ms(lambda: chord_tail.chord_tail_tokens(
+            *args, n_slots=15))
+        res["plain_ms"] = time_ms(lambda: chord_tail.chord_tail_plain(
+            *args, n_slots=15), reps=2)
+        h = d // 2
+        # an inactive cell has x = 0, so its ids depend only on whether it
+        # is a drum cell: one distinct row per such class, then each active
+        # cell
+        inactive = ~mask
+        rows = int(mask.sum()) + int(inactive[:, 0].any()) \
+            + int(inactive[:, 1:].any())
+        per_row = 15 * (2.0 * d * d + 2.0 * h * (131 + 99))
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + out.numel() * 4
+        res["bound_ms"], res["bound_by"] = bound_ms(rows * per_row, nbytes)
+        res["dense_bound_ms"] = bound_ms(mask.numel() * per_row, nbytes)[0]
+    chord_tail.launches = before
+    return res
+
+
+# --------------------------------------------------------- phase 3: service
+def make_model_dir(path, cfg_model, seed):
+    """A seeded random-init model saved as a port model directory."""
+    import torch
+
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.convert import save_checkpoint
+    from polyphemus_tpu_torch.models import VAE
+
+    torch.manual_seed(seed)
+    model = VAE(cfg_model)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):  # zero biases tie every empty cell
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
+            elif name.endswith("running_var"):
+                buf.copy_(1.0 + 0.1 * torch.rand(buf.shape, generator=g))
+    save_checkpoint(path, model, TrainConfig(model=cfg_model))
+
+
+def post(url, payload):
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.status == 200, f"/generate returned {r.status}")
+        return json.loads(r.read())
+
+
+def check_tokens(mask, toks, n, mc):
+    mask, toks = np.asarray(mask, bool), np.asarray(toks)
+    check(mask.shape == (n, mc.n_bars, 4, mc.n_timesteps),
+          f"mask shape {mask.shape}")
+    check(toks.shape == mask.shape + (15, 2), f"tokens shape {toks.shape}")
+    check(toks[..., 0].max() < 131 and toks[..., 1].max() < 99 and
+          toks.min() >= 0, "token ids outside the vocabularies")
+    check(mask.any(axis=(-1, -2)).all(), "an empty bar was generated")
+
+
+def serve_phase(model_dir, mc, device, tiers, big_n, structure):
+    """Drive the HTTP service; returns (stats, launches, n=8 (mask, tokens))."""
+    import base64
+
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.serve import serve
+
+    httpd, svc = serve(model_dir, port=0, batch_cap=tiers[-1], tiers=tiers,
+                       device=device)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            check(json.loads(r.read())["status"] == "ok", "healthz")
+        calls0 = svc.stats["device_calls"]
+        gcl.launches = chord_tail.launches = 0
+        # ---- the main path ----
+        one = post(url, {"n": 1, "seed": 1})
+        eight = post(url, {"n": 8, "seed": 8, "format": "tokens"})
+        big = post(url, {"n": big_n, "seed": 256})
+        cond = post(url, {"n": 2, "seed": 3, "structure": structure,
+                          "format": "tokens"})
+        # burst of 8 concurrent n=1 requests, released together
+        burst = [None] * 8
+        with svc._lock:
+            ths = [threading.Thread(target=lambda i=i: burst.__setitem__(
+                i, post(url, {"n": 1, "seed": 100 + i}))) for i in range(8)]
+            for t_ in ths:
+                t_.start()
+            deadline = time.time() + 120
+            while len(svc._pending) < 7 and time.time() < deadline:
+                time.sleep(0.01)
+        for t_ in ths:
+            t_.join(600)
+        launches = {"gcl_eval": gcl.launches, "chord_tail": chord_tail.launches}
+        calls = svc.stats["device_calls"] - calls0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for body, n in ((one, 1), (big, big_n)):
+        mids = [base64.b64decode(m) for m in body["midi_b64"]]
+        check(len(mids) == n and all(m[:4] == b"MThd" for m in mids),
+              "MIDI responses")
+    for b in burst:
+        check(b is not None and base64.b64decode(b["midi_b64"][0])[:4]
+              == b"MThd", "burst response")
+    check_tokens(eight["mask"], eight["tokens"], 8, mc)
+    check_tokens(cond["mask"], cond["tokens"], 2, mc)
+    want = np.asarray(structure, bool)
+    want = np.tile(want, (-(-mc.n_bars // want.shape[0]), 1, 1))[:mc.n_bars]
+    check((np.asarray(cond["mask"], bool) == want[None]).all(),
+          "conditioned mask differs from the requested structure")
+    stats = dict(svc.stats)
+    check(stats["coalesced_requests"] >= 2, f"burst did not coalesce: {stats}")
+    return stats, calls, launches, (np.asarray(eight["mask"], bool),
+                                    np.asarray(eight["tokens"]))
+
+
+def compare_with_cpu(model_dir, n8, device):
+    """The n = 8 served result against the same request on the CPU: masks
+    equal where |s_logit| > 1e-3; ids equal outside top-2 gaps < 1e-4
+    (compared on the CPU's mask when a threshold flipped)."""
+    import torch
+
+    from polyphemus_tpu_torch.generate import load_model, make_generator
+    from polyphemus_tpu_torch.serve import host_z
+
+    model, cfg = load_model(model_dir, "cpu")
+    z = host_z(8, 8, cfg.model.d)
+    m_c, t_c, s_c, c_c = make_generator(model, return_logits=True,
+                                        device="cpu")(z)
+    m_g, t_g = n8
+    clear = s_c.abs().numpy() > 1e-3
+    flips = int((m_g != m_c.numpy()).sum())
+    check((m_g == m_c.numpy())[clear].all(), "n=8 mask differs from the CPU")
+    if flips:
+        gmodel, _ = load_model(model_dir, device)
+        _, t_g = make_generator(gmodel, conditioned=True, device=device)(
+            z, m_c.numpy())
+        t_g = t_g.cpu().numpy()
+    c = c_c.numpy().astype(np.float64)
+    gaps = np.stack([np.diff(np.sort(c[..., :131], -1)[..., -2:], axis=-1)[..., 0],
+                     np.diff(np.sort(c[..., 131:], -1)[..., -2:], axis=-1)[..., 0]],
+                    -1)
+    tie = gaps < TIE
+    diff = t_g != t_c.numpy()
+    check(not (diff & ~tie).any(),
+          f"n=8 tokens differ from the CPU at {int((diff & ~tie).sum())} ids")
+    return {"mask_flips": flips, "id_mismatches_at_ties": int((diff & tie).sum()),
+            "near_ties": int(tie.sum())}
+
+
+# ----------------------------------------------------------- phase 4: bench
+def bench(model_dir, device, batch=256, rounds=20):
+    import torch
+
+    from polyphemus_tpu_torch.generate import load_model, make_generator
+
+    model, cfg = load_model(model_dir, device)
+    gen = make_generator(model, device=device)
+    g = torch.Generator(device=device).manual_seed(100)
+    zs = [torch.randn(batch, cfg.model.d, generator=g, device=device)
+          for _ in range(rounds)]
+    gen(zs[0])
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for z in zs:
+            out = gen(z)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del out
+    dt = statistics.median(times)
+    return {"metric": "lmd2_batched_generation", "value": rounds * batch / dt,
+            "unit": "seq/s", "batch": batch, "call_ms": dt / rounds * 1e3,
+            "passes_s": times}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on the card")
+    sys.path.insert(0, ROOT)
+    try:
+        import polyphemus_tpu_torch
+        from polyphemus_tpu_torch.config import ModelConfig
+        from polyphemus_tpu_torch.generate import load_structure_file
+        from polyphemus_tpu_torch.ops.kernels import _build
+    except ImportError as e:
+        fail(f"polyphemus_tpu_torch is not importable beside this script: {e}")
+    pkg_dir = os.path.dirname(os.path.abspath(polyphemus_tpu_torch.__file__))
+    check(pkg_dir == os.path.join(ROOT, "polyphemus_tpu_torch"),
+          f"polyphemus_tpu_torch was imported from {pkg_dir}, not from the "
+          f"checkout beside this script")
+
+    # ---- 1. the card, the toolchain, the build ----
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} "
+          f"device {torch.cuda.get_device_name(0)}")
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {name}: {line.strip()}")
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 2. kernels against their plain versions ----
+    small = {"gcl_eval_k1": check_gcl(8, 512, 1, device, timing=False),
+             "gcl_eval_k3": check_gcl(8, 512, 3, device, timing=False),
+             "chord_tail": check_chord(8, 512, device, timing=False)}
+    print("small-shape check:", json.dumps(small))
+    gcl1 = check_gcl(512, 512, 1, device)
+    gcl2 = check_gcl(512, 512, 2, device)
+    chord = check_chord(512, 512, device)
+    print("flagship kernel check (512 bars, d=512):", json.dumps(
+        {"gcl_eval_k1": gcl1, "gcl_eval_k2": gcl2, "chord_tail": chord}))
+
+    # ---- 3. the service on the card ----
+    mc = ModelConfig(d=512, gnn_n_layers=8, n_bars=2, resolution=8,
+                     dropout=0.0, batch_norm=True)
+    model_dir = os.path.join(ROOT, "build", "chip_smoke_model")
+    make_model_dir(model_dir, mc, SEED)
+    structure = load_structure_file(
+        os.path.join(ROOT, "examples", "structure.json"), mc.n_bars,
+        mc.n_tracks, mc.n_timesteps).tolist()
+    stats, calls, launches, n8 = serve_phase(
+        model_dir, mc, device, [1, 8, 64, 256], 256, structure)
+    print(f"service: {calls} device calls, stats {stats}, launches {launches}")
+    check(launches["gcl_eval"] == 4 * calls,
+          f"expected 4 gcl_eval launches per call, got {launches} / {calls}")
+    check(launches["chord_tail"] == calls,
+          f"expected 1 chord_tail launch per call, got {launches} / {calls}")
+    cpu_cmp = compare_with_cpu(model_dir, n8, device)
+    print("n=8 against the CPU:", json.dumps(cpu_cmp))
+
+    # ---- 4. throughput at batch 256 ----
+    res = bench(model_dir, device)
+    res.update({"card": card, "gcl_eval_launches_per_call": 4,
+                "kernel_ms_per_call": 4 * gcl2["ms"] + chord["ms"]})
+    print("bench:", json.dumps(res))
+
+    # ---- 5. results ----
+    def entry(name, src, replaces, r):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    kernels = [
+        entry("gcl_eval", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gcl2),
+        entry("chord_tail", "polyphemus_tpu_torch/csrc/chord_tail.cu",
+              "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord)]
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

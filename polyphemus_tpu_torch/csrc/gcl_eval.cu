@@ -1,0 +1,250 @@
+// Eval GCL stack: K epilogue-fused lattice graph-conv layers in one launch.
+//
+// Replaces the Pallas kernels `_kernel` (with its eval epilogue, K = 1) and
+// `_kernel_chain` (K >= 2) of polyphemus_tpu/ops/kernels/gcl_pallas.py,
+// reached through `gcl_apply_pallas` and `gcl_apply_pallas_chain`. It
+// computes what `_layer_math` computes, per bar of n = 4 x 32 cells:
+//
+//   A   = [h_track | h_self | h_onset | h_next | x]            (n x 5d)
+//   out = relu(((A @ [W_t; W0; W_on; W_next; root] + bias) * m * ea + eb) * m) + x
+//
+// with W_t the weight of the row block's own track. The messages come from
+// direct indexed loads through the aux channels; the TPU's one-hot selection
+// matmuls (Mosaic has no gather) are gone.
+//
+// What bounds it on an H100: operations. Per bar and layer the product is
+// 2 * 128 * 5d * d flops (335 MFLOP at d = 512) against 2 * 128 * d * 4
+// bytes of node state, so fp32 FMA throughput on the CUDA cores (no TF32:
+// fp32 parity comes first) is the limit; device memory is not.
+//
+// Design: one CTA per bar. The per-bar statics (source rows, gate
+// distances, mean reciprocals, mask, single-node flag) are decoded into
+// shared memory once per launch and reused by all K layers. The A operand is
+// never stored in device memory: for each chunk of BK features, the CTA
+// stages x[:, chunk] and the gate rows in shared memory, builds the five
+// message segments of A for that chunk there, and multiplies them with the
+// matching BK rows of the eight packed weight blocks. The product is a plain
+// shared-memory-tiled SIMT GEMM, output tile 128 x 128, 8 x 8 values per
+// thread. A bar's fp32 state (128 x d) is 256 KB at d = 512, more than a
+// CTA's shared memory, so between chained layers it goes to a per-bar
+// ping-pong buffer in device memory (it stays in L2) behind __syncthreads().
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int T = 4;             // tracks per bar
+constexpr int S = 32;            // steps per bar
+constexpr int N = T * S;         // cells per bar = GEMM rows
+constexpr int BN = 128;          // output columns per tile
+constexpr int BK = 8;            // features per chunk
+constexpr int NSEG = 5;          // A segments: track, self, onset, next, root
+constexpr int NBLK = 8;          // packed weight blocks
+constexpr int THREADS = 256;
+
+enum {
+  PREV_SRC, OK_P, DIST_P, NEXT_SRC, OK_N, DIST_N, PN_SRC, OK_PN, MSRC,
+  DIST_PN, CNT_ON, CNT_NX, MASK_CH, SINGLE, N_AUX
+};
+
+struct Smem {
+  float as[NSEG * BK][N];        // A chunk, k-major
+  float bs[NBLK][BK][BN];        // weight rows of the chunk, per block
+  float xs[N][BK];               // x[:, chunk]
+  float y0[N][BK];               // relu(x * g0) * m
+  float zz[N][BK];               // NEXT-source messages
+  float gs[S][BK];               // gate_table[:, chunk]
+  float okp[N], okn[N], rtr[N], m[N], single[N], ron[N], rnx[N], okpn[N];
+  int ps[N], ns[N], pn[N], dp[N], dn[N], dpn[N];
+};
+
+__device__ __forceinline__ int clampi(int v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+gcl_eval_kernel(const float* x, const int* aux, const float* gates,
+                const float* wbigs, const float* biases, const float* eas,
+                const float* ebs, float* out, float* scratch, int d, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int bar = blockIdx.x;
+  const int tid = threadIdx.x;
+
+  // ---- per-bar statics, shared by every layer of the launch ----
+  const int* a = aux + (size_t)bar * N_AUX * N;
+  for (int i = tid; i < N; i += THREADS) {
+    const float m = a[MASK_CH * N + i] > 0 ? 1.f : 0.f;
+    const int okp = a[OK_P * N + i] > 0, okn = a[OK_N * N + i] > 0;
+    const int cnt = okp + okn;
+    const int con = a[CNT_ON * N + i], cnx = a[CNT_NX * N + i];
+    const bool okpn = a[OK_PN * N + i] > 0;
+    sm.ps[i] = clampi(a[PREV_SRC * N + i], N - 1);
+    sm.ns[i] = clampi(a[NEXT_SRC * N + i], N - 1);
+    sm.pn[i] = clampi(a[PN_SRC * N + i], N - 1);
+    sm.dp[i] = clampi(a[DIST_P * N + i], S - 1);
+    sm.dn[i] = clampi(a[DIST_N * N + i], S - 1);
+    sm.dpn[i] = clampi(a[DIST_PN * N + i], S - 1);
+    sm.okp[i] = okp ? 1.f : 0.f;
+    sm.okn[i] = okn ? 1.f : 0.f;
+    sm.rtr[i] = cnt > 0 ? (1.f / (float)cnt) * m : 0.f;
+    sm.ron[i] = con > 0 ? (1.f / (float)con) * m : 0.f;
+    sm.rnx[i] = (okpn && cnx > 0) ? (1.f / (float)cnx) * m : 0.f;
+    sm.okpn[i] = (okpn && a[MSRC * N + i] > 0) ? 1.f : 0.f;
+    sm.m[i] = m;
+    sm.single[i] = (float)a[SINGLE * N + i];
+  }
+  __syncthreads();
+
+  // GEMM thread tile: rows r0..r0+7, columns c0..c0+3 and c0+64..c0+67
+  const int ty = tid >> 4, tx = tid & 15;
+  const int r0 = ty * 8;
+  const int trk = r0 / S;               // the track of all 8 rows
+  const int c0 = tx * 4;
+  const size_t bar_off = (size_t)bar * N * d;
+
+  for (int k = 0; k < K; ++k) {
+    // ping-pong: layer K-1 writes `out`, layer K-2 `scratch`, and so on
+    const float* xin = (k == 0) ? x : (((K - k) % 2 == 0) ? out : scratch);
+    float* xo = ((K - 1 - k) % 2 == 0) ? out : scratch;
+    xin += bar_off;
+    xo += bar_off;
+    const float* W = wbigs + (size_t)k * NBLK * d * d;
+    const float* bias = biases + (size_t)k * d;
+    const float* ea = eas + (size_t)k * d;
+    const float* eb = ebs + (size_t)k * d;
+
+    for (int n0 = 0; n0 < d; n0 += BN) {
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+      for (int f0 = 0; f0 < d; f0 += BK) {
+        // 1. stage x[:, f0:f0+BK], gates[:, f0:f0+BK] and the weight rows
+        {
+          const int i = tid >> 1, q = (tid & 1) * 4;
+          const float4 v = *reinterpret_cast<const float4*>(
+              xin + (size_t)i * d + f0 + q);
+          *reinterpret_cast<float4*>(&sm.xs[i][q]) = v;
+          const int s = tid >> 3, g = tid & 7;
+          sm.gs[s][g] = gates[(size_t)s * d + f0 + g];
+        }
+#pragma unroll
+        for (int j = 0; j < (NBLK * BK * BN / 4) / THREADS; ++j) {
+          const int idx = tid + j * THREADS;
+          const int blk = idx / (BK * BN / 4);
+          const int rem = idx % (BK * BN / 4);
+          const int r = rem / (BN / 4), c4 = rem % (BN / 4);
+          const float4 v = *reinterpret_cast<const float4*>(
+              W + ((size_t)blk * d + f0 + r) * d + n0 + c4 * 4);
+          *reinterpret_cast<float4*>(&sm.bs[blk][r][c4 * 4]) = v;
+        }
+        __syncthreads();
+
+        // 2. y0 = relu(x * g0) * m and the NEXT-source messages z
+#pragma unroll
+        for (int j = 0; j < N * BK / THREADS; ++j) {
+          const int e = tid + j * THREADS;
+          const int i = e / BK, q = e % BK;
+          sm.y0[i][q] = fmaxf(sm.xs[i][q] * sm.gs[0][q], 0.f) * sm.m[i];
+          sm.zz[i][q] = fmaxf(sm.xs[sm.pn[i]][q] * sm.gs[sm.dpn[i]][q], 0.f)
+                        * sm.okpn[i];
+        }
+        __syncthreads();
+
+        // 3. the five A segments of this chunk
+#pragma unroll
+        for (int j = 0; j < N * BK / THREADS; ++j) {
+          const int e = tid + j * THREADS;
+          const int q = e / N, i = e % N;
+          const int c = i % S;
+          const float vp = fmaxf(sm.xs[sm.ps[i]][q] * sm.gs[sm.dp[i]][q], 0.f)
+                           * sm.okp[i];
+          const float vn = fmaxf(sm.xs[sm.ns[i]][q] * sm.gs[sm.dn[i]][q], 0.f)
+                           * sm.okn[i];
+          const float y = sm.y0[i][q], z = sm.zz[i][q];
+          const float ysum = sm.y0[c][q] + sm.y0[S + c][q] + sm.y0[2 * S + c][q]
+                             + sm.y0[3 * S + c][q];
+          const float zsum = sm.zz[c][q] + sm.zz[S + c][q] + sm.zz[2 * S + c][q]
+                             + sm.zz[3 * S + c][q];
+          sm.as[0 * BK + q][i] = (vp + vn) * sm.rtr[i];   // TRACK
+          sm.as[1 * BK + q][i] = y * sm.single[i];        // self loop
+          sm.as[2 * BK + q][i] = (ysum - y) * sm.ron[i];  // ONSET
+          sm.as[3 * BK + q][i] = (zsum - z) * sm.rnx[i];  // NEXT
+          sm.as[4 * BK + q][i] = sm.xs[i][q];             // root
+        }
+        __syncthreads();
+
+        // 4. acc += A_chunk @ W_chunk; segment 0 takes the row's own track
+#pragma unroll
+        for (int seg = 0; seg < NSEG; ++seg) {
+          const int blk = seg == 0 ? trk : T - 1 + seg;
+#pragma unroll
+          for (int q = 0; q < BK; ++q) {
+            const float4 a0 = *reinterpret_cast<const float4*>(&sm.as[seg * BK + q][r0]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&sm.as[seg * BK + q][r0 + 4]);
+            const float4 b0 = *reinterpret_cast<const float4*>(&sm.bs[blk][q][c0]);
+            const float4 b1 = *reinterpret_cast<const float4*>(&sm.bs[blk][q][c0 + 64]);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+          }
+        }
+        __syncthreads();
+      }
+
+      // epilogue: + bias, * mask, folded batch-norm, relu, * mask, + x
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + c0 + h * 64;
+        const float4 bb = *reinterpret_cast<const float4*>(bias + col);
+        const float4 aa = *reinterpret_cast<const float4*>(ea + col);
+        const float4 ee = *reinterpret_cast<const float4*>(eb + col);
+        const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+        const float av[4] = {aa.x, aa.y, aa.z, aa.w};
+        const float ev[4] = {ee.x, ee.y, ee.z, ee.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int i = r0 + r;
+          const float m = sm.m[i];
+          const float4 res = *reinterpret_cast<const float4*>(xin + (size_t)i * d + col);
+          const float rv[4] = {res.x, res.y, res.z, res.w};
+          float o[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float v = (acc[r][h * 4 + c] + bv[c]) * m;
+            o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
+          }
+          *reinterpret_cast<float4*>(xo + (size_t)i * d + col) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        }
+      }
+    }
+    // the next layer reads this layer's output rows written by other threads
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int gcl_eval_launch(const void* x, const void* aux,
+                               const void* gates, const void* wbigs,
+                               const void* biases, const void* eas,
+                               const void* ebs, void* out, void* scratch,
+                               int nbar, int d, int K, void* stream) {
+  if (nbar <= 0) return 0;
+  if (d % BN != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      gcl_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gcl_eval_kernel<<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)aux, (const float*)gates,
+      (const float*)wbigs, (const float*)biases, (const float*)eas,
+      (const float*)ebs, (float*)out, (float*)scratch, d, K);
+  return (int)cudaGetLastError();
+}

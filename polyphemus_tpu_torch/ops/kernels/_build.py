@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` exports a plain C launcher. At first use it is compiled
+by `nvcc` for Hopper (`sm_90a`) into a shared library under
+`build/polyphemus_tpu_torch/` beside the package, named by a hash of the
+source so a stale build is never picked up, and loaded with `ctypes`. No
+PyTorch header is compiled, so a build takes seconds.
+
+Every launcher returns `cudaGetLastError()` after its launch; `check` turns
+a non-zero code into an exception. Nothing here runs when a module is
+imported: the CPU tests import every module without a CUDA toolchain.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "polyphemus_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+VP, INT = ctypes.c_void_p, ctypes.c_int
+# C signature of each kernel's launcher: (argtypes) -> int error code
+SIGNATURES = {
+    "gcl_eval": ("gcl_eval_launch", [VP] * 9 + [INT] * 3 + [VP]),
+    "chord_tail": ("chord_tail_launch", [VP] * 10 + [INT] * 5 + [VP]),
+}
+
+_libs: dict = {}
+_logs: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile_cmd(src: Path, out: Path) -> list:
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
+def build(names=tuple(SIGNATURES)) -> dict:
+    """Compile the named kernels that are not built yet, one `nvcc` process
+    per source, all started together. Returns {name: compiler log}; raises
+    if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            _logs.setdefault(name, "(cached)")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _compile_cmd(src, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        _logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {n: _logs.get(n, "") for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        _, out = _target(name)
+        if not out.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(out))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+        return lib
+
+
+def launcher(name: str):
+    return getattr(load(name), SIGNATURES[name][0])
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
