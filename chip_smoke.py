@@ -12,6 +12,11 @@
    1e-4). Times each (CUDA events, warm) beside its bound: the larger of
    bytes over 3.35 TB/s and the fp32 flops these masks need (active cells;
    `dense_bound_ms` counts every cell) over 67 TFLOP/s.
+2b. Holds the training GCL kernels (`gcl_fwd`, `gcl_bwd_data`,
+   `gcl_bwd_weight`) against their plain versions at 8 bars and at the
+   flagship training microbatch (64 sequences = 128 bars, d = 512): the
+   forward and dx at rtol = atol = 2e-4, the sums over bars (dgate, dbias,
+   dWbig) at max abs err <= 1e-4 x max |plain|; times each the same way.
 3. Seeds a random-init flagship model (d = 512, 8 GNN layers, 2 bars,
    batch-norm on), saves it as a port model directory and serves it over
    HTTP on localhost with tiers [1, 8, 64, 256]: n = 1, 8 and 256, one
@@ -21,7 +26,19 @@
    `chord_tail` launch per device call), and that the n = 8 result equals
    the same request on the CPU by the threshold and tie rules.
 4. Batch-256 throughput by bench.py's protocol (20 calls, median of 3).
-5. Prints the `kernels` JSON line, the card line, and last
+5. Trains the flagship config (`examples/training_lmd2.json`: batch 256 in
+   4 microbatches of 64, fp32) through `cli.train.main()` for 4 optimizer
+   steps on 512 synthetic reference-format `.npz` samples: every loss and
+   metric in metrics.jsonl finite, exactly 64 launches of each training
+   GCL kernel per step (16 layers x 4 microbatches); then serves the
+   trained directory (one n = 8 request over HTTP). One step at full width
+   on the card and on the CPU from the same weights and eps: at batch 2 the
+   losses within 2e-4 relative (grads reported); at batch 8 the losses and
+   each grad within 1e-3 x its max |cpu| (a grad that is rounding noise,
+   under 1e-5 of the largest, within 1e-5 of the largest).
+   Seconds per optimizer step at batch 256 (median of 3 passes of 5 steps)
+   and seq/s, and one profiled step (device time by kernel).
+6. Prints the `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
@@ -44,6 +61,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-4            # gcl_eval vs plain: rtol = atol
 TIE = 1e-4            # chord_tail: ids may differ below this top-2 gap
+SUM_TOL = 1e-4        # dgate, dbias, dWbig: max abs err / max |plain|
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 HBM_TBPS = 3.35       # H100 SXM device memory
 SEED = 0
@@ -160,6 +178,111 @@ def check_gcl(nbar, d, k_layers, device, timing=True):
         res["dense_bound_ms"] = bound_ms(
             flops * mask.numel() / int(mask.sum()), nbytes)[0]
     gcl.launches = before  # comparison launches do not count
+    return res
+
+
+# ----------------------------------------- phase 2b: training GCL kernels
+def train_kernel_inputs(nbar, d, device, seed):
+    """Seeded x (masked), upstream g, aux, gates, packed weights and bias of
+    one training GCL layer."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl
+
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
+    x = torch.randn(nbar, 128, d, generator=g) * mask.reshape(nbar, 128, 1)
+    up = torch.randn(nbar, 128, d, generator=g)
+    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, 128)
+    gates = torch.randn(32, d, generator=g) * 0.3
+    wbig = gcl.pack_weights(torch.randn(6, d, d, generator=g) * d ** -0.5,
+                            torch.randn(d, d, generator=g) * d ** -0.5, 4)
+    bias = torch.randn(d, generator=g) * 0.1
+    return mask, [v.contiguous().to(device)
+                  for v in (x, up, aux, gates, wbig, bias)]
+
+
+def held_to(name, out, ref, *, summed: bool) -> float:
+    """Max abs error of out against ref; fails unless every element is
+    within rtol = atol = TOL or, for a sum over many rows (`summed`), the max
+    error is within SUM_TOL of max |ref|."""
+    import torch
+
+    check(torch.isfinite(out).all().item(), f"{name} output not finite")
+    err = (out - ref).abs()
+    if summed:
+        ok = err.max().item() <= SUM_TOL * ref.abs().max().item()
+    else:
+        ok = not (err > TOL + TOL * ref.abs()).any().item()
+    check(ok, f"{name}: max abs err {err.max().item():.3e}, max |ref| "
+              f"{ref.abs().max().item():.3e}")
+    return err.max().item()
+
+
+def check_gcl_train(nbar, d, device, timing=True):
+    """`gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` against their plain
+    versions; with timing, ms per launch and the bounds. Each kernel's
+    useful work is 2 * active cells * 5d * d flops (an inactive cell's
+    output row, upstream row and dW contribution are zero); `dense_bound_ms`
+    counts every cell and `cost_estimate_bound_ms` the JAX kernel's
+    CostEstimate, 2 * nbar * 128 * 8d * d."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    mask, (x, up, aux, gates, wbig, bias) = train_kernel_inputs(
+        nbar, d, device, SEED + 11)
+    before = (gcl.fwd_launches, gcl_bwd.data_launches,
+              gcl_bwd.weight_launches)
+    runs = {
+        "gcl_fwd": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
+                    lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
+        "gcl_bwd_data": (
+            lambda: gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig),
+            lambda: gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)),
+        "gcl_bwd_weight": (
+            lambda: gcl_bwd.gcl_bwd_weight(x, up, aux, gates),
+            lambda: gcl_bwd.gcl_bwd_weight_plain(x, up, aux, gates)),
+    }
+    res = {}
+    out, ref = runs["gcl_fwd"][0](), runs["gcl_fwd"][1]()
+    torch.cuda.synchronize()
+    res["gcl_fwd"] = {"max_abs_err": held_to("gcl_fwd", out, ref,
+                                             summed=False)}
+    (dx, dg, db), (rdx, rdg, rdb) = (runs["gcl_bwd_data"][0](),
+                                     runs["gcl_bwd_data"][1]())
+    torch.cuda.synchronize()
+    res["gcl_bwd_data"] = {
+        "max_abs_err": held_to("gcl_bwd_data dx", dx, rdx, summed=False),
+        "dgate_max_abs_err": held_to("gcl_bwd_data dgate", dg, rdg,
+                                     summed=True),
+        "dbias_max_abs_err": held_to("gcl_bwd_data dbias", db, rdb,
+                                     summed=True)}
+    dw, rdw = runs["gcl_bwd_weight"][0](), runs["gcl_bwd_weight"][1]()
+    torch.cuda.synchronize()
+    res["gcl_bwd_weight"] = {"max_abs_err": held_to(
+        "gcl_bwd_weight", dw, rdw, summed=True),
+        "max_abs_ref": rdw.abs().max().item()}
+    if timing:
+        active = int(mask.sum())
+        flops = 2.0 * active * 5 * d * d
+        dense = 2.0 * nbar * 128 * 5 * d * d
+        cost_est = 2.0 * nbar * 128 * 8 * d * d
+        state = x.numel() * 4
+        small = aux.numel() * 4 + gates.numel() * 4
+        nbytes = {"gcl_fwd": 2 * state + small + wbig.numel() * 4 + d * 4,
+                  "gcl_bwd_data": 3 * state + small + wbig.numel() * 4
+                  + 33 * d * 4,
+                  "gcl_bwd_weight": 2 * state + small + wbig.numel() * 4}
+        for name, (kern, plain) in runs.items():
+            r = res[name]
+            r["ms"] = time_ms(kern)
+            r["plain_ms"] = time_ms(plain, reps=2)
+            r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes[name])
+            r["dense_bound_ms"] = bound_ms(dense, nbytes[name])[0]
+            r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name])[0]
+    (gcl.fwd_launches, gcl_bwd.data_launches,
+     gcl_bwd.weight_launches) = before  # comparison launches do not count
     return res
 
 
@@ -377,6 +500,218 @@ def compare_with_cpu(model_dir, n8, device):
             "near_ties": int(tie.sum())}
 
 
+# -------------------------------------------------------- phase 5: training
+LOSS_KEYS = ("tot", "pitch", "dur", "structure", "reconstruction", "kld",
+             "beta*kld")
+METRIC_KEYS = ("note", "pitch", "pitch_drums", "pitch_non_drums", "dur",
+               "s_acc", "s_precision", "s_recall", "s_f1")
+TRAIN_LOSS_RTOL = 2e-4   # card vs CPU step: each loss, relative
+TRAIN_GRAD_TOL = 1e-3    # card vs CPU step: max abs err / max |cpu| per grad
+# a grad below this share of the model's largest |grad| is rounding noise (a
+# bias that feeds batch-norm with batch statistics has a true gradient of 0):
+# it is held to an abs err of GRAD_NOISE x the largest |grad| instead
+GRAD_NOISE = 1e-5
+
+
+def train_kernel_counts():
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    return {"gcl_fwd": gcl.fwd_launches,
+            "gcl_bwd_data": gcl_bwd.data_launches,
+            "gcl_bwd_weight": gcl_bwd.weight_launches}
+
+
+def zero_train_kernel_counts():
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    gcl.fwd_launches = gcl_bwd.data_launches = gcl_bwd.weight_launches = 0
+
+
+def write_dataset(path, n, n_bars, seed):
+    """n reference-format .npz samples of synthetic music (density 0.15)."""
+    from polyphemus_tpu_torch.data import synthetic_batch, write_sample
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    toks, mask = synthetic_batch(np.random.default_rng(seed), n, n_bars)
+    for i in range(n):
+        write_sample(os.path.join(path, f"s{i:04d}.npz"), toks[i], mask[i])
+
+
+def train_phase(device, config_path, data_dir, out_dir, epochs):
+    """Train through the CLI's `main()`; returns (trainer, model dir, the
+    main path's launch counts, metrics.jsonl records)."""
+    from polyphemus_tpu_torch.cli import train as train_cli
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    zero_train_kernel_counts()
+    # ---- the main path ----
+    trainer = train_cli.main([
+        data_dir, out_dir, config_path, "--model_name", "lmd2",
+        "--tr_split", "1.0", "--max_epochs", str(epochs), "--save_every",
+        "0", "--num_workers", "8", "--seed", str(SEED),
+        "--device", str(device)])
+    counts = train_kernel_counts()
+    model_dir = os.path.join(out_dir, "lmd2")
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return trainer, model_dir, counts, recs
+
+
+def check_records(recs, steps):
+    check(len(recs) == steps, f"{len(recs)} metrics.jsonl records for "
+                              f"{steps} steps")
+    for r in recs:
+        vals = [r.get(f"loss/{k}") for k in LOSS_KEYS] + [
+            r.get(f"acc/{k}") for k in METRIC_KEYS]
+        check(all(v is not None and np.isfinite(v) for v in vals),
+              f"a loss or metric is missing or not finite: {r}")
+
+
+def serve_trained(model_dir, mc, device):
+    """The trained directory behind the HTTP service: one n = 8 request."""
+    from polyphemus_tpu_torch.serve import serve
+
+    httpd, _ = serve(model_dir, port=0, batch_cap=8, tiers=[8],
+                     device=device)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        out = post(f"http://127.0.0.1:{httpd.server_address[1]}",
+                   {"n": 8, "seed": 5, "format": "tokens"})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    check_tokens(out["mask"], out["tokens"], 8, mc)
+
+
+def compare_train_step(mc, batch, device, seed, check_grads=True):
+    """One train step from the same weights, batch and eps on the card and
+    on the CPU: losses within TRAIN_LOSS_RTOL and, with check_grads, each
+    grad within TRAIN_GRAD_TOL of its max |cpu| (rounding-noise grads:
+    GRAD_NOISE). At batch 2 the grads are reported, not held: the two
+    batch-norms over 2 samples (`bn_linear_merge`, the decoder head's) make
+    the grads behind them hang on fp32 rounding, so that the card's kernels
+    and the card's plain versions differ there as much as either differs
+    from the CPU."""
+    import copy
+
+    import torch
+
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.data import synthetic_batch
+    from polyphemus_tpu_torch.models import VAE
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    cfg = TrainConfig(batch_size=batch, model=mc, iters_to_accumulate=1)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        cpu_model = VAE(mc)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    rng = np.random.default_rng(seed)
+    toks, mask = (torch.from_numpy(a) for a in synthetic_batch(rng, batch,
+                                                               mc.n_bars))
+    eps = torch.from_numpy(rng.standard_normal((batch, mc.d)).astype(
+        np.float32))
+    out = {}
+    for name, model, dev in (("cpu", cpu_model, torch.device("cpu")),
+                             ("card", card_model, device)):
+        step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+        losses, _ = step(toks.to(dev), mask.to(dev), eps=eps.to(dev))
+        out[name] = ({k: float(v) for k, v in losses.items()},
+                     {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
+    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+                   for k in LOSS_KEYS if l_cpu[k] != 0.0)
+    check(loss_err <= TRAIN_LOSS_RTOL and all(
+        (l_card[k] == 0.0) == (l_cpu[k] == 0.0) for k in LOSS_KEYS),
+        f"card losses {l_card} vs cpu {l_cpu}")
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    rows = {}
+    for n, g in g_cpu.items():
+        err = (g_card[n] - g).abs().max().item()
+        ref = g.abs().max().item()
+        noise = ref <= GRAD_NOISE * scale
+        rows[n] = (err / (GRAD_NOISE * scale) if noise
+                   else err / (TRAIN_GRAD_TOL * ref), err, ref, noise)
+    worst = sorted(rows, key=lambda n: -rows[n][0])[:4]
+    check(not check_grads or rows[worst[0]][0] <= 1.0,
+          f"grads off: {[(n, rows[n]) for n in worst]} (largest |grad| "
+          f"{scale:.3e})")
+    return {"batch": batch, "grads_held": check_grads,
+            "max_loss_rel_err": loss_err, "n_grads": len(rows),
+            "largest_grad": scale,
+            "noise_floor_grads": [n for n in rows if rows[n][3]],
+            "worst_grads": [{"name": n, "err_over_bound": rows[n][0],
+                             "max_abs_err": rows[n][1],
+                             "max_abs_cpu": rows[n][2]} for n in worst]}
+
+
+def time_train_steps(trainer, batch, device, passes=3, steps=5):
+    """Seconds per optimizer step (host clock around steps that end in a
+    sync): median of `passes` passes of `steps` steps, after one warm step,
+    on device-resident synthetic batches."""
+    import torch
+
+    from polyphemus_tpu_torch.data import synthetic_batch
+
+    rng = np.random.default_rng(SEED + 3)
+    toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
+        rng, batch, trainer.cfg.model.n_bars))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer.train_step(toks, mask, generator=gen)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses, _ = trainer.train_step(toks, mask, generator=gen)
+        float(losses["tot"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / steps)
+    s = statistics.median(times)
+    return {"metric": "lmd2_train_step", "step_s": s, "seq_s": batch / s,
+            "batch": batch, "accumulate": trainer.cfg.iters_to_accumulate,
+            "passes_step_s": times}
+
+
+def profile_train_step(trainer, batch, device, path):
+    """Device time by kernel over one optimizer step (torch.profiler),
+    written to `path`; returns the step's wall time, the summed kernel time
+    (device busy; the idle share is the rest) and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyphemus_tpu_torch.data import synthetic_batch
+
+    toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
+        np.random.default_rng(SEED + 4), batch, trainer.cfg.model.n_bars))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer.train_step(toks, mask, generator=gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(toks, mask, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    with open(path, "w") as f:
+        f.write(f"step wall {wall_ms:.3f} ms, kernels {busy:.3f} ms\n")
+        for key, ms, count in rows:
+            f.write(f"{ms:12.3f} ms {count:6d}x  {key}\n")
+    return {"step_wall_ms": wall_ms, "kernel_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "top": [{"name": k[:80], "ms": ms, "calls": c}
+                    for k, ms, c in rows[:12]]}
+
+
 # ----------------------------------------------------------- phase 4: bench
 def bench(model_dir, device, batch=256, rounds=20):
     import torch
@@ -453,6 +788,13 @@ def main() -> int:
     print("flagship kernel check (512 bars, d=512):", json.dumps(
         {"gcl_eval_k1": gcl1, "gcl_eval_k2": gcl2, "chord_tail": chord}))
 
+    # ---- 2b. training kernels against their plain versions ----
+    print("small-shape training kernel check (8 bars, d=512):",
+          json.dumps(check_gcl_train(8, 512, device, timing=False)))
+    train_k = check_gcl_train(128, 512, device)
+    print("flagship training kernel check (128 bars, d=512):",
+          json.dumps(train_k))
+
     # ---- 3. the service on the card ----
     mc = ModelConfig(d=512, gnn_n_layers=8, n_bars=2, resolution=8,
                      dropout=0.0, batch_norm=True)
@@ -477,7 +819,41 @@ def main() -> int:
                 "kernel_ms_per_call": 4 * gcl2["ms"] + chord["ms"]})
     print("bench:", json.dumps(res))
 
-    # ---- 5. results ----
+    # ---- 5. training on the card ----
+    config_path = os.path.join(ROOT, "examples", "training_lmd2.json")
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_data")
+    write_dataset(data_dir, 512, mc.n_bars, SEED)
+    epochs = 2  # 2 steps per epoch at batch 256 over 512 samples
+    trainer, trained_dir, train_launches, recs = train_phase(
+        device, config_path, data_dir, os.path.join(ROOT, "build",
+                                                    "chip_smoke_train"),
+        epochs)
+    steps = trainer.step
+    print(f"training: {steps} steps, launches {train_launches}, last "
+          f"record {json.dumps(recs[-1])}")
+    check(steps == 2 * epochs, f"{steps} optimizer steps")
+    check_records(recs, steps)
+    for name, n in train_launches.items():
+        check(n == 64 * steps, f"expected 64 {name} launches per optimizer "
+                               f"step, got {n} in {steps} steps")
+    serve_trained(trained_dir, mc, device)
+    for batch, held in ((2, False), (8, True)):
+        step_cmp = compare_train_step(mc, batch, device, SEED + 5,
+                                      check_grads=held)
+        print(f"train step, card vs CPU (d=512, 8 layers, batch {batch}):",
+              json.dumps(step_cmp))
+    train_bench = time_train_steps(trainer, trainer.cfg.batch_size, device)
+    train_bench["card"] = card
+    print("train bench:", json.dumps(train_bench))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    prof = profile_train_step(trainer, trainer.cfg.batch_size, device,
+                              os.path.join(ROOT, "chiprun_out",
+                                           "train_step_profile.txt"))
+    print("train step profile:", json.dumps(prof))
+
+    # ---- 6. results ----
+    launches = dict(launches, **train_launches)
+
     def entry(name, src, replaces, r):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
@@ -489,7 +865,17 @@ def main() -> int:
         entry("gcl_eval", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gcl2),
         entry("chord_tail", "polyphemus_tpu_torch/csrc/chord_tail.cu",
-              "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord)]
+              "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord),
+        entry("gcl_fwd", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",
+              train_k["gcl_fwd"]),
+        entry("gcl_bwd_data", "polyphemus_tpu_torch/csrc/gcl_bwd_data.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:528",
+              train_k["gcl_bwd_data"]),
+        entry("gcl_bwd_weight",
+              "polyphemus_tpu_torch/csrc/gcl_bwd_weight.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:564",
+              train_k["gcl_bwd_weight"])]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

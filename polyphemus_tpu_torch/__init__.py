@@ -1,9 +1,10 @@
 """polyphemus_tpu_torch — the PyTorch/CUDA port of polyphemus_tpu.
 
-Batched generation (the decoder half of the VAE, the generation engine and
-the HTTP service) runs on an NVIDIA Hopper card through hand-written CUDA
-kernels (`ops/kernels`, sources in `csrc/`), each beside a plain PyTorch
-version that the CPU tests hold against the JAX package.
+The VAE (encoder and decoder), batched generation with its HTTP service,
+and training (`cli.train`: losses, metrics, schedules, Adam with gradient
+accumulation, checkpoints) run on an NVIDIA Hopper card through
+hand-written CUDA kernels (`ops/kernels`, sources in `csrc/`), each beside a
+plain PyTorch version that the CPU tests hold against the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -23,7 +23,7 @@ class ModelConfig:
     resolution: int = constants.DEFAULT_RESOLUTION
     dropout: float = 0.0
     # Per-message dropout inside each GCL (training only; the reference
-    # hard-codes p=0.1). Kept for config compatibility.
+    # hard-codes p=0.1). Not ported: training with it > 0 raises.
     message_dropout: float = 0.0
     message_dropout_mode: str = "edge"
     batch_norm: bool = True
@@ -31,8 +31,9 @@ class ModelConfig:
     # scheduling choice only: the outputs do not depend on it.
     # `generate.make_generator` runs 2 when this is left at 1.
     gcl_chain: int = 1
-    # Encoder front-end choice of the JAX package (the encoder is not ported
-    # yet); kept so configs round-trip unchanged.
+    # Content-encoder front: the histogram-fused one (`ops/fused_embed.py`,
+    # no per-slot embedding tensors) or the plain per-slot embeddings. The
+    # same math and parameters.
     fused_content_encoder: bool = True
 
     @property

@@ -1,17 +1,18 @@
-"""Weights: the JAX variable tree -> the port's state dict, and the port's
+"""Weights: the JAX variable tree <-> the port's state dict, and the port's
 own model directory (`checkpoint.pt` + `config.json`).
 
 `from_jax_variables` takes the JAX package's `{"params", "batch_stats"}`
-tree as nested dicts of numpy arrays and does every layout change here:
+tree (encoder and decoder) as nested dicts of numpy arrays;
+`to_jax_variables` is its inverse. Both walk one table (`_layout`) of
+(port module, JAX path, kind), and every layout change happens here:
 
-  * Dense kernel (in, out)           -> nn.Linear weight (out, in)
-  * Conv kernel (kh, kw, in, out)    -> nn.Conv2d weight (out, in, kh, kw)
-  * BatchNorm scale/bias + mean/var  -> weight/bias + running_mean/var
-  * GCL rel_weight/root/bias and the hand-applied DenseParams (chord
-    decoder, unembeddings) keep their orientation.
+  * Dense kernel (in, out)           <-> nn.Linear weight (out, in)
+  * Conv kernel (kh, kw, in, out)    <-> nn.Conv2d weight (out, in, kh, kw)
+  * BatchNorm scale/bias + mean/var  <-> weight/bias + running_mean/var
+  * GCL rel_weight/root/bias, the embeddings and the hand-applied
+    DenseParams (chord projections, unembeddings) keep their orientation.
 
-The encoder subtree is accepted and ignored (the encoder is not ported
-yet). A missing key raises KeyError naming its path.
+A missing key raises KeyError naming its path.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import torch
 
 from .config import TrainConfig, load_train_config, train_config_to_dict
 
+LINEAR, DENSE, CONV, BN, GCL = "linear", "dense", "conv", "bn", "gcl"
+
 
 def _get(tree: Mapping, path: str):
     node = tree
@@ -34,74 +37,141 @@ def _get(tree: Mapping, path: str):
     return node
 
 
+def _set(tree: dict, path: str, value) -> None:
+    parts = path.split("/")
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = value
+
+
 def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))
+
+
+def _layout(n_layers: int, batch_norm: bool) -> list:
+    """[(port module prefix, JAX path under params/batch_stats, kind)]."""
+    out = []
+
+    def cnn(ours, theirs, bns):
+        for name in ("lin0", "lin1", "conv0", "conv1"):
+            out.append((f"{ours}.{name}", f"{theirs}/{name}",
+                        CONV if name.startswith("conv") else LINEAR))
+        for name in bns if batch_norm else ():
+            out.append((f"{ours}.{name}", f"{theirs}/{name}", BN))
+
+    def gcn(ours, theirs):
+        out.append((f"{ours}.edge_nn", f"{theirs}/edge_nn", LINEAR))
+        for i in range(n_layers):
+            out.append((f"{ours}.layers.{i}", f"{theirs}/layers_{i}", GCL))
+            if batch_norm:
+                out.append((f"{ours}.norm_layers.{i}",
+                            f"{theirs}/norm_layers_{i}", BN))
+
+    # decoder
+    out += [("decoder.lin_decoder", "decoder/lin_decoder", LINEAR),
+            ("decoder.batch_norm", "decoder/batch_norm", BN),
+            ("decoder.s_decoder.bars_decoder", "decoder/s_decoder/bars_decoder",
+             LINEAR)]
+    cnn("decoder.s_decoder.cnn_decoder", "decoder/s_decoder/cnn_decoder",
+        ("bn0",))
+    c = "decoder.c_decoder"
+    out.append((f"{c}.bars_decoder", "decoder/c_decoder/bars_decoder", LINEAR))
+    for name in ("chord_decoder", "drums_pitch_emb", "non_drums_pitch_emb",
+                 "dur_emb"):
+        out.append((f"{c}.{name}", f"decoder/c_decoder/{name}", DENSE))
+    gcn(f"{c}.graph_decoder", "decoder/c_decoder/graph_decoder")
+    # encoder
+    cnn("encoder.s_encoder.cnn_encoder", "encoder/s_encoder/cnn_encoder",
+        ("bn0", "bn1"))
+    out.append(("encoder.s_encoder.bars_encoder",
+                "encoder/s_encoder/bars_encoder", LINEAR))
+    c = "encoder.c_encoder"
+    for name in ("drums_pitch_emb", "non_drums_pitch_emb", "dur_emb",
+                 "chord_encoder"):
+        out.append((f"{c}.{name}", f"encoder/c_encoder/{name}", DENSE))
+    for name in ("bn_drums", "bn_non_drums", "bn_dur", "gate_bn"):
+        out.append((f"{c}.{name}", f"encoder/c_encoder/{name}", BN))
+    out += [(f"{c}.bars_encoder", "encoder/c_encoder/bars_encoder", LINEAR),
+            (f"{c}.gate_mlp.layers.0", "encoder/c_encoder/gate_mlp/layers_0",
+             LINEAR)]
+    gcn(f"{c}.graph_encoder", "encoder/c_encoder/graph_encoder")
+    for name in ("linear_merge", "linear_mu", "linear_log_var"):
+        out.append((f"encoder.{name}", f"encoder/{name}", LINEAR))
+    out.append(("encoder.bn_linear_merge", "encoder/bn_linear_merge", BN))
+    return out
+
+
+def _same(a):
+    return a
+
+
+def _leaves(kind: str) -> list:
+    """[(port leaf, JAX collection, JAX leaf, port->JAX, JAX->port)] on
+    numpy arrays."""
+    if kind == LINEAR:
+        return [("weight", "params", "kernel", np.transpose, np.transpose),
+                ("bias", "params", "bias", _same, _same)]
+    if kind == DENSE:
+        return [("kernel", "params", "kernel", _same, _same),
+                ("bias", "params", "bias", _same, _same)]
+    if kind == CONV:
+        return [("weight", "params", "kernel",
+                 lambda a: a.transpose(2, 3, 1, 0),
+                 lambda a: a.transpose(3, 2, 0, 1)),
+                ("bias", "params", "bias", _same, _same)]
+    if kind == BN:
+        return [("weight", "params", "scale", _same, _same),
+                ("bias", "params", "bias", _same, _same),
+                ("running_mean", "batch_stats", "mean", _same, _same),
+                ("running_var", "batch_stats", "var", _same, _same)]
+    return [(leaf, "params", leaf, _same, _same)
+            for leaf in ("rel_weight", "root", "bias")]
 
 
 def from_jax_variables(variables: Mapping) -> dict:
     """JAX `{"params", "batch_stats"}` (numpy leaves) -> the port's state
     dict for `models.VAE`."""
+    graph = _get(variables, "params/decoder/c_decoder/graph_decoder")
+    n_layers = sum(1 for k in graph if k.startswith("layers_"))
     sd: dict = {}
-
-    def p(path):
-        return _get(variables, "params/decoder/" + path)
-
-    def st(path):
-        return _get(variables, "batch_stats/decoder/" + path)
-
-    def linear(ours, theirs):
-        sd[f"{ours}.weight"] = _t(p(f"{theirs}/kernel")).t().contiguous()
-        sd[f"{ours}.bias"] = _t(p(f"{theirs}/bias"))
-
-    def dense(ours, theirs):
-        sd[f"{ours}.kernel"] = _t(p(f"{theirs}/kernel"))
-        sd[f"{ours}.bias"] = _t(p(f"{theirs}/bias"))
-
-    def conv(ours, theirs):
-        k = np.asarray(p(f"{theirs}/kernel"))  # (kh, kw, in, out)
-        sd[f"{ours}.weight"] = _t(k.transpose(3, 2, 0, 1))
-        sd[f"{ours}.bias"] = _t(p(f"{theirs}/bias"))
-
-    def bn(ours, theirs):
-        sd[f"{ours}.weight"] = _t(p(f"{theirs}/scale"))
-        sd[f"{ours}.bias"] = _t(p(f"{theirs}/bias"))
-        sd[f"{ours}.running_mean"] = _t(st(f"{theirs}/mean"))
-        sd[f"{ours}.running_var"] = _t(st(f"{theirs}/var"))
-
-    pre = "decoder."
-    linear(pre + "lin_decoder", "lin_decoder")
-    bn(pre + "batch_norm", "batch_norm")
-
-    s = pre + "s_decoder."
-    linear(s + "bars_decoder", "s_decoder/bars_decoder")
-    for name in ("lin0", "lin1"):
-        linear(f"{s}cnn_decoder.{name}", f"s_decoder/cnn_decoder/{name}")
-    for name in ("conv0", "conv1"):
-        conv(f"{s}cnn_decoder.{name}", f"s_decoder/cnn_decoder/{name}")
-    if "bn0" in p("s_decoder/cnn_decoder"):
-        bn(s + "cnn_decoder.bn0", "s_decoder/cnn_decoder/bn0")
-
-    c = pre + "c_decoder."
-    linear(c + "bars_decoder", "c_decoder/bars_decoder")
-    for name in ("chord_decoder", "drums_pitch_emb", "non_drums_pitch_emb",
-                 "dur_emb"):
-        dense(c + name, f"c_decoder/{name}")
-    g = "c_decoder/graph_decoder"
-    linear(c + "graph_decoder.edge_nn", g + "/edge_nn")
-    layers = p(g)
-    n_layers = sum(1 for k in layers if k.startswith("layers_"))
-    for i in range(n_layers):
-        for leaf in ("rel_weight", "root", "bias"):
-            sd[f"{c}graph_decoder.layers.{i}.{leaf}"] = _t(
-                p(f"{g}/layers_{i}/{leaf}"))
-        if "norm_layers_0" in layers:
-            bn(f"{c}graph_decoder.norm_layers.{i}", f"{g}/norm_layers_{i}")
+    for ours, theirs, kind in _layout(n_layers, "norm_layers_0" in graph):
+        for leaf, coll, jleaf, _, from_jax in _leaves(kind):
+            a = from_jax(np.asarray(_get(variables, f"{coll}/{theirs}/{jleaf}")))
+            sd[f"{ours}.{leaf}"] = _t(np.ascontiguousarray(a))
     return sd
+
+
+def to_jax_variables(sd: Mapping) -> dict:
+    """The port's state dict (or any dict with its key names, such as
+    parameter grads) -> `{"params", "batch_stats"}` of numpy arrays in the
+    JAX package's layout. Running statistics missing from `sd` (a grads
+    dict has none) are left out; any other missing key raises KeyError."""
+    prefix = "decoder.c_decoder.graph_decoder."
+    n_layers = sum(1 for k in sd if k.startswith(prefix + "layers.")
+                   and k.endswith(".root"))
+    bn = (prefix + "norm_layers.0.weight") in sd
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for ours, theirs, kind in _layout(n_layers, bn):
+        for leaf, coll, jleaf, to_jax, _ in _leaves(kind):
+            key = f"{ours}.{leaf}"
+            if key not in sd and coll == "batch_stats":
+                continue
+            if key not in sd:
+                raise KeyError(key)
+            a = to_jax(sd[key].detach().cpu().numpy())
+            _set(tree[coll], f"{theirs}/{jleaf}", np.ascontiguousarray(a))
+    return tree
 
 
 # ------------------------------------------------------------ model directory
 CHECKPOINT = "checkpoint.pt"
 CONFIG = "config.json"
+
+
+def save_config(model_dir: str, cfg: TrainConfig) -> None:
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, CONFIG), "w") as f:
+        json.dump(train_config_to_dict(cfg), f, indent=2)
 
 
 def save_checkpoint(model_dir: str, model, cfg: TrainConfig) -> None:
@@ -110,12 +180,12 @@ def save_checkpoint(model_dir: str, model, cfg: TrainConfig) -> None:
     os.makedirs(model_dir, exist_ok=True)
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save(sd, os.path.join(model_dir, CHECKPOINT))
-    with open(os.path.join(model_dir, CONFIG), "w") as f:
-        json.dump(train_config_to_dict(cfg), f, indent=2)
+    save_config(model_dir, cfg)
 
 
 def load_checkpoint(model_dir: str, device="cpu"):
-    """Read a directory written by `save_checkpoint`.
+    """Read a directory written by `save_checkpoint` or by the trainer
+    (whose `checkpoint.pt` also holds the optimizer state and step).
 
     Returns (VAE in eval mode on `device`, TrainConfig)."""
     from .models import VAE
@@ -127,6 +197,6 @@ def load_checkpoint(model_dir: str, device="cpu"):
     cfg = load_train_config(cfg_path) if os.path.exists(cfg_path) \
         else TrainConfig()
     model = VAE(cfg.model)
-    sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-    model.load_state_dict(sd)
+    obj = torch.load(ckpt, map_location="cpu", weights_only=True)
+    model.load_state_dict(obj["model"] if "model" in obj else obj)
     return model.to(device).eval(), cfg

@@ -1,12 +1,15 @@
-// Eval GCL stack: K epilogue-fused lattice graph-conv layers in one launch.
+// GCL layers in one launch: K epilogue-fused eval layers, or one training
+// forward layer.
 //
-// Replaces the Pallas kernels `_kernel` (with its eval epilogue, K = 1) and
+// Replaces the Pallas kernels `_kernel` (with its eval epilogue, K = 1, and
+// without it as the forward of the training custom VJP `gcl_fused`) and
 // `_kernel_chain` (K >= 2) of polyphemus_tpu/ops/kernels/gcl_pallas.py,
 // reached through `gcl_apply_pallas` and `gcl_apply_pallas_chain`. It
 // computes what `_layer_math` computes, per bar of n = 4 x 32 cells:
 //
 //   A   = [h_track | h_self | h_onset | h_next | x]            (n x 5d)
 //   out = relu(((A @ [W_t; W0; W_on; W_next; root] + bias) * m * ea + eb) * m) + x
+//   (training forward, no epilogue: out = (A @ [...] + bias) * m)
 //
 // with W_t the weight of the row block's own track. The messages come from
 // direct indexed loads through the aux channels; the TPU's one-hot selection
@@ -28,39 +31,30 @@
 // thread. A bar's fp32 state (128 x d) is 256 KB at d = 512, more than a
 // CTA's shared memory, so between chained layers it goes to a per-bar
 // ping-pong buffer in device memory (it stays in L2) behind __syncthreads().
-#include <cuda_runtime.h>
+#include "gcl_common.cuh"
 
 namespace {
 
-constexpr int T = 4;             // tracks per bar
-constexpr int S = 32;            // steps per bar
-constexpr int N = T * S;         // cells per bar = GEMM rows
+using namespace gcl;
+
 constexpr int BN = 128;          // output columns per tile
 constexpr int BK = 8;            // features per chunk
 constexpr int NSEG = 5;          // A segments: track, self, onset, next, root
-constexpr int NBLK = 8;          // packed weight blocks
 constexpr int THREADS = 256;
 
-enum {
-  PREV_SRC, OK_P, DIST_P, NEXT_SRC, OK_N, DIST_N, PN_SRC, OK_PN, MSRC,
-  DIST_PN, CNT_ON, CNT_NX, MASK_CH, SINGLE, N_AUX
-};
-
-struct Smem {
-  float as[NSEG * BK][N];        // A chunk, k-major
+struct Smem : Statics {
+  alignas(16) float as[NSEG * BK][N];  // A chunk, k-major
   float bs[NBLK][BK][BN];        // weight rows of the chunk, per block
   float xs[N][BK];               // x[:, chunk]
   float y0[N][BK];               // relu(x * g0) * m
   float zz[N][BK];               // NEXT-source messages
   float gs[S][BK];               // gate_table[:, chunk]
-  float okp[N], okn[N], rtr[N], m[N], single[N], ron[N], rnx[N], okpn[N];
-  int ps[N], ns[N], pn[N], dp[N], dn[N], dpn[N];
 };
 
-__device__ __forceinline__ int clampi(int v, int hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
-
+// EPI: the eval epilogue (folded batch-norm, relu, residual) over K chained
+// layers; without it, K = 1 and the output is (A @ W + bias) * m, the
+// training forward.
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 2)
 gcl_eval_kernel(const float* x, const int* aux, const float* gates,
                 const float* wbigs, const float* biases, const float* eas,
@@ -71,28 +65,7 @@ gcl_eval_kernel(const float* x, const int* aux, const float* gates,
   const int tid = threadIdx.x;
 
   // ---- per-bar statics, shared by every layer of the launch ----
-  const int* a = aux + (size_t)bar * N_AUX * N;
-  for (int i = tid; i < N; i += THREADS) {
-    const float m = a[MASK_CH * N + i] > 0 ? 1.f : 0.f;
-    const int okp = a[OK_P * N + i] > 0, okn = a[OK_N * N + i] > 0;
-    const int cnt = okp + okn;
-    const int con = a[CNT_ON * N + i], cnx = a[CNT_NX * N + i];
-    const bool okpn = a[OK_PN * N + i] > 0;
-    sm.ps[i] = clampi(a[PREV_SRC * N + i], N - 1);
-    sm.ns[i] = clampi(a[NEXT_SRC * N + i], N - 1);
-    sm.pn[i] = clampi(a[PN_SRC * N + i], N - 1);
-    sm.dp[i] = clampi(a[DIST_P * N + i], S - 1);
-    sm.dn[i] = clampi(a[DIST_N * N + i], S - 1);
-    sm.dpn[i] = clampi(a[DIST_PN * N + i], S - 1);
-    sm.okp[i] = okp ? 1.f : 0.f;
-    sm.okn[i] = okn ? 1.f : 0.f;
-    sm.rtr[i] = cnt > 0 ? (1.f / (float)cnt) * m : 0.f;
-    sm.ron[i] = con > 0 ? (1.f / (float)con) * m : 0.f;
-    sm.rnx[i] = (okpn && cnx > 0) ? (1.f / (float)cnx) * m : 0.f;
-    sm.okpn[i] = (okpn && a[MSRC * N + i] > 0) ? 1.f : 0.f;
-    sm.m[i] = m;
-    sm.single[i] = (float)a[SINGLE * N + i];
-  }
+  load_statics(sm, aux + (size_t)bar * N_AUX * N, tid, THREADS);
   __syncthreads();
 
   // GEMM thread tile: rows r0..r0+7, columns c0..c0+3 and c0+64..c0+67
@@ -110,8 +83,8 @@ gcl_eval_kernel(const float* x, const int* aux, const float* gates,
     xo += bar_off;
     const float* W = wbigs + (size_t)k * NBLK * d * d;
     const float* bias = biases + (size_t)k * d;
-    const float* ea = eas + (size_t)k * d;
-    const float* eb = ebs + (size_t)k * d;
+    const float* ea = EPI ? eas + (size_t)k * d : nullptr;
+    const float* eb = EPI ? ebs + (size_t)k * d : nullptr;
 
     for (int n0 = 0; n0 < d; n0 += BN) {
       float acc[8][8];
@@ -197,27 +170,36 @@ gcl_eval_kernel(const float* x, const int* aux, const float* gates,
         __syncthreads();
       }
 
-      // epilogue: + bias, * mask, folded batch-norm, relu, * mask, + x
+      // epilogue: + bias, * mask, then (EPI) folded batch-norm, relu,
+      // * mask, + x
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + c0 + h * 64;
         const float4 bb = *reinterpret_cast<const float4*>(bias + col);
-        const float4 aa = *reinterpret_cast<const float4*>(ea + col);
-        const float4 ee = *reinterpret_cast<const float4*>(eb + col);
         const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-        const float av[4] = {aa.x, aa.y, aa.z, aa.w};
-        const float ev[4] = {ee.x, ee.y, ee.z, ee.w};
+        float av[4] = {1.f, 1.f, 1.f, 1.f}, ev[4] = {0.f, 0.f, 0.f, 0.f};
+        if (EPI) {
+          const float4 aa = *reinterpret_cast<const float4*>(ea + col);
+          const float4 ee = *reinterpret_cast<const float4*>(eb + col);
+          av[0] = aa.x; av[1] = aa.y; av[2] = aa.z; av[3] = aa.w;
+          ev[0] = ee.x; ev[1] = ee.y; ev[2] = ee.z; ev[3] = ee.w;
+        }
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           const int i = r0 + r;
           const float m = sm.m[i];
-          const float4 res = *reinterpret_cast<const float4*>(xin + (size_t)i * d + col);
-          const float rv[4] = {res.x, res.y, res.z, res.w};
           float o[4];
+          if (EPI) {
+            const float4 res = *reinterpret_cast<const float4*>(xin + (size_t)i * d + col);
+            const float rv[4] = {res.x, res.y, res.z, res.w};
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float v = (acc[r][h * 4 + c] + bv[c]) * m;
-            o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
+            for (int c = 0; c < 4; ++c) {
+              const float v = (acc[r][h * 4 + c] + bv[c]) * m;
+              o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) o[c] = (acc[r][h * 4 + c] + bv[c]) * m;
           }
           *reinterpret_cast<float4*>(xo + (size_t)i * d + col) =
               make_float4(o[0], o[1], o[2], o[3]);
@@ -229,22 +211,42 @@ gcl_eval_kernel(const float* x, const int* aux, const float* gates,
   }
 }
 
+template <bool EPI>
+int launch(const void* x, const void* aux, const void* gates,
+           const void* wbigs, const void* biases, const void* eas,
+           const void* ebs, void* out, void* scratch, int nbar, int d, int K,
+           void* stream) {
+  if (nbar <= 0) return 0;
+  if (d % BN != 0 || K < 1 || (!EPI && K != 1)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      gcl_eval_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gcl_eval_kernel<EPI><<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)aux, (const float*)gates,
+      (const float*)wbigs, (const float*)biases, (const float*)eas,
+      (const float*)ebs, (float*)out, (float*)scratch, d, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// K chained eval layers (folded batch-norm, relu, residual).
 extern "C" int gcl_eval_launch(const void* x, const void* aux,
                                const void* gates, const void* wbigs,
                                const void* biases, const void* eas,
                                const void* ebs, void* out, void* scratch,
                                int nbar, int d, int K, void* stream) {
-  if (nbar <= 0) return 0;
-  if (d % BN != 0 || K < 1) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      gcl_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  gcl_eval_kernel<<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)aux, (const float*)gates,
-      (const float*)wbigs, (const float*)biases, (const float*)eas,
-      (const float*)ebs, (float*)out, (float*)scratch, d, K);
-  return (int)cudaGetLastError();
+  return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
+                      nbar, d, K, stream);
+}
+
+// One training-forward layer: out = ([h_track | h_self | h_onset | h_next |
+// x] @ wbig + bias) * m.
+extern "C" int gcl_fwd_launch(const void* x, const void* aux,
+                              const void* gates, const void* wbig,
+                              const void* bias, void* out, int nbar, int d,
+                              void* stream) {
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
+                       nbar, d, 1, stream);
 }

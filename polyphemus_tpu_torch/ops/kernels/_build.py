@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` exports a plain C launcher. At first use it is compiled
-by `nvcc` for Hopper (`sm_90a`) into a shared library under
+Each `csrc/<source>.cu` exports plain C launchers (one or more; `SIGNATURES`
+maps each kernel name to its source and launcher). At first use it is
+compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
 `build/polyphemus_tpu_torch/` beside the package, named by a hash of the
-source so a stale build is never picked up, and loaded with `ctypes`. No
-PyTorch header is compiled, so a build takes seconds.
+source and the shared headers (`csrc/*.cuh`) so a stale build is never picked
+up, and loaded with `ctypes`. No PyTorch header is compiled, so a build takes
+seconds.
 
 Every launcher returns `cudaGetLastError()` after its launch; `check` turns
 a non-zero code into an exception. Nothing here runs when a module is
@@ -26,13 +28,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 VP, INT = ctypes.c_void_p, ctypes.c_int
-# C signature of each kernel's launcher: (argtypes) -> int error code
+# kernel name -> (source stem, launcher, argtypes); each launcher returns an
+# int CUDA error code
 SIGNATURES = {
-    "gcl_eval": ("gcl_eval_launch", [VP] * 9 + [INT] * 3 + [VP]),
-    "chord_tail": ("chord_tail_launch", [VP] * 10 + [INT] * 5 + [VP]),
+    "gcl_eval": ("gcl_eval", "gcl_eval_launch", [VP] * 9 + [INT] * 3 + [VP]),
+    "gcl_fwd": ("gcl_eval", "gcl_fwd_launch", [VP] * 6 + [INT] * 2 + [VP]),
+    "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
+                     [VP] * 8 + [INT] * 2 + [VP]),
+    "gcl_bwd_weight": ("gcl_bwd_weight", "gcl_bwd_weight_launch",
+                       [VP] * 6 + [INT] * 3 + [VP]),
+    "chord_tail": ("chord_tail", "chord_tail_launch",
+                   [VP] * 10 + [INT] * 5 + [VP]),
 }
 
-_libs: dict = {}
+_launchers: dict = {}
 _logs: dict = {}
 _lock = threading.Lock()
 
@@ -48,11 +57,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+def _target(source: str) -> tuple[Path, Path]:
+    src = CSRC / f"{source}.cu"
+    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{source}-{h.hexdigest()[:12]}.so"
 
 
 def _compile_cmd(src: Path, out: Path) -> list:
@@ -60,12 +70,13 @@ def _compile_cmd(src: Path, out: Path) -> list:
 
 
 def build(names=tuple(SIGNATURES)) -> dict:
-    """Compile the named kernels that are not built yet, one `nvcc` process
-    per source, all started together. Returns {name: compiler log}; raises
-    if any build fails."""
+    """Compile the sources of the named kernels that are not built yet, one
+    `nvcc` process per source, all started together. Returns {source:
+    compiler log}; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted({SIGNATURES[n][0] for n in names})
     procs = {}
-    for name in names:
+    for name in sources:
         src, out = _target(name)
         if out.exists():
             _logs.setdefault(name, "(cached)")
@@ -84,29 +95,24 @@ def build(names=tuple(SIGNATURES)) -> dict:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {n: _logs.get(n, "") for n in names}
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it at first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        _, out = _target(name)
-        if not out.exists():
-            build((name,))
-        lib = ctypes.CDLL(str(out))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-        return lib
+    return {n: _logs.get(n, "") for n in sources}
 
 
 def launcher(name: str):
-    return getattr(load(name), SIGNATURES[name][0])
+    """The C launcher of kernel `name`, building its source at first use."""
+    with _lock:
+        fn = _launchers.get(name)
+        if fn is not None:
+            return fn
+        source, fn_name, argtypes = SIGNATURES[name]
+        _, out = _target(source)
+        if not out.exists():
+            build((name,))
+        fn = getattr(ctypes.CDLL(str(out)), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _launchers[name] = fn
+        return fn
 
 
 def check(name: str, err: int) -> None:

@@ -1,17 +1,23 @@
-"""Eval GCL stack: K epilogue-fused lattice graph-conv layers per launch.
+"""Lattice graph-conv layer forward: the eval stack and the training layer.
 
 Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
-(`gcl_apply_pallas` with `epilogue_affine`, and `gcl_apply_pallas_chain`).
-On a CUDA tensor `gcl_eval` launches `csrc/gcl_eval.cu`; on a CPU tensor it
-runs `gcl_eval_plain`, the same function in plain PyTorch.
+(`gcl_apply_pallas` with and without `epilogue_affine`, and
+`gcl_apply_pallas_chain`). Both wrappers launch `csrc/gcl_eval.cu` on a
+CUDA tensor and run their plain PyTorch version on a CPU tensor:
 
-Per layer and bar (n = T*S = 128 cells):
-    out = relu(((gcl(x) + bias) * m * A + B) * m) + x
-with gcl(x) = [h_track | h_self | h_onset | h_next | x] @ [W_t; W0; W_on;
-W_next; root], W_t the row block's own track weight. A, B are the folded
-eval batch-norm affine (identity without batch-norm).
+  * `gcl_eval`: K epilogue-fused layers per launch (generation). Per layer
+    and bar (n = T*S = 128 cells),
+        out = relu(((gcl(x) + bias) * m * A + B) * m) + x,
+    A, B the folded eval batch-norm affine (identity without batch-norm);
+  * `gcl_fwd`: one layer without the epilogue, out = (gcl(x) + bias) * m,
+    the forward of the training autograd function (`gcl_bwd.gcl_fused`).
+
+gcl(x) = [h_track | h_self | h_onset | h_next | x] @ [W_t; W0; W_on; W_next;
+root], W_t the row block's own track weight.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,8 +31,10 @@ PN_SRC, OK_PN, MSRC, DIST_PN = 6, 7, 8, 9
 CNT_ON, CNT_NX, MASK_CH, SINGLE = 10, 11, 12, 13
 N_AUX = 14
 
-# kernel launches (not plain-path calls) since the count was last reset
+# kernel launches (not plain-path calls) since the counts were last reset:
+# `gcl_eval` and `gcl_fwd`
 launches = 0
+fwd_launches = 0
 
 
 def build_kernel_aux(mask: torch.Tensor) -> torch.Tensor:
@@ -72,85 +80,141 @@ def pack_weights(rel_weight, root, n_tracks: int):
     return torch.cat(blocks, dim=0)
 
 
-def gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs):
-    """Plain-PyTorch `gcl_eval`: the same arguments, the same result."""
-    nbar, n, d = x.shape
-    s = gate_table.shape[0]
-    t = n // s
-    dt = x.dtype
+class BarStatics(NamedTuple):
+    """The per-bar parts of the GCL math that do not depend on x: source
+    rows and gate rows of the three gathered relations (with their validity
+    as 0/1 floats), the masked mean reciprocals, the mask and the
+    single-node flag, each (nbar, n) or (nbar, n, d)."""
 
+    m: torch.Tensor
+    src_p: torch.Tensor
+    src_n: torch.Tensor
+    src_pn: torch.Tensor
+    g_p: torch.Tensor
+    g_n: torch.Tensor
+    g_pn: torch.Tensor
+    dist_p: torch.Tensor
+    dist_n: torch.Tensor
+    dist_pn: torch.Tensor
+    ok_p: torch.Tensor
+    ok_n: torch.Tensor
+    ok_pn: torch.Tensor
+    rec_track: torch.Tensor
+    rec_on: torch.Tensor
+    rec_nx: torch.Tensor
+    single: torch.Tensor
+
+
+def bar_statics(aux, gate_table, dt) -> BarStatics:
+    """Decode aux (nbar, N_AUX, n) into `BarStatics` for gate_table (S, d)."""
     def ch(c):
         return aux[:, c, :].to(torch.int64)
-
-    def rows(v, idx):  # v at source cells idx (nbar, n)
-        return torch.gather(v, 1, idx[..., None].expand(nbar, n, d))
 
     def recip(cnt, valid):
         r = 1.0 / cnt.clamp(min=1).to(dt)
         return torch.where(valid, r, torch.zeros((), dtype=dt,
-                                                 device=x.device))
+                                                 device=aux.device))
 
     m = (ch(MASK_CH) > 0).to(dt)[..., None]
     ok_p, ok_n = ch(OK_P), ch(OK_N)
-    ok_pn = ((ch(OK_PN) > 0) & (ch(MSRC) > 0)).to(dt)[..., None]
-    g_p, g_n, g_pn = (gate_table[ch(DIST_P)], gate_table[ch(DIST_N)],
-                      gate_table[ch(DIST_PN)])
     cnt = ok_p + ok_n
-    rec_track = recip(cnt, cnt > 0)[..., None] * m
-    rec_on = recip(ch(CNT_ON), ch(CNT_ON) > 0)[..., None] * m
-    rec_nx = recip(ch(CNT_NX), (ch(OK_PN) > 0) & (ch(CNT_NX) > 0))[..., None] * m
-    single = ch(SINGLE).to(dt)[..., None]
-    okp_f, okn_f = ok_p.to(dt)[..., None], ok_n.to(dt)[..., None]
-    g0 = gate_table[0]
+    return BarStatics(
+        m=m, src_p=ch(PREV_SRC), src_n=ch(NEXT_SRC), src_pn=ch(PN_SRC),
+        g_p=gate_table[ch(DIST_P)], g_n=gate_table[ch(DIST_N)],
+        g_pn=gate_table[ch(DIST_PN)],
+        dist_p=ch(DIST_P), dist_n=ch(DIST_N), dist_pn=ch(DIST_PN),
+        ok_p=ok_p.to(dt)[..., None], ok_n=ok_n.to(dt)[..., None],
+        ok_pn=((ch(OK_PN) > 0) & (ch(MSRC) > 0)).to(dt)[..., None],
+        rec_track=recip(cnt, cnt > 0)[..., None] * m,
+        rec_on=recip(ch(CNT_ON), ch(CNT_ON) > 0)[..., None] * m,
+        rec_nx=recip(ch(CNT_NX), (ch(OK_PN) > 0) & (ch(CNT_NX) > 0))[
+            ..., None] * m,
+        single=ch(SINGLE).to(dt)[..., None])
 
-    def col_sum(v):  # same-column sum over the T tracks, broadcast back
-        return v.reshape(nbar, t, s, d).sum(1, keepdim=True).expand(
-            nbar, t, s, d).reshape(nbar, n, d)
 
+def rows(v, idx):
+    """v (nbar, n, d) at the source cells idx (nbar, n)."""
+    return torch.gather(v, 1, idx[..., None].expand(v.shape))
+
+
+def col_sum(v, s: int):
+    """Same-column sum over the tracks of v (nbar, T*s, d), broadcast
+    back to every track."""
+    nbar, n, d = v.shape
+    t = n // s
+    return v.reshape(nbar, t, s, d).sum(1, keepdim=True).expand(
+        nbar, t, s, d).reshape(nbar, n, d)
+
+
+def messages(x, st: BarStatics, g0, s: int):
+    """(h_track, h_self, h_onset, h_next), each (nbar, n, d): the mean
+    messages of the lattice relations, as the forward kernel builds them."""
+    msg_p = torch.relu(rows(x, st.src_p) * st.g_p) * st.ok_p
+    msg_n = torch.relu(rows(x, st.src_n) * st.g_n) * st.ok_n
+    h_track = (msg_p + msg_n) * st.rec_track
+    y0 = torch.relu(x * g0) * st.m
+    h_onset = (col_sum(y0, s) - y0) * st.rec_on
+    z = torch.relu(rows(x, st.src_pn) * st.g_pn) * st.ok_pn
+    h_next = (col_sum(z, s) - z) * st.rec_nx
+    return h_track, y0 * st.single, h_onset, h_next
+
+
+def _gcl_core(x, st: BarStatics, gate_table, wbig, bias):
+    """(gcl(x) + bias) * m for one layer: [h_track | h_self | h_onset |
+    h_next | x] @ wbig with each row's own track block."""
+    nbar, n, d = x.shape
+    s = gate_table.shape[0]
+    t = n // s
+    h_track, h_self, h_onset, h_next = messages(x, st, gate_table[0], s)
+    hcat = torch.cat([h_self, h_onset, h_next, x], dim=-1)
+    out = hcat @ wbig[t * d:] + bias
+    out = out + torch.cat(
+        [h_track[:, i * s:(i + 1) * s] @ wbig[i * d:(i + 1) * d]
+         for i in range(t)], dim=1)
+    return out * st.m
+
+
+def gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs):
+    """Plain-PyTorch `gcl_eval`: the same arguments, the same result."""
+    st = bar_statics(aux, gate_table, x.dtype)
     x_k = x
     for k in range(wbigs.shape[0]):
-        wbig = wbigs[k]
-        msg_p = torch.relu(rows(x_k, ch(PREV_SRC)) * g_p) * okp_f
-        msg_n = torch.relu(rows(x_k, ch(NEXT_SRC)) * g_n) * okn_f
-        h_track = (msg_p + msg_n) * rec_track
-        y0 = torch.relu(x_k * g0) * m
-        h_onset = (col_sum(y0) - y0) * rec_on
-        z = torch.relu(rows(x_k, ch(PN_SRC)) * g_pn) * ok_pn
-        h_next = (col_sum(z) - z) * rec_nx
-        h_self = y0 * single
-        hcat = torch.cat([h_self, h_onset, h_next, x_k], dim=-1)
-        out = hcat @ wbig[t * d:] + biases[k]
-        out = out + torch.cat(
-            [h_track[:, i * s:(i + 1) * s] @ wbig[i * d:(i + 1) * d]
-             for i in range(t)], dim=1)
-        out = out * m
-        x_k = torch.relu((out * eas[k] + ebs[k]) * m) + x_k
+        out = _gcl_core(x_k, st, gate_table, wbigs[k], biases[k])
+        x_k = torch.relu((out * eas[k] + ebs[k]) * st.m) + x_k
     return x_k
 
 
-def _check_cuda_args(x, aux, gate_table, wbigs, biases, eas, ebs):
+def gcl_fwd_plain(x, aux, gate_table, wbig, bias):
+    """Plain-PyTorch `gcl_fwd`: the same arguments, the same result."""
+    return _gcl_core(x, bar_statics(aux, gate_table, x.dtype), gate_table,
+                     wbig, bias)
+
+
+def check_cuda_args(kernel: str, x, want: dict) -> None:
+    """Raise unless x is (nbar, 128, d) with d % 128 == 0 and every tensor of
+    `want` ({name: (tensor, shape, dtype)}) sits on x's device with that
+    shape and dtype, contiguous and 16-byte aligned."""
     nbar, n, d = x.shape
-    k = wbigs.shape[0]
-    want = {"x": (x, (nbar, n, d), torch.float32),
-            "aux": (aux, (nbar, N_AUX, n), torch.int32),
-            "gate_table": (gate_table, (32, d), torch.float32),
-            "wbigs": (wbigs, (k, 8 * d, d), torch.float32),
-            "biases": (biases, (k, d), torch.float32),
-            "eas": (eas, (k, d), torch.float32),
-            "ebs": (ebs, (k, d), torch.float32)}
-    if n != 128 or d % 128 != 0 or k < 1:
-        raise ValueError(f"gcl_eval kernel takes 4x32-cell bars and d % 128 "
-                         f"== 0, got cells={n} d={d} layers={k}")
+    if n != 128 or d % 128 != 0:
+        raise ValueError(f"{kernel} kernel takes 4x32-cell bars and d % 128 "
+                         f"== 0, got cells={n} d={d}")
     for name, (v, shape, dtype) in want.items():
         if v.device != x.device:
-            raise ValueError(f"gcl_eval: {name} is on {v.device}, x on "
+            raise ValueError(f"{kernel}: {name} is on {v.device}, x on "
                              f"{x.device}")
-        if tuple(v.shape) != shape or v.dtype != dtype:
-            raise ValueError(f"gcl_eval: {name} must be {dtype} {shape}, got "
+        if tuple(v.shape) != tuple(shape) or v.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} must be {dtype} {shape}, got "
                              f"{v.dtype} {tuple(v.shape)}")
         if not v.is_contiguous() or v.data_ptr() % 16:
-            raise ValueError(f"gcl_eval: {name} must be contiguous and "
+            raise ValueError(f"{kernel}: {name} must be contiguous and "
                              f"16-byte aligned")
+
+
+def on_card(kernel: str, x) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {x.device}")
+    return x.device.type == "cuda"
 
 
 def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs):
@@ -161,13 +225,18 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs):
     `pack_weights`; biases, eas, ebs (K, d). Returns (nbar, n, d).
     """
     global launches
-    if x.device.type == "cpu":
+    if not on_card("gcl_eval", x):
         return gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs)
-    if x.device.type != "cuda":
-        raise ValueError(f"gcl_eval: unsupported device {x.device}")
-    _check_cuda_args(x, aux, gate_table, wbigs, biases, eas, ebs)
-    nbar, _, d = x.shape
+    nbar, n, d = x.shape
     k = wbigs.shape[0]
+    if k < 1:
+        raise ValueError("gcl_eval: no layers")
+    f32 = torch.float32
+    check_cuda_args("gcl_eval", x, {
+        "x": (x, (nbar, n, d), f32), "aux": (aux, (nbar, N_AUX, n), torch.int32),
+        "gate_table": (gate_table, (32, d), f32),
+        "wbigs": (wbigs, (k, 8 * d, d), f32), "biases": (biases, (k, d), f32),
+        "eas": (eas, (k, d), f32), "ebs": (ebs, (k, d), f32)})
     out = torch.empty_like(x)
     scratch = torch.empty_like(x) if k > 1 else out
     fn = _build.launcher("gcl_eval")
@@ -177,4 +246,30 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs):
              nbar, d, k, _build.stream_handle(x.device))
     _build.check("gcl_eval", err)
     launches += 1
+    return out
+
+
+def gcl_fwd(x, aux, gate_table, wbig, bias):
+    """One training-forward GCL layer over bars of n cells.
+
+    x (nbar, n, d) f32; aux (nbar, N_AUX, n) int32 from `build_kernel_aux`;
+    gate_table (S, d); wbig (8d, d) from `pack_weights`; bias (d,). Returns
+    (gcl(x) + bias) * m, (nbar, n, d).
+    """
+    global fwd_launches
+    if not on_card("gcl_fwd", x):
+        return gcl_fwd_plain(x, aux, gate_table, wbig, bias)
+    nbar, n, d = x.shape
+    f32 = torch.float32
+    check_cuda_args("gcl_fwd", x, {
+        "x": (x, (nbar, n, d), f32), "aux": (aux, (nbar, N_AUX, n), torch.int32),
+        "gate_table": (gate_table, (32, d), f32),
+        "wbig": (wbig, (8 * d, d), f32), "bias": (bias, (d,), f32)})
+    out = torch.empty_like(x)
+    err = _build.launcher("gcl_fwd")(
+        x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbig.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), nbar, d,
+        _build.stream_handle(x.device))
+    _build.check("gcl_fwd", err)
+    fwd_launches += 1
     return out

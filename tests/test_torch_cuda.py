@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the generator on the card against the same generator on the
-CPU. Every test skips without a CUDA device (a CUDA kernel has no CPU mode).
+version, the generator on the card against the same generator on the CPU,
+and one train step on the card against the same step on the CPU. Every test
+skips without a CUDA device (a CUDA kernel has no CPU mode).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch:
@@ -21,7 +22,8 @@ import chip_smoke  # noqa: E402
 from polyphemus_tpu_torch.config import ModelConfig  # noqa: E402
 from polyphemus_tpu_torch.generate import make_generator  # noqa: E402
 from polyphemus_tpu_torch.models import VAE  # noqa: E402
-from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl  # noqa: E402
+from polyphemus_tpu_torch.ops.kernels import (  # noqa: E402
+    chord_tail, gcl, gcl_bwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +51,32 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="d % 128"):
         gcl.gcl_eval(x, torch.zeros(2, 14, 128, dtype=torch.int32,
                                     device=cuda), *([x] * 5))
+
+
+@pytest.mark.parametrize("nbar", [3, 40])
+@pytest.mark.parametrize("d", [128, 512])
+def test_gcl_training_kernels_match_plain(cuda, d, nbar):
+    chip_smoke.check_gcl_train(nbar, d, cuda, timing=False)
+
+
+def test_training_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 128, 96, device=cuda)  # d not a multiple of 128
+    aux = torch.zeros(2, 14, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="d % 128"):
+        gcl.gcl_fwd(x, aux, x, x, x)
+    y = torch.zeros(2, 128, 128, device=cuda)
+    with pytest.raises(ValueError, match="g must be"):
+        gcl_bwd.gcl_bwd_weight(y, y[:1], aux, y[0, :32])
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
+                     batch_norm=True)
+    before = chip_smoke.train_kernel_counts()
+    chip_smoke.compare_train_step(mc, 8, cuda, seed=3)
+    after = chip_smoke.train_kernel_counts()
+    # one microbatch through 2 GNN stacks of 2 layers
+    assert {k: after[k] - before[k] for k in after} == {k: 4 for k in after}
 
 
 def _top2_gap(logits):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of polyphemus_tpu_torch
-loads nothing of jax, flax, optax or polyphemus_tpu; its entry points refuse
-to run without a card unless asked for the CPU; bf16 is refused. The
+loads nothing of jax, flax, optax or polyphemus_tpu; its entry points
+(generation, serving, training) refuse to run without a card unless asked
+for the CPU; bf16 is refused. The
 kernels themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py."""
 import os
@@ -28,7 +29,7 @@ def test_package_imports_no_jax():
                if m.split(".")[0] in ("jax", "flax", "optax")
                or m == "polyphemus_tpu" or m.startswith("polyphemus_tpu.")]
         assert not bad, bad
-        assert len(names) >= 15, names
+        assert len(names) >= 27, names
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -61,6 +62,30 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
     fn = make_generator(model, device="cpu")
     mask, tokens = fn(torch.zeros(1, 32))
     assert mask.device.type == "cpu" and tokens.dtype == torch.uint8
+
+
+def test_train_cli_needs_a_card_or_an_explicit_cpu(tmp_path):
+    from polyphemus_tpu_torch.cli import train as train_cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    argv = [str(tmp_path), str(tmp_path / "out"),
+            os.path.join(ROOT, "examples", "training_lmd2.json")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_gcl_training_kernels_refuse_unsupported_devices():
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    x = torch.zeros(1, 128, 128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gcl.gcl_fwd(x, x, x, x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gcl_bwd.gcl_bwd_data(x, x, x, x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gcl_bwd.gcl_bwd_weight(x, x, x, x)
 
 
 def test_generate_z_is_seeded():

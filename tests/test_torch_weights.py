@@ -1,6 +1,7 @@
 """Weights and model directories of the port: `from_jax_variables` (every
 transpose, a KeyError naming the path of a missing key, the encoder subtree
-ignored), `save_checkpoint`/`load_checkpoint`, and one `config.json` loading
+mapped), its inverse `to_jax_variables` (exact round trip of the whole
+tree), `save_checkpoint`/`load_checkpoint`, and one `config.json` loading
 in both packages."""
 import copy
 import os
@@ -13,7 +14,7 @@ import torch
 from polyphemus_tpu.config import load_train_config as jax_load_config
 from polyphemus_tpu_torch.config import TrainConfig, load_train_config
 from polyphemus_tpu_torch.convert import (from_jax_variables, load_checkpoint,
-                                          save_checkpoint)
+                                          save_checkpoint, to_jax_variables)
 from polyphemus_tpu_torch.models import VAE
 
 from .torch_port_case import build, port_cfg, small_cfg
@@ -56,12 +57,47 @@ def test_truncated_tree_raises_keyerror_with_path(path):
 
 
 def test_encoder_subtree_is_ignored():
+    """No longer ignored: the encoder maps like the decoder (CNN kernels
+    transposed, BN statistics carried), and a tree without it raises."""
     variables, _, _ = build(small_cfg())
     sd = from_jax_variables(variables)
+    p = variables["params"]["encoder"]
+    k = p["s_encoder"]["cnn_encoder"]["conv1"]["kernel"]
+    np.testing.assert_array_equal(
+        sd["encoder.s_encoder.cnn_encoder.conv1.weight"].numpy(),
+        k.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        sd["encoder.c_encoder.gate_mlp.layers.0.weight"].numpy(),
+        p["c_encoder"]["gate_mlp"]["layers_0"]["kernel"].T)
+    np.testing.assert_array_equal(
+        sd["encoder.c_encoder.bn_dur.running_var"].numpy(),
+        variables["batch_stats"]["encoder"]["c_encoder"]["bn_dur"]["var"])
     stripped = {k: {"decoder": v["decoder"]} for k, v in variables.items()}
-    sd2 = from_jax_variables(stripped)
-    assert set(sd2) == set(sd)
-    assert not any(k.startswith("encoder") for k in sd)
+    with pytest.raises(KeyError, match="params/encoder"):
+        from_jax_variables(stripped)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("bn", [True, False], ids=["bn", "nobn"])
+def test_to_jax_variables_inverts_exactly(bn):
+    variables, _, model = build(small_cfg(batch_norm=bn))
+    want, got = _flat(variables), _flat(to_jax_variables(model.state_dict()))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    grads = {n: torch.ones_like(p) for n, p in model.named_parameters()}
+    tree = to_jax_variables(grads)
+    assert tree["batch_stats"] == {}
+    assert set(_flat(tree["params"])) == set(_flat(variables["params"]))
 
 
 def test_checkpoint_roundtrip_and_shared_config(tmp_path):
