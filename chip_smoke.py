@@ -17,6 +17,15 @@
    flagship training microbatch (64 sequences = 128 bars, d = 512): the
    forward and dx at rtol = atol = 2e-4, the sums over bars (dgate, dbias,
    dWbig) at max abs err <= 1e-4 x max |plain|; times each the same way.
+2c. The bf16 training kernels, `gcl_fwd` in bf16 and the fused single-pass
+   backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
+   and 256 bars (the bf16 config's microbatch of 128 sequences): every
+   output within 2e-2 x max |plain|; their bound counts the bf16 tensor
+   cores (989 TFLOP/s). `gcl_bwd_fused` in fp32 at 128 bars against its
+   fp32 plain version at the tolerances of 2b, and timed (`fused_ms`)
+   beside `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs (`split_ms`).
+   `gcl_eval` in bf16 (the bf16 eval step's GCN) at 8 bars (K = 1, 3) and
+   at 512 bars (K = 1, the eval batch of 256), within 2e-2 x max |plain|.
 3. Seeds a random-init flagship model (d = 512, 8 GNN layers, 2 bars,
    batch-norm on), saves it as a port model directory and serves it over
    HTTP on localhost with tiers [1, 8, 64, 256]: n = 1, 8 and 256, one
@@ -38,7 +47,19 @@
    under 1e-5 of the largest, within 1e-5 of the largest).
    Seconds per optimizer step at batch 256 (median of 3 passes of 5 steps)
    and seq/s, and one profiled step (device time by kernel).
-6. Prints the `kernels` JSON line, the card line, and last
+6. Trains the bf16 flagship config (`examples/training_lmd2_bf16.json`:
+   batch 256 in 2 microbatches of 128, the bf16 compute policy) the same
+   way on 1024 samples (512 train, 256 validation) with an eval step after
+   each epoch: records finite, exactly 32 launches each of the bf16
+   `gcl_fwd` and of `gcl_bwd_fused` per step, 16 of the bf16 `gcl_eval`
+   per evaluation and none of the fp32 training kernels, master params and
+   batch-norm buffers fp32 after it. One bf16 eval and train step at batch
+   8 and at batch 32 on the card against the CPU, from weights whose
+   `bn_linear_merge` input is centred (`centre_merge_input`): every loss
+   within 3e-2 relative and, at batch 32, every grad whose true value is
+   not 0 at cosine >= 0.85 with the CPU's. Seconds per step and seq/s as
+   in 5, and one profiled step.
+7. Prints the `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
@@ -62,7 +83,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-4            # gcl_eval vs plain: rtol = atol
 TIE = 1e-4            # chord_tail: ids may differ below this top-2 gap
 SUM_TOL = 1e-4        # dgate, dbias, dWbig: max abs err / max |plain|
+BF16_REL = 2e-2       # bf16 kernels: max abs err / max |plain|, per output
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
+BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
 SEED = 0
 
@@ -85,8 +108,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / (FP32_TFLOPS * 1e12) * 1e3
+def bound_ms(flops: float, nbytes: float, tflops: float = FP32_TFLOPS):
+    t_ops = flops / (tflops * 1e12) * 1e3
     t_mem = nbytes / (HBM_TBPS * 1e12) * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
@@ -148,24 +171,37 @@ def kernel_inputs(nbar, d, k_layers, device, seed):
 
 
 # ----------------------------------------------------------- phase 2: kernels
-def check_gcl(nbar, d, k_layers, device, timing=True):
+def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
+    """`gcl_eval` against its plain version, in fp32 at rtol = atol = TOL or
+    in bf16 (`bf16`: every float input cast) within BF16_REL of max |plain|;
+    with timing, ms per launch and the bound (bf16: on the bf16 tensor
+    cores, `cuda_core_bound_ms` on the fp32 CUDA cores it runs on)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl
 
     mask, args = kernel_inputs(nbar, d, k_layers, device, SEED + k_layers)
-    before = gcl.launches
+    if bf16:
+        args = [a if a.dtype == torch.int32 else a.to(torch.bfloat16)
+                for a in args]
+    before = (gcl.launches, gcl.eval_bf16_launches)
     out = gcl.gcl_eval(*args)
     ref = gcl.gcl_eval_plain(*args)
     torch.cuda.synchronize()
-    err = (out - ref).abs()
-    bad = err > TOL + TOL * ref.abs()
-    check(torch.isfinite(out).all().item(), "gcl_eval output not finite")
-    check(not bad.any().item(),
-          f"gcl_eval K={k_layers} nbar={nbar}: {int(bad.sum())} values off, "
-          f"max abs err {err.max().item():.3e}")
-    res = {"max_abs_err": err.max().item(),
-           "max_rel_err": (err / ref.abs().clamp(min=1e-3)).max().item()}
+    if bf16:
+        check(out.dtype == torch.bfloat16,
+              f"gcl_eval bf16 returned {out.dtype}")
+        res = {"max_abs_err": held_rel(f"gcl_eval bf16 K={k_layers} "
+                                       f"nbar={nbar}", out, ref)}
+    else:
+        err = (out - ref).abs()
+        bad = err > TOL + TOL * ref.abs()
+        check(torch.isfinite(out).all().item(), "gcl_eval output not finite")
+        check(not bad.any().item(),
+              f"gcl_eval K={k_layers} nbar={nbar}: {int(bad.sum())} values "
+              f"off, max abs err {err.max().item():.3e}")
+        res = {"max_abs_err": err.max().item(),
+               "max_rel_err": (err / ref.abs().clamp(min=1e-3)).max().item()}
     if timing:
         res["ms"] = time_ms(lambda: gcl.gcl_eval(*args))
         res["plain_ms"] = time_ms(lambda: gcl.gcl_eval_plain(*args), reps=2)
@@ -173,11 +209,14 @@ def check_gcl(nbar, d, k_layers, device, timing=True):
         # only active rows need the (5d x d) product
         flops = 2.0 * int(mask.sum()) * 5 * d * d * k_layers
         nbytes = sum(a.numel() * a.element_size() for a in args) \
-            + out.numel() * 4
-        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes)
+            + out.numel() * out.element_size()
+        peak = BF16_TFLOPS if bf16 else FP32_TFLOPS
+        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, peak)
         res["dense_bound_ms"] = bound_ms(
-            flops * mask.numel() / int(mask.sum()), nbytes)[0]
-    gcl.launches = before  # comparison launches do not count
+            flops * mask.numel() / int(mask.sum()), nbytes, peak)[0]
+        if bf16:
+            res["cuda_core_bound_ms"] = bound_ms(flops, nbytes)[0]
+    gcl.launches, gcl.eval_bf16_launches = before  # comparisons do not count
     return res
 
 
@@ -232,8 +271,7 @@ def check_gcl_train(nbar, d, device, timing=True):
 
     mask, (x, up, aux, gates, wbig, bias) = train_kernel_inputs(
         nbar, d, device, SEED + 11)
-    before = (gcl.fwd_launches, gcl_bwd.data_launches,
-              gcl_bwd.weight_launches)
+    before = train_kernel_counts()
     runs = {
         "gcl_fwd": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
                     lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
@@ -281,8 +319,133 @@ def check_gcl_train(nbar, d, device, timing=True):
             r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes[name])
             r["dense_bound_ms"] = bound_ms(dense, nbytes[name])[0]
             r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name])[0]
-    (gcl.fwd_launches, gcl_bwd.data_launches,
-     gcl_bwd.weight_launches) = before  # comparison launches do not count
+    set_train_kernel_counts(before)  # comparison launches do not count
+    return res
+
+
+# ------------------------------- phase 2c: bf16 training and fused backward
+def held_rel(name, out, ref) -> float:
+    """Max abs error of out against ref, both read in fp32; fails unless it
+    is within BF16_REL of max |ref|."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    check(torch.isfinite(out).all().item(), f"{name} output not finite")
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(err <= BF16_REL * scale,
+          f"{name}: max abs err {err:.3e}, max |ref| {scale:.3e}")
+    return err
+
+
+def fused_bwd_work(mask, d, nbar):
+    """(data, dense, CostEstimate) flops of one fused backward: per active
+    cell 2 * 5d * d for the dH product and as many for the dW product."""
+    active = int(mask.sum())
+    return (20.0 * active * d * d, 20.0 * nbar * 128 * d * d,
+            4.0 * nbar * 128 * 8 * d * d)
+
+
+def check_gcl_train_bf16(nbar, d, device, timing=True):
+    """The bf16 `gcl_fwd` and `gcl_bwd_fused` against their bf16 plain
+    versions on the card; with timing, ms per launch and the bounds
+    (`bound_ms`: the bf16 tensor cores; `cuda_core_bound_ms`: fp32 FMAs on
+    the CUDA cores, what these kernels run on; "dense" and "CE" variants as
+    in 2b)."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    mask, args = train_kernel_inputs(nbar, d, device, SEED + 13)
+    x, up, aux, gates, wbig, bias = [
+        v if v.dtype == torch.int32 else v.to(torch.bfloat16) for v in args]
+    before = train_kernel_counts()
+    runs = {
+        "gcl_fwd_bf16": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
+                         lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
+        "gcl_bwd_fused": (
+            lambda: gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig),
+            lambda: gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)),
+    }
+    out, ref = runs["gcl_fwd_bf16"][0](), runs["gcl_fwd_bf16"][1]()
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16, f"gcl_fwd bf16 returned {out.dtype}")
+    res = {"gcl_fwd_bf16": {"max_abs_err": held_rel("gcl_fwd bf16", out,
+                                                    ref)}}
+    got, want = runs["gcl_bwd_fused"][0](), runs["gcl_bwd_fused"][1]()
+    torch.cuda.synchronize()
+    check(got[0].dtype == torch.bfloat16, "gcl_bwd_fused bf16 dx dtype")
+    errs = {n: held_rel(f"gcl_bwd_fused bf16 {n}", a, b) for n, a, b in
+            zip(("dx", "dgate", "dbias", "dwbig"), got, want)}
+    res["gcl_bwd_fused"] = dict(
+        {"max_abs_err": max(errs.values())},
+        **{f"{n}_max_abs_err": e for n, e in errs.items()})
+    if timing:
+        active = int(mask.sum())
+        state = x.numel() * 2
+        small = aux.numel() * 4 + gates.numel() * 2
+        work = {"gcl_fwd_bf16": (2.0 * active * 5 * d * d,
+                                 2.0 * nbar * 128 * 5 * d * d,
+                                 2.0 * nbar * 128 * 8 * d * d),
+                "gcl_bwd_fused": fused_bwd_work(mask, d, nbar)}
+        nbytes = {"gcl_fwd_bf16": 2 * state + small + wbig.numel() * 2 + d * 2,
+                  "gcl_bwd_fused": 3 * state + small + wbig.numel() * 2
+                  + wbig.numel() * 4 + 33 * d * 4}
+        for name, (kern, plain) in runs.items():
+            r = res[name]
+            data, dense, cost_est = work[name]
+            r["ms"] = time_ms(kern)
+            r["plain_ms"] = time_ms(plain, reps=2)
+            r["bound_ms"], r["bound_by"] = bound_ms(data, nbytes[name],
+                                                    BF16_TFLOPS)
+            r["cuda_core_bound_ms"] = bound_ms(data, nbytes[name])[0]
+            r["dense_bound_ms"] = bound_ms(dense, nbytes[name], BF16_TFLOPS)[0]
+            r["dense_cuda_core_bound_ms"] = bound_ms(dense, nbytes[name])[0]
+            r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name],
+                                                   BF16_TFLOPS)[0]
+            r["cost_estimate_cuda_core_bound_ms"] = bound_ms(
+                cost_est, nbytes[name])[0]
+    set_train_kernel_counts(before)  # comparison launches do not count
+    return res
+
+
+def check_fused_fp32(nbar, d, device, timing=True):
+    """`gcl_bwd_fused` in fp32 against its fp32 plain version (dx at rtol =
+    atol = TOL, the sums at SUM_TOL); with timing, `fused_ms` beside
+    `split_ms`, `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl_bwd
+
+    mask, (x, up, aux, gates, wbig, _) = train_kernel_inputs(
+        nbar, d, device, SEED + 11)
+    before = train_kernel_counts()
+    got = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+    want = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": held_to("gcl_bwd_fused fp32 dx", got[0], want[0],
+                                  summed=False)}
+    for n, a, b in zip(("dgate", "dbias", "dwbig"), got[1:], want[1:]):
+        res[f"{n}_max_abs_err"] = held_to(f"gcl_bwd_fused fp32 {n}", a, b,
+                                          summed=True)
+    if timing:
+        def split():
+            gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+            gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+
+        res["fused_ms"] = time_ms(
+            lambda: gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig))
+        res["split_ms"] = time_ms(split)
+        res["plain_ms"] = time_ms(
+            lambda: gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig),
+            reps=2)
+        nbytes = 3 * x.numel() * 4 + aux.numel() * 4 + gates.numel() * 4 \
+            + 2 * wbig.numel() * 4 + 33 * d * 4
+        data, dense, cost_est = fused_bwd_work(mask, d, nbar)
+        res["bound_ms"], res["bound_by"] = bound_ms(data, nbytes)
+        res["dense_bound_ms"] = bound_ms(dense, nbytes)[0]
+        res["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes)[0]
+    set_train_kernel_counts(before)  # comparison launches do not count
     return res
 
 
@@ -506,11 +669,17 @@ LOSS_KEYS = ("tot", "pitch", "dur", "structure", "reconstruction", "kld",
 METRIC_KEYS = ("note", "pitch", "pitch_drums", "pitch_non_drums", "dur",
                "s_acc", "s_precision", "s_recall", "s_f1")
 TRAIN_LOSS_RTOL = 2e-4   # card vs CPU step: each loss, relative
+BF16_LOSS_RTOL = 3e-2    # the same under the bf16 policy
 TRAIN_GRAD_TOL = 1e-3    # card vs CPU step: max abs err / max |cpu| per grad
 # a grad below this share of the model's largest |grad| is rounding noise (a
 # bias that feeds batch-norm with batch statistics has a true gradient of 0):
 # it is held to an abs err of GRAD_NOISE x the largest |grad| instead
 GRAD_NOISE = 1e-5
+BF16_GRAD_FLOOR = 1e-3  # bf16: a grad is held if its max is this share of
+#                         the largest |grad|
+BF16_GRAD_COS = 0.85    # bf16: least cosine of a held grad with the CPU's
+BF16_CMP_BATCH = 32     # the bf16 card-vs-CPU step whose grads are held
+RESOLVED = 2.0 ** -5    # bf16 resolves a batch variance >= this x mean^2
 
 
 def train_kernel_counts():
@@ -518,13 +687,30 @@ def train_kernel_counts():
 
     return {"gcl_fwd": gcl.fwd_launches,
             "gcl_bwd_data": gcl_bwd.data_launches,
-            "gcl_bwd_weight": gcl_bwd.weight_launches}
+            "gcl_bwd_weight": gcl_bwd.weight_launches,
+            "gcl_fwd_bf16": gcl.fwd_bf16_launches,
+            "gcl_bwd_fused": gcl_bwd.fused_launches}
 
 
-def zero_train_kernel_counts():
+def set_train_kernel_counts(counts):
+    """Set the training kernels' launch counters to `counts`, a dict as
+    `train_kernel_counts` returns it."""
     from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
 
-    gcl.fwd_launches = gcl_bwd.data_launches = gcl_bwd.weight_launches = 0
+    gcl.fwd_launches = counts["gcl_fwd"]
+    gcl_bwd.data_launches = counts["gcl_bwd_data"]
+    gcl_bwd.weight_launches = counts["gcl_bwd_weight"]
+    gcl.fwd_bf16_launches = counts["gcl_fwd_bf16"]
+    gcl_bwd.fused_launches = counts["gcl_bwd_fused"]
+
+
+def check_launches(counts, per_step, steps):
+    """Exactly per_step[k] launches of kernel k per optimizer step, and none
+    of the training kernels per_step does not name."""
+    for name, n in counts.items():
+        want = per_step.get(name, 0) * steps
+        check(n == want, f"expected {per_step.get(name, 0)} {name} launches "
+                         f"per optimizer step, got {n} in {steps} steps")
 
 
 def write_dataset(path, n, n_bars, seed):
@@ -538,32 +724,43 @@ def write_dataset(path, n, n_bars, seed):
         write_sample(os.path.join(path, f"s{i:04d}.npz"), toks[i], mask[i])
 
 
-def train_phase(device, config_path, data_dir, out_dir, epochs):
-    """Train through the CLI's `main()`; returns (trainer, model dir, the
-    main path's launch counts, metrics.jsonl records)."""
+def train_phase(device, config_path, data_dir, out_dir, epochs,
+                splits=("--tr_split", "1.0")):
+    """Train through the CLI's `main()` (`splits`: its data-split and eval
+    arguments); returns (trainer, model dir, the main path's launch counts
+    of the training kernels and of the bf16 eval kernel, metrics.jsonl
+    records)."""
     from polyphemus_tpu_torch.cli import train as train_cli
+    from polyphemus_tpu_torch.ops.kernels import gcl
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    zero_train_kernel_counts()
+    set_train_kernel_counts(dict.fromkeys(train_kernel_counts(), 0))
+    gcl.eval_bf16_launches = 0
     # ---- the main path ----
     trainer = train_cli.main([
         data_dir, out_dir, config_path, "--model_name", "lmd2",
-        "--tr_split", "1.0", "--max_epochs", str(epochs), "--save_every",
+        *splits, "--max_epochs", str(epochs), "--save_every",
         "0", "--num_workers", "8", "--seed", str(SEED),
         "--device", str(device)])
-    counts = train_kernel_counts()
+    counts = dict(train_kernel_counts(),
+                  gcl_eval_bf16=gcl.eval_bf16_launches)
     model_dir = os.path.join(out_dir, "lmd2")
     with open(os.path.join(model_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     return trainer, model_dir, counts, recs
 
 
-def check_records(recs, steps):
-    check(len(recs) == steps, f"{len(recs)} metrics.jsonl records for "
-                              f"{steps} steps")
+def check_records(recs, steps, evals=0):
+    """`steps` training records and `evals` validation records (prefix
+    `val_`), each with every loss and metric, all finite."""
+    val = [r for r in recs if "val_loss/tot" in r]
+    check(len(recs) - len(val) == steps and len(val) == evals,
+          f"{len(recs) - len(val)} training and {len(val)} validation "
+          f"metrics.jsonl records for {steps} steps and {evals} evaluations")
     for r in recs:
-        vals = [r.get(f"loss/{k}") for k in LOSS_KEYS] + [
-            r.get(f"acc/{k}") for k in METRIC_KEYS]
+        pre = "val_" if r in val else ""
+        vals = [r.get(f"{pre}loss/{k}") for k in LOSS_KEYS] + [
+            r.get(f"{pre}acc/{k}") for k in METRIC_KEYS]
         check(all(v is not None and np.isfinite(v) for v in vals),
               f"a loss or metric is missing or not finite: {r}")
 
@@ -585,15 +782,89 @@ def serve_trained(model_dir, mc, device):
     check_tokens(out["mask"], out["tokens"], 8, mc)
 
 
-def compare_train_step(mc, batch, device, seed, check_grads=True):
-    """One train step from the same weights, batch and eps on the card and
-    on the CPU: losses within TRAIN_LOSS_RTOL and, with check_grads, each
-    grad within TRAIN_GRAD_TOL of its max |cpu| (rounding-noise grads:
+def cosine(a, b) -> float:
+    """Cosine of the angle between two tensors read as flat fp64 vectors
+    (0 when either is all zero)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    den = (a.norm() * b.norm()).item()
+    return (a @ b).item() / den if den > 0 else 0.0
+
+
+def centre_merge_input(model, mc, toks, mask, eps):
+    """Shift `linear_merge`'s bias by minus the batch mean of its output
+    (an fp32 forward of a copy of `model` on this batch).
+
+    The shift leaves a training step's function unchanged, since
+    `bn_linear_merge` subtracts the batch mean again; what it changes is
+    bf16's rounding. Its E[x^2] - mean^2 errs by up to ~2^-8 mean^2, and
+    at the seeded random init 16-20 of the flagship's 512 merge features
+    have a batch variance below 2^-7 mean^2 at every batch from 32 to 256:
+    their variance rounds to a few bits or to 0, the feature is scaled by
+    up to 1 / sqrt(eps), and mu, log_var, the KLD and every grad follow
+    each device's rounding (the JAX package computes the statistics the
+    same way). Centred, the features' means are rounding-sized and bf16
+    resolves every variance."""
+    import copy
+
+    import torch
+
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    probe = copy.deepcopy(model).train()
+    seen = {}
+    handle = probe.encoder.bn_linear_merge.register_forward_hook(
+        lambda mod, args, _: seen.update(x=args[0].detach()))
+    with torch.no_grad():
+        tr.forward_loss(probe, TrainConfig(batch_size=len(toks), model=mc),
+                        toks, mask, 0.0, eps=eps)
+        handle.remove()
+        x = seen["x"]
+        model.encoder.linear_merge.bias -= x.reshape(-1, x.shape[-1]).mean(0)
+
+
+def shift_free_grads(model, mc, toks, mask, eps):
+    """The parameters whose true grad on this batch is 0: their fp32 grad
+    (one fp32 step of `model` on the CPU) is under GRAD_NOISE x the largest.
+    They are the biases that feed a norm with batch statistics, which
+    removes any shift; under the bf16 policy their grads are rounding
+    noise."""
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    cfg = TrainConfig(batch_size=len(toks), model=mc)
+    step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+    step(toks, mask, eps=eps)
+    top = {n: p.grad.abs().max().item() for n, p in model.named_parameters()}
+    scale = max(top.values())
+    return {n for n, v in top.items() if v < GRAD_NOISE * scale}
+
+
+def compare_train_step(mc, batch, device, seed, check_grads=True,
+                       bf16=False):
+    """One eval step, then one train step, from the same weights, batch and
+    eps on the card and on the CPU. The eval losses (running statistics)
+    are held as the train losses are.
+
+    fp32: losses within TRAIN_LOSS_RTOL and, with check_grads, each grad
+    within TRAIN_GRAD_TOL of its max |cpu| (rounding-noise grads:
     GRAD_NOISE). At batch 2 the grads are reported, not held: the two
     batch-norms over 2 samples (`bn_linear_merge`, the decoder head's) make
     the grads behind them hang on fp32 rounding, so that the card's kernels
     and the card's plain versions differ there as much as either differs
-    from the CPU."""
+    from the CPU.
+
+    bf16 policy: every loss within BF16_LOSS_RTOL and, with check_grads,
+    each grad whose max is at least BF16_GRAD_FLOOR of the largest and
+    whose true value is not 0 (`shift_free_grads`) points the CPU's way:
+    cosine >= BF16_GRAD_COS (bf16 grads behind a batch-norm differ in
+    their elements by tens of percent of their max between two summation
+    orders; the JAX package's bf16 and fp32 grads do too). First
+    `centre_merge_input` reconditions the weights; the step fails unless
+    bf16 then resolves the batch variance of every `bn_linear_merge`
+    feature on both devices (var >= RESOLVED x mean^2 over the batch, in
+    fp32 from its input).
+    """
     import copy
 
     import torch
@@ -603,49 +874,94 @@ def compare_train_step(mc, batch, device, seed, check_grads=True):
     from polyphemus_tpu_torch.models import VAE
     from polyphemus_tpu_torch.train import trainer as tr
 
-    cfg = TrainConfig(batch_size=batch, model=mc, iters_to_accumulate=1)
+    cfg = TrainConfig(batch_size=batch, model=mc, iters_to_accumulate=1,
+                      bf16=bf16)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         cpu_model = VAE(mc)
-    card_model = copy.deepcopy(cpu_model).to(device)
     rng = np.random.default_rng(seed)
     toks, mask = (torch.from_numpy(a) for a in synthetic_batch(rng, batch,
                                                                mc.n_bars))
     eps = torch.from_numpy(rng.standard_normal((batch, mc.d)).astype(
         np.float32))
-    out = {}
+    if bf16:
+        centre_merge_input(cpu_model, mc, toks, mask, eps)
+        shift_free = shift_free_grads(copy.deepcopy(cpu_model), mc, toks,
+                                      mask, eps)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    out, unresolved = {}, {}
+
+    def merge_bn_hook(name):
+        def hook(mod, args, _):
+            x = args[0].detach().float()
+            var, mean = x.var(0, unbiased=False), x.mean(0)
+            unresolved[name] = int((var < RESOLVED * mean.square()).sum())
+        return hook
+
+    evals = {}
     for name, model, dev in (("cpu", cpu_model, torch.device("cpu")),
                              ("card", card_model, device)):
+        lo, _ = tr.eval_step(model, cfg, toks.to(dev), mask.to(dev), 0,
+                             eps=eps.to(dev))
+        evals[name] = {k: float(v) for k, v in lo.items()}
+        handle = model.encoder.bn_linear_merge.register_forward_hook(
+            merge_bn_hook(name))
         step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
         losses, _ = step(toks.to(dev), mask.to(dev), eps=eps.to(dev))
+        handle.remove()
         out[name] = ({k: float(v) for k, v in losses.items()},
                      {n: p.grad.detach().cpu()
                       for n, p in model.named_parameters()})
     (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
-    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
-                   for k in LOSS_KEYS if l_cpu[k] != 0.0)
-    check(loss_err <= TRAIN_LOSS_RTOL and all(
+    check(not bf16 or max(unresolved.values()) == 0,
+          f"bf16 step at batch {batch}: bf16 does not resolve the batch "
+          f"variance of {unresolved} bn_linear_merge features")
+    rel = {k: abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+           for k in LOSS_KEYS if l_cpu[k] != 0.0}
+    loss_err = max(rel.values())
+    check(loss_err <= (BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL) and all(
         (l_card[k] == 0.0) == (l_cpu[k] == 0.0) for k in LOSS_KEYS),
         f"card losses {l_card} vs cpu {l_cpu}")
+    eval_rel = {k: abs(evals["card"][k] - evals["cpu"][k])
+                / max(abs(evals["cpu"][k]), 1e-12)
+                for k in LOSS_KEYS if evals["cpu"][k] != 0.0}
+    check(max(eval_rel.values()) <= (BF16_LOSS_RTOL if bf16
+                                     else TRAIN_LOSS_RTOL),
+          f"card eval losses {evals['card']} vs cpu {evals['cpu']}")
     scale = max(g.abs().max().item() for g in g_cpu.values())
     rows = {}
     for n, g in g_cpu.items():
         err = (g_card[n] - g).abs().max().item()
         ref = g.abs().max().item()
-        noise = ref <= GRAD_NOISE * scale
-        rows[n] = (err / (GRAD_NOISE * scale) if noise
-                   else err / (TRAIN_GRAD_TOL * ref), err, ref, noise)
+        cos = cosine(g_card[n], g)
+        if bf16:
+            noise = n in shift_free or ref < BF16_GRAD_FLOOR * scale
+            score = 0.0 if noise else (1.0 - cos) / (1.0 - BF16_GRAD_COS)
+        else:
+            noise = ref <= GRAD_NOISE * scale
+            score = (err / (GRAD_NOISE * scale) if noise
+                     else err / (TRAIN_GRAD_TOL * ref))
+        rows[n] = (score, err, ref, cos, noise)
     worst = sorted(rows, key=lambda n: -rows[n][0])[:4]
     check(not check_grads or rows[worst[0]][0] <= 1.0,
           f"grads off: {[(n, rows[n]) for n in worst]} (largest |grad| "
           f"{scale:.3e})")
-    return {"batch": batch, "grads_held": check_grads,
-            "max_loss_rel_err": loss_err, "n_grads": len(rows),
+    held = [n for n in rows if not rows[n][4]]
+    return {"batch": batch, "bf16": bf16, "grads_held": check_grads,
+            "max_loss_rel_err": loss_err, "loss_rel_err": rel,
+            "eval_max_loss_rel_err": max(eval_rel.values()),
+            "losses_cpu": l_cpu, "losses_card": l_card,
+            "merge_bn_features_unresolved_in_bf16": unresolved,
+            "n_grads": len(rows), "n_grads_held": len(held),
+            "n_grads_shift_free": len(shift_free) if bf16 else None,
             "largest_grad": scale,
-            "noise_floor_grads": [n for n in rows if rows[n][3]],
-            "worst_grads": [{"name": n, "err_over_bound": rows[n][0],
+            "min_grad_cosine": min(rows[n][3] for n in held),
+            "max_grad_err_over_max": max(rows[n][1] / rows[n][2]
+                                         for n in held),
+            "worst_grads": [{"name": n, "score": rows[n][0],
                              "max_abs_err": rows[n][1],
-                             "max_abs_cpu": rows[n][2]} for n in worst]}
+                             "max_abs_cpu": rows[n][2],
+                             "cosine": rows[n][3]} for n in worst]}
 
 
 def time_train_steps(trainer, batch, device, passes=3, steps=5):
@@ -795,6 +1111,23 @@ def main() -> int:
     print("flagship training kernel check (128 bars, d=512):",
           json.dumps(train_k))
 
+    # ---- 2c. bf16 training kernels and the fused backward ----
+    print("small-shape bf16 training kernel check (8 bars, d=512):",
+          json.dumps(check_gcl_train_bf16(8, 512, device, timing=False)))
+    bf16_k = check_gcl_train_bf16(256, 512, device)
+    print(f"bf16 flagship training kernel check (256 bars, d=512, {card}):",
+          json.dumps(bf16_k))
+    print("small-shape bf16 eval GCL check (8 bars, d=512, K=1, 3):",
+          json.dumps({f"gcl_eval_bf16_k{k}": check_gcl(
+              8, 512, k, device, timing=False, bf16=True) for k in (1, 3)}))
+    # the bf16 eval step's shape: batch 256 x 2 bars, one layer per launch
+    eval16_k = check_gcl(512, 512, 1, device, bf16=True)
+    print(f"bf16 eval GCL check (512 bars, d=512, K=1, {card}):",
+          json.dumps(eval16_k))
+    fused32 = check_fused_fp32(128, 512, device)
+    print(f"fused vs split backward, fp32 (128 bars, d=512, {card}):",
+          json.dumps(fused32))
+
     # ---- 3. the service on the card ----
     mc = ModelConfig(d=512, gnn_n_layers=8, n_bars=2, resolution=8,
                      dropout=0.0, batch_norm=True)
@@ -833,9 +1166,8 @@ def main() -> int:
           f"record {json.dumps(recs[-1])}")
     check(steps == 2 * epochs, f"{steps} optimizer steps")
     check_records(recs, steps)
-    for name, n in train_launches.items():
-        check(n == 64 * steps, f"expected 64 {name} launches per optimizer "
-                               f"step, got {n} in {steps} steps")
+    check_launches(train_launches, {"gcl_fwd": 64, "gcl_bwd_data": 64,
+                                    "gcl_bwd_weight": 64}, steps)
     serve_trained(trained_dir, mc, device)
     for batch, held in ((2, False), (8, True)):
         step_cmp = compare_train_step(mc, batch, device, SEED + 5,
@@ -850,9 +1182,57 @@ def main() -> int:
                               os.path.join(ROOT, "chiprun_out",
                                            "train_step_profile.txt"))
     print("train step profile:", json.dumps(prof))
+    del trainer
 
-    # ---- 6. results ----
+    # ---- 6. bf16 training on the card, with an eval step per epoch ----
+    # 1024 samples: 512 train (2 steps per epoch), 256 validation (one
+    # eval batch after each epoch's last step)
+    data16 = os.path.join(ROOT, "build", "chip_smoke_data_bf16")
+    write_dataset(data16, 1024, mc.n_bars, SEED)
+    trainer, _, bf16_launches, recs = train_phase(
+        device, os.path.join(ROOT, "examples", "training_lmd2_bf16.json"),
+        data16, os.path.join(ROOT, "build", "chip_smoke_train_bf16"),
+        epochs, splits=("--tr_split", "0.5", "--vl_split", "0.25", "--eval"))
+    steps = trainer.step
+    evals = len(trainer.val_losses["tot"])
+    print(f"bf16 training: {steps} steps, {evals} evaluations, launches "
+          f"{bf16_launches}, last records {json.dumps(recs[-2:])}")
+    check(trainer.cfg.bf16 and trainer.cfg.iters_to_accumulate == 2,
+          "the bf16 config did not load as batch 256 / accumulate 2, bf16")
+    check(steps == 2 * epochs and evals == epochs,
+          f"{steps} bf16 optimizer steps, {evals} evaluations")
+    check_records(recs, steps, evals)
+    check_launches({k: v for k, v in bf16_launches.items()
+                    if k != "gcl_eval_bf16"},
+                   {"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32}, steps)
+    # one eval batch per evaluation: 2 GNN stacks of 8 layers, chain 1
+    check(bf16_launches["gcl_eval_bf16"] == 16 * evals,
+          f"expected 16 bf16 gcl_eval launches per evaluation, got "
+          f"{bf16_launches['gcl_eval_bf16']} in {evals}")
+    model = trainer.model
+    check(all(p.dtype == torch.float32 for p in model.parameters()) and all(
+        b.dtype == torch.float32 for b in model.buffers()
+        if b.is_floating_point()),
+        "master params or batch-norm buffers are not fp32 after bf16 steps")
+    for batch, held in ((8, False), (BF16_CMP_BATCH, True)):
+        step_cmp = compare_train_step(mc, batch, device, SEED + 5,
+                                      check_grads=held, bf16=True)
+        print(f"bf16 train step, card vs CPU (d=512, 8 layers, batch "
+              f"{batch}):", json.dumps(step_cmp))
+    bench16 = time_train_steps(trainer, trainer.cfg.batch_size, device)
+    bench16["card"] = card
+    print("bf16 train bench:", json.dumps(bench16))
+    prof16 = profile_train_step(trainer, trainer.cfg.batch_size, device,
+                                os.path.join(ROOT, "chiprun_out",
+                                             "train_step_profile_bf16.txt"))
+    prof16["card"] = card
+    print("bf16 train step profile:", json.dumps(prof16))
+
+    # ---- 7. results ----
     launches = dict(launches, **train_launches)
+    launches.update({k: bf16_launches[k]
+                     for k in ("gcl_fwd_bf16", "gcl_bwd_fused",
+                               "gcl_eval_bf16")})
 
     def entry(name, src, replaces, r):
         return {"name": name, "route": "cuda", "source": src,
@@ -875,7 +1255,15 @@ def main() -> int:
         entry("gcl_bwd_weight",
               "polyphemus_tpu_torch/csrc/gcl_bwd_weight.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:564",
-              train_k["gcl_bwd_weight"])]
+              train_k["gcl_bwd_weight"]),
+        entry("gcl_fwd_bf16", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",
+              bf16_k["gcl_fwd_bf16"]),
+        entry("gcl_bwd_fused", "polyphemus_tpu_torch/csrc/gcl_bwd_fused.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:453",
+              bf16_k["gcl_bwd_fused"]),
+        entry("gcl_eval_bf16", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", eval16_k)]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,61 @@
 // Shared by the GCL kernels: the bar geometry, the aux channel layout that
 // `ops/kernels/gcl.py::build_kernel_aux` writes, the per-bar statics decoded
-// from it, and a column-sum reduction for per-CTA partials.
+// from it, the element-type helpers, and a column-sum reduction for per-CTA
+// partials.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gcl {
+
+// Loads and stores of an element type E through fp32, and `rnd`, the
+// rounding of an fp32 value to E (the identity for fp32). Vector accesses
+// take 4 consecutive elements (16-byte aligned for fp32, 8 for bf16).
+template <typename E>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr bool kExact = true;
+  __device__ __forceinline__ static float rnd(float v) { return v; }
+  __device__ __forceinline__ static float load1(const float* p) { return *p; }
+  __device__ __forceinline__ static float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ static void store1(float* p, float v) { *p = v; }
+  __device__ __forceinline__ static void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using B = __nv_bfloat16;
+  static constexpr bool kExact = false;
+  __device__ __forceinline__ static float rnd(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  __device__ __forceinline__ static float load1(const B* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ __forceinline__ static float4 load4(const B* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  __device__ __forceinline__ static void store1(B* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  __device__ __forceinline__ static void store4(B* p, float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
+};
 
 constexpr int T = 4;             // tracks per bar
 constexpr int S = 32;            // steps per bar

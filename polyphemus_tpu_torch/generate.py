@@ -52,14 +52,18 @@ def generate_z(seed: int, n: int, d: int, device=None) -> torch.Tensor:
 @contextlib.contextmanager
 def exact_fp32():
     """Full-fp32 matmuls and cuDNN convolutions (no TF32): one flipped
-    structure cell changes every content id downstream."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    structure cell changes every content id downstream. bf16 cuBLAS
+    products reduce in fp32, as XLA's do."""
+    matmul = torch.backends.cuda.matmul
+    prev = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = prev
 
 
 def _tokens_from_logits(c_logits):
@@ -85,7 +89,9 @@ def make_generator(model, *, conditioned: bool = False,
     the noise, so successive calls draw fresh noise.
     """
     if bf16:
-        raise NotImplementedError("bf16 generation kernels are not ported yet")
+        raise NotImplementedError(
+            "bf16 generation is not ported yet: the chord tail has no bf16 "
+            "kernel")
     dev = resolve_device(device)
     model = model.to(dev).eval()
     chain = model.cfg.gcl_chain if model.cfg.gcl_chain > 1 else 2

@@ -4,12 +4,13 @@ Counterpart of `polyphemus_tpu/models/gnn.py::GCN`. One `edge_nn` Linear is
 shared by every layer of a stack and evaluated once per forward as an (S, d)
 gate table.
 
-  * Eval mode: each group of `chain` layers runs as one `gcl_eval` call (GCL
-    + folded batch-norm + relu + residual per layer); the last group is
-    shorter when `chain` does not divide the layer count.
+  * Eval mode: each group of `chain` layers runs as one `gcl_eval` call
+    (GCL + folded batch-norm + relu + residual per layer) in x's dtype; the
+    last group is shorter when `chain` does not divide the layer count.
   * Training mode: per layer, dropout -> `gcl_fused` (the training forward
-    kernel, with the data and weight backward kernels behind it) -> masked
-    batch-norm with batch statistics -> * m -> relu -> + residual.
+    kernel, with the backward kernels behind it) -> masked batch-norm with
+    batch statistics -> * m -> relu -> + residual, as the JAX package's
+    lattice path.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ class GCN(nn.Module):
         aux = gcl_k.build_kernel_aux(mask).reshape(-1, gcl_k.N_AUX, n)
         xf = x.reshape(-1, n, d).contiguous()
         if self.training:
-            xf = self._train_stack(xf, mask, aux, gate_table)
+            xf = self._layer_stack(xf, mask, aux, gate_table)
         else:
             xf = self._eval_stack(xf, aux, gate_table, chain or self.chain)
         return xf.reshape(lead + cells + (d,))
@@ -92,7 +93,7 @@ class GCN(nn.Module):
                   for j in range(4)))
         return xf
 
-    def _train_stack(self, xf, mask, aux, gate_table):
+    def _layer_stack(self, xf, mask, aux, gate_table):
         if self.message_dropout > 0:
             raise NotImplementedError(
                 "message_dropout > 0 needs the lattice GCL with per-edge "

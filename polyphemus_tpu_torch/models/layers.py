@@ -54,9 +54,18 @@ class MaskedBatchNorm(nn.Module):
                                   eps=self.eps)
 
     def update_running(self, mean, var, count):
-        """The running update for statistics computed elsewhere."""
-        mops.running_update(self.running_mean, self.running_var, mean, var,
-                            count, momentum=self.momentum)
+        """The running update for statistics computed elsewhere, in place.
+        A result in another dtype than the buffers' replaces them: under the
+        bf16 policy the fused front's fp32 statistics keep an fp32 result,
+        as the JAX package's do."""
+        new = mops.running_update(self.running_mean, self.running_var,
+                                  mean.detach(), var.detach(), count,
+                                  momentum=self.momentum)
+        if new[0].dtype == self.running_mean.dtype:
+            self.running_mean.copy_(new[0])
+            self.running_var.copy_(new[1])
+        else:
+            self.running_mean, self.running_var = new
 
     def running_stats(self):
         return self.running_mean, self.running_var

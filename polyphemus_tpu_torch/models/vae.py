@@ -9,6 +9,11 @@ Counterpart of `polyphemus_tpu/models/vae.py`: `EmbedLinear`,
 training kernels) or the eval form (running statistics, the fused eval GCL
 kernel).
 
+The compute dtype is the parameters' (fp32, or bf16 under the training
+policy of `train/trainer.py`); the fp32 islands sit where the JAX package
+has them: the histogram statistics of the fused front, the attention-pooling
+softmax, the per-slot log-softmax and counts, and the losses.
+
 Layout (as in the JAX package):
   mask:     (B, n_bars, T, S) bool — the structure tensor;
   tokens:   (B, n_bars, T, S, 16, 2) int — (pitch, dur) ids per slot, slot 0
@@ -137,7 +142,7 @@ class ContentEncoder(nn.Module):
                 + fe.gather_sum(t_dd, c_dd, dids_dr) + cb)
         x_nd = (fe.gather_sum(t_pn, c_pn, pids_nd)
                 + fe.gather_sum(t_dn, c_dn, dids_nd) + cb)
-        return torch.cat([x_dr, x_nd], dim=-3)
+        return torch.cat([x_dr, x_nd], dim=-3).to(ck.dtype)
 
     def _plain_front(self, pitch_ids, dur_ids, mask):
         """Per-slot embeddings (..., 15, d/2), masked BN, chord Linear."""
@@ -411,6 +416,7 @@ class VAE(nn.Module):
         if eps is None:
             eps = torch.randn(mu.shape, generator=generator, device=mu.device,
                               dtype=mu.dtype)
+        eps = eps.to(mu.dtype)  # the noise rides the compute dtype
         return mask, mu + torch.exp(0.5 * log_var) * eps, mu, log_var
 
     def forward(self, tokens, mask, *, eps=None,

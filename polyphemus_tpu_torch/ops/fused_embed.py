@@ -12,6 +12,11 @@ lookups, so:
 so the stage becomes 2 × 15 row lookups plus a constant and no
 (cells, 15, d) tensor exists. The lookups are `F.embedding` (the JAX
 package's one-hot matmuls stand in for gathers a TPU serialises).
+
+Dtypes follow the JAX package under the bf16 policy: the statistics are
+fp32 (fp32 histogram and tables; `mean = s1 + bias` promotes), so the
+training-mode affine and fused tables are fp32 and the caller casts the
+result back to the compute dtype.
 """
 from __future__ import annotations
 
@@ -49,9 +54,12 @@ def embedding_stats(table, emb_bias, ids, cell_mask) -> GroupStats:
 def fused_tables(table, emb_bias, a, b, w_slot_rows):
     """table (vocab, h), emb_bias (h,), BN affine a, b (h,), w_slot_rows
     (n_slots, h, d) -> (T (n_slots, vocab, d), const (n_slots, d)) with
-    T_s[v] + const_s == ((table[v] + emb_bias) * a + b) @ w_slot_rows[s]."""
-    t = torch.einsum("vh,shd->svd", table * a, w_slot_rows)
-    const = torch.einsum("h,shd->sd", emb_bias * a + b, w_slot_rows)
+    T_s[v] + const_s == ((table[v] + emb_bias) * a + b) @ w_slot_rows[s],
+    in the dtype the operands promote to."""
+    scaled, offset = table * a, emb_bias * a + b
+    w = w_slot_rows.to(scaled.dtype)
+    t = torch.einsum("vh,shd->svd", scaled, w)
+    const = torch.einsum("h,shd->sd", offset, w)
     return t, const
 
 

@@ -5,8 +5,8 @@ Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
 `gcl_apply_pallas_chain`). Both wrappers launch `csrc/gcl_eval.cu` on a
 CUDA tensor and run their plain PyTorch version on a CPU tensor:
 
-  * `gcl_eval`: K epilogue-fused layers per launch (generation). Per layer
-    and bar (n = T*S = 128 cells),
+  * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
+    GCN of an eval step). Per layer and bar (n = T*S = 128 cells),
         out = relu(((gcl(x) + bias) * m * A + B) * m) + x,
     A, B the folded eval batch-norm affine (identity without batch-norm);
   * `gcl_fwd`: one layer without the epilogue, out = (gcl(x) + bias) * m,
@@ -14,6 +14,13 @@ CUDA tensor and run their plain PyTorch version on a CPU tensor:
 
 gcl(x) = [h_track | h_self | h_onset | h_next | x] @ [W_t; W0; W_on; W_next;
 root], W_t the row block's own track weight.
+
+The compute dtype is x's (fp32 or bf16). In bf16 the plain versions round
+to bf16 where the Pallas body casts to its compute dtype (`_bar_statics`,
+`_layer_math` of `gcl_pallas.py`): each elementwise product, the mean
+reciprocals, the same-column sums, and each of the two projection products
+(`base = dot(...) + bias`, then `+ dot(h_track, W_t)`); every product takes
+bf16 inputs and sums in fp32. In fp32 no rounding step changes a value.
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ CNT_ON, CNT_NX, MASK_CH, SINGLE = 10, 11, 12, 13
 N_AUX = 14
 
 # kernel launches (not plain-path calls) since the counts were last reset:
-# `gcl_eval` and `gcl_fwd`
+# `gcl_eval` and `gcl_fwd`, each in fp32 and in bf16
 launches = 0
+eval_bf16_launches = 0
 fwd_launches = 0
+fwd_bf16_launches = 0
 
 
 def build_kernel_aux(mask: torch.Tensor) -> torch.Tensor:
@@ -105,13 +114,20 @@ class BarStatics(NamedTuple):
     single: torch.Tensor
 
 
+def wide(dt):
+    """The dtype the plain versions carry dt's values in: dt, and fp32 for
+    a 2-byte dt."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def bar_statics(aux, gate_table, dt) -> BarStatics:
-    """Decode aux (nbar, N_AUX, n) into `BarStatics` for gate_table (S, d)."""
+    """Decode aux (nbar, N_AUX, n) into `BarStatics` for gate_table (S, d);
+    the reciprocals are taken in `wide(dt)` and rounded to dt."""
     def ch(c):
         return aux[:, c, :].to(torch.int64)
 
     def recip(cnt, valid):
-        r = 1.0 / cnt.clamp(min=1).to(dt)
+        r = (1.0 / cnt.clamp(min=1).to(wide(dt))).to(dt)
         return torch.where(valid, r, torch.zeros((), dtype=dt,
                                                  device=aux.device))
 
@@ -138,12 +154,20 @@ def rows(v, idx):
 
 
 def col_sum(v, s: int):
-    """Same-column sum over the tracks of v (nbar, T*s, d), broadcast
-    back to every track."""
+    """Same-column sum over the tracks of v (nbar, T*s, d), summed in
+    `wide(v.dtype)` and rounded to v's dtype, broadcast back to every
+    track."""
     nbar, n, d = v.shape
     t = n // s
-    return v.reshape(nbar, t, s, d).sum(1, keepdim=True).expand(
-        nbar, t, s, d).reshape(nbar, n, d)
+    return v.to(wide(v.dtype)).reshape(nbar, t, s, d).sum(
+        1, keepdim=True).to(v.dtype).expand(nbar, t, s, d).reshape(nbar, n, d)
+
+
+def mm(a, b):
+    """a @ b in a's dtype: the inputs' values multiplied and summed in
+    `wide(a.dtype)`, the result rounded once."""
+    w = wide(a.dtype)
+    return (a.to(w) @ b.to(w)).to(a.dtype)
 
 
 def messages(x, st: BarStatics, g0, s: int):
@@ -167,16 +191,20 @@ def _gcl_core(x, st: BarStatics, gate_table, wbig, bias):
     t = n // s
     h_track, h_self, h_onset, h_next = messages(x, st, gate_table[0], s)
     hcat = torch.cat([h_self, h_onset, h_next, x], dim=-1)
-    out = hcat @ wbig[t * d:] + bias
+    out = mm(hcat, wbig[t * d:]) + bias
     out = out + torch.cat(
-        [h_track[:, i * s:(i + 1) * s] @ wbig[i * d:(i + 1) * d]
+        [mm(h_track[:, i * s:(i + 1) * s], wbig[i * d:(i + 1) * d])
          for i in range(t)], dim=1)
     return out * st.m
 
 
 def gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs):
-    """Plain-PyTorch `gcl_eval`: the same arguments, the same result."""
-    st = bar_statics(aux, gate_table, x.dtype)
+    """Plain-PyTorch `gcl_eval`: the same arguments, the same result, in
+    x's dtype (the other tensors are taken in it)."""
+    dt = x.dtype
+    gate_table, wbigs, biases, eas, ebs = (
+        v.to(dt) for v in (gate_table, wbigs, biases, eas, ebs))
+    st = bar_statics(aux, gate_table, dt)
     x_k = x
     for k in range(wbigs.shape[0]):
         out = _gcl_core(x_k, st, gate_table, wbigs[k], biases[k])
@@ -185,9 +213,12 @@ def gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs):
 
 
 def gcl_fwd_plain(x, aux, gate_table, wbig, bias):
-    """Plain-PyTorch `gcl_fwd`: the same arguments, the same result."""
-    return _gcl_core(x, bar_statics(aux, gate_table, x.dtype), gate_table,
-                     wbig, bias)
+    """Plain-PyTorch `gcl_fwd`: the same arguments, the same result, in
+    x's dtype (the other tensors are taken in it)."""
+    dt = x.dtype
+    gate_table = gate_table.to(dt)
+    return _gcl_core(x, bar_statics(aux, gate_table, dt), gate_table,
+                     wbig.to(dt), bias.to(dt))
 
 
 def check_cuda_args(kernel: str, x, want: dict) -> None:
@@ -220,56 +251,69 @@ def on_card(kernel: str, x) -> bool:
 def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs):
     """K stacked epilogue-fused eval GCL layers over bars of n cells.
 
-    x (nbar, n, d) f32 masked node states; aux (nbar, N_AUX, n) int32 from
-    `build_kernel_aux`; gate_table (S, d); wbigs (K, 8d, d) from
-    `pack_weights`; biases, eas, ebs (K, d). Returns (nbar, n, d).
+    x (nbar, n, d) f32 or bf16 masked node states; aux (nbar, N_AUX, n)
+    int32 from `build_kernel_aux`; gate_table (S, d); wbigs (K, 8d, d) from
+    `pack_weights`; biases, eas, ebs (K, d), each in x's dtype. Returns
+    (nbar, n, d) in x's dtype.
     """
-    global launches
+    global launches, eval_bf16_launches
     if not on_card("gcl_eval", x):
         return gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs)
     nbar, n, d = x.shape
     k = wbigs.shape[0]
     if k < 1:
         raise ValueError("gcl_eval: no layers")
-    f32 = torch.float32
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gcl_eval takes float32 or bfloat16, got {dt}")
     check_cuda_args("gcl_eval", x, {
-        "x": (x, (nbar, n, d), f32), "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), f32),
-        "wbigs": (wbigs, (k, 8 * d, d), f32), "biases": (biases, (k, d), f32),
-        "eas": (eas, (k, d), f32), "ebs": (ebs, (k, d), f32)})
+        "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
+        "gate_table": (gate_table, (32, d), dt),
+        "wbigs": (wbigs, (k, 8 * d, d), dt), "biases": (biases, (k, d), dt),
+        "eas": (eas, (k, d), dt), "ebs": (ebs, (k, d), dt)})
     out = torch.empty_like(x)
     scratch = torch.empty_like(x) if k > 1 else out
-    fn = _build.launcher("gcl_eval")
-    err = fn(x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-             wbigs.data_ptr(), biases.data_ptr(), eas.data_ptr(),
-             ebs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-             nbar, d, k, _build.stream_handle(x.device))
-    _build.check("gcl_eval", err)
-    launches += 1
+    name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
+    err = _build.launcher(name)(
+        x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbigs.data_ptr(),
+        biases.data_ptr(), eas.data_ptr(), ebs.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), nbar, d, k, _build.stream_handle(x.device))
+    _build.check(name, err)
+    if dt == torch.float32:
+        launches += 1
+    else:
+        eval_bf16_launches += 1
     return out
 
 
 def gcl_fwd(x, aux, gate_table, wbig, bias):
     """One training-forward GCL layer over bars of n cells.
 
-    x (nbar, n, d) f32; aux (nbar, N_AUX, n) int32 from `build_kernel_aux`;
-    gate_table (S, d); wbig (8d, d) from `pack_weights`; bias (d,). Returns
-    (gcl(x) + bias) * m, (nbar, n, d).
+    x (nbar, n, d) f32 or bf16; aux (nbar, N_AUX, n) int32 from
+    `build_kernel_aux`; gate_table (S, d), wbig (8d, d) from `pack_weights`
+    and bias (d,) in x's dtype. Returns (gcl(x) + bias) * m, (nbar, n, d)
+    in x's dtype.
     """
-    global fwd_launches
+    global fwd_launches, fwd_bf16_launches
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)
     nbar, n, d = x.shape
-    f32 = torch.float32
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gcl_fwd takes float32 or bfloat16, got {dt}")
     check_cuda_args("gcl_fwd", x, {
-        "x": (x, (nbar, n, d), f32), "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), f32),
-        "wbig": (wbig, (8 * d, d), f32), "bias": (bias, (d,), f32)})
+        "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
+        "gate_table": (gate_table, (32, d), dt),
+        "wbig": (wbig, (8 * d, d), dt), "bias": (bias, (d,), dt)})
     out = torch.empty_like(x)
-    err = _build.launcher("gcl_fwd")(
+    name = "gcl_fwd" if dt == torch.float32 else "gcl_fwd_bf16"
+    err = _build.launcher(name)(
         x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbig.data_ptr(),
         bias.data_ptr(), out.data_ptr(), nbar, d,
         _build.stream_handle(x.device))
-    _build.check("gcl_fwd", err)
-    fwd_launches += 1
+    _build.check(name, err)
+    if dt == torch.float32:
+        fwd_launches += 1
+    else:
+        fwd_bf16_launches += 1
     return out

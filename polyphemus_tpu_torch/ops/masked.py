@@ -7,6 +7,11 @@ under the activation mask, as the reference's packed node sets see only real
 nodes. Training mode normalises with the masked biased batch statistics and
 updates the running ones with the unbiased variance (torch's momentum
 convention, momentum 0.1); eval mode uses the running statistics.
+
+Every statistic is taken in x's dtype, as the JAX package's are: under the
+bf16 policy the count too (it sums in fp32 and rounds to bf16, so n / (n -
+1) reads 1 above 256 rows), and the running update runs on the bf16 copies
+of the running statistics.
 """
 from __future__ import annotations
 
@@ -15,27 +20,32 @@ import torch
 
 def masked_moments(x, mask, dims):
     """Mean, biased variance and count of x over `dims`, counting only the
-    mask-true entries. x (..., d); mask broadcastable to x.shape[:-1]."""
+    mask-true entries. x (..., d); mask broadcastable to x.shape[:-1]. The
+    sums run in fp32 or wider (a 2-byte x's squares too, as XLA fuses them
+    into the sum) and round to x's dtype."""
     m = mask.to(x.dtype)[..., None]
     cnt = m.sum(dim=dims)
     cnt_safe = cnt.clamp(min=1.0)
     mean = (x * m).sum(dim=dims) / cnt_safe
-    var = (x.square() * m).sum(dim=dims) / cnt_safe - mean.square()
+    wide = torch.promote_types(x.dtype, torch.float32)
+    sq = (x.to(wide).square() * m).sum(dim=dims).to(x.dtype)
+    var = sq / cnt_safe - mean.square()
     return mean, var.clamp(min=0.0), cnt
 
 
 @torch.no_grad()
 def running_update(running_mean, running_var, mean, var, count, *,
                    momentum: float = 0.1):
-    """In place, outside autograd: new = (1 - momentum) * old + momentum *
-    batch, the variance unbiased by n / (n - 1) over the `count` rows the
-    batch statistics saw."""
-    n = torch.as_tensor(count, dtype=torch.float32,
-                        device=var.device).clamp(min=1.0)
+    """Outside autograd: (new_mean, new_var) with new = (1 - momentum) *
+    old + momentum * batch, the variance unbiased by n / (n - 1) over the
+    `count` rows the batch statistics saw. Each result takes the dtype that
+    its operands promote to (fp32 statistics update bf16 running ones in
+    fp32)."""
+    n = torch.as_tensor(count, device=var.device).clamp(min=1.0)
     unbias = torch.where(n > 1, n / (n - 1.0).clamp(min=1.0),
                          torch.ones_like(n))
-    running_mean.mul_(1 - momentum).add_(momentum * mean)
-    running_var.mul_(1 - momentum).add_(momentum * var * unbias)
+    return ((1 - momentum) * running_mean + momentum * mean,
+            (1 - momentum) * running_var + momentum * var * unbias)
 
 
 def batch_norm_masked(x, scale, bias, running_mean, running_var, *,
@@ -54,8 +64,11 @@ def batch_norm_masked(x, scale, bias, running_mean, running_var, *,
     mask = mask.expand(x.shape[:-1])
     dims = tuple(range(x.dim() - 1))
     mean, var, count = masked_moments(x, mask, dims)
-    running_update(running_mean, running_var, mean, var, count,
-                   momentum=momentum)
+    new_mean, new_var = running_update(running_mean, running_var,
+                                       mean.detach(), var.detach(), count,
+                                       momentum=momentum)
+    running_mean.copy_(new_mean)
+    running_var.copy_(new_var)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 

@@ -15,11 +15,18 @@ Counterpart of `polyphemus_tpu/train/trainer.py`:
     evaluation, the rolling `checkpoint` and `best_model` saves, resume, and
     an abort after `max_nan_steps` consecutive non-finite losses.
 
-Not ported, and refused when asked for: bf16 training, TensorBoard, model
-parallelism; checkpoints are written synchronously.
+With `cfg.bf16` the train and eval steps run the JAX package's bf16 compute
+policy (`compute_dtype`): the model computes on bf16 copies of the fp32
+master parameters and batch-norm statistics, the grads flow through the
+casts into the fp32 masters that Adam updates, and the new running
+statistics come back to the fp32 masters. Checkpoints stay fp32.
+
+Not ported, and refused when asked for: TensorBoard, model parallelism;
+checkpoints are written synchronously.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -45,6 +52,45 @@ def make_optimizer(model, cfg: TrainConfig) -> torch.optim.Optimizer:
         return torch.optim.AdamW(model.parameters(),
                                  weight_decay=opt.weight_decay, **kw)
     return torch.optim.Adam(model.parameters(), **kw)
+
+
+@contextlib.contextmanager
+def compute_dtype(model, dtype):
+    """Run `model` in `dtype` over its fp32 masters.
+
+    Inside, every float parameter reads as a differentiable cast of its
+    master (grads flow back into the master) and every float buffer as a
+    `dtype` copy. On a normal exit each buffer that was updated (a
+    batch-norm running update, in place or as a new tensor in the dtype it
+    was computed in) is written to its fp32 master; on any exit the masters
+    are back in place. A backward that recomputes part of the forward
+    (`torch.utils.checkpoint`) must run inside too."""
+    swapped = []
+    for mod in model.modules():
+        for store in (mod._parameters, mod._buffers):
+            for name, master in list(store.items()):
+                if master is not None and master.is_floating_point():
+                    copy = master.to(dtype)
+                    swapped.append((store is mod._buffers, store, name,
+                                    master, copy, copy._version))
+                    store[name] = copy
+    try:
+        yield
+        with torch.no_grad():
+            for is_buffer, store, name, master, copy, version in swapped:
+                now = store[name]
+                if is_buffer and (now is not copy or now._version != version):
+                    master.copy_(now)
+    finally:
+        for _, store, name, master, _, _ in swapped:
+            store[name] = master
+
+
+def _policy(model, cfg: TrainConfig):
+    """The compute-dtype context of one forward (and backward) of `model`
+    under `cfg`."""
+    return (compute_dtype(model, torch.bfloat16) if cfg.bf16
+            else contextlib.nullcontext())
 
 
 def lr_at(cfg: TrainConfig, updates: int) -> float:
@@ -85,7 +131,8 @@ def _mean(dicts: list) -> dict:
 class TrainStep:
     """step(tokens, mask, *, eps=None, generator=None) -> (losses, accs):
     one optimizer update of `model` in place, in full fp32 (no TF32 in
-    matmuls or convolutions). `eps` (B, d) is the reparameterisation noise
+    matmuls or convolutions) or under the bf16 policy (`cfg.bf16`; bf16
+    products reduce in fp32). `eps` (B, d) is the reparameterisation noise
     of the whole batch, else it is drawn from `generator`. `updates` counts
     the completed updates."""
 
@@ -115,11 +162,12 @@ class TrainStep:
         losses_h, accs_h = [], []
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
-            tot, losses, accs = forward_loss(
-                model, cfg, tokens[sl], mask[sl], beta,
-                eps=None if eps is None else eps[sl], generator=generator,
-                with_metrics=self.with_metrics)
-            tot.backward()
+            with _policy(model, cfg):
+                tot, losses, accs = forward_loss(
+                    model, cfg, tokens[sl], mask[sl], beta,
+                    eps=None if eps is None else eps[sl], generator=generator,
+                    with_metrics=self.with_metrics)
+                tot.backward()
             losses_h.append({k: v.detach() for k, v in losses.items()})
             accs_h.append(accs)
         if accum > 1:
@@ -148,7 +196,7 @@ def eval_step(model, cfg: TrainConfig, tokens, mask, updates: int, *,
                                                     updates)
     model.eval()
     try:
-        with exact_fp32():
+        with exact_fp32(), _policy(model, cfg):
             _, losses, accs = forward_loss(model, cfg, tokens, mask, beta,
                                            eps=eps, generator=generator)
     finally:
@@ -165,8 +213,6 @@ class Trainer:
         if tensorboard:
             raise NotImplementedError(
                 "TensorBoard is not ported; metrics.jsonl has every number")
-        if cfg.bf16:
-            raise NotImplementedError("bf16 training is not ported")
         if cfg.parallel.model_axis != 1:
             raise NotImplementedError("model parallelism is not ported")
         self.model_dir = model_dir

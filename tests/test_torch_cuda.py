@@ -35,10 +35,11 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("k_layers", [1, 2, 3])
 @pytest.mark.parametrize("d", [128, 512])
-def test_gcl_eval_kernel_matches_plain(cuda, d, k_layers):
-    chip_smoke.check_gcl(6, d, k_layers, cuda, timing=False)
+def test_gcl_eval_kernel_matches_plain(cuda, d, k_layers, bf16):
+    chip_smoke.check_gcl(6, d, k_layers, cuda, timing=False, bf16=bf16)
 
 
 @pytest.mark.parametrize("d", [128, 256, 512])
@@ -75,8 +76,47 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     before = chip_smoke.train_kernel_counts()
     chip_smoke.compare_train_step(mc, 8, cuda, seed=3)
     after = chip_smoke.train_kernel_counts()
-    # one microbatch through 2 GNN stacks of 2 layers
-    assert {k: after[k] - before[k] for k in after} == {k: 4 for k in after}
+    # one microbatch through 2 GNN stacks of 2 layers, all in fp32
+    assert {k: after[k] - before[k] for k in after} == {
+        "gcl_fwd": 4, "gcl_bwd_data": 4, "gcl_bwd_weight": 4,
+        "gcl_fwd_bf16": 0, "gcl_bwd_fused": 0}
+
+
+@pytest.mark.parametrize("nbar", [3, 40])
+@pytest.mark.parametrize("d", [128, 512])
+def test_bf16_training_kernels_match_plain(cuda, d, nbar):
+    chip_smoke.check_gcl_train_bf16(nbar, d, cuda, timing=False)
+
+
+@pytest.mark.parametrize("nbar", [1, 3, 40])
+@pytest.mark.parametrize("d", [128, 512])
+def test_fused_backward_fp32_matches_plain(cuda, d, nbar):
+    chip_smoke.check_fused_fp32(nbar, d, cuda, timing=False)
+
+
+def test_fused_backward_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 128, 128, device=cuda, dtype=torch.bfloat16)
+    aux = torch.zeros(2, 14, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="wbig must be"):
+        gcl_bwd.gcl_bwd_fused(x, x, aux, x[0, :32], x[0].float())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gcl_bwd.gcl_bwd_fused(x.half(), x.half(), aux, x[0, :32].half(),
+                              x[0].half())
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
+                     batch_norm=True)
+    before = chip_smoke.train_kernel_counts()
+    eval_before = gcl.eval_bf16_launches
+    chip_smoke.compare_train_step(mc, chip_smoke.BF16_CMP_BATCH, cuda,
+                                  seed=3, bf16=True)
+    after = chip_smoke.train_kernel_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "gcl_fwd": 0, "gcl_bwd_data": 0, "gcl_bwd_weight": 0,
+        "gcl_fwd_bf16": 4, "gcl_bwd_fused": 4}
+    # the eval step before it: 2 GNN stacks of 2 layers, chain 1
+    assert gcl.eval_bf16_launches - eval_before == 4
 
 
 def _top2_gap(logits):

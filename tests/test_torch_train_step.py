@@ -74,10 +74,10 @@ def jax_eps(jmodel, params, rngs, d):
         {"params": params}, method=draw, rngs={"sample": r})) for r in rngs])
 
 
-def jax_reference_step(jmodel, cfg, variables, toks, mask, rng):
+def jax_reference_step(jmodel, cfg, variables, toks, mask, rng, mb=MB):
     """(losses, accs, grads, new params, new batch stats), each flat numpy,
-    of one JAX train step."""
-    key = cfg.model.use_pallas_gcl
+    of one JAX train step over microbatches of mb samples."""
+    key = (cfg.model.use_pallas_gcl, cfg.bf16)
     if key not in _GRAD_FNS:
         _GRAD_FNS[key] = jax.jit(jax.value_and_grad(
             lambda p, bs, t, m, r: _forward_loss(jmodel, cfg, p, bs, t, m,
@@ -89,7 +89,7 @@ def jax_reference_step(jmodel, cfg, variables, toks, mask, rng):
     stats = jax_tree(variables["batch_stats"])
     gsum, hist = None, []
     for i, r in enumerate(microbatch_rngs(rng, accum)):
-        sl = slice(i * MB, (i + 1) * MB)
+        sl = slice(i * mb, (i + 1) * mb)
         (_, (l_, a_, stats)), g = grad_fn(params, stats,
                                           jnp.asarray(toks[sl]),
                                           jnp.asarray(mask[sl]), r)
