@@ -34,7 +34,21 @@
    MIDI headers, that both kernels launched (4 `gcl_eval` launches and 1
    `chord_tail` launch per device call), and that the n = 8 result equals
    the same request on the CPU by the threshold and tie rules.
+2d. The bf16 generation kernels at 512 bars: `chord_tail` in bf16 (ids
+   equal outside top-2 gaps < 1e-4 of its fp32 logits) and `gcl_eval` in
+   bf16 at K = 2 (within 2e-2 x max |plain|), timed as in 2c.
 4. Batch-256 throughput by bench.py's protocol (20 calls, median of 3).
+4b. The same in bf16 (`make_generator(bf16=True)`): exactly 4 bf16
+   `gcl_eval` and 1 bf16 `chord_tail` launch per call and no fp32 one; an
+   n = 8 bf16 request on the card against the CPU, unconditioned and on a
+   given structure (masks equal where |s_logit| > 0.03, at most 1 % of
+   cells flipped; in the bars whose masks agree the GCN output within
+   2e-2 x max |cpu| and ids equal outside top-2 gaps of the fp32 chord-tail
+   logits below twice their largest card-vs-CPU difference, a band that may
+   cover at most 25 % of the active ids); then the port's
+   `generate` CLI on the card (fp32 and --bf16, MIDI that parses, the
+   launches of 2 calls) and its `reconstruct` CLI on 2 samples (8 encoder
+   and 4 decoder `gcl_eval` launches, 1 `chord_tail`).
 5. Trains the flagship config (`examples/training_lmd2.json`: batch 256 in
    4 microbatches of 64, fp32) through `cli.train.main()` for 4 optimizer
    steps on 512 synthetic reference-format `.npz` samples: every loss and
@@ -467,30 +481,49 @@ def chord_inputs(nbar, d, device, seed):
     return mask.to(device), [v.contiguous().to(device) for v in [x] + p]
 
 
-def chord_gaps(x, ck, cb, pkd, pbd, pkn, pbn, dk, db):
-    """Top-2 logit gaps (..., T, S, 15, 2) of the plain chord tail."""
+def chord_logits(x, params):
+    """Per slot, the plain chord tail's (pitch, dur) logits for x (..., T,
+    S, d) and params (ck, cb, pkd, pbd, pkn, pbn, dk, db), in fp32 (or
+    wider) for bf16 operands too: a generator of 15 pairs."""
     import torch
 
+    x = x.float()
+    ck, cb, pkd, pbd, pkn, pbn, dk, db = (a.float() for a in params)
     d = x.shape[-1]
     h = d // 2
-    gaps = []
     for s in range(15):
         sh = x @ ck[:, s * d:(s + 1) * d] + cb[s * d:(s + 1) * d]
         pitch = torch.cat([sh[..., :1, :, :h] @ pkd + pbd,
                            sh[..., 1:, :, :h] @ pkn + pbn], dim=-3)
-        dur = sh[..., h:] @ dk + db
+        yield pitch, sh[..., h:] @ dk + db
+
+
+def chord_gaps(x, *params):
+    """Top-2 logit gaps (..., T, S, 15, 2) of the plain chord tail."""
+    import torch
+
+    gaps = []
+    for pitch, dur in chord_logits(x, params):
         g2 = [v.topk(2, dim=-1).values for v in (pitch, dur)]
         gaps.append(torch.stack([v[..., 0] - v[..., 1] for v in g2], -1))
     return torch.stack(gaps, dim=-2)
 
 
-def check_chord(nbar, d, device, timing=True):
+def check_chord(nbar, d, device, timing=True, bf16=False):
+    """`chord_tail` against its plain version: ids equal except where the
+    plain top-2 logit gap is below TIE (`bf16`: x and every weight and bias
+    cast to bf16; the logits are fp32 sums either way, so the rule is the
+    same); with timing, ms per launch and the bound (bf16: on the bf16
+    tensor cores, `cuda_core_bound_ms` on the fp32 CUDA cores it runs
+    on)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import chord_tail
 
     mask, args = chord_inputs(nbar, d, device, SEED + 7)
-    before = chord_tail.launches
+    if bf16:
+        args = [a.to(torch.bfloat16) for a in args]
+    before = (chord_tail.launches, chord_tail.bf16_launches)
     out = chord_tail.chord_tail_tokens(*args, n_slots=15)
     ref = chord_tail.chord_tail_plain(*args, n_slots=15)
     gaps = chord_gaps(*args)
@@ -521,9 +554,16 @@ def check_chord(nbar, d, device, timing=True):
         per_row = 15 * (2.0 * d * d + 2.0 * h * (131 + 99))
         nbytes = sum(a.numel() * a.element_size() for a in args) \
             + out.numel() * 4
-        res["bound_ms"], res["bound_by"] = bound_ms(rows * per_row, nbytes)
-        res["dense_bound_ms"] = bound_ms(mask.numel() * per_row, nbytes)[0]
-    chord_tail.launches = before
+        peak = BF16_TFLOPS if bf16 else FP32_TFLOPS
+        res["bound_ms"], res["bound_by"] = bound_ms(rows * per_row, nbytes,
+                                                    peak)
+        res["dense_bound_ms"] = bound_ms(mask.numel() * per_row, nbytes,
+                                         peak)[0]
+        if bf16:
+            res["cuda_core_bound_ms"] = bound_ms(rows * per_row, nbytes)[0]
+            res["dense_cuda_core_bound_ms"] = bound_ms(
+                mask.numel() * per_row, nbytes)[0]
+    chord_tail.launches, chord_tail.bf16_launches = before
     return res
 
 
@@ -661,6 +701,154 @@ def compare_with_cpu(model_dir, n8, device):
           f"n=8 tokens differ from the CPU at {int((diff & ~tie).sum())} ids")
     return {"mask_flips": flips, "id_mismatches_at_ties": int((diff & tie).sum()),
             "near_ties": int(tie.sum())}
+
+
+# ------------------------------------------- phase 4b: bf16 generation, CLIs
+S_TIE_BF16 = 0.03     # bf16 masks: equal where |s_logit| > this (the bf16
+#                       sigmoid 1 / (1 + exp(-s)) reads 0.5 down to
+#                       s = -0.0117; two bf16 ulps beyond that)
+BF16_FLIP_SHARE = 1e-2  # bf16: most cells that may flip near the threshold
+BF16_TIE_SHARE = 0.25   # bf16: most active ids the tie band may excuse
+
+
+def compare_bf16_with_cpu(model_dir, device, n=8, seed=9):
+    """bf16 generation of n sequences on the card against the same on the
+    CPU (the kernels against their plain versions inside the whole decode),
+    unconditioned and on a given structure (`bar_masks`, realistic
+    densities: a random-init model's own masks can be nearly empty).
+
+    Unconditioned: masks equal where |s_logit| > S_TIE_BF16, at most
+    BF16_FLIP_SHARE of cells flipped. In the bars whose masks agree (a
+    flipped cell changes its bar's graph): the GCN output within BF16_REL
+    of its max |cpu| (8 layers of bf16 rounding in two summation orders);
+    ids equal except where the CPU's top-2 gap of the chord tail's fp32
+    logits is below 2 delta + TIE, delta the largest difference between the
+    logits of the two GCN outputs (a logit pair can swap only within that;
+    TIE covers the kernel's fp32 summation order); that band may excuse at
+    most BF16_TIE_SHARE of the active ids."""
+    import torch
+
+    from polyphemus_tpu_torch.generate import load_model, make_generator
+    from polyphemus_tpu_torch.serve import host_z
+
+    seen = {"cpu": {}, "card": {}}
+    models = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        model, cfg = load_model(model_dir, dev)
+        # the generator's bf16 copy of the model keeps these hooks
+        model.decoder.s_decoder.register_forward_hook(
+            lambda mod, args, out, k=name: seen[k].update(s=out.float()))
+        model.decoder.c_decoder.graph_decoder.register_forward_hook(
+            lambda mod, args, out, k=name: seen[k].update(x=out))
+        models[name] = model
+    mc = cfg.model
+    cd = models["cpu"].decoder.c_decoder
+    weights = [p.detach().to(torch.bfloat16) for p in (
+        cd.chord_decoder.kernel, cd.chord_decoder.bias,
+        cd.drums_pitch_emb.kernel, cd.drums_pitch_emb.bias,
+        cd.non_drums_pitch_emb.kernel, cd.non_drums_pitch_emb.bias,
+        cd.dur_emb.kernel, cd.dur_emb.bias)]
+    z = host_z(seed, n, mc.d)
+    given = torch.from_numpy(bar_masks(n * mc.n_bars, mc.n_tracks,
+                                       mc.n_timesteps, seed)).reshape(
+        n, mc.n_bars, mc.n_tracks, mc.n_timesteps)
+    res = {"n": n}
+    for name, inputs in (("unconditioned", (z,)), ("conditioned", (z, given))):
+        cond = len(inputs) == 2
+        m_c, t_c = make_generator(models["cpu"], conditioned=cond, bf16=True,
+                                  device="cpu")(*inputs)
+        m_g, t_g = make_generator(models["card"], conditioned=cond,
+                                  bf16=True, device=device)(
+            *(v.to(device) if torch.is_tensor(v) else v for v in inputs))
+        m_g, t_g = m_g.cpu(), t_g.cpu()
+        flips = m_g != m_c
+        r = {"mask_flips": int(flips.sum()), "cells": flips.numel(),
+             "active_cells": int(m_c.sum())}
+        if not cond:
+            s_c = seen["cpu"]["s"]
+            clear = s_c.abs() > S_TIE_BF16
+            check(torch.equal(m_g[clear], m_c[clear]),
+                  f"bf16 n={n}: {int((flips & clear).sum())} mask cells "
+                  f"differ from the CPU at |s_logit| > {S_TIE_BF16}")
+            check(flips.float().mean().item() <= BF16_FLIP_SHARE,
+                  f"bf16 n={n}: {int(flips.sum())} mask cells flipped")
+            r["max_abs_s_logit"] = s_c.abs().max().item()
+            r["s_logit_max_abs_err"] = (seen["card"]["s"].cpu()
+                                        - s_c).abs().max().item()
+        same = ~flips.any(dim=-1).any(dim=-1)
+        check(same.any().item(), "bf16: every bar has a flipped cell")
+        x_c = seen["cpu"]["x"][same].float()
+        x_g = seen["card"]["x"].cpu()[same].float()
+        state_err = (x_g - x_c).abs().max().item()
+        check(state_err <= BF16_REL * x_c.abs().max().item(),
+              f"bf16 {name}: GCN output off by {state_err:.3e} (max "
+              f"{x_c.abs().max().item():.3e})")
+        delta = max((a - b).abs().max().item()
+                    for lc, lg in zip(chord_logits(x_c, weights),
+                                      chord_logits(x_g, weights))
+                    for a, b in zip(lc, lg))
+        tie = chord_gaps(x_c, *weights) < 2 * delta + TIE
+        diff = t_g[same] != t_c[same]
+        check(not (diff & ~tie).any().item(),
+              f"bf16 {name} n={n}: {int((diff & ~tie).sum())} ids differ "
+              f"from the CPU outside top-2 gaps < {2 * delta + TIE:.3e}")
+        active = m_c[same]
+        tie_share = tie[active].float().mean().item()
+        check(tie_share <= BF16_TIE_SHARE,
+              f"bf16 {name}: the tie band excuses {tie_share:.3f} of the "
+              f"active ids")
+        r.update({"bars_compared": int(same.sum()), "bars": same.numel(),
+                  "gcn_max_abs_err": state_err,
+                  "gcn_max_abs": x_c.abs().max().item(),
+                  "logit_max_abs_err": delta,
+                  "id_mismatches": int(diff[active].sum()),
+                  "ids": int(diff[active].numel()),
+                  "near_tie_share": tie_share})
+        res[name] = r
+    return res
+
+
+def cli_phase(model_dir, device, out_dir, samples):
+    """The port's generate CLI on the card (fp32, then `--bf16`) and its
+    reconstruct CLI on `samples`; each must write MIDI files that parse and
+    launch the kernels of its path: per generation call 4 `gcl_eval` (or 4
+    bf16) and 1 `chord_tail` (or bf16) launch; the CLI makes 2 calls (one
+    warm-up). Reconstruct runs the encoder's GCN (8 layers at K = 1) and a
+    conditioned decode."""
+    from polyphemus_tpu_torch.cli import generate as gen_cli
+    from polyphemus_tpu_torch.cli import reconstruct as rec_cli
+    from polyphemus_tpu_torch.midi import read_midi
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n = 4
+    res = {}
+    for name, extra in (("generate", []), ("generate_bf16", ["--bf16"])):
+        gcl.launches = gcl.eval_bf16_launches = 0
+        chord_tail.launches = chord_tail.bf16_launches = 0
+        out = os.path.join(out_dir, name)
+        gen_cli.main([model_dir, out, "--n", str(n), "--no_audio",
+                      "--seed", "2", "--device", str(device), *extra])
+        got = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
+               chord_tail.bf16_launches)
+        want = (0, 0, 8, 2) if extra else (8, 2, 0, 0)
+        check(got == want, f"{name} CLI launches {got}, expected {want}")
+        notes = 0
+        for i in range(n):
+            song, tpq, _ = read_midi(os.path.join(out, str(i),
+                                                  "generated.mid"))
+            notes += sum(len(t.notes) for t in song.tracks)
+        res[name] = {"files": n, "notes": notes, "launches": got}
+    gcl.launches = chord_tail.launches = 0
+    out = os.path.join(out_dir, "reconstruct")
+    rec_cli.main([model_dir, *samples, out, "--device", str(device)])
+    got = (gcl.launches, chord_tail.launches)
+    check(got == (12, 1), f"reconstruct CLI launches {got}, expected (12, 1)")
+    for i in range(len(samples)):
+        for name in ("original", "reconstructed"):
+            read_midi(os.path.join(out, str(i), name + ".mid"))
+    res["reconstruct"] = {"samples": len(samples), "launches": got}
+    return res
 
 
 # -------------------------------------------------------- phase 5: training
@@ -1029,13 +1217,15 @@ def profile_train_step(trainer, batch, device, path):
 
 
 # ----------------------------------------------------------- phase 4: bench
-def bench(model_dir, device, batch=256, rounds=20):
+def bench(model_dir, device, batch=256, rounds=20, bf16=False):
+    """Batched generation by bench.py's protocol: one warm call, then the
+    median of 3 passes of `rounds` calls (`calls` counts them all)."""
     import torch
 
     from polyphemus_tpu_torch.generate import load_model, make_generator
 
     model, cfg = load_model(model_dir, device)
-    gen = make_generator(model, device=device)
+    gen = make_generator(model, bf16=bf16, device=device)
     g = torch.Generator(device=device).manual_seed(100)
     zs = [torch.randn(batch, cfg.model.d, generator=g, device=device)
           for _ in range(rounds)]
@@ -1050,9 +1240,10 @@ def bench(model_dir, device, batch=256, rounds=20):
         times.append(time.perf_counter() - t0)
     del out
     dt = statistics.median(times)
-    return {"metric": "lmd2_batched_generation", "value": rounds * batch / dt,
-            "unit": "seq/s", "batch": batch, "call_ms": dt / rounds * 1e3,
-            "passes_s": times}
+    return {"metric": "lmd2_batched_generation" + ("_bf16" if bf16 else ""),
+            "value": rounds * batch / dt, "unit": "seq/s", "batch": batch,
+            "call_ms": dt / rounds * 1e3, "passes_s": times,
+            "calls": 1 + 3 * rounds}
 
 
 def main() -> int:
@@ -1128,6 +1319,15 @@ def main() -> int:
     print(f"fused vs split backward, fp32 (128 bars, d=512, {card}):",
           json.dumps(fused32))
 
+    # ---- 2d. the bf16 generation kernels: chord tail, eval GCL at K = 2 ----
+    print("small-shape bf16 chord tail check (8 bars, d=512):", json.dumps(
+        check_chord(8, 512, device, timing=False, bf16=True)))
+    chord16 = check_chord(512, 512, device, bf16=True)
+    gen16_k = check_gcl(512, 512, 2, device, bf16=True)
+    print(f"bf16 generation kernel check (512 bars, d=512, {card}):",
+          json.dumps({"chord_tail_bf16": chord16,
+                      "gcl_eval_bf16_k2": gen16_k}))
+
     # ---- 3. the service on the card ----
     mc = ModelConfig(d=512, gnn_n_layers=8, n_bars=2, resolution=8,
                      dropout=0.0, batch_norm=True)
@@ -1151,6 +1351,33 @@ def main() -> int:
     res.update({"card": card, "gcl_eval_launches_per_call": 4,
                 "kernel_ms_per_call": 4 * gcl2["ms"] + chord["ms"]})
     print("bench:", json.dumps(res))
+
+    # ---- 4b. bf16 generation at batch 256, then the CLIs on the card ----
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+
+    gcl.eval_bf16_launches = chord_tail.bf16_launches = 0
+    gcl.launches = chord_tail.launches = 0
+    # ---- the main path ----
+    res16 = bench(model_dir, device, bf16=True)
+    gen16_launches = {"gcl_eval_bf16_k2": gcl.eval_bf16_launches,
+                      "chord_tail_bf16": chord_tail.bf16_launches}
+    check(gen16_launches == {"gcl_eval_bf16_k2": 4 * res16["calls"],
+                             "chord_tail_bf16": res16["calls"]}
+          and gcl.launches == chord_tail.launches == 0,
+          f"bf16 generation: launches {gen16_launches} (fp32 "
+          f"{gcl.launches}, {chord_tail.launches}) in {res16['calls']} calls")
+    res16.update({"card": card, "launches": gen16_launches,
+                  "kernel_ms_per_call": 4 * gen16_k["ms"] + chord16["ms"]})
+    print("bf16 bench:", json.dumps(res16))
+    cmp16 = compare_bf16_with_cpu(model_dir, device)
+    print("bf16 n=8 against the CPU:", json.dumps(cmp16))
+    samples_dir = os.path.join(ROOT, "build", "chip_smoke_samples")
+    write_dataset(samples_dir, 2, mc.n_bars, SEED + 1)
+    clis = cli_phase(model_dir, device, os.path.join(ROOT, "build",
+                                                     "chip_smoke_cli"),
+                     sorted(os.path.join(samples_dir, f)
+                            for f in os.listdir(samples_dir)))
+    print("CLIs on the card:", json.dumps(clis))
 
     # ---- 5. training on the card ----
     config_path = os.path.join(ROOT, "examples", "training_lmd2.json")
@@ -1229,7 +1456,7 @@ def main() -> int:
     print("bf16 train step profile:", json.dumps(prof16))
 
     # ---- 7. results ----
-    launches = dict(launches, **train_launches)
+    launches = dict(launches, **train_launches, **gen16_launches)
     launches.update({k: bf16_launches[k]
                      for k in ("gcl_fwd_bf16", "gcl_bwd_fused",
                                "gcl_eval_bf16")})
@@ -1263,7 +1490,11 @@ def main() -> int:
               "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:453",
               bf16_k["gcl_bwd_fused"]),
         entry("gcl_eval_bf16", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
-              "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", eval16_k)]
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", eval16_k),
+        entry("gcl_eval_bf16_k2", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gen16_k),
+        entry("chord_tail_bf16", "polyphemus_tpu_torch/csrc/chord_tail.cu",
+              "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord16)]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
         [--port 8000] [--batch_cap 256] [--tiers 1 8 64 256] [--no_warmup]
         [--no_coalesce] [--device cuda]
 
-MODEL_DIR is a directory written by `polyphemus_tpu_torch.convert.
-save_checkpoint`. The server runs on the CUDA device unless `--device cpu`
+MODEL_DIR is a model directory of the JAX package (`checkpoint.msgpack`),
+of the reference (`checkpoint` + `configuration`) or of the port
+(`checkpoint.pt`). The server runs on the CUDA device unless `--device cpu`
 is given. See polyphemus_tpu_torch/serve.py for the API.
 """
 from __future__ import annotations

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 from . import constants
 
@@ -127,9 +127,29 @@ def load_train_config(path: str) -> TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     """Rendering config: MIDI programs per track and the soundfont path
-    (audio rendering is not ported yet)."""
+    (the reference's generation_config.yaml keys)."""
 
     midi_programs: Mapping[str, int] = dataclasses.field(
         default_factory=lambda: dict(constants.DEFAULT_MIDI_PROGRAMS))
     soundfont_path: str = constants.DEFAULT_SOUNDFONT_PATH
+
+    @staticmethod
+    def load(path: Optional[str]) -> "GenerationConfig":
+        """From a YAML or JSON file with MIDI_PROGRAMS / SOUNDFONT_PATH (the
+        defaults when `path` is None)."""
+        if path is None:
+            return GenerationConfig()
+        with open(path) as f:
+            text = f.read()
+        if str(path).endswith((".yaml", ".yml")):
+            import yaml
+
+            raw = yaml.safe_load(text) or {}
+        else:
+            raw = json.loads(text)
+        return GenerationConfig(
+            midi_programs=raw.get("MIDI_PROGRAMS",
+                                  dict(constants.DEFAULT_MIDI_PROGRAMS)),
+            soundfont_path=raw.get("SOUNDFONT_PATH",
+                                   constants.DEFAULT_SOUNDFONT_PATH))
 

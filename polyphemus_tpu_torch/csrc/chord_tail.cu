@@ -13,6 +13,14 @@
 // Only the int32 ids reach device memory, in the (bar, T, S, slot, 2) layout
 // of the JAX function; the logits and the slot hiddens stay on chip.
 //
+// The kernel is templated on the element type E of x and W_slot (fp32 or
+// bf16). As in the Pallas body with a bf16 x, the bf16 form multiplies bf16
+// values and sums in fp32, adds the fp32-upcast bias, and keeps h in fp32
+// (it is not rounded to bf16); the unembeds take that fp32 h against the
+// bf16-valued weights, which the wrapper passes upcast to fp32 with the
+// fp32 biases (bf16 rows of 131 or 99 values would not be 16-byte aligned;
+// the upcast is exact).
+//
 // What bounds it on an H100: operations. Per cell and slot it does
 // 2 * d * d + 2 * (d/2) * (131 + 99) flops (0.64 MFLOP at d = 512) and reads
 // d * 4 bytes of state, so fp32 FMA throughput on the CUDA cores (no TF32)
@@ -28,7 +36,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "gcl_common.cuh"
+
 namespace {
+
+using gcl::Elem;
 
 constexpr int R = 32;            // rows per CTA: one track row of one bar
 constexpr int T = 4;             // tracks per bar
@@ -38,8 +50,17 @@ constexpr int THREADS = 256;
 constexpr int NS = 15;           // note slots
 constexpr int LG = 232;          // logits row stride (131 + 99, padded)
 
+// two consecutive elements through fp32 (8-byte aligned for fp32, 4 for bf16)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 2)
-chord_tail_kernel(const float* __restrict__ x, const float* __restrict__ ck,
+chord_tail_kernel(const E* __restrict__ x, const E* __restrict__ ck,
                   const float* __restrict__ cb, const float* __restrict__ pkd,
                   const float* __restrict__ pbd, const float* __restrict__ pkn,
                   const float* __restrict__ pbn, const float* __restrict__ dk,
@@ -56,9 +77,9 @@ chord_tail_kernel(const float* __restrict__ x, const float* __restrict__ ck,
   const int slot = blockIdx.y;
   const int tid = threadIdx.x;
   const int h = d / 2;
-  const float* xt = x + (size_t)tile * R * d;
+  const E* xt = x + (size_t)tile * R * d;
   const size_t ldc = (size_t)NS * d;
-  const float* wc = ck + (size_t)slot * d;
+  const E* wc = ck + (size_t)slot * d;
   const float* bc = cb + (size_t)slot * d;
 
   // ---- 1. h = x_tile @ W_slot + b_slot -> sh ----
@@ -72,7 +93,7 @@ chord_tail_kernel(const float* __restrict__ x, const float* __restrict__ ck,
     for (int k0 = 0; k0 < d; k0 += BK) {
       {
         const int r = tid >> 3, q = (tid & 7) * 2;
-        const float2 v = *reinterpret_cast<const float2*>(xt + (size_t)r * d + k0 + q);
+        const float2 v = load2(xt + (size_t)r * d + k0 + q);
         as[q * R + r] = v.x;
         as[(q + 1) * R + r] = v.y;
       }
@@ -83,7 +104,7 @@ chord_tail_kernel(const float* __restrict__ x, const float* __restrict__ ck,
         const int col = n0 + c4 * 4;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (col < d)
-          v = *reinterpret_cast<const float4*>(wc + (size_t)(k0 + q) * ldc + col);
+          v = Elem<E>::load4(wc + (size_t)(k0 + q) * ldc + col);
         *reinterpret_cast<float4*>(&bs[q * CT + c4 * 4]) = v;
       }
       __syncthreads();
@@ -173,23 +194,45 @@ chord_tail_kernel(const float* __restrict__ x, const float* __restrict__ ck,
 
 }  // namespace
 
+template <typename E>
+static int launch(const void* x, const void* ck, const void* cb,
+                  const void* pkd, const void* pbd, const void* pkn,
+                  const void* pbn, const void* dk, const void* db, void* ids,
+                  int nbar, int d, int n_slots, int vp, int vd, void* stream) {
+  if (nbar <= 0) return 0;
+  if (n_slots != NS || d % 128 != 0 || vp + vd > THREADS || vp + vd > LG)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)((BK * R + BK * CT + R * (d + 4)) * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      chord_tail_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nbar * T, NS);
+  chord_tail_kernel<E><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const E*)x, (const E*)ck, (const float*)cb, (const float*)pkd,
+      (const float*)pbd, (const float*)pkn, (const float*)pbn,
+      (const float*)dk, (const float*)db, (int*)ids, d, vp, vd);
+  return (int)cudaGetLastError();
+}
+
+// x and ck in fp32; every other operand fp32
 extern "C" int chord_tail_launch(const void* x, const void* ck, const void* cb,
                                  const void* pkd, const void* pbd,
                                  const void* pkn, const void* pbn,
                                  const void* dk, const void* db, void* ids,
                                  int nbar, int d, int n_slots, int vp, int vd,
                                  void* stream) {
-  if (nbar <= 0) return 0;
-  if (n_slots != NS || d % 128 != 0 || vp + vd > THREADS || vp + vd > LG)
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)((BK * R + BK * CT + R * (d + 4)) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      chord_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nbar * T, NS);
-  chord_tail_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)ck, (const float*)cb, (const float*)pkd,
-      (const float*)pbd, (const float*)pkn, (const float*)pbn,
-      (const float*)dk, (const float*)db, (int*)ids, d, vp, vd);
-  return (int)cudaGetLastError();
+  return launch<float>(x, ck, cb, pkd, pbd, pkn, pbn, dk, db, ids, nbar, d,
+                       n_slots, vp, vd, stream);
+}
+
+// x and ck in bf16; every other operand fp32
+extern "C" int chord_tail_bf16_launch(const void* x, const void* ck,
+                                      const void* cb, const void* pkd,
+                                      const void* pbd, const void* pkn,
+                                      const void* pbn, const void* dk,
+                                      const void* db, void* ids, int nbar,
+                                      int d, int n_slots, int vp, int vd,
+                                      void* stream) {
+  return launch<__nv_bfloat16>(x, ck, cb, pkd, pbd, pkn, pbn, dk, db, ids,
+                               nbar, d, n_slots, vp, vd, stream);
 }

@@ -6,13 +6,18 @@ one batched device function (`make_generator`), then host-side rendering of
 token ids to songs and MIDI files.
 
 Entry points run on the CUDA device unless the caller passes
-`device="cpu"`; without a card they raise rather than fall back.
+`device="cpu"`; without a card they raise rather than fall back. The decode
+runs in fp32 or, with `bf16=True`, in bfloat16 as the JAX package's bf16
+generation does.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
+import shutil
+import subprocess
 from typing import Optional
 
 import numpy as np
@@ -20,7 +25,7 @@ import torch
 
 from . import constants
 from .config import GenerationConfig
-from .convert import load_checkpoint
+from .convert import load_model_dir
 from .midi.song import Note, Song, Track
 
 
@@ -36,9 +41,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def load_model(model_dir: str, device=None):
-    """(VAE in eval mode on the device, TrainConfig) from a directory
-    written by `convert.save_checkpoint`."""
-    return load_checkpoint(model_dir, resolve_device(device))
+    """(VAE in eval mode on the device, TrainConfig) from a model directory
+    of the JAX package (`checkpoint.msgpack`), of the reference (`checkpoint`
+    + `configuration`) or of the port (`checkpoint.pt`), detected in that
+    order."""
+    return load_model_dir(model_dir, resolve_device(device))
 
 
 def generate_z(seed: int, n: int, d: int, device=None) -> torch.Tensor:
@@ -87,20 +94,24 @@ def make_generator(model, *, conditioned: bool = False,
     GCL layers run `model.cfg.gcl_chain` per kernel launch, and 2 when that
     is left at 1. At a temperature > 0 one seeded `torch.Generator` draws
     the noise, so successive calls draw fresh noise.
+
+    bf16=True decodes in bfloat16, as the JAX package's bf16 generation
+    does: a bf16 copy of the model (every float parameter and buffer, the
+    batch-norm running statistics too) on z cast to bf16; `model` itself
+    is left as it was. The logits come back in bf16.
     """
-    if bf16:
-        raise NotImplementedError(
-            "bf16 generation is not ported yet: the chord tail has no bf16 "
-            "kernel")
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    if bf16:
+        model = copy.deepcopy(model).to(torch.bfloat16)
+    dtype = torch.bfloat16 if bf16 else torch.float32
     chain = model.cfg.gcl_chain if model.cfg.gcl_chain > 1 else 2
     stochastic = structure_temp > 0 or content_temp > 0
     gen = (torch.Generator(device=dev).manual_seed(sample_seed)
            if stochastic else None)
 
     def run(z, mask=None):
-        z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+        z = torch.as_tensor(z, dtype=torch.float32, device=dev).to(dtype)
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
         with torch.no_grad(), exact_fp32():
@@ -188,9 +199,35 @@ def load_structure_file(path: str, n_bars: int, n_tracks: int,
                                     n_bars, n_tracks, n_timesteps)
 
 
-def save_song(song: Song, out_dir: str, name: str) -> None:
-    """Write <out_dir>/<name>.mid (audio rendering is not ported yet)."""
+def synthesize_audio(midi_path: str, soundfont_path: Optional[str]) -> bool:
+    """<file>.mid -> <file>.wav: an external fluidsynth with the soundfont
+    when both are present, else the built-in numpy synth. Returns whether a
+    wav was written."""
+    wav_path = os.path.splitext(midi_path)[0] + ".wav"
+    fs = shutil.which("fluidsynth")
+    if fs is not None and soundfont_path is not None \
+            and os.path.exists(soundfont_path):
+        subprocess.run([fs, "-ni", soundfont_path, midi_path, "-F", wav_path,
+                        "-r", "44100"], check=False, capture_output=True)
+        if os.path.exists(wav_path):
+            return True
+    from .midi.parser import quantize_song, read_midi
+    from .midi.synth import song_to_wav
+
+    song, tpq, _ = read_midi(midi_path)
+    song = quantize_song(song, tpq, max(tpq, 1))
+    song.resolution = max(tpq, 1)
+    song_to_wav(song, wav_path)
+    return os.path.exists(wav_path)
+
+
+def save_song(song: Song, out_dir: str, name: str, *, audio: bool = False,
+              soundfont_path: Optional[str] = None) -> None:
+    """Write <out_dir>/<name>.mid, and its .wav when `audio` is set."""
     from .midi.writer import write_midi
 
     os.makedirs(out_dir, exist_ok=True)
-    write_midi(os.path.join(out_dir, name + ".mid"), song)
+    midi_path = os.path.join(out_dir, name + ".mid")
+    write_midi(midi_path, song)
+    if audio:
+        synthesize_audio(midi_path, soundfont_path)

@@ -19,6 +19,29 @@ from torch import nn
 from ..ops import masked as mops
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` that, on a 2-byte float input, rounds the product before
+    it adds the bias, as the JAX package's `x @ kernel + bias` does under
+    bf16 (`F.linear` would round once, after the bias)."""
+
+    def forward(self, x):
+        if x.element_size() > 2:
+            return super().forward(x)
+        return F.linear(x, self.weight) + self.bias
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` that, on a 2-byte float input, rounds the convolution
+    before it adds the bias, as the JAX package's im2col product + bias
+    does under bf16."""
+
+    def forward(self, x):
+        if x.element_size() > 2:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight, None) \
+            + self.bias[:, None, None]
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the last axis with masked statistics.
 
@@ -97,7 +120,7 @@ class MLP(nn.Module):
         self.activation = activation
         dims = [in_dim] + list(features)
         self.layers = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+            Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.drop = Dropout(dropout)
 
     def forward(self, x):
@@ -124,12 +147,12 @@ class CNNEncoder(nn.Module):
                  n_timesteps: int = 32, batch_norm: bool = False,
                  dropout: float = 0.1):
         super().__init__()
-        self.conv0 = nn.Conv2d(1, 8, 3, padding=1)
+        self.conv0 = Conv2d(1, 8, 3, padding=1)
         self.bn0 = MaskedBatchNorm(8) if batch_norm else None
-        self.conv1 = nn.Conv2d(8, 16, 3, padding=1)
+        self.conv1 = Conv2d(8, 16, 3, padding=1)
         self.bn1 = MaskedBatchNorm(16) if batch_norm else None
-        self.lin0 = nn.Linear(16 * n_tracks * (n_timesteps // 4), dense_dim)
-        self.lin1 = nn.Linear(dense_dim, output_dim)
+        self.lin0 = Linear(16 * n_tracks * (n_timesteps // 4), dense_dim)
+        self.lin1 = Linear(dense_dim, output_dim)
         self.drop = Dropout(dropout)
 
     def forward(self, x):
@@ -160,11 +183,11 @@ class CNNDecoder(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         self.h, self.w = n_tracks, n_timesteps // 4
-        self.lin0 = nn.Linear(input_dim, dense_dim)
-        self.lin1 = nn.Linear(dense_dim, 16 * self.h * self.w)
-        self.conv0 = nn.Conv2d(16, 8, 3, padding=1)
+        self.lin0 = Linear(input_dim, dense_dim)
+        self.lin1 = Linear(dense_dim, 16 * self.h * self.w)
+        self.conv0 = Conv2d(16, 8, 3, padding=1)
         self.bn0 = MaskedBatchNorm(8) if batch_norm else None
-        self.conv1 = nn.Conv2d(8, 1, 3, padding=1)
+        self.conv1 = Conv2d(8, 1, 3, padding=1)
         self.drop = Dropout(dropout)
 
     def forward(self, x):

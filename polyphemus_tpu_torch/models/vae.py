@@ -36,7 +36,8 @@ from ..ops import lattice
 from ..ops import masked as mops
 from ..ops.kernels import chord_tail as chord_k
 from .gnn import GCN
-from .layers import MLP, CNNDecoder, CNNEncoder, Dropout, MaskedBatchNorm
+from .layers import (MLP, CNNDecoder, CNNEncoder, Dropout, Linear,
+                     MaskedBatchNorm)
 
 N_SLOTS = constants.MAX_SIMU_TOKENS - 1
 STAT_KEYS = ("pitch_nll", "dur_nll", "n_p", "n_d", "c_p", "c_d", "c_both",
@@ -63,6 +64,13 @@ class EmbedLinear(DenseParams):
 
     def tables(self):
         return self.kernel, self.bias
+
+
+def _sigmoid(x):
+    """The JAX package's sigmoid, 1 / (1 + exp(-x)): in bf16 each op rounds,
+    so logits down to about -0.0116 read 0.5 and pass the 0.5 threshold
+    (`torch.sigmoid` rounds once)."""
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def _gumbel_argmax(logits, temperature, generator):
@@ -103,7 +111,7 @@ class ContentEncoder(nn.Module):
                                  message_dropout=cfg.message_dropout)
         self.gate_mlp = MLP(d, [1], activation=False, dropout=cfg.dropout)
         self.gate_bn = MaskedBatchNorm(1)
-        self.bars_encoder = nn.Linear(cfg.n_bars * d, d)
+        self.bars_encoder = Linear(cfg.n_bars * d, d)
         self.drop = Dropout(cfg.dropout)
 
     def _fused_front(self, pitch_ids, dur_ids, mask):
@@ -191,7 +199,7 @@ class StructureEncoder(nn.Module):
         self.cnn_encoder = CNNEncoder(cfg.d, cfg.d, cfg.n_tracks,
                                       cfg.n_timesteps, cfg.batch_norm,
                                       cfg.dropout)
-        self.bars_encoder = nn.Linear(cfg.n_bars * cfg.d, cfg.d)
+        self.bars_encoder = Linear(cfg.n_bars * cfg.d, cfg.d)
 
     def forward(self, s_float):
         cfg = self.cfg
@@ -209,10 +217,10 @@ class Encoder(nn.Module):
         d = cfg.d
         self.c_encoder = ContentEncoder(cfg)
         self.s_encoder = StructureEncoder(cfg)
-        self.linear_merge = nn.Linear(2 * d, d)
+        self.linear_merge = Linear(2 * d, d)
         self.bn_linear_merge = MaskedBatchNorm(d)
-        self.linear_mu = nn.Linear(d, d)
-        self.linear_log_var = nn.Linear(d, d)
+        self.linear_mu = Linear(d, d)
+        self.linear_log_var = Linear(d, d)
         self.drop = Dropout(cfg.dropout)
 
     def forward(self, tokens, mask):
@@ -228,7 +236,7 @@ class StructureDecoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.bars_decoder = nn.Linear(cfg.d, cfg.d * cfg.n_bars)
+        self.bars_decoder = Linear(cfg.d, cfg.d * cfg.n_bars)
         self.cnn_decoder = CNNDecoder(cfg.d, cfg.d, cfg.n_tracks,
                                       cfg.n_timesteps, cfg.batch_norm,
                                       cfg.dropout)
@@ -246,7 +254,7 @@ class ContentDecoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, h = cfg.d, cfg.d // 2
-        self.bars_decoder = nn.Linear(d, d * cfg.n_bars)
+        self.bars_decoder = Linear(d, d * cfg.n_bars)
         self.graph_decoder = GCN(d, cfg.gnn_n_layers,
                                  num_relations=constants.N_EDGE_TYPES,
                                  num_dists=cfg.n_timesteps,
@@ -366,7 +374,7 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.sigmoid_thresh = sigmoid_thresh
-        self.lin_decoder = nn.Linear(cfg.d, 2 * cfg.d)
+        self.lin_decoder = Linear(cfg.d, 2 * cfg.d)
         self.batch_norm = MaskedBatchNorm(2 * cfg.d)
         self.s_decoder = StructureDecoder(cfg)
         self.c_decoder = ContentDecoder(cfg)
@@ -383,10 +391,10 @@ class Decoder(nn.Module):
         if mask is None:
             raw = s_logits.detach()
             if structure_temp > 0:
-                probs = torch.sigmoid(raw / structure_temp)
+                probs = _sigmoid(raw / structure_temp)
                 mask = torch.bernoulli(probs, generator=generator).bool()
             else:
-                mask = torch.sigmoid(raw) >= self.sigmoid_thresh
+                mask = _sigmoid(raw) >= self.sigmoid_thresh
             mask = lattice.ensure_nonempty_bars(mask)
         c_out = self.c_decoder(z_c, mask, emit=emit, temperature=content_temp,
                                generator=generator, gcl_chain=gcl_chain,

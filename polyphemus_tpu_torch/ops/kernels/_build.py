@@ -47,6 +47,8 @@ SIGNATURES = {
                            [VP] * 10 + [INT] * 3 + [VP]),
     "chord_tail": ("chord_tail", "chord_tail_launch",
                    [VP] * 10 + [INT] * 5 + [VP]),
+    "chord_tail_bf16": ("chord_tail", "chord_tail_bf16_launch",
+                        [VP] * 10 + [INT] * 5 + [VP]),
 }
 
 _launchers: dict = {}

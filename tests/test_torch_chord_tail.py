@@ -68,3 +68,46 @@ def test_chord_tail_takes_the_first_of_equal_maxima():
     got = chord_tail.chord_tail_tokens(
         torch.from_numpy(x), *map(torch.from_numpy, params), n_slots=15)
     assert int(got.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_chord_tail_matches_jax(seed):
+    """bf16 x and weights: the plain version upcasts them (the fp32 sums of
+    bf16 products that the Pallas body and the kernel take; slot hiddens and
+    logits stay fp32), so the tie rule is fp32's, on the bf16 values."""
+    x, params, mask = tail_case(seed)
+    bf = jnp.bfloat16
+    want = np.asarray(jchord.chord_tail_tokens(
+        jnp.asarray(x, bf), *(jnp.asarray(p, bf) for p in params),
+        n_slots=15))
+    counts = (chord_tail.launches, chord_tail.bf16_launches)
+    got = chord_tail.chord_tail_tokens(
+        torch.from_numpy(x).bfloat16(),
+        *(torch.from_numpy(p).bfloat16() for p in params), n_slots=15)
+    assert (chord_tail.launches, chord_tail.bf16_launches) == counts
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    as_bf16 = [np.asarray(jnp.asarray(a, bf).astype(jnp.float32))
+               for a in [x] + params]
+    logits = plain_logits(*as_bf16)
+    tie = np.stack([top2_gap(logits[..., :131]),
+                    top2_gap(logits[..., 131:])], axis=-1) < LOGIT_TIE
+    assert tie[mask].mean() < 1e-3
+    np.testing.assert_array_equal(got.numpy()[~tie], want[~tie])
+
+
+def test_bf16_plain_is_not_the_rounded_scan():
+    """The bf16 form keeps the slot hiddens in fp32: rounding them to bf16
+    (the XLA scan's arithmetic) gives other ids somewhere."""
+    x, params, _ = tail_case(4, b=4)
+    xt, pt = torch.from_numpy(x).bfloat16(), [torch.from_numpy(p).bfloat16()
+                                              for p in params]
+    got = chord_tail.chord_tail_plain(xt, *pt, n_slots=15)
+    d = x.shape[-1]
+    rounded = []
+    for s in range(15):
+        sh = xt @ pt[0][:, s * d:(s + 1) * d] + pt[1][s * d:(s + 1) * d]
+        pitch = torch.cat([sh[..., :1, :, :d // 2] @ pt[2] + pt[3],
+                           sh[..., 1:, :, :d // 2] @ pt[4] + pt[5]], dim=-3)
+        dur = sh[..., d // 2:] @ pt[6] + pt[7]
+        rounded.append(torch.stack([pitch.argmax(-1), dur.argmax(-1)], -1))
+    assert not torch.equal(got, torch.stack(rounded, -2).to(torch.int32))

@@ -42,9 +42,28 @@ def test_gcl_eval_kernel_matches_plain(cuda, d, k_layers, bf16):
     chip_smoke.check_gcl(6, d, k_layers, cuda, timing=False, bf16=bf16)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("d", [128, 256, 512])
-def test_chord_tail_kernel_matches_plain(cuda, d):
-    chip_smoke.check_chord(6, d, cuda, timing=False)
+def test_chord_tail_kernel_matches_plain(cuda, d, bf16):
+    before = (chord_tail.launches, chord_tail.bf16_launches)
+    chip_smoke.check_chord(6, d, cuda, timing=False, bf16=bf16)
+    # check_chord restores the counts; count one launch here
+    x = torch.zeros(1, 4, 32, d, device=cuda,
+                    dtype=torch.bfloat16 if bf16 else torch.float32)
+    args = chip_smoke.chord_inputs(1, d, cuda, 0)[1][1:]
+    chord_tail.chord_tail_tokens(x, *(a.to(x.dtype) for a in args),
+                                 n_slots=15)
+    assert (chord_tail.launches, chord_tail.bf16_launches) == (
+        before[0] + (not bf16), before[1] + bf16)
+
+
+def test_chord_tail_rejects_what_it_does_not_take(cuda):
+    mask, args = chip_smoke.chord_inputs(2, 128, cuda, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        chord_tail.chord_tail_tokens(args[0].half(), *args[1:], n_slots=15)
+    with pytest.raises(ValueError, match="chord_kernel must be"):
+        chord_tail.chord_tail_tokens(args[0].bfloat16(), *args[1:],
+                                     n_slots=15)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -148,3 +167,18 @@ def test_generator_on_the_card_matches_the_cpu(cuda, tmp_path):
                       dim=-1) < 1e-4
     assert tie[m_c].float().mean() < 1e-3
     assert torch.equal(t_g.cpu()[~tie], t_c[~tie])
+
+
+def test_bf16_generator_on_the_card_matches_the_cpu(cuda, tmp_path):
+    cfg = ModelConfig(d=128, gnn_n_layers=3, n_bars=2, resolution=8,
+                      batch_norm=True)
+    chip_smoke.make_model_dir(str(tmp_path), cfg, seed=1)
+    before = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
+              chord_tail.bf16_launches)
+    res = chip_smoke.compare_bf16_with_cpu(str(tmp_path), cuda, n=4)
+    after = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
+             chord_tail.bf16_launches)
+    # 2 card calls of 3 layers in groups of 2 -> 2 bf16 launches each, and
+    # one bf16 tail each; no fp32 launch
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 4, 2)
+    assert res["conditioned"]["active_cells"] > 0

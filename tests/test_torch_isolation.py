@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of polyphemus_tpu_torch
-loads nothing of jax, flax, optax or polyphemus_tpu; its entry points
-(generation, serving, training) refuse to run without a card unless asked
-for the CPU; bf16 is refused. The
-kernels themselves are held against their plain versions on the card by
+loads nothing of jax, flax, optax, msgpack or polyphemus_tpu; its entry
+points (generation, serving, training, the generate/reconstruct/interpolate
+CLIs) refuse to run without a card unless asked for the CPU. The kernels
+themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py."""
 import os
 import subprocess
@@ -26,10 +26,10 @@ def test_package_imports_no_jax():
         for name in names:
             importlib.import_module(name)
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "flax", "optax")
+               if m.split(".")[0] in ("jax", "flax", "optax", "msgpack")
                or m == "polyphemus_tpu" or m.startswith("polyphemus_tpu.")]
         assert not bad, bad
-        assert len(names) >= 27, names
+        assert len(names) >= 32, names
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -97,12 +97,19 @@ def test_generate_z_is_seeded():
     assert not torch.equal(generate_z(4, 4, 16, device="cpu"), z)
 
 
-def test_bf16_is_refused():
-    from polyphemus_tpu_torch.generate import make_generator
+@pytest.mark.parametrize("cli", ["generate", "reconstruct", "interpolate"])
+def test_inference_clis_need_a_card_or_an_explicit_cpu(tmp_path, cli):
+    import importlib
 
-    _, _, model = build(small_cfg(n_layers=1))
-    with pytest.raises(NotImplementedError):
-        make_generator(model, bf16=True, device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    main = importlib.import_module(f"polyphemus_tpu_torch.cli.{cli}").main
+    argv = {"generate": [str(tmp_path), str(tmp_path / "out")],
+            "reconstruct": [str(tmp_path), "x.npz", str(tmp_path / "out")],
+            "interpolate": [str(tmp_path), str(tmp_path / "out")]}[cli]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+    assert not (tmp_path / "out").exists()
 
 
 def test_kernels_refuse_unsupported_devices():
