@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the CUDA kernels from the sources in the checkout.
+   versions, and builds the CUDA kernels from the sources in the checkout
+   (ptxas' registers and spills printed). Counts the tensor-core
+   instructions (HMMA/HGMMA) in the SASS of the bf16 eval GCL kernel
+   (`cuobjdump -sass`) and fails if there is none.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    flagship shapes (batch 256 = 512 bars, d = 512) on realistic and edge-case
    masks: `gcl_eval` at K = 1 and K = 2 (rtol = atol = 2e-4) and
@@ -24,8 +27,10 @@
    cores (989 TFLOP/s). `gcl_bwd_fused` in fp32 at 128 bars against its
    fp32 plain version at the tolerances of 2b, and timed (`fused_ms`)
    beside `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs (`split_ms`).
-   `gcl_eval` in bf16 (the bf16 eval step's GCN) at 8 bars (K = 1, 3) and
-   at 512 bars (K = 1, the eval batch of 256), within 2e-2 x max |plain|.
+   `gcl_eval` in bf16 (the tensor-core kernel; the bf16 eval step's GCN)
+   at 8 bars (K = 1, 3) and at 512 bars (K = 1, the eval batch of 256),
+   within 2e-2 x max |plain|, timed beside the CUDA-core form's recorded
+   time (`CUDA_CORE_EVAL_BF16_MS`).
 3. Seeds a random-init flagship model (d = 512, 8 GNN layers, 2 bars,
    batch-norm on), saves it as a port model directory and serves it over
    HTTP on localhost with tiers [1, 8, 64, 256]: n = 1, 8 and 256, one
@@ -38,8 +43,9 @@
    equal outside top-2 gaps < 1e-4 of its fp32 logits) and `gcl_eval` in
    bf16 at K = 2 (within 2e-2 x max |plain|), timed as in 2c.
 4. Batch-256 throughput by bench.py's protocol (20 calls, median of 3).
-4b. The same in bf16 (`make_generator(bf16=True)`): exactly 4 bf16
-   `gcl_eval` and 1 bf16 `chord_tail` launch per call and no fp32 one; an
+4b. The same in bf16 (`make_generator(bf16=True)`; its call time over
+   fp32's printed): exactly 4 bf16 `gcl_eval` and 1 bf16 `chord_tail`
+   launch per call and no fp32 one; an
    n = 8 bf16 request on the card against the CPU, unconditioned and on a
    given structure (masks equal where |s_logit| > 0.03, at most 1 % of
    cells flipped; in the bars whose masks agree the GCN output within
@@ -83,6 +89,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -98,6 +105,10 @@ TOL = 2e-4            # gcl_eval vs plain: rtol = atol
 TIE = 1e-4            # chord_tail: ids may differ below this top-2 gap
 SUM_TOL = 1e-4        # dgate, dbias, dWbig: max abs err / max |plain|
 BF16_REL = 2e-2       # bf16 kernels: max abs err / max |plain|, per output
+# ms per launch of the bf16 eval GCL at 512 bars, d = 512, K = 1 and 2, when
+# it ran fp32 FMAs on the CUDA cores (`gcl_eval.cu` templated on bf16; NVIDIA
+# H100 80GB HBM3, 700.00 W): the yardstick of the tensor-core kernel
+CUDA_CORE_EVAL_BF16_MS = {1: 7.063, 2: 13.976}
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -126,6 +137,27 @@ def bound_ms(flops: float, nbytes: float, tflops: float = FP32_TFLOPS):
     t_ops = flops / (tflops * 1e12) * 1e3
     t_mem = nbytes / (HBM_TBPS * 1e12) * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def tensor_core_instructions(kernel: str, symbol: str) -> int:
+    """HMMA and HGMMA instructions in the SASS of the function whose name
+    holds `symbol`, in the library that `_build.launcher(kernel)` loads
+    (`cuobjdump -sass`, beside nvcc)."""
+    from polyphemus_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_build.library(kernel))],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    count, inside, seen = 0, False, False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+            seen = seen or inside
+        elif inside and re.search(r"\bHG?MMA\b", line):
+            count += 1
+    check(seen, f"no function {symbol} in the SASS of {kernel}")
+    return count
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -189,7 +221,8 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
     """`gcl_eval` against its plain version, in fp32 at rtol = atol = TOL or
     in bf16 (`bf16`: every float input cast) within BF16_REL of max |plain|;
     with timing, ms per launch and the bound (bf16: on the bf16 tensor
-    cores, `cuda_core_bound_ms` on the fp32 CUDA cores it runs on)."""
+    cores, where the bf16 kernel runs; `cuda_core_bound_ms` on the fp32
+    CUDA cores)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl
@@ -1280,6 +1313,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    hmma = tensor_core_instructions("gcl_eval_bf16", "gcl_eval_bf16_tc_kernel")
+    print(f"gcl_eval_bf16 SASS: {hmma} tensor-core instructions (HMMA/HGMMA)")
+    check(hmma > 0, "the bf16 eval GCL kernel holds no tensor-core "
+                    "instruction")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1313,6 +1350,7 @@ def main() -> int:
               8, 512, k, device, timing=False, bf16=True) for k in (1, 3)}))
     # the bf16 eval step's shape: batch 256 x 2 bars, one layer per launch
     eval16_k = check_gcl(512, 512, 1, device, bf16=True)
+    eval16_k["cuda_core_kernel_ms"] = CUDA_CORE_EVAL_BF16_MS[1]
     print(f"bf16 eval GCL check (512 bars, d=512, K=1, {card}):",
           json.dumps(eval16_k))
     fused32 = check_fused_fp32(128, 512, device)
@@ -1324,6 +1362,7 @@ def main() -> int:
         check_chord(8, 512, device, timing=False, bf16=True)))
     chord16 = check_chord(512, 512, device, bf16=True)
     gen16_k = check_gcl(512, 512, 2, device, bf16=True)
+    gen16_k["cuda_core_kernel_ms"] = CUDA_CORE_EVAL_BF16_MS[2]
     print(f"bf16 generation kernel check (512 bars, d=512, {card}):",
           json.dumps({"chord_tail_bf16": chord16,
                       "gcl_eval_bf16_k2": gen16_k}))
@@ -1367,7 +1406,8 @@ def main() -> int:
           f"bf16 generation: launches {gen16_launches} (fp32 "
           f"{gcl.launches}, {chord_tail.launches}) in {res16['calls']} calls")
     res16.update({"card": card, "launches": gen16_launches,
-                  "kernel_ms_per_call": 4 * gen16_k["ms"] + chord16["ms"]})
+                  "kernel_ms_per_call": 4 * gen16_k["ms"] + chord16["ms"],
+                  "call_ms_over_fp32": res16["call_ms"] / res["call_ms"]})
     print("bf16 bench:", json.dumps(res16))
     cmp16 = compare_bf16_with_cpu(model_dir, device)
     print("bf16 n=8 against the CPU:", json.dumps(cmp16))
@@ -1489,9 +1529,11 @@ def main() -> int:
         entry("gcl_bwd_fused", "polyphemus_tpu_torch/csrc/gcl_bwd_fused.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:453",
               bf16_k["gcl_bwd_fused"]),
-        entry("gcl_eval_bf16", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+        entry("gcl_eval_bf16",
+              "polyphemus_tpu_torch/csrc/gcl_eval_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", eval16_k),
-        entry("gcl_eval_bf16_k2", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+        entry("gcl_eval_bf16_k2",
+              "polyphemus_tpu_torch/csrc/gcl_eval_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gen16_k),
         entry("chord_tail_bf16", "polyphemus_tpu_torch/csrc/chord_tail.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord16)]

@@ -32,15 +32,15 @@
 // CTA's shared memory, so between chained layers it goes to a per-bar
 // ping-pong buffer in device memory (it stays in L2) behind __syncthreads().
 //
-// Element type: fp32, or bf16 (`gcl_eval_bf16`, `gcl_fwd_bf16`). bf16
-// tensors are loaded into fp32 shared memory, the products sum in fp32, and
-// the values are rounded to bf16 where the Pallas body casts to its compute
-// dtype: each elementwise product, the mean reciprocals, the same-column
-// sums, the message segments of A, and the two projection products, which
-// keep separate accumulators (base = round(shared segments) + bias, then +
-// round(track segment)); the epilogue rounds after each of its bf16
-// operations (* A, + B, + x). In fp32 every rounding step is the identity
-// and the code is the fp32 kernel's.
+// Element type: fp32, or bf16 for the training forward (`gcl_fwd_bf16`;
+// the bf16 eval layers, `gcl_eval_bf16`, run on the tensor cores in
+// gcl_eval_bf16_tc.cu). bf16 tensors are loaded into fp32 shared memory,
+// the products sum in fp32, and the values are rounded to bf16 where the
+// Pallas body casts to its compute dtype: each elementwise product, the mean
+// reciprocals, the same-column sums, the message segments of A, and the two
+// projection products, which keep separate accumulators (base =
+// round(shared segments) + bias, then + round(track segment)). In fp32
+// every rounding step is the identity and the code is the fp32 kernel's.
 #include "gcl_common.cuh"
 
 namespace {
@@ -72,6 +72,7 @@ gcl_eval_kernel(const E* x, const int* aux, const E* gates,
                 const E* ebs, E* out, E* scratch, int d, int K) {
   using V = Elem<E>;
   constexpr bool SPLIT = !V::kExact;  // two roundings: shared, then track
+  static_assert(!(SPLIT && EPI), "the bf16 eval form is gcl_eval_bf16_tc.cu");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bar = blockIdx.x;
@@ -220,14 +221,8 @@ gcl_eval_kernel(const E* x, const int* aux, const E* gates,
             const float rv[4] = {res.x, res.y, res.z, res.w};
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
-              if constexpr (SPLIT) {
-                const float v = V::rnd(V::rnd(V::rnd(acc[r][h * 4 + c]) + bv[c])
-                                       + V::rnd(acct[r][h * 4 + c])) * m;
-                o[c] = fmaxf(V::rnd(V::rnd(v * av[c]) + ev[c]) * m, 0.f) + rv[c];
-              } else {
-                const float v = (acc[r][h * 4 + c] + bv[c]) * m;
-                o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
-              }
+              const float v = (acc[r][h * 4 + c] + bv[c]) * m;
+              o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
             }
           } else if constexpr (SPLIT) {
 #pragma unroll
@@ -276,16 +271,6 @@ extern "C" int gcl_eval_launch(const void* x, const void* aux,
                                int nbar, int d, int K, void* stream) {
   return launch<float, true>(x, aux, gates, wbigs, biases, eas, ebs, out,
                              scratch, nbar, d, K, stream);
-}
-
-// The same K layers with every float tensor in bf16.
-extern "C" int gcl_eval_bf16_launch(const void* x, const void* aux,
-                                    const void* gates, const void* wbigs,
-                                    const void* biases, const void* eas,
-                                    const void* ebs, void* out, void* scratch,
-                                    int nbar, int d, int K, void* stream) {
-  return launch<__nv_bfloat16, true>(x, aux, gates, wbigs, biases, eas, ebs,
-                                     out, scratch, nbar, d, K, stream);
 }
 
 // One training-forward layer: out = ([h_track | h_self | h_onset | h_next |

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
 import shutil
@@ -80,6 +81,15 @@ def _tokens_from_logits(c_logits):
     return torch.stack([pitch, dur], dim=-1)
 
 
+def _placed(model, dev: torch.device) -> bool:
+    """True when every parameter and buffer of `model` lies on `dev` (a
+    CUDA device without an index is the current one)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return all(t.device == dev for t in itertools.chain(model.parameters(),
+                                                       model.buffers()))
+
+
 def make_generator(model, *, conditioned: bool = False,
                    return_logits: bool = False, bf16: bool = False,
                    structure_temp: float = 0.0, content_temp: float = 0.0,
@@ -97,13 +107,18 @@ def make_generator(model, *, conditioned: bool = False,
 
     bf16=True decodes in bfloat16, as the JAX package's bf16 generation
     does: a bf16 copy of the model (every float parameter and buffer, the
-    batch-norm running statistics too) on z cast to bf16; `model` itself
-    is left as it was. The logits come back in bf16.
+    batch-norm running statistics too) on z cast to bf16. The logits come
+    back in bf16.
+
+    `model` itself is left as it was (mode, device, dtype): a model that
+    is in training mode or off the device is decoded from an eval copy on
+    the device; one already in eval mode on the device is used as it is.
     """
     dev = resolve_device(device)
-    model = model.to(dev).eval()
     if bf16:
-        model = copy.deepcopy(model).to(torch.bfloat16)
+        model = copy.deepcopy(model).to(dev, torch.bfloat16).eval()
+    elif model.training or not _placed(model, dev):
+        model = copy.deepcopy(model).to(dev).eval()
     dtype = torch.bfloat16 if bf16 else torch.float32
     chain = model.cfg.gcl_chain if model.cfg.gcl_chain > 1 else 2
     stochastic = structure_temp > 0 or content_temp > 0

@@ -32,7 +32,7 @@ VP, INT = ctypes.c_void_p, ctypes.c_int
 # int CUDA error code
 SIGNATURES = {
     "gcl_eval": ("gcl_eval", "gcl_eval_launch", [VP] * 9 + [INT] * 3 + [VP]),
-    "gcl_eval_bf16": ("gcl_eval", "gcl_eval_bf16_launch",
+    "gcl_eval_bf16": ("gcl_eval_bf16_tc", "gcl_eval_bf16_launch",
                       [VP] * 9 + [INT] * 3 + [VP]),
     "gcl_fwd": ("gcl_eval", "gcl_fwd_launch", [VP] * 6 + [INT] * 2 + [VP]),
     "gcl_fwd_bf16": ("gcl_eval", "gcl_fwd_bf16_launch",
@@ -108,14 +108,19 @@ def build(names=tuple(SIGNATURES)) -> dict:
     return {n: _logs.get(n, "") for n in sources}
 
 
+def library(name: str) -> Path:
+    """The shared library that holds kernel `name` once it is built."""
+    return _target(SIGNATURES[name][0])[1]
+
+
 def launcher(name: str):
     """The C launcher of kernel `name`, building its source at first use."""
     with _lock:
         fn = _launchers.get(name)
         if fn is not None:
             return fn
-        source, fn_name, argtypes = SIGNATURES[name]
-        _, out = _target(source)
+        _, fn_name, argtypes = SIGNATURES[name]
+        out = library(name)
         if not out.exists():
             build((name,))
         fn = getattr(ctypes.CDLL(str(out)), fn_name)

@@ -3,7 +3,8 @@
 Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
 (`gcl_apply_pallas` with and without `epilogue_affine`, and
 `gcl_apply_pallas_chain`). Both wrappers launch `csrc/gcl_eval.cu` on a
-CUDA tensor and run their plain PyTorch version on a CPU tensor:
+CUDA tensor (`gcl_eval` in bf16: `csrc/gcl_eval_bf16_tc.cu`, on the tensor
+cores) and run their plain PyTorch version on a CPU tensor:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S = 128 cells),

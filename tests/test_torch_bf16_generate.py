@@ -135,6 +135,42 @@ def test_bf16_generation_conditioned_and_sampled():
     assert torch.equal(m1, m2) and torch.equal(t1, t2)
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_make_generator_leaves_the_model_as_it_was(bf16, monkeypatch):
+    """JAX's `make_generator` leaves `variables` untouched. A model in
+    training mode keeps its mode, dtype and device and is decoded as its
+    eval-mode self; a model already in eval mode on the device is used as
+    it is (fp32: no copy)."""
+    from types import SimpleNamespace
+
+    from polyphemus_tpu_torch import generate as G
+
+    cfg = small_cfg(n_layers=3)
+    _, _, model = build(cfg, seed=1)   # in eval mode
+    z = random_z(4, cfg.d, seed=5)
+    want = make_generator(model, bf16=bf16, return_logits=True,
+                          device="cpu")(z)
+    model.train()
+    got = make_generator(model, bf16=bf16, return_logits=True,
+                         device="cpu")(z)
+    assert all(m.training for m in model.modules())
+    assert all(t.dtype == torch.float32 and t.device.type == "cpu"
+               for t in list(model.parameters()) + list(model.buffers())
+               if t.is_floating_point())
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+    if not bf16:
+        def no_copy(_):
+            raise AssertionError("an eval model on the device was copied")
+
+        monkeypatch.setattr(G, "copy", SimpleNamespace(deepcopy=no_copy))
+        model.eval()
+        again = make_generator(model, return_logits=True, device="cpu")(z)
+        for a, b in zip(again, want):
+            assert torch.equal(a, b)
+
+
 def test_bf16_layers_round_as_jax():
     """In bf16 the JAX package rounds `x @ kernel` before `+ bias` (Dense
     and its im2col Conv3x3) and computes the sigmoid as 1 / (1 + exp(-x))

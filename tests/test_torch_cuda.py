@@ -35,11 +35,17 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("k_layers", [1, 2, 3])
-@pytest.mark.parametrize("d", [128, 512])
-def test_gcl_eval_kernel_matches_plain(cuda, d, k_layers, bf16):
-    chip_smoke.check_gcl(6, d, k_layers, cuda, timing=False, bf16=bf16)
+# fp32 at 6 bars; bf16 (the tensor-core kernel) at one bar, a few, and 40
+# (no whole wave of 132 SMs), with d = 128 making one output tile the row
+GCL_EVAL_CASES = (
+    [(6, d, k, False) for d in (128, 512) for k in (1, 2, 3)]
+    + [(nbar, d, k, True) for nbar in (1, 3, 40) for d in (128, 256, 512)
+       for k in (1, 2, 3)])
+
+
+@pytest.mark.parametrize("nbar,d,k_layers,bf16", GCL_EVAL_CASES)
+def test_gcl_eval_kernel_matches_plain(cuda, nbar, d, k_layers, bf16):
+    chip_smoke.check_gcl(nbar, d, k_layers, cuda, timing=False, bf16=bf16)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -182,3 +188,25 @@ def test_bf16_generator_on_the_card_matches_the_cpu(cuda, tmp_path):
     # one bf16 tail each; no fp32 launch
     assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 4, 2)
     assert res["conditioned"]["active_cells"] > 0
+
+
+def test_bf16_generator_launches_at_the_flagship_depth(cuda, tmp_path):
+    """8 GNN layers at chain 2: 4 bf16 eval GCL launches and one bf16 chord
+    tail per call, nothing in fp32."""
+    cfg = ModelConfig(d=128, gnn_n_layers=8, n_bars=2, resolution=8,
+                      batch_norm=True)
+    chip_smoke.make_model_dir(str(tmp_path), cfg, seed=2)
+    from polyphemus_tpu_torch.generate import load_model
+
+    model, _ = load_model(str(tmp_path), cuda)
+    gen = make_generator(model, bf16=True, device=cuda)
+    z = torch.randn(8, cfg.d, device=cuda)
+    counts = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
+              chord_tail.bf16_launches)
+    for _ in range(3):
+        mask, tokens = gen(z)
+    torch.cuda.synchronize()
+    after = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
+             chord_tail.bf16_launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == (0, 0, 12, 3)
+    assert mask.shape == (8, 2, 4, 32) and tokens.dtype == torch.uint8
