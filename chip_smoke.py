@@ -7,14 +7,18 @@
    versions, and builds the CUDA kernels from the sources in the checkout
    (ptxas' registers and spills printed). Counts the tensor-core
    instructions (HMMA/HGMMA) in the SASS of the bf16 eval GCL kernel
-   (`cuobjdump -sass`) and fails if there is none.
+   (`cuobjdump -sass`) and fails if there is none; counts those of the fp32
+   eval GCL kernel (`csrc/gcl_eval_fp32.cu`) and fails if there is one, or
+   if it holds no FFMA.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    flagship shapes (batch 256 = 512 bars, d = 512) on realistic and edge-case
    masks: `gcl_eval` at K = 1 and K = 2 (rtol = atol = 2e-4) and
    `chord_tail` (ids equal except where the plain top-2 logit gap is below
    1e-4). Times each (CUDA events, warm) beside its bound: the larger of
    bytes over 3.35 TB/s and the fp32 flops these masks need (active cells;
-   `dense_bound_ms` counts every cell) over 67 TFLOP/s.
+   `dense_bound_ms` counts every cell) over 67 TFLOP/s. The fp32
+   `gcl_eval` times are printed beside the first fp32 kernel's recorded
+   ones (`SIMT_EVAL_FP32_MS`).
 2b. Holds the training GCL kernels (`gcl_fwd`, `gcl_bwd_data`,
    `gcl_bwd_weight`) against their plain versions at 8 bars and at the
    flagship training microbatch (64 sequences = 128 bars, d = 512): the
@@ -109,6 +113,11 @@ BF16_REL = 2e-2       # bf16 kernels: max abs err / max |plain|, per output
 # it ran fp32 FMAs on the CUDA cores (`gcl_eval.cu` templated on bf16; NVIDIA
 # H100 80GB HBM3, 700.00 W): the yardstick of the tensor-core kernel
 CUDA_CORE_EVAL_BF16_MS = {1: 7.063, 2: 13.976}
+# ms per launch of the fp32 eval GCL at 512 bars, d = 512, K = 1 and 2, as
+# the SIMT template of `gcl_eval.cu` (128 x 128 tiles, 8-feature chunks)
+# ran it before `gcl_eval_fp32.cu` (NVIDIA H100 80GB HBM3, 700.00 W): the
+# yardstick of the fp32 kernel
+SIMT_EVAL_FP32_MS = {1: 6.438, 2: 12.764}
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -139,9 +148,11 @@ def bound_ms(flops: float, nbytes: float, tflops: float = FP32_TFLOPS):
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-def tensor_core_instructions(kernel: str, symbol: str) -> int:
-    """HMMA and HGMMA instructions in the SASS of the function whose name
-    holds `symbol`, in the library that `_build.launcher(kernel)` loads
+def sass_instructions(kernel: str, symbol: str,
+                      pattern: str = r"\bHG?MMA\b") -> int:
+    """Instructions matching `pattern` (default: HMMA and HGMMA, the
+    tensor-core products) in the SASS of the function whose name holds
+    `symbol`, in the library that `_build.launcher(kernel)` loads
     (`cuobjdump -sass`, beside nvcc)."""
     from polyphemus_tpu_torch.ops.kernels import _build
 
@@ -154,7 +165,7 @@ def tensor_core_instructions(kernel: str, symbol: str) -> int:
         if "Function :" in line:
             inside = symbol in line
             seen = seen or inside
-        elif inside and re.search(r"\bHG?MMA\b", line):
+        elif inside and re.search(pattern, line):
             count += 1
     check(seen, f"no function {symbol} in the SASS of {kernel}")
     return count
@@ -231,7 +242,7 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
     if bf16:
         args = [a if a.dtype == torch.int32 else a.to(torch.bfloat16)
                 for a in args]
-    before = (gcl.launches, gcl.eval_bf16_launches)
+    before = (gcl.launches, gcl.eval_bf16_launches, dict(gcl.launches_by_k))
     out = gcl.gcl_eval(*args)
     ref = gcl.gcl_eval_plain(*args)
     torch.cuda.synchronize()
@@ -263,7 +274,10 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
             flops * mask.numel() / int(mask.sum()), nbytes, peak)[0]
         if bf16:
             res["cuda_core_bound_ms"] = bound_ms(flops, nbytes)[0]
-    gcl.launches, gcl.eval_bf16_launches = before  # comparisons do not count
+    # comparisons do not count
+    gcl.launches, gcl.eval_bf16_launches, by_k = before
+    gcl.launches_by_k.clear()
+    gcl.launches_by_k.update(by_k)
     return res
 
 
@@ -660,6 +674,7 @@ def serve_phase(model_dir, mc, device, tiers, big_n, structure):
             check(json.loads(r.read())["status"] == "ok", "healthz")
         calls0 = svc.stats["device_calls"]
         gcl.launches = chord_tail.launches = 0
+        gcl.launches_by_k.clear()
         # ---- the main path ----
         one = post(url, {"n": 1, "seed": 1})
         eight = post(url, {"n": 8, "seed": 8, "format": "tokens"})
@@ -678,7 +693,9 @@ def serve_phase(model_dir, mc, device, tiers, big_n, structure):
                 time.sleep(0.01)
         for t_ in ths:
             t_.join(600)
-        launches = {"gcl_eval": gcl.launches, "chord_tail": chord_tail.launches}
+        launches = {"gcl_eval": gcl.launches,
+                    "gcl_eval_by_k": dict(gcl.launches_by_k),
+                    "chord_tail": chord_tail.launches}
         calls = svc.stats["device_calls"] - calls0
     finally:
         httpd.shutdown()
@@ -873,14 +890,19 @@ def cli_phase(model_dir, device, out_dir, samples):
             notes += sum(len(t.notes) for t in song.tracks)
         res[name] = {"files": n, "notes": notes, "launches": got}
     gcl.launches = chord_tail.launches = 0
+    gcl.launches_by_k.clear()
     out = os.path.join(out_dir, "reconstruct")
     rec_cli.main([model_dir, *samples, out, "--device", str(device)])
     got = (gcl.launches, chord_tail.launches)
+    by_k = dict(gcl.launches_by_k)
     check(got == (12, 1), f"reconstruct CLI launches {got}, expected (12, 1)")
+    check(by_k == {1: 8, 2: 4}, f"reconstruct CLI gcl_eval launches by K "
+          f"{by_k}, expected 8 at K = 1 (encoder) and 4 at K = 2 (decode)")
     for i in range(len(samples)):
         for name in ("original", "reconstructed"):
             read_midi(os.path.join(out, str(i), name + ".mid"))
-    res["reconstruct"] = {"samples": len(samples), "launches": got}
+    res["reconstruct"] = {"samples": len(samples), "launches": got,
+                          "gcl_eval_by_k": by_k}
     return res
 
 
@@ -1313,10 +1335,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    hmma = tensor_core_instructions("gcl_eval_bf16", "gcl_eval_bf16_tc_kernel")
+    hmma = sass_instructions("gcl_eval_bf16", "gcl_eval_bf16_tc_kernel")
     print(f"gcl_eval_bf16 SASS: {hmma} tensor-core instructions (HMMA/HGMMA)")
     check(hmma > 0, "the bf16 eval GCL kernel holds no tensor-core "
                     "instruction")
+    # the fp32 eval GCL keeps fp32 rounding: FFMA only, no TF32 products
+    mma32 = sass_instructions("gcl_eval", "gcl_eval_fp32_kernel")
+    ffma32 = sass_instructions("gcl_eval", "gcl_eval_fp32_kernel", r"\bFFMA\b")
+    print(f"gcl_eval (fp32) SASS: {ffma32} FFMA, {mma32} tensor-core "
+          f"instructions")
+    check(mma32 == 0 and ffma32 > 0, "the fp32 eval GCL kernel is not an "
+                                     "FFMA kernel")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1328,8 +1357,10 @@ def main() -> int:
     print("small-shape check:", json.dumps(small))
     gcl1 = check_gcl(512, 512, 1, device)
     gcl2 = check_gcl(512, 512, 2, device)
+    for k, r in ((1, gcl1), (2, gcl2)):
+        r["simt_kernel_ms"] = SIMT_EVAL_FP32_MS[k]
     chord = check_chord(512, 512, device)
-    print("flagship kernel check (512 bars, d=512):", json.dumps(
+    print(f"flagship kernel check (512 bars, d=512, {card}):", json.dumps(
         {"gcl_eval_k1": gcl1, "gcl_eval_k2": gcl2, "chord_tail": chord}))
 
     # ---- 2b. training kernels against their plain versions ----
@@ -1378,8 +1409,9 @@ def main() -> int:
     stats, calls, launches, n8 = serve_phase(
         model_dir, mc, device, [1, 8, 64, 256], 256, structure)
     print(f"service: {calls} device calls, stats {stats}, launches {launches}")
-    check(launches["gcl_eval"] == 4 * calls,
-          f"expected 4 gcl_eval launches per call, got {launches} / {calls}")
+    check(launches["gcl_eval_by_k"] == {2: 4 * calls},
+          f"expected 4 gcl_eval launches at K = 2 per call, got {launches} "
+          f"/ {calls}")
     check(launches["chord_tail"] == calls,
           f"expected 1 chord_tail launch per call, got {launches} / {calls}")
     cpu_cmp = compare_with_cpu(model_dir, n8, device)
@@ -1497,6 +1529,8 @@ def main() -> int:
 
     # ---- 7. results ----
     launches = dict(launches, **train_launches, **gen16_launches)
+    # K = 1 runs in the reconstruct CLI's encoder, counted by the wrapper
+    launches["gcl_eval_k1"] = clis["reconstruct"]["gcl_eval_by_k"][1]
     launches.update({k: bf16_launches[k]
                      for k in ("gcl_fwd_bf16", "gcl_bwd_fused",
                                "gcl_eval_bf16")})
@@ -1509,8 +1543,10 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": None}
 
     kernels = [
-        entry("gcl_eval", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+        entry("gcl_eval", "polyphemus_tpu_torch/csrc/gcl_eval_fp32.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gcl2),
+        entry("gcl_eval_k1", "polyphemus_tpu_torch/csrc/gcl_eval_fp32.cu",
+              "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", gcl1),
         entry("chord_tail", "polyphemus_tpu_torch/csrc/chord_tail.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord),
         entry("gcl_fwd", "polyphemus_tpu_torch/csrc/gcl_eval.cu",

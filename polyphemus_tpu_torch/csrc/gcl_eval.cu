@@ -1,46 +1,42 @@
-// GCL layers in one launch: K epilogue-fused eval layers, or one training
-// forward layer.
+// One GCL training-forward layer per launch, in fp32 or bf16.
 //
-// Replaces the Pallas kernels `_kernel` (with its eval epilogue, K = 1, and
-// without it as the forward of the training custom VJP `gcl_fused`) and
-// `_kernel_chain` (K >= 2) of polyphemus_tpu/ops/kernels/gcl_pallas.py,
-// reached through `gcl_apply_pallas` and `gcl_apply_pallas_chain`. It
-// computes what `_layer_math` computes, per bar of n = 4 x 32 cells:
+// Replaces the Pallas kernel `_kernel` without its eval epilogue
+// (polyphemus_tpu/ops/kernels/gcl_pallas.py:347), the forward of the
+// training custom VJP `gcl_fused`. It computes what `_layer_math` computes,
+// per bar of n = 4 x 32 cells:
 //
 //   A   = [h_track | h_self | h_onset | h_next | x]            (n x 5d)
-//   out = relu(((A @ [W_t; W0; W_on; W_next; root] + bias) * m * ea + eb) * m) + x
-//   (training forward, no epilogue: out = (A @ [...] + bias) * m)
+//   out = (A @ [W_t; W0; W_on; W_next; root] + bias) * m
 //
 // with W_t the weight of the row block's own track. The messages come from
 // direct indexed loads through the aux channels; the TPU's one-hot selection
-// matmuls (Mosaic has no gather) are gone.
+// matmuls (Mosaic has no gather) are gone. The eval layers live elsewhere:
+// fp32 in gcl_eval_fp32.cu, bf16 on the tensor cores in gcl_eval_bf16_tc.cu.
+// The template keeps its epilogue parameter (EPI: folded batch-norm, relu,
+// residual over K chained layers), and a static_assert keeps that form out.
 //
-// What bounds it on an H100: operations. Per bar and layer the product is
+// What bounds it on an H100: operations. Per bar the product is
 // 2 * 128 * 5d * d flops (335 MFLOP at d = 512) against 2 * 128 * d * 4
 // bytes of node state, so fp32 FMA throughput on the CUDA cores (no TF32:
 // fp32 parity comes first) is the limit; device memory is not.
 //
 // Design: one CTA per bar. The per-bar statics (source rows, gate
 // distances, mean reciprocals, mask, single-node flag) are decoded into
-// shared memory once per launch and reused by all K layers. The A operand is
-// never stored in device memory: for each chunk of BK features, the CTA
-// stages x[:, chunk] and the gate rows in shared memory, builds the five
-// message segments of A for that chunk there, and multiplies them with the
-// matching BK rows of the eight packed weight blocks. The product is a plain
-// shared-memory-tiled SIMT GEMM, output tile 128 x 128, 8 x 8 values per
-// thread. A bar's fp32 state (128 x d) is 256 KB at d = 512, more than a
-// CTA's shared memory, so between chained layers it goes to a per-bar
-// ping-pong buffer in device memory (it stays in L2) behind __syncthreads().
+// shared memory once per launch. The A operand is never stored in device
+// memory: for each chunk of BK features, the CTA stages x[:, chunk] and the
+// gate rows in shared memory, builds the five message segments of A for
+// that chunk there, and multiplies them with the matching BK rows of the
+// eight packed weight blocks. The product is a plain shared-memory-tiled
+// SIMT GEMM, output tile 128 x 128, 8 x 8 values per thread.
 //
-// Element type: fp32, or bf16 for the training forward (`gcl_fwd_bf16`;
-// the bf16 eval layers, `gcl_eval_bf16`, run on the tensor cores in
-// gcl_eval_bf16_tc.cu). bf16 tensors are loaded into fp32 shared memory,
-// the products sum in fp32, and the values are rounded to bf16 where the
-// Pallas body casts to its compute dtype: each elementwise product, the mean
-// reciprocals, the same-column sums, the message segments of A, and the two
-// projection products, which keep separate accumulators (base =
-// round(shared segments) + bias, then + round(track segment)). In fp32
-// every rounding step is the identity and the code is the fp32 kernel's.
+// Element type: fp32, or bf16 (`gcl_fwd_bf16`). bf16 tensors are loaded
+// into fp32 shared memory, the products sum in fp32, and the values are
+// rounded to bf16 where the Pallas body casts to its compute dtype: each
+// elementwise product, the mean reciprocals, the same-column sums, the
+// message segments of A, and the two projection products, which keep
+// separate accumulators (base = round(shared segments) + bias, then +
+// round(track segment)). In fp32 every rounding step is the identity and
+// the code is the fp32 kernel's.
 #include "gcl_common.cuh"
 
 namespace {
@@ -72,7 +68,8 @@ gcl_eval_kernel(const E* x, const int* aux, const E* gates,
                 const E* ebs, E* out, E* scratch, int d, int K) {
   using V = Elem<E>;
   constexpr bool SPLIT = !V::kExact;  // two roundings: shared, then track
-  static_assert(!(SPLIT && EPI), "the bf16 eval form is gcl_eval_bf16_tc.cu");
+  static_assert(!EPI, "the eval forms are gcl_eval_fp32.cu and "
+                "gcl_eval_bf16_tc.cu");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bar = blockIdx.x;
@@ -262,16 +259,6 @@ int launch(const void* x, const void* aux, const void* gates,
 }
 
 }  // namespace
-
-// K chained eval layers (folded batch-norm, relu, residual).
-extern "C" int gcl_eval_launch(const void* x, const void* aux,
-                               const void* gates, const void* wbigs,
-                               const void* biases, const void* eas,
-                               const void* ebs, void* out, void* scratch,
-                               int nbar, int d, int K, void* stream) {
-  return launch<float, true>(x, aux, gates, wbigs, biases, eas, ebs, out,
-                             scratch, nbar, d, K, stream);
-}
 
 // One training-forward layer: out = ([h_track | h_self | h_onset | h_next |
 // x] @ wbig + bias) * m.

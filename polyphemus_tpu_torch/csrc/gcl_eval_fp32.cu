@@ -1,0 +1,418 @@
+// K chained eval GCL layers in fp32, on the CUDA cores.
+//
+// Replaces, in fp32, the Pallas kernels `_kernel_chain` (K >= 2,
+// polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` with its eval
+// epilogue (K = 1, gcl_pallas.py:347), reached through
+// `gcl_apply_pallas_chain` and `gcl_apply_pallas(..., epilogue_affine=...)`.
+// Per layer and bar of n = 4 x 32 cells it computes what `_layer_math`
+// computes:
+//
+//   A   = [h_track | h_self | h_onset | h_next | x]            (n x 5d)
+//   out = relu(((A @ [W_t; W0; W_on; W_next; root] + bias) * m * ea + eb) * m) + x
+//
+// with W_t the weight of the row's own track. The messages come from direct
+// indexed loads through the aux channels (no one-hot selection matmuls). The
+// operations are the plain version's (`gcl.gcl_eval_plain`); only the order
+// of the fp32 sums differs. The products are fp32 FMAs on the CUDA cores: no
+// TF32, no tensor cores, so the fp32 path keeps fp32 rounding.
+//
+// What bounds it on an H100: operations. Per bar and layer the product is
+// 2 * 128 * 5d * d flops (335 MFLOP at d = 512) against 2 * 128 * d * 4
+// bytes of node state, so the FMA issue rate of the CUDA cores (67 TFLOP/s)
+// is the limit: a 512-bar launch at K = 2 needs 5.13 ms. Every bar also
+// streams the layer's 8 d x d weights (8 MB at d = 512) from L2.
+//
+// Design, one CTA of 8 warps per bar, one CTA per SM (186 KB of shared
+// memory, up to 255 registers a thread):
+// - A pass owns 128 rows x 256 columns of the output (the last pass of a
+//   d % 256 == 128 layer 128 columns), so a layer of d = 512 takes two passes
+//   and builds its A operand twice, not once per 128-column tile. Warp w owns
+//   the 32 rows of track w / 2 (its track weight is one block) and half the
+//   pass's columns; a thread 8 rows x 16 columns: 128 fp32 accumulators.
+// - The features go in stages of 8. A stage's weights, the box [8 blocks][8
+//   rows][256 columns] (64 KB), come in by one TMA copy (a 3-d tensor map
+//   over the K layers' packed weights) that completes on an mbarrier; x[:,
+//   f0:f0+8] and the gate rows by cp.async.cg. Both are double-buffered: the
+//   next stage's weights and the x chunk of the stage after it are in flight
+//   while this stage multiplies. A stage has one barrier. One TMA copy a
+//   stage, not one bulk copy per weight row: a warp sends bulk copies one
+//   lane at a time, and on an H100 the per-row copies were the slower.
+// - The A chunk of stage s + 1 (5 segments x 8 features x 128 rows, k-major,
+//   rows padded by 4 floats against bank conflicts) is built while stage s
+//   multiplies: warps 0-3 build, then multiply; warps 4-7 multiply, then
+//   build, so each SM sub-partition holds one warp at its FMAs while the
+//   other builds. One thread computes a column's four y0 (and NEXT-source)
+//   messages and their same-column sum, and writes all five segments of
+//   those four cells.
+// - The per-bar statics stay in shared memory for all K layers; between
+//   chained layers the bar's state goes through a per-bar ping-pong buffer
+//   in device memory behind __syncthreads(), read back through L2
+//   (cp.async.cg, ld.global.cg).
+#include <cuda.h>
+
+#include "gcl_common.cuh"
+
+namespace {
+
+using namespace gcl;
+
+constexpr int THREADS = 256;     // 8 warps
+constexpr int BK = 8;            // features per stage
+constexpr int NC = 256;          // output columns of a (full) pass
+constexpr int NSEG = 5;          // A segments: track, self, onset, next, root
+constexpr int AP = N + 4;        // floats per k-row of an A chunk (padded)
+
+struct Smem : Statics {
+  unsigned long long wbar[2];             // weight slot s has landed
+  alignas(128) float w[2][NBLK * BK * NC];  // a stage's weights [blk][k][NCP]
+  alignas(16) float a[2][NSEG][BK][AP];   // A chunk, k-major
+  alignas(16) float xs[2][N][BK];         // x[:, f0:f0+BK]
+  alignas(16) float gs[2][S][BK];         // gate_table[:, f0:f0+BK]
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Weight rows f0..f0+BK of the 8 packed blocks of layer blk0 / 8, columns
+// n0..n0+NCP: one TMA copy of the box [8 blocks][BK rows][NCP columns],
+// completing on `bar`; thread 0 starts it.
+template <int NCP>
+__device__ __forceinline__ void load_w(float* w, unsigned long long* bar,
+                                       const CUtensorMap* map, int f0, int n0,
+                                       int blk0) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(NBLK * BK * NCP * 4) : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_u32(w)), "l"(reinterpret_cast<unsigned long long>(map)),
+        "r"(n0), "r"(f0), "r"(blk0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x[:, f0:f0+BK] (one 16-byte chunk a thread) and gate_table[:, f0:f0+BK]
+__device__ __forceinline__ void load_x(float (*xs)[BK], float (*gs)[BK],
+                                       const float* xin, const float* gates,
+                                       int d, int f0, int tid) {
+  const int i = tid >> 1, h = (tid & 1) * 4;
+  cp_async16(&xs[i][h], xin + (size_t)i * d + f0 + h);
+  if (tid < 2 * S) cp_async16(&gs[i][h], gates + (size_t)i * d + f0 + h);
+}
+
+// The five A segments of one stage. Thread tid takes feature q of column c
+// in all four tracks (cells i = t * S + c):
+//   track = (relu(x[ps] * g[dp]) * okp + relu(x[ns] * g[dn]) * okn) * rtr
+//   self  = y0 * single,              y0 = relu(x * g0) * m
+//   onset = (colsum(y0) - y0) * ron
+//   next  = (colsum(z) - z) * rnx,    z  = relu(x[pn] * g[dpn]) * okpn
+//   root  = x
+// colsum sums the four tracks in track order.
+__device__ __forceinline__ void build(const Smem& sm, const float (*xs)[BK],
+                                      const float (*gs)[BK],
+                                      float (*a)[BK][AP], int tid) {
+  const int c = tid >> 3, q = tid & 7;
+  const float g0 = gs[0][q];
+  float y[T], z[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int i = t * S + c;
+    const float xi = xs[i][q];
+    y[t] = fmaxf(xi * g0, 0.f) * sm.m[i];
+    z[t] = fmaxf(xs[sm.pn[i]][q] * gs[sm.dpn[i]][q], 0.f) * sm.okpn[i];
+    const float vp = fmaxf(xs[sm.ps[i]][q] * gs[sm.dp[i]][q], 0.f) * sm.okp[i];
+    const float vn = fmaxf(xs[sm.ns[i]][q] * gs[sm.dn[i]][q], 0.f) * sm.okn[i];
+    a[0][q][i] = (vp + vn) * sm.rtr[i];
+    a[4][q][i] = xi;
+  }
+  const float ysum = y[0] + y[1] + y[2] + y[3];
+  const float zsum = z[0] + z[1] + z[2] + z[3];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int i = t * S + c;
+    a[1][q][i] = y[t] * sm.single[i];
+    a[2][q][i] = (ysum - y[t]) * sm.ron[i];
+    a[3][q][i] = (zsum - z[t]) * sm.rnx[i];
+  }
+}
+
+// acc += A (rows r0..r0+7, one stage) @ W (columns cb + 32 j .. + 3, j < NJ);
+// segment 0 takes the block of the warp's own track.
+template <int NJ>
+__device__ __forceinline__ void gemm_stage(float (&acc)[8][4 * NJ],
+                                           const float (*a)[BK][AP],
+                                           const float* w, int trk, int r0,
+                                           int cb) {
+  constexpr int NCP = 64 * NJ;
+#pragma unroll 1
+  for (int seg = 0; seg < NSEG; ++seg) {
+    const float* ap = &a[seg][0][r0];
+    const float* wp = w + (seg == 0 ? trk : T - 1 + seg) * BK * NCP + cb;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ap + k * AP);
+      const float4 a1 = *reinterpret_cast<const float4*>(ap + k * AP + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float bv[4 * NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(wp + k * NCP + j * 32);
+        bv[4 * j] = b.x; bv[4 * j + 1] = b.y;
+        bv[4 * j + 2] = b.z; bv[4 * j + 3] = b.w;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 4 * NJ; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+  }
+}
+
+// out = relu(((acc + bias) * m * ea + eb) * m) + x for this thread's rows
+// r0..r0+7 and columns n0 + cb + 32 j .. + 3.
+template <int NJ>
+__device__ __forceinline__ void epilogue(const Smem& sm,
+                                         const float (&acc)[8][4 * NJ],
+                                         const float* xin, float* xo,
+                                         const float* bias, const float* ea,
+                                         const float* eb, int d, int n0,
+                                         int r0, int cb) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = n0 + cb + j * 32;
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + col));
+    const float4 aa = __ldg(reinterpret_cast<const float4*>(ea + col));
+    const float4 ee = __ldg(reinterpret_cast<const float4*>(eb + col));
+    const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+    const float av[4] = {aa.x, aa.y, aa.z, aa.w};
+    const float ev[4] = {ee.x, ee.y, ee.z, ee.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = r0 + r;
+      const float m = sm.m[i];
+      const float4 res =
+          __ldcg(reinterpret_cast<const float4*>(xin + (size_t)i * d + col));
+      const float rv[4] = {res.x, res.y, res.z, res.w};
+      float o[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float v = (acc[r][4 * j + c] + bv[c]) * m;
+        o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
+      }
+      *reinterpret_cast<float4*>(xo + (size_t)i * d + col) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// One pass of one layer: columns n0..n0+64 NJ of the output, every feature.
+// blk0 is the layer's first block in the tensor map (8 k); g counts the
+// stages multiplied so far (weight slot g & 1, mbarrier parity (g >> 1) & 1;
+// every pass has an even number of stages).
+template <int NJ>
+__device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
+                                     const float* gates, const CUtensorMap* map,
+                                     int blk0, const float* bias,
+                                     const float* ea, const float* eb, int d,
+                                     int n0, int tid, int warp, int trk,
+                                     int r0, int cb, unsigned& g) {
+  constexpr int NCP = 64 * NJ;
+  const int nf = d / BK;
+  float acc[8][4 * NJ];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4 * NJ; ++c) acc[r][c] = 0.f;
+
+  // prologue: stage 0's weights and x chunk, stage 1's x chunk; build A_0
+  if (tid == 0) load_w<NCP>(sm.w[0], &sm.wbar[0], map, 0, n0, blk0);
+  load_x(sm.xs[0], sm.gs[0], xin, gates, d, 0, tid);
+  cp_async_commit();
+  if (nf > 1) load_x(sm.xs[1], sm.gs[1], xin, gates, d, BK, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  build(sm, sm.xs[0], sm.gs[0], sm.a[0], tid);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // stage s: A_s and W_s are in; x_{s+1} is in. Fetch W_{s+1} and x_{s+2},
+  // build A_{s+1}, multiply stage s, then one barrier.
+  for (int s = 0; s < nf; ++s) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    const bool more = s + 1 < nf;
+    if (more && tid == 0)
+      load_w<NCP>(sm.w[nxt], &sm.wbar[nxt], map, (s + 1) * BK, n0, blk0);
+    if (s + 2 < nf) load_x(sm.xs[cur], sm.gs[cur], xin, gates, d, (s + 2) * BK, tid);
+    cp_async_commit();
+    if (warp < 4 && more) build(sm, sm.xs[nxt], sm.gs[nxt], sm.a[nxt], tid);
+    mbar_wait(&sm.wbar[cur], (g >> 1) & 1);  // W_s has landed
+    ++g;
+    gemm_stage<NJ>(acc, sm.a[cur], sm.w[cur], trk, r0, cb);
+    if (warp >= 4 && more) build(sm, sm.xs[nxt], sm.gs[nxt], sm.a[nxt], tid);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  epilogue<NJ>(sm, acc, xin, xo, bias, ea, eb, d, n0, r0, cb);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+gcl_eval_fp32_kernel(const float* x, const int* aux, const float* gates,
+                     const float* biases, const float* eas, const float* ebs,
+                     float* out, float* scratch, int d, int K,
+                     const __grid_constant__ CUtensorMap map256,
+                     const __grid_constant__ CUtensorMap map128) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int bar = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int trk = warp >> 1;                      // the warp's track
+  const int r0 = trk * S + (lane >> 3) * 8;       // the thread's 8 rows
+  const int half = warp & 1, cx = (lane & 7) * 4;  // and its columns
+
+  // ---- per-bar statics, shared by every layer of the launch ----
+  load_statics(sm, aux + (size_t)bar * N_AUX * N, tid, THREADS);
+  if (tid == 0) {
+    mbar_init(&sm.wbar[0]);
+    mbar_init(&sm.wbar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  unsigned g = 0;  // stages multiplied so far
+
+  const size_t bar_off = (size_t)bar * N * d;
+  for (int k = 0; k < K; ++k) {
+    // ping-pong: layer K-1 writes `out`, layer K-2 `scratch`, and so on
+    const float* xin = ((k == 0) ? x : (((K - k) % 2 == 0) ? out : scratch)) + bar_off;
+    float* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + bar_off;
+    const float* bias = biases + (size_t)k * d;
+    const float* ea = eas + (size_t)k * d;
+    const float* eb = ebs + (size_t)k * d;
+    int n0 = 0;
+    for (; n0 + NC <= d; n0 += NC)
+      pass<4>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d, n0,
+              tid, warp, trk, r0, half * (NC / 2) + cx, g);
+    if (n0 < d)  // d % 256 == 128: one pass of 128 columns
+      pass<2>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d, n0,
+              tid, warp, trk, r0, half * (NC / 4) + cx, g);
+    // the next layer reads this layer's output rows written by other threads
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The weights of all K layers as a 3-d tensor [8K blocks][d rows][d columns]
+// of fp32, read in boxes of [8][BK][ncp].
+static bool weight_map(CUtensorMap* map, const void* wbigs, int d, int K,
+                       int ncp) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)d,
+                              (cuuint64_t)NBLK * K};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)d * d * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)ncp, BK, NBLK};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(wbigs),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The kernel's shared-memory size, set once per device.
+static cudaError_t allow_smem(int smem) {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(gcl_eval_fp32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// K chained eval layers (folded batch-norm, relu, residual), every float
+// tensor fp32: x, out, scratch (nbar, 128, d), gates (32, d), wbigs
+// (K, 8d, d), biases, eas, ebs (K, d); aux (nbar, 14, 128) int32. d % 128
+// == 0; for K = 1 scratch may be out.
+extern "C" int gcl_eval_launch(const void* x, const void* aux,
+                               const void* gates, const void* wbigs,
+                               const void* biases, const void* eas,
+                               const void* ebs, void* out, void* scratch,
+                               int nbar, int d, int K, void* stream) {
+  if (nbar <= 0) return 0;
+  if (d <= 0 || d % 128 != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem);
+  const cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return (int)err;
+  // a map for the full 256-column passes and, where d % 256 == 128, one for
+  // the last 128-column pass; an unused map stays zero
+  CUtensorMap map256 = {}, map128 = {};
+  if ((d >= NC && !weight_map(&map256, wbigs, d, K, NC)) ||
+      (d % NC != 0 && !weight_map(&map128, wbigs, d, K, NC / 2)))
+    return (int)cudaErrorInvalidValue;
+  gcl_eval_fp32_kernel<<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)aux, (const float*)gates,
+      (const float*)biases, (const float*)eas, (const float*)ebs, (float*)out,
+      (float*)scratch, d, K, map256, map128);
+  return (int)cudaGetLastError();
+}

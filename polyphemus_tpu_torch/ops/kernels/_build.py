@@ -31,7 +31,8 @@ VP, INT = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (source stem, launcher, argtypes); each launcher returns an
 # int CUDA error code
 SIGNATURES = {
-    "gcl_eval": ("gcl_eval", "gcl_eval_launch", [VP] * 9 + [INT] * 3 + [VP]),
+    "gcl_eval": ("gcl_eval_fp32", "gcl_eval_launch",
+                 [VP] * 9 + [INT] * 3 + [VP]),
     "gcl_eval_bf16": ("gcl_eval_bf16_tc", "gcl_eval_bf16_launch",
                       [VP] * 9 + [INT] * 3 + [VP]),
     "gcl_fwd": ("gcl_eval", "gcl_fwd_launch", [VP] * 6 + [INT] * 2 + [VP]),

@@ -2,9 +2,11 @@
 
 Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
 (`gcl_apply_pallas` with and without `epilogue_affine`, and
-`gcl_apply_pallas_chain`). Both wrappers launch `csrc/gcl_eval.cu` on a
-CUDA tensor (`gcl_eval` in bf16: `csrc/gcl_eval_bf16_tc.cu`, on the tensor
-cores) and run their plain PyTorch version on a CPU tensor:
+`gcl_apply_pallas_chain`). On a CUDA tensor `gcl_eval` launches
+`csrc/gcl_eval_fp32.cu` in fp32 (fp32 FMAs on the CUDA cores) and
+`csrc/gcl_eval_bf16_tc.cu` in bf16 (on the tensor cores), and `gcl_fwd`
+launches `csrc/gcl_eval.cu` in both; on a CPU tensor both wrappers run their
+plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S = 128 cells),
@@ -40,8 +42,10 @@ CNT_ON, CNT_NX, MASK_CH, SINGLE = 10, 11, 12, 13
 N_AUX = 14
 
 # kernel launches (not plain-path calls) since the counts were last reset:
-# `gcl_eval` and `gcl_fwd`, each in fp32 and in bf16
+# `gcl_eval` and `gcl_fwd`, each in fp32 and in bf16; `launches_by_k` splits
+# the fp32 `gcl_eval` launches by their number of chained layers K
 launches = 0
+launches_by_k: dict[int, int] = {}
 eval_bf16_launches = 0
 fwd_launches = 0
 fwd_bf16_launches = 0
@@ -282,6 +286,7 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs):
     _build.check(name, err)
     if dt == torch.float32:
         launches += 1
+        launches_by_k[k] = launches_by_k.get(k, 0) + 1
     else:
         eval_bf16_launches += 1
     return out

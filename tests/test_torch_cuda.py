@@ -35,17 +35,38 @@ def cuda():
     return torch.device("cuda")
 
 
-# fp32 at 6 bars; bf16 (the tensor-core kernel) at one bar, a few, and 40
-# (no whole wave of 132 SMs), with d = 128 making one output tile the row
-GCL_EVAL_CASES = (
-    [(6, d, k, False) for d in (128, 512) for k in (1, 2, 3)]
-    + [(nbar, d, k, True) for nbar in (1, 3, 40) for d in (128, 256, 512)
-       for k in (1, 2, 3)])
+# fp32 and bf16 at one bar, a few, and 40 (no whole wave of 132 SMs); d =
+# 128 makes one output tile the row, d = 384 three (fp32: a 256-column pass
+# and a 128-column one)
+GCL_EVAL_CASES = [(nbar, d, k, bf16) for bf16 in (False, True)
+                  for nbar in (1, 3, 40) for d in (128, 256, 384, 512)
+                  for k in (1, 2, 3)]
 
 
 @pytest.mark.parametrize("nbar,d,k_layers,bf16", GCL_EVAL_CASES)
 def test_gcl_eval_kernel_matches_plain(cuda, nbar, d, k_layers, bf16):
     chip_smoke.check_gcl(nbar, d, k_layers, cuda, timing=False, bf16=bf16)
+
+
+def test_gcl_eval_fp32_leaves_a_bar_without_active_cells_as_it_was(cuda):
+    """Bar 1 of 3 has no active cell and a state that is not 0: every layer
+    passes it through (the mask zeroes the update), so the output there is
+    x exactly; the other bars agree with the plain version."""
+    mask, args = chip_smoke.kernel_inputs(3, 384, 2, cuda, 5)
+    mask = mask.clone()
+    mask[1] = False
+    g = torch.Generator().manual_seed(7)
+    args[0] = args[0].clone()
+    args[0][1] = torch.randn(128, 384, generator=g).to(cuda)
+    args[1] = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 128)
+    before = gcl.launches
+    out = gcl.gcl_eval(*args)
+    ref = gcl.gcl_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert gcl.launches == before + 1
+    assert torch.equal(out[1], args[0][1])
+    torch.testing.assert_close(out, ref, rtol=chip_smoke.TOL,
+                               atol=chip_smoke.TOL)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
