@@ -8,8 +8,10 @@
    (ptxas' registers and spills printed). Counts the tensor-core
    instructions (HMMA/HGMMA) in the SASS of the bf16 eval GCL kernel
    (`cuobjdump -sass`) and fails if there is none; counts those of the fp32
-   eval GCL kernel (`csrc/gcl_eval_fp32.cu`) and fails if there is one, or
-   if it holds no FFMA.
+   eval GCL kernel (`csrc/gcl_eval_fp32.cu`) and of the fp32 chord-tail
+   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if either
+   holds one, or no FFMA. ptxas' registers and spills are printed for
+   each kernel function of each source.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    flagship shapes (batch 256 = 512 bars, d = 512) on realistic and edge-case
    masks: `gcl_eval` at K = 1 and K = 2 (rtol = atol = 2e-4) and
@@ -18,7 +20,8 @@
    bytes over 3.35 TB/s and the fp32 flops these masks need (active cells;
    `dense_bound_ms` counts every cell) over 67 TFLOP/s. The fp32
    `gcl_eval` times are printed beside the first fp32 kernel's recorded
-   ones (`SIMT_EVAL_FP32_MS`).
+   ones (`SIMT_EVAL_FP32_MS`), the fp32 `chord_tail` beside the SIMT
+   kernel's (`SIMT_CHORD_FP32_MS`).
 2b. Holds the training GCL kernels (`gcl_fwd`, `gcl_bwd_data`,
    `gcl_bwd_weight`) against their plain versions at 8 bars and at the
    flagship training microbatch (64 sequences = 128 bars, d = 512): the
@@ -118,6 +121,10 @@ CUDA_CORE_EVAL_BF16_MS = {1: 7.063, 2: 13.976}
 # ran it before `gcl_eval_fp32.cu` (NVIDIA H100 80GB HBM3, 700.00 W): the
 # yardstick of the fp32 kernel
 SIMT_EVAL_FP32_MS = {1: 6.438, 2: 12.764}
+# ms per launch of the fp32 chord tail at 512 bars, d = 512, as the SIMT
+# template of `chord_tail.cu` (32-row tiles, the slot the slow grid axis) ran
+# it before `chord_tail_fp32.cu` (NVIDIA H100 80GB HBM3, 700.00 W)
+SIMT_CHORD_FP32_MS = 19.11
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -1332,9 +1339,14 @@ def main() -> int:
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
     for name, log in logs.items():
+        func = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+            m = re.search(r"(?:entry function|Function properties for) "
+                          r"'?(\w+)", line)
+            if m:
+                func = m.group(1)
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {name} {func}: {line.strip()}")
     hmma = sass_instructions("gcl_eval_bf16", "gcl_eval_bf16_tc_kernel")
     print(f"gcl_eval_bf16 SASS: {hmma} tensor-core instructions (HMMA/HGMMA)")
     check(hmma > 0, "the bf16 eval GCL kernel holds no tensor-core "
@@ -1346,6 +1358,14 @@ def main() -> int:
           f"instructions")
     check(mma32 == 0 and ffma32 > 0, "the fp32 eval GCL kernel is not an "
                                      "FFMA kernel")
+    # the same for the fp32 chord tail, in its d = 512 form (128-row tiles)
+    tail_sym = "chord_tail_fp32_kernelILi128ELi4E"
+    mma_tail = sass_instructions("chord_tail", tail_sym)
+    ffma_tail = sass_instructions("chord_tail", tail_sym, r"\bFFMA\b")
+    print(f"chord_tail (fp32) SASS: {ffma_tail} FFMA, {mma_tail} tensor-core "
+          f"instructions")
+    check(mma_tail == 0 and ffma_tail > 0, "the fp32 chord-tail kernel is "
+                                           "not an FFMA kernel")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1360,6 +1380,7 @@ def main() -> int:
     for k, r in ((1, gcl1), (2, gcl2)):
         r["simt_kernel_ms"] = SIMT_EVAL_FP32_MS[k]
     chord = check_chord(512, 512, device)
+    chord["simt_kernel_ms"] = SIMT_CHORD_FP32_MS
     print(f"flagship kernel check (512 bars, d=512, {card}):", json.dumps(
         {"gcl_eval_k1": gcl1, "gcl_eval_k2": gcl2, "chord_tail": chord}))
 
@@ -1547,7 +1568,7 @@ def main() -> int:
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gcl2),
         entry("gcl_eval_k1", "polyphemus_tpu_torch/csrc/gcl_eval_fp32.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", gcl1),
-        entry("chord_tail", "polyphemus_tpu_torch/csrc/chord_tail.cu",
+        entry("chord_tail", "polyphemus_tpu_torch/csrc/chord_tail_fp32.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord),
         entry("gcl_fwd", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",

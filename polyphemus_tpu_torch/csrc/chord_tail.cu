@@ -1,8 +1,9 @@
-// Chord tail: chord decode -> unembed -> argmax, token ids only.
+// Chord tail in bf16: chord decode -> unembed -> argmax, token ids only.
 //
-// Replaces the Pallas kernel `_kernel` of
-// polyphemus_tpu/ops/kernels/chord_tail.py (via `chord_tail_tokens`). For
-// each cell and each of the 15 note slots:
+// Replaces, for a bf16 x, the Pallas kernel `_kernel` of
+// polyphemus_tpu/ops/kernels/chord_tail.py (via `chord_tail_tokens`); the
+// fp32 form is `chord_tail_fp32.cu`. For each cell and each of the 15 note
+// slots:
 //
 //   h     = x @ W_slot + b_slot                          (d values)
 //   pitch = h[:d/2] @ P_track + pb_track   (drums unembed on track 0,
@@ -13,10 +14,10 @@
 // Only the int32 ids reach device memory, in the (bar, T, S, slot, 2) layout
 // of the JAX function; the logits and the slot hiddens stay on chip.
 //
-// The kernel is templated on the element type E of x and W_slot (fp32 or
-// bf16). As in the Pallas body with a bf16 x, the bf16 form multiplies bf16
-// values and sums in fp32, adds the fp32-upcast bias, and keeps h in fp32
-// (it is not rounded to bf16); the unembeds take that fp32 h against the
+// The kernel is templated on the element type E of x and W_slot; only the
+// bf16 form is exported. As in the Pallas body with a bf16 x, it multiplies
+// bf16 values and sums in fp32, adds the fp32-upcast bias, and keeps h in
+// fp32 (it is not rounded to bf16); the unembeds take that fp32 h against the
 // bf16-valued weights, which the wrapper passes upcast to fp32 with the
 // fp32 biases (bf16 rows of 131 or 99 values would not be 16-byte aligned;
 // the upcast is exact).
@@ -212,17 +213,6 @@ static int launch(const void* x, const void* ck, const void* cb,
       (const float*)pbd, (const float*)pkn, (const float*)pbn,
       (const float*)dk, (const float*)db, (int*)ids, d, vp, vd);
   return (int)cudaGetLastError();
-}
-
-// x and ck in fp32; every other operand fp32
-extern "C" int chord_tail_launch(const void* x, const void* ck, const void* cb,
-                                 const void* pkd, const void* pbd,
-                                 const void* pkn, const void* pbn,
-                                 const void* dk, const void* db, void* ids,
-                                 int nbar, int d, int n_slots, int vp, int vd,
-                                 void* stream) {
-  return launch<float>(x, ck, cb, pkd, pbd, pkn, pbn, dk, db, ids, nbar, d,
-                       n_slots, vp, vd, stream);
 }
 
 // x and ck in bf16; every other operand fp32

@@ -111,3 +111,72 @@ def test_bf16_plain_is_not_the_rounded_scan():
         dur = sh[..., d // 2:] @ pt[6] + pt[7]
         rounded.append(torch.stack([pitch.argmax(-1), dur.argmax(-1)], -1))
     assert not torch.equal(got, torch.stack(rounded, -2).to(torch.int32))
+
+
+@pytest.mark.parametrize("d", [32, 512, 640])
+def test_packed_unembeds_give_the_plain_ids(d):
+    """`pack_fp32` pads each half of each slot's columns to the fp32
+    kernel's tile width H and lays the unembeds side by side, each
+    zero-padded to 144 columns and to H rows: a padded column of h is 0,
+    and the logits from the packed operands, argmax below the vocabulary
+    edge, give the plain ids."""
+    x, params, _ = tail_case(5, b=1, d=d)
+    t = [torch.from_numpy(p) for p in params]
+    packed = chord_tail.pack_fp32(*t)
+    h, hp, w = d // 2, chord_tail.fp32_half_width(d), chord_tail.UNEMBED_WIDTH
+    ck, cb, u, ub = (a.double() for a in packed)
+    assert hp >= h and ck.shape == (d, 15 * 2 * hp) and u.shape == (hp, 3 * w)
+    assert (packed[0] is t[0]) == (hp == h)
+    slots = ck.reshape(d, 15, 2, hp)
+    assert torch.equal(slots[..., :h], t[0].double().reshape(d, 15, 2, h))
+    assert not slots[..., h:].any() and not cb.reshape(15, 2, hp)[..., h:].any()
+    for i, (k, b) in enumerate(((t[2], t[3]), (t[4], t[5]), (t[6], t[7]))):
+        assert torch.equal(u[:h, i * w:i * w + k.shape[1]], k.double())
+        assert torch.equal(ub[i * w:i * w + b.shape[0]], b.double())
+        assert not u[:, i * w + k.shape[1]:(i + 1) * w].any()
+        assert not ub[i * w + b.shape[0]:(i + 1) * w].any()
+    assert not u[h:].any()
+    xt = torch.from_numpy(x).double()
+    vp, vd = params[2].shape[1], params[6].shape[1]
+    ids = []
+    for s in range(15):
+        sh = xt @ ck[:, s * 2 * hp:(s + 1) * 2 * hp] \
+            + cb[s * 2 * hp:(s + 1) * 2 * hp]
+        assert not sh[..., h:hp].any() and not sh[..., hp + h:].any()
+        logits = sh[..., :hp] @ u[:, :2 * w] + ub[:2 * w]
+        pitch = torch.cat([logits[..., :1, :, :vp],
+                           logits[..., 1:, :, w:w + vp]], dim=-3)
+        dur = sh[..., hp:] @ u[:, 2 * w:] + ub[2 * w:]
+        ids.append(torch.stack([pitch.argmax(-1), dur[..., :vd].argmax(-1)],
+                               -1))
+    want = chord_tail.chord_tail_plain(xt, *(a.double() for a in t),
+                                       n_slots=15)
+    assert torch.equal(torch.stack(ids, -2).to(torch.int32), want)
+
+
+def test_fp32_operands_are_packed_once_for_as_long_as_the_weights_last():
+    """The fp32 wrapper packs the weights once: again only for other
+    tensors or after an in-place change, and the cache keeps no weight
+    alive."""
+    import gc
+    import weakref
+
+    _, params, _ = tail_case(6, d=640)
+    t = [torch.from_numpy(p) for p in params]
+    first = chord_tail._fp32_operands(t)
+    again = chord_tail._fp32_operands(t)
+    assert all(a is b for a, b in zip(first, again))
+    t[2][0, 0] += 1.0  # in place: the drum unembed's version moves on
+    changed = chord_tail._fp32_operands(t)
+    assert changed[2] is not first[2]
+    assert changed[2][0, 0] == t[2][0, 0]
+    copies = [a.clone() for a in t]
+    assert chord_tail._fp32_operands(copies)[0] is not changed[0]
+    # at d = 128 the weight is its own operand: the cache holds no reference
+    _, params, _ = tail_case(7, d=128)
+    t = [torch.from_numpy(p) for p in params]
+    assert chord_tail._fp32_operands(t)[0] is t[0]
+    ref = weakref.ref(t[0])
+    del t
+    gc.collect()
+    assert ref() is None

@@ -69,11 +69,22 @@ def test_gcl_eval_fp32_leaves_a_bar_without_active_cells_as_it_was(cuda):
                                atol=chip_smoke.TOL)
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("d", [128, 256, 512])
-def test_chord_tail_kernel_matches_plain(cuda, d, bf16):
+# fp32 at every width the kernel takes (d = 640-1024 in half-bar tiles,
+# 1152-1536 in track tiles; 640, 896 and 1152-1408 on padded weights) and at
+# one bar, six, and 133 (no whole number of 132-CTA waves); bf16 at 6. Seven
+# bars, not six, at d = 384 and 134, not 133, at d = 1152: those inputs have
+# an inactive-cell class whose top-2 gap is below TIE, shared by 0.5-2 % of
+# the ids, more than check_chord lets the tie rule cover
+CHORD_TAIL_CASES = [(nbar, d, False) for d in range(128, 1537, 128)
+                    for nbar in (1, 7 if d == 384 else 6,
+                                 134 if d == 1152 else 133)] + [
+                        (6, d, True) for d in (128, 256, 512)]
+
+
+@pytest.mark.parametrize("nbar,d,bf16", CHORD_TAIL_CASES)
+def test_chord_tail_kernel_matches_plain(cuda, nbar, d, bf16):
     before = (chord_tail.launches, chord_tail.bf16_launches)
-    chip_smoke.check_chord(6, d, cuda, timing=False, bf16=bf16)
+    chip_smoke.check_chord(nbar, d, cuda, timing=False, bf16=bf16)
     # check_chord restores the counts; count one launch here
     x = torch.zeros(1, 4, 32, d, device=cuda,
                     dtype=torch.bfloat16 if bf16 else torch.float32)
@@ -82,6 +93,35 @@ def test_chord_tail_kernel_matches_plain(cuda, d, bf16):
                                  n_slots=15)
     assert (chord_tail.launches, chord_tail.bf16_launches) == (
         before[0] + (not bf16), before[1] + bf16)
+
+
+# (pitch, pitch, duration, duration) columns made equal: across the lanes of
+# a row, and inside one thread's columns; in a bar tile and a track tile
+@pytest.mark.parametrize("d", [512, 1152])
+@pytest.mark.parametrize("cols", [(17, 130, 2, 97), (0, 1, 96, 98)])
+def test_chord_tail_fp32_takes_the_first_of_equal_maxima(cuda, cols, d):
+    """All-zero x: every cell's h is b_slot. One unembed column copied into
+    a later one, both with the largest bias, gives two equal maxima in every
+    cell and slot: the kernel returns the lower index, as `torch.argmax`."""
+    _, args = chip_smoke.chord_inputs(3, d, cuda, 4)
+    args = [a.clone() for a in args]
+    args[0].zero_()
+    p0, p1, d0, d1 = cols
+    for k, b, lo, hi in ((3, 4, p0, p1), (5, 6, p0, p1), (7, 8, d0, d1)):
+        args[k][:, hi] = args[k][:, lo]
+        args[b][lo] = args[b][hi] = args[b].max() + 10.0
+    before = chord_tail.launches
+    out = chord_tail.chord_tail_tokens(*args, n_slots=15)
+    torch.cuda.synchronize()
+    assert chord_tail.launches == before + 1
+    assert (out[..., 0] == p0).all() and (out[..., 1] == d0).all()
+
+
+@pytest.mark.parametrize("d", [1664, 2048])
+def test_chord_tail_fp32_refuses_a_width_it_does_not_take(cuda, d):
+    _, args = chip_smoke.chord_inputs(1, d, cuda, 0)
+    with pytest.raises(ValueError, match=f"d={d}"):
+        chord_tail.chord_tail_tokens(*args, n_slots=15)
 
 
 def test_chord_tail_rejects_what_it_does_not_take(cuda):
