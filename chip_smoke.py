@@ -6,8 +6,10 @@
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the CUDA kernels from the sources in the checkout
    (ptxas' registers and spills printed). Counts the tensor-core
-   instructions (HMMA/HGMMA) in the SASS of the bf16 eval GCL kernel
-   (`cuobjdump -sass`) and fails if there is none; counts those of the fp32
+   instructions (HMMA/HGMMA) in the SASS of the bf16 eval GCL kernel and of
+   the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`, its d = 512
+   form; `cuobjdump -sass`) and fails if either has none; counts those of the
+   fp32
    eval GCL kernel (`csrc/gcl_eval_fp32.cu`) and of the fp32 chord-tail
    kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if either
    holds one, or no FFMA. ptxas' registers and spills are printed for
@@ -47,8 +49,11 @@
    `chord_tail` launch per device call), and that the n = 8 result equals
    the same request on the CPU by the threshold and tie rules.
 2d. The bf16 generation kernels at 512 bars: `chord_tail` in bf16 (ids
-   equal outside top-2 gaps < 1e-4 of its fp32 logits) and `gcl_eval` in
-   bf16 at K = 2 (within 2e-2 x max |plain|), timed as in 2c.
+   equal outside top-2 gaps < 1e-4 of its fp32 logits; timed beside the
+   SIMT kernel's recorded time, `SIMT_CHORD_BF16_MS`, and beside the dense
+   bound of the three-part unembed that its tensor-core products take,
+   `dense_split_bound_ms`) and `gcl_eval` in bf16 at K = 2 (within 2e-2 x
+   max |plain|), timed as in 2c.
 4. Batch-256 throughput by bench.py's protocol (20 calls, median of 3).
 4b. The same in bf16 (`make_generator(bf16=True)`; its call time over
    fp32's printed): exactly 4 bf16 `gcl_eval` and 1 bf16 `chord_tail`
@@ -125,6 +130,9 @@ SIMT_EVAL_FP32_MS = {1: 6.438, 2: 12.764}
 # template of `chord_tail.cu` (32-row tiles, the slot the slow grid axis) ran
 # it before `chord_tail_fp32.cu` (NVIDIA H100 80GB HBM3, 700.00 W)
 SIMT_CHORD_FP32_MS = 19.11
+# the same for the bf16 chord tail, as the SIMT template of `chord_tail.cu`
+# ran it before `chord_tail_bf16_tc.cu` (NVIDIA H100 80GB HBM3, 700.00 W)
+SIMT_CHORD_BF16_MS = 20.306
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -568,8 +576,8 @@ def check_chord(nbar, d, device, timing=True, bf16=False):
     plain top-2 logit gap is below TIE (`bf16`: x and every weight and bias
     cast to bf16; the logits are fp32 sums either way, so the rule is the
     same); with timing, ms per launch and the bound (bf16: on the bf16
-    tensor cores, `cuda_core_bound_ms` on the fp32 CUDA cores it runs
-    on)."""
+    tensor cores, `dense_split_bound_ms` with the three-part unembed the
+    kernel takes, `cuda_core_bound_ms` on the fp32 CUDA cores)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import chord_tail
@@ -614,6 +622,11 @@ def check_chord(nbar, d, device, timing=True, bf16=False):
         res["dense_bound_ms"] = bound_ms(mask.numel() * per_row, nbytes,
                                          peak)[0]
         if bf16:
+            # the kernel's unembeds take h as three bf16 parts: 3 x their
+            # products on the tensor cores
+            split_row = 15 * (2.0 * d * d + 3 * 2.0 * h * (131 + 99))
+            res["dense_split_bound_ms"] = bound_ms(mask.numel() * split_row,
+                                                   nbytes, peak)[0]
             res["cuda_core_bound_ms"] = bound_ms(rows * per_row, nbytes)[0]
             res["dense_cuda_core_bound_ms"] = bound_ms(
                 mask.numel() * per_row, nbytes)[0]
@@ -1351,6 +1364,13 @@ def main() -> int:
     print(f"gcl_eval_bf16 SASS: {hmma} tensor-core instructions (HMMA/HGMMA)")
     check(hmma > 0, "the bf16 eval GCL kernel holds no tensor-core "
                     "instruction")
+    # the bf16 chord tail in its d = 512 form (128-row tiles, H = 256)
+    hmma_tail = sass_instructions("chord_tail_bf16",
+                                  "chord_tail_bf16_tc_kernelILi128ELi256E")
+    print(f"chord_tail_bf16 SASS: {hmma_tail} tensor-core instructions "
+          f"(HMMA/HGMMA)")
+    check(hmma_tail > 0, "the bf16 chord-tail kernel holds no tensor-core "
+                         "instruction")
     # the fp32 eval GCL keeps fp32 rounding: FFMA only, no TF32 products
     mma32 = sass_instructions("gcl_eval", "gcl_eval_fp32_kernel")
     ffma32 = sass_instructions("gcl_eval", "gcl_eval_fp32_kernel", r"\bFFMA\b")
@@ -1413,6 +1433,7 @@ def main() -> int:
     print("small-shape bf16 chord tail check (8 bars, d=512):", json.dumps(
         check_chord(8, 512, device, timing=False, bf16=True)))
     chord16 = check_chord(512, 512, device, bf16=True)
+    chord16["simt_kernel_ms"] = SIMT_CHORD_BF16_MS
     gen16_k = check_gcl(512, 512, 2, device, bf16=True)
     gen16_k["cuda_core_kernel_ms"] = CUDA_CORE_EVAL_BF16_MS[2]
     print(f"bf16 generation kernel check (512 bars, d=512, {card}):",
@@ -1592,7 +1613,8 @@ def main() -> int:
         entry("gcl_eval_bf16_k2",
               "polyphemus_tpu_torch/csrc/gcl_eval_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:440", gen16_k),
-        entry("chord_tail_bf16", "polyphemus_tpu_torch/csrc/chord_tail.cu",
+        entry("chord_tail_bf16",
+              "polyphemus_tpu_torch/csrc/chord_tail_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord16)]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

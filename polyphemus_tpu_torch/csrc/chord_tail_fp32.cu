@@ -31,7 +31,7 @@
 //   d <= 512, half a bar for d = 640-1024, a track (32 rows) for
 //   d = 1152-1536. A tile computes a half-width of 64, 128, 192, 256, 384, 512
 //   or 768 columns; a width whose half lies between two of them runs in the
-//   next one up, on weights the wrapper zero-pads to it (`pack_fp32`): the
+//   next one up, on weights the wrapper zero-pads to it (`chord_tail.pack`): the
 //   padded columns of h are exact zeros and meet zero unembed rows, so the
 //   sums of the real columns are the unpadded ones. Items are tile-major with the
 //   slot as the fast axis, so the 15 items of a tile run together on 15 SMs:
@@ -472,7 +472,7 @@ static int launch(const void* x, const void* ck, const void* cb,
 // to H rows; ub (432) their biases, padded alike; ids (nbar, 4, 32, 15, 2)
 // int32. d is a multiple of 128 up to 1536; H is 64, 128, 192, 256 for
 // d <= 512, 384 for d = 640, 768, 512 for d = 896, 1024 and 768 above
-// (`chord_tail.FP32_HALF_WIDTHS`); vp <= 144, vd <= 112.
+// (`chord_tail.HALF_WIDTHS`); vp <= 144, vd <= 112.
 extern "C" int chord_tail_fp32_launch(const void* x, const void* ck,
                                       const void* cb, const void* u,
                                       const void* ub, void* ids, int nbar,

@@ -48,8 +48,8 @@ SIGNATURES = {
                            [VP] * 10 + [INT] * 3 + [VP]),
     "chord_tail": ("chord_tail_fp32", "chord_tail_fp32_launch",
                    [VP] * 6 + [INT] * 5 + [VP]),
-    "chord_tail_bf16": ("chord_tail", "chord_tail_bf16_launch",
-                        [VP] * 10 + [INT] * 5 + [VP]),
+    "chord_tail_bf16": ("chord_tail_bf16_tc", "chord_tail_bf16_launch",
+                        [VP] * 6 + [INT] * 5 + [VP]),
 }
 
 _launchers: dict = {}

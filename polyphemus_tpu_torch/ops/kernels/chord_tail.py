@@ -2,9 +2,9 @@
 
 Counterpart of `polyphemus_tpu/ops/kernels/chord_tail.py::chord_tail_tokens`.
 On a CUDA tensor `chord_tail_tokens` launches `csrc/chord_tail_fp32.cu` (x in
-fp32) or `csrc/chord_tail.cu` (x in bf16), which keep the slot hiddens and
-logits on chip; on a CPU tensor it runs `chord_tail_plain`, the same function
-in plain PyTorch.
+fp32, on the CUDA cores) or `csrc/chord_tail_bf16_tc.cu` (x in bf16, on the
+tensor cores), which keep the slot hiddens and logits on chip; on a CPU
+tensor it runs `chord_tail_plain`, the same function in plain PyTorch.
 
 x and the weights are fp32 or bf16 (the biases fp32 or bf16, as the model
 holds them). In bf16 it computes what the Pallas body computes for a bf16
@@ -54,44 +54,47 @@ def chord_tail_plain(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the half-widths of h that the fp32 kernel's tiles compute
-# (`csrc/chord_tail_fp32.cu`); it takes d % 128 == 0 up to 1536
-FP32_HALF_WIDTHS = (64, 128, 192, 256, 384, 512, 768)
-FP32_MAX_D = 2 * FP32_HALF_WIDTHS[-1]
-# columns of each packed unembed, and the vocabulary sizes the fp32 kernel's
+# the half-widths of h that the kernels' tiles compute
+# (`csrc/chord_tail_fp32.cu`, `csrc/chord_tail_bf16_tc.cu`); they take
+# d % 128 == 0 up to 1536
+HALF_WIDTHS = (64, 128, 192, 256, 384, 512, 768)
+MAX_D = 2 * HALF_WIDTHS[-1]
+# columns of each packed unembed, and the vocabulary sizes the kernels'
 # pitch and duration tiles cover
 UNEMBED_WIDTH, MAX_PITCH, MAX_DUR = 144, 144, 112
 
 
-def fp32_half_width(d: int) -> int:
-    """The half-width H of h that the fp32 kernel computes at width d: d/2,
-    or the next of its tiles' half-widths up."""
-    return next(w for w in FP32_HALF_WIDTHS if w >= d // 2)
+def half_width(d: int) -> int:
+    """The half-width H of h that the kernels compute at width d: d/2, or
+    the next of their tiles' half-widths up."""
+    return next(w for w in HALF_WIDTHS if w >= d // 2)
 
 
-def pack_fp32(chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd, pb_nd, dk,
-              db):
-    """The fp32 kernel's weight operands, fp32 and contiguous.
-
-    ck (d, n_slots * 2H) and cb (n_slots * 2H,): each half of each slot's
-    columns zero-padded from d/2 to H = `fp32_half_width(d)` (the weights
-    as they are when H = d/2). u (H, 3 * 144): the drum, melodic and
-    duration unembeds side by side, each zero-padded to 144 columns and to
-    H rows; ub (3 * 144,) their biases padded alike. A padded column of h
-    is an exact zero (zero weights, zero bias) and meets zero unembed rows,
-    so the logits are the unpadded ones; the kernel's argmax stops at the
-    vocabulary edge, so a padded vocabulary column is never read."""
+def pack(dtype, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd, pb_nd,
+         dk, db):
+    """The weight operands of the kernel for x in dtype (fp32 or bf16),
+    contiguous: ck (d, n_slots * 2H) in dtype and cb (n_slots * 2H,) fp32,
+    each half of each slot's columns
+    zero-padded from d/2 to H = `half_width(d)` (the weights as they are
+    when H = d/2 and they have that dtype); u (H, 3 * 144) in dtype: the
+    drum, melodic and duration unembeds side by side, each zero-padded to
+    144 columns and to H rows; ub (3 * 144,) fp32, their biases padded
+    alike. A padded column of h is an exact zero (zero weights, zero bias)
+    and meets zero unembed rows, so the logits are the unpadded ones; the
+    kernels' argmax stops at the vocabulary edge, so a padded vocabulary
+    column is never read. In bf16 every cast is exact for bf16 weights (the
+    wrapper takes no other) and for any bias."""
     d = chord_kernel.shape[0]
-    h, hp = d // 2, fp32_half_width(d)
+    h, hp = d // 2, half_width(d)
     ns = chord_kernel.shape[1] // d
-    ck, cb = (a.to(torch.float32).contiguous()
-              for a in (chord_kernel, chord_bias))
+    ck = chord_kernel.to(dtype).contiguous()
+    cb = chord_bias.to(torch.float32).contiguous()
     if hp != h:
         ck = F.pad(ck.reshape(d, ns, 2, h), (0, hp - h)).reshape(d, -1)
         cb = F.pad(cb.reshape(ns, 2, h), (0, hp - h)).reshape(-1)
     w = UNEMBED_WIDTH
     u = ck.new_zeros((hp, 3 * w))
-    ub = ck.new_zeros((3 * w,))
+    ub = cb.new_zeros((3 * w,))
     for i, (k, b) in enumerate(((pk_drums, pb_drums), (pk_nd, pb_nd),
                                 (dk, db))):
         u[:h, i * w:i * w + k.shape[1]] = k
@@ -99,24 +102,25 @@ def pack_fp32(chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd, pb_nd, dk,
     return ck, cb, u, ub
 
 
-# the last packing: weak references to its weights, their versions, and
-# what was packed (None where that is the weight itself, which the cache
-# does not keep alive)
-_packed = None
+# the last packing for each dtype: weak references to its weights, their
+# versions, and what was packed (None where that is the weight itself, which
+# the cache does not keep alive)
+_packed: dict = {}
 
 
-def _fp32_operands(weights):
-    """`pack_fp32(*weights)`, packed again only when a weight is another
-    tensor than at the last call or was changed in place since."""
-    global _packed
+def _operands(dtype, weights):
+    """`pack(dtype, *weights)`, packed again only when a weight is another
+    tensor than at the last packing for dtype or was changed in place
+    since."""
     versions = [t._version for t in weights]
-    if _packed is not None:
-        refs, was, kept = _packed
+    if dtype in _packed:
+        refs, was, kept = _packed[dtype]
         if was == versions and all(r() is t for r, t in zip(refs, weights)):
             return [weights[i] if p is None else p for i, p in enumerate(kept)]
-    out = pack_fp32(*weights)
-    _packed = ([weakref.ref(t) for t in weights], versions,
-               [None if p is weights[i] else p for i, p in enumerate(out)])
+    out = pack(dtype, *weights)
+    _packed[dtype] = ([weakref.ref(t) for t in weights], versions,
+                      [None if p is weights[i] else p
+                       for i, p in enumerate(out)])
     return out
 
 
@@ -128,9 +132,11 @@ def _check_cuda_args(x, params):
     if x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"chord_tail: x must be contiguous float32 or "
                          f"bfloat16, got {x.dtype}")
-    if x.dtype == torch.float32 and d > FP32_MAX_D:
-        raise ValueError(f"chord_tail: the fp32 kernel takes d up to "
-                         f"{FP32_MAX_D}, got d={d}")
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("chord_tail: a bfloat16 x must be 16-byte aligned")
+    if d > MAX_D:
+        raise ValueError(f"chord_tail: the kernels take d up to {MAX_D}, got "
+                         f"d={d}")
     for name, v in params.items():
         if v.device != x.device:
             raise ValueError(f"chord_tail: {name} is on {v.device}, x on "
@@ -143,6 +149,12 @@ def _check_cuda_args(x, params):
                                        or v.data_ptr() % 16):
             raise ValueError(f"chord_tail: chord_kernel must be contiguous, "
                              f"16-byte aligned {x.dtype} as x")
+        # the bf16 kernel takes the unembeds in bf16: a wider weight would
+        # be rounded where the plain version is not
+        if (name in ("pk_drums", "pk_nd", "dk") and x.dtype == torch.bfloat16
+                and v.dtype != torch.bfloat16):
+            raise ValueError(f"chord_tail: with a bfloat16 x, {name} must be "
+                             f"bfloat16, got {v.dtype}")
 
 
 def chord_tail_tokens(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
@@ -173,26 +185,22 @@ def chord_tail_tokens(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
             raise ValueError(f"chord_tail: {name} must be {shape}, got "
                              f"{tuple(params[name].shape)}")
     _check_cuda_args(x, params)
-    if x.dtype == torch.float32 and (vp > MAX_PITCH or vd > MAX_DUR):
-        raise ValueError(f"chord_tail: the fp32 kernel takes at most "
-                         f"{MAX_PITCH} pitch and {MAX_DUR} duration tokens, "
-                         f"got {vp} and {vd}")
+    if vp > MAX_PITCH or vd > MAX_DUR:
+        raise ValueError(f"chord_tail: the kernels take at most {MAX_PITCH} "
+                         f"pitch and {MAX_DUR} duration tokens, got vp={vp} "
+                         f"and vd={vd}")
     lead = x.shape[:-3]
     nbar = math.prod(lead)
     ids = torch.empty(lead + x.shape[-3:-1] + (n_slots, 2), dtype=torch.int32,
                       device=x.device)
+    # the weights packed (`pack`), once for as long as they last
+    ops = _operands(x.dtype, args[1:])
     if x.dtype == torch.float32:
-        # the fp32 kernel's TMA copies take x k-major, (nbar, d, 128), and
-        # the weights packed (`pack_fp32`), once for as long as they last
-        name, ops = "chord_tail", _fp32_operands(args[1:])
+        # the fp32 kernel's TMA copies take x k-major, (nbar, d, 128)
+        name = "chord_tail"
         x = x.reshape(nbar, 128, d).transpose(1, 2).contiguous()
     else:
-        # the biases and the unembeds go in as contiguous fp32 (exact for
-        # bf16 values): bf16 vocabulary rows of 131 or 99 values are not
-        # aligned for vector loads, and these operands are small
         name = "chord_tail_bf16"
-        ops = [chord_kernel] + [a.to(torch.float32).contiguous()
-                                for a in args[2:]]
     if ops[1].data_ptr() % 16:
         raise ValueError("chord_tail: chord_bias must be 16-byte aligned")
     fn = _build.launcher(name)

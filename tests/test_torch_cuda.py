@@ -69,16 +69,17 @@ def test_gcl_eval_fp32_leaves_a_bar_without_active_cells_as_it_was(cuda):
                                atol=chip_smoke.TOL)
 
 
-# fp32 at every width the kernel takes (d = 640-1024 in half-bar tiles,
-# 1152-1536 in track tiles; 640, 896 and 1152-1408 on padded weights) and at
-# one bar, six, and 133 (no whole number of 132-CTA waves); bf16 at 6. Seven
-# bars, not six, at d = 384 and 134, not 133, at d = 1152: those inputs have
-# an inactive-cell class whose top-2 gap is below TIE, shared by 0.5-2 % of
-# the ids, more than check_chord lets the tie rule cover
-CHORD_TAIL_CASES = [(nbar, d, False) for d in range(128, 1537, 128)
-                    for nbar in (1, 7 if d == 384 else 6,
-                                 134 if d == 1152 else 133)] + [
-                        (6, d, True) for d in (128, 256, 512)]
+# fp32 and bf16 at every width the kernels take (d = 640-1024 in half-bar
+# tiles, 1152-1536 in track tiles; 640, 896 and 1152-1408 on padded weights)
+# and at one bar, six, and 133 (no whole number of 132-CTA waves). Seven
+# bars, not six, at d = 384 (and in bf16 at d = 1152) and 134, not 133, at
+# d = 1152: those inputs have an inactive-cell class whose top-2 gap is below
+# TIE, shared by 0.5-2 % of the ids, more than check_chord lets the tie rule
+# cover
+CHORD_TAIL_CASES = [(nbar, d, bf16) for bf16 in (False, True)
+                    for d in range(128, 1537, 128)
+                    for nbar in (1, 7 if d == 384 or (bf16 and d == 1152)
+                                 else 6, 134 if d == 1152 else 133)]
 
 
 @pytest.mark.parametrize("nbar,d,bf16", CHORD_TAIL_CASES)
@@ -95,26 +96,51 @@ def test_chord_tail_kernel_matches_plain(cuda, nbar, d, bf16):
         before[0] + (not bf16), before[1] + bf16)
 
 
-# (pitch, pitch, duration, duration) columns made equal: across the lanes of
-# a row, and inside one thread's columns; in a bar tile and a track tile
-@pytest.mark.parametrize("d", [512, 1152])
-@pytest.mark.parametrize("cols", [(17, 130, 2, 97), (0, 1, 96, 98)])
-def test_chord_tail_fp32_takes_the_first_of_equal_maxima(cuda, cols, d):
-    """All-zero x: every cell's h is b_slot. One unembed column copied into
-    a later one, both with the largest bias, gives two equal maxima in every
-    cell and slot: the kernel returns the lower index, as `torch.argmax`."""
-    _, args = chip_smoke.chord_inputs(3, d, cuda, 4)
-    args = [a.clone() for a in args]
+def equal_maxima_inputs(d, cols, device, dtype):
+    """chord_inputs at 3 bars in dtype with x all zero, so every cell's h is
+    b_slot, and in each unembed column cols[1] (cols[3]) a copy of column
+    cols[0] (cols[2]), both with the largest bias: two equal maxima in every
+    cell (drum rows and melodic rows) and slot."""
+    _, args = chip_smoke.chord_inputs(3, d, device, 4)
+    args = [a.to(dtype) for a in args]
     args[0].zero_()
     p0, p1, d0, d1 = cols
     for k, b, lo, hi in ((3, 4, p0, p1), (5, 6, p0, p1), (7, 8, d0, d1)):
         args[k][:, hi] = args[k][:, lo]
         args[b][lo] = args[b][hi] = args[b].max() + 10.0
+    return args
+
+
+# (pitch, pitch, duration, duration) columns made equal: across the lanes of
+# a row, and inside one thread's columns; in a bar tile and a track tile
+@pytest.mark.parametrize("d", [512, 1152])
+@pytest.mark.parametrize("cols", [(17, 130, 2, 97), (0, 1, 96, 98)])
+def test_chord_tail_fp32_takes_the_first_of_equal_maxima(cuda, cols, d):
+    """Two equal maxima in every cell and slot: the kernel returns the
+    lower index, as `torch.argmax`."""
+    args = equal_maxima_inputs(d, cols, cuda, torch.float32)
     before = chord_tail.launches
     out = chord_tail.chord_tail_tokens(*args, n_slots=15)
     torch.cuda.synchronize()
     assert chord_tail.launches == before + 1
-    assert (out[..., 0] == p0).all() and (out[..., 1] == d0).all()
+    assert (out[..., 0] == cols[0]).all() and (out[..., 1] == cols[2]).all()
+
+
+# the same in bf16: in a bar tile, a half-bar tile (padded weights) and a
+# track tile; both columns of an 8-column tile, and two tiles apart
+@pytest.mark.parametrize("d", [512, 640, 1152])
+@pytest.mark.parametrize("cols", [(17, 130, 2, 97), (0, 1, 96, 98)])
+def test_chord_tail_bf16_takes_the_first_of_equal_maxima(cuda, cols, d):
+    """Two equal maxima in every cell and slot, in the drum row and in the
+    melodic rows: the bf16 kernel returns the lower index."""
+    args = equal_maxima_inputs(d, cols, cuda, torch.bfloat16)
+    before = chord_tail.bf16_launches
+    out = chord_tail.chord_tail_tokens(*args, n_slots=15)
+    torch.cuda.synchronize()
+    assert chord_tail.bf16_launches == before + 1
+    for rows in (out[:, 0], out[:, 1:]):  # the drum row, the melodic rows
+        assert (rows[..., 0] == cols[0]).all()
+        assert (rows[..., 1] == cols[2]).all()
 
 
 @pytest.mark.parametrize("d", [1664, 2048])
@@ -122,6 +148,23 @@ def test_chord_tail_fp32_refuses_a_width_it_does_not_take(cuda, d):
     _, args = chip_smoke.chord_inputs(1, d, cuda, 0)
     with pytest.raises(ValueError, match=f"d={d}"):
         chord_tail.chord_tail_tokens(*args, n_slots=15)
+
+
+@pytest.mark.parametrize("d,vp,vd", [(1664, 131, 99), (2048, 131, 99),
+                                     (512, 145, 99), (512, 131, 113)])
+def test_chord_tail_bf16_refuses_what_it_does_not_take(cuda, d, vp, vd):
+    """A width above 1536, more than 144 pitch or 112 duration tokens: a
+    ValueError that names the value, before any launch."""
+    _, args = chip_smoke.chord_inputs(1, d, cuda, 0)
+    args = [a.bfloat16() for a in args]
+    for k, b, v in ((3, 4, vp), (5, 6, vp), (7, 8, vd)):
+        args[k] = torch.cat([args[k]] * 2, dim=1)[:, :v].contiguous()
+        args[b] = torch.cat([args[b]] * 2)[:v].contiguous()
+    before = chord_tail.bf16_launches
+    name = f"d={d}" if d > 1536 else f"vp={vp}" if vp > 144 else f"vd={vd}"
+    with pytest.raises(ValueError, match=name):
+        chord_tail.chord_tail_tokens(*args, n_slots=15)
+    assert chord_tail.bf16_launches == before
 
 
 def test_chord_tail_rejects_what_it_does_not_take(cuda):
