@@ -6,14 +6,15 @@
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the CUDA kernels from the sources in the checkout
    (ptxas' registers and spills printed). Counts the tensor-core
-   instructions (HMMA/HGMMA) in the SASS of the bf16 eval GCL kernel and of
-   the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`, its d = 512
-   form; `cuobjdump -sass`) and fails if either has none; counts those of the
-   fp32
-   eval GCL kernel (`csrc/gcl_eval_fp32.cu`) and of the fp32 chord-tail
-   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if either
-   holds one, or no FFMA. ptxas' registers and spills are printed for
-   each kernel function of each source.
+   instructions (HMMA/HGMMA) in the SASS of both forms of the bf16 GCL
+   kernel (`csrc/gcl_eval_bf16_tc.cu`: the eval form and the training
+   forward) and of the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`,
+   its d = 512 form; `cuobjdump -sass`) and fails if any has none; counts
+   those of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`) and
+   of the fp32 chord-tail kernel (`csrc/chord_tail_fp32.cu`, its d = 512
+   form) and fails if any holds one, or no FFMA. ptxas' registers, spills
+   and shared memory are printed for each kernel function (each template
+   instantiation) of each source.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    flagship shapes (batch 256 = 512 bars, d = 512) on realistic and edge-case
    masks: `gcl_eval` at K = 1 and K = 2 (rtol = atol = 2e-4) and
@@ -28,12 +29,15 @@
    `gcl_bwd_weight`) against their plain versions at 8 bars and at the
    flagship training microbatch (64 sequences = 128 bars, d = 512): the
    forward and dx at rtol = atol = 2e-4, the sums over bars (dgate, dbias,
-   dWbig) at max abs err <= 1e-4 x max |plain|; times each the same way.
+   dWbig) at max abs err <= 1e-4 x max |plain|; times each the same way,
+   `gcl_fwd` beside the recorded time of the SIMT kernel it replaced
+   (`SIMT_FWD_MS`).
 2c. The bf16 training kernels, `gcl_fwd` in bf16 and the fused single-pass
    backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
    and 256 bars (the bf16 config's microbatch of 128 sequences): every
    output within 2e-2 x max |plain|; their bound counts the bf16 tensor
-   cores (989 TFLOP/s). `gcl_bwd_fused` in fp32 at 128 bars against its
+   cores (989 TFLOP/s); `gcl_fwd` is timed beside the SIMT kernel's
+   recorded time. `gcl_bwd_fused` in fp32 at 128 bars against its
    fp32 plain version at the tolerances of 2b, and timed (`fused_ms`)
    beside `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs (`split_ms`).
    `gcl_eval` in bf16 (the tensor-core kernel; the bf16 eval step's GCN)
@@ -78,7 +82,8 @@
    each grad within 1e-3 x its max |cpu| (a grad that is rounding noise,
    under 1e-5 of the largest, within 1e-5 of the largest).
    Seconds per optimizer step at batch 256 (median of 3 passes of 5 steps)
-   and seq/s, and one profiled step (device time by kernel).
+   and seq/s, and one profiled step (device time by kernel, the idle share,
+   and the share of the step that the `gcl_fwd` kernel takes).
 6. Trains the bf16 flagship config (`examples/training_lmd2_bf16.json`:
    batch 256 in 2 microbatches of 128, the bf16 compute policy) the same
    way on 1024 samples (512 train, 256 validation) with an eval step after
@@ -118,13 +123,14 @@ TIE = 1e-4            # chord_tail: ids may differ below this top-2 gap
 SUM_TOL = 1e-4        # dgate, dbias, dWbig: max abs err / max |plain|
 BF16_REL = 2e-2       # bf16 kernels: max abs err / max |plain|, per output
 # ms per launch of the bf16 eval GCL at 512 bars, d = 512, K = 1 and 2, when
-# it ran fp32 FMAs on the CUDA cores (`gcl_eval.cu` templated on bf16; NVIDIA
-# H100 80GB HBM3, 700.00 W): the yardstick of the tensor-core kernel
+# it ran fp32 FMAs on the CUDA cores (the retired `gcl_eval.cu` templated on
+# bf16; NVIDIA H100 80GB HBM3, 700.00 W): the yardstick of the tensor-core
+# kernel
 CUDA_CORE_EVAL_BF16_MS = {1: 7.063, 2: 13.976}
 # ms per launch of the fp32 eval GCL at 512 bars, d = 512, K = 1 and 2, as
-# the SIMT template of `gcl_eval.cu` (128 x 128 tiles, 8-feature chunks)
-# ran it before `gcl_eval_fp32.cu` (NVIDIA H100 80GB HBM3, 700.00 W): the
-# yardstick of the fp32 kernel
+# the SIMT template of the retired `gcl_eval.cu` (128 x 128 tiles, 8-feature
+# chunks) ran it before `gcl_eval_fp32.cu` (NVIDIA H100 80GB HBM3, 700.00
+# W): the yardstick of the fp32 kernel
 SIMT_EVAL_FP32_MS = {1: 6.438, 2: 12.764}
 # ms per launch of the fp32 chord tail at 512 bars, d = 512, as the SIMT
 # template of `chord_tail.cu` (32-row tiles, the slot the slow grid axis) ran
@@ -133,6 +139,12 @@ SIMT_CHORD_FP32_MS = 19.11
 # the same for the bf16 chord tail, as the SIMT template of `chord_tail.cu`
 # ran it before `chord_tail_bf16_tc.cu` (NVIDIA H100 80GB HBM3, 700.00 W)
 SIMT_CHORD_BF16_MS = 20.306
+# ms per launch of the training forward at the training microbatches (fp32
+# 128 bars, bf16 256 bars; d = 512), as the SIMT template of the retired
+# `gcl_eval.cu` (128 x 128 tiles, 8-feature chunks, fp32 FMAs in both
+# dtypes) ran it before the eval kernels took it over (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SIMT_FWD_MS = {"gcl_fwd": 2.231, "gcl_fwd_bf16": 3.526}
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -425,9 +437,9 @@ def fused_bwd_work(mask, d, nbar):
 def check_gcl_train_bf16(nbar, d, device, timing=True):
     """The bf16 `gcl_fwd` and `gcl_bwd_fused` against their bf16 plain
     versions on the card; with timing, ms per launch and the bounds
-    (`bound_ms`: the bf16 tensor cores; `cuda_core_bound_ms`: fp32 FMAs on
-    the CUDA cores, what these kernels run on; "dense" and "CE" variants as
-    in 2b)."""
+    (`bound_ms`: the bf16 tensor cores, where `gcl_fwd` runs;
+    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where
+    `gcl_bwd_fused` runs; "dense" and "CE" variants as in 2b)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
@@ -1258,7 +1270,9 @@ def time_train_steps(trainer, batch, device, passes=3, steps=5):
 def profile_train_step(trainer, batch, device, path):
     """Device time by kernel over one optimizer step (torch.profiler),
     written to `path`; returns the step's wall time, the summed kernel time
-    (device busy; the idle share is the rest) and the top kernels."""
+    (device busy; the idle share is the rest), the time and share of the
+    step of the training forward's kernel (`gcl_fwd`: the GCL kernels'
+    form without the epilogue, template flag false) and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1281,12 +1295,15 @@ def profile_train_step(trainer, batch, device, path):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    fwd_ms = sum(ms for key, ms, _ in rows
+                 if re.search(r"gcl_eval_\w+_kernel(<false>|ILb0E)", key))
     with open(path, "w") as f:
         f.write(f"step wall {wall_ms:.3f} ms, kernels {busy:.3f} ms\n")
         for key, ms, count in rows:
             f.write(f"{ms:12.3f} ms {count:6d}x  {key}\n")
     return {"step_wall_ms": wall_ms, "kernel_ms": busy,
-            "idle_share": 1.0 - busy / wall_ms,
+            "idle_share": 1.0 - busy / wall_ms, "gcl_fwd_ms": fwd_ms,
+            "gcl_fwd_share": fwd_ms / wall_ms,
             "top": [{"name": k[:80], "ms": ms, "calls": c}
                     for k, ms, c in rows[:12]]}
 
@@ -1360,10 +1377,16 @@ def main() -> int:
                 func = m.group(1)
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name} {func}: {line.strip()}")
-    hmma = sass_instructions("gcl_eval_bf16", "gcl_eval_bf16_tc_kernel")
-    print(f"gcl_eval_bf16 SASS: {hmma} tensor-core instructions (HMMA/HGMMA)")
-    check(hmma > 0, "the bf16 eval GCL kernel holds no tensor-core "
-                    "instruction")
+    # both forms of each GCL kernel: the eval form (template flag 1) and the
+    # training forward (0)
+    forms = {"gcl_eval": "ILb1E", "gcl_fwd": "ILb0E"}
+    for name, flag in forms.items():
+        hmma = sass_instructions(f"{name}_bf16",
+                                 f"gcl_eval_bf16_tc_kernel{flag}")
+        print(f"{name}_bf16 SASS: {hmma} tensor-core instructions "
+              f"(HMMA/HGMMA)")
+        check(hmma > 0, f"the bf16 GCL kernel's {name} form holds no "
+                        f"tensor-core instruction")
     # the bf16 chord tail in its d = 512 form (128-row tiles, H = 256)
     hmma_tail = sass_instructions("chord_tail_bf16",
                                   "chord_tail_bf16_tc_kernelILi128ELi256E")
@@ -1371,13 +1394,15 @@ def main() -> int:
           f"(HMMA/HGMMA)")
     check(hmma_tail > 0, "the bf16 chord-tail kernel holds no tensor-core "
                          "instruction")
-    # the fp32 eval GCL keeps fp32 rounding: FFMA only, no TF32 products
-    mma32 = sass_instructions("gcl_eval", "gcl_eval_fp32_kernel")
-    ffma32 = sass_instructions("gcl_eval", "gcl_eval_fp32_kernel", r"\bFFMA\b")
-    print(f"gcl_eval (fp32) SASS: {ffma32} FFMA, {mma32} tensor-core "
-          f"instructions")
-    check(mma32 == 0 and ffma32 > 0, "the fp32 eval GCL kernel is not an "
-                                     "FFMA kernel")
+    # the fp32 GCL kernel keeps fp32 rounding: FFMA only, no TF32 products
+    for name, flag in forms.items():
+        sym = f"gcl_eval_fp32_kernel{flag}"
+        mma32 = sass_instructions(name, sym)
+        ffma32 = sass_instructions(name, sym, r"\bFFMA\b")
+        print(f"{name} (fp32) SASS: {ffma32} FFMA, {mma32} tensor-core "
+              f"instructions")
+        check(mma32 == 0 and ffma32 > 0, f"the fp32 GCL kernel's {name} form "
+                                         f"is not an FFMA kernel")
     # the same for the fp32 chord tail, in its d = 512 form (128-row tiles)
     tail_sym = "chord_tail_fp32_kernelILi128ELi4E"
     mma_tail = sass_instructions("chord_tail", tail_sym)
@@ -1408,6 +1433,7 @@ def main() -> int:
     print("small-shape training kernel check (8 bars, d=512):",
           json.dumps(check_gcl_train(8, 512, device, timing=False)))
     train_k = check_gcl_train(128, 512, device)
+    train_k["gcl_fwd"]["simt_kernel_ms"] = SIMT_FWD_MS["gcl_fwd"]
     print("flagship training kernel check (128 bars, d=512):",
           json.dumps(train_k))
 
@@ -1415,6 +1441,7 @@ def main() -> int:
     print("small-shape bf16 training kernel check (8 bars, d=512):",
           json.dumps(check_gcl_train_bf16(8, 512, device, timing=False)))
     bf16_k = check_gcl_train_bf16(256, 512, device)
+    bf16_k["gcl_fwd_bf16"]["simt_kernel_ms"] = SIMT_FWD_MS["gcl_fwd_bf16"]
     print(f"bf16 flagship training kernel check (256 bars, d=512, {card}):",
           json.dumps(bf16_k))
     print("small-shape bf16 eval GCL check (8 bars, d=512, K=1, 3):",
@@ -1591,7 +1618,7 @@ def main() -> int:
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347", gcl1),
         entry("chord_tail", "polyphemus_tpu_torch/csrc/chord_tail_fp32.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord),
-        entry("gcl_fwd", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+        entry("gcl_fwd", "polyphemus_tpu_torch/csrc/gcl_eval_fp32.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",
               train_k["gcl_fwd"]),
         entry("gcl_bwd_data", "polyphemus_tpu_torch/csrc/gcl_bwd_data.cu",
@@ -1601,7 +1628,8 @@ def main() -> int:
               "polyphemus_tpu_torch/csrc/gcl_bwd_weight.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:564",
               train_k["gcl_bwd_weight"]),
-        entry("gcl_fwd_bf16", "polyphemus_tpu_torch/csrc/gcl_eval.cu",
+        entry("gcl_fwd_bf16",
+              "polyphemus_tpu_torch/csrc/gcl_eval_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",
               bf16_k["gcl_fwd_bf16"]),
         entry("gcl_bwd_fused", "polyphemus_tpu_torch/csrc/gcl_bwd_fused.cu",

@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel `_bwd_data_kernel` of
 // polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel A of
 // `gcl_backward_pallas`, called by the custom VJP `gcl_fused`). With
-// gm = g * m and the forward of `gcl_eval.cu` (no epilogue), per bar:
+// gm = g * m and the forward `gcl.gcl_fwd` (no epilogue), per bar:
 //
 //   dH_r     = gm @ W_r^T            (track blocks: each track's 32 rows only)
 //   dx       = dH_root

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas kernel `_bwd_fused_kernel` of
 // polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:289 (`gcl_backward_fused`,
-// its pallas_call at :453). With gm = g * m and the forward of
-// `gcl_eval.cu` (no epilogue), per bar:
+// its pallas_call at :453). With gm = g * m and the forward
+// `gcl.gcl_fwd` (no epilogue), per bar:
 //
 //   dH_r  = gm @ W_r^T               (track blocks: each track's 32 rows only)
 //   dx    = dH_root + the scatters of `gcl_bwd_data.cu`

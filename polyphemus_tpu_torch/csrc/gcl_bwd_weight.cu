@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel `_bwd_weight_kernel` of
 // polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel B of
 // `gcl_backward_pallas`, called by the custom VJP `gcl_fused`). With
-// gm = g * m and the message operands h_r of the forward (`gcl_eval.cu`):
+// gm = g * m and the message operands h_r of the forward (`gcl.gcl_fwd`):
 //
 //   dW_r = sum over bars and rows of h_r[row, :]^T gm[row, :]
 //

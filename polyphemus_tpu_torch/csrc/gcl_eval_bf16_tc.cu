@@ -1,28 +1,36 @@
-// K chained eval GCL layers in bf16, on the tensor cores.
+// GCL layers in bf16, on the tensor cores: K chained eval layers, or one
+// training-forward layer.
 //
 // Replaces, in bf16, the Pallas kernels `_kernel_chain` (K >= 2,
-// polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` with its eval
-// epilogue (K = 1, gcl_pallas.py:347), reached through
-// `gcl_apply_pallas_chain` and `gcl_apply_pallas(..., epilogue_affine=...)`.
-// Per layer and bar of n = 4 x 32 cells it computes what the bf16 Pallas
-// body computes, with rnd the rounding to bf16:
+// polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` (K = 1,
+// gcl_pallas.py:347) with its eval epilogue and without it, reached through
+// `gcl_apply_pallas_chain`, `gcl_apply_pallas(..., epilogue_affine=...)` and
+// the forward of the training custom VJP `gcl_fused`. Per layer and bar of
+// n = 4 x 32 cells it computes what the bf16 Pallas body computes, with rnd
+// the rounding to bf16:
 //
 //   base = rnd(rnd([h_self | h_onset | h_next | x] @ [W0; W_on; W_next; root])
 //              + bias)
 //   v    = rnd(base + rnd(h_track @ W_t)) * m      (W_t: the row's own track)
-//   out  = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x)
+//   out  = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x)   (eval)
+//   out  = v                                         (training forward)
+//
+// The template flag EPI picks the form (`gcl_eval_bf16_launch`,
+// `gcl_fwd_bf16_launch`); only the stores of a tile's last stage differ.
 //
 // The message segments round where the Pallas body casts: each elementwise
 // product, the mean reciprocals, the same-column sums and each segment, so
 // every segment is a bf16 value. The products take bf16 operands and sum in
 // fp32 on the tensor cores (mma.sync m16n8k16, bf16 -> fp32): only the
-// summation order differs from the plain version (`gcl.gcl_eval_plain`).
+// summation order differs from the plain versions (`gcl.gcl_eval_plain`,
+// `gcl.gcl_fwd_plain`).
 //
 // What bounds it on an H100: operations. Per bar and layer the products are
 // 2 * 128 * 5d * d flops (335 MFLOP at d = 512) against 2 * 128 * d * 2
 // bytes of node state; at 989 TFLOP/s of bf16 tensor-core rate a 512-bar
-// launch at K = 2 needs 0.35 ms. Every bar also reads the layer's 8d x d
-// weights (4 MB at d = 512) from L2.
+// launch at K = 2 needs 0.35 ms, a 256-bar training forward 0.087 ms (one
+// wave at two CTAs per SM). Every bar also reads the layer's 8d x d weights
+// (4 MB at d = 512) from L2.
 //
 // Design, one CTA of 8 warps per bar, two CTAs per SM (92 KB of shared
 // memory, at most 128 registers a thread):
@@ -313,8 +321,10 @@ __device__ __forceinline__ void park_track(Smem& sm, float (&acc)[2][8][4],
             pack2(acc[mi][nj][2 * hh], acc[mi][nj][2 * hh + 1]);
 }
 
-// out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x), v = rnd(rnd(rnd(acc) +
-// bias) + track) * m, for this thread's accumulators of tile n0.
+// out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x) (EPI) or out = v, v =
+// rnd(rnd(rnd(acc) + bias) + track) * m, for this thread's accumulators of
+// tile n0. Without EPI neither ea, eb nor the residual rows are read.
+template <bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[2][8][4],
                                          const bf16* xin, bf16* xo,
@@ -326,26 +336,41 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
   for (int nj = 0; nj < 8; ++nj) {
     const int col = n0 + col0 + nj * 8 + 2 * (lane & 3);
     const float2 bb = bf2(*reinterpret_cast<const uint32_t*>(bias + col));
-    const float2 aa = bf2(*reinterpret_cast<const uint32_t*>(ea + col));
-    const float2 ee = bf2(*reinterpret_cast<const uint32_t*>(eb + col));
+    if constexpr (!EPI) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = row0 + mi * 16 + (lane >> 2) + hh * 8;
-        const float m = sm.m[row];
-        const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
-        const float2 xr =
-            bf2(*reinterpret_cast<const uint32_t*>(xin + (size_t)row * d + col));
-        const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
-        const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
-        const float o0 = fmaxf(rnd(rnd(v0 * aa.x) + ee.x) * m, 0.f) + xr.x;
-        const float o1 = fmaxf(rnd(rnd(v1 * aa.y) + ee.y) * m, 0.f) + xr.y;
-        *reinterpret_cast<uint32_t*>(xo + (size_t)row * d + col) = pack2(o0, o1);
-      }
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + mi * 16 + (lane >> 2) + hh * 8;
+          const float m = sm.m[row];
+          const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
+          const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
+          const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
+          *reinterpret_cast<uint32_t*>(xo + (size_t)row * d + col) = pack2(v0, v1);
+        }
+    } else {
+      const float2 aa = bf2(*reinterpret_cast<const uint32_t*>(ea + col));
+      const float2 ee = bf2(*reinterpret_cast<const uint32_t*>(eb + col));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + mi * 16 + (lane >> 2) + hh * 8;
+          const float m = sm.m[row];
+          const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
+          const float2 xr =
+              bf2(*reinterpret_cast<const uint32_t*>(xin + (size_t)row * d + col));
+          const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
+          const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
+          const float o0 = fmaxf(rnd(rnd(v0 * aa.x) + ee.x) * m, 0.f) + xr.x;
+          const float o1 = fmaxf(rnd(rnd(v1 * aa.y) + ee.y) * m, 0.f) + xr.y;
+          *reinterpret_cast<uint32_t*>(xo + (size_t)row * d + col) = pack2(o0, o1);
+        }
+    }
   }
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 2)
 gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
                         const bf16* wbigs, const bf16* biases, const bf16* eas,
@@ -381,8 +406,8 @@ gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
     bf16* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + bar_off;
     const bf16* W = wbigs + (size_t)k * NBLK * d * d;
     const bf16* bias = biases + (size_t)k * d;
-    const bf16* ea = eas + (size_t)k * d;
-    const bf16* eb = ebs + (size_t)k * d;
+    const bf16* ea = EPI ? eas + (size_t)k * d : nullptr;
+    const bf16* eb = EPI ? ebs + (size_t)k * d : nullptr;
 
     auto fetch_w = [&](int s) {
       const int j = s % per_tile;
@@ -423,8 +448,8 @@ gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
         for (int seg = 0; seg < NSB; ++seg)
           mma_k16(acc, sm.a[seg], wt, seg * BK, row0, col0, lane);
         if (j == per_tile - 1)
-          epilogue(sm, acc, xin, xo, bias, ea, eb, d, (s / per_tile) * BN,
-                   row0, col0, tid);
+          epilogue<EPI>(sm, acc, xin, xo, bias, ea, eb, d,
+                        (s / per_tile) * BN, row0, col0, tid);
       }
     }
     // the next layer reads this layer's output rows written by other threads
@@ -434,28 +459,49 @@ gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
 
 }  // namespace
 
-// K chained eval layers (folded batch-norm, relu, residual), every float
-// tensor in bf16: x, out, scratch (nbar, 128, d), gates (32, d), wbigs
-// (K, 8d, d), biases, eas, ebs (K, d); aux (nbar, 14, 128) int32.
+// Layers of the kernel's EPI form, every float tensor in bf16: x, out,
+// scratch (nbar, 128, d), gates (32, d), wbigs (K, 8d, d), biases, eas, ebs
+// (K, d); aux (nbar, 14, 128) int32. Without EPI, K = 1 and eas, ebs are not
+// read.
+template <bool EPI>
+static int launch(const void* x, const void* aux, const void* gates,
+                  const void* wbigs, const void* biases, const void* eas,
+                  const void* ebs, void* out, void* scratch, int nbar, int d,
+                  int K, void* stream) {
+  if (nbar <= 0) return 0;
+  if (d % BN != 0 || K < 1 || (!EPI && K != 1))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      gcl_eval_bf16_tc_kernel<EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gcl_eval_bf16_tc_kernel<EPI>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  gcl_eval_bf16_tc_kernel<EPI><<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const int*)aux, (const bf16*)gates,
+      (const bf16*)wbigs, (const bf16*)biases, (const bf16*)eas,
+      (const bf16*)ebs, (bf16*)out, (bf16*)scratch, d, K);
+  return (int)cudaGetLastError();
+}
+
+// K chained eval layers (folded batch-norm, relu, residual).
 extern "C" int gcl_eval_bf16_launch(const void* x, const void* aux,
                                     const void* gates, const void* wbigs,
                                     const void* biases, const void* eas,
                                     const void* ebs, void* out, void* scratch,
                                     int nbar, int d, int K, void* stream) {
-  if (nbar <= 0) return 0;
-  if (d % BN != 0 || K < 1) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      gcl_eval_bf16_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gcl_eval_bf16_tc_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  gcl_eval_bf16_tc_kernel<<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const int*)aux, (const bf16*)gates,
-      (const bf16*)wbigs, (const bf16*)biases, (const bf16*)eas,
-      (const bf16*)ebs, (bf16*)out, (bf16*)scratch, d, K);
-  return (int)cudaGetLastError();
+  return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
+                      nbar, d, K, stream);
+}
+
+// One training-forward layer: out = v, wbig (8d, d), bias (d,).
+extern "C" int gcl_fwd_bf16_launch(const void* x, const void* aux,
+                                   const void* gates, const void* wbig,
+                                   const void* bias, void* out, int nbar,
+                                   int d, void* stream) {
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
+                       nbar, d, 1, stream);
 }

@@ -1,25 +1,32 @@
-// K chained eval GCL layers in fp32, on the CUDA cores.
+// GCL layers in fp32, on the CUDA cores: K chained eval layers, or one
+// training-forward layer.
 //
 // Replaces, in fp32, the Pallas kernels `_kernel_chain` (K >= 2,
-// polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` with its eval
-// epilogue (K = 1, gcl_pallas.py:347), reached through
-// `gcl_apply_pallas_chain` and `gcl_apply_pallas(..., epilogue_affine=...)`.
-// Per layer and bar of n = 4 x 32 cells it computes what `_layer_math`
-// computes:
+// polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` (K = 1,
+// gcl_pallas.py:347) with its eval epilogue and without it, reached through
+// `gcl_apply_pallas_chain`, `gcl_apply_pallas(..., epilogue_affine=...)` and
+// the forward of the training custom VJP `gcl_fused`. Per layer and bar of
+// n = 4 x 32 cells it computes what `_layer_math` computes:
 //
 //   A   = [h_track | h_self | h_onset | h_next | x]            (n x 5d)
-//   out = relu(((A @ [W_t; W0; W_on; W_next; root] + bias) * m * ea + eb) * m) + x
+//   v   = (A @ [W_t; W0; W_on; W_next; root] + bias) * m
+//   out = relu((v * ea + eb) * m) + x      (eval, `gcl_eval_launch`)
+//   out = v                                (training, `gcl_fwd_launch`)
 //
-// with W_t the weight of the row's own track. The messages come from direct
-// indexed loads through the aux channels (no one-hot selection matmuls). The
-// operations are the plain version's (`gcl.gcl_eval_plain`); only the order
-// of the fp32 sums differs. The products are fp32 FMAs on the CUDA cores: no
-// TF32, no tensor cores, so the fp32 path keeps fp32 rounding.
+// with W_t the weight of the row's own track. The template flag EPI picks
+// the form; only the stores after the last stage differ, so both forms keep
+// the same stages, barriers and mbarrier waits. The messages come from
+// direct indexed loads through the aux channels (no one-hot selection
+// matmuls). The operations are the plain versions' (`gcl.gcl_eval_plain`,
+// `gcl.gcl_fwd_plain`); only the order of the fp32 sums differs. The
+// products are fp32 FMAs on the CUDA cores: no TF32, no tensor cores, so
+// the fp32 path keeps fp32 rounding.
 //
 // What bounds it on an H100: operations. Per bar and layer the product is
 // 2 * 128 * 5d * d flops (335 MFLOP at d = 512) against 2 * 128 * d * 4
 // bytes of node state, so the FMA issue rate of the CUDA cores (67 TFLOP/s)
-// is the limit: a 512-bar launch at K = 2 needs 5.13 ms. Every bar also
+// is the limit: a 512-bar launch at K = 2 needs 5.13 ms, a 128-bar training
+// forward 0.64 ms (one wave of 128 CTAs on 132 SMs). Every bar also
 // streams the layer's 8 d x d weights (8 MB at d = 512) from L2.
 //
 // Design, one CTA of 8 warps per bar, one CTA per SM (186 KB of shared
@@ -199,38 +206,55 @@ __device__ __forceinline__ void gemm_stage(float (&acc)[8][4 * NJ],
 }
 
 // out = relu(((acc + bias) * m * ea + eb) * m) + x for this thread's rows
-// r0..r0+7 and columns n0 + cb + 32 j .. + 3.
-template <int NJ>
+// r0..r0+7 and columns n0 + cb + 32 j .. + 3 (EPI); without EPI out =
+// (acc + bias) * m, reading neither ea, eb nor the residual rows.
+template <int NJ, bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[8][4 * NJ],
                                          const float* xin, float* xo,
                                          const float* bias, const float* ea,
                                          const float* eb, int d, int n0,
                                          int r0, int cb) {
+  if constexpr (!EPI) {
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = n0 + cb + j * 32;
-    const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + col));
-    const float4 aa = __ldg(reinterpret_cast<const float4*>(ea + col));
-    const float4 ee = __ldg(reinterpret_cast<const float4*>(eb + col));
-    const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-    const float av[4] = {aa.x, aa.y, aa.z, aa.w};
-    const float ev[4] = {ee.x, ee.y, ee.z, ee.w};
+    for (int j = 0; j < NJ; ++j) {
+      const int col = n0 + cb + j * 32;
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + col));
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = r0 + r;
-      const float m = sm.m[i];
-      const float4 res =
-          __ldcg(reinterpret_cast<const float4*>(xin + (size_t)i * d + col));
-      const float rv[4] = {res.x, res.y, res.z, res.w};
-      float o[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float v = (acc[r][4 * j + c] + bv[c]) * m;
-        o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
+      for (int r = 0; r < 8; ++r) {
+        const int i = r0 + r;
+        const float m = sm.m[i];
+        *reinterpret_cast<float4*>(xo + (size_t)i * d + col) = make_float4(
+            (acc[r][4 * j] + bb.x) * m, (acc[r][4 * j + 1] + bb.y) * m,
+            (acc[r][4 * j + 2] + bb.z) * m, (acc[r][4 * j + 3] + bb.w) * m);
       }
-      *reinterpret_cast<float4*>(xo + (size_t)i * d + col) =
-          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = n0 + cb + j * 32;
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + col));
+      const float4 aa = __ldg(reinterpret_cast<const float4*>(ea + col));
+      const float4 ee = __ldg(reinterpret_cast<const float4*>(eb + col));
+      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+      const float av[4] = {aa.x, aa.y, aa.z, aa.w};
+      const float ev[4] = {ee.x, ee.y, ee.z, ee.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = r0 + r;
+        const float m = sm.m[i];
+        const float4 res =
+            __ldcg(reinterpret_cast<const float4*>(xin + (size_t)i * d + col));
+        const float rv[4] = {res.x, res.y, res.z, res.w};
+        float o[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float v = (acc[r][4 * j + c] + bv[c]) * m;
+          o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
+        }
+        *reinterpret_cast<float4*>(xo + (size_t)i * d + col) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      }
     }
   }
 }
@@ -239,7 +263,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
 // blk0 is the layer's first block in the tensor map (8 k); g counts the
 // stages multiplied so far (weight slot g & 1, mbarrier parity (g >> 1) & 1;
 // every pass has an even number of stages).
-template <int NJ>
+template <int NJ, bool EPI>
 __device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
                                      const float* gates, const CUtensorMap* map,
                                      int blk0, const float* bias,
@@ -283,9 +307,10 @@ __device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
     cp_async_wait<0>();
     __syncthreads();
   }
-  epilogue<NJ>(sm, acc, xin, xo, bias, ea, eb, d, n0, r0, cb);
+  epilogue<NJ, EPI>(sm, acc, xin, xo, bias, ea, eb, d, n0, r0, cb);
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_eval_fp32_kernel(const float* x, const int* aux, const float* gates,
                      const float* biases, const float* eas, const float* ebs,
@@ -316,14 +341,14 @@ gcl_eval_fp32_kernel(const float* x, const int* aux, const float* gates,
     const float* xin = ((k == 0) ? x : (((K - k) % 2 == 0) ? out : scratch)) + bar_off;
     float* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + bar_off;
     const float* bias = biases + (size_t)k * d;
-    const float* ea = eas + (size_t)k * d;
-    const float* eb = ebs + (size_t)k * d;
+    const float* ea = EPI ? eas + (size_t)k * d : nullptr;
+    const float* eb = EPI ? ebs + (size_t)k * d : nullptr;
     int n0 = 0;
     for (; n0 + NC <= d; n0 += NC)
-      pass<4>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d, n0,
+      pass<4, EPI>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d, n0,
               tid, warp, trk, r0, half * (NC / 2) + cx, g);
     if (n0 < d)  // d % 256 == 128: one pass of 128 columns
-      pass<2>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d, n0,
+      pass<2, EPI>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d, n0,
               tid, warp, trk, r0, half * (NC / 4) + cx, g);
     // the next layer reads this layer's output rows written by other threads
     __syncthreads();
@@ -376,7 +401,8 @@ static bool weight_map(CUtensorMap* map, const void* wbigs, int d, int K,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The kernel's shared-memory size, set once per device.
+// The shared-memory size of the kernel's EPI form, set once per device.
+template <bool EPI>
 static cudaError_t allow_smem(int smem) {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
@@ -384,25 +410,26 @@ static cudaError_t allow_smem(int smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(gcl_eval_fp32_kernel,
+  err = cudaFuncSetAttribute(gcl_eval_fp32_kernel<EPI>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-// K chained eval layers (folded batch-norm, relu, residual), every float
-// tensor fp32: x, out, scratch (nbar, 128, d), gates (32, d), wbigs
-// (K, 8d, d), biases, eas, ebs (K, d); aux (nbar, 14, 128) int32. d % 128
-// == 0; for K = 1 scratch may be out.
-extern "C" int gcl_eval_launch(const void* x, const void* aux,
-                               const void* gates, const void* wbigs,
-                               const void* biases, const void* eas,
-                               const void* ebs, void* out, void* scratch,
-                               int nbar, int d, int K, void* stream) {
+// Layers of the kernel's EPI form, every float tensor fp32: x, out,
+// scratch (nbar, 128, d), gates (32, d), wbigs (K, 8d, d), biases, eas, ebs
+// (K, d); aux (nbar, 14, 128) int32. d % 128 == 0; for K = 1 scratch may be
+// out. Without EPI, K = 1 and eas, ebs are not read.
+template <bool EPI>
+static int launch(const void* x, const void* aux, const void* gates,
+                  const void* wbigs, const void* biases, const void* eas,
+                  const void* ebs, void* out, void* scratch, int nbar, int d,
+                  int K, void* stream) {
   if (nbar <= 0) return 0;
-  if (d <= 0 || d % 128 != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 128 != 0 || K < 1 || (!EPI && K != 1))
+    return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
-  const cudaError_t err = allow_smem(smem);
+  const cudaError_t err = allow_smem<EPI>(smem);
   if (err != cudaSuccess) return (int)err;
   // a map for the full 256-column passes and, where d % 256 == 128, one for
   // the last 128-column pass; an unused map stays zero
@@ -410,9 +437,29 @@ extern "C" int gcl_eval_launch(const void* x, const void* aux,
   if ((d >= NC && !weight_map(&map256, wbigs, d, K, NC)) ||
       (d % NC != 0 && !weight_map(&map128, wbigs, d, K, NC / 2)))
     return (int)cudaErrorInvalidValue;
-  gcl_eval_fp32_kernel<<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
+  gcl_eval_fp32_kernel<EPI><<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const int*)aux, (const float*)gates,
       (const float*)biases, (const float*)eas, (const float*)ebs, (float*)out,
       (float*)scratch, d, K, map256, map128);
   return (int)cudaGetLastError();
+}
+
+// K chained eval layers (folded batch-norm, relu, residual).
+extern "C" int gcl_eval_launch(const void* x, const void* aux,
+                               const void* gates, const void* wbigs,
+                               const void* biases, const void* eas,
+                               const void* ebs, void* out, void* scratch,
+                               int nbar, int d, int K, void* stream) {
+  return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
+                      nbar, d, K, stream);
+}
+
+// One training-forward layer: out = ([h_track | h_self | h_onset | h_next |
+// x] @ wbig + bias) * m, wbig (8d, d), bias (d,).
+extern "C" int gcl_fwd_launch(const void* x, const void* aux,
+                              const void* gates, const void* wbig,
+                              const void* bias, void* out, int nbar, int d,
+                              void* stream) {
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
+                       nbar, d, 1, stream);
 }

@@ -35,8 +35,9 @@ SIGNATURES = {
                  [VP] * 9 + [INT] * 3 + [VP]),
     "gcl_eval_bf16": ("gcl_eval_bf16_tc", "gcl_eval_bf16_launch",
                       [VP] * 9 + [INT] * 3 + [VP]),
-    "gcl_fwd": ("gcl_eval", "gcl_fwd_launch", [VP] * 6 + [INT] * 2 + [VP]),
-    "gcl_fwd_bf16": ("gcl_eval", "gcl_fwd_bf16_launch",
+    "gcl_fwd": ("gcl_eval_fp32", "gcl_fwd_launch",
+                [VP] * 6 + [INT] * 2 + [VP]),
+    "gcl_fwd_bf16": ("gcl_eval_bf16_tc", "gcl_fwd_bf16_launch",
                      [VP] * 6 + [INT] * 2 + [VP]),
     "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
                      [VP] * 8 + [INT] * 2 + [VP]),

@@ -2,11 +2,11 @@
 
 Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
 (`gcl_apply_pallas` with and without `epilogue_affine`, and
-`gcl_apply_pallas_chain`). On a CUDA tensor `gcl_eval` launches
+`gcl_apply_pallas_chain`). On a CUDA tensor both wrappers launch
 `csrc/gcl_eval_fp32.cu` in fp32 (fp32 FMAs on the CUDA cores) and
-`csrc/gcl_eval_bf16_tc.cu` in bf16 (on the tensor cores), and `gcl_fwd`
-launches `csrc/gcl_eval.cu` in both; on a CPU tensor both wrappers run their
-plain PyTorch version:
+`csrc/gcl_eval_bf16_tc.cu` in bf16 (on the tensor cores): `gcl_eval` their
+eval form, `gcl_fwd` the same kernel without the epilogue. On a CPU tensor
+both wrappers run their plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S = 128 cells),

@@ -5,7 +5,7 @@
 compiled only on a machine with nvcc, so these CPU tests read them as text:
 every launcher is defined once in its source with the arguments ctypes
 passes (a pointer where ctypes passes a pointer, an int where it passes an
-int), and the fp32 eval GCL is bound to its own source."""
+int), and each eval GCL source also holds its dtype's training forward."""
 import re
 
 import pytest
@@ -34,7 +34,13 @@ def test_launcher_takes_what_ctypes_passes(name):
 
 
 def test_fp32_eval_gcl_is_bound_to_its_own_source():
-    """`gcl_eval` in fp32 binds `csrc/gcl_eval_fp32.cu`, and the training
-    forward's source no longer defines an eval launcher of the same name."""
-    assert _build.SIGNATURES["gcl_eval"][0] == "gcl_eval_fp32"
-    assert "gcl_eval_launch" not in (_build.CSRC / "gcl_eval.cu").read_text()
+    """The eval GCL and the training forward share one source per dtype:
+    `gcl_eval`/`gcl_fwd` bind `csrc/gcl_eval_fp32.cu`, `gcl_eval_bf16`/
+    `gcl_fwd_bf16` bind `csrc/gcl_eval_bf16_tc.cu`, and every source that
+    `SIGNATURES` names exists under `csrc/`."""
+    sources = {name: sig[0] for name, sig in _build.SIGNATURES.items()}
+    assert sources["gcl_eval"] == sources["gcl_fwd"] == "gcl_eval_fp32"
+    assert (sources["gcl_eval_bf16"] == sources["gcl_fwd_bf16"]
+            == "gcl_eval_bf16_tc")
+    for source in set(sources.values()):
+        assert (_build.CSRC / f"{source}.cu").is_file(), source

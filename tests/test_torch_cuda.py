@@ -183,10 +183,41 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                     device=cuda), *([x] * 5))
 
 
-@pytest.mark.parametrize("nbar", [3, 40])
-@pytest.mark.parametrize("d", [128, 512])
+# one bar, a few, 40, and one past a whole wave (fp32: one CTA on each of
+# 132 SMs; bf16: two); d = 384 takes a 256-column pass and a 128-column one
+@pytest.mark.parametrize("nbar", [1, 3, 40, 133])
+@pytest.mark.parametrize("d", [128, 384, 512])
 def test_gcl_training_kernels_match_plain(cuda, d, nbar):
     chip_smoke.check_gcl_train(nbar, d, cuda, timing=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gcl_fwd_gives_zeros_for_a_bar_without_active_cells(cuda, dtype):
+    """Bar 1 of 3 has no active cell and a state that is not 0: the
+    training forward is (gcl(x) + bias) * m, exactly 0 there; the other
+    bars agree with the plain version."""
+    mask, (x, _, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        3, 384, cuda, 5)
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 128).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(128, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda)
+    x, gates, wbig, bias = (v.to(dtype) for v in (x, gates, wbig, bias))
+    counter = "fwd_launches" if dtype == torch.float32 else "fwd_bf16_launches"
+    before = getattr(gcl, counter)
+    out = gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    torch.cuda.synchronize()
+    assert getattr(gcl, counter) == before + 1
+    assert out.dtype == dtype
+    assert (out[1] == 0).all()
+    ref = gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)
+    keep = torch.tensor([0, 2], device=cuda)
+    if dtype == torch.float32:
+        chip_smoke.held_to("gcl_fwd", out[keep], ref[keep], summed=False)
+    else:
+        chip_smoke.held_rel("gcl_fwd bf16", out[keep], ref[keep])
 
 
 def test_training_kernels_reject_what_they_do_not_take(cuda):
@@ -211,8 +242,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         "gcl_fwd_bf16": 0, "gcl_bwd_fused": 0}
 
 
-@pytest.mark.parametrize("nbar", [3, 40])
-@pytest.mark.parametrize("d", [128, 512])
+@pytest.mark.parametrize("nbar", [1, 3, 40, 265])
+@pytest.mark.parametrize("d", [128, 384, 512])
 def test_bf16_training_kernels_match_plain(cuda, d, nbar):
     chip_smoke.check_gcl_train_bf16(nbar, d, cuda, timing=False)
 

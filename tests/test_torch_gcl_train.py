@@ -47,7 +47,8 @@ def port_args(mask, x, *rest):
         torch.from_numpy(a) for a in rest]
 
 
-@pytest.mark.parametrize("density", [0.05, 0.3, 0.9])
+# density 0.0 leaves bars 3 and 4 without an active cell
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.3, 0.9])
 def test_gcl_fwd_plain_matches_pallas_without_epilogue(density):
     mask, x, _, gate, rel_w, root, bias = layer_case(seed=1, d=32,
                                                      density=density)
@@ -65,6 +66,8 @@ def test_gcl_fwd_plain_matches_pallas_without_epilogue(density):
     assert gcl.fwd_launches == launches  # the CPU takes the plain path
     np.testing.assert_allclose(got.reshape(x.shape).numpy(),
                                np.asarray(want), **FWD_TOL)
+    empty = torch.from_numpy(~mask.any(axis=(1, 2)))
+    assert (got.reshape(x.shape)[empty] == 0).all()  # no active cell: zeros
 
 
 @pytest.mark.parametrize("seed", [0, 1])
