@@ -8,11 +8,13 @@
    (ptxas' registers and spills printed). Counts the tensor-core
    instructions (HMMA/HGMMA) in the SASS of both forms of the bf16 GCL
    kernel (`csrc/gcl_eval_bf16_tc.cu`: the eval form and the training
-   forward) and of the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`,
-   its d = 512 form; `cuobjdump -sass`) and fails if any has none; counts
-   those of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`) and
-   of the fp32 chord-tail kernel (`csrc/chord_tail_fp32.cu`, its d = 512
-   form) and fails if any holds one, or no FFMA. ptxas' registers, spills
+   forward), of the bf16 fused GCL backward (`csrc/gcl_bwd_fused_bf16_tc.cu`)
+   and of the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`, its
+   d = 512 form; `cuobjdump -sass`) and fails if any has none; counts those
+   of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`), of the
+   fp32 fused backward (`csrc/gcl_bwd_fused.cu`) and of the fp32 chord-tail
+   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if any
+   holds one, or no FFMA. ptxas' registers, spills
    and shared memory are printed for each kernel function (each template
    instantiation) of each source.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -36,8 +38,10 @@
    backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
    and 256 bars (the bf16 config's microbatch of 128 sequences): every
    output within 2e-2 x max |plain|; their bound counts the bf16 tensor
-   cores (989 TFLOP/s); `gcl_fwd` is timed beside the SIMT kernel's
-   recorded time. `gcl_bwd_fused` in fp32 at 128 bars against its
+   cores (989 TFLOP/s), `cuda_core_bound_ms` the CUDA cores (the fused
+   backward's dW product runs there); `gcl_fwd` is timed beside the SIMT
+   kernel's recorded time, `gcl_bwd_fused` beside the FFMA form's
+   (`FFMA_FUSED_BF16_MS`). `gcl_bwd_fused` in fp32 at 128 bars against its
    fp32 plain version at the tolerances of 2b, and timed (`fused_ms`)
    beside `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs (`split_ms`).
    `gcl_eval` in bf16 (the tensor-core kernel; the bf16 eval step's GCN)
@@ -145,6 +149,10 @@ SIMT_CHORD_BF16_MS = 20.306
 # dtypes) ran it before the eval kernels took it over (NVIDIA H100 80GB
 # HBM3, 700.00 W)
 SIMT_FWD_MS = {"gcl_fwd": 2.231, "gcl_fwd_bf16": 3.526}
+# ms per launch of the bf16 fused backward at 256 bars, d = 512, when its dH
+# product ran fp32 FMAs on the CUDA cores (the bf16 instantiation of
+# `gcl_bwd_fused.cu`; NVIDIA H100 80GB HBM3, 700.00 W)
+FFMA_FUSED_BF16_MS = 7.415
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -437,9 +445,10 @@ def fused_bwd_work(mask, d, nbar):
 def check_gcl_train_bf16(nbar, d, device, timing=True):
     """The bf16 `gcl_fwd` and `gcl_bwd_fused` against their bf16 plain
     versions on the card; with timing, ms per launch and the bounds
-    (`bound_ms`: the bf16 tensor cores, where `gcl_fwd` runs;
-    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where
-    `gcl_bwd_fused` runs; "dense" and "CE" variants as in 2b)."""
+    (`bound_ms`: the bf16 tensor cores, where `gcl_fwd` and the fused
+    backward's dH product run; `cuda_core_bound_ms`: fp32 FMAs on the CUDA
+    cores, where its dW product runs; "dense" and "CE" variants as in
+    2b)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
@@ -1394,6 +1403,12 @@ def main() -> int:
           f"(HMMA/HGMMA)")
     check(hmma_tail > 0, "the bf16 chord-tail kernel holds no tensor-core "
                          "instruction")
+    hmma_fused = sass_instructions("gcl_bwd_fused_bf16",
+                                   "gcl_bwd_fused_bf16_tc_kernel")
+    print(f"gcl_bwd_fused_bf16 SASS: {hmma_fused} tensor-core instructions "
+          f"(HMMA/HGMMA)")
+    check(hmma_fused > 0, "the bf16 fused backward holds no tensor-core "
+                          "instruction")
     # the fp32 GCL kernel keeps fp32 rounding: FFMA only, no TF32 products
     for name, flag in forms.items():
         sym = f"gcl_eval_fp32_kernel{flag}"
@@ -1411,6 +1426,13 @@ def main() -> int:
           f"instructions")
     check(mma_tail == 0 and ffma_tail > 0, "the fp32 chord-tail kernel is "
                                            "not an FFMA kernel")
+    fused_sym = "gcl_bwd_fused_kernelIfE"
+    mma_fused32 = sass_instructions("gcl_bwd_fused", fused_sym)
+    ffma_fused32 = sass_instructions("gcl_bwd_fused", fused_sym, r"\bFFMA\b")
+    print(f"gcl_bwd_fused (fp32) SASS: {ffma_fused32} FFMA, {mma_fused32} "
+          f"tensor-core instructions")
+    check(mma_fused32 == 0 and ffma_fused32 > 0, "the fp32 fused backward is "
+                                                 "not an FFMA kernel")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1442,6 +1464,7 @@ def main() -> int:
           json.dumps(check_gcl_train_bf16(8, 512, device, timing=False)))
     bf16_k = check_gcl_train_bf16(256, 512, device)
     bf16_k["gcl_fwd_bf16"]["simt_kernel_ms"] = SIMT_FWD_MS["gcl_fwd_bf16"]
+    bf16_k["gcl_bwd_fused"]["ffma_kernel_ms"] = FFMA_FUSED_BF16_MS
     print(f"bf16 flagship training kernel check (256 bars, d=512, {card}):",
           json.dumps(bf16_k))
     print("small-shape bf16 eval GCL check (8 bars, d=512, K=1, 3):",
@@ -1632,7 +1655,8 @@ def main() -> int:
               "polyphemus_tpu_torch/csrc/gcl_eval_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",
               bf16_k["gcl_fwd_bf16"]),
-        entry("gcl_bwd_fused", "polyphemus_tpu_torch/csrc/gcl_bwd_fused.cu",
+        entry("gcl_bwd_fused",
+              "polyphemus_tpu_torch/csrc/gcl_bwd_fused_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:453",
               bf16_k["gcl_bwd_fused"]),
         entry("gcl_eval_bf16",

@@ -45,7 +45,8 @@ SIGNATURES = {
                        [VP] * 6 + [INT] * 3 + [VP]),
     "gcl_bwd_fused": ("gcl_bwd_fused", "gcl_bwd_fused_launch",
                       [VP] * 10 + [INT] * 3 + [VP]),
-    "gcl_bwd_fused_bf16": ("gcl_bwd_fused", "gcl_bwd_fused_bf16_launch",
+    "gcl_bwd_fused_bf16": ("gcl_bwd_fused_bf16_tc",
+                           "gcl_bwd_fused_bf16_launch",
                            [VP] * 10 + [INT] * 3 + [VP]),
     "chord_tail": ("chord_tail_fp32", "chord_tail_fp32_launch",
                    [VP] * 6 + [INT] * 5 + [VP]),
@@ -130,6 +131,41 @@ def launcher(name: str):
         fn.restype = ctypes.c_int
         _launchers[name] = fn
         return fn
+
+
+def build_variants(name: str, variants: dict, out: Path) -> dict:
+    """Patched copies of kernel `name`'s source, for taking it apart on the
+    card: `variants` maps a variant to its (old, new) text replacements,
+    each `old` occurring exactly once in the source. Writes each copy into
+    `out`, compiles them all in parallel and returns {variant: launcher}."""
+    source, fn_name, argtypes = SIGNATURES[name]
+    src = (CSRC / f"{source}.cu").read_text()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for variant, patches in variants.items():
+        text = src
+        for old, new in patches:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{variant}: the source holds {old!r} "
+                                   f"{text.count(old)} times, not once")
+            text = text.replace(old, new)
+        path = out / f"{variant}.cu"
+        path.write_text(text)
+        # the source's own directory for its includes
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
+               "-o", str(out / f"lib{variant}.so"), str(path)]
+        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for variant, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {variant}:\n{log}")
+        fn = getattr(ctypes.CDLL(str(out / f"lib{variant}.so")), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[variant] = fn
+    return fns
 
 
 def check(name: str, err: int) -> None:

@@ -15,7 +15,6 @@ limit.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -24,6 +23,7 @@ import torch
 
 from . import _build, chord_tail
 
+KERNEL = "chord_tail_bf16"
 OUT = _build.BUILD_DIR.parent / "ablate_chord_tail"
 PROJ_MMA = """            mma_bf16(acc[mi][2 * jp], a[mi], b[0], b[1]);
             mma_bf16(acc[mi][2 * jp + 1], a[mi], b[2], b[3]);"""
@@ -39,37 +39,6 @@ VARIANTS = {
     "no_copies": NO_COPY,
     "no_mma_no_copies": NO_COPY + [(PROJ_MMA, ""), (UNEMBED_MMA, "")],
 }
-
-
-def build() -> dict:
-    """{variant: loaded launcher}, every source compiled in parallel."""
-    src = (_build.CSRC / "chord_tail_bf16_tc.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        path = OUT / f"{name}.cu"
-        path.write_text(text)
-        # the source's own directory for its includes
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(OUT / f"lib{name}.so"), str(path)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(OUT / f"lib{name}.so")).chord_tail_bf16_launch
-        fn.argtypes = _build.SIGNATURES["chord_tail_bf16"][2]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
 
 
 def inputs(nbar: int, d: int, device):
@@ -106,7 +75,7 @@ def main(nbar: int = 512, d: int = 512) -> dict:
     ops = chord_tail.pack(torch.bfloat16, *args[1:])
     ids = torch.empty(nbar, 4, 32, 15, 2, dtype=torch.int32, device=device)
     stream = _build.stream_handle(device)
-    fns = build()
+    fns = _build.build_variants(KERNEL, VARIANTS, OUT)
 
     def run(name):
         _build.check(name, fns[name](

@@ -5,9 +5,10 @@ Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py`
 `_bwd_weight_kernel`; `gcl_backward_fused`: `_bwd_fused_kernel`) and of the
 custom VJP `gcl_fused` of `gcl_pallas.py`. On a CUDA tensor `gcl_bwd_data`
 launches `csrc/gcl_bwd_data.cu`, `gcl_bwd_weight` `csrc/gcl_bwd_weight.cu`
-and `gcl_bwd_fused` `csrc/gcl_bwd_fused.cu`; on a CPU tensor each runs its
-plain PyTorch version, which follows the equations of the forward
-(`gcl.gcl_fwd`):
+and `gcl_bwd_fused` `csrc/gcl_bwd_fused.cu` in fp32 and
+`csrc/gcl_bwd_fused_bf16_tc.cu` (the dH product on the tensor cores) in
+bf16; on a CPU tensor each runs its plain PyTorch version, which follows the
+equations of the forward (`gcl.gcl_fwd`):
 
     msg_p = relu(x[src_p] * G[dist_p]),  msg_n = relu(x[src_n] * G[dist_n])
     h_track = (msg_p + msg_n) * r_tr * m

@@ -5,12 +5,15 @@
 compiled only on a machine with nvcc, so these CPU tests read them as text:
 every launcher is defined once in its source with the arguments ctypes
 passes (a pointer where ctypes passes a pointer, an int where it passes an
-int), and each eval GCL source also holds its dtype's training forward."""
+int), each eval GCL source also holds its dtype's training forward, each
+dtype of the fused backward has its own source, and every text anchor of
+the ablation modules' patches occurs exactly once in its source."""
 import re
 
 import pytest
 
-from polyphemus_tpu_torch.ops.kernels import _build
+from polyphemus_tpu_torch.ops.kernels import (_build, ablate_chord_tail,
+                                              ablate_gcl_bwd_fused)
 
 
 def launcher_params(name):
@@ -44,3 +47,31 @@ def test_fp32_eval_gcl_is_bound_to_its_own_source():
             == "gcl_eval_bf16_tc")
     for source in set(sources.values()):
         assert (_build.CSRC / f"{source}.cu").is_file(), source
+
+
+def test_fused_backward_is_bound_to_its_own_sources():
+    """The fp32 fused backward binds `csrc/gcl_bwd_fused.cu` (FFMA), the
+    bf16 one `csrc/gcl_bwd_fused_bf16_tc.cu` (the tensor-core dH product),
+    and neither source exports the other's launcher."""
+    sources = {name: sig[0] for name, sig in _build.SIGNATURES.items()}
+    assert sources["gcl_bwd_fused"] == "gcl_bwd_fused"
+    assert sources["gcl_bwd_fused_bf16"] == "gcl_bwd_fused_bf16_tc"
+    for name, other in (("gcl_bwd_fused", "gcl_bwd_fused_bf16"),
+                        ("gcl_bwd_fused_bf16", "gcl_bwd_fused")):
+        text = (_build.CSRC / f"{sources[name]}.cu").read_text()
+        assert _build.SIGNATURES[other][1] + "(" not in text
+
+
+@pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_fused],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_ablation_anchors_are_in_their_sources(module):
+    """Each patch of each variant replaces text that occurs exactly once in
+    the source the module ablates, so no later edit of the source turns a
+    variant silently into the whole kernel (or patches two places)."""
+    source = _build.SIGNATURES[module.KERNEL][0]
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    assert module.VARIANTS["whole"] == []
+    for name, patches in module.VARIANTS.items():
+        for old, new in patches:
+            assert text.count(old) == 1, (name, old)
+            assert new != old, name

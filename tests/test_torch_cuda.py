@@ -242,10 +242,47 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         "gcl_fwd_bf16": 0, "gcl_bwd_fused": 0}
 
 
+# d = 1024: 32 stages of the fused backward's dH product a bar, and 4 bar
+# chunks of 32 column tiles
 @pytest.mark.parametrize("nbar", [1, 3, 40, 265])
-@pytest.mark.parametrize("d", [128, 384, 512])
+@pytest.mark.parametrize("d", [128, 384, 512, 1024])
 def test_bf16_training_kernels_match_plain(cuda, d, nbar):
     chip_smoke.check_gcl_train_bf16(nbar, d, cuda, timing=False)
+
+
+def test_fused_backward_bf16_gives_zeros_for_a_bar_without_active_cells(cuda):
+    """Bar 1 of 3 has no active cell while its x and upstream g are not 0:
+    its dx rows are exactly 0, and dW and dbias equal those of the same
+    inputs without that bar (one bar per chunk either way, so the chunks'
+    sums add the same values in the same order). dgate and the other bars'
+    dx sum by shared-memory atomics, in an order that changes from launch
+    to launch: they are held to the plain version's tolerances."""
+    mask, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        3, 384, cuda, 5)
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 128).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(128, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda)
+    x, up, gates, wbig = (v.to(torch.bfloat16) for v in (x, up, gates, wbig))
+    assert (x[1] != 0).any() and (up[1] != 0).any()
+    before = gcl_bwd.fused_launches
+    got = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+    keep = torch.tensor([0, 2], device=cuda)
+    ref = gcl_bwd.gcl_bwd_fused(x[keep].contiguous(), up[keep].contiguous(),
+                                aux[keep].contiguous(), gates, wbig)
+    torch.cuda.synchronize()
+    assert gcl_bwd.fused_launches == before + 2
+    assert got[0].dtype == torch.bfloat16
+    assert (got[0][1] == 0).all()
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    chip_smoke.held_to("gcl_bwd_fused bf16 dgate", got[1], ref[1],
+                       summed=True)
+    chip_smoke.held_rel("gcl_bwd_fused bf16 dx", got[0][keep], ref[0])
+    plain = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
+    for name, a, b in zip(("dx", "dgate", "dbias", "dwbig"), got, plain):
+        chip_smoke.held_rel(f"gcl_bwd_fused bf16 {name}", a, b)
 
 
 @pytest.mark.parametrize("nbar", [1, 3, 40])

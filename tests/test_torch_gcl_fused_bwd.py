@@ -109,13 +109,24 @@ def test_fused_plain_matches_split_plain_fp32(seed):
                                    atol=5e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("seed", [0, 3])
-def test_fused_plain_matches_jax_fused_bf16(seed):
+@pytest.mark.parametrize("seed,empty_bar", [
+    pytest.param(0, False, id="0"), pytest.param(3, False, id="3"),
+    pytest.param(0, True, id="0-empty_bar")])
+def test_fused_plain_matches_jax_fused_bf16(seed, empty_bar):
+    """With `empty_bar`, flat bar 1 has no active cell while its x and g are
+    not 0: its dx rows are exactly 0 on both sides."""
     mask, x, g, gate, rel_w, root, _ = case(seed)
+    if empty_bar:
+        mask[0, 1] = False
+        x[0, 1] = np.random.default_rng(seed + 100).standard_normal(
+            x[0, 1].shape).astype(np.float32)
+        assert (x[0, 1] != 0).any() and (g[0, 1] != 0).any()
     want = jax_fused(mask, x, g, gate, rel_w, root, jnp.bfloat16)
     got = port_fused(*port_inputs(mask, x, g, gate, rel_w, root,
                                   jnp.bfloat16))
     assert_bf16_close(got, want, NAMES)
+    if empty_bar:
+        assert (got[0][1] == 0).all() and (want[0][1] == 0).all()
 
 
 def test_gcl_fused_autograd_matches_jax_grad_bf16():
