@@ -8,14 +8,15 @@
    (ptxas' registers and spills printed). Counts the tensor-core
    instructions (HMMA/HGMMA) in the SASS of both forms of the bf16 GCL
    kernel (`csrc/gcl_eval_bf16_tc.cu`: the eval form and the training
-   forward), of the bf16 fused GCL backward (`csrc/gcl_bwd_fused_bf16_tc.cu`)
+   forward), of both kernels of the bf16 fused GCL backward
+   (`csrc/gcl_bwd_fused_bf16_tc.cu`: the dH kernel and the dW kernel)
    and of the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`, its
    d = 512 form; `cuobjdump -sass`) and fails if any has none; counts those
    of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`), of the
    fp32 fused backward (`csrc/gcl_bwd_fused.cu`) and of the fp32 chord-tail
    kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if any
-   holds one, or no FFMA. ptxas' registers, spills
-   and shared memory are printed for each kernel function (each template
+   holds one, or no FFMA. ptxas' registers, spills, stack and static
+   shared memory are printed for each kernel function (each template
    instantiation) of each source.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    flagship shapes (batch 256 = 512 bars, d = 512) on realistic and edge-case
@@ -38,10 +39,13 @@
    backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
    and 256 bars (the bf16 config's microbatch of 128 sequences): every
    output within 2e-2 x max |plain|; their bound counts the bf16 tensor
-   cores (989 TFLOP/s), `cuda_core_bound_ms` the CUDA cores (the fused
-   backward's dW product runs there); `gcl_fwd` is timed beside the SIMT
+   cores (989 TFLOP/s), `cuda_core_bound_ms` the CUDA cores (where the
+   fused backward's first form ran); `gcl_fwd` is timed beside the SIMT
    kernel's recorded time, `gcl_bwd_fused` beside the FFMA form's
-   (`FFMA_FUSED_BF16_MS`). `gcl_bwd_fused` in fp32 at 128 bars against its
+   (`FFMA_FUSED_BF16_MS`) and the form whose dW product ran FFMA over
+   partials in device memory (`TC_DH_FUSED_BF16_MS`), with ptxas'
+   registers and spills and the HMMA count of each of its two kernels.
+   `gcl_bwd_fused` in fp32 at 128 bars against its
    fp32 plain version at the tolerances of 2b, and timed (`fused_ms`)
    beside `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs (`split_ms`).
    `gcl_eval` in bf16 (the tensor-core kernel; the bf16 eval step's GCN)
@@ -153,6 +157,13 @@ SIMT_FWD_MS = {"gcl_fwd": 2.231, "gcl_fwd_bf16": 3.526}
 # product ran fp32 FMAs on the CUDA cores (the bf16 instantiation of
 # `gcl_bwd_fused.cu`; NVIDIA H100 80GB HBM3, 700.00 W)
 FFMA_FUSED_BF16_MS = 7.415
+# the same when only its dH product ran on the tensor cores and its dW
+# product ran fp32 FMAs with per-bar partials in device memory (NVIDIA H100
+# 80GB HBM3, 700.00 W)
+TC_DH_FUSED_BF16_MS = 5.024
+# the kernels of `csrc/gcl_bwd_fused_bf16_tc.cu`, by their symbols
+FUSED_BF16_KERNELS = {"dH": "gcl_bwd_fused_bf16_tc_kernel",
+                      "dW": "gcl_bwd_dw_bf16_tc_kernel"}
 FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
 BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
@@ -181,6 +192,34 @@ def bound_ms(flops: float, nbytes: float, tflops: float = FP32_TFLOPS):
     t_ops = flops / (tflops * 1e12) * 1e3
     t_mem = nbytes / (HBM_TBPS * 1e12) * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def ptxas_usage(log: str) -> dict:
+    """{function: {"registers", "spill_bytes", "stack_bytes",
+    "static_smem_bytes"}} from the `-Xptxas -v` lines of one nvcc log
+    (spills: stores plus loads; dynamic shared memory is not in the log)."""
+    usage, func = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?(\w+)", line)
+        if m:
+            func = m.group(1)
+            usage.setdefault(func, {})
+            continue
+        if func is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[func]["stack_bytes"] = int(m.group(1))
+            usage[func]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[func]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            usage[func]["static_smem_bytes"] = int(m.group(1))
+    return {f: u for f, u in usage.items() if u}
 
 
 def sass_instructions(kernel: str, symbol: str,
@@ -442,13 +481,28 @@ def fused_bwd_work(mask, d, nbar):
             4.0 * nbar * 128 * 8 * d * d)
 
 
+def check_fused_bf16(x, up, aux, gates, wbig) -> dict:
+    """`gcl_bwd_fused` on bf16 inputs against its plain version: every
+    output (dx, dgate, dbias, dwbig) within BF16_REL of max |plain|;
+    returns {output: max abs err}."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl_bwd
+
+    got = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+    want = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
+    torch.cuda.synchronize()
+    check(got[0].dtype == torch.bfloat16, "gcl_bwd_fused bf16 dx dtype")
+    return {n: held_rel(f"gcl_bwd_fused bf16 {n}", a, b) for n, a, b in
+            zip(("dx", "dgate", "dbias", "dwbig"), got, want)}
+
+
 def check_gcl_train_bf16(nbar, d, device, timing=True):
     """The bf16 `gcl_fwd` and `gcl_bwd_fused` against their bf16 plain
     versions on the card; with timing, ms per launch and the bounds
-    (`bound_ms`: the bf16 tensor cores, where `gcl_fwd` and the fused
-    backward's dH product run; `cuda_core_bound_ms`: fp32 FMAs on the CUDA
-    cores, where its dW product runs; "dense" and "CE" variants as in
-    2b)."""
+    (`bound_ms`: the bf16 tensor cores, where both run;
+    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where the fused
+    backward's first form ran; "dense" and "CE" variants as in 2b)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
@@ -469,11 +523,7 @@ def check_gcl_train_bf16(nbar, d, device, timing=True):
     check(out.dtype == torch.bfloat16, f"gcl_fwd bf16 returned {out.dtype}")
     res = {"gcl_fwd_bf16": {"max_abs_err": held_rel("gcl_fwd bf16", out,
                                                     ref)}}
-    got, want = runs["gcl_bwd_fused"][0](), runs["gcl_bwd_fused"][1]()
-    torch.cuda.synchronize()
-    check(got[0].dtype == torch.bfloat16, "gcl_bwd_fused bf16 dx dtype")
-    errs = {n: held_rel(f"gcl_bwd_fused bf16 {n}", a, b) for n, a, b in
-            zip(("dx", "dgate", "dbias", "dwbig"), got, want)}
+    errs = check_fused_bf16(x, up, aux, gates, wbig)
     res["gcl_bwd_fused"] = dict(
         {"max_abs_err": max(errs.values())},
         **{f"{n}_max_abs_err": e for n, e in errs.items()})
@@ -1377,15 +1427,11 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
+    usage = {}
     for name, log in logs.items():
-        func = ""
-        for line in log.splitlines():
-            m = re.search(r"(?:entry function|Function properties for) "
-                          r"'?(\w+)", line)
-            if m:
-                func = m.group(1)
-            elif "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name} {func}: {line.strip()}")
+        usage[name] = ptxas_usage(log)
+        for func, u in usage[name].items():
+            print(f"  {name} {func}: {json.dumps(u)}")
     # both forms of each GCL kernel: the eval form (template flag 1) and the
     # training forward (0)
     forms = {"gcl_eval": "ILb1E", "gcl_fwd": "ILb0E"}
@@ -1403,12 +1449,18 @@ def main() -> int:
           f"(HMMA/HGMMA)")
     check(hmma_tail > 0, "the bf16 chord-tail kernel holds no tensor-core "
                          "instruction")
-    hmma_fused = sass_instructions("gcl_bwd_fused_bf16",
-                                   "gcl_bwd_fused_bf16_tc_kernel")
-    print(f"gcl_bwd_fused_bf16 SASS: {hmma_fused} tensor-core instructions "
-          f"(HMMA/HGMMA)")
-    check(hmma_fused > 0, "the bf16 fused backward holds no tensor-core "
-                          "instruction")
+    # both kernels of the bf16 fused backward: dH (dx, dgate, dbias) and dW
+    fused16 = {}
+    for part, sym in FUSED_BF16_KERNELS.items():
+        funcs = {f: u for f, u in usage["gcl_bwd_fused_bf16_tc"].items()
+                 if sym in f}
+        check(len(funcs) == 1, f"ptxas reported {sorted(funcs)} for {sym}")
+        fused16[part] = dict(next(iter(funcs.values())), hmma=(
+            sass_instructions("gcl_bwd_fused_bf16", sym)))
+        print(f"gcl_bwd_fused_bf16 {part} kernel: {json.dumps(fused16[part])}")
+        check(fused16[part]["hmma"] > 0, f"the bf16 fused backward's {part} "
+                                         f"kernel holds no tensor-core "
+                                         f"instruction")
     # the fp32 GCL kernel keeps fp32 rounding: FFMA only, no TF32 products
     for name, flag in forms.items():
         sym = f"gcl_eval_fp32_kernel{flag}"
@@ -1465,6 +1517,8 @@ def main() -> int:
     bf16_k = check_gcl_train_bf16(256, 512, device)
     bf16_k["gcl_fwd_bf16"]["simt_kernel_ms"] = SIMT_FWD_MS["gcl_fwd_bf16"]
     bf16_k["gcl_bwd_fused"]["ffma_kernel_ms"] = FFMA_FUSED_BF16_MS
+    bf16_k["gcl_bwd_fused"]["tc_dh_kernel_ms"] = TC_DH_FUSED_BF16_MS
+    bf16_k["gcl_bwd_fused"]["kernels"] = fused16
     print(f"bf16 flagship training kernel check (256 bars, d=512, {card}):",
           json.dumps(bf16_k))
     print("small-shape bf16 eval GCL check (8 bars, d=512, K=1, 3):",

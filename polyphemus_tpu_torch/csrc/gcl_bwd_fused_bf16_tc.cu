@@ -1,5 +1,5 @@
-// GCL training backward in one pass, in bf16: dx, d(gate_table), dbias and
-// dWbig, with the dH product on the tensor cores.
+// GCL training backward in bf16: dx, d(gate_table), dbias and dWbig, by two
+// kernels on the tensor cores.
 //
 // Replaces, in bf16, the Pallas kernel `_bwd_fused_kernel` of
 // polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py:289 (`gcl_backward_fused`,
@@ -23,9 +23,12 @@
 // on the dense bf16 tensor cores, 4.1 ms on the CUDA cores at 67 TFLOP/s in
 // fp32; its bytes (x, g, dx, Wbig, dWbig) need 0.034 ms.
 //
-// Design: only the products mix feature columns. One CTA of 8 warps owns (a
-// chunk of bars, a 32-column tile c); 175 KB of shared memory, one CTA per
-// SM. Per bar:
+// The dW product reads nothing that the dH product makes (the messages are
+// rebuilt from x, the gate table and the bar's statics; gm needs only g and
+// m), so the two run as two kernels, each tiled over its own output:
+//
+// `gcl_bwd_fused_bf16_tc_kernel` (dx, dgate, dbias): one CTA of 8 warps owns
+// (a chunk of bars, a 32-column tile c); one CTA per SM. Per bar:
 // 1. dH[seg][:, tile] = g @ W_blk[tile rows]^T on the tensor cores
 //    (mma.sync m16n8k16, bf16 -> fp32). Warp w owns rows 16w..16w+15 (all in
 //    track w / 2) and the 5 segments x 32 columns: 20 n8 tiles, 80 fp32
@@ -36,21 +39,30 @@
 //    touches 8 bank groups. W's rows are already the `.col` layout of B, so
 //    neither operand is transposed. g is staged raw; each accumulator row
 //    is multiplied by m (0 or 1, exact) where it is stored, in fp32, into
-//    the dH tiles that phases 2-7 read. Only the summation order differs
+//    the dH tiles that phases 2-4 read. Only the summation order differs
 //    from fp32 FMAs: a product of two bf16 values is exact in fp32.
 // 2-4. dx, dgate and dbias for the tile's columns as `gcl_bwd_data.cu`
 //    computes them (scatters by shared-memory atomics).
-// 5-6. The tile's columns of h_track, h_self, h_onset and h_next rebuilt in
-//    shared memory over the dH tiles, and h_r[:, c]^T @ gm added into rows c
-//    of the eight dW blocks of a per-chunk partial in device memory that
-//    only this CTA touches (read, add, write per bar; fp32 FMAs on the CUDA
-//    cores, 4 x 4 outputs per thread, gm staged 128 columns at a time over
-//    the bytes of phase 1's stages).
-// A second launch sums the chunks' dW partials, and another their
-// dgate/dbias rows, in a fixed order: no float atomics across CTAs, so the
-// result does not depend on the order CTAs run in.
-// Still open: the dW product on the CUDA cores and its per-bar partials in
-// device memory; every bar re-reads the CTA's 256 KB of W from L2.
+// A second launch sums the chunks' dgate/dbias rows in a fixed order.
+//
+// `gcl_bwd_dw_bf16_tc_kernel` (dWbig): one CTA of 8 warps owns rows
+// [c0, c0 + 32) of all 8 blocks x columns [j0, j0 + 64) (128 CTAs at d =
+// 512, one wave) and walks every bar in order, its 16,384 fp32 sums in
+// registers (64 a thread); each element of dWbig is written once, after the
+// last bar, so no partial goes to device memory and the result does not
+// depend on the order CTAs run in. Per bar, three bars deep by cp.async:
+// x[:, c tile], g[:, j tile] and the bar's aux words. The CTA rebuilds
+// h_track, h_self, h_onset, h_next and x * m for its 32 features as bf16
+// tiles (rounded where the Pallas body rounds, in bf16x2 arithmetic; each
+// value is a bf16 value, so the tiles hold them exactly), then multiplies
+// them into the sums with mma.sync, both operands k-major in shared memory
+// (ldmatrix .trans). m is folded into the A tiles (the messages are 0 on
+// inactive rows, the root tile is x * m), so g is staged raw. Warp w takes
+// track block w / 2 (its 32 rows) and block 4 + w / 2 (all 128 rows) for
+// columns 32 (w % 2)..+31: 80 MMAs a warp per bar, the same for every warp.
+// The A tiles are double-buffered: while some warps multiply bar b, the
+// others rebuild bar b + 1 (each warp decodes the statics of the rows it
+// rebuilds itself), one barrier a bar.
 #include "gcl_common.cuh"
 #include "mma_bf16.cuh"
 
@@ -60,28 +72,24 @@ using namespace gcl;
 using namespace tc;
 using E = bf16;
 using V = Elem<bf16>;
+using bf162 = __nv_bfloat162;
 
-constexpr int BC = 32;           // feature columns per CTA
-constexpr int BK = 32;           // contracted features per stage of dH
-constexpr int BJ = 128;          // dW output columns per staged gm tile
+constexpr int BC = 32;           // dH kernel: feature columns per CTA
+constexpr int BK = 32;           // dH kernel: contracted features a stage
 constexpr int NSEG = 5;          // dH segments: track, self, onset, next, root
-constexpr int THREADS = 256;     // 8 warps
+constexpr int WR = 32;           // dW kernel: dW rows (h features) per CTA
+constexpr int WJ = 64;           // dW kernel: dW columns (g features) per CTA
+constexpr int THREADS = 256;     // 8 warps, both kernels
 
 struct Smem : Statics {
-  // dH tiles; segment 4 becomes dx, then segments 0-3 hold h_track,
-  // h_self, h_onset and h_next of the same columns
+  // dH tiles; segment 4 becomes dx
   alignas(16) float dh[NSEG][N][BC];
   float xs[N][BC];               // x[:, tile]
   float gts[S][BC];              // gate_table[:, tile]
   float dgs[S][BC];              // dgate partial of this CTA's chunk
   float dbs[BC];                 // dbias partial of this CTA's chunk
-  union {
-    struct {
-      alignas(16) bf16 g[2][N * BK];          // g[:, stage] [row][k], swizzled
-      alignas(16) bf16 w[2][NBLK * BC * BK];  // W[blk*d + c0 + n, stage], swizzled
-    } a;                         // the dH product's stages
-    float gmj[N][BJ];            // gm[:, j tile], the dW product
-  } u;
+  alignas(16) bf16 g[2][N * BK];          // g[:, stage] [row][k], swizzled
+  alignas(16) bf16 w[2][NBLK * BC * BK];  // W[blk*d + c0 + n, stage], swizzled
 };
 
 // Element offset of 8-element chunk ch (of 4) of row r in a stage tile of
@@ -100,14 +108,14 @@ __device__ __forceinline__ void load_stage(Smem& sm, int buf, const bf16* gb,
   for (int j = 0; j < N * BK / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 2, ch = c & 3;
-    cp_async16(sm.u.a.g[buf] + s_off(r, ch), gb + (size_t)r * d + f0 + ch * 8);
+    cp_async16(sm.g[buf] + s_off(r, ch), gb + (size_t)r * d + f0 + ch * 8);
   }
 #pragma unroll
   for (int j = 0; j < NBLK * BC * BK / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 2, ch = c & 3;          // r = blk * BC + n
     const int blk = r / BC, n = r % BC;
-    cp_async16(sm.u.a.w[buf] + s_off(r, ch),
+    cp_async16(sm.w[buf] + s_off(r, ch),
                wbig + ((size_t)blk * d + c0 + n) * d + f0 + ch * 8);
   }
 }
@@ -117,7 +125,6 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
                              const int* __restrict__ aux,
                              const E* __restrict__ gates,
                              const E* __restrict__ wbig, E* __restrict__ dx,
-                             float* __restrict__ part_w,
                              float* __restrict__ part_gb, int nbar, int d,
                              int bars_per_chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -128,7 +135,6 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
   const int b_lo = chunk * bars_per_chunk;
   const int b_hi = min(nbar, b_lo + bars_per_chunk);
   const int nstage = d / BK;
-  float* pw = part_w + (size_t)chunk * NBLK * d * d;
 
   for (int e = tid; e < S * BC; e += THREADS) {
     const int s = e / BC, q = e % BC;
@@ -146,7 +152,7 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
   for (int bar = b_lo; bar < b_hi; ++bar) {
     const E* xb = x + (size_t)bar * N * d;
     const E* gb = g + (size_t)bar * N * d;
-    __syncthreads();  // the previous bar's tiles (gmj included) are consumed
+    __syncthreads();  // the previous bar's tiles are consumed
     load_stage(sm, 0, gb, wbig, d, c0, 0, tid);
     cp_async_commit();
     load_statics(sm, aux + (size_t)bar * N_AUX * N, tid, THREADS);
@@ -173,8 +179,8 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
         if (st + 1 < nstage)
           load_stage(sm, (st + 1) & 1, gb, wbig, d, c0, (st + 1) * BK, tid);
         cp_async_commit();
-        const bf16* ga = sm.u.a.g[st & 1];
-        const bf16* wa = sm.u.a.w[st & 1];
+        const bf16* ga = sm.g[st & 1];
+        const bf16* wa = sm.w[st & 1];
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           uint32_t a[4];
@@ -272,82 +278,9 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
       const int i = e / BC, q = e % BC;
       V::store1(dxb + (size_t)i * d + c0 + q, dxs[i][q]);
     }
-    __syncthreads();  // the dH tiles are free
-
-    // ---- 5. this tile's columns of the messages, as the forward builds them
-    for (int e = tid; e < N * BC; e += THREADS) {
-      const int i = e / BC, q = e % BC;
-      const int c = i % S;
-      const float vp = fmaxf(V::rnd(sm.xs[sm.ps[i]][q] * sm.gts[sm.dp[i]][q]),
-                             0.f) * sm.okp[i];
-      const float vn = fmaxf(V::rnd(sm.xs[sm.ns[i]][q] * sm.gts[sm.dn[i]][q]),
-                             0.f) * sm.okn[i];
-      float y[T], z[T];
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const int k = t * S + c;
-        y[t] = fmaxf(V::rnd(sm.xs[k][q] * sm.gts[0][q]), 0.f) * sm.m[k];
-        z[t] = fmaxf(V::rnd(sm.xs[sm.pn[k]][q] * sm.gts[sm.dpn[k]][q]), 0.f)
-               * sm.okpn[k];
-      }
-      const float yi = y[i / S], zi = z[i / S];
-      const float ysum = V::rnd(y[0] + y[1] + y[2] + y[3]);
-      const float zsum = V::rnd(z[0] + z[1] + z[2] + z[3]);
-      sm.dh[0][i][q] = V::rnd(V::rnd(vp + vn) * V::rnd(sm.rtr[i]));   // track
-      sm.dh[1][i][q] = yi * sm.single[i];                            // self
-      sm.dh[2][i][q] = V::rnd(V::rnd(ysum - yi) * V::rnd(sm.ron[i]));  // onset
-      sm.dh[3][i][q] = V::rnd(V::rnd(zsum - zi) * V::rnd(sm.rnx[i]));  // next
-    }
-
-    // ---- 6. rows [c0, c0 + BC) of each dW block += h_r^T @ gm ----
-    // (phase 1's copies all completed before its last stage was read, and
-    // the barriers since then keep gmj off the stages until every warp is
-    // done with them)
-    {
-      const int ti = tid >> 5, tj = tid & 31;  // rows ti*4.., columns tj*4..
-      const bool first = bar == b_lo;
-      for (int j0 = 0; j0 < d; j0 += BJ) {
-        __syncthreads();  // h built / the previous gm tile consumed
-        for (int e = tid; e < N * (BJ / 4); e += THREADS) {
-          const int i = e / (BJ / 4), j4 = (e % (BJ / 4)) * 4;
-          float4 v = V::load4(gb + (size_t)i * d + j0 + j4);
-          const float m = sm.m[i];
-          v.x *= m; v.y *= m; v.z *= m; v.w *= m;
-          *reinterpret_cast<float4*>(&sm.u.gmj[i][j4]) = v;
-        }
-        __syncthreads();
-        for (int blk = 0; blk < NBLK; ++blk) {
-          const int lo = blk < T ? blk * S : 0, hi = blk < T ? lo + S : N;
-          const float (*h)[BC] = blk < T ? sm.dh[0]
-                                 : (blk == NBLK - 1 ? sm.xs : sm.dh[blk - T + 1]);
-          float* prow = pw + ((size_t)blk * d + c0 + ti * 4) * d + j0 + tj * 4;
-          float acc[4][4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                   : *reinterpret_cast<const float4*>(prow + (size_t)r * d);
-            acc[r][0] = v.x; acc[r][1] = v.y; acc[r][2] = v.z; acc[r][3] = v.w;
-          }
-          for (int k = lo; k < hi; ++k) {
-            const float4 a4 = *reinterpret_cast<const float4*>(&h[k][ti * 4]);
-            const float4 b4 = *reinterpret_cast<const float4*>(&sm.u.gmj[k][tj * 4]);
-            const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            *reinterpret_cast<float4*>(prow + (size_t)r * d) =
-                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        }
-      }
-    }
   }
 
-  // ---- 7. this CTA's dgate / dbias partial of the chunk ----
+  // ---- 5. this CTA's dgate / dbias partial of the chunk ----
   __syncthreads();
   float* pg = part_gb + (size_t)chunk * (S + 1) * d;
   for (int e = tid; e < S * BC; e += THREADS) {
@@ -357,20 +290,283 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
   if (tid < BC) pg[(size_t)S * d + c0 + tid] = sm.dbs[tid];
 }
 
+// ------------------------------------------------------------ the dW kernel
+
+// One bar's inputs of the dW kernel, by cp.async.
+struct DwStage {
+  alignas(16) bf16 x[N * WR];    // x[:, c tile], rows of 64 bytes
+  alignas(16) bf16 g[N * WJ];    // g[:, j tile], rows of 128 bytes, swizzled
+  alignas(16) int aux[N_AUX * N];
+};
+
+static_assert(WR == BK, "the A tiles share s_off with the dH stages");
+
+// One cell's statics for the rebuild, packed in three 16-byte words; each
+// factor as a bf16 pair (both halves equal).
+struct DwRow {
+  int4 idx;                      // ps, ns, pn, dp | dn << 8 | dpn << 16
+  bf162 okp, okn, okpn, m;
+  bf162 rtr, ron, rnx, single;   // the reciprocals rounded to bf16
+};
+
+constexpr int NSTAGE = 3;        // dW kernel: bars in shared memory at once
+
+struct DwSmem {
+  DwRow rows[N];                 // the statics of the bar being rebuilt
+  DwStage st[NSTAGE];            // bar b in st[b % 3]
+  // the A tiles of bar b in h[b % 2], k-major, swizzled as s_off: h_track,
+  // h_self, h_onset, h_next and x * m, each 128 cells x the CTA's 32
+  // features
+  alignas(16) bf16 h[2][NSEG][N * WR];
+  alignas(16) bf16 gts[S][WR];   // gate_table[:, c tile]
+};
+
+// Element offset of 8-element chunk ch (of 8) of row r in a g tile of 64
+// features a row: stored at chunk ch ^ (r % 8), so the 8 rows of an
+// ldmatrix (128 bytes apart) touch 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int g_off(int r, int ch) {
+  return r * WJ + ((ch ^ (r & 7)) << 3);
+}
+
+// x[bar][:, c0..c0+31], g[bar][:, j0..j0+63] and aux[bar]: 2 + 4 + 1.75
+// 16-byte copies a thread.
+__device__ __forceinline__ void dw_load_stage(DwStage& st, const bf16* xb,
+                                              const bf16* gb, const int* ab,
+                                              int d, int c0, int j0, int tid) {
+#pragma unroll
+  for (int j = 0; j < N * WR / 8 / THREADS; ++j) {
+    const int c = tid + j * THREADS;
+    const int r = c >> 2, ch = c & 3;
+    cp_async16(st.x + r * WR + ch * 8, xb + (size_t)r * d + c0 + ch * 8);
+  }
+#pragma unroll
+  for (int j = 0; j < N * WJ / 8 / THREADS; ++j) {
+    const int c = tid + j * THREADS;
+    const int r = c >> 3, ch = c & 7;
+    cp_async16(st.g + g_off(r, ch), gb + (size_t)r * d + j0 + ch * 8);
+  }
+  for (int c = tid; c < N_AUX * N / 4; c += THREADS)
+    cp_async16(st.aux + c * 4, ab + c * 4);
+}
+
+// Four bf16 values (columns q..q+3) in two pairs. The rebuild computes in
+// bf16x2 arithmetic, correctly rounded: the same value as the fp32 op
+// rounded to bf16 that the Pallas body does, since a product of two bf16
+// values is exact in fp32, and a sum is too unless one term is below 2^-16
+// of the other, far from a bf16 tie.
+struct H4 {
+  bf162 lo, hi;
+};
+
+__device__ __forceinline__ H4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return {*reinterpret_cast<const bf162*>(&u.x), *reinterpret_cast<const bf162*>(&u.y)};
+}
+
+__device__ __forceinline__ void st4(bf16* p, H4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&v.lo),
+                                            *reinterpret_cast<const uint32_t*>(&v.hi));
+}
+
+__device__ __forceinline__ H4 mul(H4 a, bf162 s) { return {__hmul2(a.lo, s), __hmul2(a.hi, s)}; }
+__device__ __forceinline__ H4 add(H4 a, H4 b) { return {__hadd2(a.lo, b.lo), __hadd2(a.hi, b.hi)}; }
+__device__ __forceinline__ H4 sub(H4 a, H4 b) { return {__hsub2(a.lo, b.lo), __hsub2(a.hi, b.hi)}; }
+
+// relu(rnd(a * b)) * s: a message through a relation, s its 0/1 validity
+__device__ __forceinline__ H4 msg(H4 a, H4 b, bf162 s) {
+  const bf162 z = __float2bfloat162_rn(0.f);
+  return {__hmul2(__hmax2(__hmul2(a.lo, b.lo), z), s),
+          __hmul2(__hmax2(__hmul2(a.hi, b.hi), z), s)};
+}
+
+// rnd(v[0] + v[1] + v[2] + v[3]), the sums in fp32 in this order
+__device__ __forceinline__ H4 col_sum(const H4 (&v)[T]) {
+  float2 lo = __bfloat1622float2(v[0].lo), hi = __bfloat1622float2(v[0].hi);
+#pragma unroll
+  for (int t = 1; t < T; ++t) {
+    const float2 l = __bfloat1622float2(v[t].lo), h = __bfloat1622float2(v[t].hi);
+    lo.x += l.x; lo.y += l.y; hi.x += h.x; hi.y += h.y;
+  }
+  return {__floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(hi.x, hi.y)};
+}
+
+// acc[mt][nt] (rows 16 mt.., columns 8 nt.. of the warp's 32 x 32) += the
+// 16-row k-step of A tile a (k-major, s_off) at rows k0.. times b, the
+// warp's B fragments of that k-step: b[np] holds n8 tiles 2 np, 2 np + 1.
+__device__ __forceinline__ void dw_mma(float (&acc)[2][4][4], const bf16* a_tile,
+                                       int k0, const uint32_t (&b)[2][4],
+                                       int lane) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    // matrices: (k 0-7, c 0-7), (k 0-7, c 8-15), (k 8-15, c 0-7), (k 8-15,
+    // c 8-15), transposed: a0..a3 of the row-major 16 x 16 A
+    uint32_t a[4];
+    ldsm_x4_t(a, a_tile + s_off(k0 + (lane & 7) + ((lane >> 4) << 3),
+                                2 * mt + ((lane >> 3) & 1)));
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_bf16(acc[mt][nt], a, b[nt >> 1][2 * (nt & 1)], b[nt >> 1][2 * (nt & 1) + 1]);
+  }
+}
+
+// Bar b's A tiles into h, for the rows of this warp's 4 c (4 w..4 w + 3, in
+// each track): the warp decodes those 16 cells' statics into sm.rows, then
+// thread (c, 4 columns q..q+3) rebuilds rows c, S + c, 2S + c and 3S + c as
+// phase 5 of the single-kernel form does, every rounding in place. Only
+// this warp reads the rows it writes, so no CTA barrier is needed.
+__device__ __forceinline__ void dw_build(DwSmem& sm, const DwStage& st,
+                                         bf16 (*h)[N * WR], int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane < 16) {
+    const int k = (lane >> 2) * S + 4 * warp + (lane & 3);
+    const CellStatics cs = cell_statics(st.aux, k);
+    DwRow& r = sm.rows[k];
+    r.idx = make_int4(cs.ps, cs.ns, cs.pn, cs.dp | cs.dn << 8 | cs.dpn << 16);
+    r.okp = __float2bfloat162_rn(cs.okp);
+    r.okn = __float2bfloat162_rn(cs.okn);
+    r.okpn = __float2bfloat162_rn(cs.okpn);
+    r.m = __float2bfloat162_rn(cs.m);
+    r.rtr = __float2bfloat162_rn(cs.rtr);
+    r.ron = __float2bfloat162_rn(cs.ron);
+    r.rnx = __float2bfloat162_rn(cs.rnx);
+    r.single = __float2bfloat162_rn(cs.single);
+  }
+  __syncwarp();
+  for (int it = tid; it < S * WR / 4; it += THREADS) {
+    const int c = it >> 3, q = (it & 7) * 4;
+    auto ldx = [&](int r) { return ld4(st.x + r * WR + q); };
+    auto gate = [&](int s) { return ld4(&sm.gts[s][q]); };
+    const H4 g0 = gate(0);
+    H4 xk[T], y[T], z[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const DwRow& r = sm.rows[t * S + c];
+      xk[t] = ldx(t * S + c);
+      y[t] = msg(xk[t], g0, r.m);
+      z[t] = msg(ldx(r.idx.z), gate(r.idx.w >> 16), r.okpn);
+    }
+    const H4 ysum = col_sum(y), zsum = col_sum(z);
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const int k = t * S + c;
+      const DwRow& r = sm.rows[k];
+      const H4 vp = msg(ldx(r.idx.x), gate(r.idx.w & 255), r.okp);
+      const H4 vn = msg(ldx(r.idx.y), gate((r.idx.w >> 8) & 255), r.okn);
+      const int o = s_off(k, q >> 3) + (q & 7);
+      st4(h[0] + o, mul(add(vp, vn), r.rtr));        // track
+      st4(h[1] + o, mul(y[t], r.single));            // self
+      st4(h[2] + o, mul(sub(ysum, y[t]), r.ron));    // onset
+      st4(h[3] + o, mul(sub(zsum, z[t]), r.rnx));    // next
+      st4(h[4] + o, mul(xk[t], r.m));                // root: x * m
+    }
+  }
+}
+
+// One bar into the warp's sums: dW[blk][c tile, j tile] += A_blk^T @ g for
+// track block p (its own 32 rows) and block T + p (all 128), columns
+// jn..jn+31, 16 cells a k-step.
+__device__ __forceinline__ void dw_bar(float (&acc)[2][2][4][4],
+                                       bf16 (*h)[N * WR], const bf16* gt,
+                                       int p, int jn, int lane) {
+#pragma unroll
+  for (int k0 = 0; k0 < N; k0 += 16) {
+    // matrices: (k 0-7, j 0-7), (k 8-15, j 0-7), (k 0-7, j 8-15), (k 8-15,
+    // j 8-15) of each 16 columns, transposed: b0, b1 of two n8 tiles
+    uint32_t b[2][4];
+#pragma unroll
+    for (int np = 0; np < 2; ++np)
+      ldsm_x4_t(b[np], gt + g_off(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  (jn >> 3) + 2 * np + (lane >> 4)));
+    if (k0 / S == p) dw_mma(acc[0], h[0], k0, b, lane);  // own track rows
+    dw_mma(acc[1], h[1 + p], k0, b, lane);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+gcl_bwd_dw_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
+                          const int* __restrict__ aux,
+                          const E* __restrict__ gates,
+                          float* __restrict__ dwbig, int nbar, int d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DwSmem& sm = *reinterpret_cast<DwSmem*>(smem_raw);
+  const int j0 = blockIdx.x * WJ, c0 = blockIdx.y * WR;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p = warp >> 1;             // track block p and block T + p
+  const int jn = (warp & 1) * 32;      // the warp's 32 of the 64 columns
+  auto stage = [&](int b) {
+    const size_t off = (size_t)b * N * d;
+    dw_load_stage(sm.st[b % NSTAGE], x + off, g + off,
+                  aux + (size_t)b * N_AUX * N, d, c0, j0, tid);
+    cp_async_commit();
+  };
+
+  stage(0);
+  if (nbar > 1) stage(1);
+  for (int e = tid; e < S * WR; e += THREADS) {
+    const int s = e / WR, q = e % WR;
+    sm.gts[s][q] = gates[(size_t)s * d + c0 + q];
+  }
+  // [0]: track block p, [1]: block T + p
+  float acc[2][2][4][4];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[b][mt][nt][e] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+  dw_build(sm, sm.st[0], sm.h[0], tid);
+
+  // Bar b: its MMAs and the rebuild of bar b + 1, the two in either order
+  // by warp parity so the tensor cores work while other warps rebuild; one
+  // barrier a bar, after which bar b + 1's tiles are whole, its stage has
+  // landed and no warp still reads the buffers that bar b + 2 takes.
+  for (int bar = 0; bar < nbar; ++bar) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (bar + 2 < nbar) stage(bar + 2);
+    const bool next = bar + 1 < nbar;
+    const bf16* gt = sm.st[bar % NSTAGE].g;
+    if (warp & 1) dw_bar(acc, sm.h[bar & 1], gt, p, jn, lane);
+    if (next) dw_build(sm, sm.st[(bar + 1) % NSTAGE], sm.h[(bar + 1) & 1], tid);
+    if (!(warp & 1)) dw_bar(acc, sm.h[bar & 1], gt, p, jn, lane);
+  }
+
+  // accumulator (b, mt, nt, e) of lane l: row 16 mt + l / 4 + 8 (e / 2),
+  // column jn + 8 nt + 2 (l % 4) + e % 2 of block b ? T + p : p
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    float* out = dwbig + ((size_t)(b ? T + p : p) * d + c0) * d + j0 + jn;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * mt + (lane >> 2) + 8 * hh;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          *reinterpret_cast<float2*>(out + (size_t)row * d + 8 * nt + 2 * (lane & 3)) =
+              make_float2(acc[b][mt][nt][2 * hh], acc[b][mt][nt][2 * hh + 1]);
+      }
+  }
+}
+
 }  // namespace
 
 // x, g (nbar, N, d); aux (nbar, N_AUX, N); gates (S, d); wbig (8d, d), the
 // float tensors in bf16. Writes dx (nbar, N, d) in bf16, and dwbig (8d, d)
-// and out_gb = [dgate (S, d) | dbias (d)] in fp32, using part_w (nchunks,
-// 8d, d) and part_gb (nchunks, (S + 1) * d) as fp32 scratch: chunk c sums
-// bars [c * bpc, (c + 1) * bpc), bpc = ceil(nbar / nchunks). d % 128 == 0.
+// and out_gb = [dgate (S, d) | dbias (d)] in fp32, using part_gb (nchunks,
+// (S + 1) * d) as fp32 scratch: chunk c of the dH kernel sums bars
+// [c * bpc, (c + 1) * bpc), bpc = ceil(nbar / nchunks). d % 128 == 0.
 extern "C" int gcl_bwd_fused_bf16_launch(const void* x, const void* g,
                                          const void* aux, const void* gates,
                                          const void* wbig, void* dx,
-                                         void* part_w, void* part_gb,
-                                         void* dwbig, void* out_gb, int nbar,
-                                         int d, int nchunks, void* stream) {
-  if (d % BJ != 0 || nchunks < 1) return (int)cudaErrorInvalidValue;
+                                         void* part_gb, void* dwbig,
+                                         void* out_gb, int nbar, int d,
+                                         int nchunks, void* stream) {
+  if (d % 128 != 0 || nchunks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (nbar <= 0) {
     cudaError_t err = cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * d, st);
@@ -379,20 +575,24 @@ extern "C" int gcl_bwd_fused_bf16_launch(const void* x, const void* g,
   }
   const int bars_per_chunk = (nbar + nchunks - 1) / nchunks;
   const int used = (nbar + bars_per_chunk - 1) / bars_per_chunk;  // none empty
-  const int smem = (int)sizeof(Smem);
+  const int smem = (int)sizeof(Smem), dw_smem = (int)sizeof(DwSmem);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_bwd_fused_bf16_tc_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(gcl_bwd_dw_bf16_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+  if (err != cudaSuccess) return (int)err;
   gcl_bwd_fused_bf16_tc_kernel<<<dim3(d / BC, used), THREADS, smem, st>>>(
       (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
-      (const E*)wbig, (E*)dx, (float*)part_w, (float*)part_gb, nbar, d,
-      bars_per_chunk);
+      (const E*)wbig, (E*)dx, (float*)part_gb, nbar, d, bars_per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = sum_rows((const float*)part_w, (float*)dwbig, used,
-                 (long long)NBLK * d * d, st);
+  err = sum_rows((const float*)part_gb, (float*)out_gb, used,
+                 (long long)(S + 1) * d, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)sum_rows((const float*)part_gb, (float*)out_gb, used,
-                       (long long)(S + 1) * d, st);
+  gcl_bwd_dw_bf16_tc_kernel<<<dim3(d / WJ, d / WR), THREADS, dw_smem, st>>>(
+      (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
+      (float*)dwbig, nbar, d);
+  return (int)cudaGetLastError();
 }

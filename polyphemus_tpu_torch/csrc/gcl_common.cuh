@@ -107,6 +107,38 @@ __device__ __forceinline__ void load_statics(Statics& st, const int* a,
   }
 }
 
+// The statics of cell i of one bar's aux block a, decoded as load_statics
+// decodes them, for a kernel that needs some cells only. (load_statics keeps
+// its own text: built on this, its kernels compile to other code.)
+struct CellStatics {
+  float okp, okn, rtr, m, single, ron, rnx, okpn;
+  int ps, ns, pn, dp, dn, dpn;
+};
+
+__device__ __forceinline__ CellStatics cell_statics(const int* a, int i) {
+  CellStatics c;
+  const float m = a[MASK_CH * N + i] > 0 ? 1.f : 0.f;
+  const int okp = a[OK_P * N + i] > 0, okn = a[OK_N * N + i] > 0;
+  const int cnt = okp + okn;
+  const int con = a[CNT_ON * N + i], cnx = a[CNT_NX * N + i];
+  const bool okpn = a[OK_PN * N + i] > 0;
+  c.ps = clampi(a[PREV_SRC * N + i], N - 1);
+  c.ns = clampi(a[NEXT_SRC * N + i], N - 1);
+  c.pn = clampi(a[PN_SRC * N + i], N - 1);
+  c.dp = clampi(a[DIST_P * N + i], S - 1);
+  c.dn = clampi(a[DIST_N * N + i], S - 1);
+  c.dpn = clampi(a[DIST_PN * N + i], S - 1);
+  c.okp = okp ? 1.f : 0.f;
+  c.okn = okn ? 1.f : 0.f;
+  c.rtr = cnt > 0 ? (1.f / (float)cnt) * m : 0.f;
+  c.ron = con > 0 ? (1.f / (float)con) * m : 0.f;
+  c.rnx = (okpn && cnx > 0) ? (1.f / (float)cnx) * m : 0.f;
+  c.okpn = (okpn && a[MSRC * N + i] > 0) ? 1.f : 0.f;
+  c.m = m;
+  c.single = (float)a[SINGLE * N + i];
+  return c;
+}
+
 // out[c] = sum_r part[r * ncols + c] for r = 0..nrows-1, in order: the
 // second pass over per-CTA partials (deterministic, unlike global atomics).
 __global__ void sum_rows_kernel(const float* __restrict__ part,

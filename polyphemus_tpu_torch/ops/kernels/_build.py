@@ -47,7 +47,7 @@ SIGNATURES = {
                       [VP] * 10 + [INT] * 3 + [VP]),
     "gcl_bwd_fused_bf16": ("gcl_bwd_fused_bf16_tc",
                            "gcl_bwd_fused_bf16_launch",
-                           [VP] * 10 + [INT] * 3 + [VP]),
+                           [VP] * 9 + [INT] * 3 + [VP]),
     "chord_tail": ("chord_tail_fp32", "chord_tail_fp32_launch",
                    [VP] * 6 + [INT] * 5 + [VP]),
     "chord_tail_bf16": ("chord_tail_bf16_tc", "chord_tail_bf16_launch",

@@ -5,15 +5,16 @@
 Builds patched copies of `csrc/gcl_bwd_fused_bf16_tc.cu` into
 `build/ablate_gcl_bwd_fused/`, one library each, and times them in turns on
 the same inputs (NBAR bars, default 256, the bf16 training microbatch, at
-width D, default 512): the whole kernel, and the kernel without the dH
-product's MMAs (its stages and fragment loads kept), without the whole dH
-product (no stages, no fragment loads, no MMAs), without the dW product
-(its FMAs, and with them its shared-memory reads), without the dW
-partials' reads and writes in device memory (the products kept), and
-without the scatters of phase 3. A patched copy computes wrong gradients;
-only the whole kernel is checked: every output within 2e-2 x max |plain|
-of `gcl_bwd_fused_plain`. Prints one JSON line: ms per launch, two rounds
-each, the card's name and power limit.
+width D, default 512). The source holds two kernels, the dH kernel (dx,
+dgate, dbias) and the dW kernel (dWbig). Variants: the whole backward;
+the dW kernel without its MMAs (its fragment loads kept), without its
+rebuild of the messages (the MMAs read stale tiles), and not launched; the
+dH kernel not launched, without its MMAs (its stages and fragment loads
+kept), without its whole product (no stages, no fragment loads, no MMAs)
+and without the scatters of its phase 3. A patched copy computes wrong
+gradients; only the whole backward is checked: every output within 2e-2 x
+max |plain| of `gcl_bwd_fused_plain`. Prints one JSON line: ms per launch,
+two rounds each, the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -28,27 +29,25 @@ from .ablate_chord_tail import time_ms
 
 KERNEL = "gcl_bwd_fused_bf16"
 OUT = _build.BUILD_DIR.parent / "ablate_gcl_bwd_fused"
+DW_MMA = ("      mma_bf16(acc[mt][nt], a, b[nt >> 1][2 * (nt & 1)], "
+          "b[nt >> 1][2 * (nt & 1) + 1]);")
+H_BUILD = "  for (int it = tid; it < S * WR / 4; it += THREADS) {"
+DW_LAUNCH = "  gcl_bwd_dw_bf16_tc_kernel<<<"
+DH_LAUNCH = "  gcl_bwd_fused_bf16_tc_kernel<<<"
 DH_MMA = """              mma_bf16(acc[s][2 * jp], a, b[0], b[1]);
               mma_bf16(acc[s][2 * jp + 1], a, b[2], b[3]);"""
 DH_LOOP = "      for (int st = 0; st < nstage; ++st) {"
-DW_FMA = """#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);"""
-PART_READ = """            const float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                   : *reinterpret_cast<const float4*>(prow + (size_t)r * d);"""
-PART_WRITE = "            *reinterpret_cast<float4*>(prow + (size_t)r * d) ="
 SCATTERS = """    // ---- 3. relu masks from the recomputed pre-activations, scatters ----
     for (int e = tid; e < N * BC; e += THREADS) {"""
 VARIANTS = {
     "whole": [],
+    "no_dw_mma": [(DW_MMA, "      ;")],
+    "no_h_rebuild": [(H_BUILD, H_BUILD.replace("it = tid", "it = S * WR / 4"))],
+    # nbar > 0 where the kernels launch: the condition never holds
+    "no_dw_launch": [(DW_LAUNCH, "  if (nbar < 0)" + DW_LAUNCH)],
+    "no_dh_launch": [(DH_LAUNCH, "  if (nbar < 0)" + DH_LAUNCH)],
     "no_dh_mma": [(DH_MMA, "")],
     "no_dh_product": [(DH_LOOP, DH_LOOP.replace("st = 0", "st = nstage"))],
-    "no_dw_fma": [(DW_FMA, "")],
-    # the products stay live: a partial is written only where it is NaN
-    "no_dw_partials": [
-        (PART_READ, "            const float4 v = make_float4(0.f, 0.f, 0.f, 0.f);"),
-        (PART_WRITE, "            if (acc[r][0] != acc[r][0])\n" + PART_WRITE)],
     "no_scatters": [(SCATTERS, SCATTERS.replace("e = tid", "e = N * BC"))],
 }
 
@@ -79,7 +78,6 @@ def main(nbar: int = 256, d: int = 512) -> dict:
     chunks = gcl_bwd.fused_chunks(nbar, d, sms)
     f32 = torch.float32
     dx = torch.empty_like(x)
-    part_w = torch.empty((chunks, 8 * d, d), dtype=f32, device=device)
     part_gb = torch.empty((chunks, 33 * d), dtype=f32, device=device)
     dwbig = torch.empty((8 * d, d), dtype=f32, device=device)
     out = torch.empty(33 * d, dtype=f32, device=device)
@@ -88,8 +86,8 @@ def main(nbar: int = 256, d: int = 512) -> dict:
 
     def run(name):
         _build.check(name, fns[name](
-            *(v.data_ptr() for v in (x, up, aux, gates, wbig, dx, part_w,
-                                     part_gb, dwbig, out)),
+            *(v.data_ptr() for v in (x, up, aux, gates, wbig, dx, part_gb,
+                                     dwbig, out)),
             nbar, d, chunks, stream))
 
     run("whole")

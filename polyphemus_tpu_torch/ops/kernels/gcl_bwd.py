@@ -6,9 +6,10 @@ Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py`
 custom VJP `gcl_fused` of `gcl_pallas.py`. On a CUDA tensor `gcl_bwd_data`
 launches `csrc/gcl_bwd_data.cu`, `gcl_bwd_weight` `csrc/gcl_bwd_weight.cu`
 and `gcl_bwd_fused` `csrc/gcl_bwd_fused.cu` in fp32 and
-`csrc/gcl_bwd_fused_bf16_tc.cu` (the dH product on the tensor cores) in
-bf16; on a CPU tensor each runs its plain PyTorch version, which follows the
-equations of the forward (`gcl.gcl_fwd`):
+`csrc/gcl_bwd_fused_bf16_tc.cu` (two kernels on the tensor cores: dx,
+dgate and dbias over the dH product, and dWbig) in bf16; on a CPU tensor
+each runs its plain PyTorch version, which follows the equations of the
+forward (`gcl.gcl_fwd`):
 
     msg_p = relu(x[src_p] * G[dist_p]),  msg_n = relu(x[src_n] * G[dist_n])
     h_track = (msg_p + msg_n) * r_tr * m
@@ -146,6 +147,38 @@ def gcl_bwd_weight(x, g, aux, gate_table):
     return dwbig
 
 
+def fused_messages(x, st, gate_table, s: int):
+    """(h_track, h_self, h_onset, h_next), each (nbar, n, d) in
+    `wide(x.dtype)`: the messages as `_bwd_fused_kernel` rebuilds them for
+    the dW product, rounded to x's dtype where its body casts (so in bf16
+    each is a bf16 value). st is `bar_statics(aux, gate_table, x.dtype)`."""
+    cdt = x.dtype
+    f32 = wide(cdt)
+
+    def rnd(v):
+        return v.to(cdt).to(f32)
+
+    xf = x.to(f32)
+    m = st.m.to(f32)
+    r_tr, r_on, r_nx = (r.to(f32) for r in (st.rec_track, st.rec_on,
+                                            st.rec_nx))
+
+    def relu_pre(src, ok, gv):
+        """relu(x[src] * G[dist]) through the gathered relation, 0 where
+        the relation is not valid."""
+        ok = ok.to(f32)
+        return rnd(rows(xf, src) * ok * (gv.to(f32) * ok)).clamp(min=0)
+
+    msg_sum = rnd(relu_pre(st.src_p, st.ok_p, st.g_p)
+                  + relu_pre(st.src_n, st.ok_n, st.g_n))
+    h_tr = rnd(msg_sum * r_tr)
+    y = rnd(xf * gate_table[0].to(f32)).clamp(min=0) * m
+    h_on = rnd(rnd(rnd(col_sum(y, s)) - y) * r_on)
+    z = relu_pre(st.src_pn, st.ok_pn, st.g_pn)
+    h_nx = rnd(rnd(rnd(col_sum(z, s)) - z) * r_nx)
+    return h_tr, y * st.single.to(f32), h_on, h_nx
+
+
 def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
     """Plain-PyTorch `gcl_bwd_fused`: the same arguments, the same result.
 
@@ -177,25 +210,19 @@ def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
 
     def scatter(src, dist, ok, gv, up):
         """relu'(pre) * up through the gathered relation (src, dist, ok):
-        its share of dx and dgate; returns relu(pre)."""
+        its share of dx and dgate."""
         xg, gr = rows(xf, src) * ok.to(f32), gv.to(f32) * ok.to(f32)
-        pre = rnd(xg * gr)
-        dpre = up * (pre > 0).to(f32)
+        dpre = up * (rnd(xg * gr) > 0).to(f32)
         dx.scatter_add_(1, src[..., None].expand(nbar, n, d), rnd(dpre * gr))
         dgate.index_add_(0, dist.reshape(-1), rnd(dpre * xg).reshape(-1, d))
-        return pre.clamp(min=0)
 
-    # track relations: h_track and their share of dx, dgate
+    # track relations
     dmsg = dh_tr * r_tr
-    msg_sum = rnd(scatter(st.src_p, st.dist_p, st.ok_p, st.g_p, dmsg)
-                  + scatter(st.src_n, st.dist_n, st.ok_n, st.g_n, dmsg))
-    h_tr = rnd(msg_sum * r_tr)
+    scatter(st.src_p, st.dist_p, st.ok_p, st.g_p, dmsg)
+    scatter(st.src_n, st.dist_n, st.ok_n, st.g_n, dmsg)
     # onset and self
     g0 = gate_table[0].to(f32)
     pre0 = rnd(xf * g0)
-    y = pre0.clamp(min=0) * m
-    h_on = rnd(rnd(rnd(col_sum(y, s)) - y) * r_on)
-    h_self = y * st.single.to(f32)
     dcol = rnd(dh_on * r_on)
     dy = col_sum(dcol, s) - dcol + dh_self * st.single.to(f32)
     dpre0 = dy * m * (pre0 > 0).to(f32)
@@ -203,9 +230,9 @@ def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
     dgate[0] += (dpre0 * xf).sum(dim=(0, 1))
     # next relation
     dnx = rnd(dh_nx * r_nx)
-    z = scatter(st.src_pn, st.dist_pn, st.ok_pn, st.g_pn,
-                col_sum(dnx, s) - dnx)
-    h_nx = rnd(rnd(rnd(col_sum(z, s)) - z) * r_nx)
+    scatter(st.src_pn, st.dist_pn, st.ok_pn, st.g_pn, col_sum(dnx, s) - dnx)
+
+    h_tr, h_self, h_on, h_nx = fused_messages(x, st, gate_table, s)
 
     def contract(h, gg):
         return h.reshape(-1, d).t() @ gg.reshape(-1, d)
@@ -217,8 +244,8 @@ def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
 
 
 def fused_chunks(nbar: int, d: int, sms: int) -> int:
-    """Bar chunks of `gcl_bwd_fused`: one CTA per SM over the (d / 32)
-    column tiles times the chunks."""
+    """Bar chunks of `gcl_bwd_fused` (of its dH kernel in bf16): one CTA per
+    SM over the (d / 32) column tiles times the chunks."""
     return max(1, min(nbar, sms // (d // 32)))
 
 
@@ -245,16 +272,22 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = fused_chunks(nbar, d, sms)
     dx = torch.empty_like(x)
-    part_w = torch.empty((chunks, 8 * d, d), dtype=f32, device=x.device)
     part_gb = torch.empty((chunks, 33 * d), dtype=f32, device=x.device)
     dwbig = torch.empty((8 * d, d), dtype=f32, device=x.device)
     out = torch.empty(33 * d, dtype=f32, device=x.device)
-    name = "gcl_bwd_fused" if dt == f32 else "gcl_bwd_fused_bf16"
+    if dt == f32:
+        # the fp32 form sums dWbig over per-chunk partials
+        name = "gcl_bwd_fused"
+        part_w = torch.empty((chunks, 8 * d, d), dtype=f32, device=x.device)
+        scratch = (part_w.data_ptr(), part_gb.data_ptr())
+    else:
+        # the bf16 form's dW kernel keeps its sums on chip
+        name = "gcl_bwd_fused_bf16"
+        scratch = (part_gb.data_ptr(),)
     err = _build.launcher(name)(
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-        wbig.data_ptr(), dx.data_ptr(), part_w.data_ptr(), part_gb.data_ptr(),
-        dwbig.data_ptr(), out.data_ptr(), nbar, d, chunks,
-        _build.stream_handle(x.device))
+        wbig.data_ptr(), dx.data_ptr(), *scratch, dwbig.data_ptr(),
+        out.data_ptr(), nbar, d, chunks, _build.stream_handle(x.device))
     _build.check(name, err)
     fused_launches += 1
     return dx, out[:32 * d].view(32, d), out[32 * d:], dwbig

@@ -6,8 +6,9 @@ compiled only on a machine with nvcc, so these CPU tests read them as text:
 every launcher is defined once in its source with the arguments ctypes
 passes (a pointer where ctypes passes a pointer, an int where it passes an
 int), each eval GCL source also holds its dtype's training forward, each
-dtype of the fused backward has its own source, and every text anchor of
-the ablation modules' patches occurs exactly once in its source."""
+dtype of the fused backward has its own source (the bf16 one two kernels,
+dH and dW, and no per-chunk dW partials), and every text anchor of the
+ablation modules' patches occurs exactly once in its source."""
 import re
 
 import pytest
@@ -60,6 +61,25 @@ def test_fused_backward_is_bound_to_its_own_sources():
                         ("gcl_bwd_fused_bf16", "gcl_bwd_fused")):
         text = (_build.CSRC / f"{sources[name]}.cu").read_text()
         assert _build.SIGNATURES[other][1] + "(" not in text
+
+
+def test_bf16_fused_backward_source_holds_both_kernels():
+    """`csrc/gcl_bwd_fused_bf16_tc.cu` defines the dH kernel and the dW
+    kernel, and its launcher launches both; dWbig has no per-chunk partial
+    (`part_w`) and is summed by no `sum_rows`, so the launcher takes one
+    scratch pointer fewer than the fp32 form's."""
+    text = (_build.CSRC / "gcl_bwd_fused_bf16_tc.cu").read_text()
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
+                         text)
+    assert kernels == ["gcl_bwd_fused_bf16_tc_kernel",
+                       "gcl_bwd_dw_bf16_tc_kernel"]
+    for k in kernels:
+        assert text.count(k + "<<<") == 1, k
+    assert "part_w" not in text
+    assert text.count("sum_rows(") == 1  # dgate and dbias only
+    params = launcher_params("gcl_bwd_fused_bf16")
+    assert len(params) == len(launcher_params("gcl_bwd_fused")) - 1
+    assert "void* part_gb" in params
 
 
 @pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_fused],

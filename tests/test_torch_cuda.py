@@ -250,13 +250,49 @@ def test_bf16_training_kernels_match_plain(cuda, d, nbar):
     chip_smoke.check_gcl_train_bf16(nbar, d, cuda, timing=False)
 
 
+# the bf16 fused backward alone: one bar at the narrowest width (8 CTAs of
+# the dW kernel), a few, a whole wave of dW CTAs at d = 512 at 8, 40 and 256
+# bars (the training microbatch), past a wave of the dH kernel at d = 1024,
+# and the widest width (1152 dW CTAs)
+FUSED_BF16_CASES = [(1, 128), (3, 384), (8, 512), (40, 512), (256, 512),
+                    (265, 1024), (8, 1536)]
+
+
+def bf16_train_inputs(nbar, d, device, seed):
+    _, args = chip_smoke.train_kernel_inputs(nbar, d, device, seed)
+    return [v if v.dtype == torch.int32 else v.to(torch.bfloat16)
+            for v in args[:5]]
+
+
+@pytest.mark.parametrize("nbar,d", FUSED_BF16_CASES)
+def test_fused_backward_bf16_matches_plain(cuda, nbar, d):
+    """dx, dgate, dbias and dW each within 2e-2 x max |plain|."""
+    args = bf16_train_inputs(nbar, d, cuda, 13)
+    before = gcl_bwd.fused_launches
+    chip_smoke.check_fused_bf16(*args)
+    assert gcl_bwd.fused_launches == before + 1
+
+
+def test_fused_backward_bf16_repeats_dw_and_dbias_bitwise(cuda):
+    """dW sums every bar in order in each dW CTA's registers, dbias the dH
+    kernel's chunks in a fixed order: two launches on the same inputs give
+    both bit for bit."""
+    args = bf16_train_inputs(256, 512, cuda, 3)
+    first = gcl_bwd.gcl_bwd_fused(*args)
+    second = gcl_bwd.gcl_bwd_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[2], second[2])
+    assert torch.equal(first[3], second[3])
+
+
 def test_fused_backward_bf16_gives_zeros_for_a_bar_without_active_cells(cuda):
     """Bar 1 of 3 has no active cell while its x and upstream g are not 0:
     its dx rows are exactly 0, and dW and dbias equal those of the same
-    inputs without that bar (one bar per chunk either way, so the chunks'
-    sums add the same values in the same order). dgate and the other bars'
-    dx sum by shared-memory atomics, in an order that changes from launch
-    to launch: they are held to the plain version's tolerances."""
+    inputs without that bar (dW: the bar's products are exact zeros, added
+    in bar order; dbias: one bar per chunk either way, so the chunks' sums
+    add the same values in the same order). dgate and the other bars' dx
+    sum by shared-memory atomics, in an order that changes from launch to
+    launch: they are held to the plain version's tolerances."""
     mask, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
         3, 384, cuda, 5)
     mask = mask.clone()

@@ -12,6 +12,12 @@ bars, as tests/test_pallas_grad.py):
     against `jax.grad` of JAX's `gcl_fused`, and the plain `gcl_fwd` against
     `gcl_apply_pallas`, both in bf16 with the same bound.
 
+The bf16 kernel's dW product (`csrc/gcl_bwd_fused_bf16_tc.cu`, its dW
+kernel) multiplies bf16 operands on the tensor cores with fp32 sums, bar by
+bar: every operand (the rebuilt messages, x * m and the raw upstream g)
+holds a bf16 value exactly, and that contraction gives the plain dW within
+fp32 reordering (rtol = 1e-5, atol = 1e-5 x max |plain|).
+
 On the CPU the kernels' launch counters stay 0."""
 import jax
 import jax.numpy as jnp
@@ -211,3 +217,56 @@ def test_gcl_eval_plain_matches_pallas_bf16(k_layers):
     assert (gcl.launches, gcl.eval_bf16_launches) == before
     assert got.dtype == torch.bfloat16
     assert_bf16_close([got.float().numpy()], [want], ("out",))
+
+
+def bf16_dw_operands(seed, empty_bar=False):
+    """The dW kernel's operands on case(seed) in bf16: A tiles (h_track,
+    h_self, h_onset, h_next, x * m) and B (the raw upstream g), each
+    (nbar, n, D) fp32, and the plain version's dW."""
+    mask, x, g, gate, rel_w, root, _ = case(seed)
+    if empty_bar:
+        mask[0, 1] = False
+    xf, gf, aux, gt, wbig = port_inputs(mask, x, g, gate, rel_w, root,
+                                        jnp.bfloat16)
+    st = gcl.bar_statics(aux, gt, torch.bfloat16)
+    m = st.m.float()
+    h = gcl_bwd.fused_messages(xf, st, gt, S)
+    a_tiles = [*h, xf.float() * m]
+    dw = gcl_bwd.gcl_bwd_fused_plain(xf, gf, aux, gt, wbig)[3]
+    return a_tiles, gf.float(), m, dw
+
+
+@pytest.mark.parametrize("seed,empty_bar", [
+    pytest.param(0, False, id="0"), pytest.param(3, False, id="3"),
+    pytest.param(0, True, id="0-empty_bar")])
+def test_dw_operands_are_bf16_values(seed, empty_bar):
+    """Every value the bf16 dW product multiplies is a bf16 value, so the
+    tensor cores' bf16 products are the plain version's products exactly;
+    the messages are 0 on every inactive cell (m is folded into the A
+    tiles, and g goes in raw)."""
+    a_tiles, g, m, _ = bf16_dw_operands(seed, empty_bar)
+    for name, v in zip(("h_track", "h_self", "h_onset", "h_next", "x*m",
+                        "g", "g*m"), (*a_tiles, g, g * m)):
+        assert torch.equal(v.to(torch.bfloat16).float(), v), name
+    for name, v in zip(("h_track", "h_self", "h_onset", "h_next"),
+                       a_tiles[:4]):
+        assert (v[m.expand_as(v) == 0] == 0).all(), name
+
+
+@pytest.mark.parametrize("seed,empty_bar", [
+    pytest.param(0, False, id="0"), pytest.param(3, False, id="3"),
+    pytest.param(0, True, id="0-empty_bar")])
+def test_per_bar_bf16_contraction_matches_plain_dw(seed, empty_bar):
+    """dW as the dW kernel sums it: per bar, A_blk^T @ g on bf16 operands
+    with fp32 sums (track blocks over their own 32 rows), added bar after
+    bar into fp32 sums, equals the plain dW within fp32 reordering."""
+    a_tiles, g, _, want = bf16_dw_operands(seed, empty_bar)
+    nbar = g.shape[0]
+    acc = torch.zeros(8 * D, D, dtype=torch.float32)
+    for bar in range(nbar):
+        blocks = [a_tiles[0][bar, t * S:(t + 1) * S].t()
+                  @ g[bar, t * S:(t + 1) * S] for t in range(T)]
+        blocks += [a[bar].t() @ g[bar] for a in a_tiles[1:]]
+        acc += torch.cat(blocks, dim=0)
+    np.testing.assert_allclose(acc.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
