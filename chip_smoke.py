@@ -15,7 +15,10 @@
    of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`), of the
    fp32 fused backward (`csrc/gcl_bwd_fused.cu`) and of the fp32 chord-tail
    kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if any
-   holds one, or no FFMA. ptxas' registers, spills, stack and static
+   holds one, or no FFMA. The same for the fp32 weight backward
+   (`csrc/gcl_bwd_weight.cu`), with its ptxas registers and spills and its
+   dynamic shared memory printed; it fails if ptxas spilled any bytes of
+   it. ptxas' registers, spills, stack and static
    shared memory are printed for each kernel function (each template
    instantiation) of each source.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -34,7 +37,8 @@
    forward and dx at rtol = atol = 2e-4, the sums over bars (dgate, dbias,
    dWbig) at max abs err <= 1e-4 x max |plain|; times each the same way,
    `gcl_fwd` beside the recorded time of the SIMT kernel it replaced
-   (`SIMT_FWD_MS`).
+   (`SIMT_FWD_MS`), `gcl_bwd_weight` beside that of its split-K form
+   (`SPLIT_K_WEIGHT_FP32_MS`).
 2c. The bf16 training kernels, `gcl_fwd` in bf16 and the fused single-pass
    backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
    and 256 bars (the bf16 config's microbatch of 128 sequences): every
@@ -153,6 +157,11 @@ SIMT_CHORD_BF16_MS = 20.306
 # dtypes) ran it before the eval kernels took it over (NVIDIA H100 80GB
 # HBM3, 700.00 W)
 SIMT_FWD_MS = {"gcl_fwd": 2.231, "gcl_fwd_bf16": 3.526}
+# ms per launch of the fp32 weight backward at 128 bars, d = 512, in its
+# split-K form (64 x 64 tiles of one block over bar chunks, per-chunk
+# partials in device memory and a second pass to sum them; NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SPLIT_K_WEIGHT_FP32_MS = 2.557
 # ms per launch of the bf16 fused backward at 256 bars, d = 512, when its dH
 # product ran fp32 FMAs on the CUDA cores (the bf16 instantiation of
 # `gcl_bwd_fused.cu`; NVIDIA H100 80GB HBM3, 700.00 W)
@@ -243,6 +252,17 @@ def sass_instructions(kernel: str, symbol: str,
             count += 1
     check(seen, f"no function {symbol} in the SASS of {kernel}")
     return count
+
+
+def weight_smem_bytes() -> int:
+    """Dynamic shared memory a CTA of the fp32 weight backward takes, as its
+    library reports it."""
+    import ctypes
+
+    from polyphemus_tpu_torch.ops.kernels import _build
+
+    return ctypes.CDLL(str(_build.library("gcl_bwd_weight"))
+                       ).gcl_bwd_weight_smem_bytes()
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -1485,6 +1505,19 @@ def main() -> int:
           f"tensor-core instructions")
     check(mma_fused32 == 0 and ffma_fused32 > 0, "the fp32 fused backward is "
                                                  "not an FFMA kernel")
+    # the fp32 weight backward: one FFMA kernel, its sums in registers
+    weight_sym = "gcl_bwd_weight_kernel"
+    funcs = [u for f, u in usage["gcl_bwd_weight"].items() if weight_sym in f]
+    check(len(funcs) == 1, f"ptxas reported {len(funcs)} {weight_sym}")
+    weight32 = dict(
+        funcs[0], dynamic_smem_bytes=weight_smem_bytes(),
+        ffma=sass_instructions("gcl_bwd_weight", weight_sym, r"\bFFMA\b"),
+        hmma=sass_instructions("gcl_bwd_weight", weight_sym))
+    print(f"gcl_bwd_weight (fp32) kernel: {json.dumps(weight32)}")
+    check(weight32["hmma"] == 0 and weight32["ffma"] > 0,
+          "the fp32 weight backward is not an FFMA kernel")
+    check(weight32["spill_bytes"] == 0, "ptxas spilled registers of the fp32 "
+                                        "weight backward")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1508,6 +1541,8 @@ def main() -> int:
           json.dumps(check_gcl_train(8, 512, device, timing=False)))
     train_k = check_gcl_train(128, 512, device)
     train_k["gcl_fwd"]["simt_kernel_ms"] = SIMT_FWD_MS["gcl_fwd"]
+    train_k["gcl_bwd_weight"]["split_k_kernel_ms"] = SPLIT_K_WEIGHT_FP32_MS
+    train_k["gcl_bwd_weight"]["kernel"] = weight32
     print("flagship training kernel check (128 bars, d=512):",
           json.dumps(train_k))
 

@@ -1,9 +1,10 @@
-// GCL training backward, weight half: dWbig (8d, d).
+// GCL training backward, weight half: dWbig (8d, d), fp32.
 //
 // Replaces the Pallas kernel `_bwd_weight_kernel` of
 // polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel B of
-// `gcl_backward_pallas`, called by the custom VJP `gcl_fused`). With
-// gm = g * m and the message operands h_r of the forward (`gcl.gcl_fwd`):
+// `gcl_backward_pallas`, its pallas_call at :564, called by the custom VJP
+// `gcl_fused`). With gm = g * m and the message operands h_r of the forward
+// (`gcl.gcl_fwd`):
 //
 //   dW_r = sum over bars and rows of h_r[row, :]^T gm[row, :]
 //
@@ -11,161 +12,316 @@
 // (h_root = x). The four track blocks contract only their own track's 32
 // rows of each bar, the other four all 128.
 //
-// What bounds it on an H100: operations, a split-K product with K = nbar *
-// 128 (nbar * 32 for the track blocks): 2 * 640 * d * d flops per bar,
-// 335 MFLOP at d = 512, in fp32 on the CUDA cores.
+// What bounds it on an H100: operations, 2 * 640 * d * d flops a bar (335
+// MFLOP at d = 512), fp32 FFMA on the CUDA cores: fp32 keeps fp32 rounding,
+// so no tensor core multiplies here.
 //
-// Design: column i of every h_r depends only on column i of x and of the
-// gate table. So a CTA that owns a 64 x 64 output tile (input features i,
-// output features j) of one block recomputes just its 64 columns of h_r for
-// each bar of its chunk of bars, in shared memory, with the forward's fp32
-// operations; no h tensor ever reaches device memory. It accumulates the
-// tile in registers (4 x 4 per thread) over the chunk, writes it as one
-// partial, and a second launch sums the chunks' partials in a fixed order.
+// Design: column c of every h_r depends only on column c of x and of the
+// gate table, so a CTA that owns some input features rebuilds their
+// messages itself and no h tensor reaches device memory. One CTA of 8 warps
+// owns rows [c0, c0 + 32) of all 8 blocks x columns [j0, j0 + 64) (128 CTAs
+// at d = 512, one wave) and walks every bar in order with its sums in
+// registers; each element of dWbig is written once, after the last bar, so
+// no partial goes to device memory and the result does not depend on the
+// order the CTAs run in. Per bar:
+// 1. x[:, c tile], g[:, j tile] and the bar's aux words come in by cp.async,
+//    one bar ahead, into one of two stages.
+// 2. The CTA rebuilds h_track, h_self, h_onset, h_next and x * m for its 32
+//    features (each row once for all blocks and columns) with the forward's
+//    fp32 operations. m is folded into these A tiles (the messages already
+//    carry it, root is x * m; exact, m is 0 or 1), so g is used raw.
+// 3. Warps 0-3 contract the rows of tracks 0 and 1, warps 4-7 those of
+//    tracks 2 and 3: each row feeds its own track block and the four full
+//    blocks, which share its g row. A thread holds 2 features x 8 columns of
+//    each of the 4 full blocks and of its half's 2 track blocks (96 sums)
+//    and runs 80 FFMAs for the 18 values it reads from shared memory a row
+//    (two float4 of g, a float2 of each A tile). Every warp does the same
+//    work: 64 rows a bar into 5 blocks.
+// After the last bar the halves' full-block sums are added through shared
+// memory in a fixed order (tracks 0-1, then 2-3).
 #include "gcl_common.cuh"
+#include "mma_bf16.cuh"  // cp.async helpers
 
 namespace {
 
 using namespace gcl;
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait_all;
 
-constexpr int BT = 64;           // output tile (i and j)
 constexpr int THREADS = 256;
+constexpr int CT = 32;           // input features (rows of each block) a CTA
+constexpr int JT = 64;           // output features (columns) a CTA
+constexpr int NA = 5;            // A tiles: track, self, onset, next, root
 
-struct Smem : Statics {
-  alignas(16) float xs[N][BT];   // x[:, i tile]
-  float hs[N][BT];               // h_r[:, i tile]
-  float gs[N][BT];               // gm[:, j tile]
-  float gts[S][BT];              // gate_table[:, i tile]
+// One bar's inputs, by cp.async.
+struct Stage {
+  alignas(16) float x[N][CT];    // x[bar][:, c tile]
+  alignas(16) float g[N][JT];    // g[bar][:, j tile]
+  alignas(16) int aux[N_AUX * N];
 };
 
-__global__ void __launch_bounds__(THREADS, 2)
+// One cell's statics for the rebuild, in three 16-byte words.
+struct Row {
+  int4 idx;                      // ps, ns, pn, dp | dn << 8 | dpn << 16
+  float4 ok;                     // okp, okn, okpn, m
+  float4 rec;                    // rtr, ron, rnx, single
+};
+
+struct Smem {
+  Stage st[2];                   // bar b in st[b % 2]
+  // the A tiles of the bar: [tile][cell][feature]; after the last bar the
+  // first 32 KB take half 1's full-block sums
+  alignas(16) float a[NA][N][CT];
+  alignas(16) float gts[S][CT];  // gate_table[:, c tile]
+  Row rows[N];                   // the statics of the bar
+};
+
+static_assert(sizeof(float) * 4 * CT * JT <= sizeof(float) * NA * N * CT,
+              "half 1's full-block sums fit in the A tiles");
+
+// x[bar][:, c0..c0+31], g[bar][:, j0..j0+63] and aux[bar]: 4 + 8 + 1.75
+// 16-byte copies a thread.
+__device__ __forceinline__ void load_stage(Stage& st, const float* xb,
+                                           const float* gb, const int* ab,
+                                           int d, int c0, int j0, int tid) {
+#pragma unroll
+  for (int j = 0; j < N * CT / 4 / THREADS; ++j) {
+    const int c = tid + j * THREADS;
+    const int r = c / (CT / 4), q = (c % (CT / 4)) * 4;
+    cp_async16(&st.x[r][q], xb + (size_t)r * d + c0 + q);
+  }
+#pragma unroll
+  for (int j = 0; j < N * JT / 4 / THREADS; ++j) {
+    const int c = tid + j * THREADS;
+    const int r = c / (JT / 4), q = (c % (JT / 4)) * 4;
+    cp_async16(&st.g[r][q], gb + (size_t)r * d + j0 + q);
+  }
+  for (int c = tid; c < N_AUX * N / 4; c += THREADS)
+    cp_async16(st.aux + c * 4, ab + c * 4);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float4 mul(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+// relu(a * b) * s: a message through a relation, s its 0/1 validity
+__device__ __forceinline__ float4 msg(float4 a, float4 b, float s) {
+  return make_float4(fmaxf(a.x * b.x, 0.f) * s, fmaxf(a.y * b.y, 0.f) * s,
+                     fmaxf(a.z * b.z, 0.f) * s, fmaxf(a.w * b.w, 0.f) * s);
+}
+
+// (v0 + v1 + v2 + v3 - v[t]) * s
+__device__ __forceinline__ float4 others(const float4 (&v)[T], int t,
+                                         float s) {
+  return make_float4((v[0].x + v[1].x + v[2].x + v[3].x - v[t].x) * s,
+                     (v[0].y + v[1].y + v[2].y + v[3].y - v[t].y) * s,
+                     (v[0].z + v[1].z + v[2].z + v[3].z - v[t].z) * s,
+                     (v[0].w + v[1].w + v[2].w + v[3].w - v[t].w) * s);
+}
+
+// The bar's A tiles from its stage. Warp w decodes the statics of the 16
+// cells of steps 4w..4w+3 into sm.rows; thread (step c, features q..q+3)
+// then rebuilds rows c, S + c, 2S + c and 3S + c of every tile, as
+// `gcl_fwd` computes them. Only this warp reads the rows it decodes.
+__device__ __forceinline__ void rebuild(Smem& sm, const Stage& st, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane < 16) {
+    const int k = (lane >> 2) * S + 4 * warp + (lane & 3);
+    const CellStatics cs = cell_statics(st.aux, k);
+    Row& r = sm.rows[k];
+    r.idx = make_int4(cs.ps, cs.ns, cs.pn, cs.dp | cs.dn << 8 | cs.dpn << 16);
+    r.ok = make_float4(cs.okp, cs.okn, cs.okpn, cs.m);
+    r.rec = make_float4(cs.rtr, cs.ron, cs.rnx, cs.single);
+  }
+  __syncwarp();
+  for (int it = tid; it < S * CT / 4; it += THREADS) {
+    const int c = it / (CT / 4), q = (it % (CT / 4)) * 4;
+    auto ldx = [&](int r) { return ld4(&st.x[r][q]); };
+    auto gate = [&](int s) { return ld4(&sm.gts[s][q]); };
+    const float4 g0 = gate(0);
+    float4 xk[T], y[T], z[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const Row& r = sm.rows[t * S + c];
+      xk[t] = ldx(t * S + c);
+      y[t] = msg(xk[t], g0, r.ok.w);
+      z[t] = msg(ldx(r.idx.z), gate(r.idx.w >> 16), r.ok.z);
+    }
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const int k = t * S + c;
+      const Row& r = sm.rows[k];
+      const float4 vp = msg(ldx(r.idx.x), gate(r.idx.w & 255), r.ok.x);
+      const float4 vn = msg(ldx(r.idx.y), gate((r.idx.w >> 8) & 255), r.ok.y);
+      st4(&sm.a[0][k][q], make_float4((vp.x + vn.x) * r.rec.x,
+                                      (vp.y + vn.y) * r.rec.x,
+                                      (vp.z + vn.z) * r.rec.x,
+                                      (vp.w + vn.w) * r.rec.x));
+      st4(&sm.a[1][k][q], mul(y[t], r.rec.w));     // self
+      st4(&sm.a[2][k][q], others(y, t, r.rec.y));  // onset
+      st4(&sm.a[3][k][q], others(z, t, r.rec.z));  // next
+      st4(&sm.a[4][k][q], mul(xk[t], r.ok.w));     // root: x * m
+    }
+  }
+}
+
+// One bar into this thread's sums: rows of tracks 2h and 2h + 1; tr[tb]
+// is track block 2h + tb, full[i] block T + i. The thread's features are
+// 2 cg, 2 cg + 1, its columns 4 jg..4 jg + 3 and 32 + 4 jg..32 + 4 jg + 3.
+__device__ __forceinline__ void bar_ffma(float (&tr)[2][2][8],
+                                         float (&full)[4][2][8],
+                                         const Smem& sm, const Stage& st,
+                                         int h, int cg, int jg) {
+#pragma unroll
+  for (int tb = 0; tb < 2; ++tb) {
+    const int k0 = (2 * h + tb) * S;
+#pragma unroll 4
+    for (int kk = 0; kk < S; ++kk) {
+      const int k = k0 + kk;
+      const float4 b0 = ld4(&st.g[k][4 * jg]);
+      const float4 b1 = ld4(&st.g[k][JT / 2 + 4 * jg]);
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float2 a[NA];
+#pragma unroll
+      for (int i = 0; i < NA; ++i)
+        a[i] = *reinterpret_cast<const float2*>(&sm.a[i][k][2 * cg]);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        tr[tb][0][jj] = fmaf(a[0].x, b[jj], tr[tb][0][jj]);
+        tr[tb][1][jj] = fmaf(a[0].y, b[jj], tr[tb][1][jj]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          full[i][0][jj] = fmaf(a[1 + i].x, b[jj], full[i][0][jj]);
+          full[i][1][jj] = fmaf(a[1 + i].y, b[jj], full[i][1][jj]);
+        }
+      }
+    }
+  }
+}
+
+// Sums v, two rows (features 2 cg, 2 cg + 1) x 8 columns, into a 32 x 64
+// tile at p whose rows are `pitch` floats apart; add_tile adds such a tile
+// of pitch JT to them.
+__device__ __forceinline__ void put_tile(float* p, size_t pitch,
+                                         const float (&v)[2][8], int cg,
+                                         int jg) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = p + (2 * cg + r) * pitch + 4 * jg;
+    st4(row, make_float4(v[r][0], v[r][1], v[r][2], v[r][3]));
+    st4(row + JT / 2, make_float4(v[r][4], v[r][5], v[r][6], v[r][7]));
+  }
+}
+
+__device__ __forceinline__ void add_tile(float (&v)[2][8], const float* p,
+                                         int cg, int jg) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* row = p + (2 * cg + r) * JT + 4 * jg;
+    const float4 lo = ld4(row), hi = ld4(row + JT / 2);
+    const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) v[r][jj] += w[jj];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 gcl_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const int* __restrict__ aux,
                       const float* __restrict__ gates,
-                      float* __restrict__ part, int nbar, int d,
-                      int bars_per_chunk) {
+                      float* __restrict__ dwbig, int nbar, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int ntile = d / BT;
-  const int i0 = (blockIdx.x / ntile) * BT, j0 = (blockIdx.x % ntile) * BT;
-  const int blk = blockIdx.y;
-  const int chunk = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ti = tid >> 4, tj = tid & 15;
-  // rows of each bar that this block contracts
-  const int lo = blk < T ? blk * S : 0, hi = blk < T ? lo + S : N;
-  // x rows the messages read: a track's sources lie in its own track
-  const int xlo = blk < T ? lo : 0, xhi = blk < T ? hi : N;
-  const float(*h)[BT] = blk == NBLK - 1 ? sm.xs : sm.hs;
+  const int j0 = blockIdx.x * JT, c0 = blockIdx.y * CT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = warp >> 2;                        // tracks 2h, 2h + 1
+  const int cg = (warp & 3) * 4 + (lane >> 3);    // features 2 cg, 2 cg + 1
+  const int jg = lane & 7;
+  auto stage = [&](int b) {
+    const size_t off = (size_t)b * N * d;
+    load_stage(sm.st[b & 1], x + off, g + off, aux + (size_t)b * N_AUX * N,
+               d, c0, j0, tid);
+    cp_async_commit();
+  };
 
-  for (int e = tid; e < S * BT; e += THREADS)
-    sm.gts[e / BT][e % BT] = gates[(size_t)(e / BT) * d + i0 + e % BT];
-
-  float acc[4][4];
+  stage(0);
+  for (int e = tid; e < S * CT; e += THREADS)
+    sm.gts[e / CT][e % CT] = gates[(size_t)(e / CT) * d + c0 + e % CT];
+  float tr[2][2][8], full[4][2][8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int jj = 0; jj < 8; ++jj) {
+      tr[0][r][jj] = tr[1][r][jj] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) full[i][r][jj] = 0.f;
+    }
 
-  const int b_lo = chunk * bars_per_chunk;
-  const int b_hi = min(nbar, b_lo + bars_per_chunk);
-  for (int bar = b_lo; bar < b_hi; ++bar) {
-    const float* xb = x + (size_t)bar * N * d;
-    const float* gb = g + (size_t)bar * N * d;
-    __syncthreads();  // the previous bar's tiles are consumed
-    load_statics(sm, aux + (size_t)bar * N_AUX * N, tid, THREADS);
-    for (int e = tid; e < (xhi - xlo) * (BT / 4); e += THREADS) {
-      const int i = xlo + e / (BT / 4), q4 = (e % (BT / 4)) * 4;
-      *reinterpret_cast<float4*>(&sm.xs[i][q4]) =
-          *reinterpret_cast<const float4*>(xb + (size_t)i * d + i0 + q4);
-    }
-    for (int e = tid; e < (hi - lo) * (BT / 4); e += THREADS) {
-      const int i = lo + e / (BT / 4), q4 = (e % (BT / 4)) * 4;
-      *reinterpret_cast<float4*>(&sm.gs[i][q4]) =
-          *reinterpret_cast<const float4*>(gb + (size_t)i * d + j0 + q4);
-    }
+  for (int bar = 0; bar < nbar; ++bar) {
+    cp_async_wait_all();
+    // bar's stage has landed, and no warp still reads the A tiles or the
+    // stage that bar + 1 takes
     __syncthreads();
-
-    // h_r[:, i tile] as the forward builds it, and gm = g * m
-    for (int e = tid; e < (hi - lo) * BT; e += THREADS) {
-      const int i = lo + e / BT, q = e % BT;
-      const int c = i % S;
-      sm.gs[i][q] *= sm.m[i];
-      if (blk < T) {
-        const float vp = fmaxf(sm.xs[sm.ps[i]][q] * sm.gts[sm.dp[i]][q], 0.f)
-                         * sm.okp[i];
-        const float vn = fmaxf(sm.xs[sm.ns[i]][q] * sm.gts[sm.dn[i]][q], 0.f)
-                         * sm.okn[i];
-        sm.hs[i][q] = (vp + vn) * sm.rtr[i];
-      } else if (blk == T) {
-        sm.hs[i][q] = fmaxf(sm.xs[i][q] * sm.gts[0][q], 0.f) * sm.m[i]
-                      * sm.single[i];
-      } else if (blk == T + 1) {
-        float y[T];
-#pragma unroll
-        for (int t = 0; t < T; ++t)
-          y[t] = fmaxf(sm.xs[t * S + c][q] * sm.gts[0][q], 0.f) * sm.m[t * S + c];
-        const float yi = y[i / S];
-        sm.hs[i][q] = (y[0] + y[1] + y[2] + y[3] - yi) * sm.ron[i];
-      } else if (blk == T + 2) {
-        float z[T];
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-          const int k = t * S + c;
-          z[t] = fmaxf(sm.xs[sm.pn[k]][q] * sm.gts[sm.dpn[k]][q], 0.f)
-                 * sm.okpn[k];
-        }
-        const float zi = z[i / S];
-        sm.hs[i][q] = (z[0] + z[1] + z[2] + z[3] - zi) * sm.rnx[i];
-      }
-    }
+    if (bar + 1 < nbar) stage(bar + 1);
+    const Stage& st = sm.st[bar & 1];
+    rebuild(sm, st, tid);
     __syncthreads();
-
-    // acc += h_r[rows, i tile]^T @ gm[rows, j tile]
-    for (int k = lo; k < hi; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&h[k][ti * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&sm.gs[k][tj * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
+    bar_ffma(tr, full, sm, st, h, cg, jg);
   }
 
-  float* pc = part + (size_t)chunk * NBLK * d * d;
+  // half 1 hands its full-block sums to half 0, which adds them to its own
+  __syncthreads();
+  float* red = &sm.a[0][0][0];
+  if (h == 1) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-    *reinterpret_cast<float4*>(
-        pc + ((size_t)blk * d + i0 + ti * 4 + r) * d + j0 + tj * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    for (int i = 0; i < 4; ++i) put_tile(red + i * CT * JT, JT, full[i], cg, jg);
+  }
+  __syncthreads();
+  const size_t pitch = (size_t)d;
+  float* out = dwbig + (size_t)c0 * d + j0;
+  if (h == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      add_tile(full[i], red + i * CT * JT, cg, jg);
+      put_tile(out + (size_t)(T + i) * d * d, pitch, full[i], cg, jg);
+    }
+  }
+#pragma unroll
+  for (int tb = 0; tb < 2; ++tb)
+    put_tile(out + (size_t)(2 * h + tb) * d * d, pitch, tr[tb], cg, jg);
 }
 
 }  // namespace
 
-// x, g (nbar, N, d); aux (nbar, N_AUX, N); gates (S, d). Writes dwbig
-// (8d, d), using part (nchunks, 8d, d) as scratch: chunk c sums bars
-// [c * bars_per_chunk, (c + 1) * bars_per_chunk).
+// Bytes of dynamic shared memory a CTA of the kernel takes.
+extern "C" int gcl_bwd_weight_smem_bytes() { return (int)sizeof(Smem); }
+
+// x, g (nbar, N, d); aux (nbar, N_AUX, N); gates (S, d); all 16-byte
+// aligned, d % 64 == 0. Writes dwbig (8d, d).
 extern "C" int gcl_bwd_weight_launch(const void* x, const void* g,
                                      const void* aux, const void* gates,
-                                     void* part, void* dwbig, int nbar, int d,
-                                     int nchunks, void* stream) {
-  if (d % BT != 0 || nchunks < 1) return (int)cudaErrorInvalidValue;
+                                     void* dwbig, int nbar, int d,
+                                     void* stream) {
+  if (d <= 0 || d % JT != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int bars_per_chunk = nbar > 0 ? (nbar + nchunks - 1) / nchunks : 0;
+  if (nbar <= 0)
+    return (int)cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * d, st);
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_bwd_weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  const int ntile = d / BT;
-  gcl_bwd_weight_kernel<<<dim3(ntile * ntile, NBLK, nchunks), THREADS, smem,
-                          st>>>(
+  gcl_bwd_weight_kernel<<<dim3(d / JT, d / CT), THREADS, smem, st>>>(
       (const float*)x, (const float*)g, (const int*)aux, (const float*)gates,
-      (float*)part, nbar, d, bars_per_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)sum_rows((const float*)part, (float*)dwbig, nchunks,
-                       (long long)NBLK * d * d, st);
+      (float*)dwbig, nbar, d);
+  return (int)cudaGetLastError();
 }

@@ -42,7 +42,7 @@ SIGNATURES = {
     "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
                      [VP] * 8 + [INT] * 2 + [VP]),
     "gcl_bwd_weight": ("gcl_bwd_weight", "gcl_bwd_weight_launch",
-                       [VP] * 6 + [INT] * 3 + [VP]),
+                       [VP] * 5 + [INT] * 2 + [VP]),
     "gcl_bwd_fused": ("gcl_bwd_fused", "gcl_bwd_fused_launch",
                       [VP] * 10 + [INT] * 3 + [VP]),
     "gcl_bwd_fused_bf16": ("gcl_bwd_fused_bf16_tc",

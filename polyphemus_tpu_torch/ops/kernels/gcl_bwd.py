@@ -116,13 +116,6 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
     return dx, out[:32 * d].view(32, d), out[32 * d:]
 
 
-def weight_chunks(nbar: int, d: int) -> int:
-    """Bar chunks of `gcl_bwd_weight`: enough CTAs (64 x 64 tiles of the
-    eight blocks, times the chunks) to fill the card twice over."""
-    tiles = 8 * (d // 64) ** 2
-    return max(1, min(nbar, -(-2048 // tiles)))
-
-
 def gcl_bwd_weight(x, g, aux, gate_table):
     """Weight half of the GCL backward for upstream g (nbar, n, d): dWbig
     (8d, d), in the packed block order of `pack_weights`."""
@@ -135,13 +128,10 @@ def gcl_bwd_weight(x, g, aux, gate_table):
         "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, d), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), f32)})
-    chunks = weight_chunks(nbar, d)
-    part = torch.empty((chunks, 8 * d, d), dtype=f32, device=x.device)
     dwbig = torch.empty((8 * d, d), dtype=f32, device=x.device)
     err = _build.launcher("gcl_bwd_weight")(
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-        part.data_ptr(), dwbig.data_ptr(), nbar, d, chunks,
-        _build.stream_handle(x.device))
+        dwbig.data_ptr(), nbar, d, _build.stream_handle(x.device))
     _build.check("gcl_bwd_weight", err)
     weight_launches += 1
     return dwbig

@@ -7,14 +7,16 @@ every launcher is defined once in its source with the arguments ctypes
 passes (a pointer where ctypes passes a pointer, an int where it passes an
 int), each eval GCL source also holds its dtype's training forward, each
 dtype of the fused backward has its own source (the bf16 one two kernels,
-dH and dW, and no per-chunk dW partials), and every text anchor of the
-ablation modules' patches occurs exactly once in its source."""
+dH and dW, and no per-chunk dW partials), the fp32 weight backward is one
+kernel with no partials, and every text anchor of the ablation modules'
+patches occurs exactly once in its source."""
 import re
 
 import pytest
 
 from polyphemus_tpu_torch.ops.kernels import (_build, ablate_chord_tail,
-                                              ablate_gcl_bwd_fused)
+                                              ablate_gcl_bwd_fused,
+                                              ablate_gcl_bwd_weight)
 
 
 def launcher_params(name):
@@ -82,7 +84,24 @@ def test_bf16_fused_backward_source_holds_both_kernels():
     assert "void* part_gb" in params
 
 
-@pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_fused],
+def test_fp32_weight_backward_is_one_kernel_without_partials():
+    """`csrc/gcl_bwd_weight.cu` defines one kernel, launched once, that
+    writes dWbig itself: no per-chunk partial (`part`), no chunk count and
+    no `sum_rows` pass; its launcher takes x, g, aux, the gate table,
+    dWbig, nbar, d and the stream."""
+    text = (_build.CSRC / "gcl_bwd_weight.cu").read_text()
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
+                         text)
+    assert kernels == ["gcl_bwd_weight_kernel"]
+    assert text.count("gcl_bwd_weight_kernel<<<") == 1
+    assert "sum_rows" not in text
+    assert not re.search(r"\bpart\b|nchunks", text)
+    names = [p.rsplit(" ", 1)[-1] for p in launcher_params("gcl_bwd_weight")]
+    assert names == ["x", "g", "aux", "gates", "dwbig", "nbar", "d", "stream"]
+
+
+@pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_fused,
+                                    ablate_gcl_bwd_weight],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_ablation_anchors_are_in_their_sources(module):
     """Each patch of each variant replaces text that occurs exactly once in

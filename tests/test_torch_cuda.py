@@ -191,6 +191,46 @@ def test_gcl_training_kernels_match_plain(cuda, d, nbar):
     chip_smoke.check_gcl_train(nbar, d, cuda, timing=False)
 
 
+def test_weight_backward_repeats_dw_bitwise(cuda):
+    """Each CTA of the fp32 weight backward sums every bar in order in its
+    registers and adds its two halves' sums in a fixed order: two launches
+    on the same inputs give dWbig bit for bit."""
+    _, (x, up, aux, gates, _, _) = chip_smoke.train_kernel_inputs(
+        128, 512, cuda, 3)
+    before = gcl_bwd.weight_launches
+    first = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    second = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    torch.cuda.synchronize()
+    assert gcl_bwd.weight_launches == before + 2
+    assert torch.equal(first, second)
+
+
+def test_weight_backward_leaves_dw_as_without_a_bar_without_active_cells(
+        cuda):
+    """Bar 1 of 3 has no active cell while its x and upstream g are not 0:
+    every A tile row of that bar is 0 (m is folded into them), so its
+    products add exact zeros and dWbig equals, bit for bit, that of the
+    same inputs without the bar; both agree with the plain version."""
+    mask, (x, up, aux, gates, _, _) = chip_smoke.train_kernel_inputs(
+        3, 384, cuda, 5)
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 128).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(128, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda)
+    assert (x[1] != 0).any() and (up[1] != 0).any()
+    keep = torch.tensor([0, 2], device=cuda)
+    got = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    ref = gcl_bwd.gcl_bwd_weight(x[keep].contiguous(), up[keep].contiguous(),
+                                 aux[keep].contiguous(), gates)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    chip_smoke.held_to("gcl_bwd_weight", got,
+                       gcl_bwd.gcl_bwd_weight_plain(x, up, aux, gates),
+                       summed=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gcl_fwd_gives_zeros_for_a_bar_without_active_cells(cuda, dtype):
     """Bar 1 of 3 has no active cell and a state that is not 0: the

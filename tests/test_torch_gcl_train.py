@@ -5,8 +5,11 @@ without its epilogue (rtol = atol = 2e-4), and the plain backward
 `gcl_backward_pallas` (rtol = atol = 5e-4, as tests/test_pallas_grad.py),
 both in interpret mode at D = 16; the plain backward against
 `torch.autograd` through the plain forward; the `gcl_fused` autograd
-function against the lattice GCL's autograd. On the CPU the kernels'
-launch counters stay 0."""
+function against the lattice GCL's autograd; a numpy emulation of one CTA
+of the weight kernel (`csrc/gcl_bwd_weight.cu`) against both backwards at
+D = 128. On the CPU the kernels' launch counters stay 0."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,3 +140,141 @@ def test_gcl_fused_grads_match_the_lattice_autograd():
         x_, gt, w, r, b, aux, m))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **BWD_TOL)
+
+
+# The tiling of `csrc/gcl_bwd_weight.cu`: a CTA owns rows [c0, c0 + CT) of
+# all 8 blocks x columns [j0, j0 + JT) and walks every bar in order. Warps
+# 0-3 contract the rows of tracks 0 and 1, warps 4-7 those of tracks 2 and
+# 3; a thread holds features 2 cg, 2 cg + 1 and columns 4 jg..4 jg + 3, 32 +
+# 4 jg..32 + 4 jg + 3 of the 4 full blocks and of its half's 2 track blocks.
+CT, JT = 32, 64
+TID = np.arange(256)
+HALF = TID // 128
+CG = (TID // 32 % 4) * 4 + TID % 32 // 8
+JG = TID % 8
+FEATS = np.stack([2 * CG, 2 * CG + 1], axis=1)                     # (256, 2)
+COLS = np.concatenate([4 * JG[:, None] + np.arange(4),
+                       JT // 2 + 4 * JG[:, None] + np.arange(4)], axis=1)
+
+
+def cell_statics(a):
+    """One bar's aux (N_AUX, n) decoded as `gcl_common.cuh::cell_statics`."""
+    f32 = np.float32
+    n = a.shape[1]
+    m = (a[gcl.MASK_CH] > 0).astype(f32)
+    okp, okn, okpn = a[gcl.OK_P] > 0, a[gcl.OK_N] > 0, a[gcl.OK_PN] > 0
+    cnt = okp.astype(np.int64) + okn
+    con, cnx = a[gcl.CNT_ON], a[gcl.CNT_NX]
+
+    def recip(c, valid):
+        r = f32(1) / np.maximum(c, 1).astype(f32) * m
+        return np.where(valid, r, f32(0)).astype(f32)
+
+    return dict(
+        ps=np.clip(a[gcl.PREV_SRC], 0, n - 1),
+        ns=np.clip(a[gcl.NEXT_SRC], 0, n - 1),
+        pn=np.clip(a[gcl.PN_SRC], 0, n - 1),
+        dp=np.clip(a[gcl.DIST_P], 0, S - 1),
+        dn=np.clip(a[gcl.DIST_N], 0, S - 1),
+        dpn=np.clip(a[gcl.DIST_PN], 0, S - 1),
+        okp=okp.astype(f32), okn=okn.astype(f32),
+        okpn=(okpn & (a[gcl.MSRC] > 0)).astype(f32),
+        rtr=recip(cnt, cnt > 0), ron=recip(con, con > 0),
+        rnx=recip(cnx, okpn & (cnx > 0)), m=m,
+        single=a[gcl.SINGLE].astype(f32))
+
+
+def cta_a_tiles(xb, a, gates):
+    """The A tiles one CTA rebuilds for one bar from x (n, CT) and the gate
+    table (S, CT) of its features, with the kernel's fp32 operations:
+    h_track, h_self, h_onset, h_next and x * m, each (n, CT)."""
+    st = cell_statics(a)
+
+    def col(v):
+        return v[:, None]
+
+    def msg(src, dist, ok):
+        return np.maximum(xb[src] * gates[dist], 0) * col(ok)
+
+    def others(v):
+        v4 = v.reshape(T, S, -1)
+        return ((((v4[0] + v4[1]) + v4[2]) + v4[3])[None] - v4).reshape(
+            v.shape)
+
+    y = np.maximum(xb * gates[0], 0) * col(st["m"])
+    z = msg(st["pn"], st["dpn"], st["okpn"])
+    h_track = (msg(st["ps"], st["dp"], st["okp"])
+               + msg(st["ns"], st["dn"], st["okn"])) * col(st["rtr"])
+    return [h_track, y * col(st["single"]), others(y) * col(st["ron"]),
+            others(z) * col(st["rnx"]), xb * col(st["m"])]
+
+
+def emulate_cta(x, g, aux, gates, c0, j0):
+    """Rows [c0, c0 + CT) x columns [j0, j0 + JT) of the 8 blocks of dWbig,
+    (8, CT, JT), as one CTA of the weight kernel sums them: per bar, every
+    thread's FFMAs over the rows of its half (raw g: m is in the A tiles),
+    then half 1's full-block sums added to half 0's, each output written
+    by exactly one thread."""
+    nbar = x.shape[0]
+    tr = np.zeros((256, 2, 2, 8), np.float32)
+    full = np.zeros((256, 4, 2, 8), np.float32)
+    for bar in range(nbar):
+        tiles = cta_a_tiles(x[bar][:, c0:c0 + CT], aux[bar],
+                            gates[:, c0:c0 + CT])
+        gb = g[bar][:, j0:j0 + JT]
+        for tb in range(2):
+            for kk in range(S):
+                k = ((2 * HALF + tb) * S + kk)[:, None]
+                b = gb[k, COLS][:, None, :]
+                av = [t_[k, FEATS][:, :, None] for t_ in tiles]
+                tr[:, tb] += av[0] * b
+                for i in range(4):
+                    full[:, i] += av[1 + i] * b
+    out = np.zeros((8, CT, JT), np.float32)
+    written = np.zeros(out.shape, np.int64)
+
+    def put(blk, t, v):
+        ix = (blk, FEATS[t][:, None], COLS[t][None, :])
+        out[ix] = v
+        written[ix] += 1
+
+    for t in TID:
+        if HALF[t] == 0:
+            for i in range(4):
+                put(T + i, t, full[t, i] + full[t + 128, i])
+        for tb in range(2):
+            put(2 * HALF[t] + tb, t, tr[t, tb])
+    assert (written == 1).all()
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def weight_case(d=128):
+    """A 5-bar layer at width d (single-node, fixed and full bars): the
+    port's arguments as numpy, the plain dWbig and JAX's Pallas dWbig."""
+    mask, x, g, gate, rel_w, root, _ = layer_case(seed=6, d=d)
+    wbig_j = gcl_pallas.pack_weights(jnp.asarray(rel_w), jnp.asarray(root),
+                                     T, dtype=jnp.float32)
+    _, _, dw_j, _ = gcl_pallas_bwd.gcl_backward_pallas(
+        jnp.asarray(x), gcl_pallas.build_kernel_aux(jnp.asarray(mask)),
+        jnp.asarray(gate), wbig_j, jnp.asarray(g))
+    aux, xf, (gf, gate_t) = port_args(mask, x, g, gate)
+    gf = gf.reshape(xf.shape)
+    dw = gcl_bwd.gcl_bwd_weight_plain(xf, gf, aux, gate_t)
+    return (xf.numpy(), gf.numpy(), aux.numpy(), gate, dw.numpy(),
+            np.asarray(dw_j))
+
+
+# the first tile, one inside (c0 != 0, j0 != 0), the last
+@pytest.mark.parametrize("c0,j0", [(0, 0), (32, 64), (96, 64)])
+def test_weight_kernel_cta_emulation_matches_both_backwards(c0, j0):
+    x, g, aux, gate, dw_plain, dw_jax = weight_case()
+    d = x.shape[-1]
+    got = emulate_cta(x, g, aux, gate, c0, j0)
+
+    def tile(dw):
+        return dw.reshape(8, d, d)[:, c0:c0 + CT, j0:j0 + JT]
+
+    assert np.abs(tile(dw_plain)).max() > 0
+    np.testing.assert_allclose(got, tile(dw_plain), rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(got, tile(dw_jax), **BWD_TOL)
