@@ -15,10 +15,11 @@
    of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`), of the
    fp32 fused backward (`csrc/gcl_bwd_fused.cu`) and of the fp32 chord-tail
    kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if any
-   holds one, or no FFMA. The same for the fp32 weight backward
-   (`csrc/gcl_bwd_weight.cu`), with its ptxas registers and spills and its
-   dynamic shared memory printed; it fails if ptxas spilled any bytes of
-   it. ptxas' registers, spills, stack and static
+   holds one, or no FFMA. The same for the fp32 weight and data backward
+   kernels (`csrc/gcl_bwd_weight.cu`, `csrc/gcl_bwd_data.cu`), with their
+   ptxas registers and spills and their dynamic shared memory printed; it
+   fails if ptxas spilled any bytes of either. ptxas' registers, spills,
+   stack and static
    shared memory are printed for each kernel function (each template
    instantiation) of each source.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -38,7 +39,8 @@
    dWbig) at max abs err <= 1e-4 x max |plain|; times each the same way,
    `gcl_fwd` beside the recorded time of the SIMT kernel it replaced
    (`SIMT_FWD_MS`), `gcl_bwd_weight` beside that of its split-K form
-   (`SPLIT_K_WEIGHT_FP32_MS`).
+   (`SPLIT_K_WEIGHT_FP32_MS`), `gcl_bwd_data` beside that of its first
+   design (`FIRST_DESIGN_DATA_FP32_MS`).
 2c. The bf16 training kernels, `gcl_fwd` in bf16 and the fused single-pass
    backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
    and 256 bars (the bf16 config's microbatch of 128 sequences): every
@@ -162,6 +164,10 @@ SIMT_FWD_MS = {"gcl_fwd": 2.231, "gcl_fwd_bf16": 3.526}
 # partials in device memory and a second pass to sum them; NVIDIA H100 80GB
 # HBM3, 700.00 W)
 SPLIT_K_WEIGHT_FP32_MS = 2.557
+# ms per launch of the fp32 data backward at 128 bars, d = 512, in its first
+# design (a CTA per bar and 32-column tile, synchronous staging, scatters by
+# shared-memory atomics; NVIDIA H100 80GB HBM3, 700.00 W)
+FIRST_DESIGN_DATA_FP32_MS = 1.710
 # ms per launch of the bf16 fused backward at 256 bars, d = 512, when its dH
 # product ran fp32 FMAs on the CUDA cores (the bf16 instantiation of
 # `gcl_bwd_fused.cu`; NVIDIA H100 80GB HBM3, 700.00 W)
@@ -254,15 +260,15 @@ def sass_instructions(kernel: str, symbol: str,
     return count
 
 
-def weight_smem_bytes() -> int:
-    """Dynamic shared memory a CTA of the fp32 weight backward takes, as its
-    library reports it."""
+def smem_bytes(kernel: str) -> int:
+    """Dynamic shared memory a CTA of the fp32 weight or data backward
+    (`kernel`) takes, as its library's `<kernel>_smem_bytes` reports it."""
     import ctypes
 
     from polyphemus_tpu_torch.ops.kernels import _build
 
-    return ctypes.CDLL(str(_build.library("gcl_bwd_weight"))
-                       ).gcl_bwd_weight_smem_bytes()
+    lib = ctypes.CDLL(str(_build.library(kernel)))
+    return getattr(lib, f"{kernel}_smem_bytes")()
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -1505,19 +1511,21 @@ def main() -> int:
           f"tensor-core instructions")
     check(mma_fused32 == 0 and ffma_fused32 > 0, "the fp32 fused backward is "
                                                  "not an FFMA kernel")
-    # the fp32 weight backward: one FFMA kernel, its sums in registers
-    weight_sym = "gcl_bwd_weight_kernel"
-    funcs = [u for f, u in usage["gcl_bwd_weight"].items() if weight_sym in f]
-    check(len(funcs) == 1, f"ptxas reported {len(funcs)} {weight_sym}")
-    weight32 = dict(
-        funcs[0], dynamic_smem_bytes=weight_smem_bytes(),
-        ffma=sass_instructions("gcl_bwd_weight", weight_sym, r"\bFFMA\b"),
-        hmma=sass_instructions("gcl_bwd_weight", weight_sym))
-    print(f"gcl_bwd_weight (fp32) kernel: {json.dumps(weight32)}")
-    check(weight32["hmma"] == 0 and weight32["ffma"] > 0,
-          "the fp32 weight backward is not an FFMA kernel")
-    check(weight32["spill_bytes"] == 0, "ptxas spilled registers of the fp32 "
-                                        "weight backward")
+    # the fp32 weight and data backward: FFMA kernels, no spills
+    bwd32 = {}
+    for name in ("gcl_bwd_weight", "gcl_bwd_data"):
+        sym = f"{name}_kernel"
+        funcs = [u for f, u in usage[name].items() if sym in f]
+        check(len(funcs) == 1, f"ptxas reported {len(funcs)} {sym}")
+        bwd32[name] = dict(
+            funcs[0], dynamic_smem_bytes=smem_bytes(name),
+            ffma=sass_instructions(name, sym, r"\bFFMA\b"),
+            hmma=sass_instructions(name, sym))
+        print(f"{name} (fp32) kernel: {json.dumps(bwd32[name])}")
+        check(bwd32[name]["hmma"] == 0 and bwd32[name]["ffma"] > 0,
+              f"the fp32 {name} kernel is not an FFMA kernel")
+        check(bwd32[name]["spill_bytes"] == 0,
+              f"ptxas spilled registers of the fp32 {name} kernel")
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1542,7 +1550,10 @@ def main() -> int:
     train_k = check_gcl_train(128, 512, device)
     train_k["gcl_fwd"]["simt_kernel_ms"] = SIMT_FWD_MS["gcl_fwd"]
     train_k["gcl_bwd_weight"]["split_k_kernel_ms"] = SPLIT_K_WEIGHT_FP32_MS
-    train_k["gcl_bwd_weight"]["kernel"] = weight32
+    train_k["gcl_bwd_weight"]["kernel"] = bwd32["gcl_bwd_weight"]
+    train_k["gcl_bwd_data"]["first_design_kernel_ms"] = \
+        FIRST_DESIGN_DATA_FP32_MS
+    train_k["gcl_bwd_data"]["kernel"] = bwd32["gcl_bwd_data"]
     print("flagship training kernel check (128 bars, d=512):",
           json.dumps(train_k))
 

@@ -8,13 +8,15 @@ passes (a pointer where ctypes passes a pointer, an int where it passes an
 int), each eval GCL source also holds its dtype's training forward, each
 dtype of the fused backward has its own source (the bf16 one two kernels,
 dH and dW, and no per-chunk dW partials), the fp32 weight backward is one
-kernel with no partials, and every text anchor of the ablation modules'
+kernel with no partials, the fp32 data backward one kernel with TMA
+stages and no atomics, and every text anchor of the ablation modules'
 patches occurs exactly once in its source."""
 import re
 
 import pytest
 
 from polyphemus_tpu_torch.ops.kernels import (_build, ablate_chord_tail,
+                                              ablate_gcl_bwd_data,
                                               ablate_gcl_bwd_fused,
                                               ablate_gcl_bwd_weight)
 
@@ -100,7 +102,33 @@ def test_fp32_weight_backward_is_one_kernel_without_partials():
     assert names == ["x", "g", "aux", "gates", "dwbig", "nbar", "d", "stream"]
 
 
-@pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_fused,
+def test_fp32_data_backward_walks_its_bars_without_atomics():
+    """`gcl_bwd_data` binds `csrc/gcl_bwd_data.cu`, which defines one
+    kernel, launched once, whose CTAs walk a run of bars (`nchunks`, chosen
+    by the launcher) with stages of TMA boxes; its scatters run as gathers,
+    so the source holds no atomic, and one `sum_rows` pass adds the CTAs'
+    dgate/dbias partial rows. The launcher takes x, g, aux, the gate table,
+    wbig, dx, the partials' scratch, the output, nbar, d and the stream,
+    and the source reports its dynamic shared memory."""
+    assert _build.SIGNATURES["gcl_bwd_data"][:2] == ("gcl_bwd_data",
+                                                     "gcl_bwd_data_launch")
+    text = (_build.CSRC / "gcl_bwd_data.cu").read_text()
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
+                         text)
+    assert kernels == ["gcl_bwd_data_kernel"]
+    assert text.count("gcl_bwd_data_kernel<<<") == 1
+    assert text.count("sum_rows(") == 1
+    assert "atomicAdd" not in text
+    assert "load_2d(sm.st" in text and "load_3d(sm.st" in text
+    assert "nchunks" in text
+    assert 'extern "C" int gcl_bwd_data_smem_bytes()' in text
+    names = [p.rsplit(" ", 1)[-1] for p in launcher_params("gcl_bwd_data")]
+    assert names == ["x", "g", "aux", "gates", "wbig", "dx", "part", "out",
+                     "nbar", "d", "stream"]
+
+
+@pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_data,
+                                    ablate_gcl_bwd_fused,
                                     ablate_gcl_bwd_weight],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_ablation_anchors_are_in_their_sources(module):

@@ -231,6 +231,69 @@ def test_weight_backward_leaves_dw_as_without_a_bar_without_active_cells(
                        summed=True)
 
 
+def check_data_backward(x, up, aux, gates, wbig):
+    """`gcl_bwd_data` against its plain version at the tolerances of
+    chip_smoke's phase 2b; returns the kernel's (dx, dgate, dbias)."""
+    before = gcl_bwd.data_launches
+    got = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    want = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)
+    torch.cuda.synchronize()
+    assert gcl_bwd.data_launches == before + 1
+    for name, a, b, summed in zip(("dx", "dgate", "dbias"), got, want,
+                                  (False, True, True)):
+        chip_smoke.held_to(f"gcl_bwd_data {name}", a, b, summed=summed)
+    return got
+
+
+# the data backward at the widest widths: 32 and 48 column tiles, so 4 and
+# 2 bar chunks; one bar, a few, 40 and 133 (more bars than chunks)
+@pytest.mark.parametrize("nbar", [1, 3, 40, 133])
+@pytest.mark.parametrize("d", [1024, 1536])
+def test_data_backward_matches_plain_at_wide_widths(cuda, d, nbar):
+    _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        nbar, d, cuda, 11)
+    check_data_backward(x, up, aux, gates, wbig)
+
+
+def test_data_backward_repeats_bitwise(cuda):
+    """The data backward sums dx in a fixed order (its scatters run as
+    gathers), each CTA's dgate and dbias in bar order and the CTAs' rows
+    in a fixed order: two launches give all three bit for bit."""
+    _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        128, 512, cuda, 3)
+    first = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    second = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_data_backward_gives_zeros_for_a_bar_without_active_cells(cuda):
+    """Bar 1 of 3 has no active cell while its x and upstream g are not 0:
+    its dx rows are exactly 0, and dgate and dbias are those of the same
+    inputs without that bar, within the tolerances of chip_smoke's phase
+    2b (the CTAs take the bars in other runs, so the sums add in another
+    order); every output agrees with the plain version."""
+    mask, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        3, 384, cuda, 5)
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 128).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(128, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda)
+    assert (x[1] != 0).any() and (up[1] != 0).any()
+    got = check_data_backward(x, up, aux, gates, wbig)
+    keep = torch.tensor([0, 2], device=cuda)
+    ref = gcl_bwd.gcl_bwd_data(x[keep].contiguous(), up[keep].contiguous(),
+                               aux[keep].contiguous(), gates, wbig)
+    torch.cuda.synchronize()
+    assert (got[0][1] == 0).all()
+    chip_smoke.held_to("gcl_bwd_data dx", got[0][keep], ref[0], summed=False)
+    chip_smoke.held_to("gcl_bwd_data dgate", got[1], ref[1], summed=True)
+    chip_smoke.held_to("gcl_bwd_data dbias", got[2], ref[2], summed=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gcl_fwd_gives_zeros_for_a_bar_without_active_cells(cuda, dtype):
     """Bar 1 of 3 has no active cell and a state that is not 0: the

@@ -5,9 +5,10 @@ without its epilogue (rtol = atol = 2e-4), and the plain backward
 `gcl_backward_pallas` (rtol = atol = 5e-4, as tests/test_pallas_grad.py),
 both in interpret mode at D = 16; the plain backward against
 `torch.autograd` through the plain forward; the `gcl_fused` autograd
-function against the lattice GCL's autograd; a numpy emulation of one CTA
-of the weight kernel (`csrc/gcl_bwd_weight.cu`) against both backwards at
-D = 128. On the CPU the kernels' launch counters stay 0."""
+function against the lattice GCL's autograd; numpy emulations of one CTA
+of the weight kernel (`csrc/gcl_bwd_weight.cu`) and of the data kernel
+(`csrc/gcl_bwd_data.cu`) against both backwards at D = 128. On the CPU the
+kernels' launch counters stay 0."""
 import functools
 
 import jax.numpy as jnp
@@ -278,3 +279,134 @@ def test_weight_kernel_cta_emulation_matches_both_backwards(c0, j0):
     assert np.abs(tile(dw_plain)).max() > 0
     np.testing.assert_allclose(got, tile(dw_plain), rtol=5e-5, atol=5e-5)
     np.testing.assert_allclose(got, tile(dw_jax), **BWD_TOL)
+
+
+# The tiling of `csrc/gcl_bwd_data.cu`: a CTA owns columns [c0, c0 + BC)
+# and walks the bars chunk, chunk + nchunks, ...; each bar's product runs
+# in stages of BK features that start after the tile's own, the tiles of
+# sums are stored times m and their upstream factors, and the scatters
+# run as gathers over the inverted relations: the thread of (cell j,
+# column q), j = warp + 8 k, sums dx[j] and adds its dgate shares into its
+# warp's tile; the 8 warps' tiles are added in order after each bar.
+BC, BK, NWARP = 32, 32, 8
+DATA_NCHUNKS = 2
+
+
+def inverted_relations(a):
+    """One bar's statics and its three relations inverted as the kernel's
+    decode writes them: src[r] = {j: (i, dist)} for the cell i that reads
+    cell j through relation r (previous and next active cell of the track,
+    the track's cell at the previous active column) with a share that is
+    not 0; each j is read so by one cell at most."""
+    st = cell_statics(a)
+    m = st["m"] > 0
+    col_active = a[gcl.CNT_ON] + m > 0
+    src = [{}, {}, {}]
+    for r, ok, to, dist in ((0, m & (st["okp"] > 0), st["ps"], st["dp"]),
+                            (1, m & (st["okn"] > 0), st["ns"], st["dn"]),
+                            (2, (st["okpn"] > 0) & col_active, st["pn"],
+                             st["dpn"])):
+        for i in np.flatnonzero(ok):
+            assert to[i] not in src[r], (r, i, to[i])
+            src[r][to[i]] = (i, dist[i])
+    return st, src
+
+
+def emulate_data_cta(x, g, aux, gates, wbig, c0, bars):
+    """dx[bars][:, tile] and the CTA's dgate (S, BC) and dbias (BC)
+    partials, as one CTA of the data kernel computes them for the column
+    tile at c0 over `bars`."""
+    n, d = x.shape[1:]
+    nstage = d // BK
+    tile = slice(c0, c0 + BC)
+    w_tile = wbig.reshape(8, d, d)[:, tile]       # (8, BC, d)
+    dgs = np.zeros((S, BC), np.float32)
+    db = np.zeros((NWARP, BC), np.float32)
+    dx = np.zeros((len(bars), n, BC), np.float32)
+
+    def colsum(v, c):
+        return ((v[c] + v[S + c]) + v[2 * S + c]) + v[3 * S + c]
+
+    for b, bar in enumerate(bars):
+        st, src = inverted_relations(aux[bar])
+        acc = np.zeros((5, n, BC), np.float32)
+        for k in range(nstage):
+            f = slice((c0 // BK + 1 + k) % nstage * BK, None)
+            f = slice(f.start, f.start + BK)
+            gs = g[bar][:, f]
+            for t in range(T):
+                rows_t = slice(t * S, (t + 1) * S)
+                acc[0][rows_t] += gs[rows_t] @ w_tile[t][:, f].T
+            for seg in range(1, 5):
+                acc[seg] += gs @ w_tile[T - 1 + seg][:, f].T
+        assert f.start == c0                       # the last stage: dbias
+        m = st["m"][:, None]
+        db += (g[bar][:, tile] * m).reshape(NWARP, n // NWARP, BC).sum(1)
+        up = [acc[0] * m * st["rtr"][:, None], acc[1] * m * st["single"][:, None],
+              acc[2] * m * st["ron"][:, None], acc[3] * m * st["rnx"][:, None],
+              acc[4] * m]
+        xs, gt = x[bar][:, tile], gates[:, tile]
+        dgw = np.zeros((NWARP, S, BC), np.float32)
+        for w in range(NWARP):
+            for j in range(w, n, NWARP):
+                xv, v = xs[j], up[4][j].copy()
+                for r in range(3):
+                    if j not in src[r]:
+                        continue
+                    i, dist = src[r][j]
+                    on = xv * gt[dist] > 0
+                    u = up[0][i] if r < 2 else (colsum(up[3], i % S)
+                                                - up[3][i])
+                    v += np.where(on, u * gt[dist], 0)
+                    dgw[w, dist] += np.where(on, u * xv, 0)
+                if st["m"][j] > 0:
+                    on = xv * gt[0] > 0
+                    dy0 = colsum(up[2], j % S) - up[2][j] + up[1][j]
+                    v += np.where(on, dy0 * gt[0], 0)
+                    dgw[w, 0] += np.where(on, dy0 * xv, 0)
+                dx[b, j] = v
+        for w in range(NWARP):
+            dgs += dgw[w]
+    return dx, dgs, db.sum(0)
+
+
+@functools.lru_cache(maxsize=None)
+def data_case(chunk, d=128):
+    """A 6-bar layer at width d (single-node, fixed and full bars, and bar
+    4 without an active cell but with x and g not 0), cut to the bars of
+    one chunk of DATA_NCHUNKS: the port's arguments as numpy, the plain
+    (dx, dgate, dbias) and JAX's Pallas ones over those bars."""
+    mask, x, g, gate, rel_w, root, _ = layer_case(seed=8, nbar=6, d=d)
+    mask[4] = False
+    x[4] = np.random.default_rng(9).standard_normal(x[4].shape)
+    bars = list(range(chunk, 6, DATA_NCHUNKS))
+    mask, x, g = mask[bars], x[bars], g[bars]
+    wbig_j = gcl_pallas.pack_weights(jnp.asarray(rel_w), jnp.asarray(root),
+                                     T, dtype=jnp.float32)
+    dx_j, dg_j, _, db_j = gcl_pallas_bwd.gcl_backward_pallas(
+        jnp.asarray(x), gcl_pallas.build_kernel_aux(jnp.asarray(mask)),
+        jnp.asarray(gate), wbig_j, jnp.asarray(g))
+    aux, xf, (gf, gate_t, rel_t, root_t) = port_args(mask, x, g, gate,
+                                                     rel_w, root)
+    gf = gf.reshape(xf.shape)
+    wbig = gcl.pack_weights(rel_t, root_t, T)
+    plain = gcl_bwd.gcl_bwd_data_plain(xf, gf, aux, gate_t, wbig)
+    jax_out = (np.asarray(dx_j).reshape(xf.shape), np.asarray(dg_j),
+               np.asarray(db_j))
+    return ((xf.numpy(), gf.numpy(), aux.numpy(), gate, wbig.numpy()),
+            tuple(v.numpy() for v in plain), jax_out)
+
+
+# the first tile (with the empty bar), one inside, the last (empty bar)
+@pytest.mark.parametrize("c0,chunk", [(0, 0), (32, 1), (96, 0)])
+def test_data_kernel_cta_emulation_matches_both_backwards(c0, chunk):
+    args, plain, jax_out = data_case(chunk)
+    x = args[0]
+    got = emulate_data_cta(*args, c0, list(range(x.shape[0])))
+    if chunk == 0:                       # bar 4 of the layer, no active cell
+        assert (x[2] != 0).any() and (got[0][2] == 0).all()
+    tile = slice(c0, c0 + BC)
+    for want in (plain, jax_out):
+        np.testing.assert_allclose(got[0], want[0][..., tile], **BWD_TOL)
+        np.testing.assert_allclose(got[1], want[1][:, tile], **BWD_TOL)
+        np.testing.assert_allclose(got[2], want[2][tile], **BWD_TOL)
