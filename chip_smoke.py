@@ -110,7 +110,41 @@
    within 3e-2 relative and, at batch 32, every grad whose true value is
    not 0 at cosine >= 0.85 with the CPU's. Seconds per step and seq/s as
    in 5, and one profiled step.
-7. Prints the `kernels` JSON line, the card line, and last
+7. Trains LMD16 (`examples/training_lmd16.json` as shipped: 16 bars, batch
+   64 in 4 microbatches of 16 sequences = 256 bars, fp32) through
+   `cli.train.main()` with `--profile` on 704 synthetic 16-bar samples
+   (11 steps, so the CLI's trace of steps 10-15 is written, cut to step 10
+   by the end of training): records finite, exactly 64 launches each of
+   `gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` per step and none of the
+   bf16 ones, the meta file `checkpoint.json` beside `checkpoint.pt`, a
+   trace with device kernels. The three training kernels against their
+   plain versions at 256 bars (the tolerances of 2b) and timed; seconds
+   per step and seq/s as in 5; one profiled step; one step at batch 8 on
+   the card against the CPU: the losses within 2e-4 relative, each grad
+   that is not noise at cosine >= 0.9999 with the CPU's (at 16 bars the
+   card's plain versions differ from the CPU, and from its kernels, by a
+   few % of some grads' max, as its kernels do; the step reports all
+   three).
+7b. LMD16 generation: a seeded 16-bar model directory at batch 256 (4096
+   bars a call) by bench.py's protocol, with 4 `gcl_eval` launches at K = 2
+   and 1 `chord_tail` launch per call; `gcl_eval` at K = 2 (rtol = atol =
+   2e-4) and `chord_tail` (ids outside top-2 gaps < 1e-4) against their
+   plain versions at 4096 bars, the plain versions run in chunks of 512
+   bars (each bar is independent), and timed; n = 8 on the card against the
+   CPU by phase 3's rules; the generate CLI (`--n 2 --n_loops 4`) and the
+   reconstruct CLI on the trained 16-bar directory: the launches of
+   `cli_phase`, MIDI that parses, the looped file 4 copies of the piece
+   shifted by 16 bars each.
+7c. Message dropout: 2 steps of `examples/training_lmd2.json` with
+   `message_dropout` 0.1, in the "edge" and in the "aggregate" mode, with
+   an eval step: records finite, no launch of a training GCL kernel (the
+   lattice GCL runs in plain PyTorch), 16 fp32 `gcl_eval` launches at K = 1
+   per evaluation. The dropout `lattice.gcl_apply` on the card against the
+   CPU on the same keep masks, d = 512, 16 bars: the output at rtol = atol
+   = 2e-4, each grad within 2e-4 of its max |cpu|.
+8. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
+   bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
+   of every phase), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
@@ -118,6 +152,7 @@ without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -327,13 +362,27 @@ def kernel_inputs(nbar, d, k_layers, device, seed):
                              [x.reshape(nbar, 128, d), aux, gates] + lay]
 
 
+def by_bars(fn, per_bar, shared, chunk=None, **kw):
+    """fn(*per_bar, *shared, **kw) on runs of `chunk` bars of the per-bar
+    inputs (leading axis: bars), concatenated; exact, since every bar is
+    computed alone. One run when chunk is None."""
+    import torch
+
+    n = per_bar[0].shape[0]
+    step = chunk or n
+    return torch.cat([fn(*(a[i:i + step] for a in per_bar), *shared, **kw)
+                      for i in range(0, n, step)])
+
+
 # ----------------------------------------------------------- phase 2: kernels
-def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
+def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False,
+              chunk=None):
     """`gcl_eval` against its plain version, in fp32 at rtol = atol = TOL or
     in bf16 (`bf16`: every float input cast) within BF16_REL of max |plain|;
     with timing, ms per launch and the bound (bf16: on the bf16 tensor
     cores, where the bf16 kernel runs; `cuda_core_bound_ms` on the fp32
-    CUDA cores)."""
+    CUDA cores). `chunk`: the plain version runs on that many bars at a
+    time."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl
@@ -344,7 +393,11 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
                 for a in args]
     before = (gcl.launches, gcl.eval_bf16_launches, dict(gcl.launches_by_k))
     out = gcl.gcl_eval(*args)
-    ref = gcl.gcl_eval_plain(*args)
+
+    def plain():
+        return by_bars(gcl.gcl_eval_plain, args[:2], args[2:], chunk)
+
+    ref = plain()
     torch.cuda.synchronize()
     if bf16:
         check(out.dtype == torch.bfloat16,
@@ -362,7 +415,7 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False):
                "max_rel_err": (err / ref.abs().clamp(min=1e-3)).max().item()}
     if timing:
         res["ms"] = time_ms(lambda: gcl.gcl_eval(*args))
-        res["plain_ms"] = time_ms(lambda: gcl.gcl_eval_plain(*args), reps=2)
+        res["plain_ms"] = time_ms(plain, reps=2)
         # an inactive cell's row of A is zero and its output is its input:
         # only active rows need the (5d x d) product
         flops = 2.0 * int(mask.sum()) * 5 * d * d * k_layers
@@ -668,13 +721,14 @@ def chord_gaps(x, *params):
     return torch.stack(gaps, dim=-2)
 
 
-def check_chord(nbar, d, device, timing=True, bf16=False):
+def check_chord(nbar, d, device, timing=True, bf16=False, chunk=None):
     """`chord_tail` against its plain version: ids equal except where the
     plain top-2 logit gap is below TIE (`bf16`: x and every weight and bias
     cast to bf16; the logits are fp32 sums either way, so the rule is the
     same); with timing, ms per launch and the bound (bf16: on the bf16
     tensor cores, `dense_split_bound_ms` with the three-part unembed the
-    kernel takes, `cuda_core_bound_ms` on the fp32 CUDA cores)."""
+    kernel takes, `cuda_core_bound_ms` on the fp32 CUDA cores). `chunk`: the
+    plain version runs on that many bars at a time."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import chord_tail
@@ -684,8 +738,13 @@ def check_chord(nbar, d, device, timing=True, bf16=False):
         args = [a.to(torch.bfloat16) for a in args]
     before = (chord_tail.launches, chord_tail.bf16_launches)
     out = chord_tail.chord_tail_tokens(*args, n_slots=15)
-    ref = chord_tail.chord_tail_plain(*args, n_slots=15)
-    gaps = chord_gaps(*args)
+
+    def plain():
+        return by_bars(chord_tail.chord_tail_plain, args[:1], args[1:], chunk,
+                       n_slots=15)
+
+    ref = plain()
+    gaps = by_bars(chord_gaps, args[:1], args[1:], chunk)
     torch.cuda.synchronize()
     check(out.shape == ref.shape and out.dtype == torch.int32,
           f"chord_tail output {out.dtype} {tuple(out.shape)}")
@@ -701,8 +760,7 @@ def check_chord(nbar, d, device, timing=True, bf16=False):
     if timing:
         res["ms"] = time_ms(lambda: chord_tail.chord_tail_tokens(
             *args, n_slots=15))
-        res["plain_ms"] = time_ms(lambda: chord_tail.chord_tail_plain(
-            *args, n_slots=15), reps=2)
+        res["plain_ms"] = time_ms(plain, reps=2)
         h = d // 2
         # an inactive cell has x = 0, so its ids depend only on whether it
         # is a drum cell: one distinct row per such class, then each active
@@ -983,7 +1041,6 @@ def cli_phase(model_dir, device, out_dir, samples):
     warm-up). Reconstruct runs the encoder's GCN (8 layers at K = 1) and a
     conditioned decode."""
     from polyphemus_tpu_torch.cli import generate as gen_cli
-    from polyphemus_tpu_torch.cli import reconstruct as rec_cli
     from polyphemus_tpu_torch.midi import read_midi
     from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
 
@@ -1006,9 +1063,21 @@ def cli_phase(model_dir, device, out_dir, samples):
                                                   "generated.mid"))
             notes += sum(len(t.notes) for t in song.tracks)
         res[name] = {"files": n, "notes": notes, "launches": got}
+    res["reconstruct"] = reconstruct_cli(
+        model_dir, device, os.path.join(out_dir, "reconstruct"), samples)
+    return res
+
+
+def reconstruct_cli(model_dir, device, out, samples):
+    """The port's reconstruct CLI on `samples`: 8 encoder launches of
+    `gcl_eval` at K = 1, a conditioned decode (4 at K = 2, 1 `chord_tail`),
+    MIDI files that parse."""
+    from polyphemus_tpu_torch.cli import reconstruct as rec_cli
+    from polyphemus_tpu_torch.midi import read_midi
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+
     gcl.launches = chord_tail.launches = 0
     gcl.launches_by_k.clear()
-    out = os.path.join(out_dir, "reconstruct")
     rec_cli.main([model_dir, *samples, out, "--device", str(device)])
     got = (gcl.launches, chord_tail.launches)
     by_k = dict(gcl.launches_by_k)
@@ -1018,9 +1087,7 @@ def cli_phase(model_dir, device, out_dir, samples):
     for i in range(len(samples)):
         for name in ("original", "reconstructed"):
             read_midi(os.path.join(out, str(i), name + ".mid"))
-    res["reconstruct"] = {"samples": len(samples), "launches": got,
-                          "gcl_eval_by_k": by_k}
-    return res
+    return {"samples": len(samples), "launches": got, "gcl_eval_by_k": by_k}
 
 
 # -------------------------------------------------------- phase 5: training
@@ -1040,6 +1107,15 @@ BF16_GRAD_FLOOR = 1e-3  # bf16: a grad is held if its max is this share of
 BF16_GRAD_COS = 0.85    # bf16: least cosine of a held grad with the CPU's
 BF16_CMP_BATCH = 32     # the bf16 card-vs-CPU step whose grads are held
 RESOLVED = 2.0 ** -5    # bf16 resolves a batch variance >= this x mean^2
+# fp32 at 16 bars, batch 8: the card's grads are held to an fp64 step's
+# (`witness_fp64_grads`), not to the CPU's. Every fp32 step misses the fp64
+# grads by about as much there: the CPU's by 2.5 % of a grad's max at the
+# worst element and 1 - cosine 2.0e-6, the card's plain versions' by 2.4 %
+# and 2.8e-6, the card's kernels' by 3.2 % and 3.4e-6 (H100, 700 W), all on
+# the decoder's GCN weights, so the CPU is no nearer the exact grads than
+# the card. Each limit is about 3x the largest of those readings.
+WITNESS_GRAD_TOL = 0.1          # max abs err / max |fp64|, per grad
+WITNESS_GRAD_COS_GAP = 1e-5     # 1 - cosine with the fp64 grad, per grad
 
 
 def train_kernel_counts():
@@ -1085,26 +1161,29 @@ def write_dataset(path, n, n_bars, seed):
 
 
 def train_phase(device, config_path, data_dir, out_dir, epochs,
-                splits=("--tr_split", "1.0")):
+                splits=("--tr_split", "1.0"), extra=(), name="lmd2"):
     """Train through the CLI's `main()` (`splits`: its data-split and eval
-    arguments); returns (trainer, model dir, the main path's launch counts
-    of the training kernels and of the bf16 eval kernel, metrics.jsonl
-    records)."""
+    arguments; `extra`: more arguments) into the model directory
+    `out_dir/name`; returns (trainer, model dir, the main path's launch
+    counts of the training kernels and of the eval kernels, bf16 and fp32
+    at K = 1, metrics.jsonl records)."""
     from polyphemus_tpu_torch.cli import train as train_cli
     from polyphemus_tpu_torch.ops.kernels import gcl
 
     shutil.rmtree(out_dir, ignore_errors=True)
     set_train_kernel_counts(dict.fromkeys(train_kernel_counts(), 0))
     gcl.eval_bf16_launches = 0
+    gcl.launches_by_k.clear()
     # ---- the main path ----
     trainer = train_cli.main([
-        data_dir, out_dir, config_path, "--model_name", "lmd2",
+        data_dir, out_dir, config_path, "--model_name", name,
         *splits, "--max_epochs", str(epochs), "--save_every",
         "0", "--num_workers", "8", "--seed", str(SEED),
-        "--device", str(device)])
+        "--device", str(device), *extra])
     counts = dict(train_kernel_counts(),
-                  gcl_eval_bf16=gcl.eval_bf16_launches)
-    model_dir = os.path.join(out_dir, "lmd2")
+                  gcl_eval_bf16=gcl.eval_bf16_launches,
+                  gcl_eval_k1=gcl.launches_by_k.get(1, 0))
+    model_dir = os.path.join(out_dir, name)
     with open(os.path.join(model_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     return trainer, model_dir, counts, recs
@@ -1200,8 +1279,84 @@ def shift_free_grads(model, mc, toks, mask, eps):
     return {n for n, v in top.items() if v < GRAD_NOISE * scale}
 
 
+@contextlib.contextmanager
+def plain_training_gcl():
+    """Inside, the training GCL (`gcl_fused`) runs its kernels' plain
+    versions on every device (no launch, no count)."""
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    names = ("gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused")
+    saved = [getattr(gcl_bwd, n) for n in names]
+    for n in names:
+        setattr(gcl_bwd, n, getattr(gcl if n == "gcl_fwd" else gcl_bwd,
+                                    n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(gcl_bwd, n, f)
+
+
+def witness_fp64_grads(model, cfg, toks, mask, eps, device):
+    """The grads of one train step of an fp64 copy of `model` on `device`,
+    through the training GCL's plain versions (no kernel takes fp64) and
+    with every step that widens to fp32 widening to fp64: the witness that
+    shows which fp32 step, the card's or the CPU's, is nearer the exact
+    grads."""
+    import copy
+
+    import torch
+
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    m = copy.deepcopy(model).double().to(device)
+    step = tr.make_train_step(m, cfg, tr.make_optimizer(m, cfg))
+    with plain_training_gcl():
+        step(toks.to(device), mask.to(device),
+             eps=eps.to(device, torch.float64))
+    return {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+
+
+def hold_against_witness(grads, g64, check_grads):
+    """Each fp32 run's grads (`grads`: {run: {name: grad}}) against the fp64
+    witness's: the largest max abs err over max |fp64| and the least cosine
+    over the grads that are not noise (max above GRAD_NOISE x the largest),
+    and the largest abs err over GRAD_NOISE x the largest on the others.
+    With check_grads, the card's run ("card") must keep each grad within
+    WITNESS_GRAD_TOL of its max |fp64| and within WITNESS_GRAD_COS_GAP of
+    its direction, and each noise grad within GRAD_NOISE x the largest."""
+    scale = max(g.abs().max().item() for g in g64.values())
+    held = [n for n, g in g64.items()
+            if g.abs().max().item() > GRAD_NOISE * scale]
+    noise = [n for n in g64 if n not in held]
+    report = {}
+    for run, g in grads.items():
+        err = {n: (g[n].double() - g64[n]).abs().max().item()
+               / g64[n].abs().max().item() for n in held}
+        worst = sorted(err, key=lambda n: -err[n])[:3]
+        report[run] = {
+            "max_grad_err_over_max": max(err.values()),
+            "min_grad_cosine": min(cosine(g[n], g64[n]) for n in held),
+            "noise_max_err_over_noise_tol": max(
+                ((g[n].double() - g64[n]).abs().max().item()
+                 / (GRAD_NOISE * scale) for n in noise), default=0.0),
+            "worst": {n: err[n] for n in worst}}
+    card = report["card"]
+    check(not check_grads or (
+        card["max_grad_err_over_max"] <= WITNESS_GRAD_TOL
+        and 1.0 - card["min_grad_cosine"] <= WITNESS_GRAD_COS_GAP
+        and card["noise_max_err_over_noise_tol"] <= 1.0),
+        f"card grads off the fp64 witness's: {card} (limits: "
+        f"{WITNESS_GRAD_TOL} of each max, 1 - cosine "
+        f"{WITNESS_GRAD_COS_GAP}, GRAD_NOISE on noise grads)")
+    return {"vs_fp64": report, "fp64_largest_grad": scale,
+            "fp64_grads_held": len(held),
+            "witness_grad_tol": WITNESS_GRAD_TOL,
+            "witness_grad_cos_gap": WITNESS_GRAD_COS_GAP}
+
+
 def compare_train_step(mc, batch, device, seed, check_grads=True,
-                       bf16=False):
+                       bf16=False, witness=False):
     """One eval step, then one train step, from the same weights, batch and
     eps on the card and on the CPU. The eval losses (running statistics)
     are held as the train losses are.
@@ -1212,7 +1367,11 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
     batch-norms over 2 samples (`bn_linear_merge`, the decoder head's) make
     the grads behind them hang on fp32 rounding, so that the card's kernels
     and the card's plain versions differ there as much as either differs
-    from the CPU.
+    from the CPU. With `witness` (fp32), the same step also runs in fp64
+    (`witness_fp64_grads`) and on the card with the training GCL's plain
+    versions (`plain_training_gcl`): each fp32 step's distance from the
+    fp64 grads is reported, and the card's grads are held to them
+    (`hold_against_witness`) instead of to the CPU's.
 
     bf16 policy: every loss within BF16_LOSS_RTOL and, with check_grads,
     each grad whose max is at least BF16_GRAD_FLOOR of the largest and
@@ -1248,7 +1407,12 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
         centre_merge_input(cpu_model, mc, toks, mask, eps)
         shift_free = shift_free_grads(copy.deepcopy(cpu_model), mc, toks,
                                       mask, eps)
-    card_model = copy.deepcopy(cpu_model).to(device)
+    runs = [("cpu", cpu_model, torch.device("cpu")),
+            ("card", copy.deepcopy(cpu_model).to(device), device)]
+    if witness:
+        runs.append(("card_plain", copy.deepcopy(cpu_model).to(device),
+                     device))
+        g64 = witness_fp64_grads(cpu_model, cfg, toks, mask, eps, device)
     out, unresolved = {}, {}
 
     def merge_bn_hook(name):
@@ -1259,15 +1423,16 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
         return hook
 
     evals = {}
-    for name, model, dev in (("cpu", cpu_model, torch.device("cpu")),
-                             ("card", card_model, device)):
+    for name, model, dev in runs:
         lo, _ = tr.eval_step(model, cfg, toks.to(dev), mask.to(dev), 0,
                              eps=eps.to(dev))
         evals[name] = {k: float(v) for k, v in lo.items()}
         handle = model.encoder.bn_linear_merge.register_forward_hook(
             merge_bn_hook(name))
         step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
-        losses, _ = step(toks.to(dev), mask.to(dev), eps=eps.to(dev))
+        with (plain_training_gcl() if name == "card_plain"
+              else contextlib.nullcontext()):
+            losses, _ = step(toks.to(dev), mask.to(dev), eps=eps.to(dev))
         handle.remove()
         out[name] = ({k: float(v) for k, v in losses.items()},
                      {n: p.grad.detach().cpu()
@@ -1299,15 +1464,25 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
             score = 0.0 if noise else (1.0 - cos) / (1.0 - BF16_GRAD_COS)
         else:
             noise = ref <= GRAD_NOISE * scale
-            score = (err / (GRAD_NOISE * scale) if noise
-                     else err / (TRAIN_GRAD_TOL * ref))
+            if noise:
+                score = err / (GRAD_NOISE * scale)
+            elif witness:
+                score = 0.0  # held against the fp64 witness below
+            else:
+                score = err / (TRAIN_GRAD_TOL * ref)
         rows[n] = (score, err, ref, cos, noise)
     worst = sorted(rows, key=lambda n: -rows[n][0])[:4]
     check(not check_grads or rows[worst[0]][0] <= 1.0,
           f"grads off: {[(n, rows[n]) for n in worst]} (largest |grad| "
           f"{scale:.3e})")
     held = [n for n in rows if not rows[n][4]]
-    return {"batch": batch, "bf16": bf16, "grads_held": check_grads,
+    vs_fp64 = {}
+    if witness:
+        vs_fp64 = hold_against_witness(
+            {k: out[k][1] for k in ("cpu", "card", "card_plain")}, g64,
+            check_grads)
+    return {**vs_fp64, "batch": batch, "bf16": bf16,
+            "grads_held": check_grads, "fp64_witness": witness,
             "max_loss_rel_err": loss_err, "loss_rel_err": rel,
             "eval_max_loss_rel_err": max(eval_rel.values()),
             "losses_cpu": l_cpu, "losses_card": l_card,
@@ -1347,7 +1522,8 @@ def time_train_steps(trainer, batch, device, passes=3, steps=5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / steps)
     s = statistics.median(times)
-    return {"metric": "lmd2_train_step", "step_s": s, "seq_s": batch / s,
+    return {"metric": f"lmd{trainer.cfg.model.n_bars}_train_step",
+            "step_s": s, "seq_s": batch / s,
             "batch": batch, "accumulate": trainer.cfg.iters_to_accumulate,
             "passes_step_s": times}
 
@@ -1393,6 +1569,139 @@ def profile_train_step(trainer, batch, device, path):
                     for k, ms, c in rows[:12]]}
 
 
+# ------------------------------------------- phases 7-7c: LMD16, dropout
+LMD16_CHUNK = 512     # bars a plain version takes at a time at 4096 bars
+DROPOUT_P = 0.1       # the reference's message dropout
+DROPOUT_TOL = 2e-4    # dropout GCL, card vs CPU: grads, max abs err / max
+
+
+def check_meta_and_trace(model_dir, profile_dir):
+    """The meta file `checkpoint.json` beside `checkpoint.pt` (its histories
+    one entry a step), and the `--profile` trace: a Chrome trace that holds
+    device kernels (counted by their category in the text; a trace of a
+    step runs to hundreds of MB)."""
+    meta_path = os.path.join(model_dir, "checkpoint.json")
+    check(os.path.exists(meta_path) and os.path.exists(
+        os.path.join(model_dir, "checkpoint.pt")),
+        f"no checkpoint.json beside checkpoint.pt in {model_dir}")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    check(len(meta["tr_losses"]["tot"]) == meta["tot_batches"],
+          f"meta file: {meta['tot_batches']} batches, "
+          f"{len(meta['tr_losses']['tot'])} losses")
+    trace = os.path.join(profile_dir, "trace.json")
+    check(os.path.exists(trace), f"--profile wrote no {trace}")
+    with open(trace) as f:
+        text = f.read()
+    check(text.lstrip().startswith("{") and '"traceEvents"' in text,
+          f"{trace} is not a Chrome trace")
+    kernels = len(re.findall(r'"cat":\s*"kernel"', text))
+    check(kernels > 0, "the --profile trace holds no device kernel")
+    return {"meta_keys": sorted(meta), "trace_kernel_events": kernels,
+            "trace_bytes": len(text)}
+
+
+def generate_looped_cli(model_dir, device, out, n_bars, loops=4):
+    """The port's generate CLI with `--n 2 --n_loops loops`: 4 `gcl_eval`
+    launches at K = 2 and 1 `chord_tail` a call, 2 calls; every file
+    parses, and each `extended.mid` holds `loops` copies of its
+    `generated.mid`, the k-th shifted by k x n_bars bars."""
+    from polyphemus_tpu_torch.cli import generate as gen_cli
+    from polyphemus_tpu_torch.midi import read_midi
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+
+    gcl.launches = chord_tail.launches = 0
+    gcl.launches_by_k.clear()
+    gen_cli.main([model_dir, out, "--n", "2", "--n_loops", str(loops),
+                  "--no_audio", "--seed", "2", "--device", str(device)])
+    got = (dict(gcl.launches_by_k), chord_tail.launches)
+    check(got == ({2: 8}, 2), f"looped generate CLI launches {got}")
+    notes = 0
+    for i in range(2):
+        song, tpq, _ = read_midi(os.path.join(out, str(i), "generated.mid"))
+        ext, tpq_ext, _ = read_midi(os.path.join(out, str(i),
+                                                 "extended.mid"))
+        shift = n_bars * 4 * tpq
+        check(tpq_ext == tpq and len(ext.tracks) == len(song.tracks),
+              "extended.mid has other tracks than generated.mid")
+        for a, b in zip(song.tracks, ext.tracks):
+            want = sorted((n.time + k * shift, n.pitch, n.duration)
+                          for k in range(loops) for n in a.notes)
+            check(sorted((n.time, n.pitch, n.duration) for n in b.notes)
+                  == want, f"extended.mid track {a.name} is not {loops} "
+                           f"copies of generated.mid")
+            notes += len(a.notes)
+    return {"files": 2, "notes": notes, "loops": loops,
+            "gcl_eval_by_k": got[0], "chord_tail": got[1]}
+
+
+def check_dropout_gcl(nbar, d, mode, device, seed=SEED + 17):
+    """`lattice.gcl_apply` with message dropout (p = DROPOUT_P, `mode`) on
+    the card against the CPU on the same keep masks (drawn on the CPU) and
+    inputs, TF32 off: the output at rtol = atol = TOL, and the grads of x,
+    rel_weight, root, bias and gate_table (of the sum of the output times a
+    seeded cotangent) each within DROPOUT_TOL of its max |cpu|."""
+    import torch
+
+    from polyphemus_tpu_torch.generate import exact_fp32
+    from polyphemus_tpu_torch.ops import lattice
+
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
+    x = torch.randn(nbar, 4, 32, d, generator=g) * mask[..., None]
+    params = [torch.randn(6, d, d, generator=g) * d ** -0.5,
+              torch.randn(d, d, generator=g) * d ** -0.5,
+              torch.randn(d, generator=g) * 0.1,
+              torch.randn(32, d, generator=g) * 0.3]
+    cot = torch.randn(nbar, 4, 32, d, generator=g)
+    keep_p = 1.0 - DROPOUT_P
+    if mode == "aggregate":
+        keep = [lattice.keep_mask((4,) + x.shape, keep_p, g, "cpu")]
+    else:
+        pair = (nbar, 4, 4, 32, d)
+        keep = [lattice.keep_mask(sh, keep_p, g, "cpu")
+                for sh in (x.shape, x.shape, pair, pair, x.shape)]
+    res = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        leaves = [t.to(dev, copy=True).requires_grad_() for t in [x] + params]
+        xx, rw, root, bias, gt = leaves
+        m = mask.to(dev)
+        k = [t.to(dev) for t in keep]
+        with exact_fp32():
+            out = lattice.gcl_apply(
+                xx, m, lattice.build_neighbors(m), gt, rw, root, bias,
+                message_dropout=DROPOUT_P, message_dropout_mode=mode,
+                keep=k[0] if mode == "aggregate" else k)
+            (out * cot.to(dev)).sum().backward()
+        res[name] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    errs = {"out_max_abs_err": held_to(f"dropout gcl_apply ({mode})",
+                                       res["card"][0], res["cpu"][0],
+                                       summed=False)}
+    for n, a, b in zip(("x", "rel_weight", "root", "bias", "gate_table"),
+                       res["card"][1:], res["cpu"][1:]):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        check(err <= DROPOUT_TOL * scale,
+              f"dropout gcl_apply ({mode}) grad {n}: max abs err {err:.3e}, "
+              f"max |cpu| {scale:.3e}")
+        errs[f"{n}_grad_err_over_max"] = err / scale
+    return errs
+
+
+def lmd16_vs_cpu(model_dir, device, n=8):
+    """n = 8 generated on the card from the z that phase 3's request draws,
+    held to the CPU by `compare_with_cpu`."""
+    import torch
+
+    from polyphemus_tpu_torch.generate import load_model, make_generator
+    from polyphemus_tpu_torch.serve import host_z
+
+    model, cfg = load_model(model_dir, device)
+    z = torch.from_numpy(host_z(8, n, cfg.model.d)).to(device)
+    mask, tokens = make_generator(model, device=device)(z)
+    return compare_with_cpu(model_dir, (mask.cpu().numpy(),
+                                        tokens.cpu().numpy()), device)
+
+
 # ----------------------------------------------------------- phase 4: bench
 def bench(model_dir, device, batch=256, rounds=20, bf16=False):
     """Batched generation by bench.py's protocol: one warm call, then the
@@ -1417,10 +1726,153 @@ def bench(model_dir, device, batch=256, rounds=20, bf16=False):
         times.append(time.perf_counter() - t0)
     del out
     dt = statistics.median(times)
-    return {"metric": "lmd2_batched_generation" + ("_bf16" if bf16 else ""),
+    return {"metric": f"lmd{cfg.model.n_bars}_batched_generation"
+            + ("_bf16" if bf16 else ""),
             "value": rounds * batch / dt, "unit": "seq/s", "batch": batch,
             "call_ms": dt / rounds * 1e3, "passes_s": times,
             "calls": 1 + 3 * rounds}
+
+
+def lmd16_phases(device, card):
+    """Phases 7 and 7b: LMD16 training through the CLI, its kernels at 256
+    bars, the card-vs-CPU step; LMD16 generation at 4096 bars a call, its
+    kernels, n = 8 against the CPU, the CLIs on the trained directory.
+    Returns what the results print."""
+    from polyphemus_tpu_torch.config import load_train_config
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+
+    # ---- 7. LMD16 training on the card ----
+    lmd16_config = os.path.join(ROOT, "examples", "training_lmd16.json")
+    cfg16 = load_train_config(lmd16_config)
+    mc16 = cfg16.model
+    check((mc16.n_bars, mc16.d, mc16.gnn_n_layers, cfg16.batch_size,
+           cfg16.iters_to_accumulate, cfg16.bf16) == (16, 512, 8, 64, 4,
+                                                      False),
+          f"training_lmd16.json loaded as {cfg16}")
+    data_l16 = os.path.join(ROOT, "build", "chip_smoke_data_lmd16")
+    # 11 steps of 64: the CLI's trace of steps 10-15 is cut by the end of
+    # training to step 10 alone (a 5-step trace takes minutes to write)
+    write_dataset(data_l16, 704, mc16.n_bars, SEED)
+    prof_dir = os.path.join(ROOT, "build", "chip_smoke_lmd16_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    trainer, dir_l16, l16_launches, recs = train_phase(
+        device, lmd16_config, data_l16,
+        os.path.join(ROOT, "build", "chip_smoke_train_lmd16"), 1,
+        extra=("--profile", prof_dir), name="lmd16")
+    steps = trainer.step
+    print(f"LMD16 training: {steps} steps, launches {l16_launches}, last "
+          f"record {json.dumps(recs[-1])}")
+    check(steps == 11, f"{steps} LMD16 optimizer steps")
+    check_records(recs, steps)
+    check_launches(l16_launches, {"gcl_fwd": 64, "gcl_bwd_data": 64,
+                                  "gcl_bwd_weight": 64}, steps)
+    surface = check_meta_and_trace(dir_l16, prof_dir)
+    shutil.copy(os.path.join(prof_dir, "kernels.txt"),
+                os.path.join(ROOT, "chiprun_out",
+                             "lmd16_cli_profile_kernels.txt"))
+    print("LMD16 meta file and --profile trace:", json.dumps(surface))
+    # the training kernels at LMD16's microbatch: 16 sequences x 16 bars
+    train_l16 = check_gcl_train(256, 512, device)
+    print(f"LMD16 training kernel check (256 bars, d=512, {card}):",
+          json.dumps(train_l16))
+    step_cmp = compare_train_step(mc16, 8, device, SEED + 5, witness=True)
+    print("LMD16 train step, card vs CPU (d=512, 8 layers, 16 bars, batch "
+          "8):", json.dumps(step_cmp))
+    bench_l16 = time_train_steps(trainer, cfg16.batch_size, device)
+    bench_l16["card"] = card
+    print("LMD16 train bench:", json.dumps(bench_l16))
+    prof_l16 = profile_train_step(trainer, cfg16.batch_size, device,
+                                  os.path.join(ROOT, "chiprun_out",
+                                               "train_step_profile_lmd16.txt"))
+    prof_l16["card"] = card
+    print("LMD16 train step profile:", json.dumps(prof_l16))
+    del trainer
+
+    # ---- 7b. LMD16 generation at batch 256: 4096 bars a call ----
+    model_l16 = os.path.join(ROOT, "build", "chip_smoke_model_lmd16")
+    make_model_dir(model_l16, mc16, SEED)
+    gcl.launches = chord_tail.launches = 0
+    gcl.launches_by_k.clear()
+    # ---- the main path ----
+    gen_l16 = bench(model_l16, device)
+    gen_l16_launches = {"gcl_eval_by_k": dict(gcl.launches_by_k),
+                        "chord_tail": chord_tail.launches}
+    check(gen_l16_launches == {"gcl_eval_by_k": {2: 4 * gen_l16["calls"]},
+                               "chord_tail": gen_l16["calls"]},
+          f"LMD16 generation: launches {gen_l16_launches} in "
+          f"{gen_l16['calls']} calls")
+    gcl_l16 = check_gcl(4096, 512, 2, device, chunk=LMD16_CHUNK)
+    chord_l16 = check_chord(4096, 512, device, chunk=LMD16_CHUNK)
+    print(f"LMD16 generation kernel check (4096 bars, d=512, {card}):",
+          json.dumps({"gcl_eval_k2": gcl_l16, "chord_tail": chord_l16}))
+    gen_l16.update({"card": card, "launches": gen_l16_launches,
+                    "kernel_ms_per_call": 4 * gcl_l16["ms"]
+                    + chord_l16["ms"]})
+    print("LMD16 bench:", json.dumps(gen_l16))
+    print("LMD16 n=8 against the CPU:",
+          json.dumps(lmd16_vs_cpu(model_l16, device)))
+    samples_l16 = os.path.join(ROOT, "build", "chip_smoke_samples_lmd16")
+    write_dataset(samples_l16, 2, mc16.n_bars, SEED + 1)
+    cli_l16 = os.path.join(ROOT, "build", "chip_smoke_cli_lmd16")
+    shutil.rmtree(cli_l16, ignore_errors=True)
+    clis_l16 = {
+        "generate_n_loops_4": generate_looped_cli(
+            dir_l16, device, os.path.join(cli_l16, "generate"),
+            mc16.n_bars),
+        "reconstruct": reconstruct_cli(
+            dir_l16, device, os.path.join(cli_l16, "reconstruct"),
+            sorted(os.path.join(samples_l16, f)
+                   for f in os.listdir(samples_l16)))}
+    print("LMD16 CLIs on the card (the trained directory):",
+          json.dumps(clis_l16))
+    return {"train_launches": l16_launches, "train_kernels": train_l16,
+            "gen_launches": gen_l16_launches, "gcl_eval": gcl_l16,
+            "chord_tail": chord_l16, "clis": clis_l16}
+
+
+def dropout_phase(device, card, config_path, data_dir):
+    """Phase 7c: 2 steps of the LMD2 config with message dropout in each
+    mode, with an eval step, and the dropout GCL card vs CPU. Returns
+    {mode: result}."""
+    # ---- 7c. message dropout on the card, both modes ----
+    with open(config_path) as f:
+        raw = json.load(f)
+    dropout = {}
+    for mode in ("edge", "aggregate"):
+        cfg_path = os.path.join(ROOT, "build",
+                                f"chip_smoke_dropout_{mode}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(dict(raw, model=dict(
+                raw["model"], message_dropout=DROPOUT_P,
+                message_dropout_mode=mode)), f)
+        # 1024 samples: 512 train (2 steps), 256 validation (1 eval batch)
+        trainer, _, counts, recs = train_phase(
+            device, cfg_path, data_dir,
+            os.path.join(ROOT, "build", f"chip_smoke_train_{mode}"), 1,
+            splits=("--tr_split", "0.5", "--vl_split", "0.25", "--eval"),
+            name=mode)
+        steps = trainer.step
+        evals = len(trainer.val_losses["tot"])
+        check(trainer.cfg.model.message_dropout == DROPOUT_P
+              and steps == 2 and evals == 1,
+              f"dropout ({mode}): {steps} steps, {evals} evaluations")
+        check_records(recs, steps, evals)
+        # no training GCL kernel: the lattice GCL runs in plain PyTorch
+        check_launches({k: v for k, v in counts.items()
+                        if k != "gcl_eval_k1"}, {}, steps)
+        check(counts["gcl_eval_k1"] == 16 * evals,
+              f"dropout ({mode}): {counts['gcl_eval_k1']} gcl_eval launches "
+              f"at K = 1 in {evals} evaluations, expected 16 each")
+        dropout[mode] = {"steps": steps, "launches": counts,
+                         "seq_s": trainer.seq_per_sec(),
+                         "losses": [r["loss/tot"] for r in recs
+                                    if "loss/tot" in r],
+                         "card_vs_cpu": check_dropout_gcl(16, 512, mode,
+                                                          device)}
+        del trainer
+    print(f"message dropout p = {DROPOUT_P} on the card ({card}):",
+          json.dumps(dropout))
+    return dropout
 
 
 def main() -> int:
@@ -1718,14 +2170,37 @@ def main() -> int:
                                              "train_step_profile_bf16.txt"))
     prof16["card"] = card
     print("bf16 train step profile:", json.dumps(prof16))
+    del trainer
 
-    # ---- 7. results ----
+    # ---- 7, 7b. LMD16 training and generation on the card ----
+    l16 = lmd16_phases(device, card)
+
+    # ---- 7c. message dropout on the card, both modes ----
+    dropout = dropout_phase(device, card, config_path, data16)
+
+    # ---- 8. results ----
     launches = dict(launches, **train_launches, **gen16_launches)
-    # K = 1 runs in the reconstruct CLI's encoder, counted by the wrapper
-    launches["gcl_eval_k1"] = clis["reconstruct"]["gcl_eval_by_k"][1]
+    # K = 1 runs in the reconstruct CLIs' encoders and the dropout runs'
+    # eval steps, counted by the wrapper
+    launches["gcl_eval_k1"] = (
+        clis["reconstruct"]["gcl_eval_by_k"][1]
+        + l16["clis"]["reconstruct"]["gcl_eval_by_k"][1]
+        + sum(r["launches"]["gcl_eval_k1"] for r in dropout.values()))
     launches.update({k: bf16_launches[k]
                      for k in ("gcl_fwd_bf16", "gcl_bwd_fused",
                                "gcl_eval_bf16")})
+    # the LMD16 phases: training (7), generation and its CLIs (7b)
+    clis_l16 = l16["clis"]
+    lmd16_gen = {"gcl_eval": l16["gen_launches"]["gcl_eval_by_k"][2]
+                 + clis_l16["generate_n_loops_4"]["gcl_eval_by_k"][2]
+                 + clis_l16["reconstruct"]["gcl_eval_by_k"][2],
+                 "chord_tail": l16["gen_launches"]["chord_tail"]
+                 + clis_l16["generate_n_loops_4"]["chord_tail"]
+                 + clis_l16["reconstruct"]["launches"][1]}
+    l16_launches = l16["train_launches"]
+    for name, n in dict(lmd16_gen, **{k: l16_launches[k] for k in (
+            "gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight")}).items():
+        launches[name] += n
 
     def entry(name, src, replaces, r):
         return {"name": name, "route": "cuda", "source": src,
@@ -1768,6 +2243,23 @@ def main() -> int:
         entry("chord_tail_bf16",
               "polyphemus_tpu_torch/csrc/chord_tail_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord16)]
+    # launches at 4096 bars (the batch-256 bench) beside their times; the
+    # CLIs' launches (2 sequences, 32 bars a call) apart
+    lmd16_kernels = {
+        "gcl_eval_k2_4096_bars": dict(
+            l16["gcl_eval"],
+            launches=l16["gen_launches"]["gcl_eval_by_k"][2],
+            cli_launches_32_bars=(lmd16_gen["gcl_eval"]
+                                  - l16["gen_launches"]["gcl_eval_by_k"][2])),
+        "chord_tail_4096_bars": dict(
+            l16["chord_tail"], launches=l16["gen_launches"]["chord_tail"],
+            cli_launches_32_bars=(lmd16_gen["chord_tail"]
+                                  - l16["gen_launches"]["chord_tail"]))}
+    lmd16_kernels.update({f"{k}_256_bars": dict(l16["train_kernels"][k],
+                                                launches=l16_launches[k])
+                          for k in ("gcl_fwd", "gcl_bwd_data",
+                                    "gcl_bwd_weight")})
+    print(json.dumps({"lmd16_kernels": lmd16_kernels, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

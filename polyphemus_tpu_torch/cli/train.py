@@ -4,14 +4,16 @@
         [--model_name NAME] [--save_every 10] [--print_every 1] [--eval]
         [--eval_every N] [--num_workers 10] [--tr_split 0.7]
         [--vl_split 0.1] [--max_epochs 100] [--seed N] [--resume]
-        [--early_exit N] [--device cuda]
+        [--early_exit N] [--tensorboard] [--profile DIR] [--device cuda]
 
 DATASET_DIR holds per-sample reference-format `.npz` files. Training runs on
 the CUDA device unless `--device cpu` is given, and refuses to start
 without a card otherwise. The model directory OUTPUT_DIR/NAME gets
-`config.json`, `metrics.jsonl` and `checkpoint.pt`, which
-`generate.load_model` serves as it is. `--tensorboard` and `--profile`
-are refused (not ported).
+`config.json`, `metrics.jsonl`, `checkpoint.pt` (which
+`generate.load_model` serves as it is) and its meta file `checkpoint.json`;
+`--tensorboard` mirrors the metrics into `tb/` there, and `--profile DIR`
+writes a `torch.profiler` trace of steps 10-15 into DIR. Refused: packed
+shard directories (`shards.json`) and a model axis other than 1.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..generate import resolve_device
 from ..models import VAE
 from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer
+from ..utils import param_count
 
 
 class _Subset:
@@ -54,7 +57,7 @@ def main(argv=None):
     p.add_argument("--eval_every", type=int, default=None)
     p.add_argument("--num_workers", type=int, default=10)
     p.add_argument("--tensorboard", action="store_true", default=False,
-                   help="not ported: refused")
+                   help="mirror metrics to TensorBoard (model_dir/tb)")
     p.add_argument("--tr_split", type=float, default=0.7)
     p.add_argument("--vl_split", type=float, default=0.1)
     p.add_argument("--max_epochs", type=int, default=100)
@@ -63,13 +66,11 @@ def main(argv=None):
                    help="Resume from <model_dir>/checkpoint.pt.")
     p.add_argument("--early_exit", type=int, default=None)
     p.add_argument("--profile", type=str, default=None,
-                   help="not ported: refused")
+                   help="Directory for a torch.profiler trace of steps "
+                        "10-15.")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA device)")
     args = p.parse_args(argv)
-    if args.tensorboard or args.profile:
-        raise NotImplementedError("--tensorboard and --profile are not "
-                                  "ported")
     device = resolve_device(args.device)
     cfg = load_train_config(args.config_file)
     mc = cfg.model
@@ -103,7 +104,8 @@ def main(argv=None):
         eval_every = len(train_loader)
     trainer = Trainer(model_dir, model, cfg, device=device,
                       print_every=args.print_every,
-                      save_every=args.save_every, eval_every=eval_every)
+                      save_every=args.save_every, eval_every=eval_every,
+                      tensorboard=args.tensorboard)
     train_loader.device_put_fn = trainer.to_device
     valid_loader = (BatchLoader(vl_set, cfg.batch_size, shuffle=False,
                                 num_workers=args.num_workers,
@@ -113,14 +115,14 @@ def main(argv=None):
     if args.resume and ckpt.latest_exists(model_dir):
         print("Resuming from checkpoint...")
         trainer.resume()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"Total Trainable Parameters: {n_params}")
+    print(f"Total Trainable Parameters: {param_count(model)}")
 
     print("Starting training...")
     trainer.fit(lambda: iter(train_loader), args.max_epochs,
                 valid_iter_fn=(lambda: iter(valid_loader))
                 if valid_loader is not None else None,
-                early_exit=args.early_exit, seed=args.seed)
+                early_exit=args.early_exit, seed=args.seed,
+                profile_dir=args.profile)
     return trainer
 
 

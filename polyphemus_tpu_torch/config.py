@@ -23,8 +23,13 @@ class ModelConfig:
     resolution: int = constants.DEFAULT_RESOLUTION
     dropout: float = 0.0
     # Per-message dropout inside each GCL (training only; the reference
-    # hard-codes p=0.1). Not ported: training with it > 0 raises.
+    # hard-codes p=0.1). With it > 0 a training forward runs the lattice
+    # GCL (`ops/lattice.py::gcl_apply`, plain PyTorch) in place of the
+    # training kernels; eval and generation keep `gcl_eval`.
     message_dropout: float = 0.0
+    # "edge": every ordered edge message gets its own mask (the reference's
+    # semantics; 4x the ONSET/NEXT message memory); "aggregate": one mask
+    # over the per-destination, per-relation aggregates.
     message_dropout_mode: str = "edge"
     batch_norm: bool = True
     # GCL layers fused per `gcl_eval` launch on the generation path. A

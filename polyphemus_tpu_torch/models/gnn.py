@@ -7,16 +7,20 @@ gate table.
   * Eval mode: each group of `chain` layers runs as one `gcl_eval` call
     (GCL + folded batch-norm + relu + residual per layer) in x's dtype; the
     last group is shorter when `chain` does not divide the layer count.
-  * Training mode: per layer, dropout -> `gcl_fused` (the training forward
-    kernel, with the backward kernels behind it) -> masked batch-norm with
+  * Training mode: per layer, dropout -> GCL -> masked batch-norm with
     batch statistics -> * m -> relu -> + residual, as the JAX package's
-    lattice path.
+    lattice path. The GCL is `gcl_fused` (the training forward kernel, with
+    the backward kernels behind it) or, with message dropout, the lattice
+    `gcl_apply` with its dropout (plain PyTorch with autograd): the fused
+    kernels have no place to drop a message, and the JAX package routes
+    the same way.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops import lattice
 from ..ops.kernels import gcl as gcl_k
 from ..ops.kernels import gcl_bwd
 from .layers import Dropout, MaskedBatchNorm
@@ -40,18 +44,22 @@ class GCLParams(nn.Module):
 class GCN(nn.Module):
     """x (..., T, S, d) masked node states -> (..., T, S, d).
 
-    `message_dropout > 0` (the reference's per-edge dropout) needs the
-    lattice path with per-edge masks, which the port does not have: training
-    with it raises rather than train without it."""
+    `message_dropout` > 0 (the reference's per-edge message dropout, in
+    `message_dropout_mode` "edge" or "aggregate") takes the training forward
+    through the lattice GCL; its masks, like every dropout mask of the
+    stack, come from `self.drop.generator` (`VAE.set_dropout_generator`).
+    Eval mode ignores it."""
 
     def __init__(self, dim: int, n_layers: int, num_relations: int = 6,
                  num_dists: int = 32, batch_norm: bool = False,
                  chain: int = 1, dropout: float = 0.0,
-                 message_dropout: float = 0.0):
+                 message_dropout: float = 0.0,
+                 message_dropout_mode: str = "edge"):
         super().__init__()
         self.dim = dim
         self.chain = chain
         self.message_dropout = message_dropout
+        self.message_dropout_mode = message_dropout_mode
         self.edge_nn = nn.Linear(num_dists, dim)
         self.layers = nn.ModuleList(
             GCLParams(dim, dim, num_relations) for _ in range(n_layers))
@@ -94,15 +102,24 @@ class GCN(nn.Module):
         return xf
 
     def _layer_stack(self, xf, mask, aux, gate_table):
-        if self.message_dropout > 0:
-            raise NotImplementedError(
-                "message_dropout > 0 needs the lattice GCL with per-edge "
-                "dropout, which is not ported")
         m = mask.reshape(xf.shape[:2])
         m_f = m[..., None].to(xf.dtype)
+        if self.message_dropout > 0:
+            cells = mask.reshape((-1,) + mask.shape[-2:])
+            nbr = lattice.build_neighbors(cells)
         for i, p in enumerate(self.layers):
-            h = gcl_bwd.gcl_fused(self.drop(xf).contiguous(), gate_table,
-                                  p.rel_weight, p.root, p.bias, aux, mask)
+            xd = self.drop(xf)
+            if self.message_dropout > 0:
+                h = lattice.gcl_apply(
+                    xd.reshape(cells.shape + (self.dim,)), cells, nbr,
+                    gate_table, p.rel_weight, p.root, p.bias,
+                    message_dropout=self.message_dropout,
+                    generator=self.drop.generator,
+                    message_dropout_mode=self.message_dropout_mode,
+                ).reshape(xf.shape)
+            else:
+                h = gcl_bwd.gcl_fused(xd.contiguous(), gate_table,
+                                      p.rel_weight, p.root, p.bias, aux, mask)
             if self.norm_layers is not None:
                 h = self.norm_layers[i](h, m) * m_f
             xf = xf + torch.relu(h)

@@ -108,7 +108,8 @@ class ContentEncoder(nn.Module):
                                  num_dists=cfg.n_timesteps,
                                  batch_norm=cfg.batch_norm,
                                  dropout=cfg.dropout,
-                                 message_dropout=cfg.message_dropout)
+                                 message_dropout=cfg.message_dropout,
+                                 message_dropout_mode=cfg.message_dropout_mode)
         self.gate_mlp = MLP(d, [1], activation=False, dropout=cfg.dropout)
         self.gate_bn = MaskedBatchNorm(1)
         self.bars_encoder = Linear(cfg.n_bars * d, d)
@@ -260,7 +261,8 @@ class ContentDecoder(nn.Module):
                                  num_dists=cfg.n_timesteps,
                                  batch_norm=cfg.batch_norm,
                                  chain=cfg.gcl_chain, dropout=cfg.dropout,
-                                 message_dropout=cfg.message_dropout)
+                                 message_dropout=cfg.message_dropout,
+                                 message_dropout_mode=cfg.message_dropout_mode)
         self.chord_decoder = DenseParams(d, N_SLOTS * d)
         self.drums_pitch_emb = DenseParams(h, constants.N_PITCH_TOKENS)
         self.non_drums_pitch_emb = DenseParams(h, constants.N_PITCH_TOKENS)
@@ -281,7 +283,7 @@ class ContentDecoder(nn.Module):
     def _slot_stats(self, x, w, b, pt, dt, act, is_drum, seed):
         """Masked-CE sums and accuracy counts of one note slot (the
         training statistics; `seed` draws this slot's dropout mask)."""
-        f32 = torch.float32
+        wide = torch.promote_types(x.dtype, torch.float32)
         slot_h = x @ w + b
         if seed is not None:
             p = self.drop.p
@@ -291,8 +293,8 @@ class ContentDecoder(nn.Module):
             slot_h = torch.where(keep, slot_h / (1.0 - p),
                                  torch.zeros_like(slot_h))
         pitch, dur = self._unembed(slot_h, track_axis=-3)
-        lp_p = torch.log_softmax(pitch.to(f32), dim=-1)
-        lp_d = torch.log_softmax(dur.to(f32), dim=-1)
+        lp_p = torch.log_softmax(pitch.to(wide), dim=-1)
+        lp_d = torch.log_softmax(dur.to(wide), dim=-1)
         nll_p = -lp_p.gather(-1, pt[..., None])[..., 0]
         nll_d = -lp_d.gather(-1, dt[..., None])[..., 0]
         w_p = act & (pt != constants.PitchToken.PAD)
@@ -301,9 +303,9 @@ class ContentDecoder(nn.Module):
         cd = (lp_d.argmax(-1) == dt) & w_d
 
         def count(v):
-            return v.to(f32).sum()
+            return v.to(wide).sum()
 
-        return ((nll_p * w_p.to(f32)).sum(), (nll_d * w_d.to(f32)).sum(),
+        return ((nll_p * w_p.to(wide)).sum(), (nll_d * w_d.to(wide)).sum(),
                 count(w_p), count(w_d), count(cp), count(cd),
                 count(cp & cd), count(cp & is_drum), count(cp & ~is_drum),
                 count(w_p & is_drum), count(w_p & ~is_drum))

@@ -37,14 +37,15 @@ def embedding_stats(table, emb_bias, ids, cell_mask) -> GroupStats:
 
     ids (..., n_slots) int; cell_mask (...) bool: every slot of an active
     cell counts once, as BN over the packed rows does."""
-    w = cell_mask[..., None].expand(ids.shape).to(torch.float32)
+    wide = torch.promote_types(table.dtype, torch.float32)
+    w = cell_mask[..., None].expand(ids.shape).to(wide)
     vocab = table.shape[0]
-    hist = torch.zeros(vocab, dtype=torch.float32, device=table.device)
+    hist = torch.zeros(vocab, dtype=wide, device=table.device)
     hist.index_add_(0, ids.reshape(-1).long(), w.reshape(-1))
     n = w.sum().clamp(min=1.0)
-    t32 = table.to(torch.float32)
-    s1 = (hist @ t32) / n
-    s2 = (hist @ t32.square()) / n
+    tw = table.to(wide)
+    s1 = (hist @ tw) / n
+    s2 = (hist @ tw.square()) / n
     mean = s1 + emb_bias
     ex2 = s2 + 2.0 * emb_bias * s1 + emb_bias.square()
     var = (ex2 - mean.square()).clamp(min=0.0)

@@ -15,12 +15,17 @@ then `sum_r h_r @ W_r + x @ root + bias`. Quirks reproduced: an empty bar
 gets a fake activation at cell [0, 0] (`ensure_nonempty_bars`), and a bar
 with a single active cell gets a self-edge of relation 0 at distance 0.
 
-`gcl_apply` is the plain reference the `gcl_eval` kernel is tested against.
-Message dropout (training) is not ported yet.
+`gcl_apply` is the plain reference the `gcl_eval` kernel is tested against,
+and, with message dropout, the GCL of a training forward (plain PyTorch with
+autograd, as the JAX package runs it in XLA outside every Pallas kernel).
+Message dropout has two modes: "edge", the reference's exact per-edge masks,
+and "aggregate", one mask over the per-relation aggregates. Masks come from
+an explicit `torch.Generator`, or ready-made through `keep` in the JAX
+package's draw order (its `jax.random` streams cannot be drawn here).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -105,18 +110,43 @@ def _gather_time(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -2, idx[..., None].expand(x.shape))
 
 
-def relational_messages(x, mask, nbr: LatticeNeighbors, gate_table):
-    """Mean-aggregated per-relation messages over the lattice (eval form).
+def relational_messages(x, mask, nbr: LatticeNeighbors, gate_table, *,
+                        edge_dropout_p: float = 0.0,
+                        generator: Optional[torch.Generator] = None,
+                        keep=None):
+    """Mean-aggregated per-relation messages over the lattice.
 
     x: (..., T, S, d) node states, zero at inactive cells; mask (..., T, S);
     gate_table (S, d). Returns (h_track, h_onset, h_next, h_self), each
     (..., T, S, d): row t of h_track holds relation t; h_self is the
     single-node self-edge message, routed through relation 0's weight.
+
+    Per-edge dropout (`edge_dropout_p` > 0): the reference's dropout of
+    every edge message before aggregation. TRACK and self messages are one
+    per (destination, direction), so elementwise masks on them are per-edge;
+    ONSET and NEXT expand to explicit (dst track, src track, step) message
+    tensors (4x their message memory, training only) so that every ordered
+    edge draws its own mask. The masks are drawn from `generator` on x's
+    device in the order p, n, onset, next, self, or taken from `keep`, five
+    bool tensors of those shapes in that order (True keeps).
     """
     s = mask.shape[-1]
+    t = mask.shape[-2]
     dt = x.dtype
     iota = torch.arange(s, device=x.device)
     m_f = mask.to(dt)[..., None]
+    zero = torch.zeros((), dtype=dt, device=x.device)
+
+    ed = edge_dropout_p > 0.0
+    if ed:
+        masks = iter(keep) if keep is not None else None
+        scale = 1.0 - edge_dropout_p
+        not_eye = ~torch.eye(t, dtype=torch.bool, device=x.device)[:, :, None]
+
+        def drop(msg):
+            km = (next(masks) if masks is not None
+                  else keep_mask(msg.shape, scale, generator, msg.device))
+            return torch.where(km, msg / scale, zero)
 
     # TRACK relations: previous/next active cell in the same row
     xp = _gather_time(x, nbr.prev_in_row)
@@ -127,18 +157,27 @@ def relational_messages(x, mask, nbr: LatticeNeighbors, gate_table):
     gn = gate_table[(nbr.next_in_row - iota).clamp(0, s - 1)]
     ok_n = nbr.next_in_row_ok[..., None].to(dt)
     msg_n = torch.relu(xn * gn) * ok_n
+    if ed:
+        # a destination has at most one prev and one next edge: a mask per
+        # (cell, feature, direction) is a mask per edge
+        msg_p = drop(msg_p)
+        msg_n = drop(msg_n)
     cnt = ok_p + ok_n
-    h_track = torch.where(cnt > 0, (msg_p + msg_n) / cnt.clamp(min=1),
-                          torch.zeros((), dtype=dt, device=x.device))
+    h_track = torch.where(cnt > 0, (msg_p + msg_n) / cnt.clamp(min=1), zero)
     h_track = h_track * m_f
 
     # ONSET relation: the other active tracks of the same column
     y0 = torch.relu(x * gate_table[0]) * m_f
     cnt_on = (nbr.col_count[..., None, :] - mask.to(torch.int64))[..., None]
-    col_sum = y0.sum(dim=-3, keepdim=True)
-    h_onset = (col_sum - y0) / cnt_on.clamp(min=1).to(dt)
-    h_onset = torch.where((cnt_on > 0) & (m_f > 0), h_onset,
-                          torch.zeros((), dtype=dt, device=x.device))
+    if not ed:
+        col_sum = y0.sum(dim=-3, keepdim=True)
+        h_onset = (col_sum - y0) / cnt_on.clamp(min=1).to(dt)
+    else:
+        # axis -4 is the destination track, -3 the source track
+        valid_on = mask[..., :, None, :] & mask[..., None, :, :] & not_eye
+        msgs_on = drop(y0[..., None, :, :, :] * valid_on[..., None].to(dt))
+        h_onset = msgs_on.sum(dim=-3) / cnt_on.clamp(min=1).to(dt)
+    h_onset = torch.where((cnt_on > 0) & (m_f > 0), h_onset, zero)
 
     # NEXT relation: every cross-track cell of the previous active column
     pcol_b = nbr.prev_col[..., None, :].expand(mask.shape)
@@ -149,25 +188,60 @@ def relational_messages(x, mask, nbr: LatticeNeighbors, gate_table):
     cnt_src = msrc.to(torch.int64).sum(dim=-2)[..., None, :]
     cnt_nx = (cnt_src - msrc.to(torch.int64))[..., None]
     ok_nx = nbr.prev_col_ok[..., None, :, None] & (cnt_nx > 0) & (m_f > 0)
-    zsum = z.sum(dim=-3, keepdim=True)
-    h_next = torch.where(ok_nx, (zsum - z) / cnt_nx.clamp(min=1).to(dt),
-                         torch.zeros((), dtype=dt, device=x.device))
+    if not ed:
+        zsum = z.sum(dim=-3, keepdim=True)
+        h_next = (zsum - z) / cnt_nx.clamp(min=1).to(dt)
+    else:
+        valid_nx = (msrc[..., None, :, :] & mask[..., :, None, :] & not_eye
+                    & nbr.prev_col_ok[..., None, None, :])
+        msgs_nx = drop(z[..., None, :, :, :] * valid_nx[..., None].to(dt))
+        h_next = msgs_nx.sum(dim=-3) / cnt_nx.clamp(min=1).to(dt)
+    h_next = torch.where(ok_nx, h_next, zero)
 
     # single-node self loop (relation 0, distance 0)
     single = nbr.single_node[..., None, None, None].to(dt)
     h_self = torch.relu(x * gate_table[0]) * m_f * single
+    if ed:
+        h_self = drop(h_self)
     return h_track, h_onset, h_next, h_self
 
 
+def keep_mask(shape, keep_p: float, generator, device) -> torch.Tensor:
+    """Bool mask of `shape`, True with probability `keep_p`, drawn from
+    `generator` (None: torch's default generator) on `device`."""
+    return torch.rand(shape, generator=generator, device=device) < keep_p
+
+
 def gcl_apply(x, mask, nbr: LatticeNeighbors, gate_table, rel_weight, root,
-              bias):
-    """One dense relational graph-conv layer, eval form:
+              bias, *, message_dropout: float = 0.0,
+              generator: Optional[torch.Generator] = None,
+              message_dropout_mode: str = "edge", keep=None):
+    """One dense relational graph-conv layer:
     out = (sum_r mean_msgs_r @ W_r + x @ root + bias) * mask.
 
-    rel_weight (6, d, d); root (d, d); bias (d,).
+    rel_weight (6, d, d); root (d, d); bias (d,). With `message_dropout` >
+    0, the messages are dropped in `message_dropout_mode`: "edge" (exact
+    per-edge masks, see `relational_messages`) or "aggregate" (one iid mask
+    over the stacked (h_track, h_onset, h_next, h_self), drawn from
+    `generator` or given as `keep`, bool (4, ..., T, S, d)).
     """
+    if message_dropout_mode not in ("edge", "aggregate"):
+        raise ValueError(f"unknown message_dropout_mode "
+                         f"{message_dropout_mode!r}")
+    active = message_dropout > 0.0
+    exact = active and message_dropout_mode == "edge"
     h_track, h_onset, h_next, h_self = relational_messages(
-        x, mask, nbr, gate_table)
+        x, mask, nbr, gate_table,
+        edge_dropout_p=message_dropout if exact else 0.0,
+        generator=generator, keep=keep if exact else None)
+    if active and not exact:
+        scale = 1.0 - message_dropout
+        stacked = torch.stack([h_track, h_onset, h_next, h_self])
+        km = (keep if keep is not None
+              else keep_mask(stacked.shape, scale, generator, x.device))
+        stacked = torch.where(km, stacked / scale,
+                              torch.zeros((), dtype=x.dtype, device=x.device))
+        h_track, h_onset, h_next, h_self = stacked.unbind(0)
     n_tracks = mask.shape[-2]
     out = torch.einsum("...tsd,tde->...tse", h_track, rel_weight[:n_tracks])
     hcat = torch.cat([h_self, h_onset, h_next, x], dim=-1)

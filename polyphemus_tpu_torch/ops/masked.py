@@ -81,13 +81,14 @@ def folded_affine(scale, bias, running_mean, running_var, *,
 
 def masked_softmax(logits, mask, dim: int):
     """Softmax over `dim` with inactive entries at zero probability, in fp32
-    whatever the input dtype."""
+    or wider whatever the input dtype."""
     dt = logits.dtype
-    x = logits.to(torch.float32)
-    neg = torch.finfo(torch.float32).min
+    wide = torch.promote_types(dt, torch.float32)
+    x = logits.to(wide)
+    neg = torch.finfo(wide).min
     x = torch.where(mask, x, torch.full_like(x, neg))
     x = x - x.amax(dim=dim, keepdim=True).detach()
-    ex = torch.exp(x) * mask.to(torch.float32)
+    ex = torch.exp(x) * mask.to(wide)
     denom = ex.sum(dim=dim, keepdim=True).clamp(min=1e-30)
     return (ex / denom).to(dt)
 
@@ -96,12 +97,13 @@ def attention_pool_bars(x, gates, mask):
     """Soft-attention pooling of lattice cells into one vector per bar.
 
     x (..., T, S, d); gates (..., T, S, 1) raw logits; mask (..., T, S).
-    Returns (..., d), computed in fp32."""
+    Returns (..., d), computed in fp32 or wider."""
     lead = x.shape[:-3]
     d = x.shape[-1]
     cells = x.shape[-3] * x.shape[-2]
     w = masked_softmax(gates.reshape(lead + (cells,)),
                        mask.reshape(lead + (cells,)), dim=-1)
     xf = x.reshape(lead + (cells, d))
-    return torch.einsum("...c,...cd->...d", w.to(torch.float32),
-                        xf.to(torch.float32)).to(x.dtype)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return torch.einsum("...c,...cd->...d", w.to(wide),
+                        xf.to(wide)).to(x.dtype)

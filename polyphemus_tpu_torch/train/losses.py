@@ -28,14 +28,16 @@ def _masked_ce(logits, labels, weights):
 def structure_loss(s_logits, mask, *, ref_parity: bool = False):
     """BCE-with-logits on the structure tensor; ref_parity feeds the
     targets back as logits (the reference bug)."""
-    s_target = mask.to(torch.float32)
-    s_in = s_target if ref_parity else s_logits.to(torch.float32)
+    wide = torch.promote_types(s_logits.dtype, torch.float32)
+    s_target = mask.to(wide)
+    s_in = s_target if ref_parity else s_logits.to(wide)
     return (s_in.clamp(min=0) - s_in * s_target
             + torch.log1p(torch.exp(-s_in.abs()))).mean()
 
 
 def kld_loss(mu, log_var):
-    mu, log_var = mu.to(torch.float32), log_var.to(torch.float32)
+    wide = torch.promote_types(mu.dtype, torch.float32)
+    mu, log_var = mu.to(wide), log_var.to(wide)
     kld = -0.5 * (1 + log_var - mu.square() - log_var.exp()).sum(dim=1)
     return kld.mean()
 
@@ -52,7 +54,8 @@ def compute_losses(s_logits, c_logits, tokens, mask, mu, log_var, beta,
                    *, ref_parity: bool = False):
     """Returns (tot_loss, dict of the seven scalar losses) from the content
     logits."""
-    c_logits = c_logits.to(torch.float32)
+    c_logits = c_logits.to(torch.promote_types(c_logits.dtype,
+                                               torch.float32))
     targets = tokens[..., 1:, :]
     pitch_true, dur_true = targets[..., 0], targets[..., 1]
     act = mask[..., None].expand(pitch_true.shape)

@@ -11,9 +11,12 @@ Counterpart of `polyphemus_tpu/train/trainer.py`:
     order: the batch-norm running statistics chain through them, the grads
     are averaged over them, and so are the losses and metrics. Beta is read
     at the count of completed updates;
-  * `Trainer`: epochs, `metrics.jsonl` with the JAX trainer's keys,
-    evaluation, the rolling `checkpoint` and `best_model` saves, resume, and
-    an abort after `max_nan_steps` consecutive non-finite losses.
+  * `Trainer`: epochs, `metrics.jsonl` with the JAX trainer's keys (and,
+    with `tensorboard`, the same scalars under the same tags in
+    `<model_dir>/tb`), evaluation, the rolling `checkpoint` and
+    `best_model` saves through an `AsyncSaver`, resume, a profiler trace of
+    a window of steps, and an abort after `max_nan_steps` consecutive
+    non-finite losses.
 
 With `cfg.bf16` the train and eval steps run the JAX package's bf16 compute
 policy (`compute_dtype`): the model computes on bf16 copies of the fp32
@@ -21,8 +24,7 @@ master parameters and batch-norm statistics, the grads flow through the
 casts into the fp32 masters that Adam updates, and the new running
 statistics come back to the fp32 masters. Checkpoints stay fp32.
 
-Not ported, and refused when asked for: TensorBoard, model parallelism;
-checkpoints are written synchronously.
+Not ported, and refused when asked for: model parallelism.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import json
 import math
 import os
 import time
-from collections import defaultdict, deque
+from collections import defaultdict
 from typing import Optional
 
 import numpy as np
@@ -39,6 +41,7 @@ import torch
 
 from ..config import TrainConfig
 from ..generate import exact_fp32
+from ..utils import StepTimer, profile_trace
 from . import checkpoint as ckpt
 from .losses import compute_losses, losses_from_stats
 from .metrics import accuracies_from_stats, compute_accuracies
@@ -210,9 +213,6 @@ class Trainer:
     def __init__(self, model_dir: str, model, cfg: TrainConfig, *, device,
                  print_every: int = 1, save_every: int = 10,
                  eval_every: Optional[int] = None, tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError(
-                "TensorBoard is not ported; metrics.jsonl has every number")
         if cfg.parallel.model_axis != 1:
             raise NotImplementedError("model parallelism is not ported")
         self.model_dir = model_dir
@@ -225,6 +225,15 @@ class Trainer:
         self.optimizer = make_optimizer(self.model, cfg)
         self.train_step = make_train_step(self.model, cfg, self.optimizer)
         self._jsonl_path = os.path.join(model_dir, "metrics.jsonl")
+        # optional TensorBoard mirror of the JSONL metrics
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(model_dir, "tb"))
+            except Exception as e:  # noqa: BLE001 - a logging option
+                print(f"TensorBoard unavailable ({e}); JSONL only")
         self.tr_losses = defaultdict(list)
         self.tr_accuracies = defaultdict(list)
         self.val_losses = defaultdict(list)
@@ -237,7 +246,8 @@ class Trainer:
         # abort after this many consecutive non-finite losses
         self.max_nan_steps = 5
         self._nan_steps = 0
-        self._step_ends: deque = deque(maxlen=51)
+        self._timer = StepTimer()
+        self._saver = ckpt.AsyncSaver()
 
     @property
     def step(self) -> int:
@@ -256,6 +266,7 @@ class Trainer:
         return tokens.to(self.device), mask.to(self.device)
 
     def resume(self) -> None:
+        self._saver.wait()  # a save still in flight is the one to read
         step, meta = ckpt.load_checkpoint(self.model_dir, "checkpoint",
                                           self.model, self.optimizer)
         self.train_step.updates = step
@@ -271,19 +282,35 @@ class Trainer:
 
     # ------------------------------------------------------------------ loop
     def fit(self, train_iter_fn, epochs: int, valid_iter_fn=None,
-            early_exit: Optional[int] = None, seed: Optional[int] = None):
+            early_exit: Optional[int] = None, seed: Optional[int] = None,
+            profile_dir: Optional[str] = None,
+            profile_steps: tuple = (10, 15)):
         """Train for `epochs` over `train_iter_fn()` batches of device
         tensors. Dropout masks and the reparameterisation noise come from one
-        generator seeded with `seed` (default: the config's)."""
+        generator seeded with `seed` (default: the config's). With
+        `profile_dir`, the batches from `profile_steps[0]` up to
+        `profile_steps[1]` (counted over the run) are traced there
+        (`utils.profile_trace`). Returns once the last checkpoint is on
+        disk."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed if seed is None else seed)
         self.model.set_dropout_generator(gen)
         start = time.time()
         stop = False
-        self._step_ends.clear()
+        self._timer = StepTimer()
+        trace = contextlib.ExitStack()
+        profiling = False
         for epoch in range(epochs):
             self.cur_epoch = epoch
             for tokens, mask in train_iter_fn():
+                if profile_dir is not None:
+                    if self.tot_batches == profile_steps[0] and not profiling:
+                        trace.enter_context(profile_trace(profile_dir))
+                        profiling = True
+                    elif self.tot_batches == profile_steps[1] and profiling:
+                        trace.close()
+                        profiling = False
+                        print(f"Profiler trace written to {profile_dir}")
                 losses, accs = self.train_step(tokens, mask, generator=gen)
                 self._record(self.tot_batches, epoch, losses, accs)
                 n = self.tot_batches + 1
@@ -293,13 +320,16 @@ class Trainer:
                         and n % self.eval_every == 0):
                     self._eval_and_save(valid_iter_fn)
                 if self.save_every > 0 and n % self.save_every == 0:
-                    self.save("checkpoint")
+                    self.save("checkpoint", blocking=False)
                 if early_exit is not None and n > early_exit:
                     stop = True
                     break
                 self.tot_batches += 1
             if stop:
                 break
+        if profiling:
+            trace.close()
+            print(f"Profiler trace written to {profile_dir}")
         print(f"Training completed in {time.time() - start:.1f}s")
         self.save("checkpoint")
 
@@ -317,7 +347,10 @@ class Trainer:
         return ({k: float(np.mean(v)) for k, v in losses_all.items()},
                 {k: float(np.mean(v)) for k, v in accs_all.items()})
 
-    def save(self, name: str) -> None:
+    def save(self, name: str, blocking: bool = True) -> None:
+        """Save `<name>.pt` and `<name>.json` through the `AsyncSaver`: the
+        snapshot is taken now; with `blocking`, every save is on disk when
+        this returns."""
         meta = {
             "epoch": self.cur_epoch,
             "tot_batches": self.tot_batches,
@@ -331,13 +364,16 @@ class Trainer:
             "val_accuracies": {k: list(v)
                                for k, v in self.val_accuracies.items()},
         }
-        ckpt.save_checkpoint(self.model_dir, name, self.model, self.optimizer,
-                             self.step, meta)
+        self._saver.submit(self.model, self.optimizer, self.step,
+                           self.model_dir, name, meta)
+        if blocking:
+            self._saver.wait()
 
     # ------------------------------------------------------------ internals
     def _record(self, batch_i, epoch_i, losses, accs):
-        """Histories, one metrics.jsonl line, and the non-finite streak."""
-        self._step_ends.append(time.perf_counter())
+        """Histories, one metrics.jsonl line (and TensorBoard scalars), and
+        the non-finite streak."""
+        self._timer.tick()
         l_host = {k: float(v) for k, v in losses.items()}
         a_host = {k: float(v) for k, v in accs.items()}
         for k, v in l_host.items():
@@ -359,6 +395,14 @@ class Trainer:
         os.makedirs(self.model_dir, exist_ok=True)
         with open(self._jsonl_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in l_host.items():
+                self._tb.add_scalar(f"loss/{k}", v, batch_i)
+            for k, v in a_host.items():
+                self._tb.add_scalar(f"acc/{k}", v, batch_i)
+            self._tb.add_scalar("lr", lr, batch_i)
+            self._tb.add_scalar("beta", beta, batch_i)
+            self._tb.flush()
         if not math.isfinite(l_host["tot"]):
             self._nan_steps += 1
             if self._nan_steps >= self.max_nan_steps:
@@ -371,10 +415,9 @@ class Trainer:
     def seq_per_sec(self) -> Optional[float]:
         """Sequences per second over the last (up to 50) steps of this fit,
         on the host clock (each step ends in a device sync)."""
-        if len(self._step_ends) < 2:
+        if not self._timer.times:
             return None
-        span = self._step_ends[-1] - self._step_ends[0]
-        return (len(self._step_ends) - 1) / span * self.cfg.batch_size
+        return self._timer.steps_per_sec * self.cfg.batch_size
 
     def _eval_and_save(self, valid_iter_fn):
         val_losses, val_accs = self.evaluate(valid_iter_fn)
@@ -390,10 +433,16 @@ class Trainer:
             rec.update({f"val_acc/{k}": v for k, v in val_accs.items()})
             with open(self._jsonl_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in val_losses.items():
+                self._tb.add_scalar(f"val_loss/{k}", v, self.tot_batches)
+            for k, v in val_accs.items():
+                self._tb.add_scalar(f"val_acc/{k}", v, self.tot_batches)
+            self._tb.flush()
         if val_losses.get("tot", float("inf")) < self.min_val_loss:
             print("Validation loss improved; saving best model.")
             self.min_val_loss = val_losses["tot"]
-            self.save("best_model")
+            self.save("best_model", blocking=False)
 
     def _print_stats(self, epoch, epochs, start):
         k = self.print_every

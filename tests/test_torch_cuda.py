@@ -521,3 +521,84 @@ def test_bf16_generator_launches_at_the_flagship_depth(cuda, tmp_path):
              chord_tail.bf16_launches)
     assert tuple(a - b for a, b in zip(after, counts)) == (0, 0, 12, 3)
     assert mask.shape == (8, 2, 4, 32) and tokens.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("mode", ["edge", "aggregate"])
+def test_dropout_gcl_on_the_card_matches_the_cpu(cuda, mode):
+    chip_smoke.check_dropout_gcl(16, 512, mode, cuda)
+
+
+@pytest.mark.parametrize("mode", ["edge", "aggregate"])
+def test_dropout_training_launches_no_training_kernel(cuda, mode):
+    """A train step with message dropout runs the lattice GCL (no launch of
+    a training GCL kernel); an eval step still launches `gcl_eval`."""
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.data import synthetic_batch
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
+                     batch_norm=True, message_dropout=0.1,
+                     message_dropout_mode=mode)
+    cfg = TrainConfig(batch_size=8, model=mc)
+    torch.manual_seed(0)
+    model = VAE(mc).to(cuda)
+    model.set_dropout_generator(torch.Generator(device=cuda).manual_seed(1))
+    toks, mask = (torch.from_numpy(a).to(cuda) for a in synthetic_batch(
+        np.random.default_rng(0), 8, 2))
+    before = chip_smoke.train_kernel_counts()
+    eval_before = dict(gcl.launches_by_k)
+    losses, _ = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))(
+        toks, mask)
+    assert chip_smoke.train_kernel_counts() == before
+    assert all(torch.isfinite(v) for v in losses.values())
+    tr.eval_step(model, cfg, toks, mask, 1)
+    # 2 GNN stacks of 2 layers, chain 1
+    assert gcl.launches_by_k.get(1, 0) - eval_before.get(1, 0) == 4
+
+
+def test_training_kernels_match_plain_at_lmd16_microbatch(cuda):
+    """LMD16's microbatch (16 sequences x 16 bars = 256 bars): the data
+    backward's CTAs walk twice the bars they walk at 128."""
+    chip_smoke.check_gcl_train(256, 512, cuda, timing=False)
+
+
+def test_async_saver_saves_the_weights_at_submit_on_the_card(cuda, tmp_path):
+    """A d = 512 model and its Adam state on the card: the weights and
+    moments changed on the card right after `submit` are not in the saved
+    file, which holds the values at submit bitwise."""
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.train import checkpoint as ckpt
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    mc = ModelConfig(d=512, gnn_n_layers=2, n_bars=2, resolution=8)
+    torch.manual_seed(0)
+    model = VAE(mc).to(cuda)
+    opt = tr.make_optimizer(model, TrainConfig(batch_size=8, model=mc))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=g, device=cuda)
+    opt.step()
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    want_opt = {k: (v["exp_avg"].cpu(), v["exp_avg_sq"].cpu())
+                for k, v in opt.state_dict()["state"].items()}
+    saver = ckpt.AsyncSaver()
+    for rep in range(3):
+        saver.submit(model, opt, rep, str(tmp_path), f"c{rep}", {})
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(-3.0).add_(1.0)
+            for st in opt.state.values():
+                st["exp_avg"].mul_(-3.0).add_(1.0)
+                st["exp_avg_sq"].mul_(-3.0).add_(1.0)
+        saver.wait()
+        got = torch.load(ckpt.path(str(tmp_path), f"c{rep}"),
+                         weights_only=True)
+        for k, v in want.items():
+            assert torch.equal(got["model"][k], v), (rep, k)
+        for k, (m, v) in want_opt.items():
+            st = got["optimizer"]["state"][k]
+            assert torch.equal(st["exp_avg"], m), (rep, k)
+            assert torch.equal(st["exp_avg_sq"], v), (rep, k)
+        want = {k: v.cpu() for k, v in model.state_dict().items()}
+        want_opt = {k: (v["exp_avg"].cpu(), v["exp_avg_sq"].cpu())
+                    for k, v in opt.state_dict()["state"].items()}

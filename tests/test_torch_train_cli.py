@@ -4,7 +4,9 @@ resumed into a fresh model gives the same next step; `cli.train` with
 (metrics.jsonl with the JAX trainer's keys, all finite; evaluation and
 `best_model`; `--resume` continues the update count), and the trained
 directory serves through `generate.load_model`; the dataset reads back what
-`write_sample` wrote; flags for what is not ported are refused."""
+`write_sample` wrote; a packed shard directory is refused and
+`--tensorboard` writes its event files; message dropout trains in both
+modes."""
 import dataclasses
 import json
 import os
@@ -129,8 +131,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="fastloader"):
         train_cli.main(base)
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        train_cli.main(base + ["--tensorboard"])
+    (tmp_path / "data" / "shards.json").unlink()
+    train_cli.main(base + ["--tensorboard", "--model_name", "tb",
+                           "--num_workers", "1", "--max_epochs", "1",
+                           "--tr_split", "1.0"])
+    events = os.listdir(tmp_path / "out" / "tb" / "tb")
+    assert any(f.startswith("events.out.tfevents") for f in events), events
 
 
 def test_non_finite_streak_aborts(tmp_path):
@@ -148,10 +154,22 @@ def test_non_finite_streak_aborts(tmp_path):
         trainer._record(20, 0, nan, {})
 
 
-def test_message_dropout_is_refused_in_training():
+@pytest.mark.parametrize("mode", ["edge", "aggregate"])
+def test_message_dropout_trains(mode):
+    """Training statistics with message dropout: finite, a draw of their
+    own (not those without dropout) and the same for the same seed."""
     cfg = tiny_cfg()
-    model = VAE(dataclasses.replace(cfg.model, message_dropout=0.1)).train()
     toks, mask = (torch.from_numpy(a) for a in synthetic_batch(
         np.random.default_rng(0), 2, 2))
-    with pytest.raises(NotImplementedError, match="message_dropout"):
-        model.train_stats(toks, mask)
+    eps = torch.zeros(2, cfg.model.d)
+    runs = []
+    for p, seed in ((0.1, 5), (0.1, 5), (0.0, 5)):
+        mc = dataclasses.replace(cfg.model, message_dropout=p,
+                                 message_dropout_mode=mode)
+        model = fresh_model(dataclasses.replace(cfg, model=mc), 0).train()
+        model.set_dropout_generator(torch.Generator().manual_seed(seed))
+        (s_logits, stats), _, _ = model.train_stats(toks, mask, eps=eps)
+        runs.append(torch.stack(list(stats.values())))
+        assert torch.isfinite(s_logits).all() and torch.isfinite(runs[-1]).all()
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])

@@ -129,8 +129,8 @@ def near_tie_slack(model, pcfg, toks, mask, eps):
     return float(np.mean(content)), float(np.mean(structure))
 
 
-def run_case(accum, use_pallas=False, seed=0):
-    mcfg = dataclasses.replace(small_cfg(n_layers=2),
+def run_case(accum, use_pallas=False, seed=0, n_bars=2):
+    mcfg = dataclasses.replace(small_cfg(n_layers=2, n_bars=n_bars),
                                use_pallas_gcl=use_pallas)
     cfg = TrainConfig(batch_size=MB * accum, model=mcfg,
                       iters_to_accumulate=accum)

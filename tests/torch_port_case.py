@@ -36,9 +36,9 @@ S_LOGIT_TIE = 1e-3
 LOGIT_TIE = 1e-4
 
 
-def small_cfg(batch_norm=True, d=32, n_layers=3, gcl_chain=1):
-    return ModelConfig(d=d, gnn_n_layers=n_layers, n_bars=2, resolution=8,
-                       dropout=0.0, batch_norm=batch_norm,
+def small_cfg(batch_norm=True, d=32, n_layers=3, gcl_chain=1, n_bars=2):
+    return ModelConfig(d=d, gnn_n_layers=n_layers, n_bars=n_bars,
+                       resolution=8, dropout=0.0, batch_norm=batch_norm,
                        gcl_chain=gcl_chain)
 
 
