@@ -142,7 +142,24 @@
    per evaluation. The dropout `lattice.gcl_apply` on the card against the
    CPU on the same keep masks, d = 512, 16 bars: the output at rtol = atol
    = 2e-4, each grad within 2e-4 of its max |cpu|.
-8. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
+8. The data plane: writes 96 seeded full-band 4/4 MIDI songs of 12-32
+   bars (`band_song`) in nested directories, runs `cli.preprocess` on them
+   (4 worker processes) and `cli.pack_dataset` (shards of 128 samples);
+   one shuffled epoch of the native batch gather (`data.fastloader`, built
+   by g++ from `native/fastloader.cpp`; the phase fails first if g++ is
+   missing) equals the plain numpy gather and `ShardedDataset` row by row;
+   times the native gather (4 threads), the plain gather and the
+   per-sample `BatchLoader` (8 workers) in ms per batch of 256; trains the
+   flagship fp32 config (`examples/training_lmd2.json`) through
+   `cli.train.main()` for 4 steps on 640 samples from the packed directory
+   and again from the per-sample one: records finite, 64 launches of each
+   training GCL kernel per step, one native gather per step from the
+   packed data and none from the other, the first step's losses the same
+   within 1e-6 relative (the same batches); s/step of each CLI run; s/step
+   of 8 steps fed by each loader (and, beside the packed one, of 8 steps on
+   one batch kept on the card), the kernel time of 2 more under the
+   profiler and the idle share it leaves.
+9. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase), the card line, and last
    {"ok": true, "device": {...}}.
@@ -1875,6 +1892,283 @@ def dropout_phase(device, card, config_path, data_dir):
     return dropout
 
 
+# ------------------------------------------------- phase 8: the data plane
+DATA_SONGS = 96       # seeded full-band 4/4 songs of 12-32 bars
+DATA_SHARD = 128      # samples a shard, so that batches cross shards
+DATA_TRAIN = 640      # training samples of the CLI runs: 2 steps an epoch
+LOADER_REPS = 20      # timed batches of each gather
+LOADER_FED_STEPS = 8  # loader-fed steps timed
+PROFILED_STEPS = 2    # loader-fed steps profiled for their kernel time
+# packed vs per-sample data: the first step's losses, relative (the same
+# batch on the same card; a different batch moves them by about 1e-2)
+SAME_BATCH_RTOL = 1e-6
+
+
+def band_song(rng, n_bars, resolution=8):
+    """A seeded full-band 4/4 song of `n_bars`: drums, a bass (program
+    32-39), one or two guitars (0-31) and one or two strings tracks (40-95)
+    with random onsets, chords, pitches and durations; a non-drum track
+    leaves a bar silent with probability 0.1."""
+    from polyphemus_tpu_torch.midi import Note, Song, Track
+
+    bar = 4 * resolution
+
+    def notes(lo, hi, per_bar, dur, silent_p):
+        out = []
+        for b in range(n_bars):
+            if rng.random() < silent_p:
+                continue
+            steps = rng.choice(bar, size=int(rng.integers(1, per_bar + 1)),
+                               replace=False)
+            for t in np.sort(steps):
+                for _ in range(int(rng.integers(1, 3))):
+                    out.append(Note(int(b * bar + t),
+                                    int(rng.integers(lo, hi)),
+                                    int(rng.integers(1, dur + 1))))
+        return out
+
+    tracks = [Track("drums", 0, True, notes(35, 52, 8, 2, 0.0)),
+              Track("bass", int(rng.integers(32, 40)), False,
+                    notes(28, 52, 4, 8, 0.1))]
+    tracks += [Track(f"guitar{g}", int(rng.integers(0, 32)), False,
+                     notes(48, 77, 4, 8, 0.1))
+               for g in range(int(rng.integers(1, 3)))]
+    tracks += [Track(f"strings{k}", int(rng.integers(40, 96)), False,
+                     notes(55, 85, 2, 24, 0.1))
+               for k in range(int(rng.integers(1, 3)))]
+    return Song(resolution=resolution, tempo=120, tracks=tracks)
+
+
+def write_songs(midi_dir, n, seed, bars=(12, 32)):
+    """`n` band songs of bars[0]..bars[1] bars as .mid files in `midi_dir`
+    and one and two directories below it."""
+    from polyphemus_tpu_torch.midi import write_midi
+
+    shutil.rmtree(midi_dir, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        sub = os.path.join(midi_dir, *["sub"] * (i % 3))
+        os.makedirs(sub, exist_ok=True)
+        write_midi(os.path.join(sub, f"song{i:03d}.mid"),
+                   band_song(rng, int(rng.integers(bars[0], bars[1] + 1))))
+
+
+def check_gather_epoch(fast, packed, batch, seed):
+    """One shuffled epoch of the packed directory `packed` in batches of
+    `batch` (the last one short): each batch of the native gather (`fast`,
+    its `FastShardedBatcher`) equal to the plain gather's and, row by row,
+    to `ShardedDataset`'s samples."""
+    from polyphemus_tpu_torch.data.fastloader import gather_plain
+    from polyphemus_tpu_torch.data.sharded import ShardedDataset
+
+    plain = ShardedDataset(packed, cache_shards=len(fast.offsets))
+    order = np.random.default_rng(seed).permutation(len(fast))
+    batches = crossing = 0
+    for i in range(0, len(order), batch):
+        idxs = order[i:i + batch]
+        toks, mask = fast.gather_batch(idxs)
+        ptoks, pmask = gather_plain(fast.tok_views, fast.mask_views,
+                                    fast.offsets, idxs)
+        check(toks.dtype == np.int32 and mask.dtype == np.bool_
+              and np.array_equal(toks, ptoks) and np.array_equal(mask, pmask),
+              f"the native gather differs from the plain one in batch "
+              f"{batches}")
+        for k, j in enumerate(idxs):
+            t, m = plain[int(j)]
+            check(np.array_equal(toks[k], t) and np.array_equal(mask[k], m),
+                  f"the native gather differs from ShardedDataset at "
+                  f"sample {j}")
+        batches += 1
+        crossing += len(set(np.searchsorted(fast.offsets, idxs,
+                                            side="right"))) > 1
+    return {"samples": len(fast), "shards": len(fast.offsets),
+            "batches": batches, "batches_over_several_shards": crossing}
+
+
+def time_loaders(fast, samples_dir, n_bars, batch, seed):
+    """ms per batch of `batch` samples on the host: the native gather of
+    `fast` and the plain gather over its mmapped shards (LOADER_REPS
+    random batches after a warm one), and the per-sample `BatchLoader` (8
+    worker threads, prefetch 2) over the unpacked directory (one shuffled
+    epoch of whole batches, its first included; all warm in the page
+    cache)."""
+    from polyphemus_tpu_torch.data import BatchLoader, PolyphemusDataset
+    from polyphemus_tpu_torch.data.fastloader import gather_plain
+
+    rng = np.random.default_rng(seed)
+    batches = [rng.choice(len(fast), batch, replace=False)
+               for _ in range(LOADER_REPS)]
+
+    def per_batch_ms(fn):
+        fn(batches[0])
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(b)
+        return (time.perf_counter() - t0) / LOADER_REPS * 1e3
+
+    native = per_batch_ms(fast.gather_batch)
+    plain = per_batch_ms(lambda b: gather_plain(
+        fast.tok_views, fast.mask_views, fast.offsets, b))
+    loader = BatchLoader(PolyphemusDataset(samples_dir, n_bars), batch,
+                         seed=seed, num_workers=8)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    per_sample = (time.perf_counter() - t0) / n * 1e3
+    # bytes a batch moves: int16 tokens and the mask read, int32 tokens and
+    # the mask written
+    tok, msk = fast._tok_elems * batch, fast._mask_bytes * batch
+    moved = 2 * tok + 4 * tok + 2 * msk
+    return {"batch": batch, "native_ms": native, "plain_ms": plain,
+            "per_sample_ms": per_sample, "per_sample_batches": n,
+            "bytes_per_batch": moved,
+            "native_gb_s": moved / native / 1e6}
+
+
+def loader_fed_steps(trainer, dataset, batch, seed, resident=False):
+    """Optimizer steps of `trainer` fed by the CLI's loader (`BatchLoader`,
+    8 workers, pinned copies to the card) over `dataset`, after one warm
+    step: seconds per step on the host clock over LOADER_FED_STEPS steps;
+    with `resident`, as many steps on one batch kept on the card (no
+    loader), the control; then the kernel time per step (device busy) over
+    PROFILED_STEPS fed steps under torch.profiler (device activity only)
+    and the idle share of the unprofiled fed step that it leaves."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyphemus_tpu_torch.data import BatchLoader
+
+    loader = BatchLoader(dataset, batch, seed=seed, num_workers=8,
+                         device_put_fn=trainer.to_device)
+
+    def epochs():
+        while True:
+            yield from loader
+
+    feed = epochs()
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+
+    def steps_s(next_batch, n=LOADER_FED_STEPS):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            losses, _ = trainer.train_step(*next_batch(), generator=gen)
+            float(losses["tot"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    kept = next(feed)
+    trainer.train_step(*kept, generator=gen)
+    out = {"steps": LOADER_FED_STEPS, "step_s": steps_s(lambda: next(feed))}
+    if resident:
+        out["resident_step_s"] = steps_s(lambda: kept)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out["profiled_step_s"] = steps_s(lambda: next(feed), PROFILED_STEPS)
+    feed.close()  # stops the loader's thread
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / PROFILED_STEPS
+    check(busy > 0, "the profiler saw no kernel of the loader-fed steps")
+    out.update(kernel_ms_per_step=busy,
+               idle_share=1.0 - busy / (out["step_s"] * 1e3))
+    return out
+
+
+def data_plane_phase(device, card, config_path):
+    """Phase 8: MIDI files -> `cli.preprocess` (4 worker processes) ->
+    `cli.pack_dataset` (shards of DATA_SHARD) -> 4 flagship fp32 steps of
+    `cli.train` from the packed directory, then from the per-sample one; the
+    native gather over one epoch against the plain gather and
+    `ShardedDataset`; the loaders' ms per batch; s/step and idle share from
+    each directory. Returns (what the results print, the training kernels'
+    launches)."""
+    from polyphemus_tpu_torch.cli import pack_dataset as pack_cli
+    from polyphemus_tpu_torch.cli import preprocess as pre_cli
+    from polyphemus_tpu_torch.config import load_train_config
+    from polyphemus_tpu_torch.data import PolyphemusDataset, fastloader
+
+    # ---- 8. the data plane: preprocess, pack, train from shards ----
+    check(shutil.which("g++") is not None,
+          "g++ is not on PATH: the native batch gather cannot be built")
+    cfg = load_train_config(config_path)
+    base = os.path.join(ROOT, "build", "chip_smoke_data_plane")
+    midi_dir, samples, packed = (os.path.join(base, d) for d in
+                                 ("midi", "samples", "packed"))
+    shutil.rmtree(base, ignore_errors=True)
+    stages, clock = {}, [time.perf_counter()]
+
+    def lap(stage):  # seconds since the last lap, by stage
+        stages[stage], clock[0] = time.perf_counter() - clock[0], \
+            time.perf_counter()
+
+    write_songs(midi_dir, DATA_SONGS, SEED)
+    lap("write_songs")
+    pre_cli.main([midi_dir, samples, "--n_bars", str(cfg.model.n_bars),
+                  "--resolution", str(cfg.model.resolution),
+                  "--n_workers", "4"])
+    lap("preprocess")
+    pack_cli.main([samples, packed, "--n_bars", str(cfg.model.n_bars),
+                   "--shard_size", str(DATA_SHARD)])
+    lap("pack")
+    n = len(os.listdir(samples))
+    check(n >= 3 * cfg.batch_size, f"{DATA_SONGS} songs gave {n} samples, "
+                                   f"fewer than {3 * cfg.batch_size}")
+    fast = fastloader.FastShardedBatcher(packed)  # 4 threads, as the CLI's
+    epoch = check_gather_epoch(fast, packed, cfg.batch_size, SEED)
+    check(epoch["samples"] == n and epoch["shards"] == -(-n // DATA_SHARD),
+          f"packed {epoch} from {n} samples")
+    lap("epoch_check")
+    loaders = time_loaders(fast, samples, cfg.model.n_bars, cfg.batch_size,
+                           SEED)
+    lap("time_loaders")
+    # DATA_TRAIN of the n samples: 2 steps an epoch, 2 epochs
+    splits = ("--tr_split", repr((DATA_TRAIN + 0.5) / n))
+    runs, counts = {}, {}
+    for name, data in (("packed", packed), ("per_sample", samples)):
+        fastloader.gathers = 0
+        # ---- the main path ----
+        trainer, _, counts[name], recs = train_phase(
+            device, config_path, data,
+            os.path.join(ROOT, "build", f"chip_smoke_train_{name}"), 2,
+            splits=splits, name=name)
+        gathers = fastloader.gathers
+        lap(f"cli_train_{name}")
+        steps = trainer.step
+        check(steps == 4, f"{steps} optimizer steps from the {name} data")
+        check_records(recs, steps)
+        check_launches(counts[name], {"gcl_fwd": 64, "gcl_bwd_data": 64,
+                                      "gcl_bwd_weight": 64}, steps)
+        check(gathers == (steps if name == "packed" else 0),
+              f"{gathers} native gathers in {steps} steps from the {name} "
+              f"data")
+        dataset = (fast if name == "packed"
+                   else PolyphemusDataset(samples, cfg.model.n_bars))
+        runs[name] = {"steps": steps, "native_gathers": gathers,
+                      "cli_step_s": statistics.median(trainer._timer.times),
+                      "cli_step_intervals_s": trainer._timer.times,
+                      "first_losses": {k: recs[0][f"loss/{k}"]
+                                       for k in LOSS_KEYS},
+                      "losses": [r["loss/tot"] for r in recs],
+                      "loader_fed": loader_fed_steps(
+                          trainer, dataset, cfg.batch_size, SEED,
+                          resident=name == "packed")}
+        lap(f"loader_fed_{name}")
+        del trainer
+    # the same samples in the same order: the same first step
+    first = [runs[k]["first_losses"] for k in ("packed", "per_sample")]
+    for k in LOSS_KEYS:
+        check(abs(first[0][k] - first[1][k]) <= SAME_BATCH_RTOL * abs(
+            first[1][k]), f"the first step's {k} loss from the packed data, "
+                          f"{first[0][k]}, is not the per-sample data's, "
+                          f"{first[1][k]}")
+    out = {"songs": DATA_SONGS, "samples": n, "epoch_check": epoch,
+           "stages_s": stages, "loaders": loaders, "train": runs,
+           "card": card}
+    print(f"data plane (d={cfg.model.d}, batch {cfg.batch_size}, {card}):",
+          json.dumps(out))
+    launches = {k: counts["packed"][k] + counts["per_sample"][k]
+                for k in ("gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight")}
+    return out, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2178,7 +2472,10 @@ def main() -> int:
     # ---- 7c. message dropout on the card, both modes ----
     dropout = dropout_phase(device, card, config_path, data16)
 
-    # ---- 8. results ----
+    # ---- 8. the data plane: MIDI -> samples -> shards -> training ----
+    _, data_launches = data_plane_phase(device, card, config_path)
+
+    # ---- 9. results ----
     launches = dict(launches, **train_launches, **gen16_launches)
     # K = 1 runs in the reconstruct CLIs' encoders and the dropout runs'
     # eval steps, counted by the wrapper
@@ -2200,6 +2497,8 @@ def main() -> int:
     l16_launches = l16["train_launches"]
     for name, n in dict(lmd16_gen, **{k: l16_launches[k] for k in (
             "gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight")}).items():
+        launches[name] += n
+    for name, n in data_launches.items():
         launches[name] += n
 
     def entry(name, src, replaces, r):

@@ -6,14 +6,17 @@
         [--vl_split 0.1] [--max_epochs 100] [--seed N] [--resume]
         [--early_exit N] [--tensorboard] [--profile DIR] [--device cuda]
 
-DATASET_DIR holds per-sample reference-format `.npz` files. Training runs on
+DATASET_DIR holds per-sample reference-format `.npz` files (`cli.preprocess`
+writes them), or is a packed shard directory with its `shards.json`
+(`cli.pack_dataset` writes it), read through `data.fastloader`'s native
+batch gather; its packed `n_bars` must be the config's. Training runs on
 the CUDA device unless `--device cpu` is given, and refuses to start
 without a card otherwise. The model directory OUTPUT_DIR/NAME gets
 `config.json`, `metrics.jsonl`, `checkpoint.pt` (which
 `generate.load_model` serves as it is) and its meta file `checkpoint.json`;
 `--tensorboard` mirrors the metrics into `tb/` there, and `--profile DIR`
-writes a `torch.profiler` trace of steps 10-15 into DIR. Refused: packed
-shard directories (`shards.json`) and a model axis other than 1.
+writes a `torch.profiler` trace of steps 10-15 into DIR. Refused: a model
+axis other than 1.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from ..config import load_train_config
 from ..convert import save_config
 from ..data import BatchLoader, PolyphemusDataset
+from ..data.sharded import INDEX_NAME
 from ..generate import resolve_device
 from ..models import VAE
 from ..train import checkpoint as ckpt
@@ -37,6 +41,10 @@ from ..utils import param_count
 class _Subset:
     def __init__(self, ds, idxs):
         self.ds, self.idxs = ds, np.asarray(idxs)
+        if hasattr(ds, "gather_batch"):
+            # keep the batch-level gather through the index view
+            self.gather_batch = (
+                lambda b: ds.gather_batch(self.idxs[np.asarray(b)]))
 
     def __len__(self):
         return len(self.idxs)
@@ -76,11 +84,17 @@ def main(argv=None):
     mc = cfg.model
 
     print("Preparing datasets and dataloaders...")
-    if os.path.exists(os.path.join(args.dataset_dir, "shards.json")):
-        raise NotImplementedError(
-            "packed shard directories need the native fastloader, which is "
-            "not ported; point DATASET_DIR at per-sample .npz files")
-    dataset = PolyphemusDataset(args.dataset_dir, mc.n_bars)
+    if os.path.exists(os.path.join(args.dataset_dir, INDEX_NAME)):
+        # a packed shard directory: mmapped shards, the native batch gather
+        from ..data.fastloader import FastShardedBatcher
+
+        dataset = FastShardedBatcher(args.dataset_dir)
+        if dataset.index.get("n_bars") != mc.n_bars:
+            raise SystemExit(
+                f"dataset packed with n_bars={dataset.index.get('n_bars')} "
+                f"but config wants n_bars={mc.n_bars}")
+    else:
+        dataset = PolyphemusDataset(args.dataset_dir, mc.n_bars)
     n = len(dataset)
     order = np.random.default_rng(args.seed).permutation(n)
     tr_len = int(args.tr_split * n)

@@ -11,8 +11,11 @@ loader: adjacency comes from the mask on the device, embeddings take the
 token ids. __getitem__ is np.load + reshape, so a thread pool saturates it;
 batches are assembled as single numpy arrays and, with `device_put_fn`
 (`Trainer.to_device`: pinned memory, then an asynchronous copy to the card),
-prefetched onto the device by the loader thread. A packed shard directory
-(`shards.json`, the JAX package's native fastloader) is not read here.
+prefetched onto the device by the loader thread. A dataset that has
+`gather_batch` (a packed shard directory read by
+`fastloader.FastShardedBatcher`, `shards.json`) gives whole batches instead:
+its native gather releases the GIL, so it runs beside the step in the
+loader thread.
 """
 from __future__ import annotations
 
@@ -97,9 +100,13 @@ class BatchLoader:
         return n // self.bs if self.drop_last else -(-n // self.bs)
 
     def _load_batch(self, idxs: Sequence[int], pool: ThreadPoolExecutor):
-        samples = list(pool.map(self.ds.__getitem__, idxs))
-        toks = np.stack([s[0] for s in samples]).astype(np.int32)
-        mask = np.stack([s[1] for s in samples])
+        if hasattr(self.ds, "gather_batch"):
+            # batch-level path (the native gather over packed shards)
+            toks, mask = self.ds.gather_batch(np.asarray(idxs))
+        else:
+            samples = list(pool.map(self.ds.__getitem__, idxs))
+            toks = np.stack([s[0] for s in samples]).astype(np.int32)
+            mask = np.stack([s[1] for s in samples])
         if self.device_put_fn is not None:
             return self.device_put_fn(toks, mask)
         return toks, mask

@@ -4,9 +4,11 @@ resumed into a fresh model gives the same next step; `cli.train` with
 (metrics.jsonl with the JAX trainer's keys, all finite; evaluation and
 `best_model`; `--resume` continues the update count), and the trained
 directory serves through `generate.load_model`; the dataset reads back what
-`write_sample` wrote; a packed shard directory is refused and
-`--tensorboard` writes its event files; message dropout trains in both
-modes."""
+`write_sample` wrote; a packed shard directory (`shards.json`) trains
+through the native gather and gives the per-sample directory's first
+step; a packed directory of another `n_bars` and a model axis other than 1
+are refused; `--tensorboard` writes its event files; message dropout
+trains in both modes."""
 import dataclasses
 import json
 import os
@@ -19,6 +21,8 @@ from polyphemus_tpu_torch.cli import train as train_cli
 from polyphemus_tpu_torch.config import TrainConfig, train_config_to_dict
 from polyphemus_tpu_torch.data import (BatchLoader, PolyphemusDataset,
                                        synthetic_batch, write_sample)
+from polyphemus_tpu_torch.data import fastloader
+from polyphemus_tpu_torch.data.sharded import pack_dataset
 from polyphemus_tpu_torch.generate import load_model, make_generator
 from polyphemus_tpu_torch.models import VAE
 from polyphemus_tpu_torch.train import trainer as ptrainer
@@ -122,16 +126,56 @@ def test_cli_trains_resumes_and_serves(tmp_path):
     assert tokens.shape == mask.shape + (15, 2)
 
 
+def first_record(model_dir):
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        return json.loads(f.readline())
+
+
+def test_cli_trains_from_a_packed_directory(tmp_path):
+    """A `shards.json` directory trains through the native gather, and its
+    first step is the per-sample directory's at the same seed (the same
+    batches in the same order)."""
+    make_dataset(tmp_path / "data", 24, seed=4)
+    assert pack_dataset(str(tmp_path / "data"), str(tmp_path / "packed"), 2,
+                        shard_size=5) == 24
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(train_config_to_dict(tiny_cfg(accum=2))))
+    runs = {}
+    for name in ("packed", "data"):
+        before = fastloader.gathers
+        trainer = train_cli.main([
+            str(tmp_path / name), str(tmp_path / "out"), str(cfg_path),
+            "--model_name", name, "--device", "cpu", "--num_workers", "2",
+            "--tr_split", "0.7", "--max_epochs", "1", "--seed", "3"])
+        assert trainer.step == 4
+        runs[name] = (first_record(tmp_path / "out" / name),
+                      fastloader.gathers - before)
+    (packed, gathers), (per_sample, no_gathers) = runs["packed"], runs["data"]
+    assert gathers == 4 and no_gathers == 0
+    for k in LOSSES:
+        assert packed[f"loss/{k}"] == per_sample[f"loss/{k}"], k
+    for k in METRICS:
+        assert packed[f"acc/{k}"] == per_sample[f"acc/{k}"], k
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """A packed directory of another `n_bars` and a model axis other than 1
+    are refused; `--tensorboard` writes its event files."""
     make_dataset(tmp_path / "data", 2)
-    (tmp_path / "data" / "shards.json").write_text("{}")
+    pack_dataset(str(tmp_path / "data"), str(tmp_path / "packed16"), 16)
     cfg_path = tmp_path / "cfg.json"
     cfg_path.write_text(json.dumps(train_config_to_dict(tiny_cfg())))
     base = [str(tmp_path / "data"), str(tmp_path / "out"), str(cfg_path),
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="fastloader"):
-        train_cli.main(base)
-    (tmp_path / "data" / "shards.json").unlink()
+    with pytest.raises(SystemExit, match="n_bars=16 but config wants "
+                                         "n_bars=2"):
+        train_cli.main([str(tmp_path / "packed16")] + base[1:])
+    axis_cfg = train_config_to_dict(tiny_cfg())
+    axis_cfg["parallel"]["model_axis"] = 2
+    (tmp_path / "axis.json").write_text(json.dumps(axis_cfg))
+    with pytest.raises(NotImplementedError, match="model parallelism"):
+        train_cli.main(base[:2] + [str(tmp_path / "axis.json"), "--device",
+                                   "cpu", "--model_name", "axis"])
     train_cli.main(base + ["--tensorboard", "--model_name", "tb",
                            "--num_workers", "1", "--max_epochs", "1",
                            "--tr_split", "1.0"])
