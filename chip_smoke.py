@@ -28,7 +28,8 @@
    `chord_tail` (ids equal except where the plain top-2 logit gap is below
    1e-4). Times each (CUDA events, warm) beside its bound: the larger of
    bytes over 3.35 TB/s and the fp32 flops these masks need (active cells;
-   `dense_bound_ms` counts every cell) over 67 TFLOP/s. The fp32
+   `dense_bound_ms` counts every cell) over the card's fp32 peak
+   (`flops.PEAK_FLOPS`: 66.9 TFLOP/s on an H100 SXM). The fp32
    `gcl_eval` times are printed beside the first fp32 kernel's recorded
    ones (`SIMT_EVAL_FP32_MS`), the fp32 `chord_tail` beside the SIMT
    kernel's (`SIMT_CHORD_FP32_MS`).
@@ -45,7 +46,7 @@
    backward `gcl_bwd_fused` in bf16, against their bf16 plain versions at 8
    and 256 bars (the bf16 config's microbatch of 128 sequences): every
    output within 2e-2 x max |plain|; their bound counts the bf16 tensor
-   cores (989 TFLOP/s), `cuda_core_bound_ms` the CUDA cores (where the
+   cores (989.4 TFLOP/s), `cuda_core_bound_ms` the CUDA cores (where the
    fused backward's first form ran); `gcl_fwd` is timed beside the SIMT
    kernel's recorded time, `gcl_bwd_fused` beside the FFMA form's
    (`FFMA_FUSED_BF16_MS`) and the form whose dW product ran FFMA over
@@ -159,7 +160,25 @@
    of 8 steps fed by each loader (and, beside the packed one, of 8 steps on
    one batch kept on the card), the kernel time of 2 more under the
    profiler and the idle share it leaves.
-9. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
+9. The remaining surface. MFU (`flops.py`: model FLOPs a sequence over
+   the card's peak for the path's compute dtype, `flops.PEAK_FLOPS`) of
+   the rates that phases 4, 4b and 7b (generation seq/s) and 5, 6 and 7
+   (training seq/s) measured, on one JSON line with the card line; it
+   fails if the card is not in the table or a share is not in (0, 100 %].
+   The native MIDI renderer (`midi.fast_render`, g++ from
+   `native/midirender.cpp` at first use; a failed build fails the phase)
+   against the Python writer (`song_from_tokens`, `loop_song`,
+   `midi_bytes`), byte for byte: phase 3's n = 8 served sequences and 8
+   more served on a given structure of density 0.15, through
+   `GenerationService.render_midi`, 7b's n = 8 LMD16 pieces looped 4
+   times, with ms a sequence of each on the card's host (median of 5
+   passes); the generate CLI (`--n 2 --n_loops 4`) on phase 3's model
+   directory: its launches, 4 native renders, its files byte-equal to the
+   Python writer's on the (mask, tokens) it generated. `mtp_from_logits`
+   on the card on one n = 8 batch's logits, equal to the CPU's. Plotting
+   and `cli.stats` need matplotlib, which the card's machine lacks: the CPU
+   tests hold them to the JAX package's.
+10. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase), the card line, and last
    {"ok": true, "device": {...}}.
@@ -231,8 +250,6 @@ TC_DH_FUSED_BF16_MS = 5.024
 # the kernels of `csrc/gcl_bwd_fused_bf16_tc.cu`, by their symbols
 FUSED_BF16_KERNELS = {"dH": "gcl_bwd_fused_bf16_tc_kernel",
                       "dW": "gcl_bwd_dw_bf16_tc_kernel"}
-FP32_TFLOPS = 67.0    # H100 SXM, fp32 on CUDA cores (NVIDIA data sheet)
-BF16_TFLOPS = 989.0   # H100 SXM, dense bf16 on the tensor cores
 HBM_TBPS = 3.35       # H100 SXM device memory
 SEED = 0
 
@@ -255,7 +272,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float, tflops: float = FP32_TFLOPS):
+def peak_tflops(bf16: bool = False) -> float:
+    """The card's peak TFLOP/s, fp32 on the CUDA cores or dense bf16 on the
+    tensor cores, from `polyphemus_tpu_torch.flops.PEAK_FLOPS` (the one copy
+    of these data-sheet figures); fails on a card that is not there."""
+    import torch
+
+    from polyphemus_tpu_torch import flops
+
+    try:
+        return flops.peak_flops(torch.cuda.get_device_name(0),
+                                torch.bfloat16 if bf16 else torch.float32) \
+            / 1e12
+    except KeyError as e:
+        fail(str(e))
+
+
+def bound_ms(flops: float, nbytes: float, tflops: float = None):
+    """(ms, "operations" or "bytes"): the larger of flops at `tflops` (the
+    card's fp32 peak by default) and nbytes at the HBM rate."""
+    tflops = peak_tflops() if tflops is None else tflops
     t_ops = flops / (tflops * 1e12) * 1e3
     t_mem = nbytes / (HBM_TBPS * 1e12) * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
@@ -438,7 +474,7 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False,
         flops = 2.0 * int(mask.sum()) * 5 * d * d * k_layers
         nbytes = sum(a.numel() * a.element_size() for a in args) \
             + out.numel() * out.element_size()
-        peak = BF16_TFLOPS if bf16 else FP32_TFLOPS
+        peak = peak_tflops(bf16)
         res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, peak)
         res["dense_bound_ms"] = bound_ms(
             flops * mask.numel() / int(mask.sum()), nbytes, peak)[0]
@@ -640,12 +676,13 @@ def check_gcl_train_bf16(nbar, d, device, timing=True):
             r["ms"] = time_ms(kern)
             r["plain_ms"] = time_ms(plain, reps=2)
             r["bound_ms"], r["bound_by"] = bound_ms(data, nbytes[name],
-                                                    BF16_TFLOPS)
+                                                    peak_tflops(True))
             r["cuda_core_bound_ms"] = bound_ms(data, nbytes[name])[0]
-            r["dense_bound_ms"] = bound_ms(dense, nbytes[name], BF16_TFLOPS)[0]
+            r["dense_bound_ms"] = bound_ms(dense, nbytes[name],
+                                           peak_tflops(True))[0]
             r["dense_cuda_core_bound_ms"] = bound_ms(dense, nbytes[name])[0]
             r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name],
-                                                   BF16_TFLOPS)[0]
+                                                   peak_tflops(True))[0]
             r["cost_estimate_cuda_core_bound_ms"] = bound_ms(
                 cost_est, nbytes[name])[0]
     set_train_kernel_counts(before)  # comparison launches do not count
@@ -788,7 +825,7 @@ def check_chord(nbar, d, device, timing=True, bf16=False, chunk=None):
         per_row = 15 * (2.0 * d * d + 2.0 * h * (131 + 99))
         nbytes = sum(a.numel() * a.element_size() for a in args) \
             + out.numel() * 4
-        peak = BF16_TFLOPS if bf16 else FP32_TFLOPS
+        peak = peak_tflops(bf16)
         res["bound_ms"], res["bound_by"] = bound_ms(rows * per_row, nbytes,
                                                     peak)
         res["dense_bound_ms"] = bound_ms(mask.numel() * per_row, nbytes,
@@ -1706,7 +1743,8 @@ def check_dropout_gcl(nbar, d, mode, device, seed=SEED + 17):
 
 def lmd16_vs_cpu(model_dir, device, n=8):
     """n = 8 generated on the card from the z that phase 3's request draws,
-    held to the CPU by `compare_with_cpu`."""
+    held to the CPU by `compare_with_cpu`. Returns its result and the
+    pieces, (mask, tokens) on the host."""
     import torch
 
     from polyphemus_tpu_torch.generate import load_model, make_generator
@@ -1715,8 +1753,8 @@ def lmd16_vs_cpu(model_dir, device, n=8):
     model, cfg = load_model(model_dir, device)
     z = torch.from_numpy(host_z(8, n, cfg.model.d)).to(device)
     mask, tokens = make_generator(model, device=device)(z)
-    return compare_with_cpu(model_dir, (mask.cpu().numpy(),
-                                        tokens.cpu().numpy()), device)
+    pieces = (mask.cpu().numpy(), tokens.cpu().numpy())
+    return compare_with_cpu(model_dir, pieces, device), pieces
 
 
 # ----------------------------------------------------------- phase 4: bench
@@ -1826,8 +1864,8 @@ def lmd16_phases(device, card):
                     "kernel_ms_per_call": 4 * gcl_l16["ms"]
                     + chord_l16["ms"]})
     print("LMD16 bench:", json.dumps(gen_l16))
-    print("LMD16 n=8 against the CPU:",
-          json.dumps(lmd16_vs_cpu(model_l16, device)))
+    cmp_l16, pieces = lmd16_vs_cpu(model_l16, device)
+    print("LMD16 n=8 against the CPU:", json.dumps(cmp_l16))
     samples_l16 = os.path.join(ROOT, "build", "chip_smoke_samples_lmd16")
     write_dataset(samples_l16, 2, mc16.n_bars, SEED + 1)
     cli_l16 = os.path.join(ROOT, "build", "chip_smoke_cli_lmd16")
@@ -1844,7 +1882,8 @@ def lmd16_phases(device, card):
           json.dumps(clis_l16))
     return {"train_launches": l16_launches, "train_kernels": train_l16,
             "gen_launches": gen_l16_launches, "gcl_eval": gcl_l16,
-            "chord_tail": chord_l16, "clis": clis_l16}
+            "chord_tail": chord_l16, "clis": clis_l16, "bench": gen_l16,
+            "train_bench": bench_l16, "pieces": pieces, "mc": mc16}
 
 
 def dropout_phase(device, card, config_path, data_dir):
@@ -2169,6 +2208,203 @@ def data_plane_phase(device, card, config_path):
     return out, launches
 
 
+# ---------------------------------------- phase 9: the remaining surface
+RENDER_REPS = 5       # timed passes over each set of pieces
+LOOPS = 4             # the looped pieces' n_loops, as the CLIs run it
+
+
+def mfu_shares(rates) -> dict:
+    """{path: MFU in percent} from {path: (seq/s, FLOP a sequence, bf16)}
+    against the card's peaks (`flops.PEAK_FLOPS`); fails when a share is
+    not in (0, 100]."""
+    from polyphemus_tpu_torch import flops
+
+    shares = {}
+    for name, (seq_s, per_seq, bf16) in rates.items():
+        shares[name] = flops.mfu(seq_s, per_seq, peak_tflops(bf16) * 1e12)
+        check(0 < shares[name] <= 100,
+              f"MFU of {name}: {shares[name]} % of the card's peak")
+    return shares
+
+
+def python_midi(tokens, mask, resolution, n_loops=1, gen_cfg=None) -> bytes:
+    """The Python writer's bytes of one piece: `song_from_tokens` (+
+    `loop_song`), `midi_bytes`."""
+    from polyphemus_tpu_torch.generate import song_from_tokens
+    from polyphemus_tpu_torch.midi import midi_bytes
+    from polyphemus_tpu_torch.midi.song import loop_song
+
+    song = song_from_tokens(tokens, mask, resolution, gen_cfg)
+    if n_loops > 1:
+        song = loop_song(song, n_loops, mask.shape[0], resolution)
+    return midi_bytes(song)
+
+
+def render_vs_python(native, python, n) -> dict:
+    """native(i) against python(i) for i < n: byte-equal bytes, and each
+    one's ms a sequence on the host clock (median of RENDER_REPS passes
+    over the n pieces, the two in turns)."""
+    from polyphemus_tpu_torch.midi import fast_render
+
+    before = fast_render.renders
+    for i in range(n):
+        got, want = native(i), python(i)
+        check(got == want, f"native MIDI of piece {i} differs from the "
+                           f"Python writer's ({len(got)} vs {len(want)} "
+                           f"bytes)")
+    check(fast_render.renders == before + n,
+          f"{fast_render.renders - before} native renders for {n} pieces")
+    times = {"native": [], "python": []}
+    for _ in range(RENDER_REPS):
+        for name, fn in (("native", native), ("python", python)):
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            times[name].append((time.perf_counter() - t0) / n * 1e3)
+    return {"pieces": n, "bytes": sum(len(native(i)) for i in range(n)),
+            "native_ms_per_seq": statistics.median(times["native"]),
+            "python_ms_per_seq": statistics.median(times["python"]),
+            "passes_ms_per_seq": times}
+
+
+@contextlib.contextmanager
+def captured_generation(seen: list):
+    """`generate.make_generator`'s functions append each call's (mask,
+    tokens), on the host, to `seen`: what a CLI rendered."""
+    from polyphemus_tpu_torch import generate as G
+
+    make = G.make_generator
+
+    def recording(*args, **kw):
+        fn = make(*args, **kw)
+
+        def run(*inputs):
+            out = fn(*inputs)
+            seen.append((out[0].cpu().numpy(), out[1].cpu().numpy()))
+            return out
+        return run
+
+    G.make_generator = recording
+    try:
+        yield
+    finally:
+        G.make_generator = make
+
+
+def generate_cli_render(model_dir, device, out, mc) -> dict:
+    """The generate CLI (`--n 2 --n_loops LOOPS`) on the card: 4 `gcl_eval`
+    launches at K = 2 and 1 `chord_tail` a call (2 calls), 4 native renders,
+    and each `generated.mid` / `extended.mid` byte-equal to the Python
+    writer's on the (mask, tokens) that the CLI's last call returned."""
+    from polyphemus_tpu_torch.cli import generate as gen_cli
+    from polyphemus_tpu_torch.config import GenerationConfig
+    from polyphemus_tpu_torch.midi import fast_render
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+
+    shutil.rmtree(out, ignore_errors=True)
+    seen = []
+    renders = fast_render.renders
+    gcl.launches = chord_tail.launches = 0
+    gcl.launches_by_k.clear()
+    # ---- the main path ----
+    with captured_generation(seen):
+        gen_cli.main([model_dir, out, "--n", "2", "--n_loops", str(LOOPS),
+                      "--no_audio", "--seed", "2", "--device", str(device)])
+    launches = (dict(gcl.launches_by_k), chord_tail.launches)
+    check(launches == ({2: 8}, 2), f"generate CLI launches {launches}")
+    check(fast_render.renders - renders == 4 and len(seen) == 2,
+          f"generate CLI: {fast_render.renders - renders} native renders, "
+          f"{len(seen)} generator calls")
+    mask, tokens = seen[-1]
+    gen_cfg = GenerationConfig()
+    for i in range(2):
+        for name, loops in (("generated", 1), ("extended", LOOPS)):
+            with open(os.path.join(out, str(i), name + ".mid"), "rb") as f:
+                got = f.read()
+            check(got == python_midi(tokens[i], mask[i], mc.resolution,
+                                     loops, gen_cfg),
+                  f"the generate CLI's {i}/{name}.mid differs from the "
+                  f"Python writer's bytes")
+    return {"files": 4, "bytes": int(sum(
+        os.path.getsize(os.path.join(out, str(i), n + ".mid"))
+        for i in range(2) for n in ("generated", "extended"))),
+        "gcl_eval": launches[0][2], "chord_tail": launches[1]}
+
+
+def mtp_on_card(model_dir, device) -> dict:
+    """`generate.mtp_from_logits` on the card on one n = 8 batch's c_logits
+    against the same call on the CPU: equal exactly, in the logits' dtype,
+    on their device."""
+    import torch
+
+    from polyphemus_tpu_torch.generate import (load_model, make_generator,
+                                               mtp_from_logits)
+    from polyphemus_tpu_torch.serve import host_z
+
+    model, cfg = load_model(model_dir, device)
+    mask, _, _, c_logits = make_generator(model, return_logits=True,
+                                          device=device)(
+        host_z(8, 8, cfg.model.d))
+    got = mtp_from_logits(c_logits, mask)
+    want = mtp_from_logits(c_logits.cpu(), mask.cpu())
+    check(got.device == c_logits.device and got.dtype == c_logits.dtype,
+          f"mtp_from_logits gave {got.dtype} on {got.device}")
+    check(torch.equal(got.cpu(), want),
+          "mtp_from_logits on the card differs from the CPU's")
+    return {"shape": list(got.shape), "dtype": str(got.dtype),
+            "inactive_cells": int((~mask).sum())}
+
+
+def surface_phase(device, card, model_dir, mc, n8, l16, rates) -> dict:
+    """Phase 9: the MFU of every path that chip_smoke times (no new timed
+    loop), the native MIDI render against the Python writer (phase 3's
+    served n = 8 through `GenerationService.render_midi`, 7b's n = 8 LMD16
+    pieces looped LOOPS times, the generate CLI's files), and
+    `mtp_from_logits` on the card. Plotting and `cli.stats` are not run:
+    they need matplotlib, which the card's machine lacks (the CPU tests
+    hold them to the JAX package's). Returns the CLI's launches."""
+    from polyphemus_tpu_torch.data import synthetic_batch
+    from polyphemus_tpu_torch.midi.fast_render import render_midi_bytes
+    from polyphemus_tpu_torch.serve import GenerationService
+
+    # ---- 9. the remaining surface ----
+    print(json.dumps({"mfu_percent": mfu_shares(rates), "card": card}))
+
+    svc = GenerationService(model_dir, batch_cap=8, tiers=[8],
+                            coalesce=False, device=device)
+    renders = {}
+    # phase 3's random-init pieces are nearly empty (one active cell a bar
+    # after `ensure_nonempty_bars`): the render is timed again on 8 pieces
+    # served on a given structure at the synthetic data's density (0.15)
+    given = synthetic_batch(np.random.default_rng(SEED + 9), 1,
+                            mc.n_bars)[1][0]
+    for name, (mask, tokens) in (
+            ("served_lmd2", n8),
+            ("served_lmd2_given_structure", svc.generate(8, seed=8,
+                                                         structure=given))):
+        renders[name] = dict(render_vs_python(
+            lambda i: svc.render_midi(mask[i], tokens[i]),
+            lambda i: python_midi(tokens[i], mask[i], mc.resolution),
+            len(mask)), active_cells=int(mask.sum()))
+    del svc
+    mask16, tokens16 = l16["pieces"]
+    res16 = l16["mc"].resolution
+    renders[f"lmd16_n_loops_{LOOPS}"] = dict(render_vs_python(
+        lambda i: render_midi_bytes(tokens16[i], mask16[i], res16,
+                                    n_loops=LOOPS),
+        lambda i: python_midi(tokens16[i], mask16[i], res16, LOOPS),
+        len(mask16)), active_cells=int(mask16.sum()))
+    print(f"native MIDI render against the Python writer, ms a sequence on "
+          f"the card's host ({card}):", json.dumps(renders))
+    cli = generate_cli_render(model_dir, device, os.path.join(
+        ROOT, "build", "chip_smoke_cli_render"), mc)
+    mtp = mtp_on_card(model_dir, device)
+    print("generate CLI files against the Python writer, mtp_from_logits "
+          "card vs CPU:", json.dumps({"generate_cli": cli,
+                                      "mtp_from_logits": mtp}))
+    return cli
+
+
 def main() -> int:
     try:
         import torch
@@ -2475,7 +2711,23 @@ def main() -> int:
     # ---- 8. the data plane: MIDI -> samples -> shards -> training ----
     _, data_launches = data_plane_phase(device, card, config_path)
 
-    # ---- 9. results ----
+    # ---- 9. the remaining surface: MFU, native render, mtp_from_logits ----
+    from polyphemus_tpu_torch import flops
+
+    gen_f, step_f = flops.generation_flops_per_seq, \
+        flops.train_step_flops_per_seq
+    mc16 = l16["mc"]
+    rates = {
+        "generation_fp32": (res["value"], gen_f(mc), False),
+        "generation_bf16": (res16["value"], gen_f(mc), True),
+        "generation_lmd16_fp32": (l16["bench"]["value"], gen_f(mc16), False),
+        "training_fp32": (train_bench["seq_s"], step_f(mc), False),
+        "training_bf16": (bench16["seq_s"], step_f(mc), True),
+        "training_lmd16_fp32": (l16["train_bench"]["seq_s"], step_f(mc16),
+                                False)}
+    cli_render = surface_phase(device, card, model_dir, mc, n8, l16, rates)
+
+    # ---- 10. results ----
     launches = dict(launches, **train_launches, **gen16_launches)
     # K = 1 runs in the reconstruct CLIs' encoders and the dropout runs'
     # eval steps, counted by the wrapper
@@ -2500,6 +2752,8 @@ def main() -> int:
         launches[name] += n
     for name, n in data_launches.items():
         launches[name] += n
+    for name in ("gcl_eval", "chord_tail"):  # phase 9's generate CLI
+        launches[name] += cli_render[name]
 
     def entry(name, src, replaces, r):
         return {"name": name, "route": "cuda", "source": src,

@@ -4,13 +4,16 @@ so with the reference's generate.py).
     python -m polyphemus_tpu_torch.cli.generate MODEL_DIR OUTPUT_DIR \
         [--n 5] [--n_loops 1] [--no_audio] [--s_file structure.json] \
         [--seed N] [--z_file z.npy] [--gen_config cfg.yaml] [--bf16] \
-        [--s_temp 0] [--c_temp 0] [--device cuda]
+        [--s_temp 0] [--c_temp 0] [--plot_struct] [--plot_proll] \
+        [--device cuda]
 
 MODEL_DIR is a model directory of the JAX package (`checkpoint.msgpack`),
 of the reference (`checkpoint` + `configuration`) or of the port
 (`checkpoint.pt`). It runs on the CUDA device unless `--device cpu` is
 given. Writes OUTPUT_DIR/<i>/generated.mid (+ extended.mid with
---n_loops > 1, + .wav unless --no_audio).
+--n_loops > 1, + .wav unless --no_audio), rendered by the native renderer
+(`midi.fast_render`), and with --plot_struct / --plot_proll
+structure.svg / pianoroll.png (these need matplotlib).
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ import time
 import numpy as np
 import torch
 
+from .. import constants
 from .. import generate as G
 from ..config import GenerationConfig
-from ..midi.song import loop_song
+from ..midi.fast_render import render_midi_bytes
 
 
 def main(argv=None):
@@ -45,9 +49,9 @@ def main(argv=None):
     p.add_argument("--gen_config", type=str, default=None,
                    help="YAML/JSON with MIDI_PROGRAMS / SOUNDFONT_PATH.")
     p.add_argument("--plot_struct", action="store_true", default=False,
-                   help="Not ported yet.")
+                   help="Plot each structure tensor (structure.svg).")
     p.add_argument("--plot_proll", action="store_true", default=False,
-                   help="Not ported yet.")
+                   help="Plot each pianoroll (pianoroll.png).")
     p.add_argument("--no_pallas", action="store_true", default=False,
                    help="Accepted for the JAX CLI's command lines; changes "
                         "nothing (on the card the CUDA kernels always run).")
@@ -62,9 +66,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA device).")
     args = p.parse_args(argv)
-    if args.plot_struct or args.plot_proll:
-        raise NotImplementedError(
-            "--plot_struct and --plot_proll are not ported yet")
     device = G.resolve_device(args.device)
 
     gen_cfg = GenerationConfig.load(args.gen_config)
@@ -102,17 +103,31 @@ def main(argv=None):
     dt = time.time() - t0
     print(f"Inference time: {dt:.3f} s ({args.n / max(dt, 1e-9):.1f} seq/s)")
 
+    programs = [0 if name == "Drums" else gen_cfg.midi_programs.get(name, 0)
+                for name in constants.TRACKS[:mc.n_tracks]]
+
     print(f"Saving MIDI files in {args.output_dir}...")
     for i in range(args.n):
         out_dir = os.path.join(args.output_dir, str(i))
-        song = G.song_from_tokens(tokens_np[i], mask_np[i], mc.resolution,
-                                  gen_cfg)
+        os.makedirs(out_dir, exist_ok=True)
         for name, loops in (("generated", 1),) + (
                 (("extended", args.n_loops),) if args.n_loops > 1 else ()):
-            s = song if loops == 1 else loop_song(song, loops, mc.n_bars,
-                                                  mc.resolution)
-            G.save_song(s, out_dir, name, audio=not args.no_audio,
-                        soundfont_path=gen_cfg.soundfont_path)
+            midi_path = os.path.join(out_dir, name + ".mid")
+            with open(midi_path, "wb") as f:
+                f.write(render_midi_bytes(tokens_np[i], mask_np[i],
+                                          mc.resolution, programs=programs,
+                                          n_loops=loops))
+            if not args.no_audio:
+                G.synthesize_audio(midi_path, gen_cfg.soundfont_path)
+        if args.plot_struct or args.plot_proll:
+            from .. import plotting
+
+            if args.plot_struct:
+                plotting.plot_structure(mask_np[i], out_dir)
+            if args.plot_proll:
+                plotting.plot_pianoroll(G.song_from_tokens(
+                    tokens_np[i], mask_np[i], mc.resolution, gen_cfg),
+                    out_dir)
     print("Finished saving MIDI files.")
 
 

@@ -145,6 +145,21 @@ def make_generator(model, *, conditioned: bool = False,
     return lambda z: run(z)
 
 
+def mtp_from_logits(c_logits: torch.Tensor, mask) -> torch.Tensor:
+    """Dense multitrack-pianoroll logits with hard silences at inactive
+    cells: pitch EOS one-hot at slot 0, PAD at the other slots. Elsewhere
+    the logits pass through, in their dtype and on their device.
+
+    c_logits: (B, nb, T, S, 15, 230); mask: (B, nb, T, S) bool.
+    """
+    silence = torch.zeros(c_logits.shape[-2:], dtype=c_logits.dtype,
+                          device=c_logits.device)
+    silence[0, constants.PitchToken.EOS] = 1.0
+    silence[1:, constants.PitchToken.PAD] = 1.0
+    m = torch.as_tensor(mask, dtype=torch.bool, device=c_logits.device)
+    return torch.where(m[..., None, None], c_logits, silence)
+
+
 # -------------------------------------------------------------------- host render
 def song_from_tokens(tokens: np.ndarray, mask: np.ndarray, resolution: int,
                      gen_config: Optional[GenerationConfig] = None) -> Song:

@@ -1,7 +1,8 @@
 """Native (C++) host code of the port, bound with ctypes.
 
 `fastloader.cpp` holds the packed-shard loader's batch gather
-(`poly_gather_batch`). It is compiled by `CXX` at first use, never at
+(`poly_gather_batch`), `midirender.cpp` the token -> MIDI file renderer
+(`poly_render_midi`). Each is compiled by `CXX` at first use, never at
 import, into `build/polyphemus_tpu_torch/` beside the package, named by a
 hash of the source, the compiler and its flags, and written through a
 temporary file of this process before `os.replace` moves it in, so worker
@@ -69,4 +70,19 @@ def load_fastloader() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
         ctypes.c_int32]
     fn.restype = None
+    return lib
+
+
+def load_midirender() -> ctypes.CDLL:
+    """The MIDI renderer's library, its `poly_render_midi` typed."""
+    lib = build("midirender.cpp")
+    c = ctypes
+    fn = lib.poly_render_midi
+    fn.argtypes = [
+        c.POINTER(c.c_int32), c.POINTER(c.c_uint8),
+        c.c_int32, c.c_int32, c.c_int32, c.c_int32,
+        c.POINTER(c.c_int32), c.POINTER(c.c_uint8),
+        c.POINTER(c.c_int32), c.c_int32, c.c_int32, c.c_int32,
+        c.POINTER(c.c_uint8), c.c_int64]
+    fn.restype = c.c_int64
     return lib

@@ -4,7 +4,7 @@ Counterpart of `polyphemus_tpu/serve.py`: load a model directory once, keep
 one generator per batch *tier* (1 / 8 / 64 / batch_cap by default) so a
 small request does not pay for a full batch — each request routes to the
 smallest tier >= n, pads to it, and slices the outputs. MIDI renders on the
-host; HTTP is the standard library.
+host, in C++ (`midi.fast_render`); HTTP is the standard library.
 
     python -m polyphemus_tpu_torch.cli.serve MODEL_DIR --port 8000
 
@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from . import generate as G
+from .midi.fast_render import render_midi_bytes
 
 _MAX_CACHED_GENERATORS = 24
 
@@ -233,10 +234,10 @@ class GenerationService:
                     w.event.set()
 
     def render_midi(self, mask: np.ndarray, tokens: np.ndarray) -> bytes:
-        """One sequence's (mask, tokens) -> standard MIDI file bytes."""
-        from .midi.writer import midi_bytes
-
-        return midi_bytes(G.song_from_tokens(tokens, mask, self.mc.resolution))
+        """One sequence's (mask, tokens) -> standard MIDI file bytes, by the
+        native renderer (`midi.fast_render`) with the default programs and
+        track names."""
+        return render_midi_bytes(tokens, mask, self.mc.resolution)
 
 
 def make_handler(svc: GenerationService):

@@ -160,9 +160,15 @@ class AsyncSaver:
 
 
 def load_checkpoint(model_dir: str, name: str, model, optimizer) -> tuple:
-    """Load `<name>.pt` into model and optimizer; returns (step, meta)."""
+    """Load `<name>.pt` into model and optimizer; returns (step, meta). A
+    params-only `<name>.pt` (a bare state dict, as `cli.convert` writes it
+    through `convert.save_checkpoint`) loads the weights alone: the
+    optimizer stays fresh, at step 0 and an empty meta."""
     obj = torch.load(path(model_dir, name), map_location="cpu",
                      weights_only=True)
+    if "optimizer" not in obj:
+        model.load_state_dict(obj)
+        return 0, {}
     model.load_state_dict(obj["model"])
     optimizer.load_state_dict(obj["optimizer"])
     return int(obj["step"]), dict(obj["meta"])

@@ -11,7 +11,9 @@ Counterpart of `polyphemus_tpu/train/trainer.py`:
     order: the batch-norm running statistics chain through them, the grads
     are averaged over them, and so are the losses and metrics. Beta is read
     at the count of completed updates;
-  * `Trainer`: epochs, `metrics.jsonl` with the JAX trainer's keys (and,
+  * `Trainer`: epochs, a stats line with seq/s (and, on a card in
+    `flops.PEAK_FLOPS`, the MFU against its peak for the compute dtype),
+    `metrics.jsonl` with the JAX trainer's keys (and,
     with `tensorboard`, the same scalars under the same tags in
     `<model_dir>/tb`), evaluation, the rolling `checkpoint` and
     `best_model` saves through an `AsyncSaver`, resume, a profiler trace of
@@ -39,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import flops
 from ..config import TrainConfig
 from ..generate import exact_fp32
 from ..utils import StepTimer, profile_trace
@@ -419,6 +422,21 @@ class Trainer:
             return None
         return self._timer.steps_per_sec * self.cfg.batch_size
 
+    def mfu(self, seq_s: float) -> Optional[float]:
+        """`seq_s` training sequences a second as a percentage of the card's
+        peak for the step's compute dtype (bf16 with `cfg.bf16`, else fp32;
+        `flops.PEAK_FLOPS`). None off a card, or on a card not in the
+        table."""
+        if self.device.type != "cuda":
+            return None
+        dtype = torch.bfloat16 if self.cfg.bf16 else torch.float32
+        try:
+            peak = flops.peak_flops(self.device, dtype)
+        except KeyError:
+            return None
+        return flops.mfu(seq_s, flops.train_step_flops_per_seq(
+            self.cfg.model), peak)
+
     def _eval_and_save(self, valid_iter_fn):
         val_losses, val_accs = self.evaluate(valid_iter_fn)
         for k, v in val_losses.items():
@@ -452,6 +470,9 @@ class Trainer:
                  for key, v in self.tr_accuracies.items()}
         seq_s = self.seq_per_sec()
         thr = f" {seq_s:.0f} seq/s" if seq_s is not None else ""
+        share = self.mfu(seq_s) if seq_s is not None else None
+        if share is not None:
+            thr += f" ({share:.1f}% MFU)"
         print(f"[{time.time() - start:8.1f}s] epoch {epoch + 1}/{epochs} "
                  f"batch {self.tot_batches + 1}{thr} losses={avg_l} "
                  f"accs={avg_a}")

@@ -103,9 +103,33 @@ def test_generate_bf16_and_audio(tmp_path, model_dir):
     assert wav.exists() and wav.read_bytes()[:4] == b"RIFF"
 
 
-def test_generate_refuses_plots(tmp_path, model_dir):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        generate([model_dir, str(tmp_path / "o"), "--plot_struct", *CPU])
+def test_generate_refuses_plots(tmp_path, model_dir, monkeypatch):
+    """--plot_struct and --plot_proll write the JAX CLI's files: the same
+    structure.svg (with a fixed SVG hash salt and date) and a pianoroll.png
+    that reads back equal, beside byte-equal MIDI files."""
+    import matplotlib
+    import matplotlib.image
+
+    z = tmp_path / "z.npy"
+    np.save(z, random_z(2, 32, seed=13))
+    args = ["--n", "2", "--no_audio", "--z_file", str(z), "--plot_struct",
+            "--plot_proll"]
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "0")
+    with matplotlib.rc_context({"svg.hashsalt": "polyphemus"}):
+        jax_generate([model_dir, str(tmp_path / "jax"), *args])
+        generate([model_dir, str(tmp_path / "port"), *args, *CPU])
+    fj, fp = files(tmp_path / "jax"), files(tmp_path / "port")
+    assert sorted(fj) == sorted(fp) == [
+        f"{i}/{n}" for i in range(2) for n in ("generated.mid",
+                                               "pianoroll.png",
+                                               "structure.svg")]
+    for name in fj:
+        if name.endswith(".png"):
+            a = matplotlib.image.imread(tmp_path / "jax" / name)
+            b = matplotlib.image.imread(tmp_path / "port" / name)
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert fj[name] == fp[name], name
 
 
 def test_reconstruct_matches_jax(tmp_path, model_dir):

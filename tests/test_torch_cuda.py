@@ -602,3 +602,49 @@ def test_async_saver_saves_the_weights_at_submit_on_the_card(cuda, tmp_path):
         want = {k: v.cpu() for k, v in model.state_dict().items()}
         want_opt = {k: (v["exp_avg"].cpu(), v["exp_avg_sq"].cpu())
                     for k, v in opt.state_dict()["state"].items()}
+
+
+def test_service_renders_natively_on_the_card(cuda, tmp_path):
+    """`GenerationService.render_midi` on ids generated on the card: the
+    native renderer's bytes, equal to the Python writer's, one native render
+    a sequence."""
+    from polyphemus_tpu_torch.midi import fast_render
+    from polyphemus_tpu_torch.serve import GenerationService
+
+    cfg = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
+                      batch_norm=True)
+    chip_smoke.make_model_dir(str(tmp_path), cfg, seed=3)
+    svc = GenerationService(str(tmp_path), batch_cap=8, tiers=[8],
+                            coalesce=False, device=cuda)
+    mask, tokens = svc.generate(4, seed=5)
+    assert tokens.dtype == np.uint8 and mask.any()
+    before = fast_render.renders
+    got = [svc.render_midi(mask[i], tokens[i]) for i in range(4)]
+    assert fast_render.renders == before + 4
+    for i in range(4):
+        assert got[i] == chip_smoke.python_midi(tokens[i], mask[i], 8), i
+
+
+def test_trainer_prints_mfu_on_the_card(cuda, tmp_path, capsys):
+    """On a card in `flops.PEAK_FLOPS` the stats line carries the MFU of
+    the step's seq/s against the fp32 peak."""
+    from polyphemus_tpu_torch import flops
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.data import synthetic_batch
+    from polyphemus_tpu_torch.train.trainer import Trainer
+
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8)
+    cfg = TrainConfig(batch_size=8, model=mc)
+    torch.manual_seed(0)
+    trainer = Trainer(str(tmp_path), VAE(mc), cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    data = [tuple(torch.from_numpy(a).to(cuda)
+                  for a in synthetic_batch(rng, 8, 2)) for _ in range(3)]
+    trainer.fit(lambda: iter(data), 1, seed=1)
+    out = capsys.readouterr().out
+    seq_s = trainer.seq_per_sec()
+    want = flops.mfu(seq_s, flops.train_step_flops_per_seq(mc),
+                     flops.peak_flops(torch.cuda.get_device_name(0),
+                                      torch.float32))
+    assert 0 < trainer.mfu(seq_s) == want <= 100
+    assert "% MFU) losses=" in out, out

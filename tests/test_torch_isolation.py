@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of polyphemus_tpu_torch
 loads nothing of jax, flax, optax, msgpack or polyphemus_tpu (its data
-plane and native gather included) and builds no native library; its entry
+plane, native gather and native MIDI renderer included), neither
+matplotlib nor huggingface_hub, and builds no native library; its entry
 points (generation, serving, training, the generate/reconstruct/interpolate
 CLIs) refuse to run without a card unless asked for the CPU. The kernels
 themselves are held against their plain versions on the card by
@@ -30,8 +31,12 @@ def test_package_imports_no_jax():
                if m.split(".")[0] in ("jax", "flax", "optax", "msgpack")
                or m == "polyphemus_tpu" or m.startswith("polyphemus_tpu.")]
         assert not bad, bad
-        assert len(names) >= 48, names
-        # the native gather builds at first use, not at import
+        assert len(names) >= 54, names
+        # plotting imports matplotlib, and download_models huggingface_hub,
+        # when called: the card's machine has neither
+        assert "matplotlib" not in sys.modules
+        assert "huggingface_hub" not in sys.modules
+        # the native gather and renderer build at first use, not at import
         from polyphemus_tpu_torch import native
         assert not native._libs, native._libs
         print(len(names))
