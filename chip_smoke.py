@@ -178,13 +178,40 @@
    on the card on one n = 8 batch's logits, equal to the CPU's. Plotting
    and `cli.stats` need matplotlib, which the card's machine lacks: the CPU
    tests hold them to the JAX package's.
-10. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
+10. Data parallelism (`parallel.mesh`) under `torchrun --standalone`:
+   (i) the train CLI with one rank on NCCL (the flagship fp32 config, 5
+   steps from phase 8's shards) between two runs of the same CLI without a
+   process group: the first step's losses within 1e-6 relative, the
+   largest over the steps within 10 x the two runs without a group's (the
+   card's backward is not bitwise repeatable, and Adam at the warmup's
+   peak LR turns its rounding into steps of lr on grads whose true value
+   is 0: two runs part by about 10 x a step), 64 launches of each fp32
+   training kernel a step on the rank (read from the rank's output), each
+   run's s/step, and s/step of the fp32 `TrainStep` in chip_smoke's own
+   process on a batch kept on the card, without a group and in a one-rank
+   NCCL group, in turns; (ii) two ranks on the
+   one card over gloo (NCCL refuses two ranks on one GPU; gloo's
+   all-reduce and broadcast take CUDA tensors), the flagship fp32 config
+   at its global batch of 256, 3 steps from seeded weights, batches and
+   eps, against one process on the same: every step's losses within 1e-4
+   relative; the grads after step 1 held to an fp64 step's on the same
+   weights and batch by phase 7's rule (within 0.1 of each max |fp64|, 1
+   - cosine <= 1e-5; at this batch fp32 leaves one process's grads up to
+   4 % of their max from fp64's on an H100), with the largest distance from one
+   process's reported; the kernels' launches
+   on each rank, s/step and the seconds of a gradient all-reduce through
+   the host; (iii) the same in bf16 (`examples/training_lmd2_bf16.json`,
+   2 steps, `bn_linear_merge`'s input centred as in phase 6): losses
+   within 3e-2 relative.
+11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
-   of every phase), the card line, and last
+   of every phase, phase 10's on every rank), the card line, and last
    {"ok": true, "device": {...}}.
 
-Any failure exits non-zero before the last line. Without a CUDA device, or
-without the package beside it, it exits non-zero and prints no result.
+Any failure, a child process's too, exits non-zero before the last line.
+Without a CUDA device, or without the package beside it, it exits non-zero
+and prints no result. `chip_smoke.py two_rank_child SPEC` is one rank of
+phase 10's (ii) and (iii), started by the phase itself.
 """
 from __future__ import annotations
 
@@ -1371,12 +1398,12 @@ def witness_fp64_grads(model, cfg, toks, mask, eps, device):
     return {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
 
 
-def hold_against_witness(grads, g64, check_grads):
+def hold_against_witness(grads, g64, check_grads, held_run="card"):
     """Each fp32 run's grads (`grads`: {run: {name: grad}}) against the fp64
     witness's: the largest max abs err over max |fp64| and the least cosine
     over the grads that are not noise (max above GRAD_NOISE x the largest),
     and the largest abs err over GRAD_NOISE x the largest on the others.
-    With check_grads, the card's run ("card") must keep each grad within
+    With check_grads, the run `held_run` must keep each grad within
     WITNESS_GRAD_TOL of its max |fp64| and within WITNESS_GRAD_COS_GAP of
     its direction, and each noise grad within GRAD_NOISE x the largest."""
     scale = max(g.abs().max().item() for g in g64.values())
@@ -1395,12 +1422,12 @@ def hold_against_witness(grads, g64, check_grads):
                 ((g[n].double() - g64[n]).abs().max().item()
                  / (GRAD_NOISE * scale) for n in noise), default=0.0),
             "worst": {n: err[n] for n in worst}}
-    card = report["card"]
+    card = report[held_run]
     check(not check_grads or (
         card["max_grad_err_over_max"] <= WITNESS_GRAD_TOL
         and 1.0 - card["min_grad_cosine"] <= WITNESS_GRAD_COS_GAP
         and card["noise_max_err_over_noise_tol"] <= 1.0),
-        f"card grads off the fp64 witness's: {card} (limits: "
+        f"{held_run} grads off the fp64 witness's: {card} (limits: "
         f"{WITNESS_GRAD_TOL} of each max, 1 - cosine "
         f"{WITNESS_GRAD_COS_GAP}, GRAD_NOISE on noise grads)")
     return {"vs_fp64": report, "fp64_largest_grad": scale,
@@ -2405,6 +2432,393 @@ def surface_phase(device, card, model_dir, mc, n8, l16, rates) -> dict:
     return cli
 
 
+# ------------------------------------- phase 10: data parallelism, torchrun
+DDP_STEPS = 5            # W = 1 NCCL steps of the train CLI, and of the
+#                          non-distributed run it is held to
+DDP_LOSS_RTOL = 1e-6     # W = 1 NCCL vs non-distributed: the first step's
+DDP_SPREAD = 10.0        # later steps: this x the spread of two runs
+#                          without a group (a share of it, not a tolerance)
+TWO_RANK_STEPS = {False: 3, True: 2}        # 2 gloo ranks, fp32 and bf16
+TWO_RANK_LOSS_RTOL = {False: 1e-4, True: BF16_LOSS_RTOL}
+CHILD_TIMEOUT = 300      # seconds, one torchrun or CLI process
+LAUNCHES_LINE = re.compile(r"^Kernel launches \(rank (\d+)\): (\{.*\})$",
+                           re.M)
+TWO_RANK_LINE = re.compile(r"^TWO_RANK_RESULT (\{.*\})$", re.M)
+
+
+def torchrun(nproc, *args) -> list:
+    """`torchrun --standalone` (a free port on localhost) of `args`."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), *map(str, args)]
+
+
+def run_child(cmd, what) -> str:
+    """Run `cmd` from the checkout; fail unless it exits 0. Returns its
+    standard output."""
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=CHILD_TIMEOUT)
+    check(out.returncode == 0, f"{what} exited {out.returncode}:\n"
+                               f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def rank_launches(stdout, nproc) -> list:
+    """Each rank's kernel launches, as the train CLI (or a two-rank child)
+    prints them at its end."""
+    found = {int(r): json.loads(c) for r, c in LAUNCHES_LINE.findall(stdout)}
+    check(sorted(found) == list(range(nproc)),
+          f"kernel launches of ranks {sorted(found)}, not of {nproc}")
+    return [found[r] for r in range(nproc)]
+
+
+def cli_records(model_dir):
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def nccl_cli_run(card, config_path, data_dir, n_samples) -> tuple:
+    """(i) The train CLI under `torchrun --nproc_per_node 1` (NCCL on the
+    card) between two runs of it without a process group, DDP_STEPS steps
+    each from `data_dir` on the same seed. The first step's losses (the
+    same work on the same weights) within DDP_LOSS_RTOL of the first run's;
+    the largest relative loss error over the steps within DDP_SPREAD x the
+    second run's (or DDP_LOSS_RTOL): the card's backward is not bitwise
+    repeatable (the embedding, gather and convolution grads accumulate in
+    no fixed order), and Adam, at the peak LR of the warmup, turns that
+    rounding into steps of lr on grads whose true value is 0, so that two
+    runs without a group part by about 10x a step from the second step on
+    (up to 1e-4 at the fifth). 64 launches of each fp32 training kernel a
+    step on the rank, and each run's s/step (the mean of the step
+    intervals after the first, `seq_s` of its last record). Returns (what
+    it prints, the rank's launches)."""
+    from polyphemus_tpu_torch.config import load_train_config
+
+    cfg = load_train_config(config_path)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_ddp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = [data_dir, out_dir, config_path, "--tr_split",
+            repr((DDP_STEPS * cfg.batch_size + 0.5) / n_samples),
+            "--max_epochs", "1", "--save_every", "0", "--num_workers", "8",
+            "--seed", str(SEED)]
+    module = ["-m", "polyphemus_tpu_torch.cli.train"]
+    process_s, stdout = {}, None
+    for name in ("plain", "nccl", "plain_again"):
+        t0 = time.perf_counter()
+        if name == "nccl":
+            # ---- the main path ----
+            stdout = run_child(
+                torchrun(1, *module, *args, "--model_name", name),
+                "the train CLI under torchrun (NCCL)")
+        else:
+            run_child([sys.executable, *module, *args, "--model_name", name],
+                      "the train CLI")
+        process_s[name] = time.perf_counter() - t0
+    check("Devices: 1 mesh={'data': 1, 'model': 1}" in stdout,
+          "the torchrun run did not report one process of data parallelism")
+    launches = rank_launches(stdout, 1)[0]
+    recs = {name: cli_records(os.path.join(out_dir, name))
+            for name in process_s}
+    for r in recs.values():
+        check_records(r, DDP_STEPS)
+
+    def rel_errs(name):  # each step's largest relative loss error
+        return [max(abs(a[f"loss/{k}"] - b[f"loss/{k}"])
+                    / max(abs(b[f"loss/{k}"]), 1e-12) for k in LOSS_KEYS)
+                for a, b in zip(recs[name], recs["plain"])]
+
+    errs = {name: rel_errs(name) for name in ("nccl", "plain_again")}
+    limit = max(DDP_LOSS_RTOL, DDP_SPREAD * max(errs["plain_again"]))
+    check(all(e[0] <= DDP_LOSS_RTOL for e in errs.values())
+          and max(errs["nccl"]) <= limit,
+          f"the losses' relative errors by step from the first run without "
+          f"a process group: {errs} (limits: {DDP_LOSS_RTOL} at the first "
+          f"step, {limit} over all)")
+    check_launches({k: launches[k] for k in train_kernel_counts()},
+                   {"gcl_fwd": 64, "gcl_bwd_data": 64,
+                    "gcl_bwd_weight": 64}, DDP_STEPS)
+    step_s = {name: cfg.batch_size / r[-1]["seq_s"]
+              for name, r in recs.items()}
+    return {"steps": DDP_STEPS, "loss_rel_err_by_step": errs,
+            "loss_rel_err_limit": limit,
+            "s_per_step": step_s,
+            "nccl_over_plain": 2 * step_s["nccl"] / (
+                step_s["plain"] + step_s["plain_again"]),
+            "process_s": process_s,
+            "losses": {name: [x["loss/tot"] for x in r]
+                       for name, r in recs.items()},
+            "launches_rank0": launches, "card": card}, launches
+
+
+def nccl_step_overhead(device, card, config_path, steps=5) -> dict:
+    """s/step of the flagship fp32 `TrainStep` in this process on one
+    batch kept on the card, without a process group and in a one-rank NCCL
+    group (the environment set here as `torchrun` sets it, then restored),
+    in turns: none, NCCL, NCCL, none; `steps` steps a pass after a warm
+    one. What the collectives add to a step, without the loader and the
+    host's spread between processes."""
+    import socket
+
+    import torch
+
+    from polyphemus_tpu_torch.config import load_train_config
+    from polyphemus_tpu_torch.data import synthetic_batch
+    from polyphemus_tpu_torch.models import VAE
+    from polyphemus_tpu_torch.parallel import mesh as pmesh
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    cfg = load_train_config(config_path)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = VAE(cfg.model).to(device)
+    rng = np.random.default_rng(SEED)
+    toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
+        rng, cfg.batch_size, cfg.model.n_bars))
+    step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+
+    def timed():
+        step(toks, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(toks, mask)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in group_env}
+    passes = {"none": [], "nccl": []}
+    try:
+        passes["none"].append(timed())
+        os.environ.update(group_env)
+        check(pmesh.maybe_initialize_distributed() is not None,
+              "no one-rank NCCL group came up")
+        passes["nccl"] += [timed(), timed()]
+        pmesh.destroy()
+        passes["none"].append(timed())
+    finally:
+        pmesh.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    mean = {k: statistics.mean(v) for k, v in passes.items()}
+    return {"steps_a_pass": steps, "s_per_step": passes,
+            "nccl_over_none": mean["nccl"] / mean["none"], "card": card}
+
+
+def two_rank_batches(mc, batch, steps):
+    """The global batches and eps of the two-rank phase, from SEED."""
+    import torch
+
+    from polyphemus_tpu_torch.data import synthetic_batch
+
+    rng = np.random.default_rng(SEED + 10)
+    out = []
+    for _ in range(steps):
+        toks, mask = synthetic_batch(rng, batch, mc.n_bars)
+        eps = rng.standard_normal((batch, mc.d)).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a) for a in (toks, mask, eps)))
+    return out
+
+
+def two_rank_child(spec_path) -> int:
+    """One rank of (ii) and (iii), under `torchrun --nproc_per_node 2`:
+    gloo on the one card, the spec's model, config and global batches,
+    this rank's rows (`data.shard_rows`) stepped through `TrainStep`. Rank
+    0 writes the grads after the first step; every rank prints its losses,
+    s/step, the seconds of one more gradient all-reduce, and its
+    launches."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from polyphemus_tpu_torch.config import load_train_config
+    from polyphemus_tpu_torch.data import shard_rows
+    from polyphemus_tpu_torch.models import VAE
+    from polyphemus_tpu_torch.ops import kernels
+    from polyphemus_tpu_torch.parallel import mesh as pmesh
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = pmesh.maybe_initialize_distributed("cuda:0", backend="gloo")
+    check(device is not None and pmesh.world() == 2,
+          "the two-rank child did not join a group of 2")
+    try:
+        r = pmesh.rank()
+        cfg = load_train_config(spec["config"])
+        model = VAE(cfg.model)
+        model.load_state_dict(torch.load(spec["state"], weights_only=True))
+        model.to(device)
+        step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+        rows = torch.from_numpy(shard_rows(cfg.batch_size,
+                                           cfg.iters_to_accumulate, r, 2))
+        losses, times = [], []
+        batches = two_rank_batches(cfg.model, cfg.batch_size, spec["steps"])
+        for i, batch in enumerate(batches):
+            toks, mask, eps = (t[rows].to(device) for t in batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo, _ = step(toks, mask, eps=eps)
+            lo = {k: float(v) for k, v in lo.items()}
+            times.append(time.perf_counter() - t0)
+            losses.append(lo)
+            if i == 0 and r == 0:
+                torch.save({n: p.grad.detach().cpu()
+                            for n, p in model.named_parameters()},
+                           spec["grads"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pmesh.all_reduce_grads(model.parameters())
+        torch.cuda.synchronize()
+        reduce_s = time.perf_counter() - t0
+        # one write a line: torchrun's ranks write unbuffered to one pipe
+        sys.stdout.write("TWO_RANK_RESULT " + json.dumps(
+            {"rank": r, "losses": losses, "step_s": times,
+             "grad_all_reduce_s": reduce_s}) + "\n")
+        sys.stdout.write(f"Kernel launches (rank {r}): "
+                         f"{json.dumps(kernels.launch_counts())}\n")
+    finally:
+        pmesh.destroy()
+    return 0
+
+
+def two_rank_phase(device, card, bf16) -> tuple:
+    """(ii) fp32 / (iii) bf16: two ranks on the one card over gloo (NCCL
+    refuses two ranks on one GPU), the flagship config at its global batch
+    of 256, TWO_RANK_STEPS[bf16] steps, against one process on the same
+    weights, batches and eps: every step's losses within
+    TWO_RANK_LOSS_RTOL[bf16]; in fp32 also the grads after step 1 held to
+    an fp64 step's on the same weights and batch by phase 7's rule
+    (`hold_against_witness`): at this batch fp32 leaves one process's
+    grads up to 4 % of their max from the fp64 grads on an H100 (the
+    encoder's `linear_merge`), so they are no yardstick at 1e-3; the largest
+    distance between the two ranks' and one process's grads is
+    reported. Each rank's training kernels launched as in phases
+    5 and 6. The bf16 weights have `bn_linear_merge`'s input centred
+    on the first batch (`centre_merge_input`), as phase 6's card-vs-CPU
+    step. Returns (what it prints, both ranks' launches summed)."""
+    import torch
+
+    from polyphemus_tpu_torch.config import load_train_config
+    from polyphemus_tpu_torch.models import VAE
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    name = "training_lmd2_bf16.json" if bf16 else "training_lmd2.json"
+    config_path = os.path.join(ROOT, "examples", name)
+    cfg = load_train_config(config_path)
+    steps = TWO_RANK_STEPS[bf16]
+    work = os.path.join(ROOT, "build", "chip_smoke_two_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 10)
+        model = VAE(cfg.model).to(device)
+    batches = two_rank_batches(cfg.model, cfg.batch_size, steps)
+    if bf16:
+        centre_merge_input(model, cfg.model,
+                           *(t.to(device) for t in batches[0]))
+    else:
+        g64 = witness_fp64_grads(model, cfg, *batches[0], device)
+    spec = {"config": config_path, "steps": steps,
+            "state": os.path.join(work, "state.pt"),
+            "grads": os.path.join(work, "grads.pt")}
+    torch.save(model.state_dict(), spec["state"])
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # ---- the main path ----
+    stdout = run_child(torchrun(2, os.path.join(ROOT, "chip_smoke.py"),
+                                "two_rank_child",
+                                os.path.join(work, "spec.json")),
+                       f"two ranks on gloo ({'bf16' if bf16 else 'fp32'})")
+    child_s = time.perf_counter() - t0
+    results = sorted((json.loads(s) for s in TWO_RANK_LINE.findall(stdout)),
+                     key=lambda x: x["rank"])
+    check([x["rank"] for x in results] == [0, 1],
+          f"two-rank results from ranks {[x['rank'] for x in results]}")
+    check(results[0]["losses"] == results[1]["losses"],
+          "the two ranks report different global losses")
+    launches = rank_launches(stdout, 2)
+    per_step = ({"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32} if bf16 else
+                {"gcl_fwd": 64, "gcl_bwd_data": 64, "gcl_bwd_weight": 64})
+    for counts in launches:
+        check_launches({k: counts[k] for k in train_kernel_counts()},
+                       per_step, steps)
+
+    # one process on the same weights, batches and eps
+    step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+    one, one_s, grads = [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lo, _ = step(*(t.to(device) for t in batch[:2]),
+                     eps=batch[2].to(device))
+        one.append({k: float(v) for k, v in lo.items()})
+        one_s.append(time.perf_counter() - t0)
+        if i == 0:
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()}
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(results[0]["losses"], one) for k in LOSS_KEYS
+              if b[k] != 0.0)
+    check(rel <= TWO_RANK_LOSS_RTOL[bf16],
+          f"two ranks' losses are {rel:.3e} (relative) from one process's "
+          f"({'bf16' if bf16 else 'fp32'})")
+    out = {"bf16": bf16, "steps": steps, "max_loss_rel_err": rel,
+           "losses_two_ranks": [x["tot"] for x in results[0]["losses"]],
+           "losses_one_process": [x["tot"] for x in one],
+           "step_s_two_ranks": results[0]["step_s"],
+           "step_s_one_process": one_s,
+           "grad_all_reduce_s": [x["grad_all_reduce_s"] for x in results],
+           "process_s": child_s, "launches_per_rank": launches,
+           "card": card}
+    if not bf16:
+        two = torch.load(spec["grads"], weights_only=True)
+        out.update(hold_against_witness(
+            {"two_ranks": two, "one_process": grads}, g64, True,
+            held_run="two_ranks"))
+        scale = max(g.abs().max().item() for g in grads.values())
+        out["two_vs_one_max_grad_err_over_max"] = max(
+            (two[n] - g).abs().max().item() / g.abs().max().item()
+            for n, g in grads.items()
+            if g.abs().max().item() > GRAD_NOISE * scale)
+    summed = {k: sum(c[k] for c in launches) for k in per_step}
+    return out, summed
+
+
+def ddp_phase(card, config_path, data_dir, n_samples) -> dict:
+    """Phase 10: (i) the train CLI under torchrun at W = 1 on NCCL against
+    the non-distributed CLI; (ii), (iii) two gloo ranks on the card against
+    one process, fp32 and bf16. Returns the phase's launches (every rank
+    of the torchrun runs)."""
+    import torch
+
+    # ---- 10. data parallelism: torchrun on the card ----
+    device = torch.device("cuda")
+    nccl, launches = nccl_cli_run(card, config_path, data_dir, n_samples)
+    print(f"train CLI, torchrun W = 1 on NCCL against no process group "
+          f"({card}):", json.dumps(nccl))
+    launches = {k: launches[k] for k in ("gcl_fwd", "gcl_bwd_data",
+                                         "gcl_bwd_weight")}
+    overhead = nccl_step_overhead(device, card, config_path)
+    print(f"fp32 TrainStep in one process, without a group and in a "
+          f"one-rank NCCL group, in turns ({card}):", json.dumps(overhead))
+    for bf16 in (False, True):
+        res, summed = two_rank_phase(device, card, bf16)
+        print(f"two gloo ranks on one card against one process "
+              f"({'bf16' if bf16 else 'fp32'}, batch 256, {card}):",
+              json.dumps(res))
+        for k, n in summed.items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2709,7 +3123,7 @@ def main() -> int:
     dropout = dropout_phase(device, card, config_path, data16)
 
     # ---- 8. the data plane: MIDI -> samples -> shards -> training ----
-    _, data_launches = data_plane_phase(device, card, config_path)
+    data_out, data_launches = data_plane_phase(device, card, config_path)
 
     # ---- 9. the remaining surface: MFU, native render, mtp_from_logits ----
     from polyphemus_tpu_torch import flops
@@ -2727,7 +3141,12 @@ def main() -> int:
                                 False)}
     cli_render = surface_phase(device, card, model_dir, mc, n8, l16, rates)
 
-    # ---- 10. results ----
+    # ---- 10. data parallelism: torchrun, NCCL at W = 1, 2 gloo ranks ----
+    ddp_launches = ddp_phase(card, config_path, os.path.join(
+        ROOT, "build", "chip_smoke_data_plane", "packed"),
+        data_out["samples"])
+
+    # ---- 11. results ----
     launches = dict(launches, **train_launches, **gen16_launches)
     # K = 1 runs in the reconstruct CLIs' encoders and the dropout runs'
     # eval steps, counted by the wrapper
@@ -2754,6 +3173,8 @@ def main() -> int:
         launches[name] += n
     for name in ("gcl_eval", "chord_tail"):  # phase 9's generate CLI
         launches[name] += cli_render[name]
+    for name, n in ddp_launches.items():  # every rank of phase 10
+        launches[name] += n
 
     def entry(name, src, replaces, r):
         return {"name": name, "route": "cuda", "source": src,
@@ -2822,4 +3243,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["two_rank_child"]:
+        sys.exit(two_rank_child(sys.argv[2]))
     sys.exit(main())

@@ -17,10 +17,23 @@ without a card otherwise. The model directory OUTPUT_DIR/NAME gets
 `--tensorboard` mirrors the metrics into `tb/` there, and `--profile DIR`
 writes a `torch.profiler` trace of steps 10-15 into DIR. Refused: a model
 axis other than 1.
+
+Data-parallel over W processes, on W cards or on the CPU:
+
+    torchrun --standalone --nproc_per_node W -m polyphemus_tpu_torch.cli.train \
+        DATASET_DIR OUTPUT_DIR CONFIG.json [--device cpu] ...
+
+Each rank runs on `cuda:LOCAL_RANK` (NCCL) unless `--device` is given
+(`--device cpu`: gloo), loads its rows of every global batch and trains
+the model one process trains on the same global batch and seed
+(`parallel.mesh`); rank 0 alone writes the model directory and prints. W
+must divide the microbatch, batch_size / iters_to_accumulate. Every rank
+prints its kernel launches at the end.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import uuid
 
@@ -33,6 +46,8 @@ from ..data import BatchLoader, PolyphemusDataset
 from ..data.sharded import INDEX_NAME
 from ..generate import resolve_device
 from ..models import VAE
+from ..ops import kernels
+from ..parallel import mesh as pmesh
 from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer
 from ..utils import param_count
@@ -77,13 +92,27 @@ def main(argv=None):
                    help="Directory for a torch.profiler trace of steps "
                         "10-15.")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA device)")
+                   help="torch device (default: the CUDA device; under "
+                        "torchrun, cuda:LOCAL_RANK)")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    device = pmesh.maybe_initialize_distributed(args.device)
+    owns_group = device is not None
+    try:
+        return _train(args, device if owns_group
+                      else resolve_device(args.device))
+    finally:
+        if owns_group:
+            pmesh.destroy()
+
+
+def _train(args, device):
     cfg = load_train_config(args.config_file)
     mc = cfg.model
+    layout = pmesh.data_layout(cfg)
+    rank, world = pmesh.rank(), pmesh.world()
+    log = print if rank == 0 else (lambda *a, **k: None)
 
-    print("Preparing datasets and dataloaders...")
+    log("Preparing datasets and dataloaders...")
     if os.path.exists(os.path.join(args.dataset_dir, INDEX_NAME)):
         # a packed shard directory: mmapped shards, the native batch gather
         from ..data.fastloader import FastShardedBatcher
@@ -103,17 +132,25 @@ def main(argv=None):
     vl_set = _Subset(dataset, order[tr_len:tr_len + vl_len])
 
     model_name = args.model_name or str(uuid.uuid1())
+    if world > 1 and args.model_name is None:
+        names = [model_name]
+        torch.distributed.broadcast_object_list(names, src=0)
+        model_name = names[0]
     model_dir = os.path.join(args.output_dir, model_name)
-    os.makedirs(args.output_dir, exist_ok=True)
-    os.makedirs(model_dir, exist_ok=args.resume)
-    save_config(model_dir, cfg)
+    if rank == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        os.makedirs(model_dir, exist_ok=args.resume)
+        save_config(model_dir, cfg)
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = VAE(mc)
     eval_every = args.eval_every
+    # each rank loads its rows of every global batch (of each microbatch)
     train_loader = BatchLoader(tr_set, cfg.batch_size, shuffle=True,
-                               seed=args.seed, num_workers=args.num_workers)
+                               seed=args.seed, num_workers=args.num_workers,
+                               shard=(rank, world),
+                               microbatches=max(cfg.iters_to_accumulate, 1))
     if args.eval and eval_every is None:
         eval_every = len(train_loader)
     trainer = Trainer(model_dir, model, cfg, device=device,
@@ -123,20 +160,26 @@ def main(argv=None):
     train_loader.device_put_fn = trainer.to_device
     valid_loader = (BatchLoader(vl_set, cfg.batch_size, shuffle=False,
                                 num_workers=args.num_workers,
-                                device_put_fn=trainer.to_device)
+                                device_put_fn=trainer.to_device,
+                                shard=(rank, world))
                     if args.eval else None)
-    print(f"Device: {device}")
+    log(f"Device: {device}")
+    log(f"Devices: {world} mesh={layout}")
     if args.resume and ckpt.latest_exists(model_dir):
-        print("Resuming from checkpoint...")
+        log("Resuming from checkpoint...")
         trainer.resume()
-    print(f"Total Trainable Parameters: {param_count(model)}")
+    log(f"Total Trainable Parameters: {param_count(model)}")
 
-    print("Starting training...")
+    log("Starting training...")
     trainer.fit(lambda: iter(train_loader), args.max_epochs,
                 valid_iter_fn=(lambda: iter(valid_loader))
                 if valid_loader is not None else None,
                 early_exit=args.early_exit, seed=args.seed,
                 profile_dir=args.profile)
+    if pmesh.active():
+        # one write: the ranks of `torchrun` write unbuffered to one stream
+        print(f"Kernel launches (rank {rank}): "
+              f"{json.dumps(kernels.launch_counts())}\n", end="", flush=True)
     return trainer
 
 

@@ -1,2 +1,2 @@
 from .dataset import (BatchLoader, PolyphemusDataset,  # noqa: F401
-                      load_sample, synthetic_batch, write_sample)
+                      load_sample, shard_rows, synthetic_batch, write_sample)

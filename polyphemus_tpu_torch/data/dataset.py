@@ -78,14 +78,42 @@ class PolyphemusDataset:
                            self.n_bars)
 
 
+def shard_rows(batch: int, microbatches: int, pid: int,
+               pcount: int) -> np.ndarray:
+    """The rows of a global batch of `batch` that process `pid` of
+    `pcount` takes: its slice of each of the `microbatches` microbatches,
+    global rows [i*mb + pid*mb/pcount, i*mb + (pid+1)*mb/pcount) for
+    microbatch i of mb = batch / microbatches rows. Local microbatch i of
+    every process together is then global microbatch i; with one
+    microbatch this is the contiguous slice the JAX package takes."""
+    mb, rest = divmod(batch, microbatches)
+    if rest or mb % pcount:
+        raise ValueError(
+            f"a batch of {batch} in {microbatches} microbatches does not "
+            f"split evenly over {pcount} processes")
+    per = mb // pcount
+    return np.concatenate([np.arange(i * mb + pid * per,
+                                     i * mb + (pid + 1) * per)
+                           for i in range(microbatches)])
+
+
 class BatchLoader:
     """Shuffling batch iterator with threaded loading and device prefetch:
     share-nothing worker threads (np.load releases the GIL) fill a bounded
-    queue of ready batches."""
+    queue of ready batches.
+
+    `shard=(pid, pcount)` makes it one of `pcount` data-parallel
+    processes: every process builds the same global batch order (the same
+    `seed`) and loads only its rows of each global batch (`shard_rows`,
+    over the `microbatches` the train step splits a batch into). The batch
+    size must be divisible by `pcount` (and each microbatch, too). Every
+    process yields the same number of batches: without `drop_last`, a last
+    batch that does not split evenly raises."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8, drop_last: bool = True,
-                 prefetch: int = 2, device_put_fn=None):
+                 prefetch: int = 2, device_put_fn=None,
+                 shard: tuple = (0, 1), microbatches: int = 1):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -94,6 +122,9 @@ class BatchLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.device_put_fn = device_put_fn
+        self.shard = tuple(shard)
+        self.microbatches = microbatches
+        shard_rows(batch_size, microbatches, *self.shard)  # refuse early
 
     def __len__(self):
         n = len(self.ds)
@@ -117,6 +148,9 @@ class BatchLoader:
             self.rng.shuffle(order)
         batches = [order[i * self.bs:(i + 1) * self.bs]
                    for i in range(len(self))]
+        if self.shard[1] > 1:
+            batches = [b[shard_rows(len(b), self.microbatches, *self.shard)]
+                       for b in batches]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()

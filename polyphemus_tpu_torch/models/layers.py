@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import masked as mops
+from ..parallel import mesh as pmesh
 
 
 class Linear(nn.Linear):
@@ -96,7 +97,9 @@ class MaskedBatchNorm(nn.Module):
 
 class Dropout(nn.Module):
     """Inverted dropout whose mask is drawn from `self.generator` (None:
-    torch's default generator); identity in eval mode or at p = 0."""
+    torch's default generator); identity in eval mode or at p = 0. The
+    leading axis of x is batch-major; under a process group the mask is
+    this rank's rows of the global batch's (`parallel.mesh.global_rows`)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -106,8 +109,9 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        keep = pmesh.global_rows(
+            lambda shape: torch.rand(shape, generator=self.generator,
+                                     device=x.device), x.shape) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 

@@ -35,6 +35,7 @@ from ..ops import fused_embed as fe
 from ..ops import lattice
 from ..ops import masked as mops
 from ..ops.kernels import chord_tail as chord_k
+from ..parallel import mesh as pmesh
 from .gnn import GCN
 from .layers import (MLP, CNNDecoder, CNNEncoder, Dropout, Linear,
                      MaskedBatchNorm)
@@ -288,8 +289,9 @@ class ContentDecoder(nn.Module):
         if seed is not None:
             p = self.drop.p
             gen = torch.Generator(device=x.device).manual_seed(seed)
-            keep = torch.rand(slot_h.shape, generator=gen,
-                              device=x.device) >= p
+            keep = pmesh.global_rows(
+                lambda s: torch.rand(s, generator=gen, device=x.device),
+                slot_h.shape) >= p
             slot_h = torch.where(keep, slot_h / (1.0 - p),
                                  torch.zeros_like(slot_h))
         pitch, dur = self._unembed(slot_h, track_axis=-3)
@@ -424,8 +426,10 @@ class VAE(nn.Module):
         mask = lattice.ensure_nonempty_bars(mask)
         mu, log_var = self.encoder(tokens, mask)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                              dtype=mu.dtype)
+            eps = pmesh.global_rows(
+                lambda s: torch.randn(s, generator=generator,
+                                      device=mu.device, dtype=mu.dtype),
+                mu.shape)
         eps = eps.to(mu.dtype)  # the noise rides the compute dtype
         return mask, mu + torch.exp(0.5 * log_var) * eps, mu, log_var
 

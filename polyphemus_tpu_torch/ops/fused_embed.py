@@ -25,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh as pmesh
+
 
 class GroupStats(NamedTuple):
     mean: torch.Tensor
@@ -36,20 +38,28 @@ def embedding_stats(table, emb_bias, ids, cell_mask) -> GroupStats:
     """Exact masked-BN batch statistics of the rows `table[id] + bias`.
 
     ids (..., n_slots) int; cell_mask (...) bool: every slot of an active
-    cell counts once, as BN over the packed rows does."""
+    cell counts once, as BN over the packed rows does. Under a process
+    group, over every rank's rows."""
     wide = torch.promote_types(table.dtype, torch.float32)
     w = cell_mask[..., None].expand(ids.shape).to(wide)
     vocab = table.shape[0]
     hist = torch.zeros(vocab, dtype=wide, device=table.device)
     hist.index_add_(0, ids.reshape(-1).long(), w.reshape(-1))
-    n = w.sum().clamp(min=1.0)
+    count = w.sum()
+    if pmesh.active():
+        # the global batch's histogram and count (no grad flows through
+        # either); every rank then computes the global statistics
+        hist, count = pmesh.all_reduce_sum(
+            torch.cat([hist, count[None]])).split([vocab, 1])
+        count = count[0]
+    n = count.clamp(min=1.0)
     tw = table.to(wide)
     s1 = (hist @ tw) / n
     s2 = (hist @ tw.square()) / n
     mean = s1 + emb_bias
     ex2 = s2 + 2.0 * emb_bias * s1 + emb_bias.square()
     var = (ex2 - mean.square()).clamp(min=0.0)
-    return GroupStats(mean, var, w.sum())
+    return GroupStats(mean, var, count)
 
 
 def fused_tables(table, emb_bias, a, b, w_slot_rows):

@@ -29,6 +29,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import mesh as pmesh
+
 
 def ensure_nonempty_bars(mask: torch.Tensor) -> torch.Tensor:
     """Force cell [0, 0] active in bars with no activations.
@@ -206,10 +208,15 @@ def relational_messages(x, mask, nbr: LatticeNeighbors, gate_table, *,
     return h_track, h_onset, h_next, h_self
 
 
-def keep_mask(shape, keep_p: float, generator, device) -> torch.Tensor:
+def keep_mask(shape, keep_p: float, generator, device,
+              batch_dim: int = 0) -> torch.Tensor:
     """Bool mask of `shape`, True with probability `keep_p`, drawn from
-    `generator` (None: torch's default generator) on `device`."""
-    return torch.rand(shape, generator=generator, device=device) < keep_p
+    `generator` (None: torch's default generator) on `device`. Axis
+    `batch_dim` is batch-major: under a process group the mask is this
+    rank's rows of the global batch's (`parallel.mesh.global_rows`)."""
+    return pmesh.global_rows(
+        lambda s: torch.rand(s, generator=generator, device=device), shape,
+        batch_dim) < keep_p
 
 
 def gcl_apply(x, mask, nbr: LatticeNeighbors, gate_table, rel_weight, root,
@@ -238,7 +245,8 @@ def gcl_apply(x, mask, nbr: LatticeNeighbors, gate_table, rel_weight, root,
         scale = 1.0 - message_dropout
         stacked = torch.stack([h_track, h_onset, h_next, h_self])
         km = (keep if keep is not None
-              else keep_mask(stacked.shape, scale, generator, x.device))
+              else keep_mask(stacked.shape, scale, generator, x.device,
+                             batch_dim=1))
         stacked = torch.where(km, stacked / scale,
                               torch.zeros((), dtype=x.dtype, device=x.device))
         h_track, h_onset, h_next, h_self = stacked.unbind(0)

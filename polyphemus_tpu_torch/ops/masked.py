@@ -17,18 +17,34 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh as pmesh
+
 
 def masked_moments(x, mask, dims):
     """Mean, biased variance and count of x over `dims`, counting only the
     mask-true entries. x (..., d); mask broadcastable to x.shape[:-1]. The
     sums run in fp32 or wider (a 2-byte x's squares too, as XLA fuses them
-    into the sum) and round to x's dtype."""
+    into the sum) and round to x's dtype.
+
+    Under a process group the sums and the count are taken over every
+    rank's rows (`parallel.mesh.all_reduce_sum`, whose backward carries
+    the gradient to every rank's x), as one program over the global batch
+    takes them; they round to x's dtype after the global sum."""
     m = mask.to(x.dtype)[..., None]
-    cnt = m.sum(dim=dims)
-    cnt_safe = cnt.clamp(min=1.0)
-    mean = (x * m).sum(dim=dims) / cnt_safe
     wide = torch.promote_types(x.dtype, torch.float32)
-    sq = (x.to(wide).square() * m).sum(dim=dims).to(x.dtype)
+    if pmesh.active():
+        d = x.shape[-1]
+        sums = pmesh.all_reduce_sum(torch.cat([
+            (x * m).to(wide).sum(dim=dims),
+            (x.to(wide).square() * m).sum(dim=dims),
+            m.to(wide).sum(dim=dims)]))
+        s1, sq, cnt = (t.to(x.dtype) for t in sums.split([d, d, 1]))
+    else:
+        cnt = m.sum(dim=dims)
+        s1 = (x * m).sum(dim=dims)
+        sq = (x.to(wide).square() * m).sum(dim=dims).to(x.dtype)
+    cnt_safe = cnt.clamp(min=1.0)
+    mean = s1 / cnt_safe
     var = sq / cnt_safe - mean.square()
     return mean, var.clamp(min=0.0), cnt
 

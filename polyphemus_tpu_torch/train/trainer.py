@@ -26,7 +26,13 @@ master parameters and batch-norm statistics, the grads flow through the
 casts into the fp32 masters that Adam updates, and the new running
 statistics come back to the fp32 masters. Checkpoints stay fp32.
 
-Not ported, and refused when asked for: model parallelism.
+Under a process group (`parallel.mesh`, W ranks started by `torchrun`)
+every rank steps on its rows of each global microbatch: its losses are its
+share of the global ones (`train/losses.py`), the grads are summed over the
+ranks in one all-reduce after the microbatches, and the reported losses and
+metrics are the global batch's, the same on every rank, so that every rank
+takes the same decisions. Only rank 0 writes files and prints. Model
+parallelism is not ported; `parallel.mesh.data_layout` refuses it.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import torch
 from .. import flops
 from ..config import TrainConfig
 from ..generate import exact_fp32
+from ..parallel import mesh as pmesh
 from ..utils import StepTimer, profile_trace
 from . import checkpoint as ckpt
 from .losses import compute_losses, losses_from_stats
@@ -134,13 +141,26 @@ def _mean(dicts: list) -> dict:
             for k in dicts[0]}
 
 
+def _global_losses(hist: list) -> list:
+    """Each (micro)batch's losses summed over the ranks (one all-reduce):
+    the ranks' shares add up to the global batch's losses."""
+    if not pmesh.active():
+        return hist
+    keys = list(hist[0])
+    sums = pmesh.all_reduce_sum(torch.stack(
+        [torch.stack([h[k] for k in keys]) for h in hist]))
+    return [dict(zip(keys, row)) for row in sums]
+
+
 class TrainStep:
     """step(tokens, mask, *, eps=None, generator=None) -> (losses, accs):
     one optimizer update of `model` in place, in full fp32 (no TF32 in
     matmuls or convolutions) or under the bf16 policy (`cfg.bf16`; bf16
     products reduce in fp32). `eps` (B, d) is the reparameterisation noise
     of the whole batch, else it is drawn from `generator`. `updates` counts
-    the completed updates."""
+    the completed updates. Under a process group `tokens`, `mask` and `eps`
+    are this rank's rows of the global batch (`data.shard_rows`), and the
+    losses and metrics returned are the global batch's."""
 
     def __init__(self, model, cfg: TrainConfig, optimizer,
                  with_metrics: bool = True):
@@ -176,6 +196,8 @@ class TrainStep:
                 tot.backward()
             losses_h.append({k: v.detach() for k, v in losses.items()})
             accs_h.append(accs)
+        pmesh.all_reduce_grads(model.parameters())
+        losses_h = _global_losses(losses_h)
         if accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -197,7 +219,8 @@ def make_train_step(model, cfg: TrainConfig, optimizer,
 @torch.no_grad()
 def eval_step(model, cfg: TrainConfig, tokens, mask, updates: int, *,
               eps=None, generator=None):
-    """(losses, accs) of one batch in eval mode (running statistics)."""
+    """(losses, accs) of one batch in eval mode (running statistics); under
+    a process group, the global batch's."""
     beta = 0.0 if cfg.ref_parity else beta_schedule(cfg.beta_scheduler,
                                                     updates)
     model.eval()
@@ -207,21 +230,28 @@ def eval_step(model, cfg: TrainConfig, tokens, mask, updates: int, *,
                                            eps=eps, generator=generator)
     finally:
         model.train()
-    return losses, accs
+    return _global_losses([losses])[0], accs
 
 
 class Trainer:
-    """Host loop: epochs, periodic print/eval/save, early exit, resume."""
+    """Host loop: epochs, periodic print/eval/save, early exit, resume.
+
+    Under a process group every rank runs the loop on its rows of each
+    batch and takes the same decisions from the global losses; rank 0
+    alone writes metrics.jsonl, TensorBoard, the checkpoints and their meta
+    files, the profiler trace, and prints."""
 
     def __init__(self, model_dir: str, model, cfg: TrainConfig, *, device,
                  print_every: int = 1, save_every: int = 10,
                  eval_every: Optional[int] = None, tensorboard: bool = False):
-        if cfg.parallel.model_axis != 1:
-            raise NotImplementedError("model parallelism is not ported")
+        self.layout = pmesh.data_layout(cfg)
+        self.is_primary = pmesh.is_primary()
+        self.log = print if self.is_primary else (lambda *a, **k: None)
         self.model_dir = model_dir
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        pmesh.broadcast_module(self.model)
         self.print_every = print_every
         self.save_every = save_every
         self.eval_every = eval_every
@@ -230,13 +260,13 @@ class Trainer:
         self._jsonl_path = os.path.join(model_dir, "metrics.jsonl")
         # optional TensorBoard mirror of the JSONL metrics
         self._tb = None
-        if tensorboard:
+        if tensorboard and self.is_primary:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
                 self._tb = SummaryWriter(os.path.join(model_dir, "tb"))
             except Exception as e:  # noqa: BLE001 - a logging option
-                print(f"TensorBoard unavailable ({e}); JSONL only")
+                self.log(f"TensorBoard unavailable ({e}); JSONL only")
         self.tr_losses = defaultdict(list)
         self.tr_accuracies = defaultdict(list)
         self.val_losses = defaultdict(list)
@@ -282,6 +312,7 @@ class Trainer:
                 hist[k] = list(v)
         self.lrs = list(meta.get("lrs", []))
         self.betas = list(meta.get("betas", []))
+        pmesh.broadcast_module(self.model)
 
     # ------------------------------------------------------------------ loop
     def fit(self, train_iter_fn, epochs: int, valid_iter_fn=None,
@@ -293,8 +324,8 @@ class Trainer:
         generator seeded with `seed` (default: the config's). With
         `profile_dir`, the batches from `profile_steps[0]` up to
         `profile_steps[1]` (counted over the run) are traced there
-        (`utils.profile_trace`). Returns once the last checkpoint is on
-        disk."""
+        (`utils.profile_trace`; rank 0's steps). Returns once the last
+        checkpoint is on disk."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed if seed is None else seed)
         self.model.set_dropout_generator(gen)
@@ -306,14 +337,14 @@ class Trainer:
         for epoch in range(epochs):
             self.cur_epoch = epoch
             for tokens, mask in train_iter_fn():
-                if profile_dir is not None:
+                if profile_dir is not None and self.is_primary:
                     if self.tot_batches == profile_steps[0] and not profiling:
                         trace.enter_context(profile_trace(profile_dir))
                         profiling = True
                     elif self.tot_batches == profile_steps[1] and profiling:
                         trace.close()
                         profiling = False
-                        print(f"Profiler trace written to {profile_dir}")
+                        self.log(f"Profiler trace written to {profile_dir}")
                 losses, accs = self.train_step(tokens, mask, generator=gen)
                 self._record(self.tot_batches, epoch, losses, accs)
                 n = self.tot_batches + 1
@@ -332,8 +363,8 @@ class Trainer:
                 break
         if profiling:
             trace.close()
-            print(f"Profiler trace written to {profile_dir}")
-        print(f"Training completed in {time.time() - start:.1f}s")
+            self.log(f"Profiler trace written to {profile_dir}")
+        self.log(f"Training completed in {time.time() - start:.1f}s")
         self.save("checkpoint")
 
     def evaluate(self, valid_iter_fn, seed: int = 0):
@@ -353,7 +384,10 @@ class Trainer:
     def save(self, name: str, blocking: bool = True) -> None:
         """Save `<name>.pt` and `<name>.json` through the `AsyncSaver`: the
         snapshot is taken now; with `blocking`, every save is on disk when
-        this returns."""
+        this returns. Rank 0 alone saves (every rank holds the same
+        state)."""
+        if not self.is_primary:
+            return
         meta = {
             "epoch": self.cur_epoch,
             "tot_batches": self.tot_batches,
@@ -374,8 +408,8 @@ class Trainer:
 
     # ------------------------------------------------------------ internals
     def _record(self, batch_i, epoch_i, losses, accs):
-        """Histories, one metrics.jsonl line (and TensorBoard scalars), and
-        the non-finite streak."""
+        """Histories, one metrics.jsonl line (and TensorBoard scalars; rank 0
+        alone), and the non-finite streak."""
         self._timer.tick()
         l_host = {k: float(v) for k, v in losses.items()}
         a_host = {k: float(v) for k, v in accs.items()}
@@ -395,9 +429,10 @@ class Trainer:
             rec["seq_s"] = round(seq_s, 1)
         rec.update({f"loss/{k}": v for k, v in l_host.items()})
         rec.update({f"acc/{k}": v for k, v in a_host.items()})
-        os.makedirs(self.model_dir, exist_ok=True)
-        with open(self._jsonl_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        if self.is_primary:
+            os.makedirs(self.model_dir, exist_ok=True)
+            with open(self._jsonl_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
         if self._tb is not None:
             for k, v in l_host.items():
                 self._tb.add_scalar(f"loss/{k}", v, batch_i)
@@ -416,17 +451,17 @@ class Trainer:
             self._nan_steps = 0
 
     def seq_per_sec(self) -> Optional[float]:
-        """Sequences per second over the last (up to 50) steps of this fit,
-        on the host clock (each step ends in a device sync)."""
+        """Global-batch sequences per second over the last (up to 50) steps
+        of this fit, on the host clock (each step ends in a device sync)."""
         if not self._timer.times:
             return None
         return self._timer.steps_per_sec * self.cfg.batch_size
 
     def mfu(self, seq_s: float) -> Optional[float]:
-        """`seq_s` training sequences a second as a percentage of the card's
-        peak for the step's compute dtype (bf16 with `cfg.bf16`, else fp32;
-        `flops.PEAK_FLOPS`). None off a card, or on a card not in the
-        table."""
+        """`seq_s` training sequences a second (the global batch's) as a
+        percentage of the peak of the W cards of the run for the step's
+        compute dtype (bf16 with `cfg.bf16`, else fp32; `flops.PEAK_FLOPS`).
+        None off a card, or on a card not in the table."""
         if self.device.type != "cuda":
             return None
         dtype = torch.bfloat16 if self.cfg.bf16 else torch.float32
@@ -435,7 +470,7 @@ class Trainer:
         except KeyError:
             return None
         return flops.mfu(seq_s, flops.train_step_flops_per_seq(
-            self.cfg.model), peak)
+            self.cfg.model), peak * self.layout["data"])
 
     def _eval_and_save(self, valid_iter_fn):
         val_losses, val_accs = self.evaluate(valid_iter_fn)
@@ -443,9 +478,9 @@ class Trainer:
             self.val_losses[k].append(v)
         for k, v in val_accs.items():
             self.val_accuracies[k].append(v)
-        print(f"Val losses: {val_losses}")
-        print(f"Val accuracies: {val_accs}")
-        if val_losses:
+        self.log(f"Val losses: {val_losses}")
+        self.log(f"Val accuracies: {val_accs}")
+        if val_losses and self.is_primary:
             rec = {"batch": self.tot_batches, "epoch": self.cur_epoch}
             rec.update({f"val_loss/{k}": v for k, v in val_losses.items()})
             rec.update({f"val_acc/{k}": v for k, v in val_accs.items()})
@@ -458,7 +493,7 @@ class Trainer:
                 self._tb.add_scalar(f"val_acc/{k}", v, self.tot_batches)
             self._tb.flush()
         if val_losses.get("tot", float("inf")) < self.min_val_loss:
-            print("Validation loss improved; saving best model.")
+            self.log("Validation loss improved; saving best model.")
             self.min_val_loss = val_losses["tot"]
             self.save("best_model", blocking=False)
 
@@ -473,6 +508,6 @@ class Trainer:
         share = self.mfu(seq_s) if seq_s is not None else None
         if share is not None:
             thr += f" ({share:.1f}% MFU)"
-        print(f"[{time.time() - start:8.1f}s] epoch {epoch + 1}/{epochs} "
+        self.log(f"[{time.time() - start:8.1f}s] epoch {epoch + 1}/{epochs} "
                  f"batch {self.tot_batches + 1}{thr} losses={avg_l} "
                  f"accs={avg_a}")

@@ -648,3 +648,59 @@ def test_trainer_prints_mfu_on_the_card(cuda, tmp_path, capsys):
                                       torch.float32))
     assert 0 < trainer.mfu(seq_s) == want <= 100
     assert "% MFU) losses=" in out, out
+
+
+def test_one_rank_nccl_train_step_is_the_plain_step(cuda, monkeypatch):
+    """A process group of one rank on NCCL (the environment `torchrun`
+    gives it): the batch-norm sums, the losses' counts and the grads go
+    through NCCL's all-reduce, and the step equals the step without a
+    group (d = 128, 2 layers, batch 8 in 2 microbatches)."""
+    import copy
+    import socket
+
+    from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.data import synthetic_batch
+    from polyphemus_tpu_torch.parallel import mesh as pmesh
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
+                     batch_norm=True)
+    cfg = TrainConfig(batch_size=8, model=mc, iters_to_accumulate=2)
+    torch.manual_seed(0)
+    model = VAE(mc).to(cuda)
+    rng = np.random.default_rng(1)
+    toks, mask = (torch.from_numpy(a).to(cuda)
+                  for a in synthetic_batch(rng, 8, mc.n_bars))
+    eps = torch.from_numpy(rng.standard_normal((8, mc.d)).astype(
+        np.float32)).to(cuda)
+    runs = {}
+    for name in ("plain", "nccl"):
+        m = copy.deepcopy(model)
+        if name == "nccl":
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                         "MASTER_ADDR": "localhost",
+                         "MASTER_PORT": str(port)}.items():
+                monkeypatch.setenv(k, v)
+            assert pmesh.maybe_initialize_distributed() is not None
+            assert torch.distributed.get_backend() == "nccl"
+        try:
+            before = chip_smoke.train_kernel_counts()
+            step = tr.make_train_step(m, cfg, tr.make_optimizer(m, cfg))
+            losses, accs = step(toks, mask, eps=eps)
+            after = chip_smoke.train_kernel_counts()
+        finally:
+            pmesh.destroy()
+        assert after["gcl_fwd"] - before["gcl_fwd"] == 8
+        runs[name] = (losses, accs, {n: p.grad for n, p in
+                                     m.named_parameters()})
+    (lp, ap, gp), (ln, an, gn) = runs["plain"], runs["nccl"]
+    for k in lp:
+        torch.testing.assert_close(ln[k], lp[k], rtol=1e-6, atol=0)
+    for k in ap:
+        torch.testing.assert_close(an[k], ap[k], rtol=1e-6, atol=0)
+    for n, g in gp.items():
+        torch.testing.assert_close(gn[n], g, rtol=1e-6, atol=1e-6 * float(
+            g.abs().max()), msg=n)
