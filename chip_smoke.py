@@ -203,15 +203,35 @@
    the host; (iii) the same in bf16 (`examples/training_lmd2_bf16.json`,
    2 steps, `bn_linear_merge`'s input centred as in phase 6): losses
    within 3e-2 relative.
+10b. Tensor parallelism (`parallel.model_axis` 2): (i) the column forms
+   of the GCL kernels (output width n of d = 512: `gcl_fwd`, `gcl_eval` at
+   K = 1, `gcl_bwd_data`, `gcl_bwd_weight` in fp32 at 64 and 128 bars,
+   `gcl_fwd`, `gcl_eval` and `gcl_bwd_fused` in bf16 at 256 bars; n = 256
+   and 128) against their plain versions on every shard (fp32: rtol = atol
+   = 2e-4, the sums over bars 1e-4 x max |plain|; bf16: 2e-2), the
+   partial dx and dgate summed over the shards against the square plain
+   version, each timed beside the square launch and its bound; (ii) two
+   gloo ranks at model axis 2 through the `Trainer`, the flagship fp32
+   config, 3 steps, against one process as in phase 10 (ii) (losses 1e-4
+   relative, the grads after step 1 held to an fp64 step's; the last
+   step's collectives timed on the host), after an eval step on the
+   first batch (its losses as one process's on the same weights); (iii)
+   the same in bf16, 2 steps, losses
+   3e-2; (iv) four gloo ranks at D = 2 x M = 2, fp32, 2 steps, against
+   (ii)'s one process. On every rank every training-kernel launch is in
+   the column form (64 of each fp32 kernel, 32 of each bf16 one a step)
+   and the eval step's 16; the ranks' checkpoint is one process's layout
+   and serves one n = 8 request over HTTP.
 11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
-   of every phase, phase 10's on every rank), the card line, and last
-   {"ok": true, "device": {...}}.
+   of every phase, phases 10's and 10b's on every rank; the column forms
+   at n = 256 on a rank's microbatch, `<kernel>_cols`), the card line,
+   and last {"ok": true, "device": {...}}.
 
 Any failure, a child process's too, exits non-zero before the last line.
 Without a CUDA device, or without the package beside it, it exits non-zero
-and prints no result. `chip_smoke.py two_rank_child SPEC` is one rank of
-phase 10's (ii) and (iii), started by the phase itself.
+and prints no result. `chip_smoke.py rank_child SPEC` is one rank of
+phases 10's and 10b's gloo runs, started by the phase itself.
 """
 from __future__ import annotations
 
@@ -754,6 +774,163 @@ def check_fused_fp32(nbar, d, device, timing=True):
         res["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes)[0]
     set_train_kernel_counts(before)  # comparison launches do not count
     return res
+
+
+# ------------------------- phase 10b: the column forms (tensor parallelism)
+def kernel_counts():
+    """Every GCL wrapper's launch counters, the column forms' too."""
+    from polyphemus_tpu_torch.ops.kernels import gcl
+
+    return (train_kernel_counts(), gcl.launches, gcl.eval_bf16_launches,
+            dict(gcl.launches_by_k), dict(gcl.col_launches))
+
+
+def set_kernel_counts(saved) -> None:
+    from polyphemus_tpu_torch.ops.kernels import gcl
+
+    train, gcl.launches, gcl.eval_bf16_launches, by_k, cols = saved
+    set_train_kernel_counts(train)
+    gcl.launches_by_k.clear()
+    gcl.launches_by_k.update(by_k)
+    gcl.col_launches.update(cols)
+
+
+def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
+    """The column forms of the GCL kernels that tensor parallelism launches
+    (output width n of d, `parallel.mesh`), for every one of the d / n
+    column shards of one layer: `gcl_fwd`, `gcl_eval` at K = 1 and, in
+    fp32, `gcl_bwd_data` and `gcl_bwd_weight`, in bf16 `gcl_bwd_fused`,
+    each against its plain version on the same shard (fp32: rtol = atol =
+    TOL, the sums over bars at SUM_TOL; bf16: BF16_REL of max |plain|). The
+    partial dx and dgate summed over the shards against the square plain
+    version's, at the same tolerances. `equal_to_square` says whether the
+    shards of the forward, eval and weight kernels are bit for bit the
+    square launch's columns. With timing, shard 0's ms per launch, its
+    plain version's and its bound (1 / M of the square launch's work),
+    beside the square launch's ms and bound."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+
+    mask, args = train_kernel_inputs(nbar, d, device, SEED + 19)
+    g = torch.Generator().manual_seed(SEED + 19)
+    ea = (torch.randn(d, generator=g) * 0.1 + 1.0).to(device)
+    eb = (torch.randn(d, generator=g) * 0.1).to(device)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x, up, aux, gates, wbig, bias = [
+        v if v.dtype == torch.int32 else v.to(dt) for v in args]
+    ea, eb = ea.to(dt), eb.to(dt)
+    saved = kernel_counts()
+    suffix = "_bf16" if bf16 else ""
+    bwd = "gcl_bwd_fused" if bf16 else "gcl_bwd_data"
+
+    def held(name, a, b, summed):
+        return held_rel(name, a, b) if bf16 else held_to(name, a, b,
+                                                         summed=summed)
+
+    def shard(r):
+        c = slice(r * n, (r + 1) * n)
+        return (wbig[:, c].contiguous(), bias[c].contiguous(),
+                ea[c].contiguous(), eb[c].contiguous())
+
+    def runs(r):
+        wc, bc, eac, ebc = shard(r)
+        eval_args = (x, aux, gates, wc[None], bc[None], eac[None], ebc[None])
+        out = {f"gcl_fwd{suffix}": (
+            lambda: gcl.gcl_fwd(x, aux, gates, wc, bc),
+            lambda: gcl.gcl_fwd_plain(x, aux, gates, wc, bc)),
+            f"gcl_eval{suffix}": (
+            lambda: gcl.gcl_eval(*eval_args, col0=r * n),
+            lambda: gcl.gcl_eval_plain(*eval_args, col0=r * n))}
+        gc = up[..., r * n:(r + 1) * n].contiguous()
+        if bf16:
+            out[bwd] = (lambda: gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc),
+                        lambda: gcl_bwd.gcl_bwd_fused_plain(x, gc, aux,
+                                                            gates, wc))
+        else:
+            out[bwd] = (lambda: gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc),
+                        lambda: gcl_bwd.gcl_bwd_data_plain(x, gc, aux,
+                                                           gates, wc))
+            out["gcl_bwd_weight"] = (
+                lambda: gcl_bwd.gcl_bwd_weight(x, gc, aux, gates),
+                lambda: gcl_bwd.gcl_bwd_weight_plain(x, gc, aux, gates))
+        return out
+
+    square = {f"gcl_fwd{suffix}": gcl.gcl_fwd(x, aux, gates, wbig, bias),
+              f"gcl_eval{suffix}": gcl.gcl_eval(
+                  x, aux, gates, wbig[None], bias[None], ea[None], eb[None])}
+    if bf16:
+        square_bwd = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
+    else:
+        square["gcl_bwd_weight"] = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+        square_bwd = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)
+    res = {k: {"max_abs_err": 0.0, "equal_to_square": True}
+           for k in runs(0)}
+    res[bwd].pop("equal_to_square")
+    sums = None
+    for r in range(d // n):
+        for name, (kern, plain) in runs(r).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if name == bwd:
+                outs = ("dx", "dgate", "dbias", "dwbig")
+                errs = [held(f"{name} n={n} shard {r} {o}", a, b,
+                             o != "dx") for o, a, b in zip(outs, got, want)]
+                sums = (got[:2] if sums is None
+                        else [a + b.to(a.dtype) for a, b in zip(sums, got)])
+                err = max(errs)
+            else:
+                err = held(f"{name} n={n} shard {r}", got, want,
+                           name == "gcl_bwd_weight")
+                res[name]["equal_to_square"] &= torch.equal(
+                    got, square[name][..., r * n:(r + 1) * n])
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    for o, a, b in zip(("dx", "dgate"), sums, square_bwd):
+        res[bwd][f"{o}_summed_over_shards_max_abs_err"] = held(
+            f"{bwd} n={n} {o} summed over the shards", a, b, o != "dx")
+    if timing:
+        active = int(mask.sum())
+        esz = x.element_size()
+        peak = peak_tflops(bf16)
+        state = x.numel() * esz
+        small = aux.numel() * 4 + gates.numel() * esz
+
+        def work(name, w):
+            """(flops, bytes) of one launch at output width w."""
+            flops = 2.0 * active * 5 * d * w
+            wbytes = 8 * d * w * esz
+            out_b = nbar * 128 * w * esz
+            if name.startswith("gcl_fwd"):
+                return flops, state + out_b + small + wbytes + w * esz
+            if name.startswith("gcl_eval"):
+                return flops, state + out_b + small + wbytes + 3 * w * esz
+            if name == "gcl_bwd_weight":
+                return flops, state + out_b + small + 8 * d * w * 4
+            if name == "gcl_bwd_data":
+                return flops, 2 * state + out_b + small + wbytes \
+                    + (32 * d + w) * 4
+            return 2 * flops, 2 * state + out_b + small + wbytes \
+                + 8 * d * w * 4 + (32 * d + w) * 4
+
+        sq = {f"gcl_fwd{suffix}": lambda: gcl.gcl_fwd(x, aux, gates, wbig,
+                                                       bias),
+              f"gcl_eval{suffix}": lambda: gcl.gcl_eval(
+                  x, aux, gates, wbig[None], bias[None], ea[None], eb[None]),
+              "gcl_bwd_weight": lambda: gcl_bwd.gcl_bwd_weight(
+                  x, up, aux, gates),
+              "gcl_bwd_data": lambda: gcl_bwd.gcl_bwd_data(
+                  x, up, aux, gates, wbig),
+              "gcl_bwd_fused": lambda: gcl_bwd.gcl_bwd_fused(
+                  x, up, aux, gates, wbig)}
+        for name, (kern, plain) in runs(0).items():
+            r = res[name]
+            r["ms"] = time_ms(kern)
+            r["plain_ms"] = time_ms(plain, reps=2)
+            r["bound_ms"], r["bound_by"] = bound_ms(*work(name, n), peak)
+            r["square_ms"] = time_ms(sq[name])
+            r["square_bound_ms"] = bound_ms(*work(name, d), peak)[0]
+    set_kernel_counts(saved)  # comparison launches do not count
+    return {"nbar": nbar, "d": d, "n": n, "bf16": bf16, "kernels": res}
 
 
 def chord_inputs(nbar, d, device, seed):
@@ -2626,17 +2803,61 @@ def two_rank_batches(mc, batch, steps):
     return out
 
 
-def two_rank_child(spec_path) -> int:
-    """One rank of (ii) and (iii), under `torchrun --nproc_per_node 2`:
-    gloo on the one card, the spec's model, config and global batches,
-    this rank's rows (`data.shard_rows`) stepped through `TrainStep`. Rank
-    0 writes the grads after the first step; every rank prints its losses,
-    s/step, the seconds of one more gradient all-reduce, and its
-    launches."""
+@contextlib.contextmanager
+def timed_collectives():
+    """Every `torch.distributed` all-reduce, all-gather and broadcast inside,
+    timed on the host clock from the call to its return: {op: {"calls",
+    "s", "bytes"}}, bytes of this rank's tensor. On gloo with CUDA tensors
+    a call returns once its copies through the host are done, so its
+    seconds are the ones the rank spends blocked in it: the card's
+    pending work before the copy out, the wait for the other ranks, the
+    transfer."""
+    import torch.distributed as dist
+
+    stats = {}
+    saved = {name: getattr(dist, name)
+             for name in ("all_reduce", "all_gather", "broadcast")}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t = args[1] if name == "all_gather" else args[0]
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            st = stats.setdefault(name, {"calls": 0, "s": 0.0, "bytes": 0})
+            st["calls"] += 1
+            st["s"] += time.perf_counter() - t0
+            st["bytes"] += t.numel() * t.element_size()
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield stats
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def rank_child(spec_path) -> int:
+    """One rank of (ii)-(iv) of phases 10 and 10b, under `torchrun
+    --nproc_per_node W`: gloo on the one card, the spec's model, config (at
+    its model axis M) and global batches, stepped through the `Trainer`
+    (which lays out the mesh, keeps the rank's shards and makes Adam over
+    them) on the rows of the rank's data index (`data.shard_rows`). At M
+    > 1 an eval step on the first batch comes first. Rank 0 writes the
+    grads after the first step, gathered whole. At M = 1 every rank then
+    times one more gradient all-reduce; at M > 1 its last step times every
+    collective (`timed_collectives`), and it saves the checkpoint (rank 0
+    writes the one-process layout). Every rank prints its losses, s/step,
+    those times and its launches."""
+    import dataclasses
+
     import torch
 
     sys.path.insert(0, ROOT)
-    from polyphemus_tpu_torch.config import load_train_config
+    from polyphemus_tpu_torch.config import ParallelConfig, load_train_config
+    from polyphemus_tpu_torch.convert import save_config
     from polyphemus_tpu_torch.data import shard_rows
     from polyphemus_tpu_torch.models import VAE
     from polyphemus_tpu_torch.ops import kernels
@@ -2646,40 +2867,61 @@ def two_rank_child(spec_path) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     device = pmesh.maybe_initialize_distributed("cuda:0", backend="gloo")
-    check(device is not None and pmesh.world() == 2,
-          "the two-rank child did not join a group of 2")
+    check(device is not None and pmesh.world() == spec["nproc"],
+          f"the rank child did not join a group of {spec['nproc']}")
     try:
         r = pmesh.rank()
         cfg = load_train_config(spec["config"])
+        cfg = dataclasses.replace(cfg, parallel=ParallelConfig(
+            model_axis=spec["model_axis"]))
         model = VAE(cfg.model)
         model.load_state_dict(torch.load(spec["state"], weights_only=True))
-        model.to(device)
-        step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
-        rows = torch.from_numpy(shard_rows(cfg.batch_size,
-                                           cfg.iters_to_accumulate, r, 2))
+        # ---- the main path ----
+        trainer = tr.Trainer(spec["model_dir"], model, cfg, device=device)
+        rows = torch.from_numpy(shard_rows(
+            cfg.batch_size, cfg.iters_to_accumulate, pmesh.data_index(),
+            pmesh.data_size()))
         losses, times = [], []
-        batches = two_rank_batches(cfg.model, cfg.batch_size, spec["steps"])
-        for i, batch in enumerate(batches):
-            toks, mask, eps = (t[rows].to(device) for t in batch)
+        batches = [tuple(t[rows].to(device) for t in b) for b in
+                   two_rank_batches(cfg.model, cfg.batch_size,
+                                    spec["steps"])]
+        res = {"rank": r, "mesh": trainer.layout}
+        if spec["model_axis"] > 1:  # the column-form eval stack
+            ev, _ = tr.eval_step(trainer.model, cfg, *batches[0][:2],
+                                 trainer.step, eps=batches[0][2])
+            res["eval_losses"] = {k: float(v) for k, v in ev.items()}
+        coll = {}
+        for i, (toks, mask, eps) in enumerate(batches):
+            last = i == len(batches) - 1 and spec["model_axis"] > 1
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lo, _ = step(toks, mask, eps=eps)
-            lo = {k: float(v) for k, v in lo.items()}
-            times.append(time.perf_counter() - t0)
+            with (timed_collectives() if last
+                  else contextlib.nullcontext({})) as coll:
+                t0 = time.perf_counter()
+                lo, _ = trainer.train_step(toks, mask, eps=eps)
+                lo = {k: float(v) for k, v in lo.items()}
+                times.append(time.perf_counter() - t0)
             losses.append(lo)
-            if i == 0 and r == 0:
-                torch.save({n: p.grad.detach().cpu()
-                            for n, p in model.named_parameters()},
-                           spec["grads"])
+            if i == 0:
+                grads = pmesh.full_state_dict(
+                    {n: p.grad.detach() for n, p in
+                     trainer.model.named_parameters()})
+                if r == 0:
+                    torch.save({n: g.cpu() for n, g in grads.items()},
+                               spec["grads"])
+        res.update(losses=losses, step_s=times)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pmesh.all_reduce_grads(model.parameters())
-        torch.cuda.synchronize()
-        reduce_s = time.perf_counter() - t0
+        if spec["model_axis"] == 1:
+            t0 = time.perf_counter()
+            pmesh.all_reduce_grads(trainer.model.parameters())
+            torch.cuda.synchronize()
+            res["grad_all_reduce_s"] = time.perf_counter() - t0
+        else:
+            res["collectives"] = coll
+            if r == 0:
+                save_config(spec["model_dir"], cfg)
+            trainer.save("checkpoint")
         # one write a line: torchrun's ranks write unbuffered to one pipe
-        sys.stdout.write("TWO_RANK_RESULT " + json.dumps(
-            {"rank": r, "losses": losses, "step_s": times,
-             "grad_all_reduce_s": reduce_s}) + "\n")
+        sys.stdout.write("TWO_RANK_RESULT " + json.dumps(res) + "\n")
         sys.stdout.write(f"Kernel launches (rank {r}): "
                          f"{json.dumps(kernels.launch_counts())}\n")
     finally:
@@ -2687,109 +2929,168 @@ def two_rank_child(spec_path) -> int:
     return 0
 
 
-def two_rank_phase(device, card, bf16) -> tuple:
-    """(ii) fp32 / (iii) bf16: two ranks on the one card over gloo (NCCL
-    refuses two ranks on one GPU), the flagship config at its global batch
-    of 256, TWO_RANK_STEPS[bf16] steps, against one process on the same
-    weights, batches and eps: every step's losses within
-    TWO_RANK_LOSS_RTOL[bf16]; in fp32 also the grads after step 1 held to
-    an fp64 step's on the same weights and batch by phase 7's rule
-    (`hold_against_witness`): at this batch fp32 leaves one process's
-    grads up to 4 % of their max from the fp64 grads on an H100 (the
-    encoder's `linear_merge`), so they are no yardstick at 1e-3; the largest
-    distance between the two ranks' and one process's grads is
-    reported. Each rank's training kernels launched as in phases
-    5 and 6. The bf16 weights have `bn_linear_merge`'s input centred
-    on the first batch (`centre_merge_input`), as phase 6's card-vs-CPU
-    step. Returns (what it prints, both ranks' launches summed)."""
+def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
+                one=None) -> tuple:
+    """`nproc` gloo ranks on the one card (NCCL refuses two ranks on one
+    GPU) at model axis `model_axis`, the flagship config at its global
+    batch of 256, `steps` steps (TWO_RANK_STEPS[bf16] by default), against
+    one process on the same weights, batches and eps (`one`, a previous
+    call's one-process results, when given): every step's losses within
+    TWO_RANK_LOSS_RTOL[bf16]. In fp32, without `one`, also the grads after
+    step 1 held to an fp64 step's on the same weights and batch by phase
+    7's rule (`hold_against_witness`): at this batch fp32 leaves one
+    process's grads up to 4 % of their max from the fp64 grads on an H100
+    (the encoder's `linear_merge`), so they are no yardstick at 1e-3; the
+    largest distance between the ranks' and one process's grads is
+    reported. Each rank's training kernels launched as in phases 5 and 6
+    and, at M > 1, every launch in the column form, also an eval step's 16
+    eval GCL launches on the first batch before the steps, whose losses
+    are one process's within the same tolerance; the ranks' checkpoint
+    then loads as one process's and serves. The bf16 weights have `bn_linear_merge`'s input centred on the
+    first batch (`centre_merge_input`), as phase 6's card-vs-CPU step.
+    Returns (what it prints, the ranks' launches summed, the one-process
+    results)."""
     import torch
 
     from polyphemus_tpu_torch.config import load_train_config
     from polyphemus_tpu_torch.models import VAE
+    from polyphemus_tpu_torch.ops.kernels import gcl
     from polyphemus_tpu_torch.train import trainer as tr
 
     name = "training_lmd2_bf16.json" if bf16 else "training_lmd2.json"
     config_path = os.path.join(ROOT, "examples", name)
     cfg = load_train_config(config_path)
-    steps = TWO_RANK_STEPS[bf16]
-    work = os.path.join(ROOT, "build", "chip_smoke_two_ranks")
+    steps = steps or TWO_RANK_STEPS[bf16]
+    work = os.path.join(ROOT, "build", f"chip_smoke_ranks_{nproc}_"
+                                       f"{model_axis}")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED + 10)
         model = VAE(cfg.model).to(device)
     batches = two_rank_batches(cfg.model, cfg.batch_size, steps)
+    g64 = None
     if bf16:
         centre_merge_input(model, cfg.model,
                            *(t.to(device) for t in batches[0]))
-    else:
+    elif one is None:
         g64 = witness_fp64_grads(model, cfg, *batches[0], device)
-    spec = {"config": config_path, "steps": steps,
+    spec = {"config": config_path, "steps": steps, "nproc": nproc,
+            "model_axis": model_axis,
             "state": os.path.join(work, "state.pt"),
-            "grads": os.path.join(work, "grads.pt")}
+            "grads": os.path.join(work, "grads.pt"),
+            "model_dir": os.path.join(work, "model")}
     torch.save(model.state_dict(), spec["state"])
     with open(os.path.join(work, "spec.json"), "w") as f:
         json.dump(spec, f)
     torch.cuda.empty_cache()
+    what = (f"{nproc} ranks at model axis {model_axis} on gloo "
+            f"({'bf16' if bf16 else 'fp32'})")
     t0 = time.perf_counter()
     # ---- the main path ----
-    stdout = run_child(torchrun(2, os.path.join(ROOT, "chip_smoke.py"),
-                                "two_rank_child",
-                                os.path.join(work, "spec.json")),
-                       f"two ranks on gloo ({'bf16' if bf16 else 'fp32'})")
+    stdout = run_child(torchrun(nproc, os.path.join(ROOT, "chip_smoke.py"),
+                                "rank_child",
+                                os.path.join(work, "spec.json")), what)
     child_s = time.perf_counter() - t0
     results = sorted((json.loads(s) for s in TWO_RANK_LINE.findall(stdout)),
                      key=lambda x: x["rank"])
-    check([x["rank"] for x in results] == [0, 1],
-          f"two-rank results from ranks {[x['rank'] for x in results]}")
-    check(results[0]["losses"] == results[1]["losses"],
-          "the two ranks report different global losses")
-    launches = rank_launches(stdout, 2)
-    per_step = ({"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32} if bf16 else
-                {"gcl_fwd": 64, "gcl_bwd_data": 64, "gcl_bwd_weight": 64})
+    check([x["rank"] for x in results] == list(range(nproc)),
+          f"{what}: results from ranks {[x['rank'] for x in results]}")
+    check(all(x["losses"] == results[0]["losses"] for x in results),
+          f"{what}: the ranks report different global losses")
+    check(results[0]["mesh"] == {"data": nproc // model_axis,
+                                 "model": model_axis},
+          f"{what}: mesh {results[0]['mesh']}")
+    launches = rank_launches(stdout, nproc)
+    train_k = ({"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32} if bf16 else
+               {"gcl_fwd": 64, "gcl_bwd_data": 64, "gcl_bwd_weight": 64})
+    per_step = dict(train_k)
+    keys = list(train_kernel_counts())
+    tp = model_axis > 1
+    if tp:
+        # every training launch in the column form
+        col_names = {"gcl_bwd_fused": "gcl_bwd_fused_bf16_cols"}
+        per_step.update({col_names.get(k, f"{k}_cols"): n
+                         for k, n in train_k.items()})
+        keys += [f"{k}_cols" for k in gcl.COL_KERNELS
+                 if not k.startswith("gcl_eval")]
+        ev = "gcl_eval_bf16" if bf16 else "gcl_eval"
     for counts in launches:
-        check_launches({k: counts[k] for k in train_kernel_counts()},
-                       per_step, steps)
+        check_launches({k: counts[k] for k in keys}, per_step, steps)
+        if tp:  # one eval batch: 2 GNN stacks of 8 layers, one a launch
+            check(counts[ev] == counts[f"{ev}_cols"] == 16,
+                  f"{what}: eval launches {counts[ev]}, columns "
+                  f"{counts[f'{ev}_cols']}, not 16")
 
-    # one process on the same weights, batches and eps
-    step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
-    one, one_s, grads = [], [], None
-    for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lo, _ = step(*(t.to(device) for t in batch[:2]),
-                     eps=batch[2].to(device))
-        one.append({k: float(v) for k, v in lo.items()})
-        one_s.append(time.perf_counter() - t0)
-        if i == 0:
-            grads = {n: p.grad.detach().cpu()
-                     for n, p in model.named_parameters()}
-    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
-              for a, b in zip(results[0]["losses"], one) for k in LOSS_KEYS
-              if b[k] != 0.0)
+    if one is None:
+        # one process on the same weights, batches and eps
+        trainer = tr.Trainer(os.path.join(work, "one"), model, cfg,
+                             device=device)
+        ev_l, _ = tr.eval_step(trainer.model, cfg,
+                               *(t.to(device) for t in batches[0][:2]),
+                               trainer.step, eps=batches[0][2].to(device))
+        one = {"losses": [], "step_s": [],
+               "eval_losses": {k: float(v) for k, v in ev_l.items()}}
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo, _ = trainer.train_step(*(t.to(device) for t in batch[:2]),
+                                       eps=batch[2].to(device))
+            one["losses"].append({k: float(v) for k, v in lo.items()})
+            one["step_s"].append(time.perf_counter() - t0)
+            if i == 0:
+                one["grads"] = {n: p.grad.detach().cpu()
+                                for n, p in trainer.model.named_parameters()}
+        del trainer
+
+    def rel_err(got, want):
+        return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                   for k in LOSS_KEYS if want[k] != 0.0)
+
+    rel = max(rel_err(a, b) for a, b in zip(results[0]["losses"],
+                                            one["losses"]))
     check(rel <= TWO_RANK_LOSS_RTOL[bf16],
-          f"two ranks' losses are {rel:.3e} (relative) from one process's "
-          f"({'bf16' if bf16 else 'fp32'})")
-    out = {"bf16": bf16, "steps": steps, "max_loss_rel_err": rel,
-           "losses_two_ranks": [x["tot"] for x in results[0]["losses"]],
-           "losses_one_process": [x["tot"] for x in one],
-           "step_s_two_ranks": results[0]["step_s"],
-           "step_s_one_process": one_s,
-           "grad_all_reduce_s": [x["grad_all_reduce_s"] for x in results],
+          f"{what}: losses {rel:.3e} (relative) from one process's")
+    out = {"bf16": bf16, "nproc": nproc, "mesh": results[0]["mesh"],
+           "steps": steps, "max_loss_rel_err": rel,
+           "losses_ranks": [x["tot"] for x in results[0]["losses"]],
+           "losses_one_process": [x["tot"] for x in one["losses"]][:steps],
+           "step_s_ranks": results[0]["step_s"],
+           "step_s_one_process": one["step_s"][:steps],
            "process_s": child_s, "launches_per_rank": launches,
            "card": card}
-    if not bf16:
-        two = torch.load(spec["grads"], weights_only=True)
+    if tp:
+        out["eval_loss_rel_err"] = rel_err(results[0]["eval_losses"],
+                                           one["eval_losses"])
+        check(out["eval_loss_rel_err"] <= TWO_RANK_LOSS_RTOL[bf16],
+              f"{what}: eval losses {out['eval_loss_rel_err']:.3e} "
+              f"(relative) from one process's")
+        out["collectives_last_step"] = [x["collectives"] for x in results]
+        out["collective_s"] = [sum(c["s"] for c in x["collectives"].values())
+                               for x in results]
+        ck = torch.load(os.path.join(spec["model_dir"], "checkpoint.pt"),
+                        weights_only=True)
+        whole = model.state_dict()
+        check(ck["step"] == steps and all(
+            tuple(v.shape) == tuple(whole[k].shape)
+            for k, v in ck["model"].items()) and set(ck["model"]) == set(
+            whole), f"{what}: the checkpoint is not one process's layout")
+        serve_trained(spec["model_dir"], cfg.model, device)
+    else:
+        out["grad_all_reduce_s"] = [x["grad_all_reduce_s"] for x in results]
+    if g64 is not None:
+        ranks_g = torch.load(spec["grads"], weights_only=True)
         out.update(hold_against_witness(
-            {"two_ranks": two, "one_process": grads}, g64, True,
-            held_run="two_ranks"))
-        scale = max(g.abs().max().item() for g in grads.values())
-        out["two_vs_one_max_grad_err_over_max"] = max(
-            (two[n] - g).abs().max().item() / g.abs().max().item()
-            for n, g in grads.items()
+            {"ranks": ranks_g, "one_process": one["grads"]}, g64, True,
+            held_run="ranks"))
+        scale = max(g.abs().max().item() for g in one["grads"].values())
+        out["ranks_vs_one_max_grad_err_over_max"] = max(
+            (ranks_g[n] - g).abs().max().item() / g.abs().max().item()
+            for n, g in one["grads"].items()
             if g.abs().max().item() > GRAD_NOISE * scale)
-    summed = {k: sum(c[k] for c in launches) for k in per_step}
-    return out, summed
+    summed = {k: sum(c.get(k, 0) for c in launches)
+              for k in set(per_step) | ({ev, f"{ev}_cols"} if tp else set())}
+    return out, summed, one
 
 
 def ddp_phase(card, config_path, data_dir, n_samples) -> dict:
@@ -2810,13 +3111,57 @@ def ddp_phase(card, config_path, data_dir, n_samples) -> dict:
     print(f"fp32 TrainStep in one process, without a group and in a "
           f"one-rank NCCL group, in turns ({card}):", json.dumps(overhead))
     for bf16 in (False, True):
-        res, summed = two_rank_phase(device, card, bf16)
+        res, summed, _ = ranks_phase(device, card, bf16)
         print(f"two gloo ranks on one card against one process "
               f"({'bf16' if bf16 else 'fp32'}, batch 256, {card}):",
               json.dumps(res))
         for k, n in summed.items():
             launches[k] = launches.get(k, 0) + n
     return launches
+
+
+# column widths and bars of phase 10b's kernel checks: the fp32 kernels at
+# the microbatch of a rank at D = 2 and D = 1 (64 and 128 bars), the bf16
+# ones at D = 1 (256 bars); n = d / 2 and d / 4
+TP_KERNEL_CASES = [(False, 64), (False, 128), (True, 256)]
+TP_WIDTHS = (256, 128)
+
+
+def tp_phase(card) -> tuple:
+    """Phase 10b, tensor parallelism on the one card: (i) the GCL kernels'
+    column forms against their plain versions (`check_gcl_columns`) at
+    TP_KERNEL_CASES x TP_WIDTHS, timed beside the square launch; (ii) two
+    gloo ranks at model axis 2 (D = 1), fp32, 3 steps, against one process
+    and the fp64 witness; (iii) the same in bf16, 2 steps; (iv) four gloo
+    ranks at D = 2 x M = 2, fp32, 2 steps, against (ii)'s one process
+    (`ranks_phase`). Returns (the kernel checks, the ranks' launches
+    summed)."""
+    import torch
+
+    # ---- 10b. tensor parallelism: column forms, then the mesh ----
+    device = torch.device("cuda")
+    cols = {}
+    for bf16, nbar in TP_KERNEL_CASES:
+        for n in TP_WIDTHS:
+            cols[(bf16, nbar, n)] = check_gcl_columns(nbar, 512, n, device,
+                                                      bf16=bf16)
+    print(f"GCL column forms against their plain versions (d=512, {card}):",
+          json.dumps({f"{'bf16' if b else 'fp32'}_{nbar}_bars_n{n}": r
+                      for (b, nbar, n), r in cols.items()}))
+    launches, one = {}, None
+    for bf16, nproc, steps in ((False, 2, None), (True, 2, None),
+                               (False, 4, 2)):
+        res, summed, one_r = ranks_phase(
+            device, card, bf16, nproc=nproc, model_axis=2, steps=steps,
+            one=one if nproc == 4 else None)
+        if not bf16 and nproc == 2:
+            one = one_r
+        print(f"{nproc} gloo ranks at model axis 2 on one card against one "
+              f"process ({'bf16' if bf16 else 'fp32'}, batch 256, {card}):",
+              json.dumps(res))
+        for k, n in summed.items():
+            launches[k] = launches.get(k, 0) + n
+    return cols, launches
 
 
 def main() -> int:
@@ -3146,6 +3491,9 @@ def main() -> int:
         ROOT, "build", "chip_smoke_data_plane", "packed"),
         data_out["samples"])
 
+    # ---- 10b. tensor parallelism: column forms, 2 and 4 gloo ranks ----
+    tp_cols, tp_launches = tp_phase(card)
+
     # ---- 11. results ----
     launches = dict(launches, **train_launches, **gen16_launches)
     # K = 1 runs in the reconstruct CLIs' encoders and the dropout runs'
@@ -3175,6 +3523,10 @@ def main() -> int:
         launches[name] += cli_render[name]
     for name, n in ddp_launches.items():  # every rank of phase 10
         launches[name] += n
+    for name, n in tp_launches.items():  # every rank of phase 10b
+        # its eval steps run one layer a launch
+        name = {"gcl_eval": "gcl_eval_k1"}.get(name, name)
+        launches[name] = launches.get(name, 0) + n
 
     def entry(name, src, replaces, r):
         return {"name": name, "route": "cuda", "source": src,
@@ -3217,6 +3569,27 @@ def main() -> int:
         entry("chord_tail_bf16",
               "polyphemus_tpu_torch/csrc/chord_tail_bf16_tc.cu",
               "polyphemus_tpu/ops/kernels/chord_tail.py:101", chord16)]
+    # the column forms at n = 256, the main path's at model axis 2, on a
+    # rank's microbatch at D = 1 (phase 10b (ii), (iii))
+    for name, src, replaces, bf16, nbar in (
+            ("gcl_fwd", "gcl_eval_fp32.cu", "gcl_pallas.py:347", False, 128),
+            ("gcl_eval", "gcl_eval_fp32.cu", "gcl_pallas.py:347", False,
+             128),
+            ("gcl_bwd_data", "gcl_bwd_data.cu", "gcl_pallas_bwd.py:528",
+             False, 128),
+            ("gcl_bwd_weight", "gcl_bwd_weight.cu", "gcl_pallas_bwd.py:564",
+             False, 128),
+            ("gcl_fwd_bf16", "gcl_eval_bf16_tc.cu", "gcl_pallas.py:347",
+             True, 256),
+            ("gcl_eval_bf16", "gcl_eval_bf16_tc.cu", "gcl_pallas.py:347",
+             True, 256),
+            ("gcl_bwd_fused_bf16", "gcl_bwd_fused_bf16_tc.cu",
+             "gcl_pallas_bwd.py:453", True, 256)):
+        r = tp_cols[(bf16, nbar, 256)]["kernels"][
+            "gcl_bwd_fused" if name == "gcl_bwd_fused_bf16" else name]
+        kernels.append(entry(f"{name}_cols",
+                             f"polyphemus_tpu_torch/csrc/{src}",
+                             f"polyphemus_tpu/ops/kernels/{replaces}", r))
     # launches at 4096 bars (the batch-256 bench) beside their times; the
     # CLIs' launches (2 sequences, 32 bars a call) apart
     lmd16_kernels = {
@@ -3243,6 +3616,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["two_rank_child"]:
-        sys.exit(two_rank_child(sys.argv[2]))
+    if sys.argv[1:2] == ["rank_child"]:
+        sys.exit(rank_child(sys.argv[2]))
     sys.exit(main())

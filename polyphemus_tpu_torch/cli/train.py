@@ -15,20 +15,23 @@ without a card otherwise. The model directory OUTPUT_DIR/NAME gets
 `config.json`, `metrics.jsonl`, `checkpoint.pt` (which
 `generate.load_model` serves as it is) and its meta file `checkpoint.json`;
 `--tensorboard` mirrors the metrics into `tb/` there, and `--profile DIR`
-writes a `torch.profiler` trace of steps 10-15 into DIR. Refused: a model
-axis other than 1.
+writes a `torch.profiler` trace of steps 10-15 into DIR.
 
-Data-parallel over W processes, on W cards or on the CPU:
+Over W processes, on W cards or on the CPU:
 
     torchrun --standalone --nproc_per_node W -m polyphemus_tpu_torch.cli.train \
         DATASET_DIR OUTPUT_DIR CONFIG.json [--device cpu] ...
 
 Each rank runs on `cuda:LOCAL_RANK` (NCCL) unless `--device` is given
-(`--device cpu`: gloo), loads its rows of every global batch and trains
-the model one process trains on the same global batch and seed
-(`parallel.mesh`); rank 0 alone writes the model directory and prints. W
-must divide the microbatch, batch_size / iters_to_accumulate. Every rank
-prints its kernel launches at the end.
+(`--device cpu`: gloo) and trains the model one process trains on the same
+global batch and seed (`parallel.mesh`). The config's
+`parallel.model_axis` M splits the W ranks into D = W / M data indices of
+M ranks each: each data index loads its rows of every global batch (D
+must divide the microbatch, batch_size / iters_to_accumulate), and its M
+ranks share them, each holding 1 / M of the sharded parameters (tensor
+parallelism; on a card d / M must be a multiple of 128). Rank 0 alone
+writes the model directory, in the one-process layout, and prints. Every
+rank prints its kernel launches at the end.
 """
 from __future__ import annotations
 
@@ -50,7 +53,6 @@ from ..ops import kernels
 from ..parallel import mesh as pmesh
 from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer
-from ..utils import param_count
 
 
 class _Subset:
@@ -108,8 +110,9 @@ def main(argv=None):
 def _train(args, device):
     cfg = load_train_config(args.config_file)
     mc = cfg.model
-    layout = pmesh.data_layout(cfg)
+    layout = pmesh.data_layout(cfg, device)
     rank, world = pmesh.rank(), pmesh.world()
+    shard = (pmesh.data_index(), pmesh.data_size())
     log = print if rank == 0 else (lambda *a, **k: None)
 
     log("Preparing datasets and dataloaders...")
@@ -146,10 +149,11 @@ def _train(args, device):
         torch.manual_seed(args.seed)
         model = VAE(mc)
     eval_every = args.eval_every
-    # each rank loads its rows of every global batch (of each microbatch)
+    # each data index loads its rows of every global batch (of each
+    # microbatch)
     train_loader = BatchLoader(tr_set, cfg.batch_size, shuffle=True,
                                seed=args.seed, num_workers=args.num_workers,
-                               shard=(rank, world),
+                               shard=shard,
                                microbatches=max(cfg.iters_to_accumulate, 1))
     if args.eval and eval_every is None:
         eval_every = len(train_loader)
@@ -161,14 +165,17 @@ def _train(args, device):
     valid_loader = (BatchLoader(vl_set, cfg.batch_size, shuffle=False,
                                 num_workers=args.num_workers,
                                 device_put_fn=trainer.to_device,
-                                shard=(rank, world))
+                                shard=shard)
                     if args.eval else None)
     log(f"Device: {device}")
     log(f"Devices: {world} mesh={layout}")
     if args.resume and ckpt.latest_exists(model_dir):
         log("Resuming from checkpoint...")
         trainer.resume()
-    log(f"Total Trainable Parameters: {param_count(model)}")
+    # the whole model's count, also where this rank holds shards
+    whole = sum(p.numel() * (layout["model"] if hasattr(p, "tp_dim") else 1)
+                for p in model.parameters())
+    log(f"Total Trainable Parameters: {whole}")
 
     log("Starting training...")
     trainer.fit(lambda: iter(train_loader), args.max_epochs,

@@ -18,6 +18,12 @@
 // where dmsg = dH_track * r_track, dz = colsum(dH_next * r_next) - itself,
 // dy0 = colsum(dH_onset * r_onset) - itself + dH_self * single.
 //
+// The weights and g may hold only n of the d output columns (a column shard
+// under tensor parallelism, Wbig (8d, n), g (nbar, 128, n)): the products
+// then contract those n columns only, so dx and dgate are this shard's
+// partial sums (the M shards' sum is the square launch's), and dbias is the
+// shard's n columns.
+//
 // What bounds it on an H100: operations, the product (2 * 128 * 5d * d
 // flops per bar, 335 MFLOP at d = 512) in fp32 FFMA on the CUDA cores: fp32
 // keeps fp32 rounding, so no tensor core multiplies here.
@@ -28,7 +34,7 @@
 // memory, a tile does) and walks the bars chunk, chunk + nchunks, ... in
 // order, one CTA per SM (nchunks = SMs / column tiles: 128 CTAs at d =
 // 512). Per bar:
-// 1. dH[seg][:, tile] = g @ W_blk[tile rows]^T over the d contracted
+// 1. dH[seg][:, tile] = g @ W_blk[tile rows]^T over the n contracted
 //    features, in stages of 32: g (128 x 32) and the tile's W rows in all 8
 //    blocks (8 x 32 x 32) come in by one TMA box each, swizzled in 128-byte
 //    rows, into two stage buffers that complete on mbarriers; one barrier
@@ -36,7 +42,8 @@
 //    bar's first stage lands while this bar scatters; x[:, tile] and the
 //    bar's aux words come in by cp.async with its first stage. A bar's
 //    stages start after the tile's own features, so its last stage holds
-//    g[:, tile] and dbias sums from it. A thread holds 8 rows (all in one
+//    g[:, tile] and dbias sums from it (the tiles c0 < n, the columns of
+//    dbias). A thread holds 8 rows (all in one
 //    track) x 2 columns of the 5 segments: 80 sums, 320 FFMAs for 18 float4
 //    reads of shared memory. Segment 0 takes the warp's own track block,
 //    segments 1-4 blocks 4-7.
@@ -306,7 +313,8 @@ __device__ __forceinline__ void gather_bar(const Smem& sm, float (*dg)[BC],
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_bwd_data_kernel(const float* __restrict__ x, const int* __restrict__ aux,
                     const float* __restrict__ gates, float* __restrict__ dx,
-                    float* __restrict__ part, int nbar, int d, int nchunks,
+                    float* __restrict__ part, int nbar, int d, int n,
+                    int nchunks,
                     const __grid_constant__ CUtensorMap gmap,
                     const __grid_constant__ CUtensorMap wmap) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -317,7 +325,8 @@ gcl_bwd_data_kernel(const float* __restrict__ x, const int* __restrict__ aux,
   const int trk = warp >> 1;                    // the track of the rows
   const int r0 = trk * S + (lane >> 3);         // rows r0 + 4 r
   const int cg = (warp & 1) * 8 + (lane & 7);   // columns cg, cg + 16
-  const int nstage = d / BK;
+  const int nstage = n / BK;
+  const bool has_bias = c0 < n;  // the tile's columns of dbias
   const size_t bar_size = (size_t)N * d;
   // the features of stage st of a bar: the tile's own come last
   auto feat = [&](int st) { return (c0 / BK + 1 + st) % nstage * BK; };
@@ -366,11 +375,13 @@ gcl_bwd_data_kernel(const float* __restrict__ x, const int* __restrict__ aux,
     }
 
     // dbias from the last stage, g[bar][:, tile]
-    const float* gl = sm.st[(u - 1) & 1].g;
+    if (has_bias) {
+      const float* gl = sm.st[(u - 1) & 1].g;
 #pragma unroll
-    for (int i = 0; i < N / NWARP; ++i) {
-      const int row = warp * (N / NWARP) + i;
-      db += gl[sw_off(row, lane >> 2) + (lane & 3)] * cl.m[row];
+      for (int i = 0; i < N / NWARP; ++i) {
+        const int row = warp * (N / NWARP) + i;
+        db += gl[sw_off(row, lane >> 2) + (lane & 3)] * cl.m[row];
+      }
     }
     // the upstream tiles
 #pragma unroll
@@ -408,10 +419,10 @@ gcl_bwd_data_kernel(const float* __restrict__ x, const int* __restrict__ aux,
   // this CTA's dgate / dbias partial row
   sm.dbs[warp][lane] = db;
   __syncthreads();
-  float* pb = part + (size_t)chunk * (S + 1) * d;
+  float* pb = part + (size_t)chunk * ((size_t)S * d + n);
   for (int e = tid; e < S * BC; e += THREADS)
     pb[(size_t)(e / BC) * d + c0 + e % BC] = sm.dgs[e / BC][e % BC];
-  if (tid < BC) {
+  if (has_bias && tid < BC) {
     float sb = 0.f;
     for (int w = 0; w < NWARP; ++w) sb += sm.dbs[w][tid];
     pb[(size_t)S * d + c0 + tid] = sb;
@@ -466,18 +477,22 @@ static bool fp32_map(CUtensorMap* map, const void* base, int rank,
 // Bytes of dynamic shared memory a CTA of the kernel takes.
 extern "C" int gcl_bwd_data_smem_bytes() { return (int)sizeof(Smem); }
 
-// x, g (nbar, N, d); aux (nbar, N_AUX, N); gates (S, d); wbig (8d, d); all
-// 16-byte aligned, d % 128 == 0. Writes dx (nbar, N, d) and out = [dgate
-// (S, d) | dbias (d)], using the first min(nbar, SMs / (d / 32)) rows of
-// part (nbar, (S + 1) * d) as scratch for the per-CTA partials.
+// x (nbar, N, d), g (nbar, N, n); aux (nbar, N_AUX, N); gates (S, d); wbig
+// (8d, n); all 16-byte aligned, d % 128 == 0, n % 128 == 0, d % n == 0.
+// Writes dx (nbar, N, d) and out = [dgate (S, d) | dbias (n)], using the
+// first min(nbar, SMs / (d / 32)) rows of part (nbar, S * d + n) as scratch
+// for the per-CTA partials.
 extern "C" int gcl_bwd_data_launch(const void* x, const void* g,
                                    const void* aux, const void* gates,
                                    const void* wbig, void* dx, void* part,
-                                   void* out, int nbar, int d, void* stream) {
-  if (d <= 0 || d % 128 != 0) return (int)cudaErrorInvalidValue;
+                                   void* out, int nbar, int d, int n,
+                                   void* stream) {
+  if (d <= 0 || d % 128 != 0 || n <= 0 || n % 128 != 0 || d % n != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const long long row = (long long)S * d + n;  // a partial row
   if (nbar <= 0)
-    return (int)cudaMemsetAsync(out, 0, sizeof(float) * (S + 1) * d, st);
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * row, st);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_bwd_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sizeof(Smem));
@@ -487,14 +502,14 @@ extern "C" int gcl_bwd_data_launch(const void* x, const void* g,
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
-  // g as (nbar N rows, d features) in boxes of [N][BK]; wbig as [8 blocks]
-  // [d rows][d features] in boxes of [8][BC][BK]
+  // g as (nbar N rows, n features) in boxes of [N][BK]; wbig as [8 blocks]
+  // [d rows][n features] in boxes of [8][BC][BK]
   CUtensorMap gmap, wmap;
-  const cuuint64_t gdims[2] = {(cuuint64_t)d, (cuuint64_t)nbar * N};
-  const cuuint64_t gstrides[1] = {(cuuint64_t)d * 4};
+  const cuuint64_t gdims[2] = {(cuuint64_t)n, (cuuint64_t)nbar * N};
+  const cuuint64_t gstrides[1] = {(cuuint64_t)n * 4};
   const cuuint32_t gbox[2] = {BK, N};
-  const cuuint64_t wdims[3] = {(cuuint64_t)d, (cuuint64_t)d, NBLK};
-  const cuuint64_t wstrides[2] = {(cuuint64_t)d * 4, (cuuint64_t)d * d * 4};
+  const cuuint64_t wdims[3] = {(cuuint64_t)n, (cuuint64_t)d, NBLK};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)n * 4, (cuuint64_t)d * n * 4};
   const cuuint32_t wbox[3] = {BK, BC, NBLK};
   if (!fp32_map(&gmap, g, 2, gdims, gstrides, gbox) ||
       !fp32_map(&wmap, wbig, 3, wdims, wstrides, wbox))
@@ -503,8 +518,7 @@ extern "C" int gcl_bwd_data_launch(const void* x, const void* g,
   const int nchunks = max(1, min(nbar, sms / tiles));
   gcl_bwd_data_kernel<<<dim3(tiles, nchunks), THREADS, sizeof(Smem), st>>>(
       (const float*)x, (const int*)aux, (const float*)gates, (float*)dx,
-      (float*)part, nbar, d, nchunks, gmap, wmap);
+      (float*)part, nbar, d, n, nchunks, gmap, wmap);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)sum_rows((const float*)part, (float*)out, nchunks,
-                       (long long)(S + 1) * d, st);
+  return (int)sum_rows((const float*)part, (float*)out, nchunks, row, st);
 }

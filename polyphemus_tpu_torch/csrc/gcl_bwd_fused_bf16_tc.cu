@@ -11,6 +11,12 @@
 //   dgate, dbias as there, summed over every bar
 //   dW_r += h_r^T @ gm               (h_root = x; track blocks: own rows)
 //
+// The weights and g may hold only n of the d output columns (a column shard
+// under tensor parallelism, Wbig (8d, n), g (nbar, 128, n)): dH then
+// contracts those n columns only, so dx and dgate are this shard's partial
+// sums (the M shards' sum is the square launch's), dbias is the shard's n
+// columns and dWbig is (8d, n).
+//
 // x, g, gates, wbig and dx are bf16; every product sums in fp32, and values
 // are rounded to bf16 where the Pallas body casts to its compute dtype: the
 // elementwise products, the mean reciprocals, the same-column sums, the
@@ -100,23 +106,23 @@ __device__ __forceinline__ int s_off(int r, int ch) {
 }
 
 // Features f0..f0+BK of g (128 rows) and of the W rows of this CTA's
-// columns in all 8 blocks: 2 + 4 16-byte copies a thread.
+// columns in all 8 blocks (rows n wide): 2 + 4 16-byte copies a thread.
 __device__ __forceinline__ void load_stage(Smem& sm, int buf, const bf16* gb,
-                                           const bf16* wbig, int d, int c0,
-                                           int f0, int tid) {
+                                           const bf16* wbig, int d, int n,
+                                           int c0, int f0, int tid) {
 #pragma unroll
   for (int j = 0; j < N * BK / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 2, ch = c & 3;
-    cp_async16(sm.g[buf] + s_off(r, ch), gb + (size_t)r * d + f0 + ch * 8);
+    cp_async16(sm.g[buf] + s_off(r, ch), gb + (size_t)r * n + f0 + ch * 8);
   }
 #pragma unroll
   for (int j = 0; j < NBLK * BC * BK / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 2, ch = c & 3;          // r = blk * BC + n
-    const int blk = r / BC, n = r % BC;
+    const int blk = r / BC, nn = r % BC;
     cp_async16(sm.w[buf] + s_off(r, ch),
-               wbig + ((size_t)blk * d + c0 + n) * d + f0 + ch * 8);
+               wbig + ((size_t)blk * d + c0 + nn) * n + f0 + ch * 8);
   }
 }
 
@@ -126,7 +132,7 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
                              const E* __restrict__ gates,
                              const E* __restrict__ wbig, E* __restrict__ dx,
                              float* __restrict__ part_gb, int nbar, int d,
-                             int bars_per_chunk) {
+                             int n, int bars_per_chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int c0 = blockIdx.x * BC;
@@ -134,7 +140,8 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b_lo = chunk * bars_per_chunk;
   const int b_hi = min(nbar, b_lo + bars_per_chunk);
-  const int nstage = d / BK;
+  const int nstage = n / BK;
+  const bool has_bias = c0 < n;  // the tile's columns of dbias
 
   for (int e = tid; e < S * BC; e += THREADS) {
     const int s = e / BC, q = e % BC;
@@ -151,9 +158,9 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
 
   for (int bar = b_lo; bar < b_hi; ++bar) {
     const E* xb = x + (size_t)bar * N * d;
-    const E* gb = g + (size_t)bar * N * d;
+    const E* gb = g + (size_t)bar * N * n;
     __syncthreads();  // the previous bar's tiles are consumed
-    load_stage(sm, 0, gb, wbig, d, c0, 0, tid);
+    load_stage(sm, 0, gb, wbig, d, n, c0, 0, tid);
     cp_async_commit();
     load_statics(sm, aux + (size_t)bar * N_AUX * N, tid, THREADS);
     for (int e = tid; e < N * BC; e += THREADS) {
@@ -177,7 +184,7 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
         cp_async_wait_all();
         __syncthreads();  // stage st is in; every warp is done with st - 1
         if (st + 1 < nstage)
-          load_stage(sm, (st + 1) & 1, gb, wbig, d, c0, (st + 1) * BK, tid);
+          load_stage(sm, (st + 1) & 1, gb, wbig, d, n, c0, (st + 1) * BK, tid);
         cp_async_commit();
         const bf16* ga = sm.g[st & 1];
         const bf16* wa = sm.w[st & 1];
@@ -215,9 +222,9 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
                 make_float2(acc[s][j][2 * hh] * m, acc[s][j][2 * hh + 1] * m);
       }
     }
-    if (tid < BC) {
+    if (has_bias && tid < BC) {
       float sb = 0.f;
-      for (int i = 0; i < N; ++i) sb += V::load1(gb + (size_t)i * d + c0 + tid) * sm.m[i];
+      for (int i = 0; i < N; ++i) sb += V::load1(gb + (size_t)i * n + c0 + tid) * sm.m[i];
       sm.dbs[tid] += sb;
     }
     __syncthreads();
@@ -282,12 +289,12 @@ gcl_bwd_fused_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
 
   // ---- 5. this CTA's dgate / dbias partial of the chunk ----
   __syncthreads();
-  float* pg = part_gb + (size_t)chunk * (S + 1) * d;
+  float* pg = part_gb + (size_t)chunk * ((size_t)S * d + n);
   for (int e = tid; e < S * BC; e += THREADS) {
     const int s = e / BC, q = e % BC;
     pg[(size_t)s * d + c0 + q] = sm.dgs[s][q];
   }
-  if (tid < BC) pg[(size_t)S * d + c0 + tid] = sm.dbs[tid];
+  if (has_bias && tid < BC) pg[(size_t)S * d + c0 + tid] = sm.dbs[tid];
 }
 
 // ------------------------------------------------------------ the dW kernel
@@ -329,10 +336,11 @@ __device__ __forceinline__ int g_off(int r, int ch) {
 }
 
 // x[bar][:, c0..c0+31], g[bar][:, j0..j0+63] and aux[bar]: 2 + 4 + 1.75
-// 16-byte copies a thread.
+// 16-byte copies a thread; x rows d wide, g rows n wide.
 __device__ __forceinline__ void dw_load_stage(DwStage& st, const bf16* xb,
                                               const bf16* gb, const int* ab,
-                                              int d, int c0, int j0, int tid) {
+                                              int d, int n, int c0, int j0,
+                                              int tid) {
 #pragma unroll
   for (int j = 0; j < N * WR / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
@@ -343,7 +351,7 @@ __device__ __forceinline__ void dw_load_stage(DwStage& st, const bf16* xb,
   for (int j = 0; j < N * WJ / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 3, ch = c & 7;
-    cp_async16(st.g + g_off(r, ch), gb + (size_t)r * d + j0 + ch * 8);
+    cp_async16(st.g + g_off(r, ch), gb + (size_t)r * n + j0 + ch * 8);
   }
   for (int c = tid; c < N_AUX * N / 4; c += THREADS)
     cp_async16(st.aux + c * 4, ab + c * 4);
@@ -486,7 +494,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 gcl_bwd_dw_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
                           const int* __restrict__ aux,
                           const E* __restrict__ gates,
-                          float* __restrict__ dwbig, int nbar, int d) {
+                          float* __restrict__ dwbig, int nbar, int d,
+                          int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DwSmem& sm = *reinterpret_cast<DwSmem*>(smem_raw);
   const int j0 = blockIdx.x * WJ, c0 = blockIdx.y * WR;
@@ -494,9 +503,9 @@ gcl_bwd_dw_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
   const int p = warp >> 1;             // track block p and block T + p
   const int jn = (warp & 1) * 32;      // the warp's 32 of the 64 columns
   auto stage = [&](int b) {
-    const size_t off = (size_t)b * N * d;
-    dw_load_stage(sm.st[b % NSTAGE], x + off, g + off,
-                  aux + (size_t)b * N_AUX * N, d, c0, j0, tid);
+    dw_load_stage(sm.st[b % NSTAGE], x + (size_t)b * N * d,
+                  g + (size_t)b * N * n, aux + (size_t)b * N_AUX * N, d, n,
+                  c0, j0, tid);
     cp_async_commit();
   };
 
@@ -539,7 +548,7 @@ gcl_bwd_dw_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
   // column jn + 8 nt + 2 (l % 4) + e % 2 of block b ? T + p : p
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
-    float* out = dwbig + ((size_t)(b ? T + p : p) * d + c0) * d + j0 + jn;
+    float* out = dwbig + ((size_t)(b ? T + p : p) * d + c0) * n + j0 + jn;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -547,7 +556,7 @@ gcl_bwd_dw_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
         const int row = 16 * mt + (lane >> 2) + 8 * hh;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
-          *reinterpret_cast<float2*>(out + (size_t)row * d + 8 * nt + 2 * (lane & 3)) =
+          *reinterpret_cast<float2*>(out + (size_t)row * n + 8 * nt + 2 * (lane & 3)) =
               make_float2(acc[b][mt][nt][2 * hh], acc[b][mt][nt][2 * hh + 1]);
       }
   }
@@ -555,23 +564,27 @@ gcl_bwd_dw_bf16_tc_kernel(const E* __restrict__ x, const E* __restrict__ g,
 
 }  // namespace
 
-// x, g (nbar, N, d); aux (nbar, N_AUX, N); gates (S, d); wbig (8d, d), the
-// float tensors in bf16. Writes dx (nbar, N, d) in bf16, and dwbig (8d, d)
-// and out_gb = [dgate (S, d) | dbias (d)] in fp32, using part_gb (nchunks,
-// (S + 1) * d) as fp32 scratch: chunk c of the dH kernel sums bars
-// [c * bpc, (c + 1) * bpc), bpc = ceil(nbar / nchunks). d % 128 == 0.
+// x (nbar, N, d), g (nbar, N, n); aux (nbar, N_AUX, N); gates (S, d); wbig
+// (8d, n), the float tensors in bf16. Writes dx (nbar, N, d) in bf16, and
+// dwbig (8d, n) and out_gb = [dgate (S, d) | dbias (n)] in fp32, using
+// part_gb (nchunks, S * d + n) as fp32 scratch: chunk c of the dH kernel
+// sums bars [c * bpc, (c + 1) * bpc), bpc = ceil(nbar / nchunks). d % 128
+// == 0, n % 128 == 0, d % n == 0.
 extern "C" int gcl_bwd_fused_bf16_launch(const void* x, const void* g,
                                          const void* aux, const void* gates,
                                          const void* wbig, void* dx,
                                          void* part_gb, void* dwbig,
-                                         void* out_gb, int nbar, int d,
+                                         void* out_gb, int nbar, int d, int n,
                                          int nchunks, void* stream) {
-  if (d % 128 != 0 || nchunks < 1) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 128 != 0 || n <= 0 || n % 128 != 0 || d % n != 0 ||
+      nchunks < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const long long row = (long long)S * d + n;  // a partial row
   if (nbar <= 0) {
-    cudaError_t err = cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * d, st);
+    cudaError_t err = cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * n, st);
     if (err != cudaSuccess) return (int)err;
-    return (int)cudaMemsetAsync(out_gb, 0, sizeof(float) * (S + 1) * d, st);
+    return (int)cudaMemsetAsync(out_gb, 0, sizeof(float) * row, st);
   }
   const int bars_per_chunk = (nbar + nchunks - 1) / nchunks;
   const int used = (nbar + bars_per_chunk - 1) / bars_per_chunk;  // none empty
@@ -585,14 +598,13 @@ extern "C" int gcl_bwd_fused_bf16_launch(const void* x, const void* g,
   if (err != cudaSuccess) return (int)err;
   gcl_bwd_fused_bf16_tc_kernel<<<dim3(d / BC, used), THREADS, smem, st>>>(
       (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
-      (const E*)wbig, (E*)dx, (float*)part_gb, nbar, d, bars_per_chunk);
+      (const E*)wbig, (E*)dx, (float*)part_gb, nbar, d, n, bars_per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = sum_rows((const float*)part_gb, (float*)out_gb, used,
-                 (long long)(S + 1) * d, st);
+  err = sum_rows((const float*)part_gb, (float*)out_gb, used, row, st);
   if (err != cudaSuccess) return (int)err;
-  gcl_bwd_dw_bf16_tc_kernel<<<dim3(d / WJ, d / WR), THREADS, dw_smem, st>>>(
+  gcl_bwd_dw_bf16_tc_kernel<<<dim3(n / WJ, d / WR), THREADS, dw_smem, st>>>(
       (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
-      (float*)dwbig, nbar, d);
+      (float*)dwbig, nbar, d, n);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@
 //
 // for the eight packed blocks [track 0..3 | self | onset | next | root]
 // (h_root = x). The four track blocks contract only their own track's 32
-// rows of each bar, the other four all 128.
+// rows of each bar, the other four all 128. g may hold only n of the d
+// output columns (a column shard under tensor parallelism, g (nbar, 128,
+// n)): dWbig is then those n columns, (8d, n).
 //
 // What bounds it on an H100: operations, 2 * 640 * d * d flops a bar (335
 // MFLOP at d = 512), fp32 FFMA on the CUDA cores: fp32 keeps fp32 rounding,
@@ -81,10 +83,11 @@ static_assert(sizeof(float) * 4 * CT * JT <= sizeof(float) * NA * N * CT,
               "half 1's full-block sums fit in the A tiles");
 
 // x[bar][:, c0..c0+31], g[bar][:, j0..j0+63] and aux[bar]: 4 + 8 + 1.75
-// 16-byte copies a thread.
+// 16-byte copies a thread; x rows d wide, g rows n wide.
 __device__ __forceinline__ void load_stage(Stage& st, const float* xb,
                                            const float* gb, const int* ab,
-                                           int d, int c0, int j0, int tid) {
+                                           int d, int n, int c0, int j0,
+                                           int tid) {
 #pragma unroll
   for (int j = 0; j < N * CT / 4 / THREADS; ++j) {
     const int c = tid + j * THREADS;
@@ -95,7 +98,7 @@ __device__ __forceinline__ void load_stage(Stage& st, const float* xb,
   for (int j = 0; j < N * JT / 4 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c / (JT / 4), q = (c % (JT / 4)) * 4;
-    cp_async16(&st.g[r][q], gb + (size_t)r * d + j0 + q);
+    cp_async16(&st.g[r][q], gb + (size_t)r * n + j0 + q);
   }
   for (int c = tid; c < N_AUX * N / 4; c += THREADS)
     cp_async16(st.aux + c * 4, ab + c * 4);
@@ -238,7 +241,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 gcl_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const int* __restrict__ aux,
                       const float* __restrict__ gates,
-                      float* __restrict__ dwbig, int nbar, int d) {
+                      float* __restrict__ dwbig, int nbar, int d, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int j0 = blockIdx.x * JT, c0 = blockIdx.y * CT;
@@ -247,9 +250,8 @@ gcl_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int cg = (warp & 3) * 4 + (lane >> 3);    // features 2 cg, 2 cg + 1
   const int jg = lane & 7;
   auto stage = [&](int b) {
-    const size_t off = (size_t)b * N * d;
-    load_stage(sm.st[b & 1], x + off, g + off, aux + (size_t)b * N_AUX * N,
-               d, c0, j0, tid);
+    load_stage(sm.st[b & 1], x + (size_t)b * N * d, g + (size_t)b * N * n,
+               aux + (size_t)b * N_AUX * N, d, n, c0, j0, tid);
     cp_async_commit();
   };
 
@@ -286,18 +288,18 @@ gcl_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int i = 0; i < 4; ++i) put_tile(red + i * CT * JT, JT, full[i], cg, jg);
   }
   __syncthreads();
-  const size_t pitch = (size_t)d;
-  float* out = dwbig + (size_t)c0 * d + j0;
+  const size_t pitch = (size_t)n;
+  float* out = dwbig + (size_t)c0 * n + j0;
   if (h == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       add_tile(full[i], red + i * CT * JT, cg, jg);
-      put_tile(out + (size_t)(T + i) * d * d, pitch, full[i], cg, jg);
+      put_tile(out + (size_t)(T + i) * d * n, pitch, full[i], cg, jg);
     }
   }
 #pragma unroll
   for (int tb = 0; tb < 2; ++tb)
-    put_tile(out + (size_t)(2 * h + tb) * d * d, pitch, tr[tb], cg, jg);
+    put_tile(out + (size_t)(2 * h + tb) * d * n, pitch, tr[tb], cg, jg);
 }
 
 }  // namespace
@@ -305,23 +307,24 @@ gcl_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // Bytes of dynamic shared memory a CTA of the kernel takes.
 extern "C" int gcl_bwd_weight_smem_bytes() { return (int)sizeof(Smem); }
 
-// x, g (nbar, N, d); aux (nbar, N_AUX, N); gates (S, d); all 16-byte
-// aligned, d % 64 == 0. Writes dwbig (8d, d).
+// x (nbar, N, d), g (nbar, N, n); aux (nbar, N_AUX, N); gates (S, d); all
+// 16-byte aligned, d % 64 == 0, n % 64 == 0. Writes dwbig (8d, n).
 extern "C" int gcl_bwd_weight_launch(const void* x, const void* g,
                                      const void* aux, const void* gates,
-                                     void* dwbig, int nbar, int d,
+                                     void* dwbig, int nbar, int d, int n,
                                      void* stream) {
-  if (d <= 0 || d % JT != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % JT != 0 || n <= 0 || n % JT != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (nbar <= 0)
-    return (int)cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * d, st);
+    return (int)cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * n, st);
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_bwd_weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  gcl_bwd_weight_kernel<<<dim3(d / JT, d / CT), THREADS, smem, st>>>(
+  gcl_bwd_weight_kernel<<<dim3(n / JT, d / CT), THREADS, smem, st>>>(
       (const float*)x, (const float*)g, (const int*)aux, (const float*)gates,
-      (float*)dwbig, nbar, d);
+      (float*)dwbig, nbar, d, n);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,10 @@
 //
 // The template flag EPI picks the form (`gcl_eval_bf16_launch`,
 // `gcl_fwd_bf16_launch`); only the stores of a tile's last stage differ.
+// The weights may hold only n of the d output columns (a column shard under
+// tensor parallelism, n % 128 == 0, K = 1): then `out` is those n columns,
+// (nbar, 128, n), and the eval epilogue's residual reads x's columns
+// c0..c0+n-1. The A build stays over all d input features.
 //
 // The message segments round where the Pallas body casts: each elementwise
 // product, the mean reciprocals, the same-column sums and each segment, so
@@ -98,16 +102,17 @@ __device__ __forceinline__ int a_off(int r, int ch) {
 }
 
 // Weight tile of one stage: row b * BK + kk is row f0 + kk of packed block
-// blk0 + b, columns n0 .. n0 + BN.
+// blk0 + b (rows n wide), columns n0 .. n0 + BN.
 __device__ __forceinline__ void load_w(bf16* dst, const bf16* W, int d,
-                                       int blk0, int f0, int n0, int tid) {
+                                       int n, int blk0, int f0, int n0,
+                                       int tid) {
 #pragma unroll
   for (int j = 0; j < WROWS * BN / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 4, ch = c & 15;
     const int blk = blk0 + r / BK, kk = r % BK;
     cp_async16(dst + w_off(r, ch),
-               W + ((size_t)blk * d + f0 + kk) * d + n0 + ch * 8);
+               W + ((size_t)blk * d + f0 + kk) * n + n0 + ch * 8);
   }
 }
 
@@ -274,14 +279,15 @@ __device__ __forceinline__ void park_track(Smem& sm, float (&acc)[2][8][4],
 
 // out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x) (EPI) or out = v, v =
 // rnd(rnd(rnd(acc) + bias) + track) * m, for this thread's accumulators of
-// tile n0. Without EPI neither ea, eb nor the residual rows are read.
+// tile n0. Without EPI neither ea, eb nor the residual rows are read. out
+// rows are n wide; the residual is xin's column c0 + col of rows d wide.
 template <bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[2][8][4],
                                          const bf16* xin, bf16* xo,
                                          const bf16* bias, const bf16* ea,
-                                         const bf16* eb, int d, int n0,
-                                         int row0, int col0, int tid) {
+                                         const bf16* eb, int d, int n, int c0,
+                                         int n0, int row0, int col0, int tid) {
   const int lane = tid & 31;
 #pragma unroll
   for (int nj = 0; nj < 8; ++nj) {
@@ -297,7 +303,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
           const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
           const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
           const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
-          *reinterpret_cast<uint32_t*>(xo + (size_t)row * d + col) = pack2(v0, v1);
+          *reinterpret_cast<uint32_t*>(xo + (size_t)row * n + col) = pack2(v0, v1);
         }
     } else {
       const float2 aa = bf2(*reinterpret_cast<const uint32_t*>(ea + col));
@@ -310,12 +316,12 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
           const float m = sm.m[row];
           const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
           const float2 xr =
-              bf2(*reinterpret_cast<const uint32_t*>(xin + (size_t)row * d + col));
+              bf2(*reinterpret_cast<const uint32_t*>(xin + (size_t)row * d + c0 + col));
           const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
           const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
           const float o0 = fmaxf(rnd(rnd(v0 * aa.x) + ee.x) * m, 0.f) + xr.x;
           const float o1 = fmaxf(rnd(rnd(v1 * aa.y) + ee.y) * m, 0.f) + xr.y;
-          *reinterpret_cast<uint32_t*>(xo + (size_t)row * d + col) = pack2(o0, o1);
+          *reinterpret_cast<uint32_t*>(xo + (size_t)row * n + col) = pack2(o0, o1);
         }
     }
   }
@@ -326,7 +332,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
                         const bf16* wbigs, const bf16* biases, const bf16* eas,
                         const bf16* ebs, bf16* out, bf16* scratch, int d,
-                        int K) {
+                        int n, int c0, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bar = blockIdx.x;
@@ -348,21 +354,23 @@ gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
   // (weight blocks 0-3) and then nf of the shared product (blocks 4-7).
   const int nf = d / BK;
   const int per_tile = 2 * nf;
-  const int nstage = (d / BN) * per_tile;
-  const size_t bar_off = (size_t)bar * N * d;
+  const int nstage = (n / BN) * per_tile;
+  // n < d only at K = 1, so a chained layer's rows are d = n wide
+  const size_t bar_off = (size_t)bar * N * d, out_off = (size_t)bar * N * n;
 
   for (int k = 0; k < K; ++k) {
     // ping-pong: layer K-1 writes `out`, layer K-2 `scratch`, and so on
-    const bf16* xin = ((k == 0) ? x : (((K - k) % 2 == 0) ? out : scratch)) + bar_off;
-    bf16* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + bar_off;
-    const bf16* W = wbigs + (size_t)k * NBLK * d * d;
-    const bf16* bias = biases + (size_t)k * d;
-    const bf16* ea = EPI ? eas + (size_t)k * d : nullptr;
-    const bf16* eb = EPI ? ebs + (size_t)k * d : nullptr;
+    const bf16* xin = (k == 0) ? x + bar_off
+                               : (((K - k) % 2 == 0) ? out : scratch) + out_off;
+    bf16* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + out_off;
+    const bf16* W = wbigs + (size_t)k * NBLK * d * n;
+    const bf16* bias = biases + (size_t)k * n;
+    const bf16* ea = EPI ? eas + (size_t)k * n : nullptr;
+    const bf16* eb = EPI ? ebs + (size_t)k * n : nullptr;
 
     auto fetch_w = [&](int s) {
       const int j = s % per_tile;
-      load_w(sm.w[s & 1], W, d, j < nf ? 0 : T, (j % nf) * BK,
+      load_w(sm.w[s & 1], W, d, n, j < nf ? 0 : T, (j % nf) * BK,
              (s / per_tile) * BN, tid);
     };
     auto fetch_x = [&](int s) {
@@ -399,7 +407,7 @@ gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
         for (int seg = 0; seg < NSB; ++seg)
           mma_k16(acc, sm.a[seg], wt, seg * BK, row0, col0, lane);
         if (j == per_tile - 1)
-          epilogue<EPI>(sm, acc, xin, xo, bias, ea, eb, d,
+          epilogue<EPI>(sm, acc, xin, xo, bias, ea, eb, d, n, c0,
                         (s / per_tile) * BN, row0, col0, tid);
       }
     }
@@ -410,17 +418,20 @@ gcl_eval_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
 
 }  // namespace
 
-// Layers of the kernel's EPI form, every float tensor in bf16: x, out,
-// scratch (nbar, 128, d), gates (32, d), wbigs (K, 8d, d), biases, eas, ebs
-// (K, d); aux (nbar, 14, 128) int32. Without EPI, K = 1 and eas, ebs are not
-// read.
+// Layers of the kernel's EPI form, every float tensor in bf16: x (nbar,
+// 128, d), out, scratch (nbar, 128, n), gates (32, d), wbigs (K, 8d, n),
+// biases, eas, ebs (K, n); aux (nbar, 14, 128) int32. d % 128 == 0 and n %
+// 128 == 0 with c0 + n <= d; a chain (K > 1) takes n = d, c0 = 0. Without
+// EPI, K = 1 and eas, ebs are not read.
 template <bool EPI>
 static int launch(const void* x, const void* aux, const void* gates,
                   const void* wbigs, const void* biases, const void* eas,
                   const void* ebs, void* out, void* scratch, int nbar, int d,
-                  int K, void* stream) {
+                  int n, int c0, int K, void* stream) {
   if (nbar <= 0) return 0;
-  if (d % BN != 0 || K < 1 || (!EPI && K != 1))
+  if (d <= 0 || d % BN != 0 || n <= 0 || n % BN != 0 || c0 < 0 ||
+      c0 % 2 != 0 || c0 + n > d || K < 1 || (!EPI && K != 1) ||
+      (K > 1 && n != d))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
@@ -434,25 +445,28 @@ static int launch(const void* x, const void* aux, const void* gates,
   gcl_eval_bf16_tc_kernel<EPI><<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const int*)aux, (const bf16*)gates,
       (const bf16*)wbigs, (const bf16*)biases, (const bf16*)eas,
-      (const bf16*)ebs, (bf16*)out, (bf16*)scratch, d, K);
+      (const bf16*)ebs, (bf16*)out, (bf16*)scratch, d, n, c0, K);
   return (int)cudaGetLastError();
 }
 
-// K chained eval layers (folded batch-norm, relu, residual).
+// K chained eval layers (folded batch-norm, relu, residual); at K = 1
+// output columns c0..c0+n-1 of the layer.
 extern "C" int gcl_eval_bf16_launch(const void* x, const void* aux,
                                     const void* gates, const void* wbigs,
                                     const void* biases, const void* eas,
                                     const void* ebs, void* out, void* scratch,
-                                    int nbar, int d, int K, void* stream) {
+                                    int nbar, int d, int n, int c0, int K,
+                                    void* stream) {
   return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
-                      nbar, d, K, stream);
+                      nbar, d, n, c0, K, stream);
 }
 
-// One training-forward layer: out = v, wbig (8d, d), bias (d,).
+// One training-forward layer: out = v, wbig (8d, n), bias (n,), out (nbar,
+// 128, n).
 extern "C" int gcl_fwd_bf16_launch(const void* x, const void* aux,
                                    const void* gates, const void* wbig,
                                    const void* bias, void* out, int nbar,
-                                   int d, void* stream) {
+                                   int d, int n, void* stream) {
   return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
-                       nbar, d, 1, stream);
+                       nbar, d, n, 0, 1, stream);
 }

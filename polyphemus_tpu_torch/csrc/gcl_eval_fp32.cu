@@ -13,7 +13,11 @@
 //   out = relu((v * ea + eb) * m) + x      (eval, `gcl_eval_launch`)
 //   out = v                                (training, `gcl_fwd_launch`)
 //
-// with W_t the weight of the row's own track. The template flag EPI picks
+// with W_t the weight of the row's own track. The weights may hold only n
+// of the d output columns (a column shard under tensor parallelism, n % 128
+// == 0, K = 1): then `out` is those n columns, (nbar, 128, n), and the
+// eval epilogue's residual reads x's columns c0..c0+n-1. The A build stays
+// over all d input features. The template flag EPI picks
 // the form; only the stores after the last stage differ, so both forms keep
 // the same stages, barriers and mbarrier waits. The messages come from
 // direct indexed loads through the aux channels (no one-hot selection
@@ -207,14 +211,15 @@ __device__ __forceinline__ void gemm_stage(float (&acc)[8][4 * NJ],
 
 // out = relu(((acc + bias) * m * ea + eb) * m) + x for this thread's rows
 // r0..r0+7 and columns n0 + cb + 32 j .. + 3 (EPI); without EPI out =
-// (acc + bias) * m, reading neither ea, eb nor the residual rows.
+// (acc + bias) * m, reading neither ea, eb nor the residual rows. out rows
+// are n wide; the residual is xin's column c0 + col of rows d wide.
 template <int NJ, bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[8][4 * NJ],
                                          const float* xin, float* xo,
                                          const float* bias, const float* ea,
-                                         const float* eb, int d, int n0,
-                                         int r0, int cb) {
+                                         const float* eb, int d, int n,
+                                         int c0, int n0, int r0, int cb) {
   if constexpr (!EPI) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -224,7 +229,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
       for (int r = 0; r < 8; ++r) {
         const int i = r0 + r;
         const float m = sm.m[i];
-        *reinterpret_cast<float4*>(xo + (size_t)i * d + col) = make_float4(
+        *reinterpret_cast<float4*>(xo + (size_t)i * n + col) = make_float4(
             (acc[r][4 * j] + bb.x) * m, (acc[r][4 * j + 1] + bb.y) * m,
             (acc[r][4 * j + 2] + bb.z) * m, (acc[r][4 * j + 3] + bb.w) * m);
       }
@@ -244,7 +249,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
         const int i = r0 + r;
         const float m = sm.m[i];
         const float4 res =
-            __ldcg(reinterpret_cast<const float4*>(xin + (size_t)i * d + col));
+            __ldcg(reinterpret_cast<const float4*>(xin + (size_t)i * d + c0 + col));
         const float rv[4] = {res.x, res.y, res.z, res.w};
         float o[4];
 #pragma unroll
@@ -252,7 +257,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
           const float v = (acc[r][4 * j + c] + bv[c]) * m;
           o[c] = fmaxf((v * av[c] + ev[c]) * m, 0.f) + rv[c];
         }
-        *reinterpret_cast<float4*>(xo + (size_t)i * d + col) =
+        *reinterpret_cast<float4*>(xo + (size_t)i * n + col) =
             make_float4(o[0], o[1], o[2], o[3]);
       }
     }
@@ -268,8 +273,8 @@ __device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
                                      const float* gates, const CUtensorMap* map,
                                      int blk0, const float* bias,
                                      const float* ea, const float* eb, int d,
-                                     int n0, int tid, int warp, int trk,
-                                     int r0, int cb, unsigned& g) {
+                                     int n, int c0, int n0, int tid, int warp,
+                                     int trk, int r0, int cb, unsigned& g) {
   constexpr int NCP = 64 * NJ;
   const int nf = d / BK;
   float acc[8][4 * NJ];
@@ -307,14 +312,15 @@ __device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
     cp_async_wait<0>();
     __syncthreads();
   }
-  epilogue<NJ, EPI>(sm, acc, xin, xo, bias, ea, eb, d, n0, r0, cb);
+  epilogue<NJ, EPI>(sm, acc, xin, xo, bias, ea, eb, d, n, c0, n0, r0, cb);
 }
 
 template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_eval_fp32_kernel(const float* x, const int* aux, const float* gates,
                      const float* biases, const float* eas, const float* ebs,
-                     float* out, float* scratch, int d, int K,
+                     float* out, float* scratch, int d, int n, int c0,
+                     int K,
                      const __grid_constant__ CUtensorMap map256,
                      const __grid_constant__ CUtensorMap map128) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -335,21 +341,23 @@ gcl_eval_fp32_kernel(const float* x, const int* aux, const float* gates,
   __syncthreads();
   unsigned g = 0;  // stages multiplied so far
 
-  const size_t bar_off = (size_t)bar * N * d;
+  // n < d only at K = 1, so a chained layer's rows are d = n wide
+  const size_t bar_off = (size_t)bar * N * d, out_off = (size_t)bar * N * n;
   for (int k = 0; k < K; ++k) {
     // ping-pong: layer K-1 writes `out`, layer K-2 `scratch`, and so on
-    const float* xin = ((k == 0) ? x : (((K - k) % 2 == 0) ? out : scratch)) + bar_off;
-    float* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + bar_off;
-    const float* bias = biases + (size_t)k * d;
-    const float* ea = EPI ? eas + (size_t)k * d : nullptr;
-    const float* eb = EPI ? ebs + (size_t)k * d : nullptr;
+    const float* xin = (k == 0) ? x + bar_off
+                                : (((K - k) % 2 == 0) ? out : scratch) + out_off;
+    float* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + out_off;
+    const float* bias = biases + (size_t)k * n;
+    const float* ea = EPI ? eas + (size_t)k * n : nullptr;
+    const float* eb = EPI ? ebs + (size_t)k * n : nullptr;
     int n0 = 0;
-    for (; n0 + NC <= d; n0 += NC)
-      pass<4, EPI>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d, n0,
-              tid, warp, trk, r0, half * (NC / 2) + cx, g);
-    if (n0 < d)  // d % 256 == 128: one pass of 128 columns
-      pass<2, EPI>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d, n0,
-              tid, warp, trk, r0, half * (NC / 4) + cx, g);
+    for (; n0 + NC <= n; n0 += NC)
+      pass<4, EPI>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d, n,
+              c0, n0, tid, warp, trk, r0, half * (NC / 2) + cx, g);
+    if (n0 < n)  // n % 256 == 128: one pass of 128 columns
+      pass<2, EPI>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d, n,
+              c0, n0, tid, warp, trk, r0, half * (NC / 4) + cx, g);
     // the next layer reads this layer's output rows written by other threads
     __syncthreads();
   }
@@ -384,15 +392,15 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The weights of all K layers as a 3-d tensor [8K blocks][d rows][d columns]
+// The weights of all K layers as a 3-d tensor [8K blocks][d rows][n columns]
 // of fp32, read in boxes of [8][BK][ncp].
-static bool weight_map(CUtensorMap* map, const void* wbigs, int d, int K,
-                       int ncp) {
+static bool weight_map(CUtensorMap* map, const void* wbigs, int d, int n,
+                       int K, int ncp) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)d,
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)d,
                               (cuuint64_t)NBLK * K};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)d * d * 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * 4, (cuuint64_t)d * n * 4};
   const cuuint32_t box[3] = {(cuuint32_t)ncp, BK, NBLK};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(wbigs),
@@ -416,50 +424,55 @@ static cudaError_t allow_smem(int smem) {
   return err;
 }
 
-// Layers of the kernel's EPI form, every float tensor fp32: x, out,
-// scratch (nbar, 128, d), gates (32, d), wbigs (K, 8d, d), biases, eas, ebs
-// (K, d); aux (nbar, 14, 128) int32. d % 128 == 0; for K = 1 scratch may be
-// out. Without EPI, K = 1 and eas, ebs are not read.
+// Layers of the kernel's EPI form, every float tensor fp32: x (nbar, 128,
+// d), out, scratch (nbar, 128, n), gates (32, d), wbigs (K, 8d, n), biases,
+// eas, ebs (K, n); aux (nbar, 14, 128) int32. d % 128 == 0 and n % 128 ==
+// 0 with c0 + n <= d; a chain (K > 1) takes n = d, c0 = 0. For K = 1
+// scratch may be out. Without EPI, K = 1 and eas, ebs are not read.
 template <bool EPI>
 static int launch(const void* x, const void* aux, const void* gates,
                   const void* wbigs, const void* biases, const void* eas,
                   const void* ebs, void* out, void* scratch, int nbar, int d,
-                  int K, void* stream) {
+                  int n, int c0, int K, void* stream) {
   if (nbar <= 0) return 0;
-  if (d <= 0 || d % 128 != 0 || K < 1 || (!EPI && K != 1))
+  if (d <= 0 || d % 128 != 0 || n <= 0 || n % 128 != 0 || c0 < 0 ||
+      c0 % 4 != 0 || c0 + n > d || K < 1 || (!EPI && K != 1) ||
+      (K > 1 && n != d))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   const cudaError_t err = allow_smem<EPI>(smem);
   if (err != cudaSuccess) return (int)err;
-  // a map for the full 256-column passes and, where d % 256 == 128, one for
+  // a map for the full 256-column passes and, where n % 256 == 128, one for
   // the last 128-column pass; an unused map stays zero
   CUtensorMap map256 = {}, map128 = {};
-  if ((d >= NC && !weight_map(&map256, wbigs, d, K, NC)) ||
-      (d % NC != 0 && !weight_map(&map128, wbigs, d, K, NC / 2)))
+  if ((n >= NC && !weight_map(&map256, wbigs, d, n, K, NC)) ||
+      (n % NC != 0 && !weight_map(&map128, wbigs, d, n, K, NC / 2)))
     return (int)cudaErrorInvalidValue;
   gcl_eval_fp32_kernel<EPI><<<nbar, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const int*)aux, (const float*)gates,
       (const float*)biases, (const float*)eas, (const float*)ebs, (float*)out,
-      (float*)scratch, d, K, map256, map128);
+      (float*)scratch, d, n, c0, K, map256, map128);
   return (int)cudaGetLastError();
 }
 
-// K chained eval layers (folded batch-norm, relu, residual).
+// K chained eval layers (folded batch-norm, relu, residual); at K = 1
+// output columns c0..c0+n-1 of the layer.
 extern "C" int gcl_eval_launch(const void* x, const void* aux,
                                const void* gates, const void* wbigs,
                                const void* biases, const void* eas,
                                const void* ebs, void* out, void* scratch,
-                               int nbar, int d, int K, void* stream) {
+                               int nbar, int d, int n, int c0, int K,
+                               void* stream) {
   return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
-                      nbar, d, K, stream);
+                      nbar, d, n, c0, K, stream);
 }
 
 // One training-forward layer: out = ([h_track | h_self | h_onset | h_next |
-// x] @ wbig + bias) * m, wbig (8d, d), bias (d,).
+// x] @ wbig + bias) * m, wbig (8d, n), bias (n,), out (nbar, 128, n).
 extern "C" int gcl_fwd_launch(const void* x, const void* aux,
                               const void* gates, const void* wbig,
                               const void* bias, void* out, int nbar, int d,
-                              void* stream) {
+                              int n, void* stream) {
   return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
-                       nbar, d, 1, stream);
+                       nbar, d, n, 0, 1, stream);
 }

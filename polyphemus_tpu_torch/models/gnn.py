@@ -14,6 +14,16 @@ gate table.
     `gcl_apply` with its dropout (plain PyTorch with autograd): the fused
     kernels have no place to drop a message, and the JAX package routes
     the same way.
+
+Under tensor parallelism (`parallel.mesh`, M > 1) each rank holds a column
+shard of every layer's `rel_weight` and `root` (d / M output columns) and
+launches the kernels' column forms on it: the layer's input and the gate
+table pass through `copy_to_model` (their grads, partial sums over the
+shard's columns, are summed over the model group), the bias through the
+copy and then its slice, and the shards' outputs are gathered before the
+batch-norm and the residual, which run whole on every rank. The eval stack
+runs one layer per launch there (a layer needs the whole output of the one
+before it).
 """
 from __future__ import annotations
 
@@ -23,12 +33,14 @@ from torch import nn
 from ..ops import lattice
 from ..ops.kernels import gcl as gcl_k
 from ..ops.kernels import gcl_bwd
+from ..parallel import mesh as pmesh
 from .layers import Dropout, MaskedBatchNorm
 
 
 class GCLParams(nn.Module):
     """One relational graph-conv layer's parameters (RGCNConv layout:
-    rel_weight (n_relations, d_in, d_out), root, bias)."""
+    rel_weight (n_relations, d_in, d_out), root, bias). Under tensor
+    parallelism `rel_weight` and `root` hold the rank's output columns."""
 
     def __init__(self, in_dim: int, out_dim: int, num_relations: int = 6):
         super().__init__()
@@ -85,6 +97,8 @@ class GCN(nn.Module):
 
     def _eval_stack(self, xf, aux, gate_table, chain):
         n_tracks = xf.shape[1] // gate_table.shape[0]
+        if pmesh.model_size() > 1:
+            return self._eval_columns(xf, aux, gate_table, n_tracks)
         per_layer = []
         for i, p in enumerate(self.layers):
             if self.norm_layers is not None:
@@ -101,25 +115,53 @@ class GCN(nn.Module):
                   for j in range(4)))
         return xf
 
+    def _eval_columns(self, xf, aux, gate_table, n_tracks):
+        """The eval stack on the rank's column shards, one layer a launch:
+        relu((agg @ W[:, cols] + b[cols]) * ea[cols] + eb[cols]) * m +
+        x[..., cols], then gathered."""
+        lo, hi = pmesh.shard_range(self.dim)
+        for i, p in enumerate(self.layers):
+            if self.norm_layers is not None:
+                ea, eb = self.norm_layers[i].folded_affine()
+            else:
+                ea, eb = torch.ones_like(p.bias), torch.zeros_like(p.bias)
+            out = gcl_k.gcl_eval(
+                xf, aux, gate_table,
+                gcl_k.pack_weights(p.rel_weight, p.root, n_tracks)[None],
+                *(v[lo:hi][None].contiguous() for v in (p.bias, ea, eb)),
+                col0=lo)
+            xf = pmesh.gather_from_model(out)
+        return xf
+
     def _layer_stack(self, xf, mask, aux, gate_table):
         m = mask.reshape(xf.shape[:2])
         m_f = m[..., None].to(xf.dtype)
         if self.message_dropout > 0:
             cells = mask.reshape((-1,) + mask.shape[-2:])
             nbr = lattice.build_neighbors(cells)
+        tp = pmesh.model_size() > 1
+        if tp:
+            gate_table = pmesh.copy_to_model(gate_table)
+            lo, hi = pmesh.shard_range(self.dim)
         for i, p in enumerate(self.layers):
             xd = self.drop(xf)
+            bias = p.bias
+            if tp:
+                xd = pmesh.copy_to_model(xd)
+                bias = pmesh.copy_to_model(bias)[lo:hi]
             if self.message_dropout > 0:
                 h = lattice.gcl_apply(
                     xd.reshape(cells.shape + (self.dim,)), cells, nbr,
-                    gate_table, p.rel_weight, p.root, p.bias,
+                    gate_table, p.rel_weight, p.root, bias,
                     message_dropout=self.message_dropout,
                     generator=self.drop.generator,
                     message_dropout_mode=self.message_dropout_mode,
-                ).reshape(xf.shape)
+                ).reshape(xf.shape[:-1] + bias.shape)
             else:
                 h = gcl_bwd.gcl_fused(xd.contiguous(), gate_table,
-                                      p.rel_weight, p.root, p.bias, aux, mask)
+                                      p.rel_weight, p.root, bias, aux, mask)
+            if tp:
+                h = pmesh.gather_from_model(h)
             if self.norm_layers is not None:
                 h = self.norm_layers[i](h, m) * m_f
             xf = xf + torch.relu(h)

@@ -31,6 +31,32 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight) + self.bias
 
 
+class RowParallelLinear(Linear):
+    """`Linear` whose weight's input columns are sharded over the model
+    axis under tensor parallelism (`parallel.mesh`): the rank's columns of
+    x (whole, through `copy_to_model`) times its weight shard, the partial
+    products summed over the model group, then the whole bias."""
+
+    def forward(self, x):
+        if pmesh.model_size() == 1:
+            return super().forward(x)
+        lo, hi = pmesh.shard_range(x.shape[-1])
+        part = F.linear(pmesh.copy_to_model(x)[..., lo:hi], self.weight)
+        return pmesh.reduce_from_model(part) + self.bias
+
+
+class ColumnParallelLinear(Linear):
+    """`Linear` whose weight's output rows and bias are sharded over the
+    model axis under tensor parallelism (`parallel.mesh`): the rank's
+    output columns, gathered."""
+
+    def forward(self, x):
+        if pmesh.model_size() == 1:
+            return super().forward(x)
+        return pmesh.gather_from_model(
+            super().forward(pmesh.copy_to_model(x)))
+
+
 class Conv2d(nn.Conv2d):
     """`nn.Conv2d` that, on a 2-byte float input, rounds the convolution
     before it adds the bias, as the JAX package's im2col product + bias

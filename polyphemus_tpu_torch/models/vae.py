@@ -14,6 +14,14 @@ policy of `train/trainer.py`); the fp32 islands sit where the JAX package
 has them: the histogram statistics of the fused front, the attention-pooling
 softmax, the per-slot log-softmax and counts, and the losses.
 
+Under tensor parallelism (`parallel.mesh`, M > 1) the chord and bars
+projections hold the rank's shard: the encoders' (`chord_encoder`,
+`bars_encoder`) are row-parallel (the rank's input rows, a partial product,
+`reduce_from_model`, then the whole bias), the decoders' (`chord_decoder`,
+`bars_decoder`) column-parallel (the rank's output columns and bias, then
+gathered). The GCNs shard as `models/gnn.py` says; everything else runs
+whole on every rank.
+
 Layout (as in the JAX package):
   mask:     (B, n_bars, T, S) bool — the structure tensor;
   tokens:   (B, n_bars, T, S, 16, 2) int — (pitch, dur) ids per slot, slot 0
@@ -37,8 +45,8 @@ from ..ops import masked as mops
 from ..ops.kernels import chord_tail as chord_k
 from ..parallel import mesh as pmesh
 from .gnn import GCN
-from .layers import (MLP, CNNDecoder, CNNEncoder, Dropout, Linear,
-                     MaskedBatchNorm)
+from .layers import (MLP, CNNDecoder, CNNEncoder, ColumnParallelLinear,
+                     Dropout, Linear, MaskedBatchNorm, RowParallelLinear)
 
 N_SLOTS = constants.MAX_SIMU_TOKENS - 1
 STAT_KEYS = ("pitch_nll", "dur_nll", "n_p", "n_d", "c_p", "c_d", "c_both",
@@ -113,18 +121,31 @@ class ContentEncoder(nn.Module):
                                  message_dropout_mode=cfg.message_dropout_mode)
         self.gate_mlp = MLP(d, [1], activation=False, dropout=cfg.dropout)
         self.gate_bn = MaskedBatchNorm(1)
-        self.bars_encoder = Linear(cfg.n_bars * d, d)
+        self.bars_encoder = RowParallelLinear(cfg.n_bars * d, d)
         self.drop = Dropout(cfg.dropout)
+
+    def _chord_slots(self):
+        """(w (n, d, d), slots): the chord projection's kernel as per-slot
+        blocks and the slots they are; all 15, or under tensor parallelism
+        the slots the rank's row shard touches, zero outside its rows."""
+        d = self.cfg.d
+        ck = self.chord_encoder.kernel
+        if pmesh.model_size() == 1:
+            return ck.reshape(N_SLOTS, d, d), slice(0, N_SLOTS)
+        r0, r1 = pmesh.shard_range(N_SLOTS * d)
+        s_lo, s_hi = r0 // d, -(-r1 // d)
+        w = F.pad(ck, (0, 0, r0 - s_lo * d, s_hi * d - r1))
+        return w.reshape(s_hi - s_lo, d, d), slice(s_lo, s_hi)
 
     def _fused_front(self, pitch_ids, dur_ids, mask):
         """Embedding + BN + chord projection through per-slot lookup tables
         (`ops/fused_embed.py`): no (cells, slots, d) intermediate."""
-        d, h = self.cfg.d, self.cfg.d // 2
+        h = self.cfg.d // 2
         ck, cb = self.chord_encoder.kernel, self.chord_encoder.bias
         pids_dr, pids_nd = pitch_ids[..., :1, :, :], pitch_ids[..., 1:, :, :]
         dids_dr, dids_nd = dur_ids[..., :1, :, :], dur_ids[..., 1:, :, :]
         m_dr, m_nd = mask[..., :1, :], mask[..., 1:, :]
-        w_slots = ck.reshape(N_SLOTS, d, d)
+        w_slots, sl = self._chord_slots()
         w_p, w_d = w_slots[:, :h, :], w_slots[:, h:, :]
 
         def affine(bn, table, ebias, ids, cmask):
@@ -144,15 +165,22 @@ class ContentEncoder(nn.Module):
         a_dd, b_dd = affine(self.bn_dur, dk, db, dids_dr, m_dr)
         a_dn, b_dn = affine(self.bn_dur, dk, db, dids_nd, m_nd)
 
-        t_pd, c_pd = fe.fused_tables(pk_d, pb_d, a_pd, b_pd, w_p)
-        t_pn, c_pn = fe.fused_tables(pk_n, pb_n, a_pn, b_pn, w_p)
-        t_dd, c_dd = fe.fused_tables(dk, db, a_dd, b_dd, w_d)
-        t_dn, c_dn = fe.fused_tables(dk, db, a_dn, b_dn, w_d)
-        x_dr = (fe.gather_sum(t_pd, c_pd, pids_dr)
-                + fe.gather_sum(t_dd, c_dd, dids_dr) + cb)
-        x_nd = (fe.gather_sum(t_pn, c_pn, pids_nd)
-                + fe.gather_sum(t_dn, c_dn, dids_nd) + cb)
-        return torch.cat([x_dr, x_nd], dim=-3).to(ck.dtype)
+        def tables(*args):  # (vocab, h) lookups times the rank's rows
+            return fe.fused_tables(*map(pmesh.copy_to_model, args[:4]),
+                                   args[4])
+
+        t_pd, c_pd = tables(pk_d, pb_d, a_pd, b_pd, w_p)
+        t_pn, c_pn = tables(pk_n, pb_n, a_pn, b_pn, w_p)
+        t_dd, c_dd = tables(dk, db, a_dd, b_dd, w_d)
+        t_dn, c_dn = tables(dk, db, a_dn, b_dn, w_d)
+        # the BN statistics above take every slot, the lookups the slots
+        # of the rank's rows
+        x_dr = (fe.gather_sum(t_pd, c_pd, pids_dr[..., sl])
+                + fe.gather_sum(t_dd, c_dd, dids_dr[..., sl]))
+        x_nd = (fe.gather_sum(t_pn, c_pn, pids_nd[..., sl])
+                + fe.gather_sum(t_dn, c_dn, dids_nd[..., sl]))
+        return (pmesh.reduce_from_model(torch.cat([x_dr, x_nd], dim=-3))
+                + cb).to(ck.dtype)
 
     def _plain_front(self, pitch_ids, dur_ids, mask):
         """Per-slot embeddings (..., 15, d/2), masked BN, chord Linear."""
@@ -169,16 +197,18 @@ class ContentEncoder(nn.Module):
         nd_dur = self.bn_dur(nd_dur, m_nd)
         # the chord projection split into its pitch-row and duration-row
         # blocks: the same math as [pitch; dur] per slot @ kernel
-        ck3 = self.chord_encoder.kernel.reshape(N_SLOTS, d, d)
-        w_p = ck3[:, :h, :].reshape(N_SLOTS * h, d)
-        w_d = ck3[:, h:, :].reshape(N_SLOTS * h, d)
+        ck3, sl = self._chord_slots()
+        w_p = ck3[:, :h, :].reshape(-1, d)
+        w_d = ck3[:, h:, :].reshape(-1, d)
 
-        def flat(t):
-            return t.reshape(t.shape[:-2] + (N_SLOTS * h,))
+        def flat(t):  # the slots of the rank's rows of a whole tensor
+            t = pmesh.copy_to_model(t)[..., sl, :]
+            return t.reshape(t.shape[:-2] + (-1,))
 
         x_dr = flat(drums_pitch) @ w_p + flat(drums_dur) @ w_d
         x_nd = flat(nd_pitch) @ w_p + flat(nd_dur) @ w_d
-        return torch.cat([x_dr, x_nd], dim=-3) + self.chord_encoder.bias
+        return pmesh.reduce_from_model(torch.cat([x_dr, x_nd], dim=-3)) \
+            + self.chord_encoder.bias
 
     def forward(self, tokens, mask):
         cfg = self.cfg
@@ -201,7 +231,7 @@ class StructureEncoder(nn.Module):
         self.cnn_encoder = CNNEncoder(cfg.d, cfg.d, cfg.n_tracks,
                                       cfg.n_timesteps, cfg.batch_norm,
                                       cfg.dropout)
-        self.bars_encoder = Linear(cfg.n_bars * cfg.d, cfg.d)
+        self.bars_encoder = RowParallelLinear(cfg.n_bars * cfg.d, cfg.d)
 
     def forward(self, s_float):
         cfg = self.cfg
@@ -238,7 +268,7 @@ class StructureDecoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.bars_decoder = Linear(cfg.d, cfg.d * cfg.n_bars)
+        self.bars_decoder = ColumnParallelLinear(cfg.d, cfg.d * cfg.n_bars)
         self.cnn_decoder = CNNDecoder(cfg.d, cfg.d, cfg.n_tracks,
                                       cfg.n_timesteps, cfg.batch_norm,
                                       cfg.dropout)
@@ -256,7 +286,7 @@ class ContentDecoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, h = cfg.d, cfg.d // 2
-        self.bars_decoder = Linear(d, d * cfg.n_bars)
+        self.bars_decoder = ColumnParallelLinear(d, d * cfg.n_bars)
         self.graph_decoder = GCN(d, cfg.gnn_n_layers,
                                  num_relations=constants.N_EDGE_TYPES,
                                  num_dists=cfg.n_timesteps,
@@ -281,11 +311,16 @@ class ContentDecoder(nn.Module):
         pitch = torch.cat([drums, melodic], dim=track_axis)
         return pitch, dh @ self.dur_emb.kernel + self.dur_emb.bias
 
-    def _slot_stats(self, x, w, b, pt, dt, act, is_drum, seed):
+    def _slot_stats(self, x, w, b, pt, dt, act, is_drum, seed, pad=None):
         """Masked-CE sums and accuracy counts of one note slot (the
-        training statistics; `seed` draws this slot's dropout mask)."""
+        training statistics; `seed` draws this slot's dropout mask). Under
+        tensor parallelism w and b are the slot's columns in the rank's
+        shard, placed by `pad` (left, right) among the slot's d and summed
+        over the model group (each column is one rank's)."""
         wide = torch.promote_types(x.dtype, torch.float32)
         slot_h = x @ w + b
+        if pad is not None:
+            slot_h = pmesh.reduce_from_model(F.pad(slot_h, pad))
         if seed is not None:
             p = self.drop.p
             gen = torch.Generator(device=x.device).manual_seed(seed)
@@ -325,11 +360,19 @@ class ContentDecoder(nn.Module):
         seeds = (_slot_seeds(self.drop.generator, x.device, N_SLOTS) if drop
                  else [None] * N_SLOTS)
         stats = [torch.zeros((), device=x.device)] * len(STAT_KEYS)
+        x = pmesh.copy_to_model(x)
+        lo, hi = pmesh.shard_range(N_SLOTS * d)
         for s in range(N_SLOTS):
-            upd = checkpoint(self._slot_stats, x, ck[:, s * d:(s + 1) * d],
-                             cb[s * d:(s + 1) * d], targets[..., s, 0],
-                             targets[..., s, 1], mask, is_drum, seeds[s],
-                             use_reentrant=False)
+            # the slot's columns [a, b) that this rank holds: all of them
+            # at M = 1, maybe none under tensor parallelism
+            a = min(max(s * d, lo), (s + 1) * d)
+            b = max(min((s + 1) * d, hi), a)
+            cols = slice(a - lo, b - lo) if b > a else slice(0, 0)
+            pad = ((a - s * d, (s + 1) * d - b) if pmesh.model_size() > 1
+                   else None)
+            upd = checkpoint(self._slot_stats, x, ck[:, cols], cb[cols],
+                             targets[..., s, 0], targets[..., s, 1], mask,
+                             is_drum, seeds[s], pad, use_reentrant=False)
             stats = [a + u for a, u in zip(stats, upd)]
         return dict(zip(STAT_KEYS, stats))
 
@@ -350,7 +393,8 @@ class ContentDecoder(nn.Module):
                 raise ValueError("emit='train_stats' needs targets")
             return self._train_stats(x, mask, targets)
         if emit == "logits":
-            y = (x @ ck + cb).reshape(x.shape[:-1] + (N_SLOTS, d))
+            y = pmesh.gather_from_model(pmesh.copy_to_model(x) @ ck + cb)
+            y = y.reshape(x.shape[:-1] + (N_SLOTS, d))
             pitch, dur = self._unembed(self.drop(y), track_axis=-4)
             return torch.cat([pitch, dur], dim=-1)
         if emit != "tokens":

@@ -6,9 +6,11 @@ decode -> unembed -> argmax)."""
 
 def launch_counts() -> dict:
     """Every wrapper's count of its kernel's launches in this process, by
-    kernel name."""
+    kernel name; `<name>_cols` counts those of them in the column form
+    (tensor parallelism)."""
     from . import chord_tail, gcl, gcl_bwd
 
+    cols = {f"{k}_cols": v for k, v in gcl.col_launches.items()}
     return {"gcl_eval": gcl.launches,
             "gcl_eval_bf16": gcl.eval_bf16_launches,
             "gcl_fwd": gcl.fwd_launches,
@@ -17,4 +19,4 @@ def launch_counts() -> dict:
             "gcl_bwd_weight": gcl_bwd.weight_launches,
             "gcl_bwd_fused": gcl_bwd.fused_launches,
             "chord_tail": chord_tail.launches,
-            "chord_tail_bf16": chord_tail.bf16_launches}
+            "chord_tail_bf16": chord_tail.bf16_launches, **cols}

@@ -32,22 +32,22 @@ VP, INT = ctypes.c_void_p, ctypes.c_int
 # int CUDA error code
 SIGNATURES = {
     "gcl_eval": ("gcl_eval_fp32", "gcl_eval_launch",
-                 [VP] * 9 + [INT] * 3 + [VP]),
+                 [VP] * 9 + [INT] * 5 + [VP]),
     "gcl_eval_bf16": ("gcl_eval_bf16_tc", "gcl_eval_bf16_launch",
-                      [VP] * 9 + [INT] * 3 + [VP]),
+                      [VP] * 9 + [INT] * 5 + [VP]),
     "gcl_fwd": ("gcl_eval_fp32", "gcl_fwd_launch",
-                [VP] * 6 + [INT] * 2 + [VP]),
+                [VP] * 6 + [INT] * 3 + [VP]),
     "gcl_fwd_bf16": ("gcl_eval_bf16_tc", "gcl_fwd_bf16_launch",
-                     [VP] * 6 + [INT] * 2 + [VP]),
+                     [VP] * 6 + [INT] * 3 + [VP]),
     "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
-                     [VP] * 8 + [INT] * 2 + [VP]),
+                     [VP] * 8 + [INT] * 3 + [VP]),
     "gcl_bwd_weight": ("gcl_bwd_weight", "gcl_bwd_weight_launch",
-                       [VP] * 5 + [INT] * 2 + [VP]),
+                       [VP] * 5 + [INT] * 3 + [VP]),
     "gcl_bwd_fused": ("gcl_bwd_fused", "gcl_bwd_fused_launch",
                       [VP] * 10 + [INT] * 3 + [VP]),
     "gcl_bwd_fused_bf16": ("gcl_bwd_fused_bf16_tc",
                            "gcl_bwd_fused_bf16_launch",
-                           [VP] * 9 + [INT] * 3 + [VP]),
+                           [VP] * 9 + [INT] * 4 + [VP]),
     "chord_tail": ("chord_tail_fp32", "chord_tail_fp32_launch",
                    [VP] * 6 + [INT] * 5 + [VP]),
     "chord_tail_bf16": ("chord_tail_bf16_tc", "chord_tail_bf16_launch",

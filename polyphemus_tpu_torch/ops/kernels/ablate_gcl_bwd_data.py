@@ -79,7 +79,7 @@ def main(nbar: int = 128, d: int = 512) -> dict:
     def run(name):
         _build.check(name, fns[name](
             *(v.data_ptr() for v in (x, up, aux, gates, wbig, dx, part, out)),
-            nbar, d, stream))
+            nbar, d, d, stream))
 
     run("whole")
     want = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)

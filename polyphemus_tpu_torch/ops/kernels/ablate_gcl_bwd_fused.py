@@ -88,7 +88,7 @@ def main(nbar: int = 256, d: int = 512) -> dict:
         _build.check(name, fns[name](
             *(v.data_ptr() for v in (x, up, aux, gates, wbig, dx, part_gb,
                                      dwbig, out)),
-            nbar, d, chunks, stream))
+            nbar, d, d, chunks, stream))
 
     run("whole")
     want = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)

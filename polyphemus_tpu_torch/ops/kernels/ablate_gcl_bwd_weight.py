@@ -66,7 +66,7 @@ def main(nbar: int = 128, d: int = 512) -> dict:
 
     def run(name):
         _build.check(name, fns[name](
-            *(v.data_ptr() for v in (x, up, aux, gates, dwbig)), nbar, d,
+            *(v.data_ptr() for v in (x, up, aux, gates, dwbig)), nbar, d, d,
             stream))
 
     run("whole")

@@ -18,6 +18,12 @@ both wrappers run their plain PyTorch version:
 gcl(x) = [h_track | h_self | h_onset | h_next | x] @ [W_t; W0; W_on; W_next;
 root], W_t the row block's own track weight.
 
+Column form (tensor parallelism, `parallel.mesh`): the packed weights may
+hold n of the d output columns, (8d, n) with n % 128 == 0 dividing d, and
+bias, ea, eb their n entries. Both wrappers then return those n columns of
+the layer, (nbar, n_cells, n); `gcl_eval` takes them at K = 1 only, its
+residual being x's columns col0..col0+n-1. n = d is the square launch.
+
 The compute dtype is x's (fp32 or bf16). In bf16 the plain versions round
 to bf16 where the Pallas body casts to its compute dtype (`_bar_statics`,
 `_layer_math` of `gcl_pallas.py`): each elementwise product, the mean
@@ -49,6 +55,17 @@ launches_by_k: dict[int, int] = {}
 eval_bf16_launches = 0
 fwd_launches = 0
 fwd_bf16_launches = 0
+# the column-form launches (n < d) among those of every GCL kernel, by the
+# kernel names of `kernels.launch_counts`; counted beside the totals
+COL_KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
+               "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16")
+col_launches: dict[str, int] = dict.fromkeys(COL_KERNELS, 0)
+
+
+def count_cols(name: str, n: int, d: int) -> None:
+    """Count a launch of kernel `name` in its column form (n < d)."""
+    if n < d:
+        col_launches[name] += 1
 
 
 def build_kernel_aux(mask: torch.Tensor) -> torch.Tensor:
@@ -85,9 +102,9 @@ def build_kernel_aux(mask: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights(rel_weight, root, n_tracks: int):
-    """(n_rel, d, d) + (d, d) -> (8d, d): [W_t0..t3 | W0(self) | W_on |
+    """(n_rel, d, n) + (d, n) -> (8d, n): [W_t0..t3 | W0(self) | W_on |
     W_next | root]. W0 appears twice: as track 0's weight and the self
-    loop's."""
+    loop's. n is d, or a column shard's width."""
     blocks = [rel_weight[i] for i in range(n_tracks)]
     blocks += [rel_weight[0], rel_weight[n_tracks], rel_weight[n_tracks + 1],
                root]
@@ -190,7 +207,8 @@ def messages(x, st: BarStatics, g0, s: int):
 
 def _gcl_core(x, st: BarStatics, gate_table, wbig, bias):
     """(gcl(x) + bias) * m for one layer: [h_track | h_self | h_onset |
-    h_next | x] @ wbig with each row's own track block."""
+    h_next | x] @ wbig with each row's own track block; (nbar, n_cells, n)
+    for wbig (8d, n)."""
     nbar, n, d = x.shape
     s = gate_table.shape[0]
     t = n // s
@@ -203,17 +221,19 @@ def _gcl_core(x, st: BarStatics, gate_table, wbig, bias):
     return out * st.m
 
 
-def gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs):
+def gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     """Plain-PyTorch `gcl_eval`: the same arguments, the same result, in
     x's dtype (the other tensors are taken in it)."""
     dt = x.dtype
     gate_table, wbigs, biases, eas, ebs = (
         v.to(dt) for v in (gate_table, wbigs, biases, eas, ebs))
     st = bar_statics(aux, gate_table, dt)
+    n = wbigs.shape[-1]
     x_k = x
     for k in range(wbigs.shape[0]):
         out = _gcl_core(x_k, st, gate_table, wbigs[k], biases[k])
-        x_k = torch.relu((out * eas[k] + ebs[k]) * st.m) + x_k
+        x_k = torch.relu((out * eas[k] + ebs[k]) * st.m) \
+            + x_k[..., col0:col0 + n]
     return x_k
 
 
@@ -226,14 +246,19 @@ def gcl_fwd_plain(x, aux, gate_table, wbig, bias):
                      wbig.to(dt), bias.to(dt))
 
 
-def check_cuda_args(kernel: str, x, want: dict) -> None:
-    """Raise unless x is (nbar, 128, d) with d % 128 == 0 and every tensor of
-    `want` ({name: (tensor, shape, dtype)}) sits on x's device with that
+def check_cuda_args(kernel: str, x, want: dict, n_out=None) -> None:
+    """Raise unless x is (nbar, 128, d) with d % 128 == 0, the output width
+    n_out (default d) has n_out % 128 == 0 and divides d, and every tensor
+    of `want` ({name: (tensor, shape, dtype)}) sits on x's device with that
     shape and dtype, contiguous and 16-byte aligned."""
     nbar, n, d = x.shape
     if n != 128 or d % 128 != 0:
         raise ValueError(f"{kernel} kernel takes 4x32-cell bars and d % 128 "
                          f"== 0, got cells={n} d={d}")
+    n_out = d if n_out is None else n_out
+    if n_out <= 0 or n_out % 128 != 0 or d % n_out != 0:
+        raise ValueError(f"{kernel} kernel takes an output width n with n % "
+                         f"128 == 0 dividing d, got n={n_out} d={d}")
     for name, (v, shape, dtype) in want.items():
         if v.device != x.device:
             raise ValueError(f"{kernel}: {name} is on {v.device}, x on "
@@ -253,42 +278,52 @@ def on_card(kernel: str, x) -> bool:
     return x.device.type == "cuda"
 
 
-def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs):
+def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     """K stacked epilogue-fused eval GCL layers over bars of n cells.
 
     x (nbar, n, d) f32 or bf16 masked node states; aux (nbar, N_AUX, n)
-    int32 from `build_kernel_aux`; gate_table (S, d); wbigs (K, 8d, d) from
-    `pack_weights`; biases, eas, ebs (K, d), each in x's dtype. Returns
-    (nbar, n, d) in x's dtype.
+    int32 from `build_kernel_aux`; gate_table (S, d); wbigs (K, 8d, w) from
+    `pack_weights`; biases, eas, ebs (K, w), each in x's dtype. Returns
+    (nbar, n, w) in x's dtype. w is d, or at K = 1 the width of the column
+    shard that starts at output column col0 (its residual x[..., col0:col0
+    + w]).
     """
     global launches, eval_bf16_launches
-    if not on_card("gcl_eval", x):
-        return gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs)
-    nbar, n, d = x.shape
-    k = wbigs.shape[0]
+    k, w = wbigs.shape[0], wbigs.shape[-1]
+    d = x.shape[-1]
     if k < 1:
         raise ValueError("gcl_eval: no layers")
+    if (k > 1 and w != d) or col0 < 0 or col0 % w or col0 + w > d:
+        raise ValueError(f"gcl_eval takes a column shard (width {w}, first "
+                         f"column {col0}) of d = {d} columns at K = 1 only, "
+                         f"got K = {k}")
+    if not on_card("gcl_eval", x):
+        return gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs,
+                              col0)
+    nbar, n, _ = x.shape
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcl_eval takes float32 or bfloat16, got {dt}")
     check_cuda_args("gcl_eval", x, {
         "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), dt),
-        "wbigs": (wbigs, (k, 8 * d, d), dt), "biases": (biases, (k, d), dt),
-        "eas": (eas, (k, d), dt), "ebs": (ebs, (k, d), dt)})
-    out = torch.empty_like(x)
+        "wbigs": (wbigs, (k, 8 * d, w), dt), "biases": (biases, (k, w), dt),
+        "eas": (eas, (k, w), dt), "ebs": (ebs, (k, w), dt)}, n_out=w)
+    out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     scratch = torch.empty_like(x) if k > 1 else out
     name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
     err = _build.launcher(name)(
         x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbigs.data_ptr(),
         biases.data_ptr(), eas.data_ptr(), ebs.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), nbar, d, k, _build.stream_handle(x.device))
+        scratch.data_ptr(), nbar, d, w, col0, k,
+        _build.stream_handle(x.device))
     _build.check(name, err)
     if dt == torch.float32:
         launches += 1
         launches_by_k[k] = launches_by_k.get(k, 0) + 1
     else:
         eval_bf16_launches += 1
+    count_cols(name, w, d)
     return out
 
 
@@ -296,30 +331,32 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
     """One training-forward GCL layer over bars of n cells.
 
     x (nbar, n, d) f32 or bf16; aux (nbar, N_AUX, n) int32 from
-    `build_kernel_aux`; gate_table (S, d), wbig (8d, d) from `pack_weights`
-    and bias (d,) in x's dtype. Returns (gcl(x) + bias) * m, (nbar, n, d)
-    in x's dtype.
+    `build_kernel_aux`; gate_table (S, d), wbig (8d, w) from `pack_weights`
+    and bias (w,) in x's dtype, w = d or a column shard's width. Returns
+    (gcl(x) + bias) * m, (nbar, n, w) in x's dtype.
     """
     global fwd_launches, fwd_bf16_launches
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)
     nbar, n, d = x.shape
+    w = wbig.shape[-1]
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcl_fwd takes float32 or bfloat16, got {dt}")
     check_cuda_args("gcl_fwd", x, {
         "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), dt),
-        "wbig": (wbig, (8 * d, d), dt), "bias": (bias, (d,), dt)})
-    out = torch.empty_like(x)
+        "wbig": (wbig, (8 * d, w), dt), "bias": (bias, (w,), dt)}, n_out=w)
+    out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     name = "gcl_fwd" if dt == torch.float32 else "gcl_fwd_bf16"
     err = _build.launcher(name)(
         x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbig.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), nbar, d,
+        bias.data_ptr(), out.data_ptr(), nbar, d, w,
         _build.stream_handle(x.device))
     _build.check(name, err)
     if dt == torch.float32:
         fwd_launches += 1
     else:
         fwd_bf16_launches += 1
+    count_cols(name, w, d)
     return out

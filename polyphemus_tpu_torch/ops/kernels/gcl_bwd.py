@@ -23,19 +23,31 @@ forward (`gcl.gcl_fwd`):
 with the track block of Wbig chosen by each row's own track. The training
 layer takes the data and weight pair in fp32 and the fused single pass in
 bf16.
+
+Column form (tensor parallelism, `parallel.mesh`): Wbig may hold n of the
+d output columns, (8d, n) with n % 128 == 0 dividing d, and g those n
+columns, (nbar, n_cells, n). Then dWbig is (8d, n), dbias the n columns,
+and dx and dgate are partial: summed over those n columns only, so that
+their sum over the M column shards is the square launch's. The fp32 fused
+backward (`csrc/gcl_bwd_fused.cu`, on no training path) takes n = d only.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .gcl import (N_AUX, bar_statics, check_cuda_args, col_sum, gcl_fwd,
-                  messages, on_card, pack_weights, rows, wide)
+from .gcl import (N_AUX, bar_statics, check_cuda_args, col_sum, count_cols,
+                  gcl_fwd, messages, on_card, pack_weights, rows, wide)
 
 # kernel launches (not plain-path calls) since the counts were last reset
 data_launches = 0
 weight_launches = 0
 fused_launches = 0
+
+
+def _contract(h, gg):
+    """sum over cells of h^T gg: (d, n) from h (..., d) and gg (..., n)."""
+    return h.reshape(-1, h.shape[-1]).t() @ gg.reshape(-1, gg.shape[-1])
 
 
 def gcl_bwd_data_plain(x, g, aux, gate_table, wbig):
@@ -73,67 +85,70 @@ def gcl_bwd_data_plain(x, g, aux, gate_table, wbig):
 
 def gcl_bwd_weight_plain(x, g, aux, gate_table):
     """Plain-PyTorch `gcl_bwd_weight`: the same arguments, the same result."""
-    nbar, n, d = x.shape
+    n = x.shape[1]
     s = gate_table.shape[0]
     t = n // s
     st = bar_statics(aux, gate_table, x.dtype)
     gm = g * st.m
     h_tr, h_self, h_on, h_nx = messages(x, st, gate_table[0], s)
-
-    def contract(h, gg):
-        return h.reshape(-1, d).t() @ gg.reshape(-1, d)
-
-    blocks = [contract(h_tr[:, i * s:(i + 1) * s], gm[:, i * s:(i + 1) * s])
+    blocks = [_contract(h_tr[:, i * s:(i + 1) * s], gm[:, i * s:(i + 1) * s])
               for i in range(t)]
-    blocks += [contract(h, gm) for h in (h_self, h_on, h_nx, x)]
+    blocks += [_contract(h, gm) for h in (h_self, h_on, h_nx, x)]
     return torch.cat(blocks, dim=0)
 
 
 def gcl_bwd_data(x, g, aux, gate_table, wbig):
-    """Data half of the GCL backward for upstream g (nbar, n, d).
+    """Data half of the GCL backward for upstream g (nbar, n, w), w = d or
+    a column shard's width (wbig (8d, w)).
 
-    Returns (dx (nbar, n, d), dgate_table (S, d), dbias (d,)); dgate and
-    dbias sum over every bar."""
+    Returns (dx (nbar, n, d), dgate_table (S, d), dbias (w,)); dgate and
+    dbias sum over every bar, dx and dgate over the w columns."""
     global data_launches
     if not on_card("gcl_bwd_data", x):
         return gcl_bwd_data_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
+    w = wbig.shape[-1]
     f32 = torch.float32
     check_cuda_args("gcl_bwd_data", x, {
-        "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, d), f32),
+        "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), f32),
-        "wbig": (wbig, (8 * d, d), f32)})
+        "wbig": (wbig, (8 * d, w), f32)}, n_out=w)
     dx = torch.empty_like(x)
-    part = torch.empty((max(nbar, 1), 33 * d), dtype=f32, device=x.device)
-    out = torch.empty(33 * d, dtype=f32, device=x.device)
+    part = torch.empty((max(nbar, 1), 32 * d + w), dtype=f32,
+                       device=x.device)
+    out = torch.empty(32 * d + w, dtype=f32, device=x.device)
     err = _build.launcher("gcl_bwd_data")(
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
         wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-        nbar, d, _build.stream_handle(x.device))
+        nbar, d, w, _build.stream_handle(x.device))
     _build.check("gcl_bwd_data", err)
     data_launches += 1
+    count_cols("gcl_bwd_data", w, d)
     return dx, out[:32 * d].view(32, d), out[32 * d:]
 
 
 def gcl_bwd_weight(x, g, aux, gate_table):
-    """Weight half of the GCL backward for upstream g (nbar, n, d): dWbig
-    (8d, d), in the packed block order of `pack_weights`."""
+    """Weight half of the GCL backward for upstream g (nbar, n, w), w = d
+    or a column shard's width: dWbig (8d, w), in the packed block order of
+    `pack_weights`."""
     global weight_launches
     if not on_card("gcl_bwd_weight", x):
         return gcl_bwd_weight_plain(x, g, aux, gate_table)
     nbar, n, d = x.shape
+    w = g.shape[-1]
     f32 = torch.float32
     check_cuda_args("gcl_bwd_weight", x, {
-        "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, d), f32),
+        "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), f32)})
-    dwbig = torch.empty((8 * d, d), dtype=f32, device=x.device)
+        "gate_table": (gate_table, (32, d), f32)}, n_out=w)
+    dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
     err = _build.launcher("gcl_bwd_weight")(
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-        dwbig.data_ptr(), nbar, d, _build.stream_handle(x.device))
+        dwbig.data_ptr(), nbar, d, w, _build.stream_handle(x.device))
     _build.check("gcl_bwd_weight", err)
     weight_launches += 1
+    count_cols("gcl_bwd_weight", w, d)
     return dwbig
 
 
@@ -223,13 +238,9 @@ def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
     scatter(st.src_pn, st.dist_pn, st.ok_pn, st.g_pn, col_sum(dnx, s) - dnx)
 
     h_tr, h_self, h_on, h_nx = fused_messages(x, st, gate_table, s)
-
-    def contract(h, gg):
-        return h.reshape(-1, d).t() @ gg.reshape(-1, d)
-
-    blocks = [contract(h_tr[:, i * s:(i + 1) * s], gm[:, i * s:(i + 1) * s])
+    blocks = [_contract(h_tr[:, i * s:(i + 1) * s], gm[:, i * s:(i + 1) * s])
               for i in range(t)]
-    blocks += [contract(h, gm) for h in (h_self, h_on, h_nx, xf)]
+    blocks += [_contract(h, gm) for h in (h_self, h_on, h_nx, xf)]
     return dx.to(cdt), dgate, gm.sum(dim=(0, 1)), torch.cat(blocks, dim=0)
 
 
@@ -240,46 +251,55 @@ def fused_chunks(nbar: int, d: int, sms: int) -> int:
 
 
 def gcl_bwd_fused(x, g, aux, gate_table, wbig):
-    """The whole GCL backward in one pass for upstream g (nbar, n, d).
+    """The whole GCL backward in one pass for upstream g (nbar, n, w), w =
+    d or (bf16 only on a card) a column shard's width (wbig (8d, w)).
 
-    x, g, gate_table (S, d) and wbig (8d, d) in one dtype, fp32 or bf16.
-    Returns (dx (nbar, n, d) in x's dtype, dgate_table (S, d), dbias (d,),
-    dwbig (8d, d) in the block order of `pack_weights`), the last three
-    fp32 sums over every bar."""
+    x, g, gate_table (S, d) and wbig in one dtype, fp32 or bf16. Returns
+    (dx (nbar, n, d) in x's dtype, dgate_table (S, d), dbias (w,), dwbig
+    (8d, w) in the block order of `pack_weights`), the last three fp32 sums
+    over every bar; dx and dgate sum over the w columns."""
     global fused_launches
     if not on_card("gcl_bwd_fused", x):
         return gcl_bwd_fused_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
+    w = wbig.shape[-1]
     dt = x.dtype
-    if dt not in (torch.float32, torch.bfloat16):
+    f32 = torch.float32
+    if dt not in (f32, torch.bfloat16):
         raise ValueError(f"gcl_bwd_fused takes float32 or bfloat16, got {dt}")
+    if dt == f32 and w != d:
+        raise ValueError(f"the fp32 fused backward takes the square weights "
+                         f"only (n = d = {d}), got n = {w}")
     check_cuda_args("gcl_bwd_fused", x, {
-        "x": (x, (nbar, n, d), dt), "g": (g, (nbar, n, d), dt),
+        "x": (x, (nbar, n, d), dt), "g": (g, (nbar, n, w), dt),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), dt),
-        "wbig": (wbig, (8 * d, d), dt)})
-    f32 = torch.float32
+        "wbig": (wbig, (8 * d, w), dt)}, n_out=w)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = fused_chunks(nbar, d, sms)
     dx = torch.empty_like(x)
-    part_gb = torch.empty((chunks, 33 * d), dtype=f32, device=x.device)
-    dwbig = torch.empty((8 * d, d), dtype=f32, device=x.device)
-    out = torch.empty(33 * d, dtype=f32, device=x.device)
+    part_gb = torch.empty((chunks, 32 * d + w), dtype=f32, device=x.device)
+    dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
+    out = torch.empty(32 * d + w, dtype=f32, device=x.device)
     if dt == f32:
         # the fp32 form sums dWbig over per-chunk partials
         name = "gcl_bwd_fused"
         part_w = torch.empty((chunks, 8 * d, d), dtype=f32, device=x.device)
         scratch = (part_w.data_ptr(), part_gb.data_ptr())
+        sizes = (nbar, d, chunks)
     else:
         # the bf16 form's dW kernel keeps its sums on chip
         name = "gcl_bwd_fused_bf16"
         scratch = (part_gb.data_ptr(),)
+        sizes = (nbar, d, w, chunks)
     err = _build.launcher(name)(
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
         wbig.data_ptr(), dx.data_ptr(), *scratch, dwbig.data_ptr(),
-        out.data_ptr(), nbar, d, chunks, _build.stream_handle(x.device))
+        out.data_ptr(), *sizes, _build.stream_handle(x.device))
     _build.check(name, err)
     fused_launches += 1
+    if dt != f32:
+        count_cols(name, w, d)
     return dx, out[:32 * d].view(32, d), out[32 * d:], dwbig
 
 
@@ -287,7 +307,9 @@ class GclFused(torch.autograd.Function):
     """The training GCL layer: `gcl_fwd` forward; backward by `gcl_bwd_data`
     and `gcl_bwd_weight` in fp32, by `gcl_bwd_fused` in bf16. No message
     intermediate is saved; the backward kernels recompute them from x.
-    Each grad comes back in its input's dtype."""
+    Each grad comes back in its input's dtype. With a column shard of the
+    weights (rel_weight (6, d, n), root (d, n), bias (n,)) the output is
+    those n columns and the grads of x and gate_table are partial sums."""
 
     @staticmethod
     def forward(ctx, x, gate_table, rel_weight, root, bias, aux, mask):
@@ -322,8 +344,8 @@ class GclFused(torch.autograd.Function):
 
 def gcl_fused(x, gate_table, rel_weight, root, bias, aux, mask):
     """Differentiable GCL layer on flat bars: x (nbar, n, d) contiguous,
-    fp32 or bf16, and gate_table (S, d), rel_weight (6, d, d), root (d, d),
-    bias (d,) in its dtype; aux (nbar, N_AUX, n) int32, mask (..., T, S)
-    (only its track count is read). Returns (gcl(x) + bias) * m, (nbar, n,
-    d)."""
+    fp32 or bf16, and gate_table (S, d), rel_weight (6, d, w), root (d, w),
+    bias (w,) in its dtype (w = d, or a column shard's width); aux (nbar,
+    N_AUX, n) int32, mask (..., T, S) (only its track count is read).
+    Returns (gcl(x) + bias) * m, (nbar, n, w)."""
     return GclFused.apply(x, gate_table, rel_weight, root, bias, aux, mask)

@@ -12,7 +12,9 @@ Each name is two files:
 `checkpoint.pt` is also what `convert.load_checkpoint` and
 `generate.load_model` read, so a training directory serves as it is. Both
 files are written atomically (beside, then renamed). `AsyncSaver` writes
-them on a worker thread from a snapshot taken on the caller's.
+them on a worker thread from a snapshot taken on the caller's. A run with
+tensor parallelism saves the one-process layout (`Trainer.save` gathers the
+shards) and cuts it into the rank's shards on load.
 """
 from __future__ import annotations
 
@@ -25,14 +27,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
+
 
 def path(model_dir: str, name: str) -> str:
     return os.path.join(model_dir, name + ".pt")
 
 
 def snapshot(model, optimizer, step: int,
-             stream: Optional[torch.cuda.Stream] = None) -> dict:
-    """{"model", "optimizer", "step"} with every tensor a fresh host copy.
+             stream: Optional[torch.cuda.Stream] = None,
+             state: Optional[dict] = None) -> dict:
+    """{"model", "optimizer", "step"} with every tensor a fresh host copy,
+    of the model's and optimizer's state dicts or of `state` ({"model",
+    "optimizer"}: the whole state of a sharded model).
 
     Without a stream, every tensor is copied to the host before this
     returns. With one, every CUDA tensor is first cloned on the current
@@ -55,8 +62,10 @@ def snapshot(model, optimizer, step: int,
         out.copy_(t, non_blocking=True)
         return out
 
-    snap = _map({"model": model.state_dict(),
-                 "optimizer": optimizer.state_dict()}, fresh)
+    if state is None:
+        state = {"model": model.state_dict(),
+                 "optimizer": optimizer.state_dict()}
+    snap = _map(state, fresh)
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(stream.device))
         with torch.cuda.stream(stream):
@@ -110,7 +119,7 @@ class AsyncSaver:
         self._stream: Optional[torch.cuda.Stream] = None
 
     def submit(self, model, optimizer, step: int, model_dir: str, name: str,
-               meta: dict) -> None:
+               meta: dict, state: Optional[dict] = None) -> None:
         self._pending.acquire()  # bound the snapshots in flight
         try:
             self._raise_pending()
@@ -119,7 +128,7 @@ class AsyncSaver:
                 self._stream = torch.cuda.Stream(device)
             stream = self._stream if device.type == "cuda" else None
             with torch.no_grad():
-                snap = snapshot(model, optimizer, step, stream)
+                snap = snapshot(model, optimizer, step, stream, state)
             event = None
             if stream is not None:
                 event = torch.cuda.Event()
@@ -163,14 +172,16 @@ def load_checkpoint(model_dir: str, name: str, model, optimizer) -> tuple:
     """Load `<name>.pt` into model and optimizer; returns (step, meta). A
     params-only `<name>.pt` (a bare state dict, as `cli.convert` writes it
     through `convert.save_checkpoint`) loads the weights alone: the
-    optimizer stays fresh, at step 0 and an empty meta."""
+    optimizer stays fresh, at step 0 and an empty meta. Under tensor
+    parallelism each rank loads its shards of the one-process layout."""
     obj = torch.load(path(model_dir, name), map_location="cpu",
                      weights_only=True)
     if "optimizer" not in obj:
-        model.load_state_dict(obj)
+        model.load_state_dict(pmesh.shard_state_dict(obj))
         return 0, {}
-    model.load_state_dict(obj["model"])
-    optimizer.load_state_dict(obj["optimizer"])
+    model.load_state_dict(pmesh.shard_state_dict(obj["model"]))
+    optimizer.load_state_dict(pmesh.shard_optimizer_state(
+        model, obj["optimizer"]))
     return int(obj["step"]), dict(obj["meta"])
 
 

@@ -26,13 +26,17 @@ master parameters and batch-norm statistics, the grads flow through the
 casts into the fp32 masters that Adam updates, and the new running
 statistics come back to the fp32 masters. Checkpoints stay fp32.
 
-Under a process group (`parallel.mesh`, W ranks started by `torchrun`)
-every rank steps on its rows of each global microbatch: its losses are its
-share of the global ones (`train/losses.py`), the grads are summed over the
-ranks in one all-reduce after the microbatches, and the reported losses and
-metrics are the global batch's, the same on every rank, so that every rank
-takes the same decisions. Only rank 0 writes files and prints. Model
-parallelism is not ported; `parallel.mesh.data_layout` refuses it.
+Under a process group (`parallel.mesh`, W = D x M ranks started by
+`torchrun`) every rank steps on its data index's rows of each global
+microbatch: its losses are its share of the global ones
+(`train/losses.py`), the grads are summed over the data axis after the
+microbatches, and the reported losses and metrics are the global batch's,
+the same on every rank, so that every rank takes the same decisions. With
+a model axis M > 1 (tensor parallelism) each rank holds its shards of the
+parameters `parallel.mesh.SHARDED` names, and Adam its shards of their
+moments; `save` gathers them into the one-process layout on rank 0 and
+`resume` cuts a one-process checkpoint into shards. Only rank 0 writes
+files and prints.
 """
 from __future__ import annotations
 
@@ -59,6 +63,10 @@ from .schedules import beta_schedule, lr_schedule
 
 
 def make_optimizer(model, cfg: TrainConfig) -> torch.optim.Optimizer:
+    """Adam (or AdamW) over the model's parameters as they are held: under
+    tensor parallelism the rank's shards, so that its moments are shards
+    too (Adam is elementwise: a shard's update is the slice of the whole
+    update)."""
     opt = cfg.optimizer
     kw = dict(lr=opt.lr, betas=tuple(opt.betas), eps=opt.eps)
     if opt.weight_decay > 0:
@@ -244,14 +252,14 @@ class Trainer:
     def __init__(self, model_dir: str, model, cfg: TrainConfig, *, device,
                  print_every: int = 1, save_every: int = 10,
                  eval_every: Optional[int] = None, tensorboard: bool = False):
-        self.layout = pmesh.data_layout(cfg)
+        self.layout = pmesh.data_layout(cfg, device)
         self.is_primary = pmesh.is_primary()
         self.log = print if self.is_primary else (lambda *a, **k: None)
         self.model_dir = model_dir
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
-        pmesh.broadcast_module(self.model)
+        pmesh.broadcast_module(self.model)  # and keep the rank's shards
         self.print_every = print_every
         self.save_every = save_every
         self.eval_every = eval_every
@@ -312,7 +320,7 @@ class Trainer:
                 hist[k] = list(v)
         self.lrs = list(meta.get("lrs", []))
         self.betas = list(meta.get("betas", []))
-        pmesh.broadcast_module(self.model)
+        pmesh.broadcast_module(self.model)  # the whole parameters
 
     # ------------------------------------------------------------------ loop
     def fit(self, train_iter_fn, epochs: int, valid_iter_fn=None,
@@ -384,8 +392,15 @@ class Trainer:
     def save(self, name: str, blocking: bool = True) -> None:
         """Save `<name>.pt` and `<name>.json` through the `AsyncSaver`: the
         snapshot is taken now; with `blocking`, every save is on disk when
-        this returns. Rank 0 alone saves (every rank holds the same
-        state)."""
+        this returns. Rank 0 alone saves, in the one-process layout: under
+        tensor parallelism every rank first joins the gathers of the
+        parameters' and Adam moments' shards; otherwise every rank holds
+        the same state."""
+        state = None
+        if pmesh.model_size() > 1:
+            state = {"model": pmesh.full_state_dict(self.model.state_dict()),
+                     "optimizer": pmesh.full_optimizer_state(
+                         self.model, self.optimizer.state_dict())}
         if not self.is_primary:
             return
         meta = {
@@ -402,7 +417,7 @@ class Trainer:
                                for k, v in self.val_accuracies.items()},
         }
         self._saver.submit(self.model, self.optimizer, self.step,
-                           self.model_dir, name, meta)
+                           self.model_dir, name, meta, state=state)
         if blocking:
             self._saver.wait()
 
@@ -424,6 +439,8 @@ class Trainer:
         self.betas.append(beta)
         rec = {"batch": batch_i, "epoch": epoch_i, "lr": lr,
                "beta": beta}
+        if self.layout["model"] > 1:
+            rec["mesh"] = self.layout
         seq_s = self.seq_per_sec()
         if seq_s is not None:
             rec["seq_s"] = round(seq_s, 1)
@@ -459,7 +476,8 @@ class Trainer:
 
     def mfu(self, seq_s: float) -> Optional[float]:
         """`seq_s` training sequences a second (the global batch's) as a
-        percentage of the peak of the W cards of the run for the step's
+        percentage of the peak of the W = D x M cards of the run for the
+        step's
         compute dtype (bf16 with `cfg.bf16`, else fp32; `flops.PEAK_FLOPS`).
         None off a card, or on a card not in the table."""
         if self.device.type != "cuda":
@@ -469,8 +487,9 @@ class Trainer:
             peak = flops.peak_flops(self.device, dtype)
         except KeyError:
             return None
+        cards = self.layout["data"] * self.layout["model"]
         return flops.mfu(seq_s, flops.train_step_flops_per_seq(
-            self.cfg.model), peak * self.layout["data"])
+            self.cfg.model), peak * cards)
 
     def _eval_and_save(self, valid_iter_fn):
         val_losses, val_accs = self.evaluate(valid_iter_fn)
@@ -508,6 +527,8 @@ class Trainer:
         share = self.mfu(seq_s) if seq_s is not None else None
         if share is not None:
             thr += f" ({share:.1f}% MFU)"
+        if self.layout["model"] > 1:
+            thr += f" mesh={self.layout}"
         self.log(f"[{time.time() - start:8.1f}s] epoch {epoch + 1}/{epochs} "
                  f"batch {self.tot_batches + 1}{thr} losses={avg_l} "
                  f"accs={avg_a}")

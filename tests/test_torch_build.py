@@ -71,7 +71,8 @@ def test_bf16_fused_backward_source_holds_both_kernels():
     """`csrc/gcl_bwd_fused_bf16_tc.cu` defines the dH kernel and the dW
     kernel, and its launcher launches both; dWbig has no per-chunk partial
     (`part_w`) and is summed by no `sum_rows`, so the launcher takes one
-    scratch pointer fewer than the fp32 form's."""
+    scratch pointer fewer than the fp32 form's (and, unlike it, the output
+    width n of a column shard)."""
     text = (_build.CSRC / "gcl_bwd_fused_bf16_tc.cu").read_text()
     kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
                          text)
@@ -82,15 +83,19 @@ def test_bf16_fused_backward_source_holds_both_kernels():
     assert "part_w" not in text
     assert text.count("sum_rows(") == 1  # dgate and dbias only
     params = launcher_params("gcl_bwd_fused_bf16")
-    assert len(params) == len(launcher_params("gcl_bwd_fused")) - 1
-    assert "void* part_gb" in params
+
+    def pointers(ps):
+        return sum("void*" in p for p in ps)
+
+    assert pointers(params) == pointers(launcher_params("gcl_bwd_fused")) - 1
+    assert "void* part_gb" in params and "int n" in params
 
 
 def test_fp32_weight_backward_is_one_kernel_without_partials():
     """`csrc/gcl_bwd_weight.cu` defines one kernel, launched once, that
     writes dWbig itself: no per-chunk partial (`part`), no chunk count and
     no `sum_rows` pass; its launcher takes x, g, aux, the gate table,
-    dWbig, nbar, d and the stream."""
+    dWbig, nbar, d, the output width n and the stream."""
     text = (_build.CSRC / "gcl_bwd_weight.cu").read_text()
     kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
                          text)
@@ -99,7 +104,8 @@ def test_fp32_weight_backward_is_one_kernel_without_partials():
     assert "sum_rows" not in text
     assert not re.search(r"\bpart\b|nchunks", text)
     names = [p.rsplit(" ", 1)[-1] for p in launcher_params("gcl_bwd_weight")]
-    assert names == ["x", "g", "aux", "gates", "dwbig", "nbar", "d", "stream"]
+    assert names == ["x", "g", "aux", "gates", "dwbig", "nbar", "d", "n",
+                     "stream"]
 
 
 def test_fp32_data_backward_walks_its_bars_without_atomics():
@@ -108,7 +114,8 @@ def test_fp32_data_backward_walks_its_bars_without_atomics():
     by the launcher) with stages of TMA boxes; its scatters run as gathers,
     so the source holds no atomic, and one `sum_rows` pass adds the CTAs'
     dgate/dbias partial rows. The launcher takes x, g, aux, the gate table,
-    wbig, dx, the partials' scratch, the output, nbar, d and the stream,
+    wbig, dx, the partials' scratch, the output, nbar, d, the output
+    width n and the stream,
     and the source reports its dynamic shared memory."""
     assert _build.SIGNATURES["gcl_bwd_data"][:2] == ("gcl_bwd_data",
                                                      "gcl_bwd_data_launch")
@@ -124,7 +131,7 @@ def test_fp32_data_backward_walks_its_bars_without_atomics():
     assert 'extern "C" int gcl_bwd_data_smem_bytes()' in text
     names = [p.rsplit(" ", 1)[-1] for p in launcher_params("gcl_bwd_data")]
     assert names == ["x", "g", "aux", "gates", "wbig", "dx", "part", "out",
-                     "nbar", "d", "stream"]
+                     "nbar", "d", "n", "stream"]
 
 
 @pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_data,

@@ -333,6 +333,42 @@ def test_training_kernels_reject_what_they_do_not_take(cuda):
         gcl_bwd.gcl_bwd_weight(y, y[:1], aux, y[0, :32])
 
 
+# the column forms of tensor parallelism: d = 512 in shards of n = 256 and
+# 128 columns, 64 bars (a rank's fp32 microbatch at D = 2)
+@pytest.mark.parametrize("n", [256, 128])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_gcl_column_forms_match_plain(cuda, bf16, n):
+    """Every shard of `gcl_fwd`, `gcl_eval` (K = 1) and the backward
+    against its plain version, the partial dx and dgate summed over the
+    shards against the square plain version (`chip_smoke.
+    check_gcl_columns`); the forward, eval and weight shards are bit for
+    bit the square launch's columns (the column tiles' arithmetic does not
+    depend on n); no comparison launch counts."""
+    before = dict(gcl.col_launches)
+    res = chip_smoke.check_gcl_columns(64, 512, n, cuda, bf16=bf16,
+                                       timing=False)
+    for name, r in res["kernels"].items():
+        assert r.get("equal_to_square", True), name
+    assert gcl.col_launches == before
+
+
+def test_column_forms_reject_what_they_do_not_take(cuda):
+    """An output width that is not a multiple of 128, and a column shard
+    of the fp32 fused backward (on no path; square only): a ValueError
+    before any launch."""
+    _, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        2, 512, cuda, 0)
+    before = dict(gcl.col_launches), gcl.fwd_launches, gcl_bwd.fused_launches
+    with pytest.raises(ValueError, match="output width n"):
+        gcl.gcl_fwd(x, aux, gates, wbig[:, :64].contiguous(),
+                    bias[:64].contiguous())
+    with pytest.raises(ValueError, match="square weights only"):
+        gcl_bwd.gcl_bwd_fused(x, up[..., :256].contiguous(), aux, gates,
+                              wbig[:, :256].contiguous())
+    assert (dict(gcl.col_launches), gcl.fwd_launches,
+            gcl_bwd.fused_launches) == before
+
+
 def test_train_step_on_the_card_matches_the_cpu(cuda):
     mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
                      batch_norm=True)

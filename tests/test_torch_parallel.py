@@ -21,15 +21,16 @@ trains on the same global batch and seed.
     1e-5, validation at 1e-3, every step once in metrics.jsonl, the
     checkpoints and meta file written by rank 0 alone;
   * `maybe_initialize_distributed` and the refusals: no-ops without the
-    environment, a model axis other than 1, a data axis other than W, and
-    a W that does not divide the microbatch (the CLI exits non-zero before
-    its first step).
+    environment; a W that the model axis does not divide, a model axis
+    that does not divide d, a column shard narrower than the kernels'
+    tile on a card, a data axis other than W / M, and a data axis that
+    does not divide the microbatch (the CLI exits non-zero before its
+    first step; the same 2 ranks train at model axis 2).
 
 Every subprocess has a timeout and every process group its own
 (`tests/torch_parallel_worker.py`); `torchrun --standalone` takes a free
 port.
 """
-import contextlib
 import dataclasses
 import json
 import os
@@ -53,7 +54,6 @@ from polyphemus_tpu_torch.ops import masked as mops
 from polyphemus_tpu_torch.parallel import mesh as pmesh
 from polyphemus_tpu_torch.train import trainer as ptrainer
 
-from . import test_torch_train_step as train_step_case
 from .test_torch_train_step import (MB, check_against_jax, jax_eps,
                                     jax_reference_step, microbatch_rngs,
                                     near_tie_slack)
@@ -201,21 +201,6 @@ def two_rank_step(tmp_path, model, pcfg, toks, mask, eps, seed=None):
     return ranks[0]["losses"], ranks[0]["accs"], after
 
 
-@contextlib.contextmanager
-def own_jax_grad_fns():
-    """`jax_reference_step` caches its jitted grad function by (Pallas GCL,
-    bf16) alone, and tests/test_torch_lmd16.py calls it at 16 bars: in a
-    worker that runs both files, one would get the other's model. This
-    test compiles its own and leaves the cache as it found it."""
-    saved = dict(train_step_case._GRAD_FNS)
-    train_step_case._GRAD_FNS.clear()
-    try:
-        yield
-    finally:
-        train_step_case._GRAD_FNS.clear()
-        train_step_case._GRAD_FNS.update(saved)
-
-
 def test_two_rank_step_matches_jax(tmp_path):
     accum, seed = 2, 0
     mcfg = small_cfg(n_layers=2)
@@ -232,8 +217,7 @@ def test_two_rank_step_matches_jax(tmp_path):
     slack = near_tie_slack(model, pcfg, toks, mask, eps)
     losses, accs, after = two_rank_step(tmp_path, model, pcfg, toks, mask,
                                         eps)
-    with own_jax_grad_fns():
-        want = jax_reference_step(jmodel, cfg, variables, toks, mask, rng)
+    want = jax_reference_step(jmodel, cfg, variables, toks, mask, rng)
     check_against_jax(want, losses, accs, after, slack)
 
 
@@ -366,20 +350,40 @@ def layout_cfg(**parallel):
                                parallel=pconfig.ParallelConfig(**parallel))
 
 
-def test_data_layout_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="model parallelism"):
+def test_data_layout_refuses_what_it_cannot_run(monkeypatch):
+    """Each refusal a ValueError naming its numbers, before any group is
+    made: one process at model axis 2 (in the layout and in the
+    Trainer), a data axis other than W / M; then, for W = 6 and W = 2
+    processes, a model axis of 3 that does not divide d = 512 and, on a
+    card, shards of d / 2 = 16 columns of a d = 32 model."""
+    with pytest.raises(ValueError, match="1 processes not divisible by "
+                                         "parallel.model_axis=2"):
         pmesh.data_layout(layout_cfg(model_axis=2))
     with pytest.raises(ValueError, match="data_axis=2 but the run has 1"):
         pmesh.data_layout(layout_cfg(data_axis=2))
-    with pytest.raises(NotImplementedError, match="model parallelism"):
+    with pytest.raises(ValueError, match="not divisible by parallel."
+                                         "model_axis=2"):
         ptrainer.Trainer("unused", VAE(port_cfg(small_cfg(n_layers=1))),
                          layout_cfg(model_axis=2), device="cpu")
+    monkeypatch.setattr(pmesh, "world", lambda: 6)
+    with pytest.raises(ValueError, match="model_axis=3 must divide the "
+                                         "sharded widths d=512, 15d=7680 "
+                                         "and n_bars d=1024"):
+        pmesh.data_layout(layout_cfg(model_axis=3))
+    monkeypatch.setattr(pmesh, "world", lambda: 2)
+    small = dataclasses.replace(layout_cfg(model_axis=2),
+                                model=port_cfg(small_cfg(n_layers=1)))
+    with pytest.raises(ValueError, match="d / M = 16, not a multiple of "
+                                         "128"):
+        pmesh.data_layout(small, "cuda")
+    assert pmesh.model_size() == 1 and not pmesh._groups
 
 
 def test_one_rank_from_the_environment_and_the_refusals(tmp_path):
     """`torchrun` with one rank: the group comes up from the environment,
     on gloo for the CPU, and trains; with 2 ranks a microbatch of 3 rows
-    is refused before any step, and so is a model axis of 2."""
+    is refused before any step, and so is a model axis of 4, while the
+    same 2 ranks train at a model axis of 2."""
     make_dataset(tmp_path / "data", 12, seed=1)
     base = dataclasses.replace(
         pconfig.TrainConfig(batch_size=4, iters_to_accumulate=2),
@@ -387,6 +391,8 @@ def test_one_rank_from_the_environment_and_the_refusals(tmp_path):
     cases = {"ok": (1, base),
              "microbatch": (2, dataclasses.replace(base, batch_size=6)),
              "model_axis": (2, dataclasses.replace(
+                 base, parallel=pconfig.ParallelConfig(model_axis=4))),
+             "tensor": (2, dataclasses.replace(
                  base, parallel=pconfig.ParallelConfig(model_axis=2)))}
     outs = {}
     for name, (nproc, cfg) in cases.items():
@@ -401,8 +407,14 @@ def test_one_rank_from_the_environment_and_the_refusals(tmp_path):
     assert "Devices: 1 mesh={'data': 1, 'model': 1}" in ok.stdout
     assert "Kernel launches (rank 0)" in ok.stdout
     assert (tmp_path / "ok" / "m" / "metrics.jsonl").exists()
+    tensor = outs["tensor"]
+    assert tensor.returncode == 0, tensor.stderr[-3000:]
+    assert "Devices: 2 mesh={'data': 1, 'model': 2}" in tensor.stdout
+    assert "Kernel launches (rank 1)" in tensor.stdout
+    assert (tmp_path / "tensor" / "m" / "checkpoint.pt").exists()
     for name, why in (("microbatch", "cannot share a microbatch"),
-                      ("model_axis", "model parallelism")):
+                      ("model_axis", "2 processes not divisible by "
+                                     "parallel.model_axis=4")):
         out = outs[name]
         assert out.returncode != 0 and why in out.stderr, out.stderr[-3000:]
         assert not (tmp_path / name / "m").exists()

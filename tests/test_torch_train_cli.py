@@ -6,8 +6,8 @@ resumed into a fresh model gives the same next step; `cli.train` with
 directory serves through `generate.load_model`; the dataset reads back what
 `write_sample` wrote; a packed shard directory (`shards.json`) trains
 through the native gather and gives the per-sample directory's first
-step; a packed directory of another `n_bars` and a model axis other than 1
-are refused; `--tensorboard` writes its event files; message dropout
+step; a packed directory of another `n_bars` and, in one process, a model
+axis other than 1 are refused; `--tensorboard` writes its event files; message dropout
 trains in both modes."""
 import dataclasses
 import json
@@ -159,8 +159,9 @@ def test_cli_trains_from_a_packed_directory(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """A packed directory of another `n_bars` and a model axis other than 1
-    are refused; `--tensorboard` writes its event files."""
+    """A packed directory of another `n_bars` and, in one process, a model
+    axis other than 1 are refused; `--tensorboard` writes its event
+    files."""
     make_dataset(tmp_path / "data", 2)
     pack_dataset(str(tmp_path / "data"), str(tmp_path / "packed16"), 16)
     cfg_path = tmp_path / "cfg.json"
@@ -173,7 +174,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     axis_cfg = train_config_to_dict(tiny_cfg())
     axis_cfg["parallel"]["model_axis"] = 2
     (tmp_path / "axis.json").write_text(json.dumps(axis_cfg))
-    with pytest.raises(NotImplementedError, match="model parallelism"):
+    with pytest.raises(ValueError, match="1 processes not divisible by "
+                                         "parallel.model_axis=2"):
         train_cli.main(base[:2] + [str(tmp_path / "axis.json"), "--device",
                                    "cpu", "--model_name", "axis"])
     train_cli.main(base + ["--tensorboard", "--model_name", "tb",

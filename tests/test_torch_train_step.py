@@ -28,6 +28,7 @@ import torch
 from polyphemus_tpu.config import (BetaSchedulerConfig, LRSchedulerConfig,
                                    TrainConfig)
 from polyphemus_tpu.data.dataset import synthetic_batch
+from polyphemus_tpu.parallel import mesh as jmesh
 from polyphemus_tpu.train import losses as jlosses
 from polyphemus_tpu.train import metrics as jmetrics
 from polyphemus_tpu.train import schedules as jsched
@@ -74,10 +75,16 @@ def jax_eps(jmodel, params, rngs, d):
         {"params": params}, method=draw, rngs={"sample": r})) for r in rngs])
 
 
-def jax_reference_step(jmodel, cfg, variables, toks, mask, rng, mb=MB):
+def jax_reference_step(jmodel, cfg, variables, toks, mask, rng, mb=MB,
+                       mesh=None):
     """(losses, accs, grads, new params, new batch stats), each flat numpy,
-    of one JAX train step over microbatches of mb samples."""
-    key = (cfg.model.use_pallas_gcl, cfg.bf16)
+    of one JAX train step over microbatches of mb samples; on `mesh` (a
+    (data, model) mesh of `polyphemus_tpu.parallel.mesh`) with the params
+    and batch statistics laid out by its `param_sharding` and each
+    microbatch by its `batch_sharding`, as the JAX trainer shards them. The
+    jitted grad function is cached by everything its trace reads that the
+    cases vary: the GCL form, bf16, n_bars and the microbatch."""
+    key = (cfg.model.use_pallas_gcl, cfg.bf16, cfg.model.n_bars, mb)
     if key not in _GRAD_FNS:
         _GRAD_FNS[key] = jax.jit(jax.value_and_grad(
             lambda p, bs, t, m, r: _forward_loss(jmodel, cfg, p, bs, t, m,
@@ -87,12 +94,18 @@ def jax_reference_step(jmodel, cfg, variables, toks, mask, rng, mb=MB):
     accum = cfg.iters_to_accumulate
     params = jax_tree(variables["params"])
     stats = jax_tree(variables["batch_stats"])
+    batch = jnp.asarray
+    if mesh is not None:
+        params, stats = (jax.device_put(t, jmesh.param_sharding(mesh, t))
+                         for t in (params, stats))
+
+        def batch(a):
+            return jax.device_put(jnp.asarray(a), jmesh.batch_sharding(mesh))
     gsum, hist = None, []
     for i, r in enumerate(microbatch_rngs(rng, accum)):
         sl = slice(i * mb, (i + 1) * mb)
-        (_, (l_, a_, stats)), g = grad_fn(params, stats,
-                                          jnp.asarray(toks[sl]),
-                                          jnp.asarray(mask[sl]), r)
+        (_, (l_, a_, stats)), g = grad_fn(params, stats, batch(toks[sl]),
+                                          batch(mask[sl]), r)
         gsum = g if gsum is None else jax.tree_util.tree_map(jnp.add, gsum, g)
         hist.append((l_, a_))
     grads = jax.tree_util.tree_map(lambda g: g / accum, gsum)

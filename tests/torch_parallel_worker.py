@@ -1,5 +1,6 @@
-"""One rank of the data-parallel CPU tests (tests/test_torch_parallel.py),
-started by `torchrun`:
+"""One rank of the data- and tensor-parallel CPU tests
+(tests/test_torch_parallel.py, tests/test_torch_tensor_parallel.py), started
+by `torchrun`:
 
     python -m torch.distributed.run --standalone --nproc_per_node W \
         tests/torch_parallel_worker.py MODE IN OUT [args...]
@@ -7,10 +8,13 @@ started by `torchrun`:
 MODE `bn`: the masked batch-norm on this rank's rows of IN's (x, mask,
 grad_out); writes OUT/rank<r>.pt with the moments, the output, the input
 grad, the summed weight grads and the running statistics.
-MODE `step`: one `TrainStep` of IN's model, config, global batch and eps
-(and dropout generator seed) on this rank's rows; writes OUT/rank<r>.pt
-with the global losses and metrics, the summed grads and the state after
-the step.
+MODE `step`: one `TrainStep` of IN's model, config (its
+`parallel.model_axis` M: each rank keeps its shards), global batch and eps
+(and dropout generator seed) on this rank's data index's rows, then, with
+IN's `eval`, one `eval_step` on the same rows; writes OUT/rank<r>.pt with
+the global losses and metrics, the summed grads and the state after the
+step (whole, gathered from the model group), the eval losses and metrics,
+and the shapes this rank holds of every parameter and Adam moment.
 MODE `cli`: `cli.train.main(args)`, logging every checkpoint write to
 OUT/writes_rank<r>.txt.
 
@@ -59,23 +63,36 @@ def step(inp, out):
     from polyphemus_tpu_torch.models import VAE
     from polyphemus_tpu_torch.train import trainer as tr
 
-    r, w = pmesh.rank(), pmesh.world()
+    r = pmesh.rank()
     d = torch.load(inp)
     cfg = train_config_from_dict(d["cfg"])
+    pmesh.data_layout(cfg, "cpu")
     model = VAE(cfg.model)
     model.load_state_dict(d["state"])
+    pmesh.broadcast_module(model)  # and keep this rank's shards
     rows = torch.from_numpy(shard_rows(
-        d["tokens"].shape[0], cfg.iters_to_accumulate, r, w))
+        d["tokens"].shape[0], cfg.iters_to_accumulate, pmesh.data_index(),
+        pmesh.data_size()))
     gen = (torch.Generator().manual_seed(d["seed"])
            if d["seed"] is not None else None)
     model.set_dropout_generator(gen)
-    train_step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
-    losses, accs = train_step(d["tokens"][rows], d["mask"][rows],
-                              eps=d["eps"][rows], generator=gen)
-    torch.save({"losses": losses, "accs": accs,
-                "grads": {k: p.grad for k, p in model.named_parameters()},
-                "state": model.state_dict()},
-               os.path.join(out, f"rank{r}.pt"))
+    opt = tr.make_optimizer(model, cfg)
+    train_step = tr.make_train_step(model, cfg, opt)
+    batch = (d["tokens"][rows], d["mask"][rows])
+    losses, accs = train_step(*batch, eps=d["eps"][rows], generator=gen)
+    res = {"losses": losses, "accs": accs,
+           "grads": pmesh.full_state_dict(
+               {k: p.grad for k, p in model.named_parameters()}),
+           "state": pmesh.full_state_dict(model.state_dict()),
+           "shapes": {k: tuple(p.shape) for k, p in model.named_parameters()},
+           "moment_shapes": {
+               k: [tuple(opt.state[p][m].shape)
+                   for m in ("exp_avg", "exp_avg_sq")]
+               for k, p in model.named_parameters()}}
+    if d.get("eval"):
+        res["eval"] = tr.eval_step(model, cfg, *batch, train_step.updates,
+                                   eps=d["eps"][rows])
+    torch.save(res, os.path.join(out, f"rank{r}.pt"))
 
 
 def cli(out, argv):
