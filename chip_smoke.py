@@ -11,11 +11,15 @@
    forward), of both kernels of the bf16 fused GCL backward
    (`csrc/gcl_bwd_fused_bf16_tc.cu`: the dH kernel and the dW kernel)
    and of the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`, its
-   d = 512 form; `cuobjdump -sass`) and fails if any has none; counts those
+   d = 512 form, and its MIX form for S % 16 != 0; `cuobjdump -sass`) and
+   of the bf16 grid GCL kernel (`csrc/gcl_eval_grid_bf16_tc.cu`, bars of
+   4 x S cells, S != 32) and fails if any has none; counts those
    of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`), of the
    fp32 fused backward (`csrc/gcl_bwd_fused.cu`) and of the fp32 chord-tail
-   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if any
-   holds one, or no FFMA. The same for the fp32 weight and data backward
+   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and of the fp32
+   grid GCL kernel (`csrc/gcl_eval_grid_fp32.cu`; with its
+   registers, spills and dynamic shared memory, and it fails if ptxas
+   spilled) and fails if any holds one, or no FFMA. The same for the fp32 weight and data backward
    kernels (`csrc/gcl_bwd_weight.cu`, `csrc/gcl_bwd_data.cu`), with their
    ptxas registers and spills and their dynamic shared memory printed; it
    fails if ptxas spilled any bytes of either. ptxas' registers, spills,
@@ -96,7 +100,7 @@
    losses within 2e-4 relative (grads reported); at batch 8 the losses and
    each grad within 1e-3 x its max |cpu| (a grad that is rounding noise,
    under 1e-5 of the largest, within 1e-5 of the largest).
-   Seconds per optimizer step at batch 256 (median of 3 passes of 5 steps)
+   Seconds per optimizer step at batch 256 (median of 3 passes of 3 steps)
    and seq/s, and one profiled step (device time by kernel, the idle share,
    and the share of the step that the `gcl_fwd` kernel takes).
 6. Trains the bf16 flagship config (`examples/training_lmd2_bf16.json`:
@@ -127,7 +131,8 @@
    few % of some grads' max, as its kernels do; the step reports all
    three).
 7b. LMD16 generation: a seeded 16-bar model directory at batch 256 (4096
-   bars a call) by bench.py's protocol, with 4 `gcl_eval` launches at K = 2
+   bars a call) by bench.py's protocol at 10 calls a pass, with 4
+   `gcl_eval` launches at K = 2
    and 1 `chord_tail` launch per call; `gcl_eval` at K = 2 (rtol = atol =
    2e-4) and `chord_tail` (ids outside top-2 gaps < 1e-4) against their
    plain versions at 4096 bars, the plain versions run in chunks of 512
@@ -157,7 +162,7 @@
    training GCL kernel per step, one native gather per step from the
    packed data and none from the other, the first step's losses the same
    within 1e-6 relative (the same batches); s/step of each CLI run; s/step
-   of 8 steps fed by each loader (and, beside the packed one, of 8 steps on
+   of 4 steps fed by each loader (and, beside the packed one, of 4 steps on
    one batch kept on the card), the kernel time of 2 more under the
    profiler and the idle share it leaves.
 9. The remaining surface. MFU (`flops.py`: model FLOPs a sequence over
@@ -171,7 +176,7 @@
    `midi_bytes`), byte for byte: phase 3's n = 8 served sequences and 8
    more served on a given structure of density 0.15, through
    `GenerationService.render_midi`, 7b's n = 8 LMD16 pieces looped 4
-   times, with ms a sequence of each on the card's host (median of 5
+   times, with ms a sequence of each on the card's host (median of 3
    passes); the generate CLI (`--n 2 --n_loops 4`) on phase 3's model
    directory: its launches, 4 native renders, its files byte-equal to the
    Python writer's on the (mask, tokens) it generated. `mtp_from_logits`
@@ -222,11 +227,30 @@
    the column form (64 of each fp32 kernel, 32 of each bf16 one a step)
    and the eval step's 16; the ranks' checkpoint is one process's layout
    and serves one n = 8 request over HTTP.
+12. Bar grids other than 4 x 32 cells (`resolution` r, S = 4r steps a
+   bar): (i) the four generation kernels (`gcl_eval` at K = 2, and at K =
+   1, and `chord_tail`, fp32 and bf16; at S != 32 the GCL goes to
+   `csrc/gcl_eval_grid_*.cu`) against their plain versions at r = 3, 4, 6
+   and 12, 8 and 512 bars, d = 512, by phase 2's tolerances (the chord
+   tail's near-tie cap over the ids of active cells, and every inactive
+   cell of a track kind given the same ids), each 512-bar launch timed
+   beside its bound;
+   (ii) seeded model directories at r = 4 and 12 (d = 512, 8 layers, 2
+   bars): batch-256 generation in fp32 and bf16 by bench.py's protocol,
+   with MFU, each call launching exactly 4 `gcl_eval` and 1 `chord_tail` of
+   the model's grid and nothing else, n = 8 on the card against the CPU by
+   phase 3's rules and phase 4b's; (iii) at r = 4, an HTTP request
+   through `GenerationService` whose native MIDI equals the Python
+   writer's, and the generate CLI (`--n 2 --n_loops 4`, its files against
+   the Python writer's) and the reconstruct CLI on 2 samples of that grid
+   (its encoder: the GCL at K = 1).
 11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase, phases 10's and 10b's on every rank; the column forms
-   at n = 256 on a rank's microbatch, `<kernel>_cols`), the card line,
-   and last {"ok": true, "device": {...}}.
+   at n = 256 on a rank's microbatch, `<kernel>_cols`; phase 12's grid
+   kernels at S = 16 and 48, `<kernel>_s<S>`, timed in 12 (i) and launched
+   in 12 (ii) and (iii)), the card line, and last {"ok": true, "device":
+   {...}}.
 
 Any failure, a child process's too, exits non-zero before the last line.
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -236,6 +260,7 @@ phases 10's and 10b's gloo runs, started by the phase itself.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -299,6 +324,14 @@ FUSED_BF16_KERNELS = {"dH": "gcl_bwd_fused_bf16_tc_kernel",
                       "dW": "gcl_bwd_dw_bf16_tc_kernel"}
 HBM_TBPS = 3.35       # H100 SXM device memory
 SEED = 0
+
+
+START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """Print the seconds since the script started as phase `name` begins."""
+    print(f"[+{time.perf_counter() - START:.0f} s] phase {name}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -372,20 +405,27 @@ def ptxas_usage(log: str) -> dict:
     return {f: u for f, u in usage.items() if u}
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(library: str) -> str:
+    """`cuobjdump -sass` (beside nvcc) of one built library, once."""
+    from polyphemus_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    return out.stdout
+
+
 def sass_instructions(kernel: str, symbol: str,
                       pattern: str = r"\bHG?MMA\b") -> int:
     """Instructions matching `pattern` (default: HMMA and HGMMA, the
     tensor-core products) in the SASS of the function whose name holds
-    `symbol`, in the library that `_build.launcher(kernel)` loads
-    (`cuobjdump -sass`, beside nvcc)."""
+    `symbol`, in the library that `_build.launcher(kernel)` loads."""
     from polyphemus_tpu_torch.ops.kernels import _build
 
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(_build.library(kernel))],
-                         capture_output=True, text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
     count, inside, seen = 0, False, False
-    for line in out.stdout.splitlines():
+    for line in sass_text(str(_build.library(kernel))).splitlines():
         if "Function :" in line:
             inside = symbol in line
             seen = seen or inside
@@ -396,8 +436,9 @@ def sass_instructions(kernel: str, symbol: str,
 
 
 def smem_bytes(kernel: str) -> int:
-    """Dynamic shared memory a CTA of the fp32 weight or data backward
-    (`kernel`) takes, as its library's `<kernel>_smem_bytes` reports it."""
+    """Dynamic shared memory a CTA of the fp32 weight or data backward or of
+    a grid GCL kernel (`kernel`) takes, as its library's
+    `<kernel>_smem_bytes` reports it."""
     import ctypes
 
     from polyphemus_tpu_torch.ops.kernels import _build
@@ -441,17 +482,18 @@ def bar_masks(nbar: int, t: int, s: int, seed: int) -> np.ndarray:
     return mask
 
 
-def kernel_inputs(nbar, d, k_layers, device, seed):
-    """Seeded random x, aux, gates and K layers of packed weights."""
+def kernel_inputs(nbar, d, k_layers, device, seed, s=32):
+    """Seeded random x, aux, gates and K layers of packed weights over bars
+    of 4 x s cells."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl
 
     g = torch.Generator().manual_seed(seed)
-    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
-    x = torch.randn(nbar, 4, 32, d, generator=g) * mask[..., None]
-    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, 128)
-    gates = torch.randn(32, d, generator=g) * 0.3
+    mask = torch.from_numpy(bar_masks(nbar, 4, s, seed))
+    x = torch.randn(nbar, 4, s, d, generator=g) * mask[..., None]
+    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, 4 * s)
+    gates = torch.randn(s, d, generator=g) * 0.3
     wb = [gcl.pack_weights(torch.randn(6, d, d, generator=g) * d ** -0.5,
                            torch.randn(d, d, generator=g) * d ** -0.5, 4)
           for _ in range(k_layers)]
@@ -459,7 +501,7 @@ def kernel_inputs(nbar, d, k_layers, device, seed):
         torch.randn(k_layers, d, generator=g) * sc + off
         for sc, off in ((0.1, 0.0), (0.1, 1.0), (0.1, 0.0))]
     return mask.to(device), [v.contiguous().to(device) for v in
-                             [x.reshape(nbar, 128, d), aux, gates] + lay]
+                             [x.reshape(nbar, 4 * s, d), aux, gates] + lay]
 
 
 def by_bars(fn, per_bar, shared, chunk=None, **kw):
@@ -476,22 +518,23 @@ def by_bars(fn, per_bar, shared, chunk=None, **kw):
 
 # ----------------------------------------------------------- phase 2: kernels
 def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False,
-              chunk=None):
+              chunk=None, s=32):
     """`gcl_eval` against its plain version, in fp32 at rtol = atol = TOL or
     in bf16 (`bf16`: every float input cast) within BF16_REL of max |plain|;
     with timing, ms per launch and the bound (bf16: on the bf16 tensor
     cores, where the bf16 kernel runs; `cuda_core_bound_ms` on the fp32
     CUDA cores). `chunk`: the plain version runs on that many bars at a
-    time."""
+    time; s: steps a bar (another resolution's grid for s != 32)."""
     import torch
 
-    from polyphemus_tpu_torch.ops.kernels import gcl
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl
 
-    mask, args = kernel_inputs(nbar, d, k_layers, device, SEED + k_layers)
+    mask, args = kernel_inputs(nbar, d, k_layers, device, SEED + k_layers,
+                               s)
     if bf16:
         args = [a if a.dtype == torch.int32 else a.to(torch.bfloat16)
                 for a in args]
-    before = (gcl.launches, gcl.eval_bf16_launches, dict(gcl.launches_by_k))
+    before = dict(counts.launches)
     out = gcl.gcl_eval(*args)
 
     def plain():
@@ -527,10 +570,7 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False,
             flops * mask.numel() / int(mask.sum()), nbytes, peak)[0]
         if bf16:
             res["cuda_core_bound_ms"] = bound_ms(flops, nbytes)[0]
-    # comparisons do not count
-    gcl.launches, gcl.eval_bf16_launches, by_k = before
-    gcl.launches_by_k.clear()
-    gcl.launches_by_k.update(by_k)
+    counts.restore(before)  # comparisons do not count
     return res
 
 
@@ -581,11 +621,11 @@ def check_gcl_train(nbar, d, device, timing=True):
     CostEstimate, 2 * nbar * 128 * 8d * d."""
     import torch
 
-    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
     mask, (x, up, aux, gates, wbig, bias) = train_kernel_inputs(
         nbar, d, device, SEED + 11)
-    before = train_kernel_counts()
+    before = dict(counts.launches)
     runs = {
         "gcl_fwd": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
                     lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
@@ -633,7 +673,7 @@ def check_gcl_train(nbar, d, device, timing=True):
             r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes[name])
             r["dense_bound_ms"] = bound_ms(dense, nbytes[name])[0]
             r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name])[0]
-    set_train_kernel_counts(before)  # comparison launches do not count
+    counts.restore(before)  # comparison launches do not count
     return res
 
 
@@ -684,12 +724,12 @@ def check_gcl_train_bf16(nbar, d, device, timing=True):
     backward's first form ran; "dense" and "CE" variants as in 2b)."""
     import torch
 
-    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
     mask, args = train_kernel_inputs(nbar, d, device, SEED + 13)
     x, up, aux, gates, wbig, bias = [
         v if v.dtype == torch.int32 else v.to(torch.bfloat16) for v in args]
-    before = train_kernel_counts()
+    before = dict(counts.launches)
     runs = {
         "gcl_fwd_bf16": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
                          lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
@@ -732,7 +772,7 @@ def check_gcl_train_bf16(nbar, d, device, timing=True):
                                                    peak_tflops(True))[0]
             r["cost_estimate_cuda_core_bound_ms"] = bound_ms(
                 cost_est, nbytes[name])[0]
-    set_train_kernel_counts(before)  # comparison launches do not count
+    counts.restore(before)  # comparison launches do not count
     return res
 
 
@@ -742,11 +782,11 @@ def check_fused_fp32(nbar, d, device, timing=True):
     `split_ms`, `gcl_bwd_data` + `gcl_bwd_weight` on the same inputs."""
     import torch
 
-    from polyphemus_tpu_torch.ops.kernels import gcl_bwd
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl_bwd
 
     mask, (x, up, aux, gates, wbig, _) = train_kernel_inputs(
         nbar, d, device, SEED + 11)
-    before = train_kernel_counts()
+    before = dict(counts.launches)
     got = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
     want = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
     torch.cuda.synchronize()
@@ -772,27 +812,23 @@ def check_fused_fp32(nbar, d, device, timing=True):
         res["bound_ms"], res["bound_by"] = bound_ms(data, nbytes)
         res["dense_bound_ms"] = bound_ms(dense, nbytes)[0]
         res["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes)[0]
-    set_train_kernel_counts(before)  # comparison launches do not count
+    counts.restore(before)  # comparison launches do not count
     return res
 
 
 # ------------------------- phase 10b: the column forms (tensor parallelism)
 def kernel_counts():
-    """Every GCL wrapper's launch counters, the column forms' too."""
-    from polyphemus_tpu_torch.ops.kernels import gcl
+    """Every wrapper's launch counts, the column forms' too."""
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl
 
-    return (train_kernel_counts(), gcl.launches, gcl.eval_bf16_launches,
-            dict(gcl.launches_by_k), dict(gcl.col_launches))
+    return dict(counts.launches), dict(gcl.col_launches)
 
 
 def set_kernel_counts(saved) -> None:
-    from polyphemus_tpu_torch.ops.kernels import gcl
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl
 
-    train, gcl.launches, gcl.eval_bf16_launches, by_k, cols = saved
-    set_train_kernel_counts(train)
-    gcl.launches_by_k.clear()
-    gcl.launches_by_k.update(by_k)
-    gcl.col_launches.update(cols)
+    counts.restore(saved[0])
+    gcl.col_launches.update(saved[1])
 
 
 def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
@@ -933,13 +969,13 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
     return {"nbar": nbar, "d": d, "n": n, "bf16": bf16, "kernels": res}
 
 
-def chord_inputs(nbar, d, device, seed):
+def chord_inputs(nbar, d, device, seed, s=32):
     import torch
 
     g = torch.Generator().manual_seed(seed)
     h = d // 2
-    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
-    x = (torch.randn(nbar, 4, 32, d, generator=g) * mask[..., None])
+    mask = torch.from_numpy(bar_masks(nbar, 4, s, seed))
+    x = (torch.randn(nbar, 4, s, d, generator=g) * mask[..., None])
     p = [torch.randn(d, 15 * d, generator=g) * d ** -0.5,
          torch.randn(15 * d, generator=g) * 0.1,
          torch.randn(h, 131, generator=g) * h ** -0.5,
@@ -979,22 +1015,37 @@ def chord_gaps(x, *params):
     return torch.stack(gaps, dim=-2)
 
 
-def check_chord(nbar, d, device, timing=True, bf16=False, chunk=None):
+def idle_ids_agree(ids, mask) -> bool:
+    """Whether every inactive cell of a track kind has the same ids: x = 0
+    there, so every inactive drum cell has the same logits, and every
+    inactive melodic one."""
+    for trk in (slice(0, 1), slice(1, None)):  # drum, melodic
+        idle = ids[..., trk, :, :, :][~mask[..., trk, :]]
+        if not (idle == idle[:1]).all().item():
+            return False
+    return True
+
+
+def check_chord(nbar, d, device, timing=True, bf16=False, chunk=None, s=32,
+                active_ties=False):
     """`chord_tail` against its plain version: ids equal except where the
     plain top-2 logit gap is below TIE (`bf16`: x and every weight and bias
     cast to bf16; the logits are fp32 sums either way, so the rule is the
     same); with timing, ms per launch and the bound (bf16: on the bf16
     tensor cores, `dense_split_bound_ms` with the three-part unembed the
     kernel takes, `cuda_core_bound_ms` on the fp32 CUDA cores). `chunk`: the
-    plain version runs on that many bars at a time."""
+    plain version runs on that many bars at a time; s: steps a bar. The
+    near-ties may be at most 1e-3 of the ids, or with `active_ties` of the
+    active cells' ids (those that generation reads); every inactive cell of
+    a track kind must get the same ids (`idle_ids_agree`)."""
     import torch
 
-    from polyphemus_tpu_torch.ops.kernels import chord_tail
+    from polyphemus_tpu_torch.ops.kernels import chord_tail, counts
 
-    mask, args = chord_inputs(nbar, d, device, SEED + 7)
+    mask, args = chord_inputs(nbar, d, device, SEED + 7, s)
     if bf16:
         args = [a.to(torch.bfloat16) for a in args]
-    before = (chord_tail.launches, chord_tail.bf16_launches)
+    before = dict(counts.launches)
     out = chord_tail.chord_tail_tokens(*args, n_slots=15)
 
     def plain():
@@ -1011,7 +1062,10 @@ def check_chord(nbar, d, device, timing=True, bf16=False, chunk=None):
     check(not (diff & ~tie).any().item(),
           f"chord_tail nbar={nbar}: {int((diff & ~tie).sum())} ids differ "
           f"outside near-ties")
-    check(tie.float().mean().item() < 1e-3, "too many chord-tail near-ties")
+    share = (tie[mask] if active_ties else tie).float().mean().item()
+    check(share < 1e-3, f"too many chord-tail near-ties: {share:.2e}")
+    check(idle_ids_agree(out, mask), f"chord_tail nbar={nbar}: inactive "
+          f"cells of one track kind got different ids")
     res = {"max_abs_err": (out - ref)[~tie].abs().max().item(),
            "tie_mismatches": int((diff & tie).sum()),
            "near_ties": int(tie.sum())}
@@ -1043,7 +1097,7 @@ def check_chord(nbar, d, device, timing=True, bf16=False, chunk=None):
             res["cuda_core_bound_ms"] = bound_ms(rows * per_row, nbytes)[0]
             res["dense_cuda_core_bound_ms"] = bound_ms(
                 mask.numel() * per_row, nbytes)[0]
-    chord_tail.launches, chord_tail.bf16_launches = before
+    counts.restore(before)  # comparisons do not count
     return res
 
 
@@ -1094,7 +1148,7 @@ def serve_phase(model_dir, mc, device, tiers, big_n, structure):
     """Drive the HTTP service; returns (stats, launches, n=8 (mask, tokens))."""
     import base64
 
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
     from polyphemus_tpu_torch.serve import serve
 
     httpd, svc = serve(model_dir, port=0, batch_cap=tiers[-1], tiers=tiers,
@@ -1106,8 +1160,7 @@ def serve_phase(model_dir, mc, device, tiers, big_n, structure):
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             check(json.loads(r.read())["status"] == "ok", "healthz")
         calls0 = svc.stats["device_calls"]
-        gcl.launches = chord_tail.launches = 0
-        gcl.launches_by_k.clear()
+        counts.reset()
         # ---- the main path ----
         one = post(url, {"n": 1, "seed": 1})
         eight = post(url, {"n": 8, "seed": 8, "format": "tokens"})
@@ -1126,9 +1179,9 @@ def serve_phase(model_dir, mc, device, tiers, big_n, structure):
                 time.sleep(0.01)
         for t_ in ths:
             t_.join(600)
-        launches = {"gcl_eval": gcl.launches,
-                    "gcl_eval_by_k": dict(gcl.launches_by_k),
-                    "chord_tail": chord_tail.launches}
+        launches = {"gcl_eval": counts.total("gcl_eval"),
+                    "gcl_eval_by_k": by_k(),
+                    "chord_tail": counts.total("chord_tail")}
         calls = svc.stats["device_calls"] - calls0
     finally:
         httpd.shutdown()
@@ -1300,19 +1353,18 @@ def cli_phase(model_dir, device, out_dir, samples):
     conditioned decode."""
     from polyphemus_tpu_torch.cli import generate as gen_cli
     from polyphemus_tpu_torch.midi import read_midi
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
 
     shutil.rmtree(out_dir, ignore_errors=True)
     n = 4
     res = {}
     for name, extra in (("generate", []), ("generate_bf16", ["--bf16"])):
-        gcl.launches = gcl.eval_bf16_launches = 0
-        chord_tail.launches = chord_tail.bf16_launches = 0
+        counts.reset()
         out = os.path.join(out_dir, name)
         gen_cli.main([model_dir, out, "--n", str(n), "--no_audio",
                       "--seed", "2", "--device", str(device), *extra])
-        got = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
-               chord_tail.bf16_launches)
+        got = tuple(counts.total(k) for k in (
+            "gcl_eval", "chord_tail", "gcl_eval_bf16", "chord_tail_bf16"))
         want = (0, 0, 8, 2) if extra else (8, 2, 0, 0)
         check(got == want, f"{name} CLI launches {got}, expected {want}")
         notes = 0
@@ -1326,26 +1378,28 @@ def cli_phase(model_dir, device, out_dir, samples):
     return res
 
 
-def reconstruct_cli(model_dir, device, out, samples):
-    """The port's reconstruct CLI on `samples`: 8 encoder launches of
-    `gcl_eval` at K = 1, a conditioned decode (4 at K = 2, 1 `chord_tail`),
-    MIDI files that parse."""
+def reconstruct_cli(model_dir, device, out, samples, s=32):
+    """The port's reconstruct CLI on `samples` of bars of 4 x s cells: 8
+    encoder launches of `gcl_eval` at K = 1, a conditioned decode (4 at K =
+    2, 1 `chord_tail`) and no other launch, MIDI files that parse."""
     from polyphemus_tpu_torch.cli import reconstruct as rec_cli
     from polyphemus_tpu_torch.midi import read_midi
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
 
-    gcl.launches = chord_tail.launches = 0
-    gcl.launches_by_k.clear()
+    counts.reset()
     rec_cli.main([model_dir, *samples, out, "--device", str(device)])
-    got = (gcl.launches, chord_tail.launches)
-    by_k = dict(gcl.launches_by_k)
-    check(got == (12, 1), f"reconstruct CLI launches {got}, expected (12, 1)")
-    check(by_k == {1: 8, 2: 4}, f"reconstruct CLI gcl_eval launches by K "
-          f"{by_k}, expected 8 at K = 1 (encoder) and 4 at K = 2 (decode)")
+    launches = named(counts.launches)
+    want = {grid_name("gcl_eval", s, 1): 8, grid_name("gcl_eval", s, 2): 4,
+            grid_name("chord_tail", s, 1): 1}
+    check(launches == want, f"reconstruct CLI launches {launches}, "
+          f"expected {want}: 8 at K = 1 (encoder), 4 at K = 2 and 1 chord "
+          f"tail (decode)")
+    got = (counts.total("gcl_eval", s), counts.total("chord_tail", s))
     for i in range(len(samples)):
         for name in ("original", "reconstructed"):
             read_midi(os.path.join(out, str(i), name + ".mid"))
-    return {"samples": len(samples), "launches": got, "gcl_eval_by_k": by_k}
+    return {"samples": len(samples), "launches": got,
+            "gcl_eval_by_k": by_k(s=s)}
 
 
 # -------------------------------------------------------- phase 5: training
@@ -1376,26 +1430,35 @@ WITNESS_GRAD_TOL = 0.1          # max abs err / max |fp64|, per grad
 WITNESS_GRAD_COS_GAP = 1e-5     # 1 - cosine with the fp64 grad, per grad
 
 
-def train_kernel_counts():
-    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
-
-    return {"gcl_fwd": gcl.fwd_launches,
-            "gcl_bwd_data": gcl_bwd.data_launches,
-            "gcl_bwd_weight": gcl_bwd.weight_launches,
-            "gcl_fwd_bf16": gcl.fwd_bf16_launches,
-            "gcl_bwd_fused": gcl_bwd.fused_launches}
+TRAIN_KERNELS = ("gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight", "gcl_fwd_bf16",
+                 "gcl_bwd_fused")
 
 
-def set_train_kernel_counts(counts):
-    """Set the training kernels' launch counters to `counts`, a dict as
-    `train_kernel_counts` returns it."""
-    from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+def by_k(kernel="gcl_eval", s=32, launches=None) -> dict:
+    """The launches of `kernel` over bars of 4 x s cells in `launches` (by
+    default every count since the last reset), by chained layers K."""
+    from polyphemus_tpu_torch.ops.kernels import counts
 
-    gcl.fwd_launches = counts["gcl_fwd"]
-    gcl_bwd.data_launches = counts["gcl_bwd_data"]
-    gcl_bwd.weight_launches = counts["gcl_bwd_weight"]
-    gcl.fwd_bf16_launches = counts["gcl_fwd_bf16"]
-    gcl_bwd.fused_launches = counts["gcl_bwd_fused"]
+    launches = counts.launches if launches is None else launches
+    return {k: n for (name, s_, k), n in launches.items()
+            if name == kernel and s_ == s}
+
+
+def grid_name(kernel, s, k) -> str:
+    """The name of launches of `kernel` over bars of 4 x s cells at k
+    chained layers: the kernel's, `_k1` added for one eval layer a launch
+    (as in the `kernels` line), `_s<S>` for another grid than 4 x 32."""
+    name = kernel + ("_k1" if kernel.startswith("gcl_eval") and k == 1
+                     else "")
+    return name if s == 32 else f"{name}_s{s}"
+
+
+def named(launches) -> dict:
+    """Launch counts keyed by (kernel, S, K), by `grid_name`."""
+    out = {}
+    for key, n in launches.items():
+        out[grid_name(*key)] = out.get(grid_name(*key), 0) + n
+    return out
 
 
 def check_launches(counts, per_step, steps):
@@ -1407,13 +1470,14 @@ def check_launches(counts, per_step, steps):
                          f"per optimizer step, got {n} in {steps} steps")
 
 
-def write_dataset(path, n, n_bars, seed):
+def write_dataset(path, n, n_bars, seed, n_timesteps=32):
     """n reference-format .npz samples of synthetic music (density 0.15)."""
     from polyphemus_tpu_torch.data import synthetic_batch, write_sample
 
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
-    toks, mask = synthetic_batch(np.random.default_rng(seed), n, n_bars)
+    toks, mask = synthetic_batch(np.random.default_rng(seed), n, n_bars,
+                                 n_timesteps=n_timesteps)
     for i in range(n):
         write_sample(os.path.join(path, f"s{i:04d}.npz"), toks[i], mask[i])
 
@@ -1426,25 +1490,23 @@ def train_phase(device, config_path, data_dir, out_dir, epochs,
     counts of the training kernels and of the eval kernels, bf16 and fp32
     at K = 1, metrics.jsonl records)."""
     from polyphemus_tpu_torch.cli import train as train_cli
-    from polyphemus_tpu_torch.ops.kernels import gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    set_train_kernel_counts(dict.fromkeys(train_kernel_counts(), 0))
-    gcl.eval_bf16_launches = 0
-    gcl.launches_by_k.clear()
+    counts.reset()
     # ---- the main path ----
     trainer = train_cli.main([
         data_dir, out_dir, config_path, "--model_name", name,
         *splits, "--max_epochs", str(epochs), "--save_every",
         "0", "--num_workers", "8", "--seed", str(SEED),
         "--device", str(device), *extra])
-    counts = dict(train_kernel_counts(),
-                  gcl_eval_bf16=gcl.eval_bf16_launches,
-                  gcl_eval_k1=gcl.launches_by_k.get(1, 0))
+    launches = dict({k: counts.total(k) for k in TRAIN_KERNELS},
+                    gcl_eval_bf16=counts.total("gcl_eval_bf16"),
+                    gcl_eval_k1=counts.total("gcl_eval", k=1))
     model_dir = os.path.join(out_dir, name)
     with open(os.path.join(model_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    return trainer, model_dir, counts, recs
+    return trainer, model_dir, launches, recs
 
 
 def check_records(recs, steps, evals=0):
@@ -1757,7 +1819,7 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
                              "cosine": rows[n][3]} for n in worst]}
 
 
-def time_train_steps(trainer, batch, device, passes=3, steps=5):
+def time_train_steps(trainer, batch, device, passes=3, steps=3):
     """Seconds per optimizer step (host clock around steps that end in a
     sync): median of `passes` passes of `steps` steps, after one warm step,
     on device-resident synthetic batches."""
@@ -1866,13 +1928,12 @@ def generate_looped_cli(model_dir, device, out, n_bars, loops=4):
     `generated.mid`, the k-th shifted by k x n_bars bars."""
     from polyphemus_tpu_torch.cli import generate as gen_cli
     from polyphemus_tpu_torch.midi import read_midi
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
 
-    gcl.launches = chord_tail.launches = 0
-    gcl.launches_by_k.clear()
+    counts.reset()
     gen_cli.main([model_dir, out, "--n", "2", "--n_loops", str(loops),
                   "--no_audio", "--seed", "2", "--device", str(device)])
-    got = (dict(gcl.launches_by_k), chord_tail.launches)
+    got = (by_k(), counts.total("chord_tail"))
     check(got == ({2: 8}, 2), f"looped generate CLI launches {got}")
     notes = 0
     for i in range(2):
@@ -1998,7 +2059,7 @@ def lmd16_phases(device, card):
     kernels, n = 8 against the CPU, the CLIs on the trained directory.
     Returns what the results print."""
     from polyphemus_tpu_torch.config import load_train_config
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
 
     # ---- 7. LMD16 training on the card ----
     lmd16_config = os.path.join(ROOT, "examples", "training_lmd16.json")
@@ -2050,12 +2111,11 @@ def lmd16_phases(device, card):
     # ---- 7b. LMD16 generation at batch 256: 4096 bars a call ----
     model_l16 = os.path.join(ROOT, "build", "chip_smoke_model_lmd16")
     make_model_dir(model_l16, mc16, SEED)
-    gcl.launches = chord_tail.launches = 0
-    gcl.launches_by_k.clear()
+    counts.reset()
     # ---- the main path ----
-    gen_l16 = bench(model_l16, device)
-    gen_l16_launches = {"gcl_eval_by_k": dict(gcl.launches_by_k),
-                        "chord_tail": chord_tail.launches}
+    gen_l16 = bench(model_l16, device, rounds=10)
+    gen_l16_launches = {"gcl_eval_by_k": by_k(),
+                        "chord_tail": counts.total("chord_tail")}
     check(gen_l16_launches == {"gcl_eval_by_k": {2: 4 * gen_l16["calls"]},
                                "chord_tail": gen_l16["calls"]},
           f"LMD16 generation: launches {gen_l16_launches} in "
@@ -2139,8 +2199,8 @@ def dropout_phase(device, card, config_path, data_dir):
 DATA_SONGS = 96       # seeded full-band 4/4 songs of 12-32 bars
 DATA_SHARD = 128      # samples a shard, so that batches cross shards
 DATA_TRAIN = 640      # training samples of the CLI runs: 2 steps an epoch
-LOADER_REPS = 20      # timed batches of each gather
-LOADER_FED_STEPS = 8  # loader-fed steps timed
+LOADER_REPS = 10      # timed batches of each gather
+LOADER_FED_STEPS = 4  # loader-fed steps timed
 PROFILED_STEPS = 2    # loader-fed steps profiled for their kernel time
 # packed vs per-sample data: the first step's losses, relative (the same
 # batch on the same card; a different batch moves them by about 1e-2)
@@ -2413,7 +2473,7 @@ def data_plane_phase(device, card, config_path):
 
 
 # ---------------------------------------- phase 9: the remaining surface
-RENDER_REPS = 5       # timed passes over each set of pieces
+RENDER_REPS = 3       # timed passes over each set of pieces
 LOOPS = 4             # the looped pieces' n_loops, as the CLIs run it
 
 
@@ -2497,25 +2557,29 @@ def captured_generation(seen: list):
 
 def generate_cli_render(model_dir, device, out, mc) -> dict:
     """The generate CLI (`--n 2 --n_loops LOOPS`) on the card: 4 `gcl_eval`
-    launches at K = 2 and 1 `chord_tail` a call (2 calls), 4 native renders,
-    and each `generated.mid` / `extended.mid` byte-equal to the Python
-    writer's on the (mask, tokens) that the CLI's last call returned."""
+    launches at K = 2 and 1 `chord_tail` a call (2 calls) at the model's
+    grid, 4 native renders, and each `generated.mid` / `extended.mid`
+    byte-equal to the Python writer's on the (mask, tokens) that the CLI's
+    last call returned."""
     from polyphemus_tpu_torch.cli import generate as gen_cli
     from polyphemus_tpu_torch.config import GenerationConfig
     from polyphemus_tpu_torch.midi import fast_render
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    from polyphemus_tpu_torch.ops.kernels import counts
 
     shutil.rmtree(out, ignore_errors=True)
     seen = []
     renders = fast_render.renders
-    gcl.launches = chord_tail.launches = 0
-    gcl.launches_by_k.clear()
+    s = mc.n_timesteps
+    counts.reset()
     # ---- the main path ----
     with captured_generation(seen):
         gen_cli.main([model_dir, out, "--n", "2", "--n_loops", str(LOOPS),
                       "--no_audio", "--seed", "2", "--device", str(device)])
-    launches = (dict(gcl.launches_by_k), chord_tail.launches)
-    check(launches == ({2: 8}, 2), f"generate CLI launches {launches}")
+    got = dict(counts.launches)
+    want = {("gcl_eval", s, 2): 8, ("chord_tail", s, 1): 2}
+    check(got == want, f"generate CLI launches {named(got)}, expected "
+                       f"{named(want)}")
+    launches = (counts.total("gcl_eval", s), counts.total("chord_tail", s))
     check(fast_render.renders - renders == 4 and len(seen) == 2,
           f"generate CLI: {fast_render.renders - renders} native renders, "
           f"{len(seen)} generator calls")
@@ -2532,7 +2596,7 @@ def generate_cli_render(model_dir, device, out, mc) -> dict:
     return {"files": 4, "bytes": int(sum(
         os.path.getsize(os.path.join(out, str(i), n + ".mid"))
         for i in range(2) for n in ("generated", "extended"))),
-        "gcl_eval": launches[0][2], "chord_tail": launches[1]}
+        "gcl_eval": launches[0], "chord_tail": launches[1]}
 
 
 def mtp_on_card(model_dir, device) -> dict:
@@ -2710,7 +2774,7 @@ def nccl_cli_run(card, config_path, data_dir, n_samples) -> tuple:
           f"the losses' relative errors by step from the first run without "
           f"a process group: {errs} (limits: {DDP_LOSS_RTOL} at the first "
           f"step, {limit} over all)")
-    check_launches({k: launches[k] for k in train_kernel_counts()},
+    check_launches({k: launches[k] for k in TRAIN_KERNELS},
                    {"gcl_fwd": 64, "gcl_bwd_data": 64,
                     "gcl_bwd_weight": 64}, DDP_STEPS)
     step_s = {name: cfg.batch_size / r[-1]["seq_s"]
@@ -2726,7 +2790,7 @@ def nccl_cli_run(card, config_path, data_dir, n_samples) -> tuple:
             "launches_rank0": launches, "card": card}, launches
 
 
-def nccl_step_overhead(device, card, config_path, steps=5) -> dict:
+def nccl_step_overhead(device, card, config_path, steps=3) -> dict:
     """s/step of the flagship fp32 `TrainStep` in this process on one
     batch kept on the card, without a process group and in a one-rank NCCL
     group (the environment set here as `torchrun` sets it, then restored),
@@ -3005,7 +3069,7 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
     train_k = ({"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32} if bf16 else
                {"gcl_fwd": 64, "gcl_bwd_data": 64, "gcl_bwd_weight": 64})
     per_step = dict(train_k)
-    keys = list(train_kernel_counts())
+    keys = list(TRAIN_KERNELS)
     tp = model_axis > 1
     if tp:
         # every training launch in the column form
@@ -3164,6 +3228,164 @@ def tp_phase(card) -> tuple:
     return cols, launches
 
 
+# ---------------------------------------- phase 12: bar grids (resolutions)
+GRID_CHECKS = (3, 4, 6, 12)   # resolutions whose kernels are held and timed
+GRID_MODELS = (4, 12)         # resolutions generated end to end
+GRID_KERNELS = ("gcl_eval", "gcl_eval_bf16", "chord_tail", "chord_tail_bf16")
+GRID_MODEL = {"d": 512, "gnn_n_layers": 8, "n_bars": 2}  # LMD2's widths
+
+
+def grid_kernels(device, card) -> dict:
+    """Phase 12 (i): the four generation kernels at bars of 4 x 4r cells for
+    r in GRID_CHECKS, against their plain versions at 8 and 512 bars
+    (batch 256), d = 512, by phase 2's rules (the GCL at K = 2, and at K =
+    1 as the reconstruct encoder runs it), the chord tail's near-tie cap
+    over the ids of active cells (`active_ties`); the 512-bar launches timed
+    beside their bounds. {r: {kernel: result}}."""
+    res = {}
+    for r in GRID_CHECKS:
+        s = 4 * r
+        for nbar in (8, 512):
+            got = {}
+            for bf16 in (False, True):
+                k = "_bf16" if bf16 else ""
+                for layers in (2, 1):
+                    got[f"gcl_eval{k}" + ("_k1" if layers == 1 else "")] = \
+                        check_gcl(nbar, 512, layers, device,
+                                  timing=nbar > 8, bf16=bf16, s=s)
+                got[f"chord_tail{k}"] = check_chord(
+                    nbar, 512, device, timing=nbar > 8, bf16=bf16, s=s,
+                    active_ties=True)
+            print(f"bar grid r={r} (4 x {s} cells), the generation kernels "
+                  f"against their plain versions ({nbar} bars, d=512, K=2 "
+                  f"and 1, {card}):", json.dumps(got))
+        res[r] = got
+    return res
+
+
+def grid_generation(device, card, r, service=False) -> tuple:
+    """Phase 12 (ii): a seeded model directory at resolution r (d = 512, 8
+    layers, 2 bars); batch-256 generation in fp32 and bf16 by bench.py's
+    protocol, each call launching 4 `gcl_eval` at K = 2 and 1 `chord_tail`
+    of the 4 x 4r grid and nothing else, with MFU (`flops.py`); n = 8 on the
+    card against the CPU by phase 3's rules (fp32) and phase 4b's (bf16).
+    With `service`, (iii): one HTTP request through `GenerationService`
+    whose natively rendered MIDI equals the Python writer's on the same
+    request's tokens, the generate CLI (`generate_cli_render`) and the
+    reconstruct CLI on 2 samples of the grid (`reconstruct_cli`). The
+    counts are set to 0 before each of those runs and read after it.
+    Returns (results, the launches of all of it by `grid_name`)."""
+    import base64
+
+    import torch
+
+    from polyphemus_tpu_torch import flops
+    from polyphemus_tpu_torch.config import ModelConfig
+    from polyphemus_tpu_torch.generate import load_model, make_generator
+    from polyphemus_tpu_torch.midi import fast_render
+    from polyphemus_tpu_torch.ops.kernels import counts
+    from polyphemus_tpu_torch.serve import host_z, serve
+
+    mc = ModelConfig(resolution=r, dropout=0.0, batch_norm=True,
+                     **GRID_MODEL)
+    s = mc.n_timesteps
+    model_dir = os.path.join(ROOT, "build", f"chip_smoke_model_r{r}")
+    make_model_dir(model_dir, mc, SEED + r)
+    res = {"resolution": r, "cells_a_bar": 4 * s, "card": card}
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for key, n in got.items():
+            launches[key] = launches.get(key, 0) + n
+
+    for bf16 in (False, True):
+        k = "_bf16" if bf16 else ""
+        counts.reset()
+        # ---- the main path ----
+        b = bench(model_dir, device, bf16=bf16)
+        got = dict(counts.launches)
+        want = {(f"gcl_eval{k}", s, 2): 4 * b["calls"],
+                (f"chord_tail{k}", s, 1): b["calls"]}
+        check(got == want, f"r={r} {'bf16' if bf16 else 'fp32'} generation "
+                           f"launched {named(got)}, expected {named(want)}")
+        b["mfu_percent"] = 100.0 * flops.generation_flops_per_seq(mc) \
+            * b["value"] / (peak_tflops(bf16) * 1e12)
+        b["launches"] = named(got)
+        res[f"bench{k}"] = b
+        add(got)
+    counts.reset()
+    gmodel, _ = load_model(model_dir, device)
+    m8, t8 = make_generator(gmodel, device=device)(host_z(8, 8, mc.d))
+    del gmodel
+    res["n8_vs_cpu"] = compare_with_cpu(
+        model_dir, (m8.cpu().numpy(), t8.cpu().numpy()), device)
+    res["n8_bf16_vs_cpu"] = compare_bf16_with_cpu(model_dir, device)
+    if service:
+        httpd, svc = serve(model_dir, port=0, batch_cap=8, tiers=[8],
+                           device=device)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            renders = fast_render.renders
+            midi = post(url, {"n": 2, "seed": 5})
+            native = fast_render.renders - renders
+            toks = post(url, {"n": 2, "seed": 5, "format": "tokens"})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        check_tokens(toks["mask"], toks["tokens"], 2, mc)
+        mask = np.asarray(toks["mask"], bool)
+        tokens = np.asarray(toks["tokens"])
+        got = [base64.b64decode(m) for m in midi["midi_b64"]]
+        check(native == 2 and all(
+            g == python_midi(tokens[i], mask[i], mc.resolution)
+            for i, g in enumerate(got)),
+            f"r={r} service: {native} native renders, MIDI against the "
+            f"Python writer's bytes")
+        res["service"] = {"requests": 2, "native_renders": native,
+                          "midi_bytes": sum(map(len, got))}
+    add(counts.launches)  # n = 8 and the service
+    if service:
+        res["generate_cli"] = generate_cli_render(
+            model_dir, device, os.path.join(ROOT, "build",
+                                            f"chip_smoke_cli_r{r}"), mc)
+        add(counts.launches)
+        samples_dir = os.path.join(ROOT, "build", f"chip_smoke_samples_r{r}")
+        write_dataset(samples_dir, 2, mc.n_bars, SEED + 1, s)
+        res["reconstruct_cli"] = reconstruct_cli(
+            model_dir, device, os.path.join(ROOT, "build",
+                                            f"chip_smoke_reconstruct_r{r}"),
+            sorted(os.path.join(samples_dir, f)
+                   for f in os.listdir(samples_dir)), s)
+        add(counts.launches)
+    launches = named(launches)
+    want = GRID_KERNELS + (("gcl_eval_k1",) if service else ())
+    check(set(launches) == {f"{n}_s{s}" for n in want},
+          f"r={r}: launches {launches}")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"bar grid r={r} (4 x {s} cells) generation on the card, d=512, "
+          f"8 layers ({card}):", json.dumps(res))
+    return res, launches
+
+
+def grids_phase(device, card) -> tuple:
+    """Phase 12: bar grids other than 4 x 32 cells (`grid_kernels`, then
+    `grid_generation` at each of GRID_MODELS, the service and the CLI at
+    the first). Returns (kernel checks, generation results, launches)."""
+    # ---- 12. bar grids: resolutions 3, 4, 6, 12 ----
+    t0 = time.perf_counter()
+    kern = grid_kernels(device, card)
+    print(f"phase 12 (i): {time.perf_counter() - t0:.1f} s")
+    gens, launches = {}, {}
+    for i, r in enumerate(GRID_MODELS):
+        gens[r], got = grid_generation(device, card, r, service=i == 0)
+        launches.update(got)
+    return kern, gens, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3185,6 +3407,7 @@ def main() -> int:
           f"checkout beside this script")
 
     # ---- 1. the card, the toolchain, the build ----
+    phase("1")
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3209,13 +3432,15 @@ def main() -> int:
               f"(HMMA/HGMMA)")
         check(hmma > 0, f"the bf16 GCL kernel's {name} form holds no "
                         f"tensor-core instruction")
-    # the bf16 chord tail in its d = 512 form (128-row tiles, H = 256)
-    hmma_tail = sass_instructions("chord_tail_bf16",
-                                  "chord_tail_bf16_tc_kernelILi128ELi256E")
-    print(f"chord_tail_bf16 SASS: {hmma_tail} tensor-core instructions "
-          f"(HMMA/HGMMA)")
-    check(hmma_tail > 0, "the bf16 chord-tail kernel holds no tensor-core "
-                         "instruction")
+    # the bf16 chord tail in its d = 512 form (128-row tiles, H = 256), for
+    # S % 16 == 0 and in its MIX form (drum and melodic rows in one warp)
+    for mix in (0, 1):
+        hmma_tail = sass_instructions(
+            "chord_tail_bf16", f"chord_tail_bf16_tc_kernelILi128ELi256ELb{mix}E")
+        print(f"chord_tail_bf16{' MIX form' if mix else ''} SASS: "
+              f"{hmma_tail} tensor-core instructions (HMMA/HGMMA)")
+        check(hmma_tail > 0, "the bf16 chord-tail kernel holds no "
+                             "tensor-core instruction")
     # both kernels of the bf16 fused backward: dH (dx, dgate, dbias) and dW
     fused16 = {}
     for part, sym in FUSED_BF16_KERNELS.items():
@@ -3267,11 +3492,33 @@ def main() -> int:
               f"the fp32 {name} kernel is not an FFMA kernel")
         check(bwd32[name]["spill_bytes"] == 0,
               f"ptxas spilled registers of the fp32 {name} kernel")
+    # the eval GCL kernels at bar grids other than 4 x 32: bf16 on the
+    # tensor cores, fp32 FFMA only and without spills
+    grid_k = {}
+    for dt, src, sym in (
+            ("fp32", "gcl_eval_grid_fp32", "gcl_eval_grid_fp32_kernel"),
+            ("bf16", "gcl_eval_grid_bf16_tc", "gcl_eval_grid_bf16_tc_kernel")):
+        kname = "gcl_eval_grid" + ("_bf16" if dt == "bf16" else "")
+        funcs = [u for f, u in usage[src].items() if sym in f]
+        check(len(funcs) == 1, f"ptxas reported {len(funcs)} {sym}")
+        r = dict(funcs[0], dynamic_smem_bytes=smem_bytes(kname),
+                 hmma=sass_instructions(kname, sym),
+                 ffma=sass_instructions(kname, sym, r"\bFFMA\b"))
+        grid_k[dt] = r
+        if dt == "bf16":
+            check(r["hmma"] > 0, "the bf16 grid GCL kernel holds no "
+                                 "tensor-core instruction")
+        else:
+            check(r["hmma"] == 0 and r["ffma"] > 0 and r["spill_bytes"] == 0,
+                  f"the fp32 grid GCL kernel is not an FFMA kernel without "
+                  f"spills: {r}")
+    print("grid GCL kernels (bars of 4 x S, S != 32):", json.dumps(grid_k))
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 2. kernels against their plain versions ----
+    phase("2")
     small = {"gcl_eval_k1": check_gcl(8, 512, 1, device, timing=False),
              "gcl_eval_k3": check_gcl(8, 512, 3, device, timing=False),
              "chord_tail": check_chord(8, 512, device, timing=False)}
@@ -3286,6 +3533,7 @@ def main() -> int:
         {"gcl_eval_k1": gcl1, "gcl_eval_k2": gcl2, "chord_tail": chord}))
 
     # ---- 2b. training kernels against their plain versions ----
+    phase("2b")
     print("small-shape training kernel check (8 bars, d=512):",
           json.dumps(check_gcl_train(8, 512, device, timing=False)))
     train_k = check_gcl_train(128, 512, device)
@@ -3299,6 +3547,7 @@ def main() -> int:
           json.dumps(train_k))
 
     # ---- 2c. bf16 training kernels and the fused backward ----
+    phase("2c")
     print("small-shape bf16 training kernel check (8 bars, d=512):",
           json.dumps(check_gcl_train_bf16(8, 512, device, timing=False)))
     bf16_k = check_gcl_train_bf16(256, 512, device)
@@ -3321,6 +3570,7 @@ def main() -> int:
           json.dumps(fused32))
 
     # ---- 2d. the bf16 generation kernels: chord tail, eval GCL at K = 2 ----
+    phase("2d")
     print("small-shape bf16 chord tail check (8 bars, d=512):", json.dumps(
         check_chord(8, 512, device, timing=False, bf16=True)))
     chord16 = check_chord(512, 512, device, bf16=True)
@@ -3332,6 +3582,7 @@ def main() -> int:
                       "gcl_eval_bf16_k2": gen16_k}))
 
     # ---- 3. the service on the card ----
+    phase("3")
     mc = ModelConfig(d=512, gnn_n_layers=8, n_bars=2, resolution=8,
                      dropout=0.0, batch_norm=True)
     model_dir = os.path.join(ROOT, "build", "chip_smoke_model")
@@ -3351,25 +3602,26 @@ def main() -> int:
     print("n=8 against the CPU:", json.dumps(cpu_cmp))
 
     # ---- 4. throughput at batch 256 ----
+    phase("4")
     res = bench(model_dir, device)
     res.update({"card": card, "gcl_eval_launches_per_call": 4,
                 "kernel_ms_per_call": 4 * gcl2["ms"] + chord["ms"]})
     print("bench:", json.dumps(res))
 
     # ---- 4b. bf16 generation at batch 256, then the CLIs on the card ----
-    from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+    phase("4b")
+    from polyphemus_tpu_torch.ops.kernels import counts
 
-    gcl.eval_bf16_launches = chord_tail.bf16_launches = 0
-    gcl.launches = chord_tail.launches = 0
+    counts.reset()
     # ---- the main path ----
     res16 = bench(model_dir, device, bf16=True)
-    gen16_launches = {"gcl_eval_bf16_k2": gcl.eval_bf16_launches,
-                      "chord_tail_bf16": chord_tail.bf16_launches}
-    check(gen16_launches == {"gcl_eval_bf16_k2": 4 * res16["calls"],
-                             "chord_tail_bf16": res16["calls"]}
-          and gcl.launches == chord_tail.launches == 0,
-          f"bf16 generation: launches {gen16_launches} (fp32 "
-          f"{gcl.launches}, {chord_tail.launches}) in {res16['calls']} calls")
+    gen16_launches = {"gcl_eval_bf16_k2": counts.total("gcl_eval_bf16"),
+                      "chord_tail_bf16": counts.total("chord_tail_bf16")}
+    want = {("gcl_eval_bf16", 32, 2): 4 * res16["calls"],
+            ("chord_tail_bf16", 32, 1): res16["calls"]}
+    check(counts.launches == want,
+          f"bf16 generation: launches {named(counts.launches)}, expected "
+          f"{named(want)} in {res16['calls']} calls")
     res16.update({"card": card, "launches": gen16_launches,
                   "kernel_ms_per_call": 4 * gen16_k["ms"] + chord16["ms"],
                   "call_ms_over_fp32": res16["call_ms"] / res["call_ms"]})
@@ -3385,6 +3637,7 @@ def main() -> int:
     print("CLIs on the card:", json.dumps(clis))
 
     # ---- 5. training on the card ----
+    phase("5")
     config_path = os.path.join(ROOT, "examples", "training_lmd2.json")
     data_dir = os.path.join(ROOT, "build", "chip_smoke_data")
     write_dataset(data_dir, 512, mc.n_bars, SEED)
@@ -3417,6 +3670,7 @@ def main() -> int:
     del trainer
 
     # ---- 6. bf16 training on the card, with an eval step per epoch ----
+    phase("6")
     # 1024 samples: 512 train (2 steps per epoch), 256 validation (one
     # eval batch after each epoch's last step)
     data16 = os.path.join(ROOT, "build", "chip_smoke_data_bf16")
@@ -3462,15 +3716,19 @@ def main() -> int:
     del trainer
 
     # ---- 7, 7b. LMD16 training and generation on the card ----
+    phase("7, 7b")
     l16 = lmd16_phases(device, card)
 
     # ---- 7c. message dropout on the card, both modes ----
+    phase("7c")
     dropout = dropout_phase(device, card, config_path, data16)
 
     # ---- 8. the data plane: MIDI -> samples -> shards -> training ----
+    phase("8")
     data_out, data_launches = data_plane_phase(device, card, config_path)
 
     # ---- 9. the remaining surface: MFU, native render, mtp_from_logits ----
+    phase("9")
     from polyphemus_tpu_torch import flops
 
     gen_f, step_f = flops.generation_flops_per_seq, \
@@ -3487,14 +3745,21 @@ def main() -> int:
     cli_render = surface_phase(device, card, model_dir, mc, n8, l16, rates)
 
     # ---- 10. data parallelism: torchrun, NCCL at W = 1, 2 gloo ranks ----
+    phase("10")
     ddp_launches = ddp_phase(card, config_path, os.path.join(
         ROOT, "build", "chip_smoke_data_plane", "packed"),
         data_out["samples"])
 
     # ---- 10b. tensor parallelism: column forms, 2 and 4 gloo ranks ----
+    phase("10b")
     tp_cols, tp_launches = tp_phase(card)
 
+    # ---- 12. bar grids other than 4 x 32 cells: resolutions 3, 4, 6, 12 ----
+    phase("12")
+    grid_checks, _, grid_launches = grids_phase(device, card)
+
     # ---- 11. results ----
+    phase("11")
     launches = dict(launches, **train_launches, **gen16_launches)
     # K = 1 runs in the reconstruct CLIs' encoders and the dropout runs'
     # eval steps, counted by the wrapper
@@ -3590,6 +3855,29 @@ def main() -> int:
         kernels.append(entry(f"{name}_cols",
                              f"polyphemus_tpu_torch/csrc/{src}",
                              f"polyphemus_tpu/ops/kernels/{replaces}", r))
+    # the generation kernels at the grids of phase 12's models, each held
+    # and timed at 512 bars in 12 (i), launched by 12 (ii) and (iii)
+    launches.update(grid_launches)
+    for r in GRID_MODELS:
+        s = 4 * r
+        for name, src, replaces in (
+                ("gcl_eval", "gcl_eval_grid_fp32.cu", "gcl_pallas.py:440"),
+                ("gcl_eval_bf16", "gcl_eval_grid_bf16_tc.cu",
+                 "gcl_pallas.py:440"),
+                ("chord_tail", "chord_tail_fp32.cu", "chord_tail.py:101"),
+                ("chord_tail_bf16", "chord_tail_bf16_tc.cu",
+                 "chord_tail.py:101")):
+            kernels.append(entry(f"{name}_s{s}",
+                                 f"polyphemus_tpu_torch/csrc/{src}",
+                                 f"polyphemus_tpu/ops/kernels/{replaces}",
+                                 grid_checks[r][name]))
+    # the reconstruct encoder's eval layers, one a launch, at the grid of
+    # phase 12 (iii)
+    s = 4 * GRID_MODELS[0]
+    kernels.append(entry(f"gcl_eval_k1_s{s}",
+                         "polyphemus_tpu_torch/csrc/gcl_eval_grid_fp32.cu",
+                         "polyphemus_tpu/ops/kernels/gcl_pallas.py:347",
+                         grid_checks[GRID_MODELS[0]]["gcl_eval_k1"]))
     # launches at 4096 bars (the batch-256 bench) beside their times; the
     # CLIs' launches (2 sequences, 32 bars a call) apart
     lmd16_kernels = {

@@ -13,8 +13,9 @@
 //   dur   = h[d/2:] @ D + db
 //   ids   = (argmax pitch, argmax dur)   first index among equal maxima
 //
-// Only the int32 ids reach device memory, in the (bar, 4, 32, 15, 2) layout of
-// the JAX function. It computes what the Pallas body computes for a bf16 x:
+// Only the int32 ids reach device memory, in the (bar, 4, S, 15, 2) layout of
+// the JAX function, for bars of 4 x S cells at any S that is a multiple of 4
+// (the JAX kernel reads t, s and d from x's shape, chord_tail.py:65-69). It computes what the Pallas body computes for a bf16 x:
 // the projection multiplies bf16 x by bf16 W_slot and sums in fp32, plus the
 // fp32 bias; h stays fp32 and is never rounded to bf16; the unembeds take that
 // fp32 h against bf16-valued weights, summed in fp32, plus fp32 biases. On the
@@ -36,8 +37,10 @@
 // thread), walking the items (tile, slot) with the slot as the fast axis, so
 // the 15 items of a tile run together on 15 SMs and its x is read from device
 // memory about once:
-// - A tile is ROWS rows: a bar (128) for d <= 512, half a bar for d = 640-1024,
-//   a track (32) above. It computes a half-width H of 64, 128, 192, 256, 384,
+// - A tile is ROWS rows of the flat axis of the nbar x 4S cells: 128 for
+//   d <= 512, 64 for d = 640-1024, 32 above; the last one is padded (its x
+//   rows past the cells come in as zeros, the TMA's fill, and their ids are
+//   not stored), so a tile needs no whole bar and any S works. It computes a half-width H of 64, 128, 192, 256, 384,
 //   512 or 768 columns; a width whose half lies between two of them runs in
 //   the next one up, on weights the wrapper zero-pads (`chord_tail.pack`): a padded
 //   column of h is an exact zero and meets zero unembed rows.
@@ -46,13 +49,18 @@
 //   32-row tiles: 1 x 8) with 4 x 8 m16n8 accumulators a thread. h = acc +
 //   b_slot is parked in shared memory in fp32 (135 KB at d = 512), so the
 //   accumulators and the logits are never live together.
-// - The unembed: each warp takes 16 rows of the parked half (its track's
-//   unembed) and every vocabulary column (144 pitch or 112 duration, the
+// - The unembed: each warp takes 16 rows of the parked half and every
+//   vocabulary column (144 pitch or 112 duration, the
 //   wrapper's zero-padded packing), 72 or 56 fp32 accumulators a thread. Its
 //   A fragments are the parked h, read as fp32 and split into the three bf16
 //   parts in registers; each part meets the same B fragment. The argmax takes
 //   a thread's columns below the vocabulary edge, then the 4 threads of a row
-//   through shuffles, the first index on ties.
+//   through shuffles, the first index on ties. A warp's pitch unembed is its
+//   rows' track's (the drum one on track 0). Where S % 16 != 0 (the MIX form)
+//   16 rows may hold drum and melodic cells: such a warp multiplies the
+//   drum unembed by A with its melodic rows zeroed, and the melodic one by A
+//   with its drum rows zeroed, into the same sums; a zeroed row adds exact
+//   zeros, so every row's logits are the ones a warp of its own track gets.
 // - Every operand comes by TMA through one ring of 3 stages in shared memory,
 //   one mbarrier a stage, in one sequence per item: per pass, d / BK
 //   projection stages (BK = 32 features of the tile's x, row-major, and of
@@ -72,7 +80,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;   // 8 warps
 constexpr int NS = 15;         // note slots
-constexpr int TRACK = 32;      // rows of one track in a bar
 constexpr int NSTAGE = 3;      // ring stages
 constexpr int BKU = 32;        // unembed rows (features of h) per stage
 constexpr int BOX = 64;        // columns of a weight box: 128 bytes
@@ -195,7 +202,7 @@ __device__ __forceinline__ int box_off(int k, int n, int rows) {
 struct Ctx {
   unsigned char* ring;           // [NSTAGE][SB] bytes
   unsigned long long* bars;      // [NSTAGE]
-  const CUtensorMap* xmap;       // x: (nbar * 128 rows, d), boxes ROWS x BK
+  const CUtensorMap* xmap;       // x: (nbar 4 S rows, d), boxes ROWS x BK
   const CUtensorMap* wmap;       // ck: (d rows, 15 * 2H), boxes BK x 64
   const CUtensorMap* umap;       // u: (H rows, 432), boxes 32 x 64
   int nitems, na, nq, tid;
@@ -269,14 +276,19 @@ __device__ __forceinline__ void split3(uint32_t (&a)[3][4],
 // plus bias, parked in hbuf [ROWS][HLD] in fp32. The unembed (warps with
 // um0 < ROWS): the 16 rows um0 .. against the NV 8-column tiles of the
 // packed unembed at column ucol of each unembed stage, the parked half split
-// into three bf16 parts as A. Then per row the argmax over the columns below
-// v, to out[row * 30 + kind].
-template <class G, int NV>
+// into three bf16 parts as A; with `mixed` (MIX only), against the drum
+// unembed (column 0) for the rows whose `drum` flag is set (the lane's rows
+// g and g + 8) and the melodic one (column UW) for the others. Then per row
+// the argmax over the columns below v plus that row's bias (ubias for row g,
+// ubias8 for row g + 8), to out[row * 30 + kind] for the rows below nrow.
+template <class G, int NV, bool MIX>
 __device__ __forceinline__ void half_pass(const Ctx& cx, int& q, float* hbuf,
                                           const float* bias, int m0, int n0,
                                           int um0, int ucol,
-                                          const float* ubias, int v,
-                                          int* out, int kind) {
+                                          const float* ubias,
+                                          const float* ubias8, int v,
+                                          int* out, int kind, int nrow,
+                                          bool mixed, const bool (&drum)[2]) {
   const int lane = cx.tid & 31, g = lane >> 2, t = lane & 3;
   {
     float acc[G::PM][G::PN][4];
@@ -350,6 +362,30 @@ __device__ __forceinline__ void half_pass(const Ctx& cx, int& q, float* hbuf,
       uint32_t a[3][4];
       split3(a, c0, c1);
       const int r = k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      if constexpr (MIX) {
+        if (mixed) {
+          // A fragment words 0, 2 hold row g, words 1, 3 row g + 8
+          const uint32_t md = drum[0] ? ~0u : 0u, md8 = drum[1] ? ~0u : 0u;
+#pragma unroll
+          for (int jp = 0; jp < NV / 2; ++jp) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const uint32_t k = u == 0 ? md : ~md, k8 = u == 0 ? md8 : ~md8;
+              uint32_t b[4];
+              ldsm_x4_t(b, us + box_off(r, u * UW + (2 * jp + (lane >> 4)) * 8,
+                                        BKU));
+#pragma unroll
+              for (int p = 0; p < 3; ++p) {
+                const uint32_t am[4] = {a[p][0] & k, a[p][1] & k8,
+                                        a[p][2] & k, a[p][3] & k8};
+                mma_bf16(lg[2 * jp], am, b[0], b[1]);
+                mma_bf16(lg[2 * jp + 1], am, b[2], b[3]);
+              }
+            }
+          }
+          continue;
+        }
+      }
 #pragma unroll
       for (int jp = 0; jp < NV / 2; ++jp) {
         uint32_t b[4];
@@ -367,6 +403,7 @@ __device__ __forceinline__ void half_pass(const Ctx& cx, int& q, float* hbuf,
   // the first index among equal maxima
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8
+    const float* ub = hr == 0 ? ubias : ubias8;
     float best = -CUDART_INF_F;
     int bi = 0x7fffffff;
 #pragma unroll
@@ -375,7 +412,7 @@ __device__ __forceinline__ void half_pass(const Ctx& cx, int& q, float* hbuf,
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t + e;
         if (col < v) {
-          const float val = lg[j][2 * hr + e] + __ldg(ubias + col);
+          const float val = lg[j][2 * hr + e] + __ldg(ub + col);
           if (val > best) { best = val; bi = col; }
         }
       }
@@ -385,15 +422,16 @@ __device__ __forceinline__ void half_pass(const Ctx& cx, int& q, float* hbuf,
       const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
     }
-    if (t == 0) out[(size_t)(um0 + g + 8 * hr) * NS * 2 + kind] = bi;
+    if (t == 0 && um0 + g + 8 * hr < nrow)
+      out[(size_t)(um0 + g + 8 * hr) * NS * 2 + kind] = bi;
   }
 }
 
-template <int ROWS, int H>
+template <int ROWS, int H, bool MIX>
 __global__ void __launch_bounds__(THREADS, 1)
 chord_tail_bf16_tc_kernel(const float* __restrict__ cb,
                           const float* __restrict__ ub, int* __restrict__ ids,
-                          int nitems, int d, int vp, int vd,
+                          int nitems, int ncells, int S, int d, int vp, int vd,
                           const __grid_constant__ CUtensorMap xmap,
                           const __grid_constant__ CUtensorMap wmap,
                           const __grid_constant__ CUtensorMap umap) {
@@ -415,19 +453,29 @@ chord_tail_bf16_tc_kernel(const float* __restrict__ cb,
   const int m0 = (warp / G::PWC) * G::PM * 16;
   const int n0 = (warp % G::PWC) * G::PN * 8;
   // unembed: rows warp * 16 .. (warps past the tile's rows idle)
-  const int um0 = warp * 16;
+  const int um0 = warp * 16, g = (tid & 31) >> 2;
+  const int N = 4 * S;
   for (int q = 0;;) {
     const int item = blockIdx.x + (q / cx.nq) * gridDim.x;
     if (item >= nitems) break;
     const int tile = item / NS, slot = item % NS;
-    const int trk = ((tile * ROWS) % (4 * TRACK) + um0) / TRACK;
+    const int nrow = ncells - tile * ROWS;
+    // the pitch unembed of the lane's rows g and g + 8: the drum one on
+    // track 0; a MIX warp whose rows hold both kinds takes both
+    const long long row = (long long)tile * ROWS + um0 + g;
+    const bool drum[2] = {row % N < S, (row + 8) % N < S};
+    const bool mixed =
+        MIX && __any_sync(0xffffffffu, drum[0] || drum[1]) &&
+        __any_sync(0xffffffffu, !drum[0] || !drum[1]);
     int* out = ids + ((size_t)tile * ROWS * NS + slot) * 2;
     const float* bslot = cb + (size_t)slot * 2 * H;
-    const int ucol = trk == 0 ? 0 : UW;
-    half_pass<G, NVP>(cx, q, hbuf, bslot, m0, n0, um0, ucol, ub + ucol, vp,
-                      out, 0);
-    half_pass<G, NVD>(cx, q, hbuf, bslot + H, m0, n0, um0, 0, ub + 2 * UW,
-                      vd, out, 1);
+    const int ucol = drum[0] ? 0 : UW;
+    half_pass<G, NVP, MIX>(cx, q, hbuf, bslot, m0, n0, um0, ucol,
+                           ub + (drum[0] ? 0 : UW), ub + (drum[1] ? 0 : UW),
+                           vp, out, 0, nrow, mixed, drum);
+    half_pass<G, NVD, false>(cx, q, hbuf, bslot + H, m0, n0, um0, 0,
+                             ub + 2 * UW, ub + 2 * UW, vd, out, 1, nrow,
+                             false, drum);
   }
 }
 
@@ -482,53 +530,58 @@ static bool matrix_map(CUtensorMap* map, const void* base, long long rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int ROWS, int H>
+template <int ROWS, int H, bool MIX>
 static int launch(const void* x, const void* ck, const void* cb,
-                  const void* u, const void* ub, void* ids, int nbar, int d,
-                  int vp, int vd, cudaStream_t stream) {
+                  const void* u, const void* ub, void* ids, int ncells, int S,
+                  int d, int vp, int vd, cudaStream_t stream) {
   using G = Geo<ROWS, H>;
-  auto kernel = chord_tail_bf16_tc_kernel<ROWS, H>;
+  auto kernel = chord_tail_bf16_tc_kernel<ROWS, H, MIX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap xmap = {}, wmap = {}, umap = {};
-  if (!matrix_map(&xmap, x, (long long)nbar * 128, d, ROWS, G::BK) ||
+  if (!matrix_map(&xmap, x, ncells, d, ROWS, G::BK) ||
       !matrix_map(&wmap, ck, d, NS * 2 * H, G::BK, BOX) ||
       !matrix_map(&umap, u, H, UCOLS, BKU, BOX))
     return (int)cudaErrorInvalidValue;
   // one CTA per SM, each walking the items (tile, slot) in a stride
-  const int nitems = nbar * (128 / ROWS) * NS;
+  const int nitems = (ncells + ROWS - 1) / ROWS * NS;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
   kernel<<<nitems < sms ? nitems : sms, THREADS, G::SMEM, stream>>>(
-      (const float*)cb, (const float*)ub, (int*)ids, nitems, d, vp, vd, xmap,
-      wmap, umap);
+      (const float*)cb, (const float*)ub, (int*)ids, nitems, ncells, S, d, vp,
+      vd, xmap, wmap, umap);
   return (int)cudaGetLastError();
 }
 
-// x (nbar, 4, 32, d) bf16, contiguous; ck (d, 15 * 2H) bf16 and cb (15 * 2H)
+// x (nbar, 4, S, d) bf16, contiguous; ck (d, 15 * 2H) bf16 and cb (15 * 2H)
 // fp32, each half of each slot's columns zero-padded from d / 2 to H, the
 // tile's half-width; u (H, 432) bf16: the drum, melodic and duration
 // unembeds side by side, each zero-padded to 144 columns and to H rows; ub
 // (432) fp32, their biases padded alike (`chord_tail.pack`); ids (nbar,
-// 4, 32, 15, 2) int32. d is a multiple of 128 up to 1536; H is 64, 128, 192,
+// 4, S, 15, 2) int32. S % 4 == 0 and 15 nbar 4 S < 2^31 (S % 16 != 0 takes
+// the MIX form); d is a multiple of 128 up to 1536; H is 64, 128, 192,
 // 256 for d <= 512, 384 for d = 640, 768, 512 for d = 896, 1024 and 768
 // above (`chord_tail.HALF_WIDTHS`); vp <= 144, vd <= 112.
 extern "C" int chord_tail_bf16_launch(const void* x, const void* ck,
                                       const void* cb, const void* u,
                                       const void* ub, void* ids, int nbar,
-                                      int d, int n_slots, int vp, int vd,
-                                      void* stream) {
+                                      int S, int d, int n_slots, int vp,
+                                      int vd, void* stream) {
   if (nbar <= 0) return 0;
   if (n_slots != NS || vp < 1 || vp > 8 * NVP || vd < 1 || vd > 8 * NVD ||
-      d % 128 != 0 || d < 128 || d > 1536)
+      d % 128 != 0 || d < 128 || d > 1536 || S < 4 || S % 4 != 0 ||
+      (long long)nbar * 4 * S * NS > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(ROWS, H) \
-  launch<ROWS, H>(x, ck, cb, u, ub, ids, nbar, d, vp, vd, s)
+  const int nc = nbar * 4 * S;
+#define LAUNCH(ROWS, H)                                                     \
+  (S % 16 == 0                                                             \
+       ? launch<ROWS, H, false>(x, ck, cb, u, ub, ids, nc, S, d, vp, vd, s) \
+       : launch<ROWS, H, true>(x, ck, cb, u, ub, ids, nc, S, d, vp, vd, s))
   switch (d) {
     case 128: return LAUNCH(128, 64);
     case 256: return LAUNCH(128, 128);

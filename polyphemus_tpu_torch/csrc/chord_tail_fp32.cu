@@ -11,8 +11,10 @@
 //   dur   = h[d/2:] @ D + db
 //   ids   = (argmax pitch, argmax dur)   first index among equal maxima
 //
-// Only the int32 ids reach device memory, in the (bar, 4, 32, 15, 2) layout of
-// the JAX function. Every cell is computed, as in the JAX kernel. The products
+// Only the int32 ids reach device memory, in the (bar, 4, S, 15, 2) layout of
+// the JAX function, for bars of 4 x S cells at any S that is a multiple of 4
+// (the JAX kernel reads t, s and d from x's shape, chord_tail.py:65-69).
+// Every cell is computed, as in the JAX kernel. The products
 // are fp32 FMAs on the CUDA cores (no TF32, no tensor cores); only the order
 // of the fp32 sums differs from the plain version
 // (`ops/kernels/chord_tail.py::chord_tail_plain`).
@@ -27,9 +29,11 @@
 // walking the items (tile, slot) in a grid stride; the ring of stages runs on
 // from one item to the next, so the next item's first copies land under this
 // one's last products:
-// - An item is one tile of ROWS rows and one slot: a whole bar (128 rows) for
-//   d <= 512, half a bar for d = 640-1024, a track (32 rows) for
-//   d = 1152-1536. A tile computes a half-width of 64, 128, 192, 256, 384, 512
+// - An item is one tile of ROWS rows and one slot. The tiles cut the flat
+//   axis of the nbar x 4S cells (128 rows for d <= 512, 64 for d = 640-1024,
+//   32 for d = 1152-1536), the last one padded: its x rows past the cells
+//   come in as zeros (the TMA's fill) and its ids are not stored, so a tile
+//   needs no whole bar and any S works. A tile computes a half-width of 64, 128, 192, 256, 384, 512
 //   or 768 columns; a width whose half lies between two of them runs in the
 //   next one up, on weights the wrapper zero-pads to it (`chord_tail.pack`): the
 //   padded columns of h are exact zeros and meet zero unembed rows, so the
@@ -51,10 +55,11 @@
 //   pass's, the duration unembed's. Two stages are in flight while one
 //   multiplies; a stage has one barrier.
 // - The unembed is a register-tiled SIMT product over the parked half: a warp
-//   owns ROWS / 8 rows of one track, so the drum warps read the drum unembed,
-//   and every vocabulary column (144 pitch, 112 duration; the wrapper packs
+//   owns ROWS / 8 rows and every vocabulary column (144 pitch, 112 duration; the wrapper packs
 //   the unembeds zero-padded to 144 columns each). A thread holds ROWS / 32
-//   consecutive rows x 18 (pitch) or 14 (duration) columns. The argmax takes
+//   consecutive rows x 18 (pitch) or 14 (duration) columns; its rows lie in
+//   one track (S % 4 == 0), whose pitch unembed (the drum one on track 0)
+//   it reads. The argmax takes
 //   a thread's columns below the vocabulary edge, then the 8 threads of a row
 //   through shuffles, the first index on ties.
 #include <cuda.h>
@@ -65,7 +70,6 @@ namespace {
 
 constexpr int THREADS = 256;     // 8 warps
 constexpr int NS = 15;           // note slots
-constexpr int TRACK = 32;        // rows of one track in a bar
 constexpr int NSTAGE = 3;        // ring stages
 constexpr int BKU = 16;          // features per unembed stage
 constexpr int UW = 144;          // columns of each packed unembed
@@ -82,7 +86,7 @@ template <int ROWS_, int NJ_>
 struct Geo {
   static constexpr int ROWS = ROWS_;
   static constexpr int NJ = NJ_;                 // a thread's float4 columns
-  static constexpr int RW = ROWS / TRACK;        // projection warps along rows
+  static constexpr int RW = ROWS / 32;           // projection warps along rows
   static constexpr int CW = 8 / RW;              // and along columns
   static constexpr int H = 32 * NJ * CW;         // d / 2, or its padded width
   static constexpr int D = 2 * H;                // a slot's (padded) columns
@@ -146,7 +150,7 @@ __device__ __forceinline__ void tma2d(float* dst, const CUtensorMap* map,
 struct Ctx {
   float* ring;                    // [NSTAGE][SF]
   unsigned long long* bars;       // [NSTAGE]
-  const CUtensorMap* xmap;        // x k-major: (nbar d rows, 128 columns)
+  const CUtensorMap* xmap;        // x k-major: (d rows, nbar 4S columns)
   const CUtensorMap* wmap;        // ck: (d rows, 15 D columns)
   const CUtensorMap* umap;        // packed unembeds: (H rows, NU columns)
   int nitems, d, na, nq, tid;
@@ -179,14 +183,13 @@ __device__ __forceinline__ void issue(const Ctx& cx, int q) {
   float* st = cx.ring + (q % NSTAGE) * G::SF;
   unsigned long long* bar = cx.bars + q % NSTAGE;
   if (sg.r < cx.na) {
-    const int k0 = sg.r * G::BK, tiles = 128 / G::ROWS;  // tiles of a bar
+    const int k0 = sg.r * G::BK;
     mbar_expect(bar, (G::WF + G::XF) * 4);
 #pragma unroll
     for (int i = 0; i < G::H / G::BW; ++i)
       tma2d(st + i * G::BK * G::BW, cx.wmap,
             sg.slot() * G::D + sg.pass * G::H + i * G::BW, k0, bar);
-    tma2d(st + G::WF, cx.xmap, sg.tile() % tiles * G::ROWS,
-          sg.tile() / tiles * cx.d + k0, bar);
+    tma2d(st + G::WF, cx.xmap, sg.tile() * G::ROWS, k0, bar);
   } else {
     const int k0 = (sg.r - cx.na) * BKU;
     if (sg.pass == 0) {
@@ -291,12 +294,13 @@ __device__ __forceinline__ void load_rows(float (&a)[G::UR], const float* hbuf,
 // thread's rows r0 .. r0 + UR - 1 and columns c2 + 16 j + e (j < NV, e < 2)
 // of box `box` of each stage, plus bias; the argmax of each row over the
 // columns below v goes to ids[row * NS * 2 + kind] (ids at the tile's first
-// cell, this slot).
+// cell, this slot) for the rows below nrow, the tile's cells.
 template <class G, int NV>
 __device__ __forceinline__ void unembed(const Ctx& cx, int q0,
                                         const float* hbuf, int box,
                                         const float* bias, int v, int r0,
-                                        int c2, int* ids, int kind) {
+                                        int c2, int* ids, int kind,
+                                        int nrow) {
   constexpr int UR = G::UR;
   float acc[UR][2 * NV];
 #pragma unroll
@@ -340,7 +344,7 @@ __device__ __forceinline__ void unembed(const Ctx& cx, int q0,
       const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
     }
-    if (c2 == 0) ids[(size_t)(r0 + r) * NS * 2 + kind] = bi;
+    if (c2 == 0 && r0 + r < nrow) ids[(size_t)(r0 + r) * NS * 2 + kind] = bi;
   }
 }
 
@@ -348,7 +352,7 @@ template <int ROWS, int NJ>
 __global__ void __launch_bounds__(THREADS, 1)
 chord_tail_fp32_kernel(const float* __restrict__ cb,
                        const float* __restrict__ ub, int* __restrict__ ids,
-                       int nitems, int d, int vp, int vd,
+                       int nitems, int ncells, int S, int d, int vp, int vd,
                        const __grid_constant__ CUtensorMap xmap,
                        const __grid_constant__ CUtensorMap wmap,
                        const __grid_constant__ CUtensorMap umap) {
@@ -372,25 +376,27 @@ chord_tail_fp32_kernel(const float* __restrict__ cb,
 
   // projection: warp (rw, wc) owns rows rw*32 + g*8 .. + 7 and columns
   // wc*32NJ + c*4 + 32j of each half
-  const int pr0 = (warp / G::CW) * TRACK + g * 8;
+  const int pr0 = (warp / G::CW) * 32 + g * 8;
   const int pc0 = (warp % G::CW) * 32 * NJ + c * 4;
   // unembed: warp w owns rows w*4UR + g*UR .. + UR - 1, all of one track
   const int ur0 = warp * 4 * G::UR + g * G::UR;
+  const int N = 4 * S;
   // the items of this CTA, one after the other; the ring runs on across
   // them, so the next item's first stages load under this one's last
   for (int q0 = 0;; q0 += cx.nq) {
     const Stage<G> it(cx, q0);
     if (it.item >= nitems) break;
     const int tile = it.tile(), slot = it.slot();
-    const int trk = ((tile * ROWS) % (4 * TRACK) + warp * 4 * G::UR) / TRACK;
+    const int trk = (int)(((long long)tile * ROWS + ur0) % N) / S;
+    const int nrow = ncells - tile * ROWS;
     int* out = ids + ((size_t)tile * ROWS * NS + slot) * 2;
     const float* bslot = cb + (size_t)slot * G::D;
     project<G>(cx, q0, hbuf, bslot, pr0, pc0);
     unembed<G, NVP>(cx, q0 + na, hbuf, trk == 0 ? 0 : 1,
-                    ub + (trk == 0 ? 0 : UW), vp, ur0, 2 * c, out, 0);
+                    ub + (trk == 0 ? 0 : UW), vp, ur0, 2 * c, out, 0, nrow);
     project<G>(cx, q0 + na + G::NB, hbuf, bslot + G::H, pr0, pc0);
     unembed<G, NVD>(cx, q0 + 2 * na + G::NB, hbuf, 0, ub + 2 * UW, vd,
-                    ur0, 2 * c, out, 1);
+                    ur0, 2 * c, out, 1, nrow);
   }
 }
 
@@ -424,8 +430,8 @@ static EncodeTiled encode_tiled() {
 }
 
 // A row-major fp32 matrix (rows x cols) read in boxes of [box_rows][box_cols].
-static bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
-                       int box_rows, int box_cols) {
+static bool matrix_map(CUtensorMap* map, const void* base, int rows,
+                       long long cols, int box_rows, int box_cols) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -440,51 +446,53 @@ static bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
 
 template <int ROWS, int NJ>
 static int launch(const void* x, const void* ck, const void* cb,
-                  const void* u, const void* ub, void* ids, int nbar,
-                  int d, int vp, int vd, cudaStream_t stream) {
+                  const void* u, const void* ub, void* ids, int ncells,
+                  int S, int d, int vp, int vd, cudaStream_t stream) {
   using G = Geo<ROWS, NJ>;
   auto kernel = chord_tail_fp32_kernel<ROWS, NJ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap xmap = {}, wmap = {}, umap = {};
-  if (!matrix_map(&xmap, x, nbar * d, 128, G::BK, ROWS) ||
+  if (!matrix_map(&xmap, x, d, ncells, G::BK, ROWS) ||
       !matrix_map(&wmap, ck, d, NS * G::D, G::BK, G::BW) ||
       !matrix_map(&umap, u, G::H, NU, BKU, UW))
     return (int)cudaErrorInvalidValue;
   // one CTA per SM, each walking the items (tile, slot) in a stride
-  const int nitems = nbar * (128 / ROWS) * NS;
+  const int nitems = (ncells + ROWS - 1) / ROWS * NS;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
   kernel<<<nitems < sms ? nitems : sms, THREADS, G::SMEM, stream>>>(
-      (const float*)cb, (const float*)ub, (int*)ids, nitems, d, vp, vd, xmap,
-      wmap, umap);
+      (const float*)cb, (const float*)ub, (int*)ids, nitems, ncells, S, d, vp,
+      vd, xmap, wmap, umap);
   return (int)cudaGetLastError();
 }
 
-// Every tensor fp32 and contiguous: x k-major, (nbar, d, 128) (the bar's
-// (4, 32, d) cells transposed); ck (d, 15 D) and cb (15 D), each slot's
+// Every tensor fp32 and contiguous: x k-major, (d, nbar 4 S) (the flat
+// (nbar 4 S, d) cells transposed); ck (d, 15 D) and cb (15 D), each slot's
 // columns zero-padded from d to D = 2 H, the tile's width; u (H, 432) the
 // drum, melodic and duration unembeds, each zero-padded to 144 columns and
-// to H rows; ub (432) their biases, padded alike; ids (nbar, 4, 32, 15, 2)
-// int32. d is a multiple of 128 up to 1536; H is 64, 128, 192, 256 for
+// to H rows; ub (432) their biases, padded alike; ids (nbar, 4, S, 15, 2)
+// int32. S % 4 == 0 and 15 nbar 4 S < 2^31; d is a multiple of 128 up to
+// 1536; H is 64, 128, 192, 256 for
 // d <= 512, 384 for d = 640, 768, 512 for d = 896, 1024 and 768 above
 // (`chord_tail.HALF_WIDTHS`); vp <= 144, vd <= 112.
 extern "C" int chord_tail_fp32_launch(const void* x, const void* ck,
                                       const void* cb, const void* u,
                                       const void* ub, void* ids, int nbar,
-                                      int d, int n_slots, int vp, int vd,
-                                      void* stream) {
+                                      int S, int d, int n_slots, int vp,
+                                      int vd, void* stream) {
   if (nbar <= 0) return 0;
   if (n_slots != NS || vp < 1 || vp > 2 * 8 * NVP || vd < 1 ||
-      vd > 2 * 8 * NVD || d % 128 != 0 || d < 128 || d > 1536)
+      vd > 2 * 8 * NVD || d % 128 != 0 || d < 128 || d > 1536 || S < 4 ||
+      S % 4 != 0 || (long long)nbar * 4 * S * NS > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(ROWS, NJ) \
-  launch<ROWS, NJ>(x, ck, cb, u, ub, ids, nbar, d, vp, vd, s)
+  launch<ROWS, NJ>(x, ck, cb, u, ub, ids, nbar * 4 * S, S, d, vp, vd, s)
   switch (d) {
     case 128: return LAUNCH(128, 1);
     case 256: return LAUNCH(128, 2);

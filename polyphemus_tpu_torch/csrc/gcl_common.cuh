@@ -139,6 +139,65 @@ __device__ __forceinline__ CellStatics cell_statics(const int* a, int i) {
   return c;
 }
 
+// The statics of up to C cells of consecutive bars of n = T * s cells, s
+// chosen at run time (the eval kernels of `gcl_eval_grid_*.cu`), by local
+// cell b * n + i of bar b; the source cells are local too.
+template <int C>
+struct GridStatics {
+  float okp[C], okn[C], rtr[C], m[C], single[C], ron[C], rnx[C], okpn[C];
+  int ps[C], ns[C], pn[C], dp[C], dn[C], dpn[C];
+};
+
+// Decode the aux blocks (N_AUX x n int32 a bar) of nb bars into st as
+// load_statics decodes one bar, with the reciprocals rounded to E (a no-op
+// for fp32); every thread of the CTA takes part, the caller synchronises.
+template <typename E, int C>
+__device__ __forceinline__ void load_grid_statics(GridStatics<C>& st,
+                                                  const int* aux, int nb,
+                                                  int s, int tid,
+                                                  int nthreads) {
+  const int n = T * s;
+  for (int c = tid; c < nb * n; c += nthreads) {
+    const int b = c / n, i = c - b * n, base = b * n;
+    const int* a = aux + (size_t)b * N_AUX * n;
+    const float m = a[MASK_CH * n + i] > 0 ? 1.f : 0.f;
+    const int okp = a[OK_P * n + i] > 0, okn = a[OK_N * n + i] > 0;
+    const int cnt = okp + okn;
+    const int con = a[CNT_ON * n + i], cnx = a[CNT_NX * n + i];
+    const bool okpn = a[OK_PN * n + i] > 0;
+    st.ps[c] = base + clampi(a[PREV_SRC * n + i], n - 1);
+    st.ns[c] = base + clampi(a[NEXT_SRC * n + i], n - 1);
+    st.pn[c] = base + clampi(a[PN_SRC * n + i], n - 1);
+    st.dp[c] = clampi(a[DIST_P * n + i], s - 1);
+    st.dn[c] = clampi(a[DIST_N * n + i], s - 1);
+    st.dpn[c] = clampi(a[DIST_PN * n + i], s - 1);
+    st.okp[c] = okp ? 1.f : 0.f;
+    st.okn[c] = okn ? 1.f : 0.f;
+    st.rtr[c] = Elem<E>::rnd(cnt > 0 ? (1.f / (float)cnt) * m : 0.f);
+    st.ron[c] = Elem<E>::rnd(con > 0 ? (1.f / (float)con) * m : 0.f);
+    st.rnx[c] =
+        Elem<E>::rnd((okpn && cnx > 0) ? (1.f / (float)cnx) * m : 0.f);
+    st.okpn[c] = (okpn && a[MSRC * n + i] > 0) ? 1.f : 0.f;
+    st.m[c] = m;
+    st.single[c] = (float)a[SINGLE * n + i];
+  }
+}
+
+// The bar grid of the `gcl_eval_grid_*.cu` kernels: S steps, N = T S cells
+// a bar; in a CTA's padded rows a track takes SP rows (S rounded up to the
+// kernel's row group), a bar BP = T SP; the CTA holds nb bars, M = nb BP
+// padded rows. The row tile t0 .. t0 + mt - 1 touches bars blo .. bhi - 1.
+struct Grid {
+  int S, N, SP, BP, nb, M, blo, bhi;
+  __device__ __forceinline__ Grid(int s, int rpad, int nbars)
+      : S(s), N(T * s), SP((s + rpad - 1) / rpad * rpad), BP(T * SP),
+        nb(nbars), M(nbars * BP), blo(0), bhi(0) {}
+  __device__ __forceinline__ void tile(int t0, int mt) {
+    blo = t0 / BP;
+    bhi = min(nb, (t0 + mt + BP - 1) / BP);
+  }
+};
+
 // out[c] = sum_r part[r * ncols + c] for r = 0..nrows-1, in order: the
 // second pass over per-CTA partials (deterministic, unlike global atomics).
 __global__ void sum_rows_kernel(const float* __restrict__ part,

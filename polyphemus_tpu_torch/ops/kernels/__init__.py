@@ -1,22 +1,25 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version: `gcl`
 (the eval GCL stack and the training forward), `gcl_bwd` (the training
 backward and the `gcl_fused` autograd function) and `chord_tail` (chord
-decode -> unembed -> argmax)."""
+decode -> unembed -> argmax); `counts` holds their launch counts."""
+
+# the wrappers' kernel names, each counted at bars of 4 x 32 cells
+KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
+           "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused", "chord_tail",
+           "chord_tail_bf16")
 
 
 def launch_counts() -> dict:
     """Every wrapper's count of its kernel's launches in this process, by
-    kernel name; `<name>_cols` counts those of them in the column form
-    (tensor parallelism)."""
-    from . import chord_tail, gcl, gcl_bwd
+    kernel name, over any number of chained layers: the names alone count
+    launches at bars of 4 x 32 cells, `<name>_s<S>` those at 4 x S (another
+    resolution) and `<name>_cols` those in the column form (tensor
+    parallelism) among them."""
+    from . import counts, gcl
 
-    cols = {f"{k}_cols": v for k, v in gcl.col_launches.items()}
-    return {"gcl_eval": gcl.launches,
-            "gcl_eval_bf16": gcl.eval_bf16_launches,
-            "gcl_fwd": gcl.fwd_launches,
-            "gcl_fwd_bf16": gcl.fwd_bf16_launches,
-            "gcl_bwd_data": gcl_bwd.data_launches,
-            "gcl_bwd_weight": gcl_bwd.weight_launches,
-            "gcl_bwd_fused": gcl_bwd.fused_launches,
-            "chord_tail": chord_tail.launches,
-            "chord_tail_bf16": chord_tail.bf16_launches, **cols}
+    out = dict.fromkeys(KERNELS, 0)
+    for (kernel, s, _), n in counts.launches.items():
+        name = kernel if s == 32 else f"{kernel}_s{s}"
+        out[name] = out.get(name, 0) + n
+    out.update((f"{k}_cols", v) for k, v in gcl.col_launches.items())
+    return out

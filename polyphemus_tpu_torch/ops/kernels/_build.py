@@ -39,6 +39,12 @@ SIGNATURES = {
                 [VP] * 6 + [INT] * 3 + [VP]),
     "gcl_fwd_bf16": ("gcl_eval_bf16_tc", "gcl_fwd_bf16_launch",
                      [VP] * 6 + [INT] * 3 + [VP]),
+    # the eval form at bar grids of 4 x S cells other than S = 32
+    "gcl_eval_grid": ("gcl_eval_grid_fp32", "gcl_eval_grid_launch",
+                      [VP] * 9 + [INT] * 6 + [VP]),
+    "gcl_eval_grid_bf16": ("gcl_eval_grid_bf16_tc",
+                           "gcl_eval_grid_bf16_launch",
+                           [VP] * 9 + [INT] * 6 + [VP]),
     "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
                      [VP] * 8 + [INT] * 3 + [VP]),
     "gcl_bwd_weight": ("gcl_bwd_weight", "gcl_bwd_weight_launch",
@@ -49,9 +55,9 @@ SIGNATURES = {
                            "gcl_bwd_fused_bf16_launch",
                            [VP] * 9 + [INT] * 4 + [VP]),
     "chord_tail": ("chord_tail_fp32", "chord_tail_fp32_launch",
-                   [VP] * 6 + [INT] * 5 + [VP]),
+                   [VP] * 6 + [INT] * 6 + [VP]),
     "chord_tail_bf16": ("chord_tail_bf16_tc", "chord_tail_bf16_launch",
-                        [VP] * 6 + [INT] * 5 + [VP]),
+                        [VP] * 6 + [INT] * 6 + [VP]),
 }
 
 _launchers: dict = {}

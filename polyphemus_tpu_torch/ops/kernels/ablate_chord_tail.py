@@ -80,7 +80,7 @@ def main(nbar: int = 512, d: int = 512) -> dict:
     def run(name):
         _build.check(name, fns[name](
             args[0].data_ptr(), *(a.data_ptr() for a in ops), ids.data_ptr(),
-            nbar, d, 15, 131, 99, stream))
+            nbar, 32, d, 15, 131, 99, stream))
 
     run("whole")
     want = chord_tail.chord_tail_plain(*args, n_slots=15)

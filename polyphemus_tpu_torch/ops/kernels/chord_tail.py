@@ -4,7 +4,9 @@ Counterpart of `polyphemus_tpu/ops/kernels/chord_tail.py::chord_tail_tokens`.
 On a CUDA tensor `chord_tail_tokens` launches `csrc/chord_tail_fp32.cu` (x in
 fp32, on the CUDA cores) or `csrc/chord_tail_bf16_tc.cu` (x in bf16, on the
 tensor cores), which keep the slot hiddens and logits on chip; on a CPU
-tensor it runs `chord_tail_plain`, the same function in plain PyTorch.
+tensor it runs `chord_tail_plain`, the same function in plain PyTorch. The
+kernels take bars of 4 x S cells, S a multiple of 4 up to `gcl.MAX_STEPS`
+(resolutions 1-12), in tiles of the flat cell axis.
 
 x and the weights are fp32 or bf16 (the biases fp32 or bf16, as the model
 holds them). In bf16 it computes what the Pallas body computes for a bf16
@@ -22,12 +24,8 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from . import _build
-
-# kernel launches (not plain-path calls) since the counts were last reset,
-# with x in fp32 and in bf16
-launches = 0
-bf16_launches = 0
+from . import _build, counts
+from .gcl import MAX_STEPS, TRACKS
 
 
 def chord_tail_plain(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
@@ -126,9 +124,11 @@ def _operands(dtype, weights):
 
 def _check_cuda_args(x, params):
     t, s, d = x.shape[-3:]
-    if t != 4 or s != 32 or d % 128 != 0:
-        raise ValueError(f"chord_tail kernel takes 4x32-cell bars and d % 128 "
-                         f"== 0, got T={t} S={s} d={d}")
+    if t != TRACKS or s < 4 or s % 4 or s > MAX_STEPS or d % 128 != 0:
+        raise ValueError(f"chord_tail kernel takes bars of {TRACKS} x S "
+                         f"cells with S a multiple of 4 up to {MAX_STEPS} "
+                         f"(resolutions 1-{MAX_STEPS // 4}) and d % 128 == 0, "
+                         f"got T={t} S={s} d={d}")
     if x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"chord_tail: x must be contiguous float32 or "
                          f"bfloat16, got {x.dtype}")
@@ -166,7 +166,6 @@ def chord_tail_tokens(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
     duration unembed (d/2, D) with bias (D,). Ids are the first index among
     equal maxima, as `torch.argmax` gives.
     """
-    global launches, bf16_launches
     args = (x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd, pb_nd,
             dk, db)
     if x.device.type == "cpu":
@@ -190,25 +189,22 @@ def chord_tail_tokens(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
                          f"pitch and {MAX_DUR} duration tokens, got vp={vp} "
                          f"and vd={vd}")
     lead = x.shape[:-3]
-    nbar = math.prod(lead)
+    nbar, s = math.prod(lead), x.shape[-2]
     ids = torch.empty(lead + x.shape[-3:-1] + (n_slots, 2), dtype=torch.int32,
                       device=x.device)
     # the weights packed (`pack`), once for as long as they last
     ops = _operands(x.dtype, args[1:])
     if x.dtype == torch.float32:
-        # the fp32 kernel's TMA copies take x k-major, (nbar, d, 128)
+        # the fp32 kernel's TMA copies take x k-major, (d, nbar 4 S)
         name = "chord_tail"
-        x = x.reshape(nbar, 128, d).transpose(1, 2).contiguous()
+        x = x.reshape(-1, d).t().contiguous()
     else:
         name = "chord_tail_bf16"
     if ops[1].data_ptr() % 16:
         raise ValueError("chord_tail: chord_bias must be 16-byte aligned")
     fn = _build.launcher(name)
     err = fn(x.data_ptr(), *(a.data_ptr() for a in ops), ids.data_ptr(),
-             nbar, d, n_slots, vp, vd, _build.stream_handle(x.device))
+             nbar, s, d, n_slots, vp, vd, _build.stream_handle(x.device))
     _build.check(name, err)
-    if x.dtype == torch.float32:
-        launches += 1
-    else:
-        bf16_launches += 1
+    counts.count(name, s)
     return ids

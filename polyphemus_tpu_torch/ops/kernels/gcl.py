@@ -5,11 +5,15 @@ Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
 `gcl_apply_pallas_chain`). On a CUDA tensor both wrappers launch
 `csrc/gcl_eval_fp32.cu` in fp32 (fp32 FMAs on the CUDA cores) and
 `csrc/gcl_eval_bf16_tc.cu` in bf16 (on the tensor cores): `gcl_eval` their
-eval form, `gcl_fwd` the same kernel without the epilogue. On a CPU tensor
+eval form, `gcl_fwd` the same kernel without the epilogue. Those take bars
+of 4 x 32 cells (resolution 8); `gcl_eval` sends bars of 4 x S cells at
+another S that is a multiple of 4 up to `MAX_STEPS` (resolutions 1-12) to
+`csrc/gcl_eval_grid_fp32.cu` and `csrc/gcl_eval_grid_bf16_tc.cu`, while
+`gcl_fwd`, as the training backward, takes 4 x 32 only. On a CPU tensor
 both wrappers run their plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
-    GCN of an eval step). Per layer and bar (n = T*S = 128 cells),
+    GCN of an eval step). Per layer and bar (n = T*S cells),
         out = relu(((gcl(x) + bias) * m * A + B) * m) + x,
     A, B the folded eval batch-norm affine (identity without batch-norm);
   * `gcl_fwd`: one layer without the epilogue, out = (gcl(x) + bias) * m,
@@ -38,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .. import lattice
-from . import _build
+from . import _build, counts
 
 # aux channel layout (all int32, per flat cell i = t*S + c)
 PREV_SRC, OK_P, DIST_P = 0, 1, 2
@@ -47,15 +51,12 @@ PN_SRC, OK_PN, MSRC, DIST_PN = 6, 7, 8, 9
 CNT_ON, CNT_NX, MASK_CH, SINGLE = 10, 11, 12, 13
 N_AUX = 14
 
-# kernel launches (not plain-path calls) since the counts were last reset:
-# `gcl_eval` and `gcl_fwd`, each in fp32 and in bf16; `launches_by_k` splits
-# the fp32 `gcl_eval` launches by their number of chained layers K
-launches = 0
-launches_by_k: dict[int, int] = {}
-eval_bf16_launches = 0
-fwd_launches = 0
-fwd_bf16_launches = 0
-# the column-form launches (n < d) among those of every GCL kernel, by the
+# the bar grids on the card: 4 tracks of S steps, S a multiple of 4 up to
+# MAX_STEPS (the eval kernels); BASE_STEPS = 32 (resolution 8) is the grid
+# of the first kernels, and the only one the training backward takes
+TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
+
+# the wrappers count their launches in `counts.launches`; the column-form launches (n < d) among those of every GCL kernel, by the
 # kernel names of `kernels.launch_counts`; counted beside the totals
 COL_KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
                "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16")
@@ -246,15 +247,37 @@ def gcl_fwd_plain(x, aux, gate_table, wbig, bias):
                      wbig.to(dt), bias.to(dt))
 
 
-def check_cuda_args(kernel: str, x, want: dict, n_out=None) -> None:
-    """Raise unless x is (nbar, 128, d) with d % 128 == 0, the output width
-    n_out (default d) has n_out % 128 == 0 and divides d, and every tensor
-    of `want` ({name: (tensor, shape, dtype)}) sits on x's device with that
-    shape and dtype, contiguous and 16-byte aligned."""
+def check_grid(kernel: str, n: int, s: int, train: bool = False) -> None:
+    """Raise unless bars of n cells are 4 x s with s a multiple of 4 up to
+    MAX_STEPS (the eval kernels' grids), or, for a training kernel
+    (`train`), 4 x 32."""
+    if n != TRACKS * s:
+        raise ValueError(f"{kernel} kernel takes bars of {TRACKS} tracks, "
+                         f"got {n} cells of {s} steps")
+    if train and s != BASE_STEPS:
+        raise ValueError(
+            f"{kernel} kernel takes 4x32-cell bars (resolution 8) only: the "
+            f"training kernels at other bar grids are still to be ported to "
+            f"the card (train at resolution {s // 4} on the CPU), got "
+            f"S={s}")
+    if s < 4 or s % 4 or s > MAX_STEPS:
+        raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
+                         f"a multiple of 4 up to {MAX_STEPS} (resolutions "
+                         f"1-{MAX_STEPS // 4}), got S={s}")
+
+
+def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
+                    train: bool = False) -> None:
+    """Raise unless x is (nbar, n, d) over bars of n = 4 s cells that
+    `check_grid` takes (s: the gate table's rows, by default 32) with d %
+    128 == 0, the output width n_out (default d) has n_out % 128 == 0 and
+    divides d, and every tensor of `want` ({name: (tensor, shape, dtype)})
+    sits on x's device with that shape and dtype, contiguous and 16-byte
+    aligned."""
     nbar, n, d = x.shape
-    if n != 128 or d % 128 != 0:
-        raise ValueError(f"{kernel} kernel takes 4x32-cell bars and d % 128 "
-                         f"== 0, got cells={n} d={d}")
+    if d % 128 != 0:
+        raise ValueError(f"{kernel} kernel takes d % 128 == 0, got d={d}")
+    check_grid(kernel, n, BASE_STEPS if s is None else s, train)
     n_out = d if n_out is None else n_out
     if n_out <= 0 or n_out % 128 != 0 or d % n_out != 0:
         raise ValueError(f"{kernel} kernel takes an output width n with n % "
@@ -281,14 +304,14 @@ def on_card(kernel: str, x) -> bool:
 def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     """K stacked epilogue-fused eval GCL layers over bars of n cells.
 
-    x (nbar, n, d) f32 or bf16 masked node states; aux (nbar, N_AUX, n)
-    int32 from `build_kernel_aux`; gate_table (S, d); wbigs (K, 8d, w) from
+    x (nbar, n, d) f32 or bf16 masked node states over bars of n = 4 S
+    cells; aux (nbar, N_AUX, n) int32 from `build_kernel_aux`; gate_table
+    (S, d); wbigs (K, 8d, w) from
     `pack_weights`; biases, eas, ebs (K, w), each in x's dtype. Returns
     (nbar, n, w) in x's dtype. w is d, or at K = 1 the width of the column
     shard that starts at output column col0 (its residual x[..., col0:col0
     + w]).
     """
-    global launches, eval_bf16_launches
     k, w = wbigs.shape[0], wbigs.shape[-1]
     d = x.shape[-1]
     if k < 1:
@@ -301,28 +324,30 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
         return gcl_eval_plain(x, aux, gate_table, wbigs, biases, eas, ebs,
                               col0)
     nbar, n, _ = x.shape
+    s = gate_table.shape[0]
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcl_eval takes float32 or bfloat16, got {dt}")
     check_cuda_args("gcl_eval", x, {
         "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), dt),
+        "gate_table": (gate_table, (s, d), dt),
         "wbigs": (wbigs, (k, 8 * d, w), dt), "biases": (biases, (k, w), dt),
-        "eas": (eas, (k, w), dt), "ebs": (ebs, (k, w), dt)}, n_out=w)
+        "eas": (eas, (k, w), dt), "ebs": (ebs, (k, w), dt)}, n_out=w, s=s)
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     scratch = torch.empty_like(x) if k > 1 else out
     name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
-    err = _build.launcher(name)(
-        x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbigs.data_ptr(),
-        biases.data_ptr(), eas.data_ptr(), ebs.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), nbar, d, w, col0, k,
-        _build.stream_handle(x.device))
-    _build.check(name, err)
-    if dt == torch.float32:
-        launches += 1
-        launches_by_k[k] = launches_by_k.get(k, 0) + 1
+    ptrs = (x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
+            wbigs.data_ptr(), biases.data_ptr(), eas.data_ptr(),
+            ebs.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbar)
+    stream = _build.stream_handle(x.device)
+    if s != BASE_STEPS:
+        kernel = "gcl_eval_grid" + name[len("gcl_eval"):]
+        _build.check(kernel, _build.launcher(kernel)(
+            *ptrs, s, d, w, col0, k, stream))
     else:
-        eval_bf16_launches += 1
+        _build.check(name, _build.launcher(name)(*ptrs, d, w, col0, k,
+                                                 stream))
+    counts.count(name, s, k)
     count_cols(name, w, d)
     return out
 
@@ -333,20 +358,22 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
     x (nbar, n, d) f32 or bf16; aux (nbar, N_AUX, n) int32 from
     `build_kernel_aux`; gate_table (S, d), wbig (8d, w) from `pack_weights`
     and bias (w,) in x's dtype, w = d or a column shard's width. Returns
-    (gcl(x) + bias) * m, (nbar, n, w) in x's dtype.
+    (gcl(x) + bias) * m, (nbar, n, w) in x's dtype. On the card it takes
+    bars of 4 x 32 cells only, as the training backward does.
     """
-    global fwd_launches, fwd_bf16_launches
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)
     nbar, n, d = x.shape
+    s = gate_table.shape[0]
     w = wbig.shape[-1]
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcl_fwd takes float32 or bfloat16, got {dt}")
     check_cuda_args("gcl_fwd", x, {
         "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), dt),
-        "wbig": (wbig, (8 * d, w), dt), "bias": (bias, (w,), dt)}, n_out=w)
+        "gate_table": (gate_table, (s, d), dt),
+        "wbig": (wbig, (8 * d, w), dt), "bias": (bias, (w,), dt)}, n_out=w,
+        s=s, train=True)
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     name = "gcl_fwd" if dt == torch.float32 else "gcl_fwd_bf16"
     err = _build.launcher(name)(
@@ -354,9 +381,6 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
         bias.data_ptr(), out.data_ptr(), nbar, d, w,
         _build.stream_handle(x.device))
     _build.check(name, err)
-    if dt == torch.float32:
-        fwd_launches += 1
-    else:
-        fwd_bf16_launches += 1
+    counts.count(name)
     count_cols(name, w, d)
     return out

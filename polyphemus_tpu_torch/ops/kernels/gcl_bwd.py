@@ -22,7 +22,8 @@ forward (`gcl.gcl_fwd`):
 
 with the track block of Wbig chosen by each row's own track. The training
 layer takes the data and weight pair in fp32 and the fused single pass in
-bf16.
+bf16. On the card the backward kernels take bars of 4 x 32 cells only
+(resolution 8); `GclFused` refuses other grids there before its forward.
 
 Column form (tensor parallelism, `parallel.mesh`): Wbig may hold n of the
 d output columns, (8d, n) with n % 128 == 0 dividing d, and g those n
@@ -35,14 +36,11 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
-from .gcl import (N_AUX, bar_statics, check_cuda_args, col_sum, count_cols,
-                  gcl_fwd, messages, on_card, pack_weights, rows, wide)
+from . import _build, counts
+from .gcl import (N_AUX, bar_statics, check_cuda_args, check_grid, col_sum,
+                  count_cols, gcl_fwd, messages, on_card, pack_weights, rows,
+                  wide)
 
-# kernel launches (not plain-path calls) since the counts were last reset
-data_launches = 0
-weight_launches = 0
-fused_launches = 0
 
 
 def _contract(h, gg):
@@ -103,7 +101,6 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
 
     Returns (dx (nbar, n, d), dgate_table (S, d), dbias (w,)); dgate and
     dbias sum over every bar, dx and dgate over the w columns."""
-    global data_launches
     if not on_card("gcl_bwd_data", x):
         return gcl_bwd_data_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
@@ -113,7 +110,8 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
         "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), f32),
-        "wbig": (wbig, (8 * d, w), f32)}, n_out=w)
+        "wbig": (wbig, (8 * d, w), f32)}, n_out=w,
+        s=gate_table.shape[0], train=True)
     dx = torch.empty_like(x)
     part = torch.empty((max(nbar, 1), 32 * d + w), dtype=f32,
                        device=x.device)
@@ -123,7 +121,7 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
         wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
         nbar, d, w, _build.stream_handle(x.device))
     _build.check("gcl_bwd_data", err)
-    data_launches += 1
+    counts.count("gcl_bwd_data")
     count_cols("gcl_bwd_data", w, d)
     return dx, out[:32 * d].view(32, d), out[32 * d:]
 
@@ -132,7 +130,6 @@ def gcl_bwd_weight(x, g, aux, gate_table):
     """Weight half of the GCL backward for upstream g (nbar, n, w), w = d
     or a column shard's width: dWbig (8d, w), in the packed block order of
     `pack_weights`."""
-    global weight_launches
     if not on_card("gcl_bwd_weight", x):
         return gcl_bwd_weight_plain(x, g, aux, gate_table)
     nbar, n, d = x.shape
@@ -141,13 +138,14 @@ def gcl_bwd_weight(x, g, aux, gate_table):
     check_cuda_args("gcl_bwd_weight", x, {
         "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), f32)}, n_out=w)
+        "gate_table": (gate_table, (32, d), f32)}, n_out=w,
+        s=gate_table.shape[0], train=True)
     dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
     err = _build.launcher("gcl_bwd_weight")(
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
         dwbig.data_ptr(), nbar, d, w, _build.stream_handle(x.device))
     _build.check("gcl_bwd_weight", err)
-    weight_launches += 1
+    counts.count("gcl_bwd_weight")
     count_cols("gcl_bwd_weight", w, d)
     return dwbig
 
@@ -258,7 +256,6 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
     (dx (nbar, n, d) in x's dtype, dgate_table (S, d), dbias (w,), dwbig
     (8d, w) in the block order of `pack_weights`), the last three fp32 sums
     over every bar; dx and dgate sum over the w columns."""
-    global fused_launches
     if not on_card("gcl_bwd_fused", x):
         return gcl_bwd_fused_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
@@ -274,7 +271,8 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
         "x": (x, (nbar, n, d), dt), "g": (g, (nbar, n, w), dt),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (32, d), dt),
-        "wbig": (wbig, (8 * d, w), dt)}, n_out=w)
+        "wbig": (wbig, (8 * d, w), dt)}, n_out=w,
+        s=gate_table.shape[0], train=True)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = fused_chunks(nbar, d, sms)
     dx = torch.empty_like(x)
@@ -297,7 +295,7 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
         wbig.data_ptr(), dx.data_ptr(), *scratch, dwbig.data_ptr(),
         out.data_ptr(), *sizes, _build.stream_handle(x.device))
     _build.check(name, err)
-    fused_launches += 1
+    counts.count("gcl_bwd_fused")
     if dt != f32:
         count_cols(name, w, d)
     return dx, out[:32 * d].view(32, d), out[32 * d:], dwbig
@@ -313,6 +311,9 @@ class GclFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gate_table, rel_weight, root, bias, aux, mask):
+        if on_card("gcl_fused", x):  # refused before the forward runs
+            check_grid("gcl_fused", x.shape[1], gate_table.shape[0],
+                       train=True)
         n_tracks = mask.shape[-2]
         wbig = pack_weights(rel_weight, root, n_tracks).contiguous()
         ctx.save_for_backward(x, gate_table, wbig, aux, mask)

@@ -39,7 +39,7 @@ import torch
 from polyphemus_tpu.generate import make_generator as jax_make_generator
 from polyphemus_tpu.models import VAE
 from polyphemus_tpu_torch.generate import make_generator
-from polyphemus_tpu_torch.ops.kernels import chord_tail, gcl
+from polyphemus_tpu_torch.ops.kernels import counts
 
 from .test_torch_chord_tail import plain_logits
 from .torch_port_case import build, jax_tree, random_z, small_cfg, top2_gap
@@ -85,11 +85,11 @@ def test_bf16_generation_matches_jax(seed):
     m_j, t_j = np.asarray(m_j), np.asarray(t_j)
     s_j = np.asarray(s_j.astype(jnp.float32))
 
-    counts = (gcl.eval_bf16_launches, chord_tail.bf16_launches)
+    launches = dict(counts.launches)
     m_p, t_p = make_generator(model, bf16=True, device="cpu")(z)
     _, _, s_p, c_p = make_generator(model, bf16=True, device="cpu",
                                     return_logits=True)(z)
-    assert (gcl.eval_bf16_launches, chord_tail.bf16_launches) == counts
+    assert counts.launches == launches
     assert s_p.dtype == torch.bfloat16 and c_p.dtype == torch.bfloat16
     assert t_p.dtype == torch.uint8
     assert next(model.parameters()).dtype == torch.float32  # left as it was

@@ -69,7 +69,7 @@ from polyphemus_tpu.train.trainer import _forward_loss
 import chip_smoke
 from polyphemus_tpu_torch import config as pconfig
 from polyphemus_tpu_torch.convert import to_jax_variables
-from polyphemus_tpu_torch.ops.kernels import gcl
+from polyphemus_tpu_torch.ops.kernels import counts
 from polyphemus_tpu_torch.train import trainer as ptrainer
 
 from .test_torch_train_step import flatten, jax_reference_step, \
@@ -240,11 +240,11 @@ def check_eval(use_pallas):
         1, use_pallas)
     lo, ac = jax_eval(jmodel, cfg, variables, toks, mask, rng)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    launches = (gcl.launches, gcl.eval_bf16_launches)
+    launches = dict(counts.launches)
     losses, accs = ptrainer.eval_step(model, pcfg, torch.from_numpy(toks),
                                       torch.from_numpy(mask), 0,
                                       eps=torch.from_numpy(eps))
-    assert (gcl.launches, gcl.eval_bf16_launches) == launches  # CPU: plain
+    assert counts.launches == launches  # CPU: plain
     assert set(losses) == set(lo) and set(accs) == set(ac)
     check_losses(lo, ac, losses, accs)
     for k, v in model.state_dict().items():

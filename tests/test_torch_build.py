@@ -18,7 +18,8 @@ import pytest
 from polyphemus_tpu_torch.ops.kernels import (_build, ablate_chord_tail,
                                               ablate_gcl_bwd_data,
                                               ablate_gcl_bwd_fused,
-                                              ablate_gcl_bwd_weight)
+                                              ablate_gcl_bwd_weight,
+                                              ablate_gcl_grid)
 
 
 def launcher_params(name):
@@ -136,7 +137,7 @@ def test_fp32_data_backward_walks_its_bars_without_atomics():
 
 @pytest.mark.parametrize("module", [ablate_chord_tail, ablate_gcl_bwd_data,
                                     ablate_gcl_bwd_fused,
-                                    ablate_gcl_bwd_weight],
+                                    ablate_gcl_bwd_weight, ablate_gcl_grid],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_ablation_anchors_are_in_their_sources(module):
     """Each patch of each variant replaces text that occurs exactly once in

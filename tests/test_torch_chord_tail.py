@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from polyphemus_tpu.ops.kernels import chord_tail as jchord
-from polyphemus_tpu_torch.ops.kernels import chord_tail
+from polyphemus_tpu_torch.ops.kernels import chord_tail, counts
 
 from .torch_port_case import LOGIT_TIE, top2_gap
 
@@ -44,10 +44,10 @@ def test_chord_tail_matches_jax(seed):
     x, params, mask = tail_case(seed)
     want = np.asarray(jchord.chord_tail_tokens(
         jnp.asarray(x), *map(jnp.asarray, params), n_slots=15))
-    launches = chord_tail.launches
+    launches = dict(counts.launches)
     got = chord_tail.chord_tail_tokens(
         torch.from_numpy(x), *map(torch.from_numpy, params), n_slots=15)
-    assert chord_tail.launches == launches  # the CPU takes the plain path
+    assert counts.launches == launches  # the CPU takes the plain path
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     logits = plain_logits(x, *params)
     tie = np.stack([top2_gap(logits[..., :131]),
@@ -80,11 +80,11 @@ def test_bf16_chord_tail_matches_jax(seed):
     want = np.asarray(jchord.chord_tail_tokens(
         jnp.asarray(x, bf), *(jnp.asarray(p, bf) for p in params),
         n_slots=15))
-    counts = (chord_tail.launches, chord_tail.bf16_launches)
+    launches = dict(counts.launches)
     got = chord_tail.chord_tail_tokens(
         torch.from_numpy(x).bfloat16(),
         *(torch.from_numpy(p).bfloat16() for p in params), n_slots=15)
-    assert (chord_tail.launches, chord_tail.bf16_launches) == counts
+    assert counts.launches == launches
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     as_bf16 = [np.asarray(jnp.asarray(a, bf).astype(jnp.float32))
                for a in [x] + params]

@@ -23,9 +23,14 @@ from polyphemus_tpu_torch.config import ModelConfig  # noqa: E402
 from polyphemus_tpu_torch.generate import make_generator  # noqa: E402
 from polyphemus_tpu_torch.models import VAE  # noqa: E402
 from polyphemus_tpu_torch.ops.kernels import (  # noqa: E402
-    chord_tail, gcl, gcl_bwd)
+    chord_tail, counts, gcl, gcl_bwd)
 
 pytestmark = pytest.mark.cuda
+
+
+def train_counts():
+    """The training kernels' launches at bars of 4 x 32 cells, by name."""
+    return {k: counts.total(k) for k in chip_smoke.TRAIN_KERNELS}
 
 
 @pytest.fixture
@@ -59,11 +64,11 @@ def test_gcl_eval_fp32_leaves_a_bar_without_active_cells_as_it_was(cuda):
     args[0] = args[0].clone()
     args[0][1] = torch.randn(128, 384, generator=g).to(cuda)
     args[1] = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 128)
-    before = gcl.launches
+    before = counts.total("gcl_eval")
     out = gcl.gcl_eval(*args)
     ref = gcl.gcl_eval_plain(*args)
     torch.cuda.synchronize()
-    assert gcl.launches == before + 1
+    assert counts.total("gcl_eval") == before + 1
     assert torch.equal(out[1], args[0][1])
     torch.testing.assert_close(out, ref, rtol=chip_smoke.TOL,
                                atol=chip_smoke.TOL)
@@ -84,7 +89,7 @@ CHORD_TAIL_CASES = [(nbar, d, bf16) for bf16 in (False, True)
 
 @pytest.mark.parametrize("nbar,d,bf16", CHORD_TAIL_CASES)
 def test_chord_tail_kernel_matches_plain(cuda, nbar, d, bf16):
-    before = (chord_tail.launches, chord_tail.bf16_launches)
+    before = (counts.total("chord_tail"), counts.total("chord_tail_bf16"))
     chip_smoke.check_chord(nbar, d, cuda, timing=False, bf16=bf16)
     # check_chord restores the counts; count one launch here
     x = torch.zeros(1, 4, 32, d, device=cuda,
@@ -92,7 +97,7 @@ def test_chord_tail_kernel_matches_plain(cuda, nbar, d, bf16):
     args = chip_smoke.chord_inputs(1, d, cuda, 0)[1][1:]
     chord_tail.chord_tail_tokens(x, *(a.to(x.dtype) for a in args),
                                  n_slots=15)
-    assert (chord_tail.launches, chord_tail.bf16_launches) == (
+    assert (counts.total("chord_tail"), counts.total("chord_tail_bf16")) == (
         before[0] + (not bf16), before[1] + bf16)
 
 
@@ -119,10 +124,10 @@ def test_chord_tail_fp32_takes_the_first_of_equal_maxima(cuda, cols, d):
     """Two equal maxima in every cell and slot: the kernel returns the
     lower index, as `torch.argmax`."""
     args = equal_maxima_inputs(d, cols, cuda, torch.float32)
-    before = chord_tail.launches
+    before = counts.total("chord_tail")
     out = chord_tail.chord_tail_tokens(*args, n_slots=15)
     torch.cuda.synchronize()
-    assert chord_tail.launches == before + 1
+    assert counts.total("chord_tail") == before + 1
     assert (out[..., 0] == cols[0]).all() and (out[..., 1] == cols[2]).all()
 
 
@@ -134,10 +139,10 @@ def test_chord_tail_bf16_takes_the_first_of_equal_maxima(cuda, cols, d):
     """Two equal maxima in every cell and slot, in the drum row and in the
     melodic rows: the bf16 kernel returns the lower index."""
     args = equal_maxima_inputs(d, cols, cuda, torch.bfloat16)
-    before = chord_tail.bf16_launches
+    before = counts.total("chord_tail_bf16")
     out = chord_tail.chord_tail_tokens(*args, n_slots=15)
     torch.cuda.synchronize()
-    assert chord_tail.bf16_launches == before + 1
+    assert counts.total("chord_tail_bf16") == before + 1
     for rows in (out[:, 0], out[:, 1:]):  # the drum row, the melodic rows
         assert (rows[..., 0] == cols[0]).all()
         assert (rows[..., 1] == cols[2]).all()
@@ -160,11 +165,11 @@ def test_chord_tail_bf16_refuses_what_it_does_not_take(cuda, d, vp, vd):
     for k, b, v in ((3, 4, vp), (5, 6, vp), (7, 8, vd)):
         args[k] = torch.cat([args[k]] * 2, dim=1)[:, :v].contiguous()
         args[b] = torch.cat([args[b]] * 2)[:v].contiguous()
-    before = chord_tail.bf16_launches
+    before = counts.total("chord_tail_bf16")
     name = f"d={d}" if d > 1536 else f"vp={vp}" if vp > 144 else f"vd={vd}"
     with pytest.raises(ValueError, match=name):
         chord_tail.chord_tail_tokens(*args, n_slots=15)
-    assert chord_tail.bf16_launches == before
+    assert counts.total("chord_tail_bf16") == before
 
 
 def test_chord_tail_rejects_what_it_does_not_take(cuda):
@@ -183,6 +188,100 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                     device=cuda), *([x] * 5))
 
 
+# bar grids of 4 x S cells (resolution S / 4): the grid GCL kernels at S !=
+# 32, the S = 32 kernels beside them; one bar, a few and 133 (past a whole
+# wave at any bars per CTA); d = 384 takes a 256-column pass and a
+# 128-column one (fp32). The chord tail's near-tie cap needs cells: its
+# smallest case has 6 bars (one bar is `bar_masks`' empty edge case, a
+# single active cell)
+GRID_STEPS = (12, 16, 24, 48, 32)
+GRID_GCL_CASES = [(1, 128, 1), (5, 384, 2), (133, 512, 2), (7, 256, 3)]
+GRID_CHORD_CASES = [(6, 128), (5, 512), (133, 512), (3, 1152)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nbar,d,k_layers", GRID_GCL_CASES)
+@pytest.mark.parametrize("s", GRID_STEPS)
+def test_grid_gcl_eval_kernel_matches_plain(cuda, s, nbar, d, k_layers, bf16):
+    before = dict(counts.launches)
+    chip_smoke.check_gcl(nbar, d, k_layers, cuda, timing=False, bf16=bf16,
+                         s=s)
+    assert counts.launches == before  # comparisons do not count
+    mask, args = chip_smoke.kernel_inputs(nbar, d, k_layers, cuda, 1, s)
+    if bf16:
+        args = [a if a.dtype == torch.int32 else a.bfloat16() for a in args]
+    gcl.gcl_eval(*args)
+    name = "gcl_eval_bf16" if bf16 else "gcl_eval"
+    assert counts.since(before) == {(name, s, k_layers): 1}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nbar,d", GRID_CHORD_CASES)
+@pytest.mark.parametrize("s", GRID_STEPS)
+def test_grid_chord_tail_kernel_matches_plain(cuda, s, nbar, d, bf16):
+    before = dict(counts.launches)
+    chip_smoke.check_chord(nbar, d, cuda, timing=False, bf16=bf16, s=s,
+                           active_ties=True)
+    assert counts.launches == before  # comparisons do not count
+
+
+@pytest.mark.parametrize("resolution", [3, 4, 12])
+def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                    resolution):
+    """A 3-layer model at resolution 3, 4 or 12 on the card against the
+    CPU (phase 3's rules, `compare_with_cpu`), through the grid kernels:
+    2 `gcl_eval` launches (3 layers at chain 2: one of K = 2, one of K = 1)
+    and one `chord_tail` a call at the model's grid, none of the 4 x 32
+    kernels."""
+    cfg = ModelConfig(d=128, gnn_n_layers=3, n_bars=2, resolution=resolution,
+                      batch_norm=True)
+    chip_smoke.make_model_dir(str(tmp_path), cfg, seed=resolution)
+    from polyphemus_tpu_torch.generate import load_model
+    from polyphemus_tpu_torch.serve import host_z
+
+    model, _ = load_model(str(tmp_path), cuda)
+    before = dict(counts.launches)
+    m, t = make_generator(model, device=cuda)(host_z(8, 8, cfg.d))
+    s = cfg.n_timesteps
+    assert counts.since(before) == {("gcl_eval", s, 2): 1,
+                                    ("gcl_eval", s, 1): 1,
+                                    ("chord_tail", s, 1): 1}
+    assert m.shape == (8, 2, 4, s)
+    chip_smoke.compare_with_cpu(str(tmp_path), (m.cpu().numpy(),
+                                                t.cpu().numpy()), cuda)
+    res = chip_smoke.compare_bf16_with_cpu(str(tmp_path), cuda, n=4)
+    assert res["conditioned"]["active_cells"] > 0
+
+
+def test_grid_kernels_refuse_what_they_do_not_take(cuda):
+    """Past resolution 12 (S = 52) and with 3 tracks the eval kernels
+    raise; training at another resolution than 8 raises on the card before
+    any kernel runs, naming the limit."""
+    for s in (52, 16):
+        t = 4 if s == 52 else 3
+        mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
+        x = args[0].reshape(2, 4, s, 128)[:, :t].reshape(2, t * s, 128)
+        aux = args[1].reshape(2, 14, 4, s)[:, :, :t].reshape(2, 14, t * s)
+        with pytest.raises(ValueError, match="4 tracks|up to 48"):
+            gcl.gcl_eval(x.contiguous(), aux.contiguous(), *args[2:])
+    mask, args = chip_smoke.chord_inputs(2, 128, cuda, 0, 52)
+    with pytest.raises(ValueError, match="up to 48"):
+        chord_tail.chord_tail_tokens(*args, n_slots=15)
+    mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, 16)
+    x, aux, gates, w, b = args[:5]
+    rel = torch.zeros(6, 128, 128, device=cuda)
+    before = dict(counts.launches)
+    with pytest.raises(ValueError, match="resolution 8"):
+        gcl_bwd.gcl_fused(x.requires_grad_(), gates, rel, rel[0], b[0], aux,
+                          mask)
+    with pytest.raises(ValueError, match="resolution 8"):
+        gcl.gcl_fwd(x.detach(), aux, gates, w[0].contiguous(),
+                    b[0].contiguous())
+    with pytest.raises(ValueError, match="resolution 8"):
+        gcl_bwd.gcl_bwd_data(x.detach(), x.detach(), aux, gates, w[0])
+    assert counts.launches == before
+
+
 # one bar, a few, 40, and one past a whole wave (fp32: one CTA on each of
 # 132 SMs; bf16: two); d = 384 takes a 256-column pass and a 128-column one
 @pytest.mark.parametrize("nbar", [1, 3, 40, 133])
@@ -197,11 +296,11 @@ def test_weight_backward_repeats_dw_bitwise(cuda):
     on the same inputs give dWbig bit for bit."""
     _, (x, up, aux, gates, _, _) = chip_smoke.train_kernel_inputs(
         128, 512, cuda, 3)
-    before = gcl_bwd.weight_launches
+    before = counts.total("gcl_bwd_weight")
     first = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
     second = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
     torch.cuda.synchronize()
-    assert gcl_bwd.weight_launches == before + 2
+    assert counts.total("gcl_bwd_weight") == before + 2
     assert torch.equal(first, second)
 
 
@@ -234,11 +333,11 @@ def test_weight_backward_leaves_dw_as_without_a_bar_without_active_cells(
 def check_data_backward(x, up, aux, gates, wbig):
     """`gcl_bwd_data` against its plain version at the tolerances of
     chip_smoke's phase 2b; returns the kernel's (dx, dgate, dbias)."""
-    before = gcl_bwd.data_launches
+    before = counts.total("gcl_bwd_data")
     got = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
     want = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)
     torch.cuda.synchronize()
-    assert gcl_bwd.data_launches == before + 1
+    assert counts.total("gcl_bwd_data") == before + 1
     for name, a, b, summed in zip(("dx", "dgate", "dbias"), got, want,
                                   (False, True, True)):
         chip_smoke.held_to(f"gcl_bwd_data {name}", a, b, summed=summed)
@@ -308,11 +407,11 @@ def test_gcl_fwd_gives_zeros_for_a_bar_without_active_cells(cuda, dtype):
     x[1] = torch.randn(128, 384, generator=torch.Generator().manual_seed(7)
                        ).to(cuda)
     x, gates, wbig, bias = (v.to(dtype) for v in (x, gates, wbig, bias))
-    counter = "fwd_launches" if dtype == torch.float32 else "fwd_bf16_launches"
-    before = getattr(gcl, counter)
+    name = "gcl_fwd" if dtype == torch.float32 else "gcl_fwd_bf16"
+    before = counts.total(name)
     out = gcl.gcl_fwd(x, aux, gates, wbig, bias)
     torch.cuda.synchronize()
-    assert getattr(gcl, counter) == before + 1
+    assert counts.total(name) == before + 1
     assert out.dtype == dtype
     assert (out[1] == 0).all()
     ref = gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)
@@ -358,23 +457,22 @@ def test_column_forms_reject_what_they_do_not_take(cuda):
     before any launch."""
     _, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
         2, 512, cuda, 0)
-    before = dict(gcl.col_launches), gcl.fwd_launches, gcl_bwd.fused_launches
+    before = dict(gcl.col_launches), dict(counts.launches)
     with pytest.raises(ValueError, match="output width n"):
         gcl.gcl_fwd(x, aux, gates, wbig[:, :64].contiguous(),
                     bias[:64].contiguous())
     with pytest.raises(ValueError, match="square weights only"):
         gcl_bwd.gcl_bwd_fused(x, up[..., :256].contiguous(), aux, gates,
                               wbig[:, :256].contiguous())
-    assert (dict(gcl.col_launches), gcl.fwd_launches,
-            gcl_bwd.fused_launches) == before
+    assert (dict(gcl.col_launches), counts.launches) == before
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):
     mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
                      batch_norm=True)
-    before = chip_smoke.train_kernel_counts()
+    before = train_counts()
     chip_smoke.compare_train_step(mc, 8, cuda, seed=3)
-    after = chip_smoke.train_kernel_counts()
+    after = train_counts()
     # one microbatch through 2 GNN stacks of 2 layers, all in fp32
     assert {k: after[k] - before[k] for k in after} == {
         "gcl_fwd": 4, "gcl_bwd_data": 4, "gcl_bwd_weight": 4,
@@ -407,9 +505,9 @@ def bf16_train_inputs(nbar, d, device, seed):
 def test_fused_backward_bf16_matches_plain(cuda, nbar, d):
     """dx, dgate, dbias and dW each within 2e-2 x max |plain|."""
     args = bf16_train_inputs(nbar, d, cuda, 13)
-    before = gcl_bwd.fused_launches
+    before = counts.total("gcl_bwd_fused")
     chip_smoke.check_fused_bf16(*args)
-    assert gcl_bwd.fused_launches == before + 1
+    assert counts.total("gcl_bwd_fused") == before + 1
 
 
 def test_fused_backward_bf16_repeats_dw_and_dbias_bitwise(cuda):
@@ -442,13 +540,13 @@ def test_fused_backward_bf16_gives_zeros_for_a_bar_without_active_cells(cuda):
                        ).to(cuda)
     x, up, gates, wbig = (v.to(torch.bfloat16) for v in (x, up, gates, wbig))
     assert (x[1] != 0).any() and (up[1] != 0).any()
-    before = gcl_bwd.fused_launches
+    before = counts.total("gcl_bwd_fused")
     got = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
     keep = torch.tensor([0, 2], device=cuda)
     ref = gcl_bwd.gcl_bwd_fused(x[keep].contiguous(), up[keep].contiguous(),
                                 aux[keep].contiguous(), gates, wbig)
     torch.cuda.synchronize()
-    assert gcl_bwd.fused_launches == before + 2
+    assert counts.total("gcl_bwd_fused") == before + 2
     assert got[0].dtype == torch.bfloat16
     assert (got[0][1] == 0).all()
     assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
@@ -479,16 +577,16 @@ def test_fused_backward_rejects_what_it_does_not_take(cuda):
 def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
     mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=8,
                      batch_norm=True)
-    before = chip_smoke.train_kernel_counts()
-    eval_before = gcl.eval_bf16_launches
+    before = train_counts()
+    eval_before = counts.total("gcl_eval_bf16")
     chip_smoke.compare_train_step(mc, chip_smoke.BF16_CMP_BATCH, cuda,
                                   seed=3, bf16=True)
-    after = chip_smoke.train_kernel_counts()
+    after = train_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "gcl_fwd": 0, "gcl_bwd_data": 0, "gcl_bwd_weight": 0,
         "gcl_fwd_bf16": 4, "gcl_bwd_fused": 4}
     # the eval step before it: 2 GNN stacks of 2 layers, chain 1
-    assert gcl.eval_bf16_launches - eval_before == 4
+    assert counts.total("gcl_eval_bf16") - eval_before == 4
 
 
 def _top2_gap(logits):
@@ -508,12 +606,12 @@ def test_generator_on_the_card_matches_the_cpu(cuda, tmp_path):
     m_c, t_c, s_c, c_c = make_generator(cpu_model, return_logits=True,
                                         device="cpu")(z)
     model, _ = load_model(str(tmp_path), cuda)
-    before = (gcl.launches, chord_tail.launches)
+    before = (counts.total("gcl_eval"), counts.total("chord_tail"))
     m_g, _ = make_generator(model, device=cuda)(z)
     _, t_g = make_generator(model, conditioned=True, device=cuda)(z, m_c)
     # 3 layers in groups of 2 -> 2 launches per call; one tail per call
-    assert gcl.launches - before[0] == 4
-    assert chord_tail.launches - before[1] == 2
+    assert counts.total("gcl_eval") - before[0] == 4
+    assert counts.total("chord_tail") - before[1] == 2
     clear = s_c.abs() > 1e-3
     assert torch.equal(m_g.cpu()[clear], m_c[clear])
     tie = torch.stack([_top2_gap(c_c[..., :131]), _top2_gap(c_c[..., 131:])],
@@ -526,14 +624,13 @@ def test_bf16_generator_on_the_card_matches_the_cpu(cuda, tmp_path):
     cfg = ModelConfig(d=128, gnn_n_layers=3, n_bars=2, resolution=8,
                       batch_norm=True)
     chip_smoke.make_model_dir(str(tmp_path), cfg, seed=1)
-    before = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
-              chord_tail.bf16_launches)
+    before = dict(counts.launches)
     res = chip_smoke.compare_bf16_with_cpu(str(tmp_path), cuda, n=4)
-    after = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
-             chord_tail.bf16_launches)
-    # 2 card calls of 3 layers in groups of 2 -> 2 bf16 launches each, and
-    # one bf16 tail each; no fp32 launch
-    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 4, 2)
+    # 2 card calls of 3 layers in groups of 2 -> 2 bf16 launches each (K =
+    # 2 and K = 1), and one bf16 tail each; no fp32 launch
+    assert counts.since(before) == {("gcl_eval_bf16", 32, 2): 2,
+                                    ("gcl_eval_bf16", 32, 1): 2,
+                                    ("chord_tail_bf16", 32, 1): 2}
     assert res["conditioned"]["active_cells"] > 0
 
 
@@ -548,14 +645,12 @@ def test_bf16_generator_launches_at_the_flagship_depth(cuda, tmp_path):
     model, _ = load_model(str(tmp_path), cuda)
     gen = make_generator(model, bf16=True, device=cuda)
     z = torch.randn(8, cfg.d, device=cuda)
-    counts = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
-              chord_tail.bf16_launches)
+    before = dict(counts.launches)
     for _ in range(3):
         mask, tokens = gen(z)
     torch.cuda.synchronize()
-    after = (gcl.launches, chord_tail.launches, gcl.eval_bf16_launches,
-             chord_tail.bf16_launches)
-    assert tuple(a - b for a, b in zip(after, counts)) == (0, 0, 12, 3)
+    assert counts.since(before) == {("gcl_eval_bf16", 32, 2): 12,
+                                    ("chord_tail_bf16", 32, 1): 3}
     assert mask.shape == (8, 2, 4, 32) and tokens.dtype == torch.uint8
 
 
@@ -581,15 +676,15 @@ def test_dropout_training_launches_no_training_kernel(cuda, mode):
     model.set_dropout_generator(torch.Generator(device=cuda).manual_seed(1))
     toks, mask = (torch.from_numpy(a).to(cuda) for a in synthetic_batch(
         np.random.default_rng(0), 8, 2))
-    before = chip_smoke.train_kernel_counts()
-    eval_before = dict(gcl.launches_by_k)
+    before = train_counts()
+    eval_before = counts.total("gcl_eval", k=1)
     losses, _ = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))(
         toks, mask)
-    assert chip_smoke.train_kernel_counts() == before
+    assert train_counts() == before
     assert all(torch.isfinite(v) for v in losses.values())
     tr.eval_step(model, cfg, toks, mask, 1)
     # 2 GNN stacks of 2 layers, chain 1
-    assert gcl.launches_by_k.get(1, 0) - eval_before.get(1, 0) == 4
+    assert counts.total("gcl_eval", k=1) - eval_before == 4
 
 
 def test_training_kernels_match_plain_at_lmd16_microbatch(cuda):
@@ -723,10 +818,10 @@ def test_one_rank_nccl_train_step_is_the_plain_step(cuda, monkeypatch):
             assert pmesh.maybe_initialize_distributed() is not None
             assert torch.distributed.get_backend() == "nccl"
         try:
-            before = chip_smoke.train_kernel_counts()
+            before = train_counts()
             step = tr.make_train_step(m, cfg, tr.make_optimizer(m, cfg))
             losses, accs = step(toks, mask, eps=eps)
-            after = chip_smoke.train_kernel_counts()
+            after = train_counts()
         finally:
             pmesh.destroy()
         assert after["gcl_fwd"] - before["gcl_fwd"] == 8

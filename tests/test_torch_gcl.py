@@ -12,7 +12,7 @@ import torch
 from polyphemus_tpu.ops import lattice as jlat
 from polyphemus_tpu.ops.kernels import gcl_pallas
 from polyphemus_tpu_torch.ops import lattice
-from polyphemus_tpu_torch.ops.kernels import gcl
+from polyphemus_tpu_torch.ops.kernels import counts, gcl
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -83,9 +83,9 @@ def port_stack(x, mask, gate, layers, chain):
 def test_gcl_eval_matches_pallas(n_layers, chain):
     x, mask, gate, layers = stack_case(seed=n_layers * 10 + chain,
                                        n_layers=n_layers)
-    launches = gcl.launches
+    launches = dict(counts.launches)
     got = port_stack(x, mask, gate, layers, chain)
-    assert gcl.launches == launches  # the CPU takes the plain path
+    assert counts.launches == launches  # the CPU takes the plain path
     want = jax_stack(x, mask, gate, layers, chain)
     np.testing.assert_allclose(got, want, **TOL)
 

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from polyphemus_tpu.ops.kernels import gcl_pallas, gcl_pallas_bwd
-from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
 T, S, D = 4, 32, 16
 BF16_REL = 2e-2  # max abs err / max |JAX| for every bf16 output
@@ -74,9 +74,9 @@ def port_inputs(mask, x, g, gate, rel_w, root, dt):
 
 
 def port_fused(*args):
-    before = gcl_bwd.fused_launches
+    before = dict(counts.launches)
     out = gcl_bwd.gcl_bwd_fused(*args)
-    assert gcl_bwd.fused_launches == before  # the CPU takes the plain path
+    assert counts.launches == before  # the CPU takes the plain path
     assert out[0].dtype == args[0].dtype
     assert all(v.dtype == torch.float32 for v in out[1:])
     return [v.float().numpy() for v in out]
@@ -175,9 +175,9 @@ def test_gcl_fwd_plain_matches_pallas_bf16():
     xf, _, aux, gt, wbig = port_inputs(mask, x, x, gate, rel_w, root, bf)
     b = torch.from_numpy(np.array(c[4].astype(jnp.float32))).to(
         torch.bfloat16)
-    before = gcl.fwd_launches + gcl.fwd_bf16_launches
+    before = dict(counts.launches)
     got = gcl.gcl_fwd(xf, aux, gt, wbig, b)
-    assert gcl.fwd_launches + gcl.fwd_bf16_launches == before
+    assert counts.launches == before
     assert got.dtype == torch.bfloat16
     assert_bf16_close([got.float().numpy()], [want], ("out",))
 
@@ -211,10 +211,10 @@ def test_gcl_eval_plain_matches_pallas_bf16(k_layers):
             jnp.float32))).to(torch.bfloat16)
 
     xf, _, aux, gt, _ = port_inputs(mask, x, x, gate, rel_w, root, bf)
-    before = (gcl.launches, gcl.eval_bf16_launches)
+    before = dict(counts.launches)
     got = gcl.gcl_eval(xf, aux, gt, t(wbigs), torch.stack(
         [t(c[2])] * k_layers), t(c[3]), t(c[4]))
-    assert (gcl.launches, gcl.eval_bf16_launches) == before
+    assert counts.launches == before
     assert got.dtype == torch.bfloat16
     assert_bf16_close([got.float().numpy()], [want], ("out",))
 

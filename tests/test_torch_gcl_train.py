@@ -18,7 +18,7 @@ import torch
 
 from polyphemus_tpu.ops.kernels import gcl_pallas, gcl_pallas_bwd
 from polyphemus_tpu_torch.ops import lattice
-from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
+from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-4)
 BWD_TOL = dict(rtol=5e-4, atol=5e-4)
@@ -64,10 +64,10 @@ def test_gcl_fwd_plain_matches_pallas_without_epilogue(density):
                                        jnp.asarray(bias))
     aux, xf, (gate_t, rel_t, root_t, bias_t) = port_args(
         mask, x, gate, rel_w, root, bias)
-    launches = gcl.fwd_launches
+    launches = dict(counts.launches)
     got = gcl.gcl_fwd(xf, aux, gate_t, gcl.pack_weights(rel_t, root_t, T),
                       bias_t)
-    assert gcl.fwd_launches == launches  # the CPU takes the plain path
+    assert counts.launches == launches  # the CPU takes the plain path
     np.testing.assert_allclose(got.reshape(x.shape).numpy(),
                                np.asarray(want), **FWD_TOL)
     empty = torch.from_numpy(~mask.any(axis=(1, 2)))
@@ -85,11 +85,11 @@ def test_gcl_bwd_plain_matches_pallas_backward(seed):
     aux, xf, (gf, gate_t, rel_t, root_t) = port_args(mask, x, g, gate,
                                                      rel_w, root)
     gf = gf.reshape(xf.shape)
-    before = (gcl_bwd.data_launches, gcl_bwd.weight_launches)
+    before = dict(counts.launches)
     dx, dg, db = gcl_bwd.gcl_bwd_data(xf, gf, aux, gate_t,
                                       gcl.pack_weights(rel_t, root_t, T))
     dw = gcl_bwd.gcl_bwd_weight(xf, gf, aux, gate_t)
-    assert (gcl_bwd.data_launches, gcl_bwd.weight_launches) == before
+    assert counts.launches == before
     np.testing.assert_allclose(dx.reshape(x.shape).numpy(), np.asarray(dx_j),
                                **BWD_TOL)
     np.testing.assert_allclose(dg.numpy(), np.asarray(dg_j), **BWD_TOL)
