@@ -12,14 +12,19 @@
    (`csrc/gcl_bwd_fused_bf16_tc.cu`: the dH kernel and the dW kernel)
    and of the bf16 chord-tail kernel (`csrc/chord_tail_bf16_tc.cu`, its
    d = 512 form, and its MIX form for S % 16 != 0; `cuobjdump -sass`) and
-   of the bf16 grid GCL kernel (`csrc/gcl_eval_grid_bf16_tc.cu`, bars of
-   4 x S cells, S != 32) and fails if any has none; counts those
+   fails if any has none; counts those
    of both forms of the fp32 GCL kernel (`csrc/gcl_eval_fp32.cu`), of the
    fp32 fused backward (`csrc/gcl_bwd_fused.cu`) and of the fp32 chord-tail
-   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and of the fp32
-   grid GCL kernel (`csrc/gcl_eval_grid_fp32.cu`; with its
-   registers, spills and dynamic shared memory, and it fails if ptxas
-   spilled) and fails if any holds one, or no FFMA. The same for the fp32 weight and data backward
+   kernel (`csrc/chord_tail_fp32.cu`, its d = 512 form) and fails if any
+   holds one, or no FFMA. Every form of the grid GCL kernels (bars of 4 x
+   S cells, S != 32: both forms of `csrc/gcl_eval_grid_fp32.cu` and
+   `csrc/gcl_eval_grid_bf16_tc.cu`, the eval layer and the training
+   forward; the instantiation of each S of `csrc/gcl_bwd_data_grid.cu`,
+   `csrc/gcl_bwd_weight_grid.cu` and both kernels of
+   `csrc/gcl_bwd_fused_grid_bf16_tc.cu`) with its registers, spills,
+   dynamic shared memory and SASS counts: each bf16 form must hold
+   tensor-core instructions, each fp32 form FFMA and none, without
+   spills. The same for the fp32 weight and data backward
    kernels (`csrc/gcl_bwd_weight.cu`, `csrc/gcl_bwd_data.cu`), with their
    ptxas registers and spills and their dynamic shared memory printed; it
    fails if ptxas spilled any bytes of either. ptxas' registers, spills,
@@ -131,7 +136,7 @@
    few % of some grads' max, as its kernels do; the step reports all
    three).
 7b. LMD16 generation: a seeded 16-bar model directory at batch 256 (4096
-   bars a call) by bench.py's protocol at 10 calls a pass, with 4
+   bars a call) by bench.py's protocol at 5 calls a pass, with 4
    `gcl_eval` launches at K = 2
    and 1 `chord_tail` launch per call; `gcl_eval` at K = 2 (rtol = atol =
    2e-4) and `chord_tail` (ids outside top-2 gaps < 1e-4) against their
@@ -162,7 +167,7 @@
    training GCL kernel per step, one native gather per step from the
    packed data and none from the other, the first step's losses the same
    within 1e-6 relative (the same batches); s/step of each CLI run; s/step
-   of 4 steps fed by each loader (and, beside the packed one, of 4 steps on
+   of 3 steps fed by each loader (and, beside the packed one, of 3 steps on
    one batch kept on the card), the kernel time of 2 more under the
    profiler and the idle share it leaves.
 9. The remaining surface. MFU (`flops.py`: model FLOPs a sequence over
@@ -243,14 +248,30 @@
    through `GenerationService` whose native MIDI equals the Python
    writer's, and the generate CLI (`--n 2 --n_loops 4`, its files against
    the Python writer's) and the reconstruct CLI on 2 samples of that grid
-   (its encoder: the GCL at K = 1).
+   (its encoder: the GCL at K = 1); (iv) the training GCL kernels at r =
+   3, 4, 6, 12 (`gcl_fwd` fp32 and bf16, `gcl_bwd_data`, `gcl_bwd_weight`,
+   `gcl_bwd_fused` in bf16; at S != 32 `csrc/gcl_eval_grid_*.cu` without
+   the epilogue and `csrc/gcl_bwd_*_grid*.cu`) against their plain
+   versions at the training microbatches' bars (fp32 128, bf16 256), d =
+   512, by phases 2b's and 2c's rules, each timed beside its bound, and
+   their column forms at n = 256, S = 16; (v) at r = 4 and 12, LMD2's
+   training configs (`examples/training_lmd2.json` and `_bf16.json` with
+   that resolution) at batch 256: one step through `cli.train.main()` on
+   256 samples of the grid, s/step (3 passes of 3 steps) with MFU, one
+   profiled step at r = 12, each run launching exactly 64 of each fp32 (32
+   of each bf16) training kernel of the grid a step and nothing else, and
+   the step on the card against the CPU: bf16 at batch 32 by phase 6's
+   rule, fp32 at batch 8 with its losses by phase 5's and its grads by
+   phase 7's (held to an fp64 step's: at these grids the CPU's fp32 grads
+   are further from it than the card's).
 11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase, phases 10's and 10b's on every rank; the column forms
    at n = 256 on a rank's microbatch, `<kernel>_cols`; phase 12's grid
-   kernels at S = 16 and 48, `<kernel>_s<S>`, timed in 12 (i) and launched
-   in 12 (ii) and (iii)), the card line, and last {"ok": true, "device":
-   {...}}.
+   kernels at S = 16 and 48, `<kernel>_s<S>`, the generation kernels timed
+   in 12 (i) and launched in 12 (ii) and (iii), the training kernels timed
+   in 12 (iv) and launched in 12 (v)), the card line, and last {"ok":
+   true, "device": {...}}.
 
 Any failure, a child process's too, exits non-zero before the last line.
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -406,45 +427,103 @@ def ptxas_usage(log: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def sass_text(library: str) -> str:
-    """`cuobjdump -sass` (beside nvcc) of one built library, once."""
+def sass_functions(library: str) -> dict:
+    """{function: its SASS text} from `cuobjdump -sass` (beside nvcc) of one
+    built library, once."""
     from polyphemus_tpu_torch.ops.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", library], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    return out.stdout
+    funcs, name = {}, None
+    for line in out.stdout.splitlines(keepends=True):
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {f: "".join(lines) for f, lines in funcs.items()}
 
 
 def sass_instructions(kernel: str, symbol: str,
                       pattern: str = r"\bHG?MMA\b") -> int:
     """Instructions matching `pattern` (default: HMMA and HGMMA, the
-    tensor-core products) in the SASS of the function whose name holds
+    tensor-core products) in the SASS of the functions whose names hold
     `symbol`, in the library that `_build.launcher(kernel)` loads."""
     from polyphemus_tpu_torch.ops.kernels import _build
 
-    count, inside, seen = 0, False, False
-    for line in sass_text(str(_build.library(kernel))).splitlines():
-        if "Function :" in line:
-            inside = symbol in line
-            seen = seen or inside
-        elif inside and re.search(pattern, line):
-            count += 1
-    check(seen, f"no function {symbol} in the SASS of {kernel}")
-    return count
+    texts = [text for f, text in sass_functions(
+        str(_build.library(kernel))).items() if symbol in f]
+    check(texts, f"no function {symbol} in the SASS of {kernel}")
+    return sum(len(re.findall(pattern, text)) for text in texts)
 
 
-def smem_bytes(kernel: str) -> int:
+def smem_bytes(kernel: str, *args) -> int:
     """Dynamic shared memory a CTA of the fp32 weight or data backward or of
     a grid GCL kernel (`kernel`) takes, as its library's
-    `<kernel>_smem_bytes` reports it."""
+    `<kernel>_smem_bytes(*args)` reports it (the grid training kernels'
+    take the steps S of a bar, the bf16 fused backward's then 0 for its dH
+    kernel or 1 for its dW kernel)."""
     import ctypes
 
     from polyphemus_tpu_torch.ops.kernels import _build
 
     lib = ctypes.CDLL(str(_build.library(kernel)))
-    return getattr(lib, f"{kernel}_smem_bytes")()
+    return getattr(lib, f"{kernel}_smem_bytes")(*args)
+
+
+# the grid GCL sources (bars of 4 x S cells, S != 32): (dtype, source,
+# kernel name, symbol of each form); the grid training kernels are
+# templates on S, each instantiation a form, `ILi<S>E` in its symbol
+GRID_FORMS = [
+    ("fp32", "gcl_eval_grid_fp32", "gcl_eval_grid",
+     {"eval": "gcl_eval_grid_fp32_kernelILb1E",
+      "fwd": "gcl_eval_grid_fp32_kernelILb0E"}),
+    ("bf16", "gcl_eval_grid_bf16_tc", "gcl_eval_grid_bf16",
+     {"eval": "gcl_eval_grid_bf16_tc_kernelILb1E",
+      "fwd": "gcl_eval_grid_bf16_tc_kernelILb0E"})]
+GRID_TRAIN_SOURCES = [
+    ("fp32", "gcl_bwd_data_grid", "gcl_bwd_data_grid",
+     {"data": "gcl_bwd_data_grid_kernel"}),
+    ("fp32", "gcl_bwd_weight_grid", "gcl_bwd_weight_grid",
+     {"weight": "gcl_bwd_weight_grid_kernel"}),
+    ("bf16", "gcl_bwd_fused_grid_bf16_tc", "gcl_bwd_fused_grid_bf16",
+     {"dH": "gcl_bwd_fused_grid_bf16_tc_kernel",
+      "dW": "gcl_bwd_dw_grid_bf16_tc_kernel"})]
+GRID_STEPS = (4, 8, 12, 16, 20, 24, 28, 36, 40, 44, 48)
+
+
+def grid_kernel_forms(usage) -> dict:
+    """Phase 1's checks of every form of the grid GCL kernels: the eval
+    kernels' eval and training-forward forms, and the training backward
+    kernels at each S of GRID_STEPS. Each form's ptxas registers, spills
+    and dynamic shared memory and its SASS counts; fails unless each bf16
+    form holds tensor-core instructions and each fp32 form FFMA and none,
+    without spills."""
+    forms = [(dt, src, kname, part, sym, ())
+             for dt, src, kname, syms in GRID_FORMS
+             for part, sym in syms.items()]
+    forms += [(dt, src, kname, part, f"{sym}ILi{s}E",
+               (s,) + ((int(part == "dW"),) if dt == "bf16" else ()))
+              for dt, src, kname, syms in GRID_TRAIN_SOURCES
+              for part, sym in syms.items() for s in GRID_STEPS]
+    out = {}
+    for dt, src, kname, part, sym, args in forms:
+        funcs = [u for f, u in usage[src].items() if sym in f]
+        check(len(funcs) == 1, f"ptxas reported {len(funcs)} {sym}")
+        r = dict(funcs[0], dynamic_smem_bytes=smem_bytes(kname, *args),
+                 hmma=sass_instructions(kname, sym),
+                 ffma=sass_instructions(kname, sym, r"\bFFMA\b"))
+        out[sym] = r
+        if dt == "bf16":
+            check(r["hmma"] > 0, f"the bf16 grid kernel {sym} holds no "
+                                 f"tensor-core instruction")
+        else:
+            check(r["hmma"] == 0 and r["ffma"] > 0 and r["spill_bytes"] == 0,
+                  f"the fp32 grid kernel {sym} is not an FFMA kernel without "
+                  f"spills: {r}")
+    return out
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -575,19 +654,20 @@ def check_gcl(nbar, d, k_layers, device, timing=True, bf16=False,
 
 
 # ----------------------------------------- phase 2b: training GCL kernels
-def train_kernel_inputs(nbar, d, device, seed):
+def train_kernel_inputs(nbar, d, device, seed, s=32):
     """Seeded x (masked), upstream g, aux, gates, packed weights and bias of
-    one training GCL layer."""
+    one training GCL layer over bars of 4 x s cells."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl
 
     g = torch.Generator().manual_seed(seed)
-    mask = torch.from_numpy(bar_masks(nbar, 4, 32, seed))
-    x = torch.randn(nbar, 128, d, generator=g) * mask.reshape(nbar, 128, 1)
-    up = torch.randn(nbar, 128, d, generator=g)
-    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, 128)
-    gates = torch.randn(32, d, generator=g) * 0.3
+    n = 4 * s
+    mask = torch.from_numpy(bar_masks(nbar, 4, s, seed))
+    x = torch.randn(nbar, n, d, generator=g) * mask.reshape(nbar, n, 1)
+    up = torch.randn(nbar, n, d, generator=g)
+    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, n)
+    gates = torch.randn(s, d, generator=g) * 0.3
     wbig = gcl.pack_weights(torch.randn(6, d, d, generator=g) * d ** -0.5,
                             torch.randn(d, d, generator=g) * d ** -0.5, 4)
     bias = torch.randn(d, generator=g) * 0.1
@@ -612,19 +692,19 @@ def held_to(name, out, ref, *, summed: bool) -> float:
     return err.max().item()
 
 
-def check_gcl_train(nbar, d, device, timing=True):
+def check_gcl_train(nbar, d, device, timing=True, s=32):
     """`gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` against their plain
-    versions; with timing, ms per launch and the bounds. Each kernel's
-    useful work is 2 * active cells * 5d * d flops (an inactive cell's
-    output row, upstream row and dW contribution are zero); `dense_bound_ms`
-    counts every cell and `cost_estimate_bound_ms` the JAX kernel's
-    CostEstimate, 2 * nbar * 128 * 8d * d."""
+    versions over bars of 4 x s cells; with timing, ms per launch and the
+    bounds. Each kernel's useful work is 2 * active cells * 5d * d flops (an
+    inactive cell's output row, upstream row and dW contribution are zero);
+    `dense_bound_ms` counts every cell and `cost_estimate_bound_ms` the JAX
+    kernel's CostEstimate, 2 * nbar * 4s * 8d * d."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
     mask, (x, up, aux, gates, wbig, bias) = train_kernel_inputs(
-        nbar, d, device, SEED + 11)
+        nbar, d, device, SEED + 11, s)
     before = dict(counts.launches)
     runs = {
         "gcl_fwd": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
@@ -658,13 +738,13 @@ def check_gcl_train(nbar, d, device, timing=True):
     if timing:
         active = int(mask.sum())
         flops = 2.0 * active * 5 * d * d
-        dense = 2.0 * nbar * 128 * 5 * d * d
-        cost_est = 2.0 * nbar * 128 * 8 * d * d
+        dense = 2.0 * mask.numel() * 5 * d * d
+        cost_est = 2.0 * mask.numel() * 8 * d * d
         state = x.numel() * 4
         small = aux.numel() * 4 + gates.numel() * 4
         nbytes = {"gcl_fwd": 2 * state + small + wbig.numel() * 4 + d * 4,
                   "gcl_bwd_data": 3 * state + small + wbig.numel() * 4
-                  + 33 * d * 4,
+                  + (s + 1) * d * 4,
                   "gcl_bwd_weight": 2 * state + small + wbig.numel() * 4}
         for name, (kern, plain) in runs.items():
             r = res[name]
@@ -692,12 +772,12 @@ def held_rel(name, out, ref) -> float:
     return err
 
 
-def fused_bwd_work(mask, d, nbar):
+def fused_bwd_work(mask, d):
     """(data, dense, CostEstimate) flops of one fused backward: per active
     cell 2 * 5d * d for the dH product and as many for the dW product."""
-    active = int(mask.sum())
-    return (20.0 * active * d * d, 20.0 * nbar * 128 * d * d,
-            4.0 * nbar * 128 * 8 * d * d)
+    active, cells = int(mask.sum()), mask.numel()
+    return (20.0 * active * d * d, 20.0 * cells * d * d,
+            4.0 * cells * 8 * d * d)
 
 
 def check_fused_bf16(x, up, aux, gates, wbig) -> dict:
@@ -716,17 +796,17 @@ def check_fused_bf16(x, up, aux, gates, wbig) -> dict:
             zip(("dx", "dgate", "dbias", "dwbig"), got, want)}
 
 
-def check_gcl_train_bf16(nbar, d, device, timing=True):
+def check_gcl_train_bf16(nbar, d, device, timing=True, s=32):
     """The bf16 `gcl_fwd` and `gcl_bwd_fused` against their bf16 plain
-    versions on the card; with timing, ms per launch and the bounds
-    (`bound_ms`: the bf16 tensor cores, where both run;
-    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where the fused
+    versions on the card, over bars of 4 x s cells; with timing, ms per
+    launch and the bounds (`bound_ms`: the bf16 tensor cores, where both
+    run; `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where the fused
     backward's first form ran; "dense" and "CE" variants as in 2b)."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
-    mask, args = train_kernel_inputs(nbar, d, device, SEED + 13)
+    mask, args = train_kernel_inputs(nbar, d, device, SEED + 13, s)
     x, up, aux, gates, wbig, bias = [
         v if v.dtype == torch.int32 else v.to(torch.bfloat16) for v in args]
     before = dict(counts.launches)
@@ -751,12 +831,12 @@ def check_gcl_train_bf16(nbar, d, device, timing=True):
         state = x.numel() * 2
         small = aux.numel() * 4 + gates.numel() * 2
         work = {"gcl_fwd_bf16": (2.0 * active * 5 * d * d,
-                                 2.0 * nbar * 128 * 5 * d * d,
-                                 2.0 * nbar * 128 * 8 * d * d),
-                "gcl_bwd_fused": fused_bwd_work(mask, d, nbar)}
+                                 2.0 * mask.numel() * 5 * d * d,
+                                 2.0 * mask.numel() * 8 * d * d),
+                "gcl_bwd_fused": fused_bwd_work(mask, d)}
         nbytes = {"gcl_fwd_bf16": 2 * state + small + wbig.numel() * 2 + d * 2,
                   "gcl_bwd_fused": 3 * state + small + wbig.numel() * 2
-                  + wbig.numel() * 4 + 33 * d * 4}
+                  + wbig.numel() * 4 + (s + 1) * d * 4}
         for name, (kern, plain) in runs.items():
             r = res[name]
             data, dense, cost_est = work[name]
@@ -808,7 +888,7 @@ def check_fused_fp32(nbar, d, device, timing=True):
             reps=2)
         nbytes = 3 * x.numel() * 4 + aux.numel() * 4 + gates.numel() * 4 \
             + 2 * wbig.numel() * 4 + 33 * d * 4
-        data, dense, cost_est = fused_bwd_work(mask, d, nbar)
+        data, dense, cost_est = fused_bwd_work(mask, d)
         res["bound_ms"], res["bound_by"] = bound_ms(data, nbytes)
         res["dense_bound_ms"] = bound_ms(dense, nbytes)[0]
         res["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes)[0]
@@ -831,7 +911,8 @@ def set_kernel_counts(saved) -> None:
     gcl.col_launches.update(saved[1])
 
 
-def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
+def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
+                      s=32) -> dict:
     """The column forms of the GCL kernels that tensor parallelism launches
     (output width n of d, `parallel.mesh`), for every one of the d / n
     column shards of one layer: `gcl_fwd`, `gcl_eval` at K = 1 and, in
@@ -848,7 +929,7 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
 
     from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
 
-    mask, args = train_kernel_inputs(nbar, d, device, SEED + 19)
+    mask, args = train_kernel_inputs(nbar, d, device, SEED + 19, s)
     g = torch.Generator().manual_seed(SEED + 19)
     ea = (torch.randn(d, generator=g) * 0.1 + 1.0).to(device)
     eb = (torch.randn(d, generator=g) * 0.1).to(device)
@@ -935,7 +1016,7 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
             """(flops, bytes) of one launch at output width w."""
             flops = 2.0 * active * 5 * d * w
             wbytes = 8 * d * w * esz
-            out_b = nbar * 128 * w * esz
+            out_b = nbar * 4 * s * w * esz
             if name.startswith("gcl_fwd"):
                 return flops, state + out_b + small + wbytes + w * esz
             if name.startswith("gcl_eval"):
@@ -944,9 +1025,9 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
                 return flops, state + out_b + small + 8 * d * w * 4
             if name == "gcl_bwd_data":
                 return flops, 2 * state + out_b + small + wbytes \
-                    + (32 * d + w) * 4
+                    + (s * d + w) * 4
             return 2 * flops, 2 * state + out_b + small + wbytes \
-                + 8 * d * w * 4 + (32 * d + w) * 4
+                + 8 * d * w * 4 + (s * d + w) * 4
 
         sq = {f"gcl_fwd{suffix}": lambda: gcl.gcl_fwd(x, aux, gates, wbig,
                                                        bias),
@@ -966,7 +1047,8 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True) -> dict:
             r["square_ms"] = time_ms(sq[name])
             r["square_bound_ms"] = bound_ms(*work(name, d), peak)[0]
     set_kernel_counts(saved)  # comparison launches do not count
-    return {"nbar": nbar, "d": d, "n": n, "bf16": bf16, "kernels": res}
+    return {"nbar": nbar, "d": d, "n": n, "s": s, "bf16": bf16,
+            "kernels": res}
 
 
 def chord_inputs(nbar, d, device, seed, s=32):
@@ -1719,8 +1801,8 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
         torch.manual_seed(seed)
         cpu_model = VAE(mc)
     rng = np.random.default_rng(seed)
-    toks, mask = (torch.from_numpy(a) for a in synthetic_batch(rng, batch,
-                                                               mc.n_bars))
+    toks, mask = (torch.from_numpy(a) for a in synthetic_batch(
+        rng, batch, mc.n_bars, n_timesteps=mc.n_timesteps))
     eps = torch.from_numpy(rng.standard_normal((batch, mc.d)).astype(
         np.float32))
     if bf16:
@@ -1828,8 +1910,9 @@ def time_train_steps(trainer, batch, device, passes=3, steps=3):
     from polyphemus_tpu_torch.data import synthetic_batch
 
     rng = np.random.default_rng(SEED + 3)
+    mc = trainer.cfg.model
     toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
-        rng, batch, trainer.cfg.model.n_bars))
+        rng, batch, mc.n_bars, n_timesteps=mc.n_timesteps))
     gen = torch.Generator(device=device).manual_seed(SEED)
     trainer.train_step(toks, mask, generator=gen)
     torch.cuda.synchronize()
@@ -1860,8 +1943,10 @@ def profile_train_step(trainer, batch, device, path):
 
     from polyphemus_tpu_torch.data import synthetic_batch
 
+    mc = trainer.cfg.model
     toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
-        np.random.default_rng(SEED + 4), batch, trainer.cfg.model.n_bars))
+        np.random.default_rng(SEED + 4), batch, mc.n_bars,
+        n_timesteps=mc.n_timesteps))
     gen = torch.Generator(device=device).manual_seed(SEED)
     trainer.train_step(toks, mask, generator=gen)
     torch.cuda.synchronize()
@@ -2113,7 +2198,7 @@ def lmd16_phases(device, card):
     make_model_dir(model_l16, mc16, SEED)
     counts.reset()
     # ---- the main path ----
-    gen_l16 = bench(model_l16, device, rounds=10)
+    gen_l16 = bench(model_l16, device, rounds=5)
     gen_l16_launches = {"gcl_eval_by_k": by_k(),
                         "chord_tail": counts.total("chord_tail")}
     check(gen_l16_launches == {"gcl_eval_by_k": {2: 4 * gen_l16["calls"]},
@@ -2199,8 +2284,8 @@ def dropout_phase(device, card, config_path, data_dir):
 DATA_SONGS = 96       # seeded full-band 4/4 songs of 12-32 bars
 DATA_SHARD = 128      # samples a shard, so that batches cross shards
 DATA_TRAIN = 640      # training samples of the CLI runs: 2 steps an epoch
-LOADER_REPS = 10      # timed batches of each gather
-LOADER_FED_STEPS = 4  # loader-fed steps timed
+LOADER_REPS = 5       # timed batches of each gather
+LOADER_FED_STEPS = 3  # loader-fed steps timed
 PROFILED_STEPS = 2    # loader-fed steps profiled for their kernel time
 # packed vs per-sample data: the first step's losses, relative (the same
 # batch on the same card; a different batch moves them by about 1e-2)
@@ -2790,7 +2875,7 @@ def nccl_cli_run(card, config_path, data_dir, n_samples) -> tuple:
             "launches_rank0": launches, "card": card}, launches
 
 
-def nccl_step_overhead(device, card, config_path, steps=3) -> dict:
+def nccl_step_overhead(device, card, config_path, steps=2) -> dict:
     """s/step of the flagship fp32 `TrainStep` in this process on one
     batch kept on the card, without a process group and in a one-rank NCCL
     group (the environment set here as `torchrun` sets it, then restored),
@@ -3371,10 +3456,137 @@ def grid_generation(device, card, r, service=False) -> tuple:
     return res, launches
 
 
+# the training kernels of a bar grid, by dtype: per optimizer step of the
+# LMD2 configs (16 GCL layers a microbatch, 4 microbatches in fp32, 2 in
+# bf16)
+GRID_TRAIN_KERNELS = {False: {"gcl_fwd": 64, "gcl_bwd_data": 64,
+                              "gcl_bwd_weight": 64},
+                      True: {"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32}}
+GRID_TRAIN_SAMPLES = 256   # one step a CLI epoch at batch 256
+
+
+def grid_training_kernels(device, card) -> dict:
+    """Phase 12 (iv): the training GCL kernels at bars of 4 x 4r cells for r
+    in GRID_CHECKS, at the training microbatches' bars (fp32 128, bf16
+    256), d = 512, against their plain versions by phases 2b's and 2c's
+    rules and timed beside their bounds (`check_gcl_train`,
+    `check_gcl_train_bf16`); and the column forms at n = 256 of d = 512, S
+    = 16 (`check_gcl_columns`). {r: {kernel: result}, "cols_s16": ...}."""
+    res = {}
+    for r in GRID_CHECKS:
+        s = 4 * r
+        res[r] = dict(check_gcl_train(128, 512, device, s=s),
+                      **check_gcl_train_bf16(256, 512, device, s=s))
+        print(f"bar grid r={r} (4 x {s} cells), the training kernels against "
+              f"their plain versions (fp32 128 bars, bf16 256, d=512, "
+              f"{card}):", json.dumps(res[r]))
+    res["cols_s16"] = {
+        "fp32": check_gcl_columns(128, 512, 256, device, s=16),
+        "bf16": check_gcl_columns(256, 512, 256, device, bf16=True, s=16)}
+    print(f"bar grid r=4, the column forms at n=256 of d=512 ({card}):",
+          json.dumps(res["cols_s16"]))
+    return res
+
+
+def grid_config(r, bf16) -> str:
+    """A copy of `examples/training_lmd2.json` (bf16: `_bf16.json`) at
+    resolution r, under build/; returns its path."""
+    name = "training_lmd2_bf16.json" if bf16 else "training_lmd2.json"
+    with open(os.path.join(ROOT, "examples", name)) as f:
+        raw = json.load(f)
+    raw["model"]["resolution"] = r
+    path = os.path.join(ROOT, "build", f"chip_smoke_r{r}_{name}")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def grid_training(device, card, r, profile=False) -> tuple:
+    """Phase 12 (v): LMD2's widths at resolution r (4 x 4r cells a bar), in
+    fp32 and bf16 at batch 256: one optimizer step through
+    `cli.train.main()` on GRID_TRAIN_SAMPLES synthetic samples of the grid
+    (records finite), then seconds per step (`time_train_steps`: 3 passes
+    of 3 synchronised steps after a warm one) with MFU (`flops.py`), with
+    `profile` one profiled step (`profile_train_step`: ~10-25 s a step of
+    the profiler's own), and the step on the card against the CPU: bf16
+    at batch BF16_CMP_BATCH by phase 6's rule; fp32 at batch 8 with its
+    losses by phase 5's rule and its grads by phase 7's (held to an fp64
+    step's on the card, `witness`): at 4 x 16 and 4 x 48 cells, batch 8,
+    the CPU's own fp32 grads lie 3.1-3.2 % of a max from the fp64 ones in
+    the decoder's GCN, the card's kernels' 1.1-1.5 % (H100, PERF.md §6),
+    so phase 5's 1e-3 against the CPU would hold the CPU's rounding. The
+    counts are set to 0 before the CLI run and before the timed steps and
+    read after each: exactly GRID_TRAIN_KERNELS' launches a step of the
+    grid's kernels and nothing else. Returns (results, launches by
+    `grid_name`)."""
+    from polyphemus_tpu_torch import flops
+    from polyphemus_tpu_torch.ops.kernels import counts
+
+    s = 4 * r
+    data_dir = os.path.join(ROOT, "build", f"chip_smoke_data_r{r}")
+    write_dataset(data_dir, GRID_TRAIN_SAMPLES, 2, SEED, s)
+    res, launches = {"resolution": r, "cells_a_bar": 4 * s, "card": card}, {}
+    for bf16 in (False, True):
+        k = "bf16" if bf16 else "fp32"
+        t0 = time.perf_counter()
+
+        def want(steps):
+            return {(name, s, 1): n * steps
+                    for name, n in GRID_TRAIN_KERNELS[bf16].items()}
+
+        # ---- the main path: the CLI's step, then the timed steps ----
+        t1 = time.perf_counter()
+        trainer, _, _, recs = train_phase(
+            device, grid_config(r, bf16), data_dir,
+            os.path.join(ROOT, "build", f"chip_smoke_train_r{r}_{k}"), 1)
+        got = dict(counts.launches)
+        check(trainer.step == 1, f"r={r} {k}: {trainer.step} CLI steps")
+        check_records(recs, 1)
+        check(got == want(1), f"r={r} {k} CLI step launched {named(got)}, "
+                              f"expected {named(want(1))}")
+        counts.reset()
+        t2 = time.perf_counter()
+        bench = time_train_steps(trainer, GRID_TRAIN_SAMPLES, device)
+        timed = dict(counts.launches)
+        t3 = time.perf_counter()
+        steps = 1 + len(bench["passes_step_s"]) * 3  # a warm step, 3 x 3
+        check(timed == want(steps),
+              f"r={r} {k} timed steps launched {named(timed)}, expected "
+              f"{named(want(steps))}")
+        mc = trainer.cfg.model
+        bench["mfu_percent"] = 100.0 * flops.train_step_flops_per_seq(mc) \
+            * bench["seq_s"] / (peak_tflops(bf16) * 1e12)
+        bench["launches_per_step"] = named(want(1))
+        for run in (got, timed):
+            for key, n in named(run).items():
+                launches[key] = launches.get(key, 0) + n
+        if profile:
+            bench["profile"] = profile_train_step(
+                trainer, GRID_TRAIN_SAMPLES, device,
+                os.path.join(ROOT, "chiprun_out",
+                             f"train_step_profile_r{r}_{k}.txt"))
+        del trainer
+        counts.reset()  # the comparison's launches do not count
+        t4 = time.perf_counter()
+        bench["vs_cpu"] = compare_train_step(
+            mc, BF16_CMP_BATCH if bf16 else 8, device, SEED + 5, bf16=bf16,
+            witness=not bf16)
+        t5 = time.perf_counter()
+        bench["seconds"] = {"cli": t2 - t1, "timed": t3 - t2,
+                            "profile": t4 - t3, "vs_cpu": t5 - t4,
+                            "all": t5 - t0}
+        res[k] = bench
+        print(f"bar grid r={r} (4 x {s} cells) training on the card, d=512, "
+              f"8 layers, batch 256 ({card}):", json.dumps(bench))
+    return res, launches
+
+
 def grids_phase(device, card) -> tuple:
     """Phase 12: bar grids other than 4 x 32 cells (`grid_kernels`, then
     `grid_generation` at each of GRID_MODELS, the service and the CLI at
-    the first). Returns (kernel checks, generation results, launches)."""
+    the first; `grid_training_kernels`, then `grid_training` at each of
+    GRID_MODELS, profiled at the last). Returns (kernel checks, training
+    kernel checks, generation and training results, launches)."""
     # ---- 12. bar grids: resolutions 3, 4, 6, 12 ----
     t0 = time.perf_counter()
     kern = grid_kernels(device, card)
@@ -3383,7 +3595,16 @@ def grids_phase(device, card) -> tuple:
     for i, r in enumerate(GRID_MODELS):
         gens[r], got = grid_generation(device, card, r, service=i == 0)
         launches.update(got)
-    return kern, gens, launches
+    t0 = time.perf_counter()
+    train_kern = grid_training_kernels(device, card)
+    print(f"phase 12 (iv): {time.perf_counter() - t0:.1f} s")
+    trains = {}
+    for r in GRID_MODELS:
+        trains[r], got = grid_training(device, card, r,
+                                       profile=r == GRID_MODELS[-1])
+        launches.update(got)
+    return kern, train_kern, {"generation": gens, "training": trains}, \
+        launches
 
 
 def main() -> int:
@@ -3492,26 +3713,7 @@ def main() -> int:
               f"the fp32 {name} kernel is not an FFMA kernel")
         check(bwd32[name]["spill_bytes"] == 0,
               f"ptxas spilled registers of the fp32 {name} kernel")
-    # the eval GCL kernels at bar grids other than 4 x 32: bf16 on the
-    # tensor cores, fp32 FFMA only and without spills
-    grid_k = {}
-    for dt, src, sym in (
-            ("fp32", "gcl_eval_grid_fp32", "gcl_eval_grid_fp32_kernel"),
-            ("bf16", "gcl_eval_grid_bf16_tc", "gcl_eval_grid_bf16_tc_kernel")):
-        kname = "gcl_eval_grid" + ("_bf16" if dt == "bf16" else "")
-        funcs = [u for f, u in usage[src].items() if sym in f]
-        check(len(funcs) == 1, f"ptxas reported {len(funcs)} {sym}")
-        r = dict(funcs[0], dynamic_smem_bytes=smem_bytes(kname),
-                 hmma=sass_instructions(kname, sym),
-                 ffma=sass_instructions(kname, sym, r"\bFFMA\b"))
-        grid_k[dt] = r
-        if dt == "bf16":
-            check(r["hmma"] > 0, "the bf16 grid GCL kernel holds no "
-                                 "tensor-core instruction")
-        else:
-            check(r["hmma"] == 0 and r["ffma"] > 0 and r["spill_bytes"] == 0,
-                  f"the fp32 grid GCL kernel is not an FFMA kernel without "
-                  f"spills: {r}")
+    grid_k = grid_kernel_forms(usage)
     print("grid GCL kernels (bars of 4 x S, S != 32):", json.dumps(grid_k))
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3756,7 +3958,8 @@ def main() -> int:
 
     # ---- 12. bar grids other than 4 x 32 cells: resolutions 3, 4, 6, 12 ----
     phase("12")
-    grid_checks, _, grid_launches = grids_phase(device, card)
+    grid_checks, grid_train_checks, _, grid_launches = grids_phase(device,
+                                                                   card)
 
     # ---- 11. results ----
     phase("11")
@@ -3871,6 +4074,24 @@ def main() -> int:
                                  f"polyphemus_tpu_torch/csrc/{src}",
                                  f"polyphemus_tpu/ops/kernels/{replaces}",
                                  grid_checks[r][name]))
+    # the training kernels at the grids of phase 12's models, each held and
+    # timed at the training microbatch's bars in 12 (iv), launched by 12 (v)
+    for r in GRID_MODELS:
+        s = 4 * r
+        for name, src, replaces in (
+                ("gcl_fwd", "gcl_eval_grid_fp32.cu", "gcl_pallas.py:347"),
+                ("gcl_bwd_data", "gcl_bwd_data_grid.cu",
+                 "gcl_pallas_bwd.py:528"),
+                ("gcl_bwd_weight", "gcl_bwd_weight_grid.cu",
+                 "gcl_pallas_bwd.py:564"),
+                ("gcl_fwd_bf16", "gcl_eval_grid_bf16_tc.cu",
+                 "gcl_pallas.py:347"),
+                ("gcl_bwd_fused", "gcl_bwd_fused_grid_bf16_tc.cu",
+                 "gcl_pallas_bwd.py:453")):
+            kernels.append(entry(f"{name}_s{s}",
+                                 f"polyphemus_tpu_torch/csrc/{src}",
+                                 f"polyphemus_tpu/ops/kernels/{replaces}",
+                                 grid_train_checks[r][name]))
     # the reconstruct encoder's eval layers, one a launch, at the grid of
     # phase 12 (iii)
     s = 4 * GRID_MODELS[0]

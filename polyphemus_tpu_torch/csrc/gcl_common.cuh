@@ -139,6 +139,39 @@ __device__ __forceinline__ CellStatics cell_statics(const int* a, int i) {
   return c;
 }
 
+// cell_statics for one bar of n = T * s cells, s chosen by the caller (the
+// training kernels of the `*_grid*.cu` sources).
+__device__ __forceinline__ CellStatics cell_statics_grid(const int* a, int i,
+                                                         int n, int s) {
+  CellStatics c;
+  const float m = a[MASK_CH * n + i] > 0 ? 1.f : 0.f;
+  const int okp = a[OK_P * n + i] > 0, okn = a[OK_N * n + i] > 0;
+  const int cnt = okp + okn;
+  const int con = a[CNT_ON * n + i], cnx = a[CNT_NX * n + i];
+  const bool okpn = a[OK_PN * n + i] > 0;
+  c.ps = clampi(a[PREV_SRC * n + i], n - 1);
+  c.ns = clampi(a[NEXT_SRC * n + i], n - 1);
+  c.pn = clampi(a[PN_SRC * n + i], n - 1);
+  c.dp = clampi(a[DIST_P * n + i], s - 1);
+  c.dn = clampi(a[DIST_N * n + i], s - 1);
+  c.dpn = clampi(a[DIST_PN * n + i], s - 1);
+  c.okp = okp ? 1.f : 0.f;
+  c.okn = okn ? 1.f : 0.f;
+  c.rtr = cnt > 0 ? (1.f / (float)cnt) * m : 0.f;
+  c.ron = con > 0 ? (1.f / (float)con) * m : 0.f;
+  c.rnx = (okpn && cnx > 0) ? (1.f / (float)cnx) * m : 0.f;
+  c.okpn = (okpn && a[MSRC * n + i] > 0) ? 1.f : 0.f;
+  c.m = m;
+  c.single = (float)a[SINGLE * n + i];
+  return c;
+}
+
+// The steps a bar of the grid training kernels, S = 4 r for resolutions r
+// = 1..12 but 8 (S = 32 has kernels of its own): X(S) for each, for the
+// launchers' switch over their template instantiations.
+#define GCL_GRID_STEPS(X) \
+  X(4) X(8) X(12) X(16) X(20) X(24) X(28) X(36) X(40) X(44) X(48)
+
 // The statics of up to C cells of consecutive bars of n = T * s cells, s
 // chosen at run time (the eval kernels of `gcl_eval_grid_*.cu`), by local
 // cell b * n + i of bar b; the source cells are local too.

@@ -1,12 +1,13 @@
-// Eval GCL layers in bf16, on the tensor cores, for bars of 4 x S cells at
-// any S that is a multiple of 4 up to 48 (resolutions 1-12): K chained
-// layers. At S = 32 the port launches
+// GCL layers in bf16, on the tensor cores, for bars of 4 x S cells at any
+// S that is a multiple of 4 up to 48 (resolutions 1-12): K chained eval
+// layers, or one training-forward layer. At S = 32 the port launches
 // `gcl_eval_bf16_tc.cu`, whose CTA is one 128-cell bar; this source takes
 // the other grids.
 //
 // Replaces, in bf16 and at those grids, the Pallas kernels `_kernel_chain`
 // (K >= 2, polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` (K =
-// 1, gcl_pallas.py:347) with its eval epilogue, which read t,
+// 1, gcl_pallas.py:347) with its eval epilogue and without it (the forward
+// of the training layer `gcl_fused`, gcl_pallas.py:467-529), which read t,
 // s and d from x's shape (`gcl_apply_pallas`, gcl_pallas.py:299-301). Per
 // layer and bar of N = 4 S cells it computes what `gcl_eval_bf16_tc.cu`
 // computes, with the same roundings, cell by cell:
@@ -14,9 +15,12 @@
 //   base = rnd(rnd([h_self | h_onset | h_next | x] @ [W0; W_on; W_next; root])
 //              + bias)
 //   v    = rnd(base + rnd(h_track @ W_t)) * m      (W_t: the row's own track)
-//   out  = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x)
+//   out  = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x)   (the eval form, EPI)
+//   out  = v                                          (the training forward)
 //
 // with the column-shard form (n of d output columns, K = 1) as there. The
+// template flag EPI picks the form (`gcl_eval_grid_bf16_launch`,
+// `gcl_fwd_grid_bf16_launch`), as in `gcl_eval_bf16_tc.cu`. The
 // products take bf16 operands and sum in fp32 (mma.sync m16n8k16): only the
 // summation order differs from the plain versions.
 //
@@ -352,11 +356,13 @@ __device__ __forceinline__ void park_track(Smem& sm, float (&acc)[2][8][4],
             pack2(acc[mi][nj][2 * hh], acc[mi][nj][2 * hh + 1]);
 }
 
-// out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x), v = rnd(rnd(rnd(acc) +
-// bias) + track) * m, for this thread's accumulators of column tile n0;
-// cell[mi][hh] is the local cell of its row in m16 tile mi, half hh (-1: a
-// padding row, not stored). out rows are n wide; the residual is xin's
+// out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x) (EPI) or out = v, v =
+// rnd(rnd(rnd(acc) + bias) + track) * m, for this thread's accumulators of
+// column tile n0; cell[mi][hh] is the local cell of its row in m16 tile mi,
+// half hh (-1: a padding row, not stored). Without EPI neither ea, eb nor
+// the residual rows are read. out rows are n wide; the residual is xin's
 // column c0 + col of rows d wide.
+template <bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[2][8][4],
                                          const bf16* xin, bf16* xo,
@@ -369,6 +375,21 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
   for (int nj = 0; nj < 8; ++nj) {
     const int col = n0 + col0 + nj * 8 + 2 * (lane & 3);
     const float2 bb = bf2(*reinterpret_cast<const uint32_t*>(bias + col));
+    if constexpr (!EPI) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = cell[mi][hh];
+          if (i < 0) continue;
+          const float m = sm.m[i];
+          const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
+          const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
+          const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
+          *reinterpret_cast<uint32_t*>(xo + (size_t)i * n + col) = pack2(v0, v1);
+        }
+      continue;
+    }
     const float2 aa = bf2(*reinterpret_cast<const uint32_t*>(ea + col));
     const float2 ee = bf2(*reinterpret_cast<const uint32_t*>(eb + col));
 #pragma unroll
@@ -391,6 +412,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
   }
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 2)
 gcl_eval_grid_bf16_tc_kernel(const bf16* x, const int* aux,
                              const bf16* gates, const bf16* wbigs,
@@ -433,8 +455,8 @@ gcl_eval_grid_bf16_tc_kernel(const bf16* x, const int* aux,
     bf16* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + out_off;
     const bf16* W = wbigs + (size_t)k * NBLK * d * n;
     const bf16* bias = biases + (size_t)k * n;
-    const bf16* ea = eas + (size_t)k * n;
-    const bf16* eb = ebs + (size_t)k * n;
+    const bf16* ea = EPI ? eas + (size_t)k * n : nullptr;
+    const bf16* eb = EPI ? ebs + (size_t)k * n : nullptr;
 
     auto fetch_w = [&](int s) {
       const int j = s % per_tile;
@@ -500,7 +522,7 @@ gcl_eval_grid_bf16_tc_kernel(const bf16* x, const int* aux,
         for (int seg = 0; seg < NSB; ++seg)
           mma_k16(acc, sm.a[seg], wt, seg * BK, row0, rstep, col0, lane);
         if (j == per_tile - 1)
-          epilogue(sm, acc, xin, xo, bias, ea, eb, d, n, c0,
+          epilogue<EPI>(sm, acc, xin, xo, bias, ea, eb, d, n, c0,
                         (s % per_rows / per_tile) * BN, cell, col0, tid);
       }
     }
@@ -533,31 +555,29 @@ static int bars_per_cta(int nbar, int S, int sms) {
   return best;
 }
 
-// K chained eval layers (folded batch-norm, relu, residual) over bars of 4 x
-// S cells, every float tensor in bf16: x (nbar, 4 S, d), out, scratch
-// (nbar, 4 S, n), gates (S, d), wbigs (K, 8d, n), biases, eas, ebs (K, n);
-// aux (nbar, 14, 4 S) int32. S % 4 == 0 up to 48; d % 128 == 0 and n % 128
-// == 0 with c0 + n <= d; a chain (K > 1) takes n = d, c0 = 0. At K = 1 the
-// launch writes output columns c0..c0+n-1 of the layer, and scratch may be
-// out.
-extern "C" int gcl_eval_grid_bf16_launch(const void* x, const void* aux,
-                                         const void* gates, const void* wbigs,
-                                         const void* biases, const void* eas,
-                                         const void* ebs, void* out,
-                                         void* scratch, int nbar, int S,
-                                         int d, int n, int c0, int K,
-                                         void* stream) {
+// Layers of the kernel's EPI form over bars of 4 x S cells, every float
+// tensor in bf16: x (nbar, 4 S, d), out, scratch (nbar, 4 S, n), gates (S,
+// d), wbigs (K, 8d, n), biases, eas, ebs (K, n); aux (nbar, 14, 4 S) int32.
+// S % 4 == 0 up to 48; d % 128 == 0 and n % 128 == 0 with c0 + n <= d; a
+// chain (K > 1) takes n = d, c0 = 0. At K = 1 the launch writes output
+// columns c0..c0+n-1 of the layer, and scratch may be out. Without EPI, K
+// = 1, c0 = 0 and eas, ebs are not read.
+template <bool EPI>
+static int launch(const void* x, const void* aux, const void* gates,
+                  const void* wbigs, const void* biases, const void* eas,
+                  const void* ebs, void* out, void* scratch, int nbar, int S,
+                  int d, int n, int c0, int K, void* stream) {
   if (nbar <= 0) return 0;
   if (S < 4 || S % 4 != 0 || S > MAXS || d <= 0 || d % BN != 0 || n <= 0 ||
       n % BN != 0 || c0 < 0 || c0 % 2 != 0 || c0 + n > d || K < 1 ||
-      (K > 1 && n != d))
+      (!EPI && (K != 1 || c0 != 0)) || (K > 1 && n != d))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
-      gcl_eval_grid_bf16_tc_kernel,
+      gcl_eval_grid_bf16_tc_kernel<EPI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gcl_eval_grid_bf16_tc_kernel,
+    err = cudaFuncSetAttribute(gcl_eval_grid_bf16_tc_kernel<EPI>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   int dev = 0, sms = 0;
@@ -566,13 +586,36 @@ extern "C" int gcl_eval_grid_bf16_launch(const void* x, const void* aux,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int bpc = bars_per_cta(nbar, S, sms);
-  gcl_eval_grid_bf16_tc_kernel
+  gcl_eval_grid_bf16_tc_kernel<EPI>
       <<<(nbar + bpc - 1) / bpc, THREADS, smem, (cudaStream_t)stream>>>(
           (const bf16*)x, (const int*)aux, (const bf16*)gates,
           (const bf16*)wbigs, (const bf16*)biases, (const bf16*)eas,
           (const bf16*)ebs, (bf16*)out, (bf16*)scratch, nbar, S, bpc, d, n,
           c0, K);
   return (int)cudaGetLastError();
+}
+
+// K chained eval layers (folded batch-norm, relu, residual); at K = 1
+// output columns c0..c0+n-1 of the layer.
+extern "C" int gcl_eval_grid_bf16_launch(const void* x, const void* aux,
+                                         const void* gates, const void* wbigs,
+                                         const void* biases, const void* eas,
+                                         const void* ebs, void* out,
+                                         void* scratch, int nbar, int S,
+                                         int d, int n, int c0, int K,
+                                         void* stream) {
+  return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
+                      nbar, S, d, n, c0, K, stream);
+}
+
+// One training-forward layer: out = v, wbig (8d, n), bias (n,), out (nbar,
+// 4 S, n).
+extern "C" int gcl_fwd_grid_bf16_launch(const void* x, const void* aux,
+                                        const void* gates, const void* wbig,
+                                        const void* bias, void* out, int nbar,
+                                        int S, int d, int n, void* stream) {
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
+                       nbar, S, d, n, 0, 1, stream);
 }
 
 // Dynamic shared memory a CTA takes.

@@ -1,21 +1,25 @@
-// Eval GCL layers in fp32, on the CUDA cores, for bars of 4 x S cells at
-// any S that is a multiple of 4 up to 48 (resolutions 1-12): K chained
-// layers. At S = 32 the port launches
+// GCL layers in fp32, on the CUDA cores, for bars of 4 x S cells at any S
+// that is a multiple of 4 up to 48 (resolutions 1-12): K chained eval
+// layers, or one training-forward layer. At S = 32 the port launches
 // `gcl_eval_fp32.cu`, whose CTA is one 128-cell bar; this source takes the
 // other grids.
 //
 // Replaces, in fp32 and at those grids, the Pallas kernels `_kernel_chain`
 // (K >= 2, polyphemus_tpu/ops/kernels/gcl_pallas.py:440) and `_kernel` (K =
-// 1, gcl_pallas.py:347) with its eval epilogue, which read t,
+// 1, gcl_pallas.py:347) with its eval epilogue and without it (the forward
+// of the training layer `gcl_fused`, gcl_pallas.py:467-529), which read t,
 // s and d from x's shape (`gcl_apply_pallas`, gcl_pallas.py:299-301). Per
 // layer and bar of N = 4 S cells it computes what `gcl_eval_fp32.cu`
 // computes, cell by cell in the same order of fp32 operations:
 //
 //   A   = [h_track | h_self | h_onset | h_next | x]            (N x 5d)
 //   v   = (A @ [W_t; W0; W_on; W_next; root] + bias) * m
-//   out = relu((v * ea + eb) * m) + x
+//   out = relu((v * ea + eb) * m) + x          (the eval form, EPI)
+//   out = v                                    (the training forward)
 //
-// with the column-shard form (n of d output columns, K = 1) as there.
+// with the column-shard form (n of d output columns, K = 1) as there. The
+// template flag EPI picks the form (`gcl_eval_grid_launch`,
+// `gcl_fwd_grid_launch`), as in `gcl_eval_fp32.cu`.
 //
 // What bounds it on an H100: operations, as at S = 32: 2 N 5d d flops a bar
 // and layer against 2 N d 4 bytes of node state, so a 512-bar launch at K =
@@ -220,11 +224,12 @@ __device__ __forceinline__ void gemm_stage(float (&acc)[8][4 * NJ],
   }
 }
 
-// out = relu(((acc + bias) * m * ea + eb) * m) + x for this thread's cells
-// c0r .. c0r + nrow - 1 (its tile rows r0 ..) and columns n0 + cb + 32 j ..
-// + 3. out rows are n wide; the residual is xin's column c0 +
-// col of rows d wide.
-template <int NJ>
+// out = relu(((acc + bias) * m * ea + eb) * m) + x (EPI) or out = (acc +
+// bias) * m for this thread's cells c0r .. c0r + nrow - 1 (its tile rows r0
+// ..) and columns n0 + cb + 32 j .. + 3. Without EPI neither ea, eb nor the
+// residual rows are read. out rows are n wide; the residual is xin's column
+// c0 + col of rows d wide.
+template <int NJ, bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[8][4 * NJ],
                                          const float* xin, float* xo,
@@ -237,6 +242,18 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
     const int col = n0 + cb + j * 32;
     const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + col));
     const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+    if constexpr (!EPI) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r >= nrow) break;
+        const int i = c0r + r;
+        const float m = sm.m[i];
+        *reinterpret_cast<float4*>(xo + (size_t)i * n + col) = make_float4(
+            (acc[r][4 * j] + bv[0]) * m, (acc[r][4 * j + 1] + bv[1]) * m,
+            (acc[r][4 * j + 2] + bv[2]) * m, (acc[r][4 * j + 3] + bv[3]) * m);
+      }
+      continue;
+    }
     const float4 aa = __ldg(reinterpret_cast<const float4*>(ea + col));
     const float4 ee = __ldg(reinterpret_cast<const float4*>(eb + col));
     const float av[4] = {aa.x, aa.y, aa.z, aa.w};
@@ -265,7 +282,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
 // output, every feature. blk0 is the layer's first block in the tensor map
 // (8 k); g counts the stages multiplied so far (weight slot g & 1, mbarrier
 // parity (g >> 1) & 1; every pass has an even number of stages).
-template <int NJ>
+template <int NJ, bool EPI>
 __device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
                                      const float* gates, const CUtensorMap* map,
                                      int blk0, const float* bias,
@@ -314,9 +331,11 @@ __device__ __forceinline__ void pass(Smem& sm, const float* xin, float* xo,
     cp_async_wait<0>();
     __syncthreads();
   }
-  epilogue<NJ>(sm, acc, xin, xo, bias, ea, eb, d, n, c0, n0, c0r, nrow, cb);
+  epilogue<NJ, EPI>(sm, acc, xin, xo, bias, ea, eb, d, n, c0, n0, c0r, nrow,
+                    cb);
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_eval_grid_fp32_kernel(const float* x, const int* aux, const float* gates,
                           const float* biases, const float* eas,
@@ -353,8 +372,8 @@ gcl_eval_grid_fp32_kernel(const float* x, const int* aux, const float* gates,
                                 : (((K - k) % 2 == 0) ? out : scratch) + out_off;
     float* xo = (((K - 1 - k) % 2 == 0) ? out : scratch) + out_off;
     const float* bias = biases + (size_t)k * n;
-    const float* ea = eas + (size_t)k * n;
-    const float* eb = ebs + (size_t)k * n;
+    const float* ea = EPI ? eas + (size_t)k * n : nullptr;
+    const float* eb = EPI ? ebs + (size_t)k * n : nullptr;
     for (int t0 = 0; t0 < gd.M; t0 += MT) {
       gd.tile(t0, MT);
       // the thread's rows t0 + r0 .. + 7 lie in one track of one bar: its
@@ -367,11 +386,11 @@ gcl_eval_grid_fp32_kernel(const float* x, const int* aux, const float* gates,
       const int nrow = p < gd.M ? min(8, S - w0) : 0;
       int n0 = 0;
       for (; n0 + NC <= n; n0 += NC)
-        pass<4>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d,
+        pass<4, EPI>(sm, xin, xo, gates, &map256, k * NBLK, bias, ea, eb, d,
                      n, c0, n0, gd, t0, tid, warp, trk, r0, c0r, nrow,
                      half * (NC / 2) + cx, g);
       if (n0 < n)  // n % 256 == 128: one pass of 128 columns
-        pass<2>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d,
+        pass<2, EPI>(sm, xin, xo, gates, &map128, k * NBLK, bias, ea, eb, d,
                      n, c0, n0, gd, t0, tid, warp, trk, r0, c0r, nrow,
                      half * (NC / 4) + cx, g);
     }
@@ -426,7 +445,8 @@ static bool weight_map(CUtensorMap* map, const void* wbigs, int d, int n,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The kernel's shared-memory size, set once per device.
+// The kernel's shared-memory size, set once per device and form.
+template <bool EPI>
 static cudaError_t allow_smem(int smem) {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
@@ -434,7 +454,7 @@ static cudaError_t allow_smem(int smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(gcl_eval_grid_fp32_kernel,
+  err = cudaFuncSetAttribute(gcl_eval_grid_fp32_kernel<EPI>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
@@ -461,26 +481,25 @@ static int bars_per_cta(int nbar, int S, int sms) {
   return best;
 }
 
-// K chained eval layers (folded batch-norm, relu, residual) over bars of 4 x
-// S cells, every float tensor fp32: x (nbar, 4 S, d), out, scratch (nbar,
-// 4 S, n), gates (S, d), wbigs (K, 8d, n), biases, eas, ebs (K, n); aux
-// (nbar, 14, 4 S) int32. S % 4 == 0 up to 48; d % 128 == 0 and n % 128 == 0
-// with c0 + n <= d; a chain (K > 1) takes n = d, c0 = 0. At K = 1 the
-// launch writes output columns c0..c0+n-1 of the layer, and scratch may be
-// out.
-extern "C" int gcl_eval_grid_launch(const void* x, const void* aux,
-                                    const void* gates, const void* wbigs,
-                                    const void* biases, const void* eas,
-                                    const void* ebs, void* out, void* scratch,
-                                    int nbar, int S, int d, int n, int c0,
-                                    int K, void* stream) {
+// Layers of the kernel's EPI form over bars of 4 x S cells, every float
+// tensor fp32: x (nbar, 4 S, d), out, scratch (nbar, 4 S, n), gates (S, d),
+// wbigs (K, 8d, n), biases, eas, ebs (K, n); aux (nbar, 14, 4 S) int32. S %
+// 4 == 0 up to 48; d % 128 == 0 and n % 128 == 0 with c0 + n <= d; a chain
+// (K > 1) takes n = d, c0 = 0. At K = 1 the launch writes output columns
+// c0..c0+n-1 of the layer, and scratch may be out. Without EPI, K = 1, c0 =
+// 0 and eas, ebs are not read.
+template <bool EPI>
+static int launch(const void* x, const void* aux, const void* gates,
+                  const void* wbigs, const void* biases, const void* eas,
+                  const void* ebs, void* out, void* scratch, int nbar, int S,
+                  int d, int n, int c0, int K, void* stream) {
   if (nbar <= 0) return 0;
   if (S < 4 || S % 4 != 0 || S > MAXS || d <= 0 || d % 128 != 0 || n <= 0 ||
       n % 128 != 0 || c0 < 0 || c0 % 4 != 0 || c0 + n > d || K < 1 ||
-      (K > 1 && n != d))
+      (!EPI && (K != 1 || c0 != 0)) || (K > 1 && n != d))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
-  cudaError_t err = allow_smem(smem);
+  cudaError_t err = allow_smem<EPI>(smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -494,13 +513,35 @@ extern "C" int gcl_eval_grid_launch(const void* x, const void* aux,
       (n % NC != 0 && !weight_map(&map128, wbigs, d, n, K, NC / 2)))
     return (int)cudaErrorInvalidValue;
   const int bpc = bars_per_cta(nbar, S, sms);
-  gcl_eval_grid_fp32_kernel
+  gcl_eval_grid_fp32_kernel<EPI>
       <<<(nbar + bpc - 1) / bpc, THREADS, smem, (cudaStream_t)stream>>>(
           (const float*)x, (const int*)aux, (const float*)gates,
           (const float*)biases, (const float*)eas, (const float*)ebs,
           (float*)out, (float*)scratch, nbar, S, bpc, d, n, c0, K, map256,
           map128);
   return (int)cudaGetLastError();
+}
+
+// K chained eval layers (folded batch-norm, relu, residual); at K = 1
+// output columns c0..c0+n-1 of the layer.
+extern "C" int gcl_eval_grid_launch(const void* x, const void* aux,
+                                    const void* gates, const void* wbigs,
+                                    const void* biases, const void* eas,
+                                    const void* ebs, void* out, void* scratch,
+                                    int nbar, int S, int d, int n, int c0,
+                                    int K, void* stream) {
+  return launch<true>(x, aux, gates, wbigs, biases, eas, ebs, out, scratch,
+                      nbar, S, d, n, c0, K, stream);
+}
+
+// One training-forward layer: out = v, wbig (8d, n), bias (n,), out (nbar,
+// 4 S, n).
+extern "C" int gcl_fwd_grid_launch(const void* x, const void* aux,
+                                   const void* gates, const void* wbig,
+                                   const void* bias, void* out, int nbar,
+                                   int S, int d, int n, void* stream) {
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out, out,
+                       nbar, S, d, n, 0, 1, stream);
 }
 
 // Dynamic shared memory a CTA takes.

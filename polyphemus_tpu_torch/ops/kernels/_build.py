@@ -45,6 +45,19 @@ SIGNATURES = {
     "gcl_eval_grid_bf16": ("gcl_eval_grid_bf16_tc",
                            "gcl_eval_grid_bf16_launch",
                            [VP] * 9 + [INT] * 6 + [VP]),
+    # the training kernels at bar grids of 4 x S cells other than S = 32
+    "gcl_fwd_grid": ("gcl_eval_grid_fp32", "gcl_fwd_grid_launch",
+                     [VP] * 6 + [INT] * 4 + [VP]),
+    "gcl_fwd_grid_bf16": ("gcl_eval_grid_bf16_tc", "gcl_fwd_grid_bf16_launch",
+                          [VP] * 6 + [INT] * 4 + [VP]),
+    "gcl_bwd_data_grid": ("gcl_bwd_data_grid", "gcl_bwd_data_grid_launch",
+                          [VP] * 8 + [INT] * 4 + [VP]),
+    "gcl_bwd_weight_grid": ("gcl_bwd_weight_grid",
+                            "gcl_bwd_weight_grid_launch",
+                            [VP] * 5 + [INT] * 4 + [VP]),
+    "gcl_bwd_fused_grid_bf16": ("gcl_bwd_fused_grid_bf16_tc",
+                                "gcl_bwd_fused_grid_bf16_launch",
+                                [VP] * 9 + [INT] * 5 + [VP]),
     "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
                      [VP] * 8 + [INT] * 3 + [VP]),
     "gcl_bwd_weight": ("gcl_bwd_weight", "gcl_bwd_weight_launch",

@@ -6,11 +6,11 @@ Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas.py`
 `csrc/gcl_eval_fp32.cu` in fp32 (fp32 FMAs on the CUDA cores) and
 `csrc/gcl_eval_bf16_tc.cu` in bf16 (on the tensor cores): `gcl_eval` their
 eval form, `gcl_fwd` the same kernel without the epilogue. Those take bars
-of 4 x 32 cells (resolution 8); `gcl_eval` sends bars of 4 x S cells at
+of 4 x 32 cells (resolution 8); both wrappers send bars of 4 x S cells at
 another S that is a multiple of 4 up to `MAX_STEPS` (resolutions 1-12) to
-`csrc/gcl_eval_grid_fp32.cu` and `csrc/gcl_eval_grid_bf16_tc.cu`, while
-`gcl_fwd`, as the training backward, takes 4 x 32 only. On a CPU tensor
-both wrappers run their plain PyTorch version:
+`csrc/gcl_eval_grid_fp32.cu` and `csrc/gcl_eval_grid_bf16_tc.cu` (their
+eval form, and their training forward without the epilogue). On a CPU
+tensor both wrappers run their plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S cells),
@@ -52,8 +52,8 @@ CNT_ON, CNT_NX, MASK_CH, SINGLE = 10, 11, 12, 13
 N_AUX = 14
 
 # the bar grids on the card: 4 tracks of S steps, S a multiple of 4 up to
-# MAX_STEPS (the eval kernels); BASE_STEPS = 32 (resolution 8) is the grid
-# of the first kernels, and the only one the training backward takes
+# MAX_STEPS; BASE_STEPS = 32 (resolution 8) is the grid of the first
+# kernels, every other one goes to the `*_grid*.cu` sources
 TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 
 # the wrappers count their launches in `counts.launches`; the column-form launches (n < d) among those of every GCL kernel, by the
@@ -247,27 +247,20 @@ def gcl_fwd_plain(x, aux, gate_table, wbig, bias):
                      wbig.to(dt), bias.to(dt))
 
 
-def check_grid(kernel: str, n: int, s: int, train: bool = False) -> None:
+def check_grid(kernel: str, n: int, s: int) -> None:
     """Raise unless bars of n cells are 4 x s with s a multiple of 4 up to
-    MAX_STEPS (the eval kernels' grids), or, for a training kernel
-    (`train`), 4 x 32."""
+    MAX_STEPS (resolutions 1-12), the grids of every GCL kernel on the card
+    but the fp32 fused backward's."""
     if n != TRACKS * s:
         raise ValueError(f"{kernel} kernel takes bars of {TRACKS} tracks, "
                          f"got {n} cells of {s} steps")
-    if train and s != BASE_STEPS:
-        raise ValueError(
-            f"{kernel} kernel takes 4x32-cell bars (resolution 8) only: the "
-            f"training kernels at other bar grids are still to be ported to "
-            f"the card (train at resolution {s // 4} on the CPU), got "
-            f"S={s}")
     if s < 4 or s % 4 or s > MAX_STEPS:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} (resolutions "
                          f"1-{MAX_STEPS // 4}), got S={s}")
 
 
-def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
-                    train: bool = False) -> None:
+def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None) -> None:
     """Raise unless x is (nbar, n, d) over bars of n = 4 s cells that
     `check_grid` takes (s: the gate table's rows, by default 32) with d %
     128 == 0, the output width n_out (default d) has n_out % 128 == 0 and
@@ -277,7 +270,7 @@ def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
     nbar, n, d = x.shape
     if d % 128 != 0:
         raise ValueError(f"{kernel} kernel takes d % 128 == 0, got d={d}")
-    check_grid(kernel, n, BASE_STEPS if s is None else s, train)
+    check_grid(kernel, n, BASE_STEPS if s is None else s)
     n_out = d if n_out is None else n_out
     if n_out <= 0 or n_out % 128 != 0 or d % n_out != 0:
         raise ValueError(f"{kernel} kernel takes an output width n with n % "
@@ -292,6 +285,19 @@ def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
         if not v.is_contiguous() or v.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be contiguous and "
                              f"16-byte aligned")
+
+
+def launch(kernel: str, s: int, ptrs: tuple, sizes: tuple, device) -> None:
+    """Launch `kernel` on `ptrs` (its pointers and nbar) and the `sizes`
+    after them, on the current stream of `device`: its 4 x 32-cell form, or
+    at another S its grid form (`<kernel>_grid`, `<kernel>_grid_bf16` for a
+    bf16 kernel), which takes the steps s of a bar before the sizes."""
+    stream = _build.stream_handle(device)
+    if s != BASE_STEPS:
+        base = kernel.removesuffix("_bf16")
+        kernel = base + "_grid" + kernel[len(base):]
+        sizes = (s, *sizes)
+    _build.check(kernel, _build.launcher(kernel)(*ptrs, *sizes, stream))
 
 
 def on_card(kernel: str, x) -> bool:
@@ -336,17 +342,10 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     scratch = torch.empty_like(x) if k > 1 else out
     name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
-    ptrs = (x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-            wbigs.data_ptr(), biases.data_ptr(), eas.data_ptr(),
-            ebs.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbar)
-    stream = _build.stream_handle(x.device)
-    if s != BASE_STEPS:
-        kernel = "gcl_eval_grid" + name[len("gcl_eval"):]
-        _build.check(kernel, _build.launcher(kernel)(
-            *ptrs, s, d, w, col0, k, stream))
-    else:
-        _build.check(name, _build.launcher(name)(*ptrs, d, w, col0, k,
-                                                 stream))
+    launch(name, s, (x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
+                     wbigs.data_ptr(), biases.data_ptr(), eas.data_ptr(),
+                     ebs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     nbar), (d, w, col0, k), x.device)
     counts.count(name, s, k)
     count_cols(name, w, d)
     return out
@@ -358,8 +357,9 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
     x (nbar, n, d) f32 or bf16; aux (nbar, N_AUX, n) int32 from
     `build_kernel_aux`; gate_table (S, d), wbig (8d, w) from `pack_weights`
     and bias (w,) in x's dtype, w = d or a column shard's width. Returns
-    (gcl(x) + bias) * m, (nbar, n, w) in x's dtype. On the card it takes
-    bars of 4 x 32 cells only, as the training backward does.
+    (gcl(x) + bias) * m, (nbar, n, w) in x's dtype. On the card bars of 4
+    x 32 cells go to the eval kernels' training forward, the other grids to
+    the grid kernels'.
     """
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)
@@ -373,14 +373,12 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
         "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (s, d), dt),
         "wbig": (wbig, (8 * d, w), dt), "bias": (bias, (w,), dt)}, n_out=w,
-        s=s, train=True)
+        s=s)
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     name = "gcl_fwd" if dt == torch.float32 else "gcl_fwd_bf16"
-    err = _build.launcher(name)(
-        x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(), wbig.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), nbar, d, w,
-        _build.stream_handle(x.device))
-    _build.check(name, err)
-    counts.count(name)
+    launch(name, s, (x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
+                     wbig.data_ptr(), bias.data_ptr(), out.data_ptr(), nbar),
+           (d, w), x.device)
+    counts.count(name, s)
     count_cols(name, w, d)
     return out

@@ -3,13 +3,17 @@
 Counterpart of `polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py`
 (`gcl_backward_pallas`: kernel A `_bwd_data_kernel`, kernel B
 `_bwd_weight_kernel`; `gcl_backward_fused`: `_bwd_fused_kernel`) and of the
-custom VJP `gcl_fused` of `gcl_pallas.py`. On a CUDA tensor `gcl_bwd_data`
-launches `csrc/gcl_bwd_data.cu`, `gcl_bwd_weight` `csrc/gcl_bwd_weight.cu`
-and `gcl_bwd_fused` `csrc/gcl_bwd_fused.cu` in fp32 and
-`csrc/gcl_bwd_fused_bf16_tc.cu` (two kernels on the tensor cores: dx,
-dgate and dbias over the dH product, and dWbig) in bf16; on a CPU tensor
-each runs its plain PyTorch version, which follows the equations of the
-forward (`gcl.gcl_fwd`):
+custom VJP `gcl_fused` of `gcl_pallas.py`. On a CUDA tensor over bars of 4
+x 32 cells (resolution 8) `gcl_bwd_data` launches `csrc/gcl_bwd_data.cu`,
+`gcl_bwd_weight` `csrc/gcl_bwd_weight.cu` and `gcl_bwd_fused`
+`csrc/gcl_bwd_fused.cu` in fp32 and `csrc/gcl_bwd_fused_bf16_tc.cu` (two
+kernels on the tensor cores: dx, dgate and dbias over the dH product, and
+dWbig) in bf16. Bars of 4 x S cells at another S up to 48 (resolutions
+1-12) go to `csrc/gcl_bwd_data_grid.cu`, `csrc/gcl_bwd_weight_grid.cu` and
+`csrc/gcl_bwd_fused_grid_bf16_tc.cu`; the fp32 fused backward, on no
+training path, takes 4 x 32 only. On a CPU tensor each wrapper runs its
+plain PyTorch version, which follows the equations of the forward
+(`gcl.gcl_fwd`):
 
     msg_p = relu(x[src_p] * G[dist_p]),  msg_n = relu(x[src_n] * G[dist_n])
     h_track = (msg_p + msg_n) * r_tr * m
@@ -22,8 +26,8 @@ forward (`gcl.gcl_fwd`):
 
 with the track block of Wbig chosen by each row's own track. The training
 layer takes the data and weight pair in fp32 and the fused single pass in
-bf16. On the card the backward kernels take bars of 4 x 32 cells only
-(resolution 8); `GclFused` refuses other grids there before its forward.
+bf16; `GclFused` refuses a grid the kernels do not take before its
+forward.
 
 Column form (tensor parallelism, `parallel.mesh`): Wbig may hold n of the
 d output columns, (8d, n) with n % 128 == 0 dividing d, and g those n
@@ -36,10 +40,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, counts
-from .gcl import (N_AUX, bar_statics, check_cuda_args, check_grid, col_sum,
-                  count_cols, gcl_fwd, messages, on_card, pack_weights, rows,
-                  wide)
+from . import counts
+from .gcl import (BASE_STEPS, N_AUX, bar_statics, check_cuda_args,
+                  check_grid, col_sum, count_cols, gcl_fwd, launch, messages,
+                  on_card, pack_weights, rows, wide)
 
 
 
@@ -104,26 +108,25 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
     if not on_card("gcl_bwd_data", x):
         return gcl_bwd_data_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
+    s = gate_table.shape[0]
     w = wbig.shape[-1]
     f32 = torch.float32
     check_cuda_args("gcl_bwd_data", x, {
         "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), f32),
-        "wbig": (wbig, (8 * d, w), f32)}, n_out=w,
-        s=gate_table.shape[0], train=True)
+        "gate_table": (gate_table, (s, d), f32),
+        "wbig": (wbig, (8 * d, w), f32)}, n_out=w, s=s)
     dx = torch.empty_like(x)
-    part = torch.empty((max(nbar, 1), 32 * d + w), dtype=f32,
+    part = torch.empty((max(nbar, 1), s * d + w), dtype=f32,
                        device=x.device)
-    out = torch.empty(32 * d + w, dtype=f32, device=x.device)
-    err = _build.launcher("gcl_bwd_data")(
-        x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-        wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-        nbar, d, w, _build.stream_handle(x.device))
-    _build.check("gcl_bwd_data", err)
-    counts.count("gcl_bwd_data")
+    out = torch.empty(s * d + w, dtype=f32, device=x.device)
+    ptrs = (x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
+            wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
+            nbar)
+    launch("gcl_bwd_data", s, ptrs, (d, w), x.device)
+    counts.count("gcl_bwd_data", s)
     count_cols("gcl_bwd_data", w, d)
-    return dx, out[:32 * d].view(32, d), out[32 * d:]
+    return dx, out[:s * d].view(s, d), out[s * d:]
 
 
 def gcl_bwd_weight(x, g, aux, gate_table):
@@ -133,19 +136,18 @@ def gcl_bwd_weight(x, g, aux, gate_table):
     if not on_card("gcl_bwd_weight", x):
         return gcl_bwd_weight_plain(x, g, aux, gate_table)
     nbar, n, d = x.shape
+    s = gate_table.shape[0]
     w = g.shape[-1]
     f32 = torch.float32
     check_cuda_args("gcl_bwd_weight", x, {
         "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), f32)}, n_out=w,
-        s=gate_table.shape[0], train=True)
+        "gate_table": (gate_table, (s, d), f32)}, n_out=w, s=s)
     dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
-    err = _build.launcher("gcl_bwd_weight")(
+    launch("gcl_bwd_weight", s, (
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-        dwbig.data_ptr(), nbar, d, w, _build.stream_handle(x.device))
-    _build.check("gcl_bwd_weight", err)
-    counts.count("gcl_bwd_weight")
+        dwbig.data_ptr(), nbar), (d, w), x.device)
+    counts.count("gcl_bwd_weight", s)
     count_cols("gcl_bwd_weight", w, d)
     return dwbig
 
@@ -248,6 +250,23 @@ def fused_chunks(nbar: int, d: int, sms: int) -> int:
     return max(1, min(nbar, sms // (d // 32)))
 
 
+def check_fused_form(dt, s: int, w: int, d: int) -> None:
+    """Raise unless the fused backward's kernels take dtype dt at bars of 4
+    x s cells and output width w of d: bf16 at every grid `gcl.check_grid`
+    takes, fp32 (`csrc/gcl_bwd_fused.cu`, on no training path) at 4 x 32
+    cells and w = d only."""
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gcl_bwd_fused takes float32 or bfloat16, got {dt}")
+    if dt == torch.float32 and w != d:
+        raise ValueError(f"the fp32 fused backward takes the square weights "
+                         f"only (n = d = {d}), got n = {w}")
+    if dt == torch.float32 and s != BASE_STEPS:
+        raise ValueError(
+            f"the fp32 fused backward (csrc/gcl_bwd_fused.cu, on no training "
+            f"path) takes 4x32-cell bars (resolution 8) only, got S={s}: "
+            f"fp32 training runs gcl_bwd_data and gcl_bwd_weight")
+
+
 def gcl_bwd_fused(x, g, aux, gate_table, wbig):
     """The whole GCL backward in one pass for upstream g (nbar, n, w), w =
     d or (bf16 only on a card) a column shard's width (wbig (8d, w)).
@@ -259,46 +278,41 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
     if not on_card("gcl_bwd_fused", x):
         return gcl_bwd_fused_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
+    s = gate_table.shape[0]
     w = wbig.shape[-1]
     dt = x.dtype
     f32 = torch.float32
-    if dt not in (f32, torch.bfloat16):
-        raise ValueError(f"gcl_bwd_fused takes float32 or bfloat16, got {dt}")
-    if dt == f32 and w != d:
-        raise ValueError(f"the fp32 fused backward takes the square weights "
-                         f"only (n = d = {d}), got n = {w}")
+    check_fused_form(dt, s, w, d)
     check_cuda_args("gcl_bwd_fused", x, {
         "x": (x, (nbar, n, d), dt), "g": (g, (nbar, n, w), dt),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (32, d), dt),
-        "wbig": (wbig, (8 * d, w), dt)}, n_out=w,
-        s=gate_table.shape[0], train=True)
+        "gate_table": (gate_table, (s, d), dt),
+        "wbig": (wbig, (8 * d, w), dt)}, n_out=w, s=s)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = fused_chunks(nbar, d, sms)
     dx = torch.empty_like(x)
-    part_gb = torch.empty((chunks, 32 * d + w), dtype=f32, device=x.device)
+    part_gb = torch.empty((chunks, s * d + w), dtype=f32, device=x.device)
     dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
-    out = torch.empty(32 * d + w, dtype=f32, device=x.device)
+    out = torch.empty(s * d + w, dtype=f32, device=x.device)
     if dt == f32:
         # the fp32 form sums dWbig over per-chunk partials
         name = "gcl_bwd_fused"
         part_w = torch.empty((chunks, 8 * d, d), dtype=f32, device=x.device)
         scratch = (part_w.data_ptr(), part_gb.data_ptr())
-        sizes = (nbar, d, chunks)
+        sizes = (d, chunks)
     else:
         # the bf16 form's dW kernel keeps its sums on chip
         name = "gcl_bwd_fused_bf16"
         scratch = (part_gb.data_ptr(),)
-        sizes = (nbar, d, w, chunks)
-    err = _build.launcher(name)(
-        x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-        wbig.data_ptr(), dx.data_ptr(), *scratch, dwbig.data_ptr(),
-        out.data_ptr(), *sizes, _build.stream_handle(x.device))
-    _build.check(name, err)
-    counts.count("gcl_bwd_fused")
+        sizes = (d, w, chunks)
+    launch(name, s, (x.data_ptr(), g.data_ptr(), aux.data_ptr(),
+                     gate_table.data_ptr(), wbig.data_ptr(), dx.data_ptr(),
+                     *scratch, dwbig.data_ptr(), out.data_ptr(), nbar), sizes,
+           x.device)
+    counts.count("gcl_bwd_fused", s)
     if dt != f32:
         count_cols(name, w, d)
-    return dx, out[:32 * d].view(32, d), out[32 * d:], dwbig
+    return dx, out[:s * d].view(s, d), out[s * d:], dwbig
 
 
 class GclFused(torch.autograd.Function):
@@ -312,8 +326,7 @@ class GclFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gate_table, rel_weight, root, bias, aux, mask):
         if on_card("gcl_fused", x):  # refused before the forward runs
-            check_grid("gcl_fused", x.shape[1], gate_table.shape[0],
-                       train=True)
+            check_grid("gcl_fused", x.shape[1], gate_table.shape[0])
         n_tracks = mask.shape[-2]
         wbig = pack_weights(rel_weight, root, n_tracks).contiguous()
         ctx.save_for_backward(x, gate_table, wbig, aux, mask)

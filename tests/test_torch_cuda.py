@@ -255,8 +255,9 @@ def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
 
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     """Past resolution 12 (S = 52) and with 3 tracks the eval kernels
-    raise; training at another resolution than 8 raises on the card before
-    any kernel runs, naming the limit."""
+    raise, and so do the training kernels and `gcl_fused` before any kernel
+    runs, naming the limit; the fp32 fused backward (on no training path)
+    refuses every grid but 4 x 32 cells."""
     for s in (52, 16):
         t = 4 if s == 52 else 3
         mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
@@ -267,19 +268,166 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     mask, args = chip_smoke.chord_inputs(2, 128, cuda, 0, 52)
     with pytest.raises(ValueError, match="up to 48"):
         chord_tail.chord_tail_tokens(*args, n_slots=15)
-    mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, 16)
+    mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, 52)
     x, aux, gates, w, b = args[:5]
     rel = torch.zeros(6, 128, 128, device=cuda)
     before = dict(counts.launches)
-    with pytest.raises(ValueError, match="resolution 8"):
+    with pytest.raises(ValueError, match="up to 48"):
         gcl_bwd.gcl_fused(x.requires_grad_(), gates, rel, rel[0], b[0], aux,
                           mask)
-    with pytest.raises(ValueError, match="resolution 8"):
+    with pytest.raises(ValueError, match="up to 48"):
         gcl.gcl_fwd(x.detach(), aux, gates, w[0].contiguous(),
                     b[0].contiguous())
-    with pytest.raises(ValueError, match="resolution 8"):
+    with pytest.raises(ValueError, match="up to 48"):
         gcl_bwd.gcl_bwd_data(x.detach(), x.detach(), aux, gates, w[0])
+    with pytest.raises(ValueError, match="up to 48"):
+        gcl_bwd.gcl_bwd_weight(x.detach(), x.detach(), aux, gates)
+    _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        2, 128, cuda, 0, 16)
+    with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
+        gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
     assert counts.launches == before
+
+
+# the training kernels at bar grids of 4 x S cells (S = 12: tracks of 12
+# rows, 16-row padded tracks in bf16; 16; 48: 16-column tiles of the fp32
+# data backward, two passes of the bf16 dH product); one bar, a few, 40,
+# and past a wave (fp32 133, bf16 265); d = 384 takes a 256-column pass and
+# a 128-column one in the forward, d = 1024 64 column tiles of the fp32
+# data backward at S = 48
+GRID_TRAIN_STEPS = (12, 16, 48)
+GRID_TRAIN_CASES = [(1, 128), (3, 384), (40, 512), (133, 512), (5, 1024)]
+
+
+@pytest.mark.parametrize("nbar,d", GRID_TRAIN_CASES)
+@pytest.mark.parametrize("s", GRID_TRAIN_STEPS)
+def test_grid_training_kernels_match_plain(cuda, s, nbar, d):
+    """`gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` (phase 2b's rules),
+    the bf16 `gcl_fwd` and `gcl_bwd_fused` (phase 2c's) against their plain
+    versions over bars of 4 x s cells; no comparison launch counts."""
+    before = dict(counts.launches)
+    chip_smoke.check_gcl_train(nbar, d, cuda, timing=False, s=s)
+    chip_smoke.check_gcl_train_bf16(2 * nbar, d, cuda, timing=False, s=s)
+    assert counts.launches == before
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_grid_training_column_forms_match_plain(cuda, bf16):
+    """The column forms at n = d / 2 over bars of 4 x 16 cells: every shard
+    against its plain version, the partial dx and dgate summed over the
+    shards against the square plain version; the forward and weight shards
+    bit for bit the square launch's columns."""
+    res = chip_smoke.check_gcl_columns(64, 512, 256, cuda, bf16=bf16,
+                                       timing=False, s=16)
+    for name, r in res["kernels"].items():
+        assert r.get("equal_to_square", True), name
+
+
+def test_grid_training_kernels_launch_their_grid_forms(cuda):
+    """One launch of each training wrapper over bars of 4 x 16 cells counts
+    one launch of that kernel at S = 16, and no other."""
+    _, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        3, 256, cuda, 1, 16)
+    b16 = [v.bfloat16() for v in (x, up, gates, wbig, bias)]
+    before = dict(counts.launches)
+    gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    gcl.gcl_fwd(b16[0], aux, b16[2], b16[3], b16[4])
+    gcl_bwd.gcl_bwd_fused(b16[0], b16[1], aux, b16[2], b16[3])
+    torch.cuda.synchronize()
+    assert counts.since(before) == {
+        (k, 16, 1): 1 for k in ("gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight",
+                                "gcl_fwd_bf16", "gcl_bwd_fused")}
+
+
+def test_grid_data_backward_and_fused_dw_repeat_bitwise(cuda):
+    """At S = 48 the fp32 data backward gives dx, dgate and dbias bit for
+    bit in two launches (gathers, fixed orders), and the bf16 fused
+    backward dW and dbias."""
+    _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        128, 512, cuda, 3, 48)
+    first = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    second = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    args = [v.bfloat16() for v in (x, up)] + [aux] + [
+        v.bfloat16() for v in (gates, wbig)]
+    fused = [gcl_bwd.gcl_bwd_fused(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(fused[0][2], fused[1][2])
+    assert torch.equal(fused[0][3], fused[1][3])
+
+
+def test_grid_training_kernels_give_zeros_for_a_bar_without_active_cells(
+        cuda):
+    """At S = 12, bar 1 of 3 has no active cell while its x and upstream g
+    are not 0: the forward and dx are exactly 0 there in both dtypes; the
+    fp32 dWbig equals that of the other two bars bit for bit and dgate,
+    dbias theirs within phase 2b's tolerances; the bf16 dW and dbias equal
+    theirs bit for bit; every output agrees with the plain version."""
+    mask, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        3, 384, cuda, 5, 12)
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 48).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(48, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda)
+    assert (x[1] != 0).any() and (up[1] != 0).any()
+    keep = torch.tensor([0, 2], device=cuda)
+
+    def kept(*vs):
+        return [v[keep].contiguous() for v in vs]
+
+    for dt in (torch.float32, torch.bfloat16):
+        xx, gg, uu, ww, bb = (v.to(dt) for v in (x, gates, up, wbig, bias))
+        out = gcl.gcl_fwd(xx, aux, gg, ww, bb)
+        assert (out[1] == 0).all()
+        held = (chip_smoke.held_rel if dt == torch.bfloat16 else
+                lambda n, a, b: chip_smoke.held_to(n, a, b, summed=False))
+        held("gcl_fwd", out, gcl.gcl_fwd_plain(xx, aux, gg, ww, bb))
+    got = check_data_backward(x, up, aux, gates, wbig)
+    ref = gcl_bwd.gcl_bwd_data(*kept(x, up, aux), gates, wbig)
+    dw = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    dw_ref = gcl_bwd.gcl_bwd_weight(*kept(x, up, aux), gates)
+    torch.cuda.synchronize()
+    assert (got[0][1] == 0).all()
+    chip_smoke.held_to("gcl_bwd_data dgate", got[1], ref[1], summed=True)
+    chip_smoke.held_to("gcl_bwd_data dbias", got[2], ref[2], summed=True)
+    assert torch.equal(dw, dw_ref)
+    chip_smoke.held_to("gcl_bwd_weight", dw,
+                       gcl_bwd.gcl_bwd_weight_plain(x, up, aux, gates),
+                       summed=True)
+    xb, ub, gb, wb = (v.bfloat16() for v in (x, up, gates, wbig))
+    f = gcl_bwd.gcl_bwd_fused(xb, ub, aux, gb, wb)
+    f_ref = gcl_bwd.gcl_bwd_fused(*kept(xb, ub, aux), gb, wb)
+    torch.cuda.synchronize()
+    assert (f[0][1] == 0).all()
+    assert torch.equal(f[2], f_ref[2]) and torch.equal(f[3], f_ref[3])
+    plain = gcl_bwd.gcl_bwd_fused_plain(xb, ub, aux, gb, wb)
+    for name, a, b in zip(("dx", "dgate", "dbias", "dwbig"), f, plain):
+        chip_smoke.held_rel(f"gcl_bwd_fused bf16 {name}", a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_grid_train_step_on_the_card_matches_the_cpu(cuda, bf16):
+    """A d = 128, 2-layer model at resolution 3 (S = 12: tracks padded to
+    16 rows in the bf16 kernels) on the card against the CPU by phase 5's
+    and 6's rules, through the grid training kernels only."""
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=3,
+                     batch_norm=True)
+    before = dict(counts.launches)
+    chip_smoke.compare_train_step(mc, chip_smoke.BF16_CMP_BATCH if bf16
+                                  else 8, cuda, seed=3, bf16=bf16)
+    got = counts.since(before)
+    # one microbatch through 2 GNN stacks of 2 layers; the eval step before
+    # it runs the eval GCL, one layer a launch
+    want = ({("gcl_fwd_bf16", 12, 1): 4, ("gcl_bwd_fused", 12, 1): 4,
+             ("gcl_eval_bf16", 12, 1): 4} if bf16 else
+            {("gcl_fwd", 12, 1): 4, ("gcl_bwd_data", 12, 1): 4,
+             ("gcl_bwd_weight", 12, 1): 4, ("gcl_eval", 12, 1): 4})
+    assert got == want
 
 
 # one bar, a few, 40, and one past a whole wave (fp32: one CTA on each of
@@ -333,11 +481,12 @@ def test_weight_backward_leaves_dw_as_without_a_bar_without_active_cells(
 def check_data_backward(x, up, aux, gates, wbig):
     """`gcl_bwd_data` against its plain version at the tolerances of
     chip_smoke's phase 2b; returns the kernel's (dx, dgate, dbias)."""
-    before = counts.total("gcl_bwd_data")
+    s = gates.shape[0]  # the launch is counted at its bar grid
+    before = counts.total("gcl_bwd_data", s)
     got = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
     want = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)
     torch.cuda.synchronize()
-    assert counts.total("gcl_bwd_data") == before + 1
+    assert counts.total("gcl_bwd_data", s) == before + 1
     for name, a, b, summed in zip(("dx", "dgate", "dbias"), got, want,
                                   (False, True, True)):
         chip_smoke.held_to(f"gcl_bwd_data {name}", a, b, summed=summed)

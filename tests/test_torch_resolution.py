@@ -17,9 +17,10 @@ converters fix 8 steps a quarter), latents from numpy at a seed.
     12 only: JAX's bf16 Pallas decode takes ~12 s to trace and compile on
     the CPU at each resolution;
   * the wrappers' geometry checks on CPU tensors: S = 4r for r = 1..12
-    passes `gcl.check_cuda_args` and `chord_tail._check_cuda_args`; r = 13
-    and T != 4 raise; the training kernels (`gcl_fwd` and the backward)
-    refuse every S but 32.
+    passes `gcl.check_cuda_args` and `chord_tail._check_cuda_args`, for the
+    training kernels (`gcl_fwd`, the backward, `gcl_fused`) too; r = 13,
+    S % 4 != 0 and T != 4 raise; the fp32 fused backward, on no training
+    path, refuses every S but 32.
 """
 import dataclasses
 import functools
@@ -38,7 +39,7 @@ from polyphemus_tpu.models import VAE
 from polyphemus_tpu_torch.convert import from_jax_variables
 from polyphemus_tpu_torch.generate import make_generator
 from polyphemus_tpu_torch.models import VAE as PVAE
-from polyphemus_tpu_torch.ops.kernels import chord_tail, counts, gcl
+from polyphemus_tpu_torch.ops.kernels import chord_tail, counts, gcl, gcl_bwd
 
 from .test_torch_bf16_generate import (LOGIT_TIE_BF16, MAX_FLIP_SHARE,
                                        MAX_TIE_SHARE, S_TIE_BF16, port_gaps)
@@ -181,11 +182,7 @@ def test_the_eval_kernels_take_every_resolution_up_to_12(resolution):
     x, want = gcl_args(4, s)
     gcl.check_cuda_args("gcl_eval", x, want, n_out=128, s=s)
     chord_tail._check_cuda_args(*chord_args(4, s))
-    if s != 32:  # the training kernels: 4 x 32 cells only
-        with pytest.raises(ValueError, match="resolution 8"):
-            gcl.check_cuda_args("gcl_fwd", x, want, s=s, train=True)
-    else:
-        gcl.check_cuda_args("gcl_fwd", x, want, s=s, train=True)
+    gcl.check_cuda_args("gcl_fwd", x, want, s=s)  # the training forward too
 
 
 @pytest.mark.parametrize("t, s", [(4, 52), (4, 64), (4, 2), (4, 30),
@@ -198,12 +195,43 @@ def test_the_kernels_refuse_other_grids(t, s):
         chord_tail._check_cuda_args(*chord_args(t, s))
 
 
-@pytest.mark.parametrize("kernel", ["gcl_fwd", "gcl_bwd_data",
-                                    "gcl_bwd_weight", "gcl_bwd_fused",
-                                    "gcl_fused"])
-@pytest.mark.parametrize("resolution", [3, 4, 12])
-def test_training_kernels_refuse_other_grids(kernel, resolution):
+TRAINING_KERNELS = ["gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight",
+                    "gcl_bwd_fused", "gcl_fused"]
+
+
+@pytest.mark.parametrize("kernel", TRAINING_KERNELS)
+@pytest.mark.parametrize("resolution", range(1, 13))
+def test_training_kernels_take_every_resolution_up_to_12(kernel,
+                                                         resolution):
+    """The grids every training kernel takes on the card (the wrappers'
+    `check_grid`, and the bf16 fused backward's form check), with the
+    backward's gate table of S rows and a column shard of the output."""
     s = 4 * resolution
-    with pytest.raises(ValueError, match=f"{kernel} kernel takes 4x32-cell "
-                                         f"bars \\(resolution 8\\) only"):
-        gcl.check_grid(kernel, 4 * s, s, train=True)
+    gcl.check_grid(kernel, 4 * s, s)
+    x, want = gcl_args(4, s, d=256)
+    want["g"] = (torch.zeros(2, 4 * s, 128), (2, 4 * s, 128), torch.float32)
+    gcl.check_cuda_args(kernel, x, want, n_out=128, s=s)
+    gcl_bwd.check_fused_form(torch.bfloat16, s, 128, 256)
+
+
+@pytest.mark.parametrize("kernel", TRAINING_KERNELS)
+@pytest.mark.parametrize("t, s", [(4, 52), (4, 64), (4, 2), (4, 30),
+                                  (3, 16)])
+def test_training_kernels_refuse_other_grids(kernel, t, s):
+    with pytest.raises(ValueError, match=f"{kernel} kernel takes bars of "
+                                         f"(4 tracks|4 x S cells with S a "
+                                         f"multiple of 4 up to 48)"):
+        gcl.check_grid(kernel, t * s, s)
+
+
+@pytest.mark.parametrize("resolution", [r for r in range(1, 13) if r != 8])
+def test_fp32_fused_backward_refuses_other_grids(resolution):
+    """`csrc/gcl_bwd_fused.cu` (on no training path) stays at 4 x 32 cells:
+    its form check refuses every other resolution with a message that names
+    it, and takes resolution 8 and the bf16 form at every grid."""
+    s = 4 * resolution
+    with pytest.raises(ValueError, match="fp32 fused backward .*gcl_bwd_fused"
+                                         "\\.cu.*\\(resolution 8\\)"):
+        gcl_bwd.check_fused_form(torch.float32, s, 256, 256)
+    gcl_bwd.check_fused_form(torch.float32, 32, 256, 256)
+    gcl_bwd.check_fused_form(torch.bfloat16, s, 256, 256)

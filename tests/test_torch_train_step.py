@@ -28,6 +28,7 @@ import torch
 from polyphemus_tpu.config import (BetaSchedulerConfig, LRSchedulerConfig,
                                    TrainConfig)
 from polyphemus_tpu.data.dataset import synthetic_batch
+from polyphemus_tpu.models import VAE
 from polyphemus_tpu.parallel import mesh as jmesh
 from polyphemus_tpu.train import losses as jlosses
 from polyphemus_tpu.train import metrics as jmetrics
@@ -36,7 +37,8 @@ from polyphemus_tpu.train.trainer import (TrainState, _forward_loss,
                                           make_optimizer, make_train_step)
 from polyphemus_tpu_torch import config as pconfig
 from polyphemus_tpu_torch import constants
-from polyphemus_tpu_torch.convert import to_jax_variables
+from polyphemus_tpu_torch.convert import from_jax_variables, to_jax_variables
+from polyphemus_tpu_torch.models import VAE as PVAE
 from polyphemus_tpu_torch.train import losses, metrics, schedules
 from polyphemus_tpu_torch.train import trainer as ptrainer
 
@@ -75,6 +77,15 @@ def jax_eps(jmodel, params, rngs, d):
         {"params": params}, method=draw, rngs={"sample": r})) for r in rngs])
 
 
+def grad_fn_key(cfg, mb):
+    """The cache key of `jax_reference_step`'s jitted grad function: what
+    its trace reads, the model config (its grid and widths among them) and
+    the settings of `_forward_loss` that the cases set, and the microbatch;
+    not the batch size or the accumulation, so the cases at accumulate 1 and
+    2 share one compile."""
+    return cfg.model, cfg.bf16, cfg.fused_ce, cfg.ref_parity, mb
+
+
 def jax_reference_step(jmodel, cfg, variables, toks, mask, rng, mb=MB,
                        mesh=None):
     """(losses, accs, grads, new params, new batch stats), each flat numpy,
@@ -82,9 +93,9 @@ def jax_reference_step(jmodel, cfg, variables, toks, mask, rng, mb=MB,
     (data, model) mesh of `polyphemus_tpu.parallel.mesh`) with the params
     and batch statistics laid out by its `param_sharding` and each
     microbatch by its `batch_sharding`, as the JAX trainer shards them. The
-    jitted grad function is cached by everything its trace reads that the
-    cases vary: the GCL form, bf16, n_bars and the microbatch."""
-    key = (cfg.model.use_pallas_gcl, cfg.bf16, cfg.model.n_bars, mb)
+    jitted grad function closes over jmodel and cfg, so it is cached by
+    `grad_fn_key`."""
+    key = grad_fn_key(cfg, mb)
     if key not in _GRAD_FNS:
         _GRAD_FNS[key] = jax.jit(jax.value_and_grad(
             lambda p, bs, t, m, r: _forward_loss(jmodel, cfg, p, bs, t, m,
@@ -142,14 +153,35 @@ def near_tie_slack(model, pcfg, toks, mask, eps):
     return float(np.mean(content)), float(np.mean(structure))
 
 
-def run_case(accum, use_pallas=False, seed=0, n_bars=2):
+def jax_init(mcfg, seed):
+    """(numpy JAX variables, JAX VAE, port VAE on the CPU in eval mode) from
+    JAX's jitted `model.init` (an RBG key), as tests/test_torch_resolution.py
+    makes them: weights at any grid, where `build`'s reference-layout
+    converters take 8 steps a quarter only."""
+    jmodel = VAE(mcfg)
+    toks, mask = synthetic_batch(np.random.default_rng(seed), 1, mcfg.n_bars,
+                                 n_timesteps=mcfg.n_timesteps)
+    key = jax.random.key(seed, impl="rbg")
+    variables = jax.jit(lambda t, m: jmodel.init(
+        {"params": key, "sample": jax.random.fold_in(key, 1)}, t, m,
+        deterministic=True))(jnp.asarray(toks), jnp.asarray(mask))
+    variables = jax.tree_util.tree_map(np.asarray, dict(variables))
+    model = PVAE(port_cfg(mcfg))
+    model.load_state_dict(from_jax_variables(variables))
+    return variables, jmodel, model.eval()
+
+
+def run_case(accum, use_pallas=False, seed=0, n_bars=2, resolution=8):
     mcfg = dataclasses.replace(small_cfg(n_layers=2, n_bars=n_bars),
-                               use_pallas_gcl=use_pallas)
+                               use_pallas_gcl=use_pallas,
+                               resolution=resolution)
     cfg = TrainConfig(batch_size=MB * accum, model=mcfg,
                       iters_to_accumulate=accum)
-    variables, jmodel, model = build(mcfg, seed=seed)
+    variables, jmodel, model = (build(mcfg, seed=seed) if resolution == 8
+                                else jax_init(mcfg, seed))
     toks, mask = synthetic_batch(np.random.default_rng(seed + 1),
-                                 MB * accum, mcfg.n_bars)
+                                 MB * accum, mcfg.n_bars,
+                                 n_timesteps=mcfg.n_timesteps)
     rng = jax.random.key(seed + 7)
     eps = jax_eps(jmodel, jax_tree(variables["params"]),
                   microbatch_rngs(rng, accum), mcfg.d)
@@ -189,6 +221,21 @@ def check_against_jax(want, got_losses, got_accs, model, slack):
         for k in ref:
             np.testing.assert_allclose(got[k], ref[k], **GRAD_TOL,
                                        err_msg=f"{name}/{k}")
+
+
+def test_reference_step_grad_fns_are_cached_by_model():
+    """Two configs that differ in resolution or in a width the trace closes
+    over get grad functions of their own: the cache never hands one model's
+    step to another (it once keyed on the GCL form, bf16, n_bars and the
+    microbatch only)."""
+    base = TrainConfig(batch_size=MB, model=small_cfg(n_layers=2))
+    keys = {grad_fn_key(dataclasses.replace(
+        base, model=dataclasses.replace(base.model, **change)), MB)
+        for change in ({}, {"resolution": 4}, {"resolution": 12}, {"d": 64},
+                       {"gnn_n_layers": 3})}
+    assert len(keys) == 5
+    assert grad_fn_key(base, MB) == grad_fn_key(
+        TrainConfig(batch_size=MB, model=small_cfg(n_layers=2)), MB)
 
 
 @pytest.mark.parametrize("accum", [1, 2])
