@@ -216,6 +216,55 @@ __device__ __forceinline__ void load_grid_statics(GridStatics<C>& st,
   }
 }
 
+// The statics of one tile of the long-bar eval kernels
+// (`gcl_eval_long_*.cu`): the T x CW cells of columns c0 .. c0 + CW - 1 of
+// one bar of n = T s cells, row r = t CW + cc for cell (t, c0 + cc); src[0
+// .. 3] are the bar's cells that row r reads (itself, the previous and the
+// next active cell of its track, its track's cell in the previous active
+// column), dp, dn, dpn their gate distances. A row past the bar's last
+// column (c0 + cc >= s) has every value 0.
+template <int CW>
+struct TileStatics {
+  float okp[T * CW], okn[T * CW], rtr[T * CW], m[T * CW], single[T * CW],
+      ron[T * CW], rnx[T * CW], okpn[T * CW];
+  int src[4][T * CW], dp[T * CW], dn[T * CW], dpn[T * CW];
+};
+
+// Decode the tile's statics from one bar's aux block a (N_AUX x n int32),
+// as cell_statics_grid decodes a cell, with the reciprocals rounded to E (a
+// no-op for fp32); every thread of the CTA takes part, the caller
+// synchronises.
+template <typename E, int CW>
+__device__ __forceinline__ void load_tile_statics(TileStatics<CW>& st,
+                                                  const int* a, int s,
+                                                  int c0, int tid,
+                                                  int nthreads) {
+  for (int r = tid; r < T * CW; r += nthreads) {
+    const int t = r / CW, c = c0 + r % CW;
+    CellStatics cs{};
+    int self = 0;
+    if (c < s) {
+      self = t * s + c;
+      cs = cell_statics_grid(a, self, T * s, s);
+    }
+    st.okp[r] = cs.okp;
+    st.okn[r] = cs.okn;
+    st.rtr[r] = Elem<E>::rnd(cs.rtr);
+    st.m[r] = cs.m;
+    st.single[r] = cs.single;
+    st.ron[r] = Elem<E>::rnd(cs.ron);
+    st.rnx[r] = Elem<E>::rnd(cs.rnx);
+    st.okpn[r] = cs.okpn;
+    st.src[0][r] = self;
+    st.src[1][r] = cs.ps;
+    st.src[2][r] = cs.ns;
+    st.src[3][r] = cs.pn;
+    st.dp[r] = cs.dp;
+    st.dn[r] = cs.dn;
+    st.dpn[r] = cs.dpn;
+  }
+}
+
 // The bar grid of the `gcl_eval_grid_*.cu` kernels: S steps, N = T S cells
 // a bar; in a CTA's padded rows a track takes SP rows (S rounded up to the
 // kernel's row group), a bar BP = T SP; the CTA holds nb bars, M = nb BP

@@ -5,8 +5,8 @@ On a CUDA tensor `chord_tail_tokens` launches `csrc/chord_tail_fp32.cu` (x in
 fp32, on the CUDA cores) or `csrc/chord_tail_bf16_tc.cu` (x in bf16, on the
 tensor cores), which keep the slot hiddens and logits on chip; on a CPU
 tensor it runs `chord_tail_plain`, the same function in plain PyTorch. The
-kernels take bars of 4 x S cells, S a multiple of 4 up to `gcl.MAX_STEPS`
-(resolutions 1-12), in tiles of the flat cell axis.
+kernels take bars of 4 x S cells at any S that is a multiple of 4 (every
+resolution), in tiles of the flat cell axis.
 
 x and the weights are fp32 or bf16 (the biases fp32 or bf16, as the model
 holds them). In bf16 it computes what the Pallas body computes for a bf16
@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, counts
-from .gcl import MAX_STEPS, TRACKS
+from .gcl import TRACKS
 
 
 def chord_tail_plain(x, chord_kernel, chord_bias, pk_drums, pb_drums, pk_nd,
@@ -124,10 +124,9 @@ def _operands(dtype, weights):
 
 def _check_cuda_args(x, params):
     t, s, d = x.shape[-3:]
-    if t != TRACKS or s < 4 or s % 4 or s > MAX_STEPS or d % 128 != 0:
+    if t != TRACKS or s < 4 or s % 4 or d % 128 != 0:
         raise ValueError(f"chord_tail kernel takes bars of {TRACKS} x S "
-                         f"cells with S a multiple of 4 up to {MAX_STEPS} "
-                         f"(resolutions 1-{MAX_STEPS // 4}) and d % 128 == 0, "
+                         f"cells with S a multiple of 4 and d % 128 == 0, "
                          f"got T={t} S={s} d={d}")
     if x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"chord_tail: x must be contiguous float32 or "

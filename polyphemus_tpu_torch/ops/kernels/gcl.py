@@ -9,7 +9,11 @@ eval form, `gcl_fwd` the same kernel without the epilogue. Those take bars
 of 4 x 32 cells (resolution 8); both wrappers send bars of 4 x S cells at
 another S that is a multiple of 4 up to `MAX_STEPS` (resolutions 1-12) to
 `csrc/gcl_eval_grid_fp32.cu` and `csrc/gcl_eval_grid_bf16_tc.cu` (their
-eval form, and their training forward without the epilogue). On a CPU
+eval form, and their training forward without the epilogue). Above
+`MAX_STEPS` (resolutions 13 and up) `gcl_eval` launches
+`csrc/gcl_eval_long_fp32.cu` or `csrc/gcl_eval_long_bf16_tc.cu` once a
+layer (a CTA holds a tile of a bar, so chained layers cannot meet in one
+launch), and the training kernels refuse the grid (`check_grid`). On a CPU
 tensor both wrappers run their plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
@@ -51,9 +55,11 @@ PN_SRC, OK_PN, MSRC, DIST_PN = 6, 7, 8, 9
 CNT_ON, CNT_NX, MASK_CH, SINGLE = 10, 11, 12, 13
 N_AUX = 14
 
-# the bar grids on the card: 4 tracks of S steps, S a multiple of 4 up to
-# MAX_STEPS; BASE_STEPS = 32 (resolution 8) is the grid of the first
-# kernels, every other one goes to the `*_grid*.cu` sources
+# the bar grids on the card: 4 tracks of S steps, S a multiple of 4;
+# BASE_STEPS = 32 (resolution 8) is the grid of the first kernels, every
+# other one up to MAX_STEPS goes to the `*_grid*.cu` sources, and the eval
+# layer above it to the `gcl_eval_long_*.cu` ones; training takes S up to
+# MAX_STEPS
 TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 
 # the wrappers count their launches in `counts.launches`; the column-form launches (n < d) among those of every GCL kernel, by the
@@ -247,22 +253,40 @@ def gcl_fwd_plain(x, aux, gate_table, wbig, bias):
                      wbig.to(dt), bias.to(dt))
 
 
-def check_grid(kernel: str, n: int, s: int) -> None:
-    """Raise unless bars of n cells are 4 x s with s a multiple of 4 up to
-    MAX_STEPS (resolutions 1-12), the grids of every GCL kernel on the card
-    but the fp32 fused backward's."""
+def _check_tracks(kernel: str, n: int, s: int) -> None:
     if n != TRACKS * s:
         raise ValueError(f"{kernel} kernel takes bars of {TRACKS} tracks, "
                          f"got {n} cells of {s} steps")
+
+
+def check_grid(kernel: str, n: int, s: int) -> None:
+    """Raise unless bars of n cells are 4 x s with s a multiple of 4 up to
+    MAX_STEPS (resolutions 1-12), the grids of the training kernels on the
+    card (the fp32 fused backward's: 4 x 32 only)."""
+    _check_tracks(kernel, n, s)
     if s < 4 or s % 4 or s > MAX_STEPS:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} (resolutions "
-                         f"1-{MAX_STEPS // 4}), got S={s}")
+                         f"1-{MAX_STEPS // 4}), got S={s}: training at S > "
+                         f"{MAX_STEPS} is not ported yet (ROADMAP.md, Queue "
+                         f"1: training at S > {MAX_STEPS}); generation "
+                         f"takes every resolution")
 
 
-def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None) -> None:
+def check_eval_grid(kernel: str, n: int, s: int) -> None:
+    """Raise unless bars of n cells are 4 x s with s a multiple of 4, the
+    grids of the eval layer on the card (every resolution)."""
+    _check_tracks(kernel, n, s)
+    if s < 4 or s % 4:
+        raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
+                         f"a multiple of 4, got S={s}")
+
+
+def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
+                    grid=check_grid) -> None:
     """Raise unless x is (nbar, n, d) over bars of n = 4 s cells that
-    `check_grid` takes (s: the gate table's rows, by default 32) with d %
+    `grid` takes (`check_grid`, the training kernels' grids, or
+    `check_eval_grid`; s: the gate table's rows, by default 32) with d %
     128 == 0, the output width n_out (default d) has n_out % 128 == 0 and
     divides d, and every tensor of `want` ({name: (tensor, shape, dtype)})
     sits on x's device with that shape and dtype, contiguous and 16-byte
@@ -270,7 +294,7 @@ def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None) -> None:
     nbar, n, d = x.shape
     if d % 128 != 0:
         raise ValueError(f"{kernel} kernel takes d % 128 == 0, got d={d}")
-    check_grid(kernel, n, BASE_STEPS if s is None else s)
+    grid(kernel, n, BASE_STEPS if s is None else s)
     n_out = d if n_out is None else n_out
     if n_out <= 0 or n_out % 128 != 0 or d % n_out != 0:
         raise ValueError(f"{kernel} kernel takes an output width n with n % "
@@ -290,12 +314,15 @@ def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None) -> None:
 def launch(kernel: str, s: int, ptrs: tuple, sizes: tuple, device) -> None:
     """Launch `kernel` on `ptrs` (its pointers and nbar) and the `sizes`
     after them, on the current stream of `device`: its 4 x 32-cell form, or
-    at another S its grid form (`<kernel>_grid`, `<kernel>_grid_bf16` for a
-    bf16 kernel), which takes the steps s of a bar before the sizes."""
+    at another S up to MAX_STEPS its grid form (`<kernel>_grid`,
+    `<kernel>_grid_bf16` for a bf16 kernel), above MAX_STEPS its long-bar
+    form (`<kernel>_long`, `<kernel>_long_bf16`), each of which takes the
+    steps s of a bar before the sizes."""
     stream = _build.stream_handle(device)
     if s != BASE_STEPS:
         base = kernel.removesuffix("_bf16")
-        kernel = base + "_grid" + kernel[len(base):]
+        form = "_grid" if s <= MAX_STEPS else "_long"
+        kernel = base + form + kernel[len(base):]
         sizes = (s, *sizes)
     _build.check(kernel, _build.launcher(kernel)(*ptrs, *sizes, stream))
 
@@ -316,7 +343,8 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     `pack_weights`; biases, eas, ebs (K, w), each in x's dtype. Returns
     (nbar, n, w) in x's dtype. w is d, or at K = 1 the width of the column
     shard that starts at output column col0 (its residual x[..., col0:col0
-    + w]).
+    + w]). On the card every S % 4 == 0 is taken; above MAX_STEPS the K
+    layers are K launches of the long-bar kernel (square weights only).
     """
     k, w = wbigs.shape[0], wbigs.shape[-1]
     d = x.shape[-1]
@@ -338,16 +366,48 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
         "x": (x, (nbar, n, d), dt), "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (s, d), dt),
         "wbigs": (wbigs, (k, 8 * d, w), dt), "biases": (biases, (k, w), dt),
-        "eas": (eas, (k, w), dt), "ebs": (ebs, (k, w), dt)}, n_out=w, s=s)
+        "eas": (eas, (k, w), dt), "ebs": (ebs, (k, w), dt)}, n_out=w, s=s,
+        grid=check_eval_grid)
+    name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
+    if s > MAX_STEPS:
+        if w != d:
+            raise ValueError(f"gcl_eval takes bars of 4 x S cells with S > "
+                             f"{MAX_STEPS} with the square weights only (n = "
+                             f"d = {d}), got n = {w}: the column form "
+                             f"(tensor parallelism) trains, at S <= "
+                             f"{MAX_STEPS}")
+        return _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas,
+                              ebs)
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     scratch = torch.empty_like(x) if k > 1 else out
-    name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
     launch(name, s, (x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
                      wbigs.data_ptr(), biases.data_ptr(), eas.data_ptr(),
                      ebs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                      nbar), (d, w, col0, k), x.device)
     counts.count(name, s, k)
     count_cols(name, w, d)
+    return out
+
+
+def _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas, ebs):
+    """`gcl_eval` over bars of 4 x S cells, S > MAX_STEPS, on the card: one
+    launch of the long-bar kernel a layer, ping-ponging between the output
+    and a scratch buffer so that the last layer writes the output."""
+    nbar, _, d = x.shape
+    s = gate_table.shape[0]
+    k = wbigs.shape[0]
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x) if k > 1 else out
+    src = x
+    for i in range(k):
+        dst = out if (k - 1 - i) % 2 == 0 else scratch
+        launch(name, s, (src.data_ptr(), aux.data_ptr(),
+                         gate_table.data_ptr(), wbigs[i].data_ptr(),
+                         biases[i].data_ptr(), eas[i].data_ptr(),
+                         ebs[i].data_ptr(), dst.data_ptr(), nbar), (d,),
+               x.device)
+        counts.count(name, s)
+        src = dst
     return out
 
 

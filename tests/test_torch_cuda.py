@@ -254,20 +254,21 @@ def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
 
 
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
-    """Past resolution 12 (S = 52) and with 3 tracks the eval kernels
-    raise, and so do the training kernels and `gcl_fused` before any kernel
-    runs, naming the limit; the fp32 fused backward (on no training path)
-    refuses every grid but 4 x 32 cells."""
-    for s in (52, 16):
-        t = 4 if s == 52 else 3
-        mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
-        x = args[0].reshape(2, 4, s, 128)[:, :t].reshape(2, t * s, 128)
-        aux = args[1].reshape(2, 14, 4, s)[:, :, :t].reshape(2, 14, t * s)
-        with pytest.raises(ValueError, match="4 tracks|up to 48"):
-            gcl.gcl_eval(x.contiguous(), aux.contiguous(), *args[2:])
-    mask, args = chip_smoke.chord_inputs(2, 128, cuda, 0, 52)
-    with pytest.raises(ValueError, match="up to 48"):
-        chord_tail.chord_tail_tokens(*args, n_slots=15)
+    """With 3 tracks the eval kernels and the chord tail raise; past
+    resolution 12 (S = 52), which generation takes, the training kernels
+    and `gcl_fused` raise before any kernel runs, naming the limit; the
+    fp32 fused backward (on no training path) refuses every grid but 4 x
+    32 cells."""
+    s, t = 16, 3
+    mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
+    x = args[0].reshape(2, 4, s, 128)[:, :t].reshape(2, t * s, 128)
+    aux = args[1].reshape(2, 14, 4, s)[:, :, :t].reshape(2, 14, t * s)
+    with pytest.raises(ValueError, match="4 tracks"):
+        gcl.gcl_eval(x.contiguous(), aux.contiguous(), *args[2:])
+    mask, args = chip_smoke.chord_inputs(2, 128, cuda, 0, s)
+    with pytest.raises(ValueError, match="4 x S cells"):
+        chord_tail.chord_tail_tokens(args[0][:, :t].contiguous(), *args[1:],
+                                     n_slots=15)
     mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, 52)
     x, aux, gates, w, b = args[:5]
     rel = torch.zeros(6, 128, 128, device=cuda)
@@ -287,6 +288,110 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
         gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
     assert counts.launches == before
+
+
+# bars of more than 48 steps (resolutions 13, 16, 24, 48): the long-bar GCL
+# kernels (one launch a layer) and the chord tails; one bar, a few and 133
+# (past a wave: 133 x ceil(S / 32) CTAs); d = 384 takes a 256-column pass
+# and a 128-column one (fp32)
+LONG_STEPS = (52, 64, 96, 192)
+LONG_GCL_CASES = [(1, 128, 1), (3, 384, 2), (133, 512, 2)]
+LONG_CHORD_CASES = [(6, 128), (133, 512)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nbar,d,k_layers", LONG_GCL_CASES)
+@pytest.mark.parametrize("s", LONG_STEPS)
+def test_long_gcl_eval_kernel_matches_plain(cuda, s, nbar, d, k_layers,
+                                            bf16):
+    before = dict(counts.launches)
+    chip_smoke.check_gcl(nbar, d, k_layers, cuda, timing=False, bf16=bf16,
+                         s=s)
+    assert counts.launches == before  # comparisons do not count
+    mask, args = chip_smoke.kernel_inputs(nbar, d, k_layers, cuda, 1, s)
+    if bf16:
+        args = [a if a.dtype == torch.int32 else a.bfloat16() for a in args]
+    gcl.gcl_eval(*args)
+    name = "gcl_eval_bf16" if bf16 else "gcl_eval"
+    assert counts.since(before) == {(name, s, 1): k_layers}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nbar,d", LONG_CHORD_CASES)
+@pytest.mark.parametrize("s", LONG_STEPS)
+def test_long_chord_tail_kernel_matches_plain(cuda, s, nbar, d, bf16):
+    before = dict(counts.launches)
+    chip_smoke.check_chord(nbar, d, cuda, timing=False, bf16=bf16, s=s,
+                           active_ties=True)
+    assert counts.launches == before
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_eval_gcl_keeps_its_route_up_to_48_steps(cuda, bf16):
+    """K = 2 at S = 12, 32 and 48 is one launch of K = 2 (the grid kernels,
+    and at S = 32 the first ones); at S = 52 two launches of K = 1 (the
+    long-bar kernel)."""
+    name = "gcl_eval_bf16" if bf16 else "gcl_eval"
+    for s in (12, 32, 48, 52):
+        _, args = chip_smoke.kernel_inputs(3, 256, 2, cuda, 2, s)
+        if bf16:
+            args = [a if a.dtype == torch.int32 else a.bfloat16()
+                    for a in args]
+        before = dict(counts.launches)
+        gcl.gcl_eval(*args)
+        want = {(name, s, 2): 1} if s <= 48 else {(name, s, 1): 2}
+        assert counts.since(before) == want, s
+
+
+def test_long_gcl_kernels_are_tensor_core_and_ffma_kernels(cuda):
+    """The bf16 long-bar kernel holds tensor-core instructions; the fp32 one
+    FFMA and none (`cuobjdump -sass`)."""
+    from polyphemus_tpu_torch.ops.kernels import _build
+
+    for name, sym in chip_smoke.LONG_FORMS.items():
+        _build.launcher(name)  # built at first use
+        hmma = chip_smoke.sass_instructions(name, sym)
+        ffma = chip_smoke.sass_instructions(name, sym, r"\bFFMA\b")
+        if name.endswith("_bf16"):
+            assert hmma > 0, (name, hmma)
+        else:
+            assert hmma == 0 and ffma > 0, (name, hmma, ffma)
+
+
+def test_long_gcl_eval_refuses_the_column_form(cuda):
+    mask, args = chip_smoke.kernel_inputs(2, 256, 1, cuda, 0, 64)
+    x, aux, gates, w, b, ea, eb = args
+    before = dict(counts.launches)
+    with pytest.raises(ValueError, match="square weights only"):
+        gcl.gcl_eval(x, aux, gates, w[..., :128].contiguous(),
+                     *(v[:, :128].contiguous() for v in (b, ea, eb)))
+    assert counts.launches == before
+
+
+@pytest.mark.parametrize("resolution", [13, 24])
+def test_long_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                    resolution):
+    """A 3-layer model at resolution 13 or 24 on the card against the CPU
+    (phase 3's rules, `compare_with_cpu`; bf16 by phase 4b's): 3 `gcl_eval`
+    launches of one layer (3 layers at chain 2, a chain run one layer a
+    launch) and one `chord_tail` a call at the model's grid."""
+    cfg = ModelConfig(d=128, gnn_n_layers=3, n_bars=2, resolution=resolution,
+                      batch_norm=True)
+    chip_smoke.make_model_dir(str(tmp_path), cfg, seed=resolution)
+    from polyphemus_tpu_torch.generate import load_model
+    from polyphemus_tpu_torch.serve import host_z
+
+    model, _ = load_model(str(tmp_path), cuda)
+    before = dict(counts.launches)
+    m, t = make_generator(model, device=cuda)(host_z(8, 8, cfg.d))
+    s = cfg.n_timesteps
+    assert counts.since(before) == {("gcl_eval", s, 1): 3,
+                                    ("chord_tail", s, 1): 1}
+    assert m.shape == (8, 2, 4, s)
+    chip_smoke.compare_with_cpu(str(tmp_path), (m.cpu().numpy(),
+                                                t.cpu().numpy()), cuda)
+    res = chip_smoke.compare_bf16_with_cpu(str(tmp_path), cuda, n=4)
+    assert res["conditioned"]["active_cells"] > 0
 
 
 # the training kernels at bar grids of 4 x S cells (S = 12: tracks of 12

@@ -1,0 +1,267 @@
+"""Bars of more than 48 steps (`resolution` 13 and up; 24, the Lakh
+Pianoroll Dataset's grid, is S = 96): the port against the JAX package on
+the CPU, and the route its wrappers take on the card.
+
+The JAX package's Pallas GCL and chord-tail kernels read the grid from x's
+shape, so they take any S; the port's plain versions must give the same
+result at S = 52, 64, 96 and 192 (d = 32, 3 bars, inputs from numpy at a
+seed; JAX's kernels in interpret mode):
+
+  * the plain `gcl_eval` at K = 1 and 2 against `gcl_apply_pallas` with
+    its epilogue and `gcl_apply_pallas_chain`: fp32 at rtol = atol = 2e-4,
+    bf16 within 2e-2 x max |JAX| (`tests/test_torch_gcl_fused_bwd.py`'s
+    bound);
+  * the plain chord tail against `chord_tail_tokens`: ids equal outside
+    top-2 logit gaps < 1e-4, fp32 and bf16 (`tests/test_torch_chord_tail.py`'s
+    rule);
+  * `make_generator` at resolution 13 and 24 (d = 32, 2 layers, 2 bars)
+    against JAX's `make_generator(pallas=True)` by
+    `tests/test_torch_resolution.py`'s rules.
+
+The wrappers' route at S > 48, with a CUDA tensor's path taken on CPU
+tensors (`on_card` patched, the C launchers recorded instead of called):
+`gcl_eval` launches `gcl_eval_long` (bf16: `gcl_eval_long_bf16`) once a
+layer, ping-ponging so that the last layer writes the output, and counts
+each launch at K = 1; S <= 48 keeps one launch of the grid kernel at K;
+the column form and every training kernel refuse S > 48 before launching,
+the training ones with a message that names the roadmap's item. (The eval
+and chord routes' geometry checks at S = 52-192 are
+`tests/test_torch_resolution.py::test_the_eval_kernels_take_bars_above_48_steps`.)
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from polyphemus_tpu.generate import make_generator as jax_make_generator
+from polyphemus_tpu.ops.kernels import chord_tail as jchord
+from polyphemus_tpu.ops.kernels import gcl_pallas
+from polyphemus_tpu_torch.generate import make_generator
+from polyphemus_tpu_torch.ops.kernels import (_build, chord_tail, counts,
+                                              gcl, gcl_bwd)
+
+from .test_torch_chord_tail import plain_logits
+from .test_torch_gcl import jax_stack, port_stack, stack_case
+from .test_torch_resolution import case
+from .torch_port_case import (LOGIT_TIE, assert_ids_match,
+                              assert_masks_match, jax_tree, random_z, to_np,
+                              top2_gap)
+
+STEPS = [52, 64, 96, 192]       # resolutions 13, 16, 24, 48
+TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_REL = 2e-2
+D, NBAR = 32, 3
+
+
+@pytest.mark.parametrize("k_layers", [1, 2])
+@pytest.mark.parametrize("s", STEPS)
+def test_gcl_eval_plain_matches_pallas(s, k_layers):
+    x, mask, gate, layers = stack_case(seed=s + k_layers, nbar=NBAR, s=s,
+                                       d=D, n_layers=k_layers)
+    launches = dict(counts.launches)
+    got = port_stack(x, mask, gate, layers, k_layers)
+    assert counts.launches == launches  # the CPU takes the plain path
+    want = jax_stack(x, mask, gate, layers, k_layers)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def bf16_values(a):
+    """a rounded to bf16 by JAX's cast, as a torch bf16 tensor."""
+    return torch.from_numpy(np.array(jnp.asarray(a).astype(
+        jnp.bfloat16).astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("k_layers", [1, 2])
+@pytest.mark.parametrize("s", STEPS)
+def test_bf16_gcl_eval_plain_matches_pallas(s, k_layers):
+    x, mask, gate, layers = stack_case(seed=s + 10 * k_layers, nbar=NBAR,
+                                       s=s, d=D, n_layers=k_layers)
+    bf = jnp.bfloat16
+    t = mask.shape[-2]
+    aux_j = gcl_pallas.build_kernel_aux(jnp.asarray(mask))
+    wbigs = jnp.stack([gcl_pallas.pack_weights(
+        jnp.asarray(lay["rel_w"]).astype(bf), jnp.asarray(lay["root"]).astype(bf),
+        t, dtype=bf) for lay in layers])
+    vec = {key: jnp.stack([jnp.asarray(lay[key]).astype(bf)
+                           for lay in layers]) for key in ("bias", "ea", "eb")}
+    xj, gj = jnp.asarray(x).astype(bf), jnp.asarray(gate).astype(bf)
+    if k_layers == 1:
+        want = gcl_pallas.gcl_apply_pallas(
+            xj, aux_j, gj, wbigs[0], vec["bias"][0],
+            epilogue_affine=(vec["ea"][0], vec["eb"][0]))
+    else:
+        want = gcl_pallas.gcl_apply_pallas_chain(
+            xj, aux_j, gj, wbigs,
+            *(vec[key].reshape(k_layers, 1, D) for key in ("bias", "ea", "eb")))
+    want = np.asarray(want.astype(jnp.float32)).reshape(NBAR, t * s, D)
+    aux = gcl.build_kernel_aux(torch.from_numpy(mask)).reshape(
+        NBAR, gcl.N_AUX, t * s)
+    launches = dict(counts.launches)
+    got = gcl.gcl_eval(bf16_values(x).reshape(NBAR, t * s, D), aux,
+                       bf16_values(gate), bf16_values(np.asarray(wbigs.astype(
+                           jnp.float32))),
+                       *(bf16_values(np.asarray(vec[key].astype(jnp.float32)))
+                         for key in ("bias", "ea", "eb")))
+    assert counts.launches == launches
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_REL * np.abs(want).max(), err
+
+
+def tail_case(seed, s, d=D):
+    rng = np.random.default_rng(seed)
+    h = d // 2
+    mask = rng.random((2, 2, 4, s)) < 0.4
+    x = rng.standard_normal((2, 2, 4, s, d)).astype(np.float32) \
+        * mask[..., None]
+
+    def w(*shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    params = [w(d, 15 * d, scale=d ** -0.5), w(15 * d, scale=0.1),
+              w(h, 131, scale=h ** -0.5), w(131, scale=0.1),
+              w(h, 131, scale=h ** -0.5), w(131, scale=0.1),
+              w(h, 99, scale=h ** -0.5), w(99, scale=0.1)]
+    return x, params, mask
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("s", STEPS)
+def test_chord_tail_plain_matches_jax(s, bf16):
+    """Ids equal except at cells whose top-2 logit gap is below 1e-4 (on
+    the bf16 values in bf16: the sums are fp32 on both sides), which must
+    be under 1e-3 of the active cells' ids."""
+    x, params, mask = tail_case(s, s)
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    want = np.asarray(jchord.chord_tail_tokens(
+        jnp.asarray(x, dt), *(jnp.asarray(p, dt) for p in params),
+        n_slots=15))
+    to = bf16_values if bf16 else torch.from_numpy
+    launches = dict(counts.launches)
+    got = chord_tail.chord_tail_tokens(to(x), *map(to, params), n_slots=15)
+    assert counts.launches == launches
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    vals = [np.asarray(jnp.asarray(a, dt).astype(jnp.float32))
+            for a in [x] + params]
+    logits = plain_logits(*vals)
+    tie = np.stack([top2_gap(logits[..., :131]),
+                    top2_gap(logits[..., 131:])], axis=-1) < LOGIT_TIE
+    assert tie[mask].mean() < 1e-3
+    np.testing.assert_array_equal(got.numpy()[~tie], want[~tie])
+
+
+@pytest.mark.parametrize("resolution", [13, 24])
+def test_generation_matches_jax(resolution):
+    """One latent (2 bars) through the port's `make_generator` on the CPU
+    and JAX's with the Pallas kernels, by `tests/test_torch_resolution.py`'s
+    rules (masks equal where |s_logit| is clear of the threshold, ids equal
+    at active cells outside near-ties, at most 1 % near-ties)."""
+    variables, _, jmodel, model = case(resolution)
+    s = 4 * resolution
+    z = random_z(1, 32, seed=resolution)
+    m_j, t_j, s_j, c_j = (np.asarray(a) for a in jax_make_generator(
+        jmodel, jax_tree(variables), pallas=True, return_logits=True)(
+        jnp.asarray(z)))
+    launches = dict(counts.launches)
+    m_p, t_p = (to_np(a) for a in make_generator(model, device="cpu")(z))
+    assert counts.launches == launches
+    assert m_p.shape == (1, 2, 4, s) and t_p.shape == (1, 2, 4, s, 15, 2)
+    assert_masks_match(m_p, m_j, s_j)
+    assert m_j.any()
+    assert_ids_match(t_p, t_j, c_j, mask=m_j, max_tie_frac=1e-2)
+
+
+@pytest.mark.parametrize("kernel", ["gcl_fwd", "gcl_bwd_data",
+                                    "gcl_bwd_weight", "gcl_bwd_fused",
+                                    "gcl_fused"])
+@pytest.mark.parametrize("s", STEPS)
+def test_training_kernels_refuse_long_bars(kernel, s):
+    """Training at S > 48 is not ported: the message names the limit and
+    the roadmap's item."""
+    with pytest.raises(ValueError, match="up to 48 .*training at S > 48 is "
+                                         "not ported yet .*ROADMAP"):
+        gcl.check_grid(kernel, 4 * s, s)
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """The wrappers' card path on CPU tensors: `on_card` true, each C
+    launcher recorded as (kernel, its arguments) instead of called; the
+    launch counts restored after."""
+    calls = []
+    monkeypatch.setattr(gcl, "on_card", lambda kernel, x: True)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(_build, "launcher",
+                        lambda name: lambda *a: calls.append((name, a)) or 0)
+    saved = dict(counts.launches)
+    yield calls
+    counts.restore(saved)
+
+
+def eval_args(s, k_layers, dtype=torch.float32, d=128, n=None):
+    """`gcl_eval`'s arguments over 2 bars of 4 x s cells (zeros but aux),
+    output width n of d (default d)."""
+    rng = np.random.default_rng(s)
+    mask = torch.from_numpy(rng.random((2, 4, s)) < 0.3)
+    n = d if n is None else n
+    x = torch.zeros(2, 4 * s, d, dtype=dtype)
+    aux = gcl.build_kernel_aux(mask).reshape(2, gcl.N_AUX, 4 * s)
+    return (x, aux, torch.zeros(s, d, dtype=dtype),
+            torch.zeros(k_layers, 8 * d, n, dtype=dtype),
+            *(torch.zeros(k_layers, n, dtype=dtype) for _ in range(3)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k_layers", [1, 2, 3])
+def test_gcl_eval_launches_the_long_kernel_once_a_layer(card_route, dtype,
+                                                        k_layers):
+    s = 96
+    args = eval_args(s, k_layers, dtype)
+    before = dict(counts.launches)
+    out = gcl.gcl_eval(*args)
+    name = "gcl_eval" if dtype == torch.float32 else "gcl_eval_bf16"
+    long_name = name.replace("gcl_eval", "gcl_eval_long")
+    assert [c[0] for c in card_route] == [long_name] * k_layers
+    x, wbigs = args[0], args[3]
+    src = x.data_ptr()
+    for i, (_, a) in enumerate(card_route):
+        # (x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d, stream)
+        assert a[0] == src and a[3] == wbigs[i].data_ptr()
+        assert a[1] == args[1].data_ptr() and a[2] == args[2].data_ptr()
+        assert a[4:7] == tuple(v[i].data_ptr() for v in args[4:])
+        assert a[7] not in (src, x.data_ptr())
+        assert a[8:] == (2, s, 128, 0)
+        src = a[7]
+    assert src == out.data_ptr()
+    assert counts.since(before) == {(name, s, 1): k_layers}
+
+
+@pytest.mark.parametrize("s", [12, 48])
+def test_gcl_eval_keeps_one_grid_launch_up_to_48_steps(card_route, s):
+    before = dict(counts.launches)
+    gcl.gcl_eval(*eval_args(s, 2))
+    assert [c[0] for c in card_route] == ["gcl_eval_grid"]
+    assert card_route[0][1][10:] == (s, 128, 128, 0, 2, 0)
+    assert counts.since(before) == {("gcl_eval", s, 2): 1}
+
+
+def test_gcl_eval_refuses_the_column_form_above_48_steps(card_route):
+    with pytest.raises(ValueError, match="square weights only"):
+        gcl.gcl_eval(*eval_args(64, 1, d=256, n=128))
+    assert card_route == []
+
+
+def test_training_refuses_long_bars_before_any_launch(card_route,
+                                                      monkeypatch):
+    monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
+    s, d = 64, 128
+    x, aux, gates = eval_args(s, 1)[:3]
+    rel_w = torch.zeros(6, d, d, requires_grad=True)
+    mask = torch.zeros(2, 4, s, dtype=torch.bool)
+    before = dict(counts.launches)
+    with pytest.raises(ValueError, match="training at S > 48"):
+        gcl_bwd.GclFused.apply(x, gates, rel_w, torch.zeros(d, d),
+                               torch.zeros(d), aux, mask)
+    with pytest.raises(ValueError, match="training at S > 48"):
+        gcl.gcl_fwd(x, aux, gates, torch.zeros(8 * d, d), torch.zeros(d))
+    assert card_route == [] and counts.launches == before

@@ -18,9 +18,10 @@ converters fix 8 steps a quarter), latents from numpy at a seed.
     the CPU at each resolution;
   * the wrappers' geometry checks on CPU tensors: S = 4r for r = 1..12
     passes `gcl.check_cuda_args` and `chord_tail._check_cuda_args`, for the
-    training kernels (`gcl_fwd`, the backward, `gcl_fused`) too; r = 13,
-    S % 4 != 0 and T != 4 raise; the fp32 fused backward, on no training
-    path, refuses every S but 32.
+    training kernels (`gcl_fwd`, the backward, `gcl_fused`) too; the eval
+    and chord routes take r = 13, 16, 24 and 48 as well (S = 52-192), the
+    training forward refuses them; S % 4 != 0 and T != 4 raise; the fp32 fused
+    backward, on no training path, refuses every S but 32.
 """
 import dataclasses
 import functools
@@ -180,18 +181,30 @@ def chord_args(t, s, d=128):
 def test_the_eval_kernels_take_every_resolution_up_to_12(resolution):
     s = 4 * resolution
     x, want = gcl_args(4, s)
-    gcl.check_cuda_args("gcl_eval", x, want, n_out=128, s=s)
+    gcl.check_cuda_args("gcl_eval", x, want, n_out=128, s=s,
+                        grid=gcl.check_eval_grid)
     chord_tail._check_cuda_args(*chord_args(4, s))
     gcl.check_cuda_args("gcl_fwd", x, want, s=s)  # the training forward too
 
 
-@pytest.mark.parametrize("t, s", [(4, 52), (4, 64), (4, 2), (4, 30),
-                                  (3, 16), (5, 32)])
+@pytest.mark.parametrize("t, s", [(4, 52), (4, 64), (4, 96), (4, 192)])
+def test_the_eval_kernels_take_bars_above_48_steps(t, s):
+    """Resolutions 13, 16, 24 and 48: the eval GCL (the long-bar kernels)
+    and the chord tail take them; the training forward refuses them."""
+    x, want = gcl_args(t, s)
+    gcl.check_cuda_args("gcl_eval", x, want, s=s, grid=gcl.check_eval_grid)
+    chord_tail._check_cuda_args(*chord_args(t, s))
+    with pytest.raises(ValueError, match="up to 48"):
+        gcl.check_cuda_args("gcl_fwd", x, want, s=s)
+
+
+@pytest.mark.parametrize("t, s", [(4, 2), (4, 30), (3, 16), (5, 32)])
 def test_the_kernels_refuse_other_grids(t, s):
     x, want = gcl_args(t, s)
-    with pytest.raises(ValueError, match="4 tracks|up to 48"):
-        gcl.check_cuda_args("gcl_eval", x, want, s=s)
-    with pytest.raises(ValueError, match="up to 48"):
+    with pytest.raises(ValueError, match="4 tracks|a multiple of 4"):
+        gcl.check_cuda_args("gcl_eval", x, want, s=s,
+                            grid=gcl.check_eval_grid)
+    with pytest.raises(ValueError, match="4 x S cells with S a multiple of 4"):
         chord_tail._check_cuda_args(*chord_args(t, s))
 
 
