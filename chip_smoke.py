@@ -257,7 +257,7 @@
    their column forms at n = 256, S = 16; (v) at r = 4 and 12, LMD2's
    training configs (`examples/training_lmd2.json` and `_bf16.json` with
    that resolution) at batch 256: one step through `cli.train.main()` on
-   256 samples of the grid, s/step (2 passes of 3 steps) with MFU, each
+   256 samples of the grid, s/step (1 pass of 3 steps) with MFU, each
    run launching exactly 64 of each fp32 (32
    of each bf16) training kernel of the grid a step and nothing else, and
    the step on the card against the CPU: bf16 at batch 32 by phase 6's
@@ -269,7 +269,8 @@
    kernels (`gcl_eval` at K = 2 and 1, `chord_tail`, fp32 and bf16) against
    their plain versions at r = 13, 16, 24 and 48 (S = 52, 64, 96, 192; the
    bf16 chord tail's MIX form at 52), 8 and 512 bars, d = 512, by phase
-   12 (i)'s rules, each 512-bar call timed beside its bounds; (ii)-(iv) a
+   12 (i)'s rules, the 512-bar calls at r = 24 timed beside their bounds
+   (since PR 24 the other resolutions' are held, not timed); (ii)-(iv) a
    seeded model directory at r = 24 (pypianoroll's default grid, 4 x 96
    cells; d = 512, 8 layers, 2 bars) as phase 12 (ii) and (iii) run r = 4:
    batch-256 generation in fp32 and bf16 with MFU, each call launching
@@ -279,8 +280,17 @@
    tie band, so the unconditioned run holds its structure logits within
    2e-2 x max |cpu| of the CPU's instead and compares every bar on the
    CPU's mask, `compare_bf16_with_cpu(flip_cap=False)`), the service, the
-   generate and the reconstruct CLIs; (v) one train step at r = 24 (fp32
-   and bf16) raises before any launch, naming the limit.
+   generate and the reconstruct CLIs; (v) one train step at r = 24 under
+   the bf16 policy and one `gcl_fused` layer in the column form (n = d /
+   2) at S = 96 raise before any launch, naming their roadmap items; (vi)
+   the three fp32 training kernels (`gcl_fwd`, `gcl_bwd_data`,
+   `gcl_bwd_weight`: `csrc/gcl_eval_long_fp32.cu`'s training form,
+   `csrc/gcl_bwd_data_long.cu`, `csrc/gcl_bwd_weight_long.cu`) against their
+   plain versions at r = 13, 16, 24 and 48, 128 bars, d = 512, by phase
+   2b's rules, each timed beside its bounds; (vii) LMD2's fp32 training
+   config at r = 24 as phase 12 (v) runs it: one CLI step, s/step with
+   MFU, exactly 64 launches of each long-bar training kernel a step, the
+   step at batch 8 against the CPU with its grads held to an fp64 step's.
 11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase, phases 10's and 10b's on every rank; the column forms
@@ -288,7 +298,9 @@
    kernels at S = 16 and 48, `<kernel>_s<S>`, the generation kernels timed
    in 12 (i) and launched in 12 (ii) and (iii), the training kernels timed
    in 12 (iv) and launched in 12 (v); phase 13's generation kernels at S =
-   96, the long-bar GCL as `<kernel>_k1_s96`), the card line, and last
+   96, the long-bar GCL as `<kernel>_k1_s96`, and its fp32 training kernels
+   at S = 96, timed in 13 (vi) and launched in 13 (vii)), the card line,
+   and last
    {"ok":
    true, "device": {...}}.
 
@@ -299,6 +311,7 @@ phases 10's and 10b's gloo runs, started by the phase itself.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -497,8 +510,14 @@ def smem_bytes(kernel: str, *args) -> int:
 # templates on S, each instantiation a form, `ILi<S>E` in its symbol
 # the long-bar eval GCL kernels (bars of 4 x S cells, S > 48), by kernel
 # name: the symbol of each
-LONG_FORMS = {"gcl_eval_long": "gcl_eval_long_fp32_kernel",
+LONG_FORMS = {"gcl_eval_long": "gcl_eval_long_fp32_kernelILb1E",
               "gcl_eval_long_bf16": "gcl_eval_long_bf16_tc_kernel"}
+# the fp32 long-bar training kernels, by kernel name: the symbol of each
+# (the training form of the long eval kernel; the data backward's product
+# kernel, whose gather kernel holds no product; the weight backward)
+LONG_TRAIN_FORMS = {"gcl_fwd_long": "gcl_eval_long_fp32_kernelILb0E",
+                    "gcl_bwd_data_long": "gcl_bwd_data_long_kernel",
+                    "gcl_bwd_weight_long": "gcl_bwd_weight_long_kernel"}
 GRID_FORMS = [
     ("fp32", "gcl_eval_grid_fp32", "gcl_eval_grid",
      {"eval": "gcl_eval_grid_fp32_kernelILb1E",
@@ -507,7 +526,12 @@ GRID_FORMS = [
      {"eval": "gcl_eval_grid_bf16_tc_kernelILb1E",
       "fwd": "gcl_eval_grid_bf16_tc_kernelILb0E"}),
     ("fp32", "gcl_eval_long_fp32", "gcl_eval_long",
-     {"eval": LONG_FORMS["gcl_eval_long"]}),
+     {"eval": LONG_FORMS["gcl_eval_long"],
+      "fwd": LONG_TRAIN_FORMS["gcl_fwd_long"]}),
+    ("fp32", "gcl_bwd_data_long", "gcl_bwd_data_long",
+     {"data": LONG_TRAIN_FORMS["gcl_bwd_data_long"]}),
+    ("fp32", "gcl_bwd_weight_long", "gcl_bwd_weight_long",
+     {"weight": LONG_TRAIN_FORMS["gcl_bwd_weight_long"]}),
     ("bf16", "gcl_eval_long_bf16_tc", "gcl_eval_long_bf16",
      {"eval": LONG_FORMS["gcl_eval_long_bf16"]})]
 GRID_TRAIN_SOURCES = [
@@ -523,8 +547,9 @@ GRID_STEPS = (4, 8, 12, 16, 20, 24, 28, 36, 40, 44, 48)
 
 def grid_kernel_forms(usage) -> dict:
     """Phase 1's checks of every form of the grid GCL kernels: the eval
-    kernels' eval and training-forward forms, the long-bar eval kernels,
-    and the training backward kernels at each S of GRID_STEPS. Each form's ptxas registers, spills
+    kernels' eval and training-forward forms, the long-bar eval kernels
+    (the fp32 one's training form too) and fp32 training backward kernels,
+    and the grid training backward kernels at each S of GRID_STEPS. Each form's ptxas registers, spills
     and dynamic shared memory and its SASS counts; fails unless each bf16
     form holds tensor-core instructions and each fp32 form FFMA and none,
     without spills."""
@@ -3384,26 +3409,28 @@ GRID_KERNELS = ("gcl_eval", "gcl_eval_bf16", "chord_tail", "chord_tail_bf16")
 GRID_MODEL = {"d": 512, "gnn_n_layers": 8, "n_bars": 2}  # LMD2's widths
 
 
-def grid_kernels(device, card, resolutions=GRID_CHECKS) -> dict:
+def grid_kernels(device, card, resolutions=GRID_CHECKS, timed=None) -> dict:
     """Phase 12 (i): the four generation kernels at bars of 4 x 4r cells for
-    r in `resolutions` (phase 13 (i): LONG_CHECKS), against their plain versions at 8 and 512 bars
-    (batch 256), d = 512, by phase 2's rules (the GCL at K = 2, and at K =
-    1 as the reconstruct encoder runs it), the chord tail's near-tie cap
-    over the ids of active cells (`active_ties`); the 512-bar launches timed
-    beside their bounds. {r: {kernel: result}}."""
+    r in `resolutions` (phase 13 (i): LONG_CHECKS), against their plain
+    versions at 8 and 512 bars (batch 256), d = 512, by phase 2's rules
+    (the GCL at K = 2, and at K = 1 as the reconstruct encoder runs it), the
+    chord tail's near-tie cap over the ids of active cells
+    (`active_ties`); the 512-bar launches of the resolutions in `timed`
+    (all by default) timed beside their bounds. {r: {kernel: result}}."""
     res = {}
     for r in resolutions:
         s = 4 * r
         for nbar in (8, 512):
             got = {}
+            timing = nbar > 8 and (timed is None or r in timed)
             for bf16 in (False, True):
                 k = "_bf16" if bf16 else ""
                 for layers in (2, 1):
                     got[f"gcl_eval{k}" + ("_k1" if layers == 1 else "")] = \
                         check_gcl(nbar, 512, layers, device,
-                                  timing=nbar > 8, bf16=bf16, s=s)
+                                  timing=timing, bf16=bf16, s=s)
                 got[f"chord_tail{k}"] = check_chord(
-                    nbar, 512, device, timing=nbar > 8, bf16=bf16, s=s,
+                    nbar, 512, device, timing=timing, bf16=bf16, s=s,
                     active_ties=True)
             print(f"bar grid r={r} (4 x {s} cells), the generation kernels "
                   f"against their plain versions ({nbar} bars, d=512, K=2 "
@@ -3572,12 +3599,13 @@ def grid_config(r, bf16) -> str:
     return path
 
 
-def grid_training(device, card, r) -> tuple:
+def grid_training(device, card, r, bf16s=(False, True)) -> tuple:
     """Phase 12 (v): LMD2's widths at resolution r (4 x 4r cells a bar), in
-    fp32 and bf16 at batch 256: one optimizer step through
+    fp32 and bf16 (`bf16s`: phase 13 (vii) runs fp32 only) at batch 256:
+    one optimizer step through
     `cli.train.main()` on GRID_TRAIN_SAMPLES synthetic samples of the grid
-    (records finite), then seconds per step (`time_train_steps`: 2 passes
-    of 3 synchronised steps after a warm one) with MFU (`flops.py`), and
+    (records finite), then seconds per step (`time_train_steps`: 1 pass of
+    3 synchronised steps after a warm one) with MFU (`flops.py`), and
     the step on the card against the CPU: bf16
     at batch BF16_CMP_BATCH by phase 6's rule; fp32 at batch 8 with its
     losses by phase 5's rule and its grads by phase 7's (held to an fp64
@@ -3596,7 +3624,7 @@ def grid_training(device, card, r) -> tuple:
     data_dir = os.path.join(ROOT, "build", f"chip_smoke_data_r{r}")
     write_dataset(data_dir, GRID_TRAIN_SAMPLES, 2, SEED, s)
     res, launches = {"resolution": r, "cells_a_bar": 4 * s, "card": card}, {}
-    for bf16 in (False, True):
+    for bf16 in bf16s:
         k = "bf16" if bf16 else "fp32"
         t0 = time.perf_counter()
 
@@ -3617,10 +3645,10 @@ def grid_training(device, card, r) -> tuple:
         counts.reset()
         t2 = time.perf_counter()
         bench = time_train_steps(trainer, GRID_TRAIN_SAMPLES, device,
-                                 passes=2)
+                                 passes=1)
         timed = dict(counts.launches)
         t3 = time.perf_counter()
-        steps = 1 + len(bench["passes_step_s"]) * 3  # a warm step, 2 x 3
+        steps = 1 + len(bench["passes_step_s"]) * 3  # a warm step, 1 x 3
         check(timed == want(steps),
               f"r={r} {k} timed steps launched {named(timed)}, expected "
               f"{named(want(steps))}")
@@ -3675,41 +3703,67 @@ LONG_MODEL = 24                  # generated end to end: pypianoroll's grid
 
 
 def long_training_refused(device, r) -> dict:
-    """Phase 13 (v): one train step of LMD2's widths at resolution r (S =
-    4r > 48) on the card, fp32 and under the bf16 policy, raises before any
-    kernel launch with the message that names the limit (training at S >
-    48 is not ported). {dtype: the message}."""
+    """Phase 13 (v): what training at resolution r (S = 4r > 48) still
+    refuses on the card, before any kernel launch and with a message that
+    names the limit and its ROADMAP.md item: one train step of LMD2's
+    widths under the bf16 policy (bf16 training at S > 48), and one
+    `gcl_fused` layer in the column form, n = d / 2 (the column forms at S
+    > 48). {case: the message}."""
     import torch
 
     from polyphemus_tpu_torch.config import ModelConfig, TrainConfig
     from polyphemus_tpu_torch.data import synthetic_batch
     from polyphemus_tpu_torch.models import VAE
-    from polyphemus_tpu_torch.ops.kernels import counts
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
     from polyphemus_tpu_torch.train import trainer as tr
 
     mc = ModelConfig(resolution=r, dropout=0.0, batch_norm=True,
                      **GRID_MODEL)
+    s = mc.n_timesteps
     toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
-        np.random.default_rng(SEED), 8, mc.n_bars,
-        n_timesteps=mc.n_timesteps))
+        np.random.default_rng(SEED), 8, mc.n_bars, n_timesteps=s))
+    cfg = TrainConfig(batch_size=8, model=mc, iters_to_accumulate=1,
+                      bf16=True)
+    model = VAE(mc).to(device)
+    step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+    d, n = mc.d, mc.d // 2
+    bar_mask, (x, _, aux, gates, _, _) = train_kernel_inputs(
+        2, d, device, SEED, s)
+    cols = (lambda: gcl_bwd.gcl_fused(
+        x.requires_grad_(), gates, torch.zeros(6, d, n, device=device),
+        torch.zeros(d, n, device=device), torch.zeros(n, device=device),
+        aux, bar_mask))
     res = {}
-    for bf16 in (False, True):
-        cfg = TrainConfig(batch_size=8, model=mc, iters_to_accumulate=1,
-                          bf16=bf16)
-        model = VAE(mc).to(device)
-        step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
+    for case, run, item in (("bf16", lambda: step(toks, mask),
+                             gcl.BF16_LONG),
+                            ("fp32_column_form", cols, gcl.COLS_LONG)):
         counts.reset()
         try:
-            step(toks, mask)
+            run()
         except ValueError as e:
             msg = str(e)
         else:
-            fail(f"a train step at resolution {r} ran on the card")
-        check("up to 48" in msg and "training at S > 48" in msg,
-              f"resolution {r} train step raised: {msg}")
-        check(not counts.launches, f"resolution {r} train step launched "
-                                   f"{named(counts.launches)} first")
-        res["bf16" if bf16 else "fp32"] = msg
+            fail(f"{case} training at resolution {r} ran on the card")
+        check("up to 48" in msg and item in msg and "ROADMAP" in msg,
+              f"resolution {r} {case} training raised: {msg}")
+        check(not counts.launches, f"resolution {r} {case} training "
+                                   f"launched {named(counts.launches)} first")
+        res[case] = msg
+    return res
+
+
+def long_training_kernels(device, card) -> dict:
+    """Phase 13 (vi): the fp32 training kernels at bars of 4 x 4r cells for
+    r in LONG_CHECKS, at the fp32 training microbatch's 128 bars, d = 512,
+    against their plain versions by phase 2b's rules and timed beside their
+    bounds (`check_gcl_train`). {r: {kernel: result}}."""
+    res = {}
+    for r in LONG_CHECKS:
+        s = 4 * r
+        res[r] = check_gcl_train(128, 512, device, s=s)
+        print(f"long bars r={r} (4 x {s} cells), the fp32 training kernels "
+              f"against their plain versions (128 bars, d=512, {card}):",
+              json.dumps(res[r]))
     return res
 
 
@@ -3717,18 +3771,26 @@ def long_phase(device, card) -> tuple:
     """Phase 13: bars of more than 48 steps (resolution 13 and up): the
     generation kernels at LONG_CHECKS against their plain versions and
     timed (`grid_kernels`), LONG_MODEL's generation, service and CLIs
-    (`grid_generation`), and its train step refused
-    (`long_training_refused`). Returns (kernel checks, generation results,
-    launches by `grid_name`)."""
+    (`grid_generation`), what its training refuses
+    (`long_training_refused`), the fp32 training kernels at LONG_CHECKS
+    (`long_training_kernels`) and LONG_MODEL's fp32 training
+    (`grid_training`). Returns (kernel checks, training kernel checks,
+    generation and training results, launches by `grid_name`)."""
     t0 = time.perf_counter()
-    kern = grid_kernels(device, card, LONG_CHECKS)
+    kern = grid_kernels(device, card, LONG_CHECKS, timed=(LONG_MODEL,))
     print(f"phase 13 (i): {time.perf_counter() - t0:.1f} s")
     gen, launches = grid_generation(device, card, LONG_MODEL, service=True,
                                     flip_cap=False)
     refused = long_training_refused(device, LONG_MODEL)
-    print(f"resolution {LONG_MODEL}: the train step refused on the card "
-          f"before any launch:", json.dumps(refused))
-    return kern, gen, launches
+    print(f"resolution {LONG_MODEL}: bf16 training and the column form "
+          f"refused on the card before any launch:", json.dumps(refused))
+    t0 = time.perf_counter()
+    train_kern = long_training_kernels(device, card)
+    print(f"phase 13 (vi): {time.perf_counter() - t0:.1f} s")
+    train, got = grid_training(device, card, LONG_MODEL, bf16s=(False,))
+    launches.update(got)
+    return kern, train_kern, {"generation": gen, "training": train}, \
+        launches
 
 
 def main() -> int:
@@ -3767,6 +3829,13 @@ def main() -> int:
         usage[name] = ptxas_usage(log)
         for func, u in usage[name].items():
             print(f"  {name} {func}: {json.dumps(u)}")
+    # every library's SASS at once (cuobjdump processes in parallel), kept
+    # for the checks below
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(sass_functions, sorted(
+            {str(_build.library(n)) for n in _build.SIGNATURES})))
+    print(f"cuobjdump -sass: {time.perf_counter() - t0:.1f} s")
     # both forms of each GCL kernel: the eval form (template flag 1) and the
     # training forward (0)
     forms = {"gcl_eval": "ILb1E", "gcl_fwd": "ILb0E"}
@@ -4084,7 +4153,8 @@ def main() -> int:
 
     # ---- 13. bars of more than 48 steps: resolutions 13, 16, 24, 48 ----
     phase("13")
-    long_checks, _, long_launches = long_phase(device, card)
+    long_checks, long_train_checks, _, long_launches = long_phase(device,
+                                                                  card)
 
     # ---- 11. results ----
     phase("11")
@@ -4233,6 +4303,17 @@ def main() -> int:
                              f"polyphemus_tpu_torch/csrc/{src}",
                              f"polyphemus_tpu/ops/kernels/{replaces}",
                              long_checks[LONG_MODEL][name]))
+    # the fp32 training kernels at resolution LONG_MODEL, each held and timed
+    # at the training microbatch's 128 bars in 13 (vi), launched by 13 (vii)
+    for name, src, replaces in (
+            ("gcl_fwd", "gcl_eval_long_fp32.cu", "gcl_pallas.py:347"),
+            ("gcl_bwd_data", "gcl_bwd_data_long.cu", "gcl_pallas_bwd.py:528"),
+            ("gcl_bwd_weight", "gcl_bwd_weight_long.cu",
+             "gcl_pallas_bwd.py:564")):
+        kernels.append(entry(f"{name}_s{s}",
+                             f"polyphemus_tpu_torch/csrc/{src}",
+                             f"polyphemus_tpu/ops/kernels/{replaces}",
+                             long_train_checks[LONG_MODEL][name]))
     # the reconstruct encoder's eval layers, one a launch, at the grid of
     # phase 12 (iii)
     s = 4 * GRID_MODELS[0]

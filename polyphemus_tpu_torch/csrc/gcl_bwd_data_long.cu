@@ -1,0 +1,476 @@
+// GCL training backward, data half, fp32, for bars of 4 x S cells at any S
+// that is a multiple of 4 above 48 (resolutions 13 and up: 24, the Lakh
+// Pianoroll Dataset's grid, is S = 96): dx, d(gate_table) (S, d) and
+// dbias. Up to S = 48 the port launches `gcl_bwd_data_grid.cu` (and at S =
+// 32 `gcl_bwd_data.cu`), whose CTA holds whole bars; above that one bar no
+// longer fits a CTA's shared memory, and this source takes it in two
+// launches.
+//
+// Replaces, in fp32 and at those grids, the Pallas kernel `_bwd_data_kernel`
+// of polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel A of
+// `gcl_backward_pallas`, :494, its pallas_call at :528, called by the
+// custom VJP `gcl_fused`), which takes the steps a bar as `n_steps`
+// (:91-95). Per bar of N = 4 S cells it computes what
+// `gcl_bwd_data_grid.cu` computes:
+//
+//   dH_r     = gm @ W_r^T            (track blocks: each track's S rows only)
+//   dx       = dH_root + the gathers of the track, onset and next relations
+//            + relu'(x * g0) * dy0 * g0
+//   dgate[s] = sum of relu'(pre) * upstream * x[src] at distance s
+//   dbias    = sum of gm over every cell of every bar
+//
+// with the square weights only (Wbig (8d, d), g (nbar, N, d)).
+//
+// What bounds it on an H100: operations, the product (2 N 5d d flops a bar:
+// 1.01 GFLOP at S = 96, d = 512) in fp32 FFMA on the CUDA cores.
+//
+// Design. A cell's dx needs the upstream of the cells that read it as their
+// source: the next active cell of its track, its track's cell in the next
+// active column; those may lie anywhere in the bar. So the bar is taken in
+// two launches, with the upstream in a scratch buffer between them:
+// - The product kernel. A CTA owns a tile of 32 dx features and walks the
+//   items (bar, tile of 4 tracks x 32 columns) chunk, chunk + nchunks, ...:
+//   row r = 32 t + cc of an item is cell (t, c0 + cc), as in
+//   `gcl_eval_long_fp32.cu`, so the four cells of a column lie in the item.
+//   Its product is `gcl_bwd_data.cu`'s (8 rows x 2 columns x 5 segments a
+//   thread; the item's g rows, one TMA box of [4 tracks][32 columns][32
+//   features] from g seen as (nbar 4, S, d), zero past the bar's last
+//   column, and the tile's W rows of the 8 blocks, 128-byte swizzle, two
+//   stages on mbarriers running on from item to item). It writes dH_root m
+//   into dx and three upstream planes into the scratch (nbar, 3, N, d):
+//   dmsg = dH_track m r_tr (read by the track relations), dz = colsum(dnx)
+//   - dnx with dnx = dH_next m r_nx (read by the next relation), dy0 =
+//   colsum(dcol) - dcol + dH_self m single with dcol = dH_onset m r_on (read
+//   by the cell itself); the column sums through shared memory.
+// - The gather kernel. A CTA owns one bar and 128 features, a warp 32 (a
+//   feature a lane); it inverts the bar's relations at the statics' decode
+//   (no atomics) and walks the cells in order, adding to dx the shares
+//   gathered from the scratch, and to this bar's row of dgate partials in
+//   `part` (each element owned by one thread) their dgate shares; dbias by
+//   the same walk. The launcher sums the rows of `part` in bar order
+//   (`gcl::sum_rows`): no float atomics, bitwise repeatable.
+// - No shared-memory size depends on S but the gather kernel's statics (16
+//   bytes a cell).
+#include <cuda.h>
+
+#include "gcl_common.cuh"
+
+namespace {
+
+using namespace gcl;
+
+constexpr int BK = 32;           // contracted features a stage
+constexpr int NSEG = 5;          // dH segments: track, self, onset, next, root
+constexpr int THREADS = 256;     // product kernel
+constexpr int CW = 32;           // bar columns of an item
+constexpr int MT = T * CW;       // rows of an item
+constexpr int BC = 32;           // dx features a CTA of the product kernel
+constexpr int RPT = 8;           // rows a thread: r0 + 4 r
+constexpr int CPT = 2;           // columns a thread: cg + 16 c
+constexpr int NUP = 3;           // scratch planes: dmsg, dz, dy0
+constexpr int GATHER_THREADS = 128;  // gather kernel: 4 warps x 32 features
+
+// Features f0..f0+31 of the item's g rows and of the tile's W rows in all
+// 8 blocks (row blk * BC + n): rows of 128 bytes, the TMA's 128-byte
+// swizzle.
+struct alignas(1024) Stage {
+  float g[MT * BK];
+  float w[NBLK * BC * BK];
+};
+
+struct ProdSmem {
+  Stage st[2];                             // stage u in st[u % 2]
+  alignas(16) float col[2][MT][BC];        // dcol, dnx of the item
+  float m[MT], rtr[MT], single[MT], ron[MT], rnx[MT];
+  unsigned long long full[2];              // stage buffer b has landed
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Float offset of chunk ch (16 bytes) of row r of a stage buffer, as the
+// TMA's 128-byte swizzle stores it (the buffer 1024-byte aligned).
+__device__ __forceinline__ int sw_off(int r, int ch) {
+  return r * BK + ((ch ^ (r & 7)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of copies to complete on bar.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// The box at (c0, c1, c2) of a 3-d tensor map into dst, completing on bar.
+__device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
+                                        int c0, int c1, int c2,
+                                        unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<unsigned long long>(map)),
+        "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Stage buffer b: features f0..f0+31 of the g rows of item (bar, columns
+// tc0..) and of the tile's W rows, one TMA box each; thread 0 starts it.
+__device__ __forceinline__ void load_stage(ProdSmem& sm, int b,
+                                           const CUtensorMap* gmap,
+                                           const CUtensorMap* wmap, int bar,
+                                           int tc0, int c0, int f0) {
+  mbar_expect(&sm.full[b], sizeof(Stage));
+  load_3d(sm.st[b].g, gmap, f0, tc0, bar * T, &sm.full[b]);
+  load_3d(sm.st[b].w, wmap, f0, c0, 0, &sm.full[b]);
+}
+
+// One stage into this thread's sums: rows r0 + 4 r (track trk), columns cg
+// + 16 c of every segment.
+__device__ __forceinline__ void stage_ffma(float (&acc)[NSEG][RPT][CPT],
+                                           const Stage& s, int trk, int r0,
+                                           int cg) {
+#pragma unroll 2
+  for (int kc = 0; kc < BK / 4; ++kc) {
+    float4 a[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) a[r] = ld4(s.g + sw_off(r0 + 4 * r, kc));
+#pragma unroll
+    for (int sg = 0; sg < NSEG; ++sg) {
+      const int row = (sg == 0 ? trk : T - 1 + sg) * BC + cg;
+      float4 b[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) b[c] = ld4(s.w + sw_off(row + 16 * c, kc));
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          float v = acc[sg][r][c];
+          v = fmaf(a[r].x, b[c].x, v);
+          v = fmaf(a[r].y, b[c].y, v);
+          v = fmaf(a[r].z, b[c].z, v);
+          acc[sg][r][c] = fmaf(a[r].w, b[c].w, v);
+        }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dx,
+                         float* __restrict__ up, int nbar, int S, int d,
+                         int nchunks,
+                         const __grid_constant__ CUtensorMap gmap,
+                         const __grid_constant__ CUtensorMap wmap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  ProdSmem& sm = *reinterpret_cast<ProdSmem*>(smem_raw);
+  const int N = T * S, ntile = (S + CW - 1) / CW, nitem = nbar * ntile;
+  const int c0 = blockIdx.x * BC, chunk = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int trk = warp >> 1;                   // the track of the rows
+  const int r0 = trk * CW + (lane >> 3);       // rows r0 + 4 r
+  const int cg = (warp & 1) * 8 + (lane & 7);  // columns cg + 16 c
+  const int nstage = d / BK;
+
+  if (tid == 0) {
+    // the swizzle of sw_off needs 1024-byte aligned stage buffers
+    if (smem_u32(smem_raw) & 1023) __trap();
+    mbar_init(&sm.full[0]);
+    mbar_init(&sm.full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && chunk < nitem)
+    load_stage(sm, 0, &gmap, &wmap, chunk / ntile, chunk % ntile * CW, c0, 0);
+  float acc[NSEG][RPT][CPT];
+#pragma unroll
+  for (int sg = 0; sg < NSEG; ++sg)
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[sg][r][c] = 0.f;
+
+  unsigned u = 0;  // stages multiplied so far
+  for (int it = chunk; it < nitem; it += nchunks) {
+    const int bar = it / ntile, tc0 = it % ntile * CW;
+    const int nx = it + nchunks;
+    for (int st = 0; st < nstage; ++st, ++u) {
+      // no warp still reads the buffer that stage u + 1 takes (nor, at st
+      // 0, the previous item's statics and column tiles)
+      __syncthreads();
+      // the next stage: this item's, or the first of the CTA's next item
+      if (tid == 0 && (st + 1 < nstage || nx < nitem)) {
+        if (st + 1 < nstage)
+          load_stage(sm, (u + 1) & 1, &gmap, &wmap, bar, tc0, c0,
+                     (st + 1) * BK);
+        else
+          load_stage(sm, (u + 1) & 1, &gmap, &wmap, nx / ntile,
+                     nx % ntile * CW, c0, 0);
+      }
+      if (st == 0 && tid < MT) {
+        const int t = tid / CW, c = tc0 + tid % CW;
+        CellStatics cs{};
+        if (c < S)
+          cs = cell_statics_grid(aux + (size_t)bar * N_AUX * N, t * S + c, N,
+                                 S);
+        sm.m[tid] = cs.m;
+        sm.rtr[tid] = cs.rtr;
+        sm.single[tid] = cs.single;
+        sm.ron[tid] = cs.ron;
+        sm.rnx[tid] = cs.rnx;
+      }
+      mbar_wait(&sm.full[u & 1], (u >> 1) & 1);  // stage u has landed
+      stage_ffma(acc, sm.st[u & 1], trk, r0, cg);
+    }
+
+    // the upstream of this thread's rows; dcol and dnx to shared memory for
+    // the column sums
+    __syncthreads();  // the item's statics
+    float dmsg[RPT][CPT], dself[RPT][CPT], droot[RPT][CPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = r0 + 4 * r;
+      const float m = sm.m[row];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        dmsg[r][c] = acc[0][r][c] * m * sm.rtr[row];
+        dself[r][c] = acc[1][r][c] * m * sm.single[row];
+        sm.col[0][row][cg + 16 * c] = acc[2][r][c] * m * sm.ron[row];
+        sm.col[1][row][cg + 16 * c] = acc[3][r][c] * m * sm.rnx[row];
+        droot[r][c] = acc[4][r][c] * m;
+#pragma unroll
+        for (int sg = 0; sg < NSEG; ++sg) acc[sg][r][c] = 0.f;
+      }
+    }
+    __syncthreads();
+    const size_t plane = (size_t)N * d;
+    float* upb = up + (size_t)bar * NUP * plane;
+    float* dxb = dx + (size_t)bar * plane;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = r0 + 4 * r, cc = row % CW;
+      if (tc0 + cc >= S) continue;  // past the bar's last column
+      const size_t cell = (size_t)(trk * S + tc0 + cc) * d + c0;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int q = cg + 16 * c;
+        const float (*dcol)[BC] = sm.col[0];
+        const float (*dnx)[BC] = sm.col[1];
+        const float dy0 = (dcol[cc][q] + dcol[CW + cc][q] + dcol[2 * CW + cc][q]
+                           + dcol[3 * CW + cc][q]) - dcol[row][q] + dself[r][c];
+        const float dz = (dnx[cc][q] + dnx[CW + cc][q] + dnx[2 * CW + cc][q]
+                          + dnx[3 * CW + cc][q]) - dnx[row][q];
+        upb[cell + q] = dmsg[r][c];
+        upb[plane + cell + q] = dz;
+        upb[2 * plane + cell + q] = dy0;
+        dxb[cell + q] = droot[r][c];
+      }
+    }
+  }
+}
+
+// The gather kernel: dx += the shares the bar's cells take through the
+// relations and the self term, and this bar's row of dgate / dbias
+// partials, part[bar] = [dgate (S, d) | dbias (d)] (zero before).
+__global__ void __launch_bounds__(GATHER_THREADS)
+gcl_bwd_gather_long_kernel(const float* __restrict__ x,
+                           const float* __restrict__ g,
+                           const int* __restrict__ aux,
+                           const float* __restrict__ gates,
+                           const float* __restrict__ up,
+                           float* __restrict__ dx, float* __restrict__ part,
+                           int S, int d) {
+  // src[r][j] = i | dist << 16 for the cell i that reads cell j through
+  // relation r (0 previous, 1 next in the track, 2 previous column) and
+  // whose share is not 0, or -1; m[j] the mask
+  extern __shared__ int gsm[];
+  const int N = T * S;
+  int* src = gsm;
+  float* m = reinterpret_cast<float*>(gsm + 3 * N);
+  const int bar = blockIdx.x, tid = threadIdx.x;
+  const int* a = aux + (size_t)bar * N_AUX * N;
+  for (int i = tid; i < 3 * N; i += GATHER_THREADS) src[i] = -1;
+  __syncthreads();
+  for (int i = tid; i < N; i += GATHER_THREADS) {
+    const CellStatics c = cell_statics_grid(a, i, N, S);
+    m[i] = c.m;
+    if (c.m > 0.f && c.okp > 0.f) src[c.ps] = i | c.dp << 16;
+    if (c.m > 0.f && c.okn > 0.f) src[N + c.ns] = i | c.dn << 16;
+    if (c.okpn > 0.f && a[CNT_ON * N + i] + (c.m > 0.f) > 0)
+      src[2 * N + c.pn] = i | c.dpn << 16;
+  }
+  __syncthreads();
+  const int f = blockIdx.y * GATHER_THREADS + tid;
+  const size_t plane = (size_t)N * d;
+  const float* xb = x + (size_t)bar * plane + f;
+  const float* gb = g + (size_t)bar * plane + f;
+  const float* upb = up + (size_t)bar * NUP * plane + f;
+  float* dxb = dx + (size_t)bar * plane + f;
+  float* pb = part + (size_t)bar * ((size_t)S * d + d) + f;
+  const float g0 = gates[f];
+  float db = 0.f;
+  for (int j = 0; j < N; ++j) {
+    const size_t jd = (size_t)j * d;
+    const float xv = xb[jd];
+    float dxv = dxb[jd];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int e = src[r * N + j];
+      if (e < 0) continue;
+      const int i = e & 0xffff, dist = e >> 16;
+      const float gv = gates[(size_t)dist * d + f];
+      if (!(xv * gv > 0.f)) continue;
+      const float u = upb[(r < 2 ? 0 : plane) + (size_t)i * d];
+      dxv += u * gv;
+      pb[(size_t)dist * d] += u * xv;
+    }
+    const float mj = m[j];
+    if (mj > 0.f && xv * g0 > 0.f) {
+      const float dy0 = upb[2 * plane + jd];
+      dxv += dy0 * g0;
+      pb[0] += dy0 * xv;
+    }
+    dxb[jd] = dxv;
+    db += gb[jd] * mj;
+  }
+  pb[(size_t)S * d] = db;
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-d fp32 tensor at base, dims[0] the contiguous one, strides[i] the
+// bytes between steps of dimension i + 1, read in boxes of box[0..2]
+// elements with the TMA's 128-byte swizzle (zero past its edges).
+bool fp32_map(CUtensorMap* map, const void* base, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory a CTA of the product kernel takes.
+extern "C" int gcl_bwd_data_long_smem_bytes() {
+  return (int)sizeof(ProdSmem);
+}
+
+// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); wbig (8d, d);
+// all 16-byte aligned, d % 128 == 0, n == d (the square weights only); S a
+// multiple of 4, 4 S < 65536. Writes dx (nbar, 4 S, d) and out = [dgate (S,
+// d) | dbias (d)], using up (nbar, 3, 4 S, d) as the upstream scratch and
+// part (nbar, S * d + d) for the per-bar partials.
+extern "C" int gcl_bwd_data_long_launch(const void* x, const void* g,
+                                        const void* aux, const void* gates,
+                                        const void* wbig, void* dx, void* part,
+                                        void* out, void* up, int nbar, int S,
+                                        int d, int n, void* stream) {
+  static_assert(sizeof(Stage) == sizeof(float) * (MT + NBLK * BC) * BK,
+                "a stage is exactly its two TMA boxes");
+  static_assert(sizeof(ProdSmem) <= 232448, "a CTA's shared memory");
+  if (d <= 0 || d % 128 != 0 || n != d || S < 4 || S % 4 != 0 ||
+      T * S >= 65536 || nbar < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long row = (long long)S * d + d;  // a partial row
+  if (nbar == 0)
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * row, st);
+  const int N = T * S, ntile = (S + CW - 1) / CW;
+  const long long nitem = (long long)nbar * ntile;
+  if (nitem > 0x7fffffffLL || (long long)nbar * T > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  // g as [nbar 4 tracks][S steps][d features] in boxes of [4][CW][BK] (zero
+  // past a track's last step); wbig as [8 blocks][d rows][d features] in
+  // boxes of [8][BC][BK]
+  CUtensorMap gmap, wmap;
+  const cuuint64_t gdims[3] = {(cuuint64_t)d, (cuuint64_t)S,
+                               (cuuint64_t)nbar * T};
+  const cuuint64_t gstrides[2] = {(cuuint64_t)d * 4, (cuuint64_t)S * d * 4};
+  const cuuint32_t gbox[3] = {BK, CW, T};
+  const cuuint64_t wdims[3] = {(cuuint64_t)d, (cuuint64_t)d, NBLK};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)d * 4, (cuuint64_t)d * d * 4};
+  const cuuint32_t wbox[3] = {BK, BC, NBLK};
+  if (!fp32_map(&gmap, g, gdims, gstrides, gbox) ||
+      !fp32_map(&wmap, wbig, wdims, wstrides, wbox))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(ProdSmem);
+  if ((err = cudaFuncSetAttribute(gcl_bwd_data_long_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess)
+    return (int)err;
+  const int tiles = d / BC;
+  const int per_tile = sms / tiles > 1 ? sms / tiles : 1;
+  const int nchunks = nitem < per_tile ? (int)nitem : per_tile;
+  gcl_bwd_data_long_kernel<<<dim3(tiles, nchunks), THREADS, smem, st>>>(
+      (const int*)aux, (float*)dx, (float*)up, nbar, S, d, nchunks, gmap,
+      wmap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = cudaMemsetAsync(part, 0, sizeof(float) * row * nbar, st)) !=
+      cudaSuccess)
+    return (int)err;
+  const int gsmem = (int)(sizeof(int) * 4 * N);
+  if ((err = cudaFuncSetAttribute(gcl_bwd_gather_long_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  gsmem)) != cudaSuccess)
+    return (int)err;
+  gcl_bwd_gather_long_kernel<<<dim3(nbar, d / GATHER_THREADS),
+                               GATHER_THREADS, gsmem, st>>>(
+      (const float*)x, (const float*)g, (const int*)aux, (const float*)gates,
+      (const float*)up, (float*)dx, (float*)part, S, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)sum_rows((const float*)part, (float*)out, nbar, row, st);
+}

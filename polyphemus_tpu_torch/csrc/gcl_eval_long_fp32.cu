@@ -1,22 +1,28 @@
-// One eval GCL layer in fp32, on the CUDA cores, for bars of 4 x S cells at
-// any S that is a multiple of 4 above 48 (resolutions 13 and up: 24, the
-// Lakh Pianoroll Dataset's grid, is S = 96). Up to S = 48 the port launches
-// `gcl_eval_grid_fp32.cu`, whose CTA owns whole bars; above that one bar no
-// longer fits a CTA's shared memory, and this source takes the bar in
-// tiles.
+// One eval GCL layer, or one training-forward layer, in fp32, on the CUDA
+// cores, for bars of 4 x S cells at any S that is a multiple of 4 above 48
+// (resolutions 13 and up: 24, the Lakh Pianoroll Dataset's grid, is S =
+// 96). Up to S = 48 the port launches `gcl_eval_grid_fp32.cu`, whose CTA
+// owns whole bars; above that one bar no longer fits a CTA's shared memory,
+// and this source takes the bar in tiles.
 //
 // Replaces, in fp32 and at those grids, the Pallas kernels `_kernel` (K =
-// 1, polyphemus_tpu/ops/kernels/gcl_pallas.py:347) with its eval epilogue,
-// and `_kernel_chain` (K >= 2, gcl_pallas.py:440), which read t, s and d
-// from x's shape (`gcl_apply_pallas`, gcl_pallas.py:299-301). A chain is
-// the same function as its layers one after the other: the wrapper
-// (`ops/kernels/gcl.py::gcl_eval`) launches this kernel once a layer. Per
-// bar of N = 4 S cells it computes what `gcl_eval_grid_fp32.cu` computes,
-// cell by cell in the same order of fp32 operations:
+// 1, polyphemus_tpu/ops/kernels/gcl_pallas.py:347) with its eval epilogue
+// and without it (the forward of the custom VJP `gcl_fused`,
+// gcl_pallas.py:466-467), and `_kernel_chain` (K >= 2, gcl_pallas.py:440),
+// which read t, s and d from x's shape (`gcl_apply_pallas`,
+// gcl_pallas.py:299-301). A chain is the same function as its layers one
+// after the other: the wrapper (`ops/kernels/gcl.py::gcl_eval`) launches
+// this kernel once a layer. Per bar of N = 4 S cells it computes what
+// `gcl_eval_grid_fp32.cu` computes, cell by cell in the same order of fp32
+// operations:
 //
 //   A   = [h_track | h_self | h_onset | h_next | x]            (N x 5d)
 //   v   = (A @ [W_t; W0; W_on; W_next; root] + bias) * m
-//   out = relu((v * ea + eb) * m) + x
+//   out = relu((v * ea + eb) * m) + x          (the eval form, EPI)
+//   out = v                                    (the training forward)
+//
+// The template flag EPI picks the form (`gcl_eval_long_launch`,
+// `gcl_fwd_long_launch`), as in `gcl_eval_grid_fp32.cu`.
 //
 // What bounds it on an H100: operations, 2 N 5d d flops a bar against 2 N
 // d 4 bytes of node state, so a 512-bar layer at d = 512 needs 7.70 ms at S
@@ -202,10 +208,11 @@ __device__ __forceinline__ void gemm_stage(float (&acc)[8][4 * NJ],
   }
 }
 
-// out = relu(((acc + bias) * m * ea + eb) * m) + x for this thread's rows r0
-// .. r0 + nrow - 1 (the bar's cells c0r ..; xb, ob at the bar's first cell)
-// and columns n0 + cb + 32 j .. + 3.
-template <int NJ>
+// out = relu(((acc + bias) * m * ea + eb) * m) + x (EPI) or out = (acc +
+// bias) * m for this thread's rows r0 .. r0 + nrow - 1 (the bar's cells c0r
+// ..; xb, ob at the bar's first cell) and columns n0 + cb + 32 j .. + 3.
+// Without EPI neither ea, eb nor x is read.
+template <int NJ, bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[8][4 * NJ],
                                          const float* xb, float* ob,
@@ -216,9 +223,22 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
   for (int j = 0; j < NJ; ++j) {
     const int col = n0 + cb + j * 32;
     const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + col));
+    const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+    if constexpr (!EPI) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r >= nrow) break;
+        const float m = sm.m[r0 + r];
+        float o[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[c] = (acc[r][4 * j + c] + bv[c]) * m;
+        *reinterpret_cast<float4*>(ob + (size_t)(c0r + r) * d + col) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      }
+      continue;
+    }
     const float4 aa = __ldg(reinterpret_cast<const float4*>(ea + col));
     const float4 ee = __ldg(reinterpret_cast<const float4*>(eb + col));
-    const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
     const float av[4] = {aa.x, aa.y, aa.z, aa.w};
     const float ev[4] = {ee.x, ee.y, ee.z, ee.w};
 #pragma unroll
@@ -242,7 +262,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
 // One pass over the tile: columns n0..n0+64 NJ of the output, every
 // feature. g counts the stages multiplied so far (weight slot g & 1,
 // mbarrier parity (g >> 1) & 1; every pass has an even number of stages).
-template <int NJ>
+template <int NJ, bool EPI>
 __device__ __forceinline__ void pass(Smem& sm, const float* xb, float* ob,
                                      const float* gates, const CUtensorMap* map,
                                      const float* bias, const float* ea,
@@ -288,9 +308,10 @@ __device__ __forceinline__ void pass(Smem& sm, const float* xb, float* ob,
     cp_async_wait<0>();
     __syncthreads();
   }
-  epilogue<NJ>(sm, acc, xb, ob, bias, ea, eb, d, n0, r0, c0r, nrow, cb);
+  epilogue<NJ, EPI>(sm, acc, xb, ob, bias, ea, eb, d, n0, r0, c0r, nrow, cb);
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_eval_long_fp32_kernel(const float* x, const int* aux, const float* gates,
                           const float* bias, const float* ea, const float* eb,
@@ -322,10 +343,10 @@ gcl_eval_long_fp32_kernel(const float* x, const int* aux, const float* gates,
   float* ob = out + (size_t)bar * N * d;
   int n0 = 0;
   for (; n0 + NC <= d; n0 += NC)
-    pass<4>(sm, xb, ob, gates, &map256, bias, ea, eb, d, n0, tid, warp, trk,
+    pass<4, EPI>(sm, xb, ob, gates, &map256, bias, ea, eb, d, n0, tid, warp, trk,
             r0, c0r, nrow, half * (NC / 2) + cx, g);
   if (n0 < d)  // d % 256 == 128: one pass of 128 columns
-    pass<2>(sm, xb, ob, gates, &map128, bias, ea, eb, d, n0, tid, warp, trk,
+    pass<2, EPI>(sm, xb, ob, gates, &map128, bias, ea, eb, d, n0, tid, warp, trk,
             r0, c0r, nrow, half * (NC / 4) + cx, g);
 }
 
@@ -373,7 +394,8 @@ static bool weight_map(CUtensorMap* map, const void* wbig, int d, int ncp) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The kernel's shared-memory size, set once per device.
+// The kernel's shared-memory size, set once per device and form.
+template <bool EPI>
 static cudaError_t allow_smem(int smem) {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
@@ -381,22 +403,22 @@ static cudaError_t allow_smem(int smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(gcl_eval_long_fp32_kernel,
+  err = cudaFuncSetAttribute(gcl_eval_long_fp32_kernel<EPI>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-// One eval layer (folded batch-norm, relu, residual) over bars of 4 x S
-// cells, every float tensor fp32: x, out (nbar, 4 S, d), gates (S, d), wbig
-// (8d, d), bias, ea, eb (d,); aux (nbar, 14, 4 S) int32. S % 4 == 0, S >
-// 0; d % 128 == 0; the CTAs (nbar ceil(S / 32)) and every cell, feature and
-// aux index within int32.
-extern "C" int gcl_eval_long_launch(const void* x, const void* aux,
-                                    const void* gates, const void* wbig,
-                                    const void* bias, const void* ea,
-                                    const void* eb, void* out, int nbar,
-                                    int S, int d, void* stream) {
+// One layer of the kernel's EPI form over bars of 4 x S cells, every float
+// tensor fp32: x, out (nbar, 4 S, d), gates (S, d), wbig (8d, d), bias, ea,
+// eb (d,) (without EPI ea and eb are not read); aux (nbar, 14, 4 S) int32.
+// S % 4 == 0, S > 0; d % 128 == 0; the CTAs (nbar ceil(S / 32)) and every
+// cell, feature and aux index within int32.
+template <bool EPI>
+static int launch(const void* x, const void* aux, const void* gates,
+                  const void* wbig, const void* bias, const void* ea,
+                  const void* eb, void* out, int nbar, int S, int d,
+                  void* stream) {
   if (nbar <= 0) return 0;
   const long long ctas = (long long)nbar * ((S + CW - 1) / CW);
   if (S < 4 || S % 4 != 0 || d <= 0 || d % 128 != 0 ||
@@ -404,7 +426,7 @@ extern "C" int gcl_eval_long_launch(const void* x, const void* aux,
       (long long)gcl::N_AUX * T * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
-  cudaError_t err = allow_smem(smem);
+  cudaError_t err = allow_smem<EPI>(smem);
   if (err != cudaSuccess) return (int)err;
   // a map for the full 256-column passes and, where d % 256 == 128, one for
   // the last 128-column pass; an unused map stays zero
@@ -412,12 +434,33 @@ extern "C" int gcl_eval_long_launch(const void* x, const void* aux,
   if ((d >= NC && !weight_map(&map256, wbig, d, NC)) ||
       (d % NC != 0 && !weight_map(&map128, wbig, d, NC / 2)))
     return (int)cudaErrorInvalidValue;
-  gcl_eval_long_fp32_kernel<<<(unsigned)ctas, THREADS, smem,
-                              (cudaStream_t)stream>>>(
+  gcl_eval_long_fp32_kernel<EPI><<<(unsigned)ctas, THREADS, smem,
+                                   (cudaStream_t)stream>>>(
       (const float*)x, (const int*)aux, (const float*)gates,
       (const float*)bias, (const float*)ea, (const float*)eb, (float*)out, S,
       d, map256, map128);
   return (int)cudaGetLastError();
+}
+
+// One eval layer (folded batch-norm, relu, residual); see `launch`.
+extern "C" int gcl_eval_long_launch(const void* x, const void* aux,
+                                    const void* gates, const void* wbig,
+                                    const void* bias, const void* ea,
+                                    const void* eb, void* out, int nbar,
+                                    int S, int d, void* stream) {
+  return launch<true>(x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d,
+                      stream);
+}
+
+// One training-forward layer, out = (gcl(x) + bias) * m; see `launch`. The
+// output width n must be d (the square weights).
+extern "C" int gcl_fwd_long_launch(const void* x, const void* aux,
+                                   const void* gates, const void* wbig,
+                                   const void* bias, void* out, int nbar,
+                                   int S, int d, int n, void* stream) {
+  if (n != d) return (int)cudaErrorInvalidValue;
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out,
+                       nbar, S, d, stream);
 }
 
 // Dynamic shared memory a CTA takes.

@@ -13,8 +13,10 @@ eval form, and their training forward without the epilogue). Above
 `MAX_STEPS` (resolutions 13 and up) `gcl_eval` launches
 `csrc/gcl_eval_long_fp32.cu` or `csrc/gcl_eval_long_bf16_tc.cu` once a
 layer (a CTA holds a tile of a bar, so chained layers cannot meet in one
-launch), and the training kernels refuse the grid (`check_grid`). On a CPU
-tensor both wrappers run their plain PyTorch version:
+launch), and `gcl_fwd` in fp32 with the square weights the training
+forward of `csrc/gcl_eval_long_fp32.cu`; bf16 training and the column
+form refuse that grid (`check_grid`). On a CPU tensor both wrappers run
+their plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S cells),
@@ -57,9 +59,10 @@ N_AUX = 14
 
 # the bar grids on the card: 4 tracks of S steps, S a multiple of 4;
 # BASE_STEPS = 32 (resolution 8) is the grid of the first kernels, every
-# other one up to MAX_STEPS goes to the `*_grid*.cu` sources, and the eval
-# layer above it to the `gcl_eval_long_*.cu` ones; training takes S up to
-# MAX_STEPS
+# other one up to MAX_STEPS goes to the `*_grid*.cu` sources, and above it
+# the eval layer to the `gcl_eval_long_*.cu` ones, fp32 training with the
+# square weights to `gcl_eval_long_fp32.cu` and the `gcl_bwd_*_long.cu`
+# ones; bf16 training and the column forms take S up to MAX_STEPS
 TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 
 # the wrappers count their launches in `counts.launches`; the column-form launches (n < d) among those of every GCL kernel, by the
@@ -67,6 +70,10 @@ TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 COL_KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
                "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16")
 col_launches: dict[str, int] = dict.fromkeys(COL_KERNELS, 0)
+
+# ROADMAP.md Queue 1's items that a refusal above MAX_STEPS names
+BF16_LONG = f"bf16 training at S > {MAX_STEPS}"
+COLS_LONG = f"the column forms at S > {MAX_STEPS}"
 
 
 def count_cols(name: str, n: int, d: int) -> None:
@@ -259,23 +266,47 @@ def _check_tracks(kernel: str, n: int, s: int) -> None:
                          f"got {n} cells of {s} steps")
 
 
-def check_grid(kernel: str, n: int, s: int) -> None:
-    """Raise unless bars of n cells are 4 x s with s a multiple of 4 up to
-    MAX_STEPS (resolutions 1-12), the grids of the training kernels on the
-    card (the fp32 fused backward's: 4 x 32 only)."""
+def check_grid(kernel: str, n: int, s: int, dt=torch.float32,
+               square: bool = True) -> None:
+    """Raise unless a training kernel takes bars of n cells on the card in
+    dtype dt, with the square weights (`square`, n = d) or a column shard:
+    4 x s cells with s a multiple of 4, up to MAX_STEPS (resolutions 1-12)
+    in every form, above it with the square weights and not in bf16, and
+    never for the fused backward (`gcl_bwd_fused`, bf16 on the training
+    path; the fp32 one's grid is 4 x 32 only, `gcl_bwd.check_fused_form`).
+    Another dtype than fp32 and bf16 passes here: no kernel takes it (the
+    wrappers refuse it), and the fp64 training layer runs the plain
+    versions on the card (chip_smoke's fp64 witness)."""
     _check_tracks(kernel, n, s)
-    if s < 4 or s % 4 or s > MAX_STEPS:
+    fp32_long = kernel != "gcl_bwd_fused"
+    if s < 4 or s % 4:
+        raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
+                         f"a multiple of 4 up to {MAX_STEPS} in every form"
+                         + (", and above it in fp32 with the square weights"
+                            if fp32_long else "") + f", got S={s}")
+    if s <= MAX_STEPS:
+        return
+    if not fp32_long or dt == torch.bfloat16:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} (resolutions "
-                         f"1-{MAX_STEPS // 4}), got S={s}: training at S > "
-                         f"{MAX_STEPS} is not ported yet (ROADMAP.md, Queue "
-                         f"1: training at S > {MAX_STEPS}); generation "
-                         f"takes every resolution")
+                         f"1-{MAX_STEPS // 4}) in bf16, got S={s}: {BF16_LONG}"
+                         f" is not ported yet (ROADMAP.md, Queue 1: "
+                         f"{BF16_LONG}); fp32 training and generation take "
+                         f"every resolution")
+    if not square:
+        raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
+                         f"a multiple of 4 up to {MAX_STEPS} (resolutions "
+                         f"1-{MAX_STEPS // 4}) in the column form (tensor "
+                         f"parallelism), got S={s}: {COLS_LONG} are not "
+                         f"ported yet (ROADMAP.md, Queue 1: {COLS_LONG}); "
+                         f"the square weights take every resolution")
 
 
-def check_eval_grid(kernel: str, n: int, s: int) -> None:
+def check_eval_grid(kernel: str, n: int, s: int, dt=None,
+                    square: bool = True) -> None:
     """Raise unless bars of n cells are 4 x s with s a multiple of 4, the
-    grids of the eval layer on the card (every resolution)."""
+    grids of the eval layer on the card (every resolution; dt and square
+    are `check_grid`'s, and change nothing here)."""
     _check_tracks(kernel, n, s)
     if s < 4 or s % 4:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
@@ -285,8 +316,9 @@ def check_eval_grid(kernel: str, n: int, s: int) -> None:
 def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
                     grid=check_grid) -> None:
     """Raise unless x is (nbar, n, d) over bars of n = 4 s cells that
-    `grid` takes (`check_grid`, the training kernels' grids, or
-    `check_eval_grid`; s: the gate table's rows, by default 32) with d %
+    `grid` takes in x's dtype at output width n_out (`check_grid`, the
+    training kernels' grids, or `check_eval_grid`; s: the gate table's
+    rows, by default 32) with d %
     128 == 0, the output width n_out (default d) has n_out % 128 == 0 and
     divides d, and every tensor of `want` ({name: (tensor, shape, dtype)})
     sits on x's device with that shape and dtype, contiguous and 16-byte
@@ -294,8 +326,8 @@ def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
     nbar, n, d = x.shape
     if d % 128 != 0:
         raise ValueError(f"{kernel} kernel takes d % 128 == 0, got d={d}")
-    grid(kernel, n, BASE_STEPS if s is None else s)
     n_out = d if n_out is None else n_out
+    grid(kernel, n, BASE_STEPS if s is None else s, x.dtype, n_out == d)
     if n_out <= 0 or n_out % 128 != 0 or d % n_out != 0:
         raise ValueError(f"{kernel} kernel takes an output width n with n % "
                          f"128 == 0 dividing d, got n={n_out} d={d}")
@@ -418,8 +450,9 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
     `build_kernel_aux`; gate_table (S, d), wbig (8d, w) from `pack_weights`
     and bias (w,) in x's dtype, w = d or a column shard's width. Returns
     (gcl(x) + bias) * m, (nbar, n, w) in x's dtype. On the card bars of 4
-    x 32 cells go to the eval kernels' training forward, the other grids to
-    the grid kernels'.
+    x 32 cells go to the eval kernels' training forward, the other grids up
+    to MAX_STEPS to the grid kernels', and above it (fp32 with w = d only)
+    to the long-bar kernel's (`gcl_fwd_long`).
     """
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)

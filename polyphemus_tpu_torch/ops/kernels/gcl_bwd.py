@@ -10,8 +10,11 @@ x 32 cells (resolution 8) `gcl_bwd_data` launches `csrc/gcl_bwd_data.cu`,
 kernels on the tensor cores: dx, dgate and dbias over the dH product, and
 dWbig) in bf16. Bars of 4 x S cells at another S up to 48 (resolutions
 1-12) go to `csrc/gcl_bwd_data_grid.cu`, `csrc/gcl_bwd_weight_grid.cu` and
-`csrc/gcl_bwd_fused_grid_bf16_tc.cu`; the fp32 fused backward, on no
-training path, takes 4 x 32 only. On a CPU tensor each wrapper runs its
+`csrc/gcl_bwd_fused_grid_bf16_tc.cu`, and above it (resolutions 13 and
+up) the fp32 pair with the square weights to `csrc/gcl_bwd_data_long.cu`
+and `csrc/gcl_bwd_weight_long.cu`; the bf16 fused backward refuses that
+grid (`gcl.check_grid`), and the fp32 one, on no training path, takes 4 x
+32 only. On a CPU tensor each wrapper runs its
 plain PyTorch version, which follows the equations of the forward
 (`gcl.gcl_fwd`):
 
@@ -41,9 +44,9 @@ from __future__ import annotations
 import torch
 
 from . import counts
-from .gcl import (BASE_STEPS, N_AUX, bar_statics, check_cuda_args,
-                  check_grid, col_sum, count_cols, gcl_fwd, launch, messages,
-                  on_card, pack_weights, rows, wide)
+from .gcl import (BASE_STEPS, MAX_STEPS, N_AUX, bar_statics,
+                  check_cuda_args, check_grid, col_sum, count_cols, gcl_fwd,
+                  launch, messages, on_card, pack_weights, rows, wide)
 
 
 
@@ -104,7 +107,9 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
     a column shard's width (wbig (8d, w)).
 
     Returns (dx (nbar, n, d), dgate_table (S, d), dbias (w,)); dgate and
-    dbias sum over every bar, dx and dgate over the w columns."""
+    dbias sum over every bar, dx and dgate over the w columns. Above
+    MAX_STEPS the long-bar kernel takes an upstream scratch of (nbar, 3, n,
+    d) floats."""
     if not on_card("gcl_bwd_data", x):
         return gcl_bwd_data_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
@@ -121,8 +126,12 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
                        device=x.device)
     out = torch.empty(s * d + w, dtype=f32, device=x.device)
     ptrs = (x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
-            wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-            nbar)
+            wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr())
+    if s > MAX_STEPS:
+        # the upstream planes between the long-bar form's two kernels
+        up = torch.empty((nbar, 3, n, d), dtype=f32, device=x.device)
+        ptrs += (up.data_ptr(),)
+    ptrs += (nbar,)
     launch("gcl_bwd_data", s, ptrs, (d, w), x.device)
     counts.count("gcl_bwd_data", s)
     count_cols("gcl_bwd_data", w, d)
@@ -326,7 +335,8 @@ class GclFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gate_table, rel_weight, root, bias, aux, mask):
         if on_card("gcl_fused", x):  # refused before the forward runs
-            check_grid("gcl_fused", x.shape[1], gate_table.shape[0])
+            check_grid("gcl_fused", x.shape[1], gate_table.shape[0], x.dtype,
+                       rel_weight.shape[-1] == x.shape[-1])
         n_tracks = mask.shape[-2]
         wbig = pack_weights(rel_weight, root, n_tracks).contiguous()
         ctx.save_for_backward(x, gate_table, wbig, aux, mask)

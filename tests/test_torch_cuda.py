@@ -255,10 +255,11 @@ def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
 
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     """With 3 tracks the eval kernels and the chord tail raise; past
-    resolution 12 (S = 52), which generation takes, the training kernels
-    and `gcl_fused` raise before any kernel runs, naming the limit; the
-    fp32 fused backward (on no training path) refuses every grid but 4 x
-    32 cells."""
+    resolution 12 (S = 52), which generation and fp32 training take, bf16
+    training (`gcl_fused`, `gcl_fwd`, `gcl_bwd_fused`) and the column form
+    raise before any kernel runs, naming their roadmap items; the fp32
+    fused backward (on no training path) refuses every grid but 4 x 32
+    cells."""
     s, t = 16, 3
     mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
     x = args[0].reshape(2, 4, s, 128)[:, :t].reshape(2, t * s, 128)
@@ -269,20 +270,31 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="4 x S cells"):
         chord_tail.chord_tail_tokens(args[0][:, :t].contiguous(), *args[1:],
                                      n_slots=15)
-    mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, 52)
+    mask, args = chip_smoke.kernel_inputs(2, 256, 1, cuda, 0, 52)
     x, aux, gates, w, b = args[:5]
-    rel = torch.zeros(6, 128, 128, device=cuda)
+    rel = torch.zeros(6, 256, 256, device=cuda)
     before = dict(counts.launches)
-    with pytest.raises(ValueError, match="up to 48"):
-        gcl_bwd.gcl_fused(x.requires_grad_(), gates, rel, rel[0], b[0], aux,
-                          mask)
-    with pytest.raises(ValueError, match="up to 48"):
-        gcl.gcl_fwd(x.detach(), aux, gates, w[0].contiguous(),
-                    b[0].contiguous())
-    with pytest.raises(ValueError, match="up to 48"):
-        gcl_bwd.gcl_bwd_data(x.detach(), x.detach(), aux, gates, w[0])
-    with pytest.raises(ValueError, match="up to 48"):
-        gcl_bwd.gcl_bwd_weight(x.detach(), x.detach(), aux, gates)
+    xb, gb, wb, bb = (v.bfloat16() for v in (x, gates, w[0], b[0]))
+    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > 48"):
+        gcl_bwd.gcl_fused(xb.requires_grad_(), gb, rel.bfloat16(),
+                          rel[0].bfloat16(), bb, aux, mask)
+    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > 48"):
+        gcl.gcl_fwd(xb.detach(), aux, gb, wb, bb)
+    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > 48"):
+        gcl_bwd.gcl_bwd_fused(xb.detach(), xb.detach(), aux, gb, wb)
+    cols = "up to 48 .*the column forms at S > 48"
+    with pytest.raises(ValueError, match=cols):
+        gcl_bwd.gcl_fused(x.requires_grad_(), gates, rel[..., :128],
+                          rel[0, :, :128], b[0, :128], aux, mask)
+    with pytest.raises(ValueError, match=cols):
+        gcl.gcl_fwd(x.detach(), aux, gates, w[0, :, :128].contiguous(),
+                    b[0, :128].contiguous())
+    with pytest.raises(ValueError, match=cols):
+        gcl_bwd.gcl_bwd_data(x.detach(), x.detach()[..., :128].contiguous(),
+                             aux, gates, w[0, :, :128].contiguous())
+    with pytest.raises(ValueError, match=cols):
+        gcl_bwd.gcl_bwd_weight(x.detach(), x.detach()[..., :128].contiguous(),
+                               aux, gates)
     _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
         2, 128, cuda, 0, 16)
     with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
@@ -392,6 +404,120 @@ def test_long_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
                                                 t.cpu().numpy()), cuda)
     res = chip_smoke.compare_bf16_with_cpu(str(tmp_path), cuda, n=4)
     assert res["conditioned"]["active_cells"] > 0
+
+
+# the fp32 training kernels at bars of more than 48 steps (resolutions 13,
+# 16, 24, 48): one bar, a few, 40 and past a wave; d = 384 takes a
+# 256-column pass and a 128-column one in the forward
+LONG_TRAIN_CASES = [(1, 128), (3, 384), (40, 512), (133, 512)]
+
+
+@pytest.mark.parametrize("nbar,d", LONG_TRAIN_CASES)
+@pytest.mark.parametrize("s", LONG_STEPS)
+def test_long_training_kernels_match_plain(cuda, s, nbar, d):
+    """`gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` in fp32 (phase 2b's
+    rules) against their plain versions over bars of 4 x s cells; no
+    comparison launch counts."""
+    before = dict(counts.launches)
+    chip_smoke.check_gcl_train(nbar, d, cuda, timing=False, s=s)
+    assert counts.launches == before
+
+
+def test_long_training_kernels_launch_their_long_forms(cuda):
+    """One launch of each fp32 training wrapper over bars of 4 x 96 cells
+    counts one launch of that kernel at S = 96, and no other; the three
+    long-bar forms are FFMA kernels without tensor-core instructions."""
+    from polyphemus_tpu_torch.ops.kernels import _build
+
+    _, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        3, 256, cuda, 1, 96)
+    before = dict(counts.launches)
+    gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    torch.cuda.synchronize()
+    assert counts.since(before) == {
+        (k, 96, 1): 1 for k in ("gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight")}
+    for name, sym in chip_smoke.LONG_TRAIN_FORMS.items():
+        _build.launcher(name)
+        hmma = chip_smoke.sass_instructions(name, sym)
+        ffma = chip_smoke.sass_instructions(name, sym, r"\bFFMA\b")
+        assert hmma == 0 and ffma > 0, (name, hmma, ffma)
+
+
+def test_long_data_and_weight_backward_repeat_bitwise(cuda):
+    """At S = 96 the fp32 data backward gives dx, dgate and dbias bit for
+    bit in two launches (per-bar partials summed in bar order, no atomics),
+    and the weight backward dWbig (sums in registers, fixed orders)."""
+    _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+        128, 512, cuda, 3, 96)
+    first = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    second = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    dw = [gcl_bwd.gcl_bwd_weight(x, up, aux, gates) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(dw[0], dw[1])
+
+
+def test_long_training_kernels_give_zeros_for_a_bar_without_active_cells(
+        cuda):
+    """At S = 52 (a bar of two tiles, the second of 20 columns), bar 1 of 3
+    has no active cell while its x and upstream g are not 0: the forward
+    and dx are exactly 0 there; dWbig equals that of the other two bars bit
+    for bit and dgate, dbias theirs within phase 2b's tolerances; every
+    output agrees with the plain version."""
+    mask, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        3, 384, cuda, 5, 52)
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 208).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(208, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda)
+    assert (x[1] != 0).any() and (up[1] != 0).any()
+    keep = torch.tensor([0, 2], device=cuda)
+
+    def kept(*vs):
+        return [v[keep].contiguous() for v in vs]
+
+    out = gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    assert (out[1] == 0).all()
+    chip_smoke.held_to("gcl_fwd", out,
+                       gcl.gcl_fwd_plain(x, aux, gates, wbig, bias),
+                       summed=False)
+    got = check_data_backward(x, up, aux, gates, wbig)
+    ref = gcl_bwd.gcl_bwd_data(*kept(x, up, aux), gates, wbig)
+    dw = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    dw_ref = gcl_bwd.gcl_bwd_weight(*kept(x, up, aux), gates)
+    torch.cuda.synchronize()
+    assert (got[0][1] == 0).all()
+    chip_smoke.held_to("gcl_bwd_data dgate", got[1], ref[1], summed=True)
+    chip_smoke.held_to("gcl_bwd_data dbias", got[2], ref[2], summed=True)
+    assert torch.equal(dw, dw_ref)
+    chip_smoke.held_to("gcl_bwd_weight", dw,
+                       gcl_bwd.gcl_bwd_weight_plain(x, up, aux, gates),
+                       summed=True)
+
+
+@pytest.mark.parametrize("resolution", [13, 24])
+def test_long_train_step_on_the_card_matches_the_cpu(cuda, resolution):
+    """A d = 128, 2-layer fp32 model at resolution 13 or 24 (S = 52, 96) on
+    the card against the CPU (losses by phase 5's rule, grads held to an
+    fp64 step's on the card by phase 7's), through the long-bar training
+    kernels only."""
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=resolution,
+                     batch_norm=True)
+    s = mc.n_timesteps
+    before = dict(counts.launches)
+    chip_smoke.compare_train_step(mc, 8, cuda, seed=resolution,
+                                  witness=True)
+    # one microbatch through 2 GNN stacks of 2 layers; the eval steps before
+    # the card's two train steps (kernels, plain training GCL) run the eval
+    # GCL, one layer a launch
+    assert counts.since(before) == {
+        ("gcl_fwd", s, 1): 4, ("gcl_bwd_data", s, 1): 4,
+        ("gcl_bwd_weight", s, 1): 4, ("gcl_eval", s, 1): 8}
 
 
 # the training kernels at bar grids of 4 x S cells (S = 12: tracks of 12

@@ -23,9 +23,12 @@ tensors (`on_card` patched, the C launchers recorded instead of called):
 `gcl_eval` launches `gcl_eval_long` (bf16: `gcl_eval_long_bf16`) once a
 layer, ping-ponging so that the last layer writes the output, and counts
 each launch at K = 1; S <= 48 keeps one launch of the grid kernel at K;
-the column form and every training kernel refuse S > 48 before launching,
-the training ones with a message that names the roadmap's item. (The eval
-and chord routes' geometry checks at S = 52-192 are
+the eval column form refuses S > 48 before launching. The training kernels
+take S > 48 in fp32 with the square weights (their route and their plain
+versions against JAX: `tests/test_torch_long_train.py`); bf16 training,
+the fused backward and the column form refuse it before launching, with a
+message that names the roadmap's item. (The eval and chord routes'
+geometry checks at S = 52-192 are
 `tests/test_torch_resolution.py::test_the_eval_kernels_take_bars_above_48_steps`.)
 """
 import jax.numpy as jnp
@@ -171,16 +174,45 @@ def test_generation_matches_jax(resolution):
     assert_ids_match(t_p, t_j, c_j, mask=m_j, max_tie_frac=1e-2)
 
 
-@pytest.mark.parametrize("kernel", ["gcl_fwd", "gcl_bwd_data",
-                                    "gcl_bwd_weight", "gcl_bwd_fused",
-                                    "gcl_fused"])
+TRAINING_KERNELS = ["gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight",
+                    "gcl_bwd_fused", "gcl_fused"]
+
+
+@pytest.mark.parametrize("kernel", TRAINING_KERNELS)
 @pytest.mark.parametrize("s", STEPS)
 def test_training_kernels_refuse_long_bars(kernel, s):
-    """Training at S > 48 is not ported: the message names the limit and
-    the roadmap's item."""
-    with pytest.raises(ValueError, match="up to 48 .*training at S > 48 is "
-                                         "not ported yet .*ROADMAP"):
-        gcl.check_grid(kernel, 4 * s, s)
+    """What training at S > 48 still refuses names the limit and the
+    roadmap's item: bf16 (every kernel; the fused backward, the bf16
+    route's, in any dtype), and the column form (tensor parallelism) of
+    the fp32 kernels."""
+    bf16 = f"up to 48 .*{gcl.BF16_LONG} is not ported yet .*ROADMAP"
+    with pytest.raises(ValueError, match=bf16):
+        gcl.check_grid(kernel, 4 * s, s, torch.bfloat16)
+    if kernel == "gcl_bwd_fused":
+        with pytest.raises(ValueError, match=bf16):
+            gcl.check_grid(kernel, 4 * s, s)
+        return
+    with pytest.raises(ValueError, match=f"up to 48 .*{gcl.COLS_LONG} are "
+                                         f"not ported yet .*ROADMAP"):
+        gcl.check_grid(kernel, 4 * s, s, torch.float32, square=False)
+
+
+@pytest.mark.parametrize("kernel", [k for k in TRAINING_KERNELS
+                                    if k != "gcl_bwd_fused"])
+@pytest.mark.parametrize("s", STEPS)
+def test_fp32_training_kernels_take_long_bars(kernel, s):
+    """The fp32 training kernels with the square weights take every S % 4
+    == 0 above 48: the grid check, and the wrappers' argument check with
+    the backward's gate table of S rows. The grid check passes fp64 too (no
+    kernel takes it: an fp64 layer on the card runs the plain versions,
+    chip_smoke's fp64 witness step)."""
+    gcl.check_grid(kernel, 4 * s, s)
+    gcl.check_grid(kernel, 4 * s, s, torch.float64)
+    x = torch.zeros(2, 4 * s, 256)
+    gcl.check_cuda_args(kernel, x, {
+        "x": (x, (2, 4 * s, 256), torch.float32),
+        "g": (x, (2, 4 * s, 256), torch.float32),
+        "gate_table": (torch.zeros(s, 256), (s, 256), torch.float32)}, s=s)
 
 
 @pytest.fixture
@@ -253,15 +285,32 @@ def test_gcl_eval_refuses_the_column_form_above_48_steps(card_route):
 
 def test_training_refuses_long_bars_before_any_launch(card_route,
                                                       monkeypatch):
+    """bf16 training and the column form at S = 64 raise before any launch
+    (the training layer, its forward and the fused backward)."""
     monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
-    s, d = 64, 128
-    x, aux, gates = eval_args(s, 1)[:3]
-    rel_w = torch.zeros(6, d, d, requires_grad=True)
+    s, d = 64, 256
+    bf = torch.bfloat16
+    x, aux, gates = eval_args(s, 1, d=d)[:3]
     mask = torch.zeros(2, 4, s, dtype=torch.bool)
     before = dict(counts.launches)
-    with pytest.raises(ValueError, match="training at S > 48"):
-        gcl_bwd.GclFused.apply(x, gates, rel_w, torch.zeros(d, d),
-                               torch.zeros(d), aux, mask)
-    with pytest.raises(ValueError, match="training at S > 48"):
-        gcl.gcl_fwd(x, aux, gates, torch.zeros(8 * d, d), torch.zeros(d))
+    with pytest.raises(ValueError, match=gcl.BF16_LONG):
+        gcl_bwd.GclFused.apply(x.to(bf), gates.to(bf),
+                               torch.zeros(6, d, d, dtype=bf,
+                                           requires_grad=True),
+                               torch.zeros(d, d, dtype=bf),
+                               torch.zeros(d, dtype=bf), aux, mask)
+    with pytest.raises(ValueError, match=gcl.BF16_LONG):
+        gcl.gcl_fwd(x.to(bf), aux, gates.to(bf),
+                    torch.zeros(8 * d, d, dtype=bf), torch.zeros(d, dtype=bf))
+    with pytest.raises(ValueError, match=gcl.BF16_LONG):
+        gcl_bwd.gcl_bwd_fused(x.to(bf), x.to(bf), aux, gates.to(bf),
+                              torch.zeros(8 * d, d, dtype=bf))
+    with pytest.raises(ValueError, match=gcl.COLS_LONG):
+        gcl_bwd.GclFused.apply(x, gates,
+                               torch.zeros(6, d, 128, requires_grad=True),
+                               torch.zeros(d, 128), torch.zeros(128), aux,
+                               mask)
+    with pytest.raises(ValueError, match=gcl.COLS_LONG):
+        gcl.gcl_fwd(x, aux, gates, torch.zeros(8 * d, 128),
+                    torch.zeros(128))
     assert card_route == [] and counts.launches == before

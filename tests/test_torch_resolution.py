@@ -190,12 +190,17 @@ def test_the_eval_kernels_take_every_resolution_up_to_12(resolution):
 @pytest.mark.parametrize("t, s", [(4, 52), (4, 64), (4, 96), (4, 192)])
 def test_the_eval_kernels_take_bars_above_48_steps(t, s):
     """Resolutions 13, 16, 24 and 48: the eval GCL (the long-bar kernels)
-    and the chord tail take them; the training forward refuses them."""
+    and the chord tail take them; the training forward takes them in fp32
+    and refuses them in bf16."""
     x, want = gcl_args(t, s)
     gcl.check_cuda_args("gcl_eval", x, want, s=s, grid=gcl.check_eval_grid)
     chord_tail._check_cuda_args(*chord_args(t, s))
-    with pytest.raises(ValueError, match="up to 48"):
-        gcl.check_cuda_args("gcl_fwd", x, want, s=s)
+    gcl.check_cuda_args("gcl_fwd", x, want, s=s)
+    xb = x.bfloat16()
+    want = dict(want, x=(xb, x.shape, torch.bfloat16))
+    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > "
+                                         "48"):
+        gcl.check_cuda_args("gcl_fwd", xb, want, s=s)
 
 
 @pytest.mark.parametrize("t, s", [(4, 2), (4, 30), (3, 16), (5, 32)])
@@ -231,10 +236,24 @@ def test_training_kernels_take_every_resolution_up_to_12(kernel,
 @pytest.mark.parametrize("t, s", [(4, 52), (4, 64), (4, 2), (4, 30),
                                   (3, 16)])
 def test_training_kernels_refuse_other_grids(kernel, t, s):
+    """3 tracks and S % 4 != 0 in every form; above 48 steps (S = 52, 64,
+    which fp32 takes with the square weights,
+    `test_fp32_training_kernels_take_52_and_64_steps`) bf16 and the fused
+    backward."""
+    dt = torch.bfloat16 if s > 48 else torch.float32
     with pytest.raises(ValueError, match=f"{kernel} kernel takes bars of "
                                          f"(4 tracks|4 x S cells with S a "
                                          f"multiple of 4 up to 48)"):
-        gcl.check_grid(kernel, t * s, s)
+        gcl.check_grid(kernel, t * s, s, dt)
+
+
+@pytest.mark.parametrize("kernel", [k for k in TRAINING_KERNELS
+                                    if k != "gcl_bwd_fused"])
+@pytest.mark.parametrize("s", [52, 64])
+def test_fp32_training_kernels_take_52_and_64_steps(kernel, s):
+    gcl.check_grid(kernel, 4 * s, s)
+    x, want = gcl_args(4, s, d=256)
+    gcl.check_cuda_args(kernel, x, want, s=s)
 
 
 @pytest.mark.parametrize("resolution", [r for r in range(1, 13) if r != 8])
