@@ -202,7 +202,7 @@
    NCCL group, in turns; (ii) two ranks on the
    one card over gloo (NCCL refuses two ranks on one GPU; gloo's
    all-reduce and broadcast take CUDA tensors), the flagship fp32 config
-   at its global batch of 256, 3 steps from seeded weights, batches and
+   at its global batch of 256, 2 steps from seeded weights, batches and
    eps, against one process on the same: every step's losses within 1e-4
    relative; the grads after step 1 held to an fp64 step's on the same
    weights and batch by phase 7's rule (within 0.1 of each max |fp64|, 1
@@ -222,7 +222,7 @@
    partial dx and dgate summed over the shards against the square plain
    version, each timed beside the square launch and its bound; (ii) two
    gloo ranks at model axis 2 through the `Trainer`, the flagship fp32
-   config, 3 steps, against one process as in phase 10 (ii) (losses 1e-4
+   config, 2 steps, against one process as in phase 10 (ii) (losses 1e-4
    relative, the grads after step 1 held to an fp64 step's; the last
    step's collectives timed on the host), after an eval step on the
    first batch (its losses as one process's on the same weights); (iii)
@@ -241,8 +241,8 @@
    cell of a track kind given the same ids), each 512-bar launch timed
    beside its bound;
    (ii) seeded model directories at r = 4 and 12 (d = 512, 8 layers, 2
-   bars): batch-256 generation in fp32 and bf16 by bench.py's protocol,
-   with MFU, each call launching exactly 4 `gcl_eval` and 1 `chord_tail` of
+   bars): batch-256 generation in fp32 and bf16 by bench.py's protocol
+   at GRID_BENCH_ROUNDS (10) calls a pass, with MFU, each call launching exactly 4 `gcl_eval` and 1 `chord_tail` of
    the model's grid and nothing else, n = 8 on the card against the CPU by
    phase 3's rules and phase 4b's; (iii) at r = 4, an HTTP request
    through `GenerationService` whose native MIDI equals the Python
@@ -280,17 +280,23 @@
    tie band, so the unconditioned run holds its structure logits within
    2e-2 x max |cpu| of the CPU's instead and compares every bar on the
    CPU's mask, `compare_bf16_with_cpu(flip_cap=False)`), the service, the
-   generate and the reconstruct CLIs; (v) one train step at r = 24 under
-   the bf16 policy and one `gcl_fused` layer in the column form (n = d /
-   2) at S = 96 raise before any launch, naming their roadmap items; (vi)
-   the three fp32 training kernels (`gcl_fwd`, `gcl_bwd_data`,
-   `gcl_bwd_weight`: `csrc/gcl_eval_long_fp32.cu`'s training form,
-   `csrc/gcl_bwd_data_long.cu`, `csrc/gcl_bwd_weight_long.cu`) against their
-   plain versions at r = 13, 16, 24 and 48, 128 bars, d = 512, by phase
-   2b's rules, each timed beside its bounds; (vii) LMD2's fp32 training
-   config at r = 24 as phase 12 (v) runs it: one CLI step, s/step with
-   MFU, exactly 64 launches of each long-bar training kernel a step, the
-   step at batch 8 against the CPU with its grads held to an fp64 step's.
+   generate and the reconstruct CLIs; (v) one `gcl_fused` layer in the
+   column form (n = d / 2) at S = 96 raises before any launch, naming its
+   roadmap item; (vi) the three fp32 training kernels (`gcl_fwd`,
+   `gcl_bwd_data`, `gcl_bwd_weight`: `csrc/gcl_eval_long_fp32.cu`'s
+   training form, `csrc/gcl_bwd_data_long.cu`, `csrc/gcl_bwd_weight_long.cu`)
+   against their plain versions at r = 13, 16, 24 and 48, 128 bars, d =
+   512, by phase 2b's rules, each timed beside its bounds, and their bf16
+   forms (`csrc/gcl_eval_long_bf16_tc.cu`'s training form and the bf16
+   instantiations of the two backward sources, bf16 training's split
+   backward above 48 steps) at 256 bars by phase 2c's rule, each timed
+   beside its bounds; (vii) LMD2's fp32 and bf16 training configs at
+   r = 24 as phase 12 (v) runs them: one CLI step, s/step with MFU, exactly
+   64 launches of each fp32 long-bar training kernel a step, and 32 of each
+   bf16 one (`gcl_fwd_bf16`, `gcl_bwd_data_bf16`, `gcl_bwd_weight_bf16`; no
+   `gcl_bwd_fused`), the fp32 step at batch 8 against the CPU with its
+   grads held to an fp64 step's, the bf16 step at batch 32 by phase 6's
+   rule.
 11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase, phases 10's and 10b's on every rank; the column forms
@@ -298,9 +304,9 @@
    kernels at S = 16 and 48, `<kernel>_s<S>`, the generation kernels timed
    in 12 (i) and launched in 12 (ii) and (iii), the training kernels timed
    in 12 (iv) and launched in 12 (v); phase 13's generation kernels at S =
-   96, the long-bar GCL as `<kernel>_k1_s96`, and its fp32 training kernels
-   at S = 96, timed in 13 (vi) and launched in 13 (vii)), the card line,
-   and last
+   96, the long-bar GCL as `<kernel>_k1_s96`, and its fp32 and bf16
+   training kernels at S = 96, timed in 13 (vi) and launched in 13 (vii)),
+   the script's seconds, the card line, and last
    {"ok":
    true, "device": {...}}.
 
@@ -511,13 +517,20 @@ def smem_bytes(kernel: str, *args) -> int:
 # the long-bar eval GCL kernels (bars of 4 x S cells, S > 48), by kernel
 # name: the symbol of each
 LONG_FORMS = {"gcl_eval_long": "gcl_eval_long_fp32_kernelILb1E",
-              "gcl_eval_long_bf16": "gcl_eval_long_bf16_tc_kernel"}
+              "gcl_eval_long_bf16": "gcl_eval_long_bf16_tc_kernelILb1E"}
 # the fp32 long-bar training kernels, by kernel name: the symbol of each
 # (the training form of the long eval kernel; the data backward's product
 # kernel, whose gather kernel holds no product; the weight backward)
 LONG_TRAIN_FORMS = {"gcl_fwd_long": "gcl_eval_long_fp32_kernelILb0E",
-                    "gcl_bwd_data_long": "gcl_bwd_data_long_kernel",
-                    "gcl_bwd_weight_long": "gcl_bwd_weight_long_kernel"}
+                    "gcl_bwd_data_long": "gcl_bwd_data_long_kernelIf",
+                    "gcl_bwd_weight_long": "gcl_bwd_weight_long_kernelIf"}
+# the bf16 ones, the same kernels' bf16 instantiations: the training form
+# of the long bf16 eval kernel (tensor cores), the split backward (FFMA on
+# bf16 operands widened to fp32)
+LONG_BF16_TRAIN_FORMS = {
+    "gcl_fwd_long_bf16": "gcl_eval_long_bf16_tc_kernelILb0E",
+    "gcl_bwd_data_long_bf16": "gcl_bwd_data_long_kernelI13__nv_bfloat16",
+    "gcl_bwd_weight_long_bf16": "gcl_bwd_weight_long_kernelI13__nv_bfloat16"}
 GRID_FORMS = [
     ("fp32", "gcl_eval_grid_fp32", "gcl_eval_grid",
      {"eval": "gcl_eval_grid_fp32_kernelILb1E",
@@ -533,7 +546,12 @@ GRID_FORMS = [
     ("fp32", "gcl_bwd_weight_long", "gcl_bwd_weight_long",
      {"weight": LONG_TRAIN_FORMS["gcl_bwd_weight_long"]}),
     ("bf16", "gcl_eval_long_bf16_tc", "gcl_eval_long_bf16",
-     {"eval": LONG_FORMS["gcl_eval_long_bf16"]})]
+     {"eval": LONG_FORMS["gcl_eval_long_bf16"],
+      "fwd": LONG_BF16_TRAIN_FORMS["gcl_fwd_long_bf16"]}),
+    ("bf16_ffma", "gcl_bwd_data_long", "gcl_bwd_data_long_bf16",
+     {"data": LONG_BF16_TRAIN_FORMS["gcl_bwd_data_long_bf16"]}),
+    ("bf16_ffma", "gcl_bwd_weight_long", "gcl_bwd_weight_long_bf16",
+     {"weight": LONG_BF16_TRAIN_FORMS["gcl_bwd_weight_long_bf16"]})]
 GRID_TRAIN_SOURCES = [
     ("fp32", "gcl_bwd_data_grid", "gcl_bwd_data_grid",
      {"data": "gcl_bwd_data_grid_kernel"}),
@@ -548,11 +566,12 @@ GRID_STEPS = (4, 8, 12, 16, 20, 24, 28, 36, 40, 44, 48)
 def grid_kernel_forms(usage) -> dict:
     """Phase 1's checks of every form of the grid GCL kernels: the eval
     kernels' eval and training-forward forms, the long-bar eval kernels
-    (the fp32 one's training form too) and fp32 training backward kernels,
-    and the grid training backward kernels at each S of GRID_STEPS. Each form's ptxas registers, spills
-    and dynamic shared memory and its SASS counts; fails unless each bf16
-    form holds tensor-core instructions and each fp32 form FFMA and none,
-    without spills."""
+    (with their training forms) and training backward kernels (fp32 and
+    bf16), and the grid training backward kernels at each S of GRID_STEPS.
+    Each form's ptxas registers, spills and dynamic shared memory and its
+    SASS counts; fails unless each bf16 tensor-core form holds tensor-core
+    instructions and each FFMA form (fp32, and "bf16_ffma": the long bf16
+    split backward) FFMA and none, without spills."""
     forms = [(dt, src, kname, part, sym, ())
              for dt, src, kname, syms in GRID_FORMS
              for part, sym in syms.items()]
@@ -573,8 +592,8 @@ def grid_kernel_forms(usage) -> dict:
                                  f"tensor-core instruction")
         else:
             check(r["hmma"] == 0 and r["ffma"] > 0 and r["spill_bytes"] == 0,
-                  f"the fp32 grid kernel {sym} is not an FFMA kernel without "
-                  f"spills: {r}")
+                  f"the {dt} grid kernel {sym} is not an FFMA kernel "
+                  f"without spills: {r}")
     return out
 
 
@@ -904,6 +923,85 @@ def check_gcl_train_bf16(nbar, d, device, timing=True, s=32):
                                                    peak_tflops(True))[0]
             r["cost_estimate_cuda_core_bound_ms"] = bound_ms(
                 cost_est, nbytes[name])[0]
+    counts.restore(before)  # comparison launches do not count
+    return res
+
+
+def check_gcl_train_long_bf16(nbar, d, device, timing=True, s=96):
+    """The bf16 training kernels above 48 steps a bar (`gcl_fwd` and the
+    split backward, `gcl_bwd_data` and `gcl_bwd_weight`, on bf16 inputs:
+    `csrc/gcl_eval_long_bf16_tc.cu`'s training form and the bf16 forms of
+    `csrc/gcl_bwd_data_long.cu` and `csrc/gcl_bwd_weight_long.cu`) against
+    their bf16 plain versions over bars of 4 x s cells, every output within
+    BF16_REL of max |plain|; with timing, ms per launch and the bounds
+    (`bound_ms`: the bf16 tensor cores' rate, the inputs' type;
+    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where the two
+    backward kernels multiply bf16 operands widened to fp32; "dense" and
+    "CE" variants as in 2b). The data backward's scratch (nbar x 4 planes x
+    4s x d floats) is the kernel's own traffic and counts in no bound."""
+    import torch
+
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
+
+    check(s > gcl.MAX_STEPS, f"the bf16 split backward takes S > "
+                             f"{gcl.MAX_STEPS}, got {s}")
+    mask, args = train_kernel_inputs(nbar, d, device, SEED + 19, s)
+    x, up, aux, gates, wbig, bias = [
+        v if v.dtype == torch.int32 else v.to(torch.bfloat16) for v in args]
+    before = dict(counts.launches)
+    runs = {
+        "gcl_fwd_bf16": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
+                         lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
+        "gcl_bwd_data_bf16": (
+            lambda: gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig),
+            lambda: gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)),
+        "gcl_bwd_weight_bf16": (
+            lambda: gcl_bwd.gcl_bwd_weight(x, up, aux, gates),
+            lambda: gcl_bwd.gcl_bwd_weight_plain(x, up, aux, gates)),
+    }
+    res = {}
+    for name, (kern, plain) in runs.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        parts = {"gcl_bwd_data_bf16": ("dx", "dgate", "dbias")}.get(
+            name, ("out",))
+        check([v.dtype for v in got] == [v.dtype for v in want],
+              f"{name} returned {[v.dtype for v in got]}, its plain version "
+              f"{[v.dtype for v in want]}")
+        errs = {p: held_rel(f"{name} {p}", a, b)
+                for p, a, b in zip(parts, got, want)}
+        res[name] = dict({"max_abs_err": max(errs.values())},
+                         **({f"{p}_max_abs_err": e for p, e in errs.items()}
+                            if len(errs) > 1 else {}))
+    if timing:
+        active = int(mask.sum())
+        state = x.numel() * 2
+        small = aux.numel() * 4 + gates.numel() * 2
+        flops = 2.0 * active * 5 * d * d
+        dense = 2.0 * mask.numel() * 5 * d * d
+        cost_est = 2.0 * mask.numel() * 8 * d * d
+        nbytes = {"gcl_fwd_bf16": 2 * state + small + wbig.numel() * 2
+                  + d * 2,
+                  "gcl_bwd_data_bf16": 3 * state + small + wbig.numel() * 2
+                  + (s + 1) * d * 4,
+                  "gcl_bwd_weight_bf16": 2 * state + small
+                  + wbig.numel() * 4}
+        for name, (kern, plain) in runs.items():
+            r = res[name]
+            r["ms"] = time_ms(kern)
+            r["plain_ms"] = time_ms(plain, reps=2)
+            r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes[name],
+                                                    peak_tflops(True))
+            r["cuda_core_bound_ms"] = bound_ms(flops, nbytes[name])[0]
+            r["dense_bound_ms"] = bound_ms(dense, nbytes[name],
+                                           peak_tflops(True))[0]
+            r["dense_cuda_core_bound_ms"] = bound_ms(dense, nbytes[name])[0]
+            r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name],
+                                                   peak_tflops(True))[0]
+        r = res["gcl_bwd_data_bf16"]
+        r["scratch_bytes"] = nbar * 4 * 4 * s * d * 4
     counts.restore(before)  # comparison launches do not count
     return res
 
@@ -1757,19 +1855,26 @@ def centre_merge_input(model, mc, toks, mask, eps):
         model.encoder.linear_merge.bias -= x.reshape(-1, x.shape[-1]).mean(0)
 
 
-def shift_free_grads(model, mc, toks, mask, eps):
+def shift_free_grads(model, mc, toks, mask, eps, device):
     """The parameters whose true grad on this batch is 0: their fp32 grad
-    (one fp32 step of `model` on the CPU) is under GRAD_NOISE x the largest.
-    They are the biases that feed a norm with batch statistics, which
-    removes any shift; under the bf16 policy their grads are rounding
-    noise."""
+    (one fp32 step of `model` on `device`; its launches do not count) is
+    under GRAD_NOISE x the largest. They are the biases that feed a norm
+    with batch statistics, which removes any shift (their fp32 grads come
+    out near 1e-8 of the largest on either device); under the bf16 policy
+    their grads are rounding noise. The step runs on the card: on the CPU
+    it was a whole fp32 step of LMD2 beside the comparison's own bf16 one,
+    about half of a comparison's time at r = 24."""
     from polyphemus_tpu_torch.config import TrainConfig
+    from polyphemus_tpu_torch.ops.kernels import counts
     from polyphemus_tpu_torch.train import trainer as tr
 
+    before = dict(counts.launches)
+    model = model.to(device)
     cfg = TrainConfig(batch_size=len(toks), model=mc)
     step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
-    step(toks, mask, eps=eps)
+    step(toks.to(device), mask.to(device), eps=eps.to(device))
     top = {n: p.grad.abs().max().item() for n, p in model.named_parameters()}
+    counts.restore(before)
     scale = max(top.values())
     return {n for n, v in top.items() if v < GRAD_NOISE * scale}
 
@@ -1901,7 +2006,7 @@ def compare_train_step(mc, batch, device, seed, check_grads=True,
     if bf16:
         centre_merge_input(cpu_model, mc, toks, mask, eps)
         shift_free = shift_free_grads(copy.deepcopy(cpu_model), mc, toks,
-                                      mask, eps)
+                                      mask, eps, device)
     runs = [("cpu", cpu_model, torch.device("cpu")),
             ("card", copy.deepcopy(cpu_model).to(device), device)]
     if witness:
@@ -2853,7 +2958,7 @@ DDP_STEPS = 5            # W = 1 NCCL steps of the train CLI, and of the
 DDP_LOSS_RTOL = 1e-6     # W = 1 NCCL vs non-distributed: the first step's
 DDP_SPREAD = 10.0        # later steps: this x the spread of two runs
 #                          without a group (a share of it, not a tolerance)
-TWO_RANK_STEPS = {False: 3, True: 2}        # 2 gloo ranks, fp32 and bf16
+TWO_RANK_STEPS = {False: 2, True: 2}        # 2 gloo ranks, fp32 and bf16
 TWO_RANK_LOSS_RTOL = {False: 1e-4, True: BF16_LOSS_RTOL}
 CHILD_TIMEOUT = 300      # seconds, one torchrun or CLI process
 LAUNCHES_LINE = re.compile(r"^Kernel launches \(rank (\d+)\): (\{.*\})$",
@@ -3369,7 +3474,7 @@ def tp_phase(card) -> tuple:
     """Phase 10b, tensor parallelism on the one card: (i) the GCL kernels'
     column forms against their plain versions (`check_gcl_columns`) at
     TP_KERNEL_CASES x TP_WIDTHS, timed beside the square launch; (ii) two
-    gloo ranks at model axis 2 (D = 1), fp32, 3 steps, against one process
+    gloo ranks at model axis 2 (D = 1), fp32, 2 steps, against one process
     and the fp64 witness; (iii) the same in bf16, 2 steps; (iv) four gloo
     ranks at D = 2 x M = 2, fp32, 2 steps, against (ii)'s one process
     (`ranks_phase`). Returns (the kernel checks, the ranks' launches
@@ -3407,6 +3512,7 @@ GRID_CHECKS = (3, 4, 6, 12)   # resolutions whose kernels are held and timed
 GRID_MODELS = (4, 12)         # resolutions generated end to end
 GRID_KERNELS = ("gcl_eval", "gcl_eval_bf16", "chord_tail", "chord_tail_bf16")
 GRID_MODEL = {"d": 512, "gnn_n_layers": 8, "n_bars": 2}  # LMD2's widths
+GRID_BENCH_ROUNDS = 10        # calls a timed pass of phases 12 and 13's bench
 
 
 def grid_kernels(device, card, resolutions=GRID_CHECKS, timed=None) -> dict:
@@ -3481,7 +3587,7 @@ def grid_generation(device, card, r, service=False, flip_cap=True) -> tuple:
         k = "_bf16" if bf16 else ""
         counts.reset()
         # ---- the main path ----
-        b = bench(model_dir, device, bf16=bf16)
+        b = bench(model_dir, device, rounds=GRID_BENCH_ROUNDS, bf16=bf16)
         got = dict(counts.launches)
         want = summed(eval_calls(f"gcl_eval{k}", s, 2, 4 * b["calls"]),
                       {(f"chord_tail{k}", s, 1): b["calls"]})
@@ -3556,10 +3662,19 @@ def grid_generation(device, card, r, service=False, flip_cap=True) -> tuple:
 
 # the training kernels of a bar grid, by dtype: per optimizer step of the
 # LMD2 configs (16 GCL layers a microbatch, 4 microbatches in fp32, 2 in
-# bf16)
+# bf16); bf16 above 48 steps a bar runs the split backward
 GRID_TRAIN_KERNELS = {False: {"gcl_fwd": 64, "gcl_bwd_data": 64,
                               "gcl_bwd_weight": 64},
                       True: {"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32}}
+LONG_BF16_TRAIN_KERNELS = {"gcl_fwd_bf16": 32, "gcl_bwd_data_bf16": 32,
+                           "gcl_bwd_weight_bf16": 32}
+
+
+def grid_train_kernels(bf16, s) -> dict:
+    """The training kernels' launches per optimizer step of the LMD2
+    configs (bf16 or not) over bars of 4 x s cells."""
+    return LONG_BF16_TRAIN_KERNELS if bf16 and s > 48 \
+        else GRID_TRAIN_KERNELS[bf16]
 GRID_TRAIN_SAMPLES = 256   # one step a CLI epoch at batch 256
 
 
@@ -3601,7 +3716,7 @@ def grid_config(r, bf16) -> str:
 
 def grid_training(device, card, r, bf16s=(False, True)) -> tuple:
     """Phase 12 (v): LMD2's widths at resolution r (4 x 4r cells a bar), in
-    fp32 and bf16 (`bf16s`: phase 13 (vii) runs fp32 only) at batch 256:
+    fp32 and bf16 (`bf16s`) at batch 256:
     one optimizer step through
     `cli.train.main()` on GRID_TRAIN_SAMPLES synthetic samples of the grid
     (records finite), then seconds per step (`time_train_steps`: 1 pass of
@@ -3614,7 +3729,7 @@ def grid_training(device, card, r, bf16s=(False, True)) -> tuple:
     the decoder's GCN, the card's kernels' 1.1-1.5 % (H100, PERF.md §6),
     so phase 5's 1e-3 against the CPU would hold the CPU's rounding. The
     counts are set to 0 before the CLI run and before the timed steps and
-    read after each: exactly GRID_TRAIN_KERNELS' launches a step of the
+    read after each: exactly `grid_train_kernels`' launches a step of the
     grid's kernels and nothing else. Returns (results, launches by
     `grid_name`)."""
     from polyphemus_tpu_torch import flops
@@ -3630,7 +3745,7 @@ def grid_training(device, card, r, bf16s=(False, True)) -> tuple:
 
         def want(steps):
             return {(name, s, 1): n * steps
-                    for name, n in GRID_TRAIN_KERNELS[bf16].items()}
+                    for name, n in grid_train_kernels(bf16, s).items()}
 
         # ---- the main path: the CLI's step, then the timed steps ----
         t1 = time.perf_counter()
@@ -3705,65 +3820,49 @@ LONG_MODEL = 24                  # generated end to end: pypianoroll's grid
 def long_training_refused(device, r) -> dict:
     """Phase 13 (v): what training at resolution r (S = 4r > 48) still
     refuses on the card, before any kernel launch and with a message that
-    names the limit and its ROADMAP.md item: one train step of LMD2's
-    widths under the bf16 policy (bf16 training at S > 48), and one
-    `gcl_fused` layer in the column form, n = d / 2 (the column forms at S
-    > 48). {case: the message}."""
+    names the limit and its ROADMAP.md item: one `gcl_fused` layer in the
+    column form, n = d / 2 (the column forms at S > 48). {case: the
+    message}."""
     import torch
 
-    from polyphemus_tpu_torch.config import ModelConfig, TrainConfig
-    from polyphemus_tpu_torch.data import synthetic_batch
-    from polyphemus_tpu_torch.models import VAE
     from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
-    from polyphemus_tpu_torch.train import trainer as tr
 
-    mc = ModelConfig(resolution=r, dropout=0.0, batch_norm=True,
-                     **GRID_MODEL)
-    s = mc.n_timesteps
-    toks, mask = (torch.from_numpy(a).to(device) for a in synthetic_batch(
-        np.random.default_rng(SEED), 8, mc.n_bars, n_timesteps=s))
-    cfg = TrainConfig(batch_size=8, model=mc, iters_to_accumulate=1,
-                      bf16=True)
-    model = VAE(mc).to(device)
-    step = tr.make_train_step(model, cfg, tr.make_optimizer(model, cfg))
-    d, n = mc.d, mc.d // 2
+    d = GRID_MODEL["d"]
+    n, s = d // 2, 4 * r
     bar_mask, (x, _, aux, gates, _, _) = train_kernel_inputs(
         2, d, device, SEED, s)
-    cols = (lambda: gcl_bwd.gcl_fused(
-        x.requires_grad_(), gates, torch.zeros(6, d, n, device=device),
-        torch.zeros(d, n, device=device), torch.zeros(n, device=device),
-        aux, bar_mask))
-    res = {}
-    for case, run, item in (("bf16", lambda: step(toks, mask),
-                             gcl.BF16_LONG),
-                            ("fp32_column_form", cols, gcl.COLS_LONG)):
-        counts.reset()
-        try:
-            run()
-        except ValueError as e:
-            msg = str(e)
-        else:
-            fail(f"{case} training at resolution {r} ran on the card")
-        check("up to 48" in msg and item in msg and "ROADMAP" in msg,
-              f"resolution {r} {case} training raised: {msg}")
-        check(not counts.launches, f"resolution {r} {case} training "
-                                   f"launched {named(counts.launches)} first")
-        res[case] = msg
-    return res
+    counts.reset()
+    try:
+        gcl_bwd.gcl_fused(
+            x.requires_grad_(), gates, torch.zeros(6, d, n, device=device),
+            torch.zeros(d, n, device=device), torch.zeros(n, device=device),
+            aux, bar_mask)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail(f"the column form at resolution {r} ran on the card")
+    check("up to 48" in msg and gcl.COLS_LONG in msg and "ROADMAP" in msg,
+          f"resolution {r} column-form training raised: {msg}")
+    check(not counts.launches, f"resolution {r} column-form training "
+                               f"launched {named(counts.launches)} first")
+    return {"fp32_column_form": msg}
 
 
 def long_training_kernels(device, card) -> dict:
-    """Phase 13 (vi): the fp32 training kernels at bars of 4 x 4r cells for
-    r in LONG_CHECKS, at the fp32 training microbatch's 128 bars, d = 512,
-    against their plain versions by phase 2b's rules and timed beside their
-    bounds (`check_gcl_train`). {r: {kernel: result}}."""
+    """Phase 13 (vi): the training kernels at bars of 4 x 4r cells for r in
+    LONG_CHECKS, d = 512, against their plain versions: fp32 at the fp32
+    training microbatch's 128 bars by phase 2b's rules, timed beside their
+    bounds (`check_gcl_train`); bf16 at the bf16 microbatch's 256 bars by
+    phase 2c's rule, timed beside their bounds
+    (`check_gcl_train_long_bf16`). {r: {kernel: result}}."""
     res = {}
     for r in LONG_CHECKS:
         s = 4 * r
         res[r] = check_gcl_train(128, 512, device, s=s)
-        print(f"long bars r={r} (4 x {s} cells), the fp32 training kernels "
-              f"against their plain versions (128 bars, d=512, {card}):",
-              json.dumps(res[r]))
+        res[r].update(check_gcl_train_long_bf16(256, 512, device, s=s))
+        print(f"long bars r={r} (4 x {s} cells), the training kernels "
+              f"against their plain versions (fp32 128 bars, bf16 256, "
+              f"d=512, {card}):", json.dumps(res[r]))
     return res
 
 
@@ -3772,8 +3871,8 @@ def long_phase(device, card) -> tuple:
     generation kernels at LONG_CHECKS against their plain versions and
     timed (`grid_kernels`), LONG_MODEL's generation, service and CLIs
     (`grid_generation`), what its training refuses
-    (`long_training_refused`), the fp32 training kernels at LONG_CHECKS
-    (`long_training_kernels`) and LONG_MODEL's fp32 training
+    (`long_training_refused`), the training kernels at LONG_CHECKS
+    (`long_training_kernels`) and LONG_MODEL's training in fp32 and bf16
     (`grid_training`). Returns (kernel checks, training kernel checks,
     generation and training results, launches by `grid_name`)."""
     t0 = time.perf_counter()
@@ -3782,12 +3881,13 @@ def long_phase(device, card) -> tuple:
     gen, launches = grid_generation(device, card, LONG_MODEL, service=True,
                                     flip_cap=False)
     refused = long_training_refused(device, LONG_MODEL)
-    print(f"resolution {LONG_MODEL}: bf16 training and the column form "
-          f"refused on the card before any launch:", json.dumps(refused))
+    print(f"resolution {LONG_MODEL}: the column form refused on the card "
+          f"before any launch:", json.dumps(refused))
     t0 = time.perf_counter()
     train_kern = long_training_kernels(device, card)
     print(f"phase 13 (vi): {time.perf_counter() - t0:.1f} s")
-    train, got = grid_training(device, card, LONG_MODEL, bf16s=(False,))
+    train, got = grid_training(device, card, LONG_MODEL,
+                               bf16s=(False, True))
     launches.update(got)
     return kern, train_kern, {"generation": gen, "training": train}, \
         launches
@@ -4303,12 +4403,18 @@ def main() -> int:
                              f"polyphemus_tpu_torch/csrc/{src}",
                              f"polyphemus_tpu/ops/kernels/{replaces}",
                              long_checks[LONG_MODEL][name]))
-    # the fp32 training kernels at resolution LONG_MODEL, each held and timed
-    # at the training microbatch's 128 bars in 13 (vi), launched by 13 (vii)
+    # the training kernels at resolution LONG_MODEL, each held and timed at
+    # the training microbatch's bars (fp32 128, bf16 256) in 13 (vi),
+    # launched by 13 (vii)
     for name, src, replaces in (
             ("gcl_fwd", "gcl_eval_long_fp32.cu", "gcl_pallas.py:347"),
             ("gcl_bwd_data", "gcl_bwd_data_long.cu", "gcl_pallas_bwd.py:528"),
             ("gcl_bwd_weight", "gcl_bwd_weight_long.cu",
+             "gcl_pallas_bwd.py:564"),
+            ("gcl_fwd_bf16", "gcl_eval_long_bf16_tc.cu", "gcl_pallas.py:347"),
+            ("gcl_bwd_data_bf16", "gcl_bwd_data_long.cu",
+             "gcl_pallas_bwd.py:528"),
+            ("gcl_bwd_weight_bf16", "gcl_bwd_weight_long.cu",
              "gcl_pallas_bwd.py:564")):
         kernels.append(entry(f"{name}_s{s}",
                              f"polyphemus_tpu_torch/csrc/{src}",
@@ -4338,6 +4444,7 @@ def main() -> int:
                           for k in ("gcl_fwd", "gcl_bwd_data",
                                     "gcl_bwd_weight")})
     print(json.dumps({"lmd16_kernels": lmd16_kernels, "card": card}))
+    print(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

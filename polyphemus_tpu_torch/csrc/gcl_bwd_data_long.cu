@@ -1,17 +1,17 @@
-// GCL training backward, data half, fp32, for bars of 4 x S cells at any S
-// that is a multiple of 4 above 48 (resolutions 13 and up: 24, the Lakh
-// Pianoroll Dataset's grid, is S = 96): dx, d(gate_table) (S, d) and
-// dbias. Up to S = 48 the port launches `gcl_bwd_data_grid.cu` (and at S =
-// 32 `gcl_bwd_data.cu`), whose CTA holds whole bars; above that one bar no
-// longer fits a CTA's shared memory, and this source takes it in two
-// launches.
+// GCL training backward, data half, in fp32 or bf16, for bars of 4 x S
+// cells at any S that is a multiple of 4 above 48 (resolutions 13 and up:
+// 24, the Lakh Pianoroll Dataset's grid, is S = 96): dx, d(gate_table) (S,
+// d) and dbias. Up to S = 48 the port launches `gcl_bwd_data_grid.cu` (and
+// at S = 32 `gcl_bwd_data.cu`) in fp32 and the fused backward in bf16,
+// whose CTAs hold whole bars; above that one bar no longer fits a CTA's
+// shared memory, and this source takes it in two launches.
 //
-// Replaces, in fp32 and at those grids, the Pallas kernel `_bwd_data_kernel`
-// of polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel A of
+// Replaces, at those grids, the Pallas kernel `_bwd_data_kernel` of
+// polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel A of
 // `gcl_backward_pallas`, :494, its pallas_call at :528, called by the
-// custom VJP `gcl_fused`), which takes the steps a bar as `n_steps`
-// (:91-95). Per bar of N = 4 S cells it computes what
-// `gcl_bwd_data_grid.cu` computes:
+// custom VJP `gcl_fused` in both dtypes, gcl_pallas.py:493-516), which
+// takes the steps a bar as `n_steps` (:91-95). Per bar of N = 4 S cells it
+// computes what `gcl_bwd_data_grid.cu` computes:
 //
 //   dH_r     = gm @ W_r^T            (track blocks: each track's S rows only)
 //   dx       = dH_root + the gathers of the track, onset and next relations
@@ -19,7 +19,18 @@
 //   dgate[s] = sum of relu'(pre) * upstream * x[src] at distance s
 //   dbias    = sum of gm over every cell of every bar
 //
-// with the square weights only (Wbig (8d, d), g (nbar, N, d)).
+// with the square weights only (Wbig (8d, d), g (nbar, N, d)). The element
+// type E of x, g, the gate table, Wbig and dx is a template parameter
+// (`gcl_bwd_data_long_launch` fp32, `gcl_bwd_data_long_bf16_launch` bf16);
+// dgate and dbias are fp32 sums. In bf16 the operands are widened to fp32
+// in registers (a bf16 x bf16 product is exact in fp32, so the FFMAs
+// compute what the Pallas body's bf16 dots with fp32 sums compute), and
+// values are rounded to bf16 (`rnd`) where `_bwd_data_kernel` casts to its
+// compute dtype: the mean reciprocals (`recip`, :84-86), dnx and dcol
+// before their column sums (:174, :190), pre = x[src] g (:165) and pre0 =
+// x g0 (:195) before their relu' tests, the shares relu'(pre) up g and
+// relu'(pre) up x[src] before the scatters into dx and dgate (:183-185),
+// and dx at the end; dmsg, dz and dy0 stay fp32, as there.
 //
 // What bounds it on an H100: operations, the product (2 N 5d d flops a bar:
 // 1.01 GFLOP at S = 96, d = 512) in fp32 FFMA on the CUDA cores.
@@ -33,25 +44,30 @@
 //   row r = 32 t + cc of an item is cell (t, c0 + cc), as in
 //   `gcl_eval_long_fp32.cu`, so the four cells of a column lie in the item.
 //   Its product is `gcl_bwd_data.cu`'s (8 rows x 2 columns x 5 segments a
-//   thread; the item's g rows, one TMA box of [4 tracks][32 columns][32
-//   features] from g seen as (nbar 4, S, d), zero past the bar's last
-//   column, and the tile's W rows of the 8 blocks, 128-byte swizzle, two
-//   stages on mbarriers running on from item to item). It writes dH_root m
-//   into dx and three upstream planes into the scratch (nbar, 3, N, d):
+//   thread; the item's g rows, one TMA box of [4 tracks][32 columns][128
+//   bytes of features: 32 fp32, 64 bf16] from g seen as (nbar 4, S, d),
+//   zero past the bar's last column, and the tile's W rows of the 8 blocks,
+//   128-byte swizzle, two stages on mbarriers running on from item to
+//   item). It writes dH_root m, fp32, into dr (dx itself in fp32, a plane
+//   after the scratch in bf16, where dx holds bf16) and three fp32 upstream
+//   planes into the scratch (nbar, 3, N, d):
 //   dmsg = dH_track m r_tr (read by the track relations), dz = colsum(dnx)
 //   - dnx with dnx = dH_next m r_nx (read by the next relation), dy0 =
 //   colsum(dcol) - dcol + dH_self m single with dcol = dH_onset m r_on (read
 //   by the cell itself); the column sums through shared memory.
 // - The gather kernel. A CTA owns one bar and 128 features, a warp 32 (a
 //   feature a lane); it inverts the bar's relations at the statics' decode
-//   (no atomics) and walks the cells in order, adding to dx the shares
-//   gathered from the scratch, and to this bar's row of dgate partials in
-//   `part` (each element owned by one thread) their dgate shares; dbias by
-//   the same walk. The launcher sums the rows of `part` in bar order
-//   (`gcl::sum_rows`): no float atomics, bitwise repeatable.
+//   (no atomics) and walks the cells in order, adding to dH_root m the
+//   shares gathered from the scratch (then writing dx), and to this bar's
+//   row of dgate partials in `part` (each element owned by one thread)
+//   their dgate shares; dbias by the same walk. The launcher sums the rows
+//   of `part` in bar order (`gcl::sum_rows`): no float atomics, bitwise
+//   repeatable.
 // - No shared-memory size depends on S but the gather kernel's statics (16
 //   bytes a cell).
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "gcl_common.cuh"
 
@@ -59,7 +75,6 @@ namespace {
 
 using namespace gcl;
 
-constexpr int BK = 32;           // contracted features a stage
 constexpr int NSEG = 5;          // dH segments: track, self, onset, next, root
 constexpr int THREADS = 256;     // product kernel
 constexpr int CW = 32;           // bar columns of an item
@@ -70,16 +85,23 @@ constexpr int CPT = 2;           // columns a thread: cg + 16 c
 constexpr int NUP = 3;           // scratch planes: dmsg, dz, dy0
 constexpr int GATHER_THREADS = 128;  // gather kernel: 4 warps x 32 features
 
-// Features f0..f0+31 of the item's g rows and of the tile's W rows in all
+// Contracted features a stage: rows of 128 bytes of element type E, 8
+// chunks of 16 bytes.
+template <typename E>
+__host__ __device__ constexpr int bk() { return 128 / (int)sizeof(E); }
+
+// Features f0..f0+bk-1 of the item's g rows and of the tile's W rows in all
 // 8 blocks (row blk * BC + n): rows of 128 bytes, the TMA's 128-byte
-// swizzle.
+// swizzle. 48 KB in either element type.
+template <typename E>
 struct alignas(1024) Stage {
-  float g[MT * BK];
-  float w[NBLK * BC * BK];
+  E g[MT * bk<E>()];
+  E w[NBLK * BC * bk<E>()];
 };
 
+template <typename E>
 struct ProdSmem {
-  Stage st[2];                             // stage u in st[u % 2]
+  Stage<E> st[2];                          // stage u in st[u % 2]
   alignas(16) float col[2][MT][BC];        // dcol, dnx of the item
   float m[MT], rtr[MT], single[MT], ron[MT], rnx[MT];
   unsigned long long full[2];              // stage buffer b has landed
@@ -89,14 +111,15 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Float offset of chunk ch (16 bytes) of row r of a stage buffer, as the
-// TMA's 128-byte swizzle stores it (the buffer 1024-byte aligned).
-__device__ __forceinline__ int sw_off(int r, int ch) {
-  return r * BK + ((ch ^ (r & 7)) << 2);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Element offset of quad q (4 elements) of row r of a stage buffer, as the
+// TMA's 128-byte swizzle stores its 16-byte chunks (the buffer 1024-byte
+// aligned): chunk q / QPC at chunk (q / QPC) ^ (r % 8), QPC = the quads a
+// chunk (1 fp32, 2 bf16).
+template <typename E>
+__device__ __forceinline__ int sw_off(int r, int q) {
+  constexpr int QPC = 4 / (int)sizeof(E);
+  constexpr int EPC = 16 / (int)sizeof(E);
+  return r * bk<E>() + (((q / QPC) ^ (r & 7)) * EPC) + (q % QPC) * 4;
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
@@ -134,33 +157,37 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Stage buffer b: features f0..f0+31 of the g rows of item (bar, columns
+// Stage buffer b: features f0..f0+bk-1 of the g rows of item (bar, columns
 // tc0..) and of the tile's W rows, one TMA box each; thread 0 starts it.
-__device__ __forceinline__ void load_stage(ProdSmem& sm, int b,
+template <typename E>
+__device__ __forceinline__ void load_stage(ProdSmem<E>& sm, int b,
                                            const CUtensorMap* gmap,
                                            const CUtensorMap* wmap, int bar,
                                            int tc0, int c0, int f0) {
-  mbar_expect(&sm.full[b], sizeof(Stage));
+  mbar_expect(&sm.full[b], sizeof(Stage<E>));
   load_3d(sm.st[b].g, gmap, f0, tc0, bar * T, &sm.full[b]);
   load_3d(sm.st[b].w, wmap, f0, c0, 0, &sm.full[b]);
 }
 
 // One stage into this thread's sums: rows r0 + 4 r (track trk), columns cg
-// + 16 c of every segment.
+// + 16 c of every segment; bf16 operands widened to fp32 as they load.
+template <typename E>
 __device__ __forceinline__ void stage_ffma(float (&acc)[NSEG][RPT][CPT],
-                                           const Stage& s, int trk, int r0,
+                                           const Stage<E>& s, int trk, int r0,
                                            int cg) {
 #pragma unroll 2
-  for (int kc = 0; kc < BK / 4; ++kc) {
+  for (int kc = 0; kc < bk<E>() / 4; ++kc) {
     float4 a[RPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) a[r] = ld4(s.g + sw_off(r0 + 4 * r, kc));
+    for (int r = 0; r < RPT; ++r)
+      a[r] = Elem<E>::load4(s.g + sw_off<E>(r0 + 4 * r, kc));
 #pragma unroll
     for (int sg = 0; sg < NSEG; ++sg) {
       const int row = (sg == 0 ? trk : T - 1 + sg) * BC + cg;
       float4 b[CPT];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) b[c] = ld4(s.w + sw_off(row + 16 * c, kc));
+      for (int c = 0; c < CPT; ++c)
+        b[c] = Elem<E>::load4(s.w + sw_off<E>(row + 16 * c, kc));
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
 #pragma unroll
@@ -175,14 +202,18 @@ __device__ __forceinline__ void stage_ffma(float (&acc)[NSEG][RPT][CPT],
   }
 }
 
+// dr: dH_root m, fp32 (nbar, N, d); up: the scratch planes.
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
-gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dx,
+gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dr,
                          float* __restrict__ up, int nbar, int S, int d,
                          int nchunks,
                          const __grid_constant__ CUtensorMap gmap,
                          const __grid_constant__ CUtensorMap wmap) {
+  using R = Elem<E>;
+  constexpr int BK = bk<E>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  ProdSmem& sm = *reinterpret_cast<ProdSmem*>(smem_raw);
+  ProdSmem<E>& sm = *reinterpret_cast<ProdSmem<E>*>(smem_raw);
   const int N = T * S, ntile = (S + CW - 1) / CW, nitem = nbar * ntile;
   const int c0 = blockIdx.x * BC, chunk = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -233,10 +264,10 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dx,
           cs = cell_statics_grid(aux + (size_t)bar * N_AUX * N, t * S + c, N,
                                  S);
         sm.m[tid] = cs.m;
-        sm.rtr[tid] = cs.rtr;
+        sm.rtr[tid] = R::rnd(cs.rtr);
         sm.single[tid] = cs.single;
-        sm.ron[tid] = cs.ron;
-        sm.rnx[tid] = cs.rnx;
+        sm.ron[tid] = R::rnd(cs.ron);
+        sm.rnx[tid] = R::rnd(cs.rnx);
       }
       mbar_wait(&sm.full[u & 1], (u >> 1) & 1);  // stage u has landed
       stage_ffma(acc, sm.st[u & 1], trk, r0, cg);
@@ -254,8 +285,8 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dx,
       for (int c = 0; c < CPT; ++c) {
         dmsg[r][c] = acc[0][r][c] * m * sm.rtr[row];
         dself[r][c] = acc[1][r][c] * m * sm.single[row];
-        sm.col[0][row][cg + 16 * c] = acc[2][r][c] * m * sm.ron[row];
-        sm.col[1][row][cg + 16 * c] = acc[3][r][c] * m * sm.rnx[row];
+        sm.col[0][row][cg + 16 * c] = R::rnd(acc[2][r][c] * m * sm.ron[row]);
+        sm.col[1][row][cg + 16 * c] = R::rnd(acc[3][r][c] * m * sm.rnx[row]);
         droot[r][c] = acc[4][r][c] * m;
 #pragma unroll
         for (int sg = 0; sg < NSEG; ++sg) acc[sg][r][c] = 0.f;
@@ -264,7 +295,7 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dx,
     __syncthreads();
     const size_t plane = (size_t)N * d;
     float* upb = up + (size_t)bar * NUP * plane;
-    float* dxb = dx + (size_t)bar * plane;
+    float* drb = dr + (size_t)bar * plane;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = r0 + 4 * r, cc = row % CW;
@@ -282,23 +313,28 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dx,
         upb[cell + q] = dmsg[r][c];
         upb[plane + cell + q] = dz;
         upb[2 * plane + cell + q] = dy0;
-        dxb[cell + q] = droot[r][c];
+        drb[cell + q] = droot[r][c];
       }
     }
   }
 }
 
-// The gather kernel: dx += the shares the bar's cells take through the
-// relations and the self term, and this bar's row of dgate / dbias
-// partials, part[bar] = [dgate (S, d) | dbias (d)] (zero before).
+// The gather kernel: dx = dH_root m (dr; in fp32 dx itself, updated in
+// place) + the shares the bar's cells take through the relations and the
+// self term, and this bar's row of dgate / dbias partials, part[bar] =
+// [dgate (S, d) | dbias (d)] (zero before).
+template <typename E>
 __global__ void __launch_bounds__(GATHER_THREADS)
-gcl_bwd_gather_long_kernel(const float* __restrict__ x,
-                           const float* __restrict__ g,
+gcl_bwd_gather_long_kernel(const E* __restrict__ x,
+                           const E* __restrict__ g,
                            const int* __restrict__ aux,
-                           const float* __restrict__ gates,
+                           const E* __restrict__ gates,
                            const float* __restrict__ up,
-                           float* __restrict__ dx, float* __restrict__ part,
+                           const float* __restrict__ dr,
+                           E* __restrict__ dx, float* __restrict__ part,
                            int S, int d) {
+  using R = Elem<E>;
+  constexpr bool kInPlace = std::is_same<E, float>::value;
   // src[r][j] = i | dist << 16 for the cell i that reads cell j through
   // relation r (0 previous, 1 next in the track, 2 previous column) and
   // whose share is not 0, or -1; m[j] the mask
@@ -321,36 +357,41 @@ gcl_bwd_gather_long_kernel(const float* __restrict__ x,
   __syncthreads();
   const int f = blockIdx.y * GATHER_THREADS + tid;
   const size_t plane = (size_t)N * d;
-  const float* xb = x + (size_t)bar * plane + f;
-  const float* gb = g + (size_t)bar * plane + f;
+  const E* xb = x + (size_t)bar * plane + f;
+  const E* gb = g + (size_t)bar * plane + f;
   const float* upb = up + (size_t)bar * NUP * plane + f;
-  float* dxb = dx + (size_t)bar * plane + f;
+  const float* drb = dr + (size_t)bar * plane + f;
+  E* dxb = dx + (size_t)bar * plane + f;
   float* pb = part + (size_t)bar * ((size_t)S * d + d) + f;
-  const float g0 = gates[f];
+  const float g0 = R::load1(gates + f);
   float db = 0.f;
   for (int j = 0; j < N; ++j) {
     const size_t jd = (size_t)j * d;
-    const float xv = xb[jd];
-    float dxv = dxb[jd];
+    const float xv = R::load1(xb + jd);
+    float dxv;
+    if constexpr (kInPlace)
+      dxv = dxb[jd];
+    else
+      dxv = drb[jd];
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       const int e = src[r * N + j];
       if (e < 0) continue;
       const int i = e & 0xffff, dist = e >> 16;
-      const float gv = gates[(size_t)dist * d + f];
-      if (!(xv * gv > 0.f)) continue;
+      const float gv = R::load1(gates + (size_t)dist * d + f);
+      if (!(R::rnd(xv * gv) > 0.f)) continue;
       const float u = upb[(r < 2 ? 0 : plane) + (size_t)i * d];
-      dxv += u * gv;
-      pb[(size_t)dist * d] += u * xv;
+      dxv += R::rnd(u * gv);
+      pb[(size_t)dist * d] += R::rnd(u * xv);
     }
     const float mj = m[j];
-    if (mj > 0.f && xv * g0 > 0.f) {
+    if (mj > 0.f && R::rnd(xv * g0) > 0.f) {
       const float dy0 = upb[2 * plane + jd];
       dxv += dy0 * g0;
       pb[0] += dy0 * xv;
     }
-    dxb[jd] = dxv;
-    db += gb[jd] * mj;
+    R::store1(dxb + jd, dxv);
+    db += R::load1(gb + jd) * mj;
   }
   pb[(size_t)S * d] = db;
 }
@@ -382,44 +423,38 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-d fp32 tensor at base, dims[0] the contiguous one, strides[i] the
-// bytes between steps of dimension i + 1, read in boxes of box[0..2]
-// elements with the TMA's 128-byte swizzle (zero past its edges).
-bool fp32_map(CUtensorMap* map, const void* base, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
+// A 3-d tensor of element type E at base, dims[0] the contiguous one,
+// strides[i] the bytes between steps of dimension i + 1, read in boxes of
+// box[0..2] elements with the TMA's 128-byte swizzle (zero past its
+// edges).
+template <typename E>
+bool tensor_map(CUtensorMap* map, const void* base, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
+  const CUtensorMapDataType type = std::is_same<E, float>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, type, 3, const_cast<void*>(base),
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory a CTA of the product kernel takes.
-extern "C" int gcl_bwd_data_long_smem_bytes() {
-  return (int)sizeof(ProdSmem);
-}
-
-// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); wbig (8d, d);
-// all 16-byte aligned, d % 128 == 0, n == d (the square weights only); S a
-// multiple of 4, 4 S < 65536. Writes dx (nbar, 4 S, d) and out = [dgate (S,
-// d) | dbias (d)], using up (nbar, 3, 4 S, d) as the upstream scratch and
-// part (nbar, S * d + d) for the per-bar partials.
-extern "C" int gcl_bwd_data_long_launch(const void* x, const void* g,
-                                        const void* aux, const void* gates,
-                                        const void* wbig, void* dx, void* part,
-                                        void* out, void* up, int nbar, int S,
-                                        int d, int n, void* stream) {
-  static_assert(sizeof(Stage) == sizeof(float) * (MT + NBLK * BC) * BK,
+// The two launches, the elements of x, g, gates, wbig and dx of type E;
+// see `gcl_bwd_data_long_launch`. dr takes dH_root m (fp32): dx in fp32.
+template <typename E>
+int launch(const void* x, const void* g, const void* aux, const void* gates,
+           const void* wbig, void* dx, void* part, void* out, void* up,
+           float* dr, int nbar, int S, int d, int n, cudaStream_t st) {
+  constexpr int BK = bk<E>(), ES = (int)sizeof(E);
+  static_assert(sizeof(Stage<E>) == (size_t)ES * (MT + NBLK * BC) * BK,
                 "a stage is exactly its two TMA boxes");
-  static_assert(sizeof(ProdSmem) <= 232448, "a CTA's shared memory");
+  static_assert(sizeof(ProdSmem<E>) <= 232448, "a CTA's shared memory");
   if (d <= 0 || d % 128 != 0 || n != d || S < 4 || S % 4 != 0 ||
       T * S >= 65536 || nbar < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const long long row = (long long)S * d + d;  // a partial row
   if (nbar == 0)
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * row, st);
@@ -439,38 +474,78 @@ extern "C" int gcl_bwd_data_long_launch(const void* x, const void* g,
   CUtensorMap gmap, wmap;
   const cuuint64_t gdims[3] = {(cuuint64_t)d, (cuuint64_t)S,
                                (cuuint64_t)nbar * T};
-  const cuuint64_t gstrides[2] = {(cuuint64_t)d * 4, (cuuint64_t)S * d * 4};
+  const cuuint64_t gstrides[2] = {(cuuint64_t)d * ES, (cuuint64_t)S * d * ES};
   const cuuint32_t gbox[3] = {BK, CW, T};
   const cuuint64_t wdims[3] = {(cuuint64_t)d, (cuuint64_t)d, NBLK};
-  const cuuint64_t wstrides[2] = {(cuuint64_t)d * 4, (cuuint64_t)d * d * 4};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)d * ES, (cuuint64_t)d * d * ES};
   const cuuint32_t wbox[3] = {BK, BC, NBLK};
-  if (!fp32_map(&gmap, g, gdims, gstrides, gbox) ||
-      !fp32_map(&wmap, wbig, wdims, wstrides, wbox))
+  if (!tensor_map<E>(&gmap, g, gdims, gstrides, gbox) ||
+      !tensor_map<E>(&wmap, wbig, wdims, wstrides, wbox))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(ProdSmem);
-  if ((err = cudaFuncSetAttribute(gcl_bwd_data_long_kernel,
+  const int smem = (int)sizeof(ProdSmem<E>);
+  if ((err = cudaFuncSetAttribute(gcl_bwd_data_long_kernel<E>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem)) != cudaSuccess)
     return (int)err;
   const int tiles = d / BC;
   const int per_tile = sms / tiles > 1 ? sms / tiles : 1;
   const int nchunks = nitem < per_tile ? (int)nitem : per_tile;
-  gcl_bwd_data_long_kernel<<<dim3(tiles, nchunks), THREADS, smem, st>>>(
-      (const int*)aux, (float*)dx, (float*)up, nbar, S, d, nchunks, gmap,
-      wmap);
+  gcl_bwd_data_long_kernel<E><<<dim3(tiles, nchunks), THREADS, smem, st>>>(
+      (const int*)aux, dr, (float*)up, nbar, S, d, nchunks, gmap, wmap);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = cudaMemsetAsync(part, 0, sizeof(float) * row * nbar, st)) !=
       cudaSuccess)
     return (int)err;
   const int gsmem = (int)(sizeof(int) * 4 * N);
-  if ((err = cudaFuncSetAttribute(gcl_bwd_gather_long_kernel,
+  if ((err = cudaFuncSetAttribute(gcl_bwd_gather_long_kernel<E>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   gsmem)) != cudaSuccess)
     return (int)err;
-  gcl_bwd_gather_long_kernel<<<dim3(nbar, d / GATHER_THREADS),
-                               GATHER_THREADS, gsmem, st>>>(
-      (const float*)x, (const float*)g, (const int*)aux, (const float*)gates,
-      (const float*)up, (float*)dx, (float*)part, S, d);
+  gcl_bwd_gather_long_kernel<E><<<dim3(nbar, d / GATHER_THREADS),
+                                  GATHER_THREADS, gsmem, st>>>(
+      (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
+      (const float*)up, dr, (E*)dx, (float*)part, S, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)sum_rows((const float*)part, (float*)out, nbar, row, st);
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory a CTA of the product kernel takes, fp32
+// and bf16.
+extern "C" int gcl_bwd_data_long_smem_bytes() {
+  return (int)sizeof(ProdSmem<float>);
+}
+
+extern "C" int gcl_bwd_data_long_bf16_smem_bytes() {
+  return (int)sizeof(ProdSmem<__nv_bfloat16>);
+}
+
+// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); wbig (8d, d);
+// fp32, all 16-byte aligned, d % 128 == 0, n == d (the square weights
+// only); S a multiple of 4, 4 S < 65536. Writes dx (nbar, 4 S, d) and out =
+// [dgate (S, d) | dbias (d)], using up (nbar, 3, 4 S, d) as the upstream
+// scratch and part (nbar, S * d + d) for the per-bar partials.
+extern "C" int gcl_bwd_data_long_launch(const void* x, const void* g,
+                                        const void* aux, const void* gates,
+                                        const void* wbig, void* dx, void* part,
+                                        void* out, void* up, int nbar, int S,
+                                        int d, int n, void* stream) {
+  return launch<float>(x, g, aux, gates, wbig, dx, part, out, up,
+                       (float*)dx, nbar, S, d, n, (cudaStream_t)stream);
+}
+
+// The same in bf16: x, g, gates, wbig and dx bf16, out and part fp32; up
+// holds (nbar, 4, 4 S, d) floats, its last nbar x 4 S x d the fp32 dH_root
+// m that the gather kernel adds its shares to before it rounds dx.
+extern "C" int gcl_bwd_data_long_bf16_launch(const void* x, const void* g,
+                                             const void* aux,
+                                             const void* gates,
+                                             const void* wbig, void* dx,
+                                             void* part, void* out, void* up,
+                                             int nbar, int S, int d, int n,
+                                             void* stream) {
+  float* dr = (float*)up + (size_t)nbar * NUP * T * S * d;
+  return launch<__nv_bfloat16>(x, g, aux, gates, wbig, dx, part, out, up, dr,
+                               nbar, S, d, n, (cudaStream_t)stream);
 }

@@ -1,21 +1,32 @@
-// GCL training backward, weight half, fp32, for bars of 4 x S cells at any S
-// that is a multiple of 4 above 48 (resolutions 13 and up: 24, the Lakh
-// Pianoroll Dataset's grid, is S = 96): dWbig (8d, d). Up to S = 48 the
-// port launches `gcl_bwd_weight_grid.cu` (and at S = 32
-// `gcl_bwd_weight.cu`), which stages whole bars (1760 bytes a cell: 676 KB
-// at S = 96); above that this source walks each bar in tiles.
+// GCL training backward, weight half, in fp32 or bf16, for bars of 4 x S
+// cells at any S that is a multiple of 4 above 48 (resolutions 13 and up:
+// 24, the Lakh Pianoroll Dataset's grid, is S = 96): dWbig (8d, d), fp32.
+// Up to S = 48 the port launches `gcl_bwd_weight_grid.cu` (and at S = 32
+// `gcl_bwd_weight.cu`) in fp32 and the fused backward in bf16, which stage
+// whole bars (1760 bytes a cell in fp32: 676 KB at S = 96); above that this
+// source walks each bar in tiles.
 //
-// Replaces, in fp32 and at those grids, the Pallas kernel
-// `_bwd_weight_kernel` of polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py
-// (kernel B of `gcl_backward_pallas`, its pallas_call at :564, called by the
-// custom VJP `gcl_fused`), which takes the steps a bar as `n_steps`
-// (:204-215). It computes what `gcl_bwd_weight_grid.cu` computes:
+// Replaces, at those grids, the Pallas kernel `_bwd_weight_kernel` of
+// polyphemus_tpu/ops/kernels/gcl_pallas_bwd.py (kernel B of
+// `gcl_backward_pallas`, its pallas_call at :564, called by the custom VJP
+// `gcl_fused` in both dtypes, gcl_pallas.py:493-516), which takes the steps
+// a bar as `n_steps` (:204-215). It computes what `gcl_bwd_weight_grid.cu`
+// computes:
 //
 //   dW_r = sum over bars and rows of h_r[row, :]^T gm[row, :]
 //
 // for the eight packed blocks; the four track blocks contract only their
 // own track's S rows of each bar, the other four all N = 4 S. The square
-// weights only (g (nbar, N, d), dWbig (8d, d)).
+// weights only (g (nbar, N, d), dWbig (8d, d)). The element type E of x, g
+// and the gate table is a template parameter (`gcl_bwd_weight_long_launch`
+// fp32, `gcl_bwd_weight_long_bf16_launch` bf16). In bf16 the rebuilt
+// messages are rounded (`rnd`) where `_bwd_weight_kernel` casts to its
+// compute dtype (:227, :250-271): each product x[src] g before its relu,
+// the track sum and its product by the rounded reciprocal, each column sum
+// and its difference and product; every A value is then a bf16 value, and
+// the FFMAs on bf16 operands widened to fp32 compute what the Pallas body's
+// bf16 dots with fp32 sums compute (a bf16 x bf16 product is exact in
+// fp32).
 //
 // What bounds it on an H100: operations, 2 N 5d d flops a bar (1.01 GFLOP
 // at S = 96, d = 512), fp32 FFMA on the CUDA cores.
@@ -55,9 +66,10 @@ constexpr int CW = 32;           // bar columns of a tile
 constexpr int MT = T * CW;       // rows of a tile
 constexpr int NSRC = 4;          // gathered rows a cell: self, prev, next, pn
 
+template <typename E>
 struct Smem : TileStatics<CW> {
-  alignas(16) float xs[NSRC][MT][CT];  // x[src, c0:c0+CT] by source, row
-  alignas(16) float g[MT][JT];         // g[row, j0:j0+JT]
+  alignas(16) E xs[NSRC][MT][CT];      // x[src, c0:c0+CT] by source, row
+  alignas(16) E g[MT][JT];             // g[row, j0:j0+JT]
   alignas(16) float a[NA][MT][CT];     // the A tiles [tile][row][feature]
 };
 
@@ -73,74 +85,104 @@ __device__ __forceinline__ float4 mul(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
-// relu(a * b) * s: a message through a relation, s its 0/1 validity
-__device__ __forceinline__ float4 msg(float4 a, float4 b, float s) {
-  return make_float4(fmaxf(a.x * b.x, 0.f) * s, fmaxf(a.y * b.y, 0.f) * s,
-                     fmaxf(a.z * b.z, 0.f) * s, fmaxf(a.w * b.w, 0.f) * s);
+// 4 consecutive elements of E at p through the read-only data cache, as
+// fp32
+template <typename E>
+__device__ __forceinline__ float4 ldg4(const E* p);
+
+template <>
+__device__ __forceinline__ float4 ldg4<float>(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// (v0 + v1 + v2 + v3 - v[t]) * s
+template <>
+__device__ __forceinline__ float4 ldg4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = tc::bf2(u.x), hi = tc::bf2(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// relu(rnd(a * b)) * s: a message through a relation, s its 0/1 validity
+template <typename E>
+__device__ __forceinline__ float4 msg(float4 a, float4 b, float s) {
+  using R = Elem<E>;
+  return make_float4(fmaxf(R::rnd(a.x * b.x), 0.f) * s,
+                     fmaxf(R::rnd(a.y * b.y), 0.f) * s,
+                     fmaxf(R::rnd(a.z * b.z), 0.f) * s,
+                     fmaxf(R::rnd(a.w * b.w), 0.f) * s);
+}
+
+// rnd(rnd(rnd(v0 + v1 + v2 + v3) - v[t]) * s)
+template <typename E>
 __device__ __forceinline__ float4 others(const float4 (&v)[T], int t,
                                          float s) {
-  return make_float4((v[0].x + v[1].x + v[2].x + v[3].x - v[t].x) * s,
-                     (v[0].y + v[1].y + v[2].y + v[3].y - v[t].y) * s,
-                     (v[0].z + v[1].z + v[2].z + v[3].z - v[t].z) * s,
-                     (v[0].w + v[1].w + v[2].w + v[3].w - v[t].w) * s);
+  using R = Elem<E>;
+  return make_float4(
+      R::rnd(R::rnd(R::rnd(v[0].x + v[1].x + v[2].x + v[3].x) - v[t].x) * s),
+      R::rnd(R::rnd(R::rnd(v[0].y + v[1].y + v[2].y + v[3].y) - v[t].y) * s),
+      R::rnd(R::rnd(R::rnd(v[0].z + v[1].z + v[2].z + v[3].z) - v[t].z) * s),
+      R::rnd(R::rnd(R::rnd(v[0].w + v[1].w + v[2].w + v[3].w) - v[t].w) * s));
 }
 
 // The tile's gathered x rows and g rows by 16-byte copies (xb, gb at the
 // bar's first cell; x rows d wide, g rows d wide); the g rows past the
 // bar's last column are zeroed.
-__device__ __forceinline__ void load_tile(Smem& sm, const float* xb,
-                                          const float* gb, int S, int d,
+template <typename E>
+__device__ __forceinline__ void load_tile(Smem<E>& sm, const E* xb,
+                                          const E* gb, int S, int d,
                                           int tc0, int c0, int j0, int tid) {
-  constexpr int QX = CT / 4, QG = JT / 4;  // 16-byte chunks a row
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements a 16-byte copy
+  constexpr int QX = CT / EPC, QG = JT / EPC;  // 16-byte chunks a row
   for (int c = tid; c < NSRC * MT * QX; c += THREADS) {
-    const int q = (c % QX) * 4, r = (c / QX) % MT, src = c / (QX * MT);
+    const int q = (c % QX) * EPC, r = (c / QX) % MT, src = c / (QX * MT);
     cp_async16(&sm.xs[src][r][q], xb + (size_t)sm.src[src][r] * d + c0 + q);
   }
   for (int c = tid; c < MT * QG; c += THREADS) {
-    const int q = (c % QG) * 4, r = c / QG;
+    const int q = (c % QG) * EPC, r = c / QG;
     const int t = r / CW, col = tc0 + r % CW;
     if (col < S)
       cp_async16(&sm.g[r][q], gb + (size_t)(t * S + col) * d + j0 + q);
     else
-      st4(&sm.g[r][q], make_float4(0.f, 0.f, 0.f, 0.f));
+      *reinterpret_cast<uint4*>(&sm.g[r][q]) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
 // The tile's A tiles: thread (column cc, features q..q+3) rebuilds rows cc,
 // CW + cc, 2 CW + cc and 3 CW + cc of every tile, as `gcl_fwd` computes
-// them; g rows by distance from the gate table (gates at feature c0).
-__device__ __forceinline__ void rebuild(Smem& sm, const float* gates, int d,
+// them (in bf16 with the Pallas body's roundings); g rows by distance from
+// the gate table (gates at feature c0).
+template <typename E>
+__device__ __forceinline__ void rebuild(Smem<E>& sm, const E* gates, int d,
                                         int tid) {
+  using R = Elem<E>;
   for (int it = tid; it < CW * CT / 4; it += THREADS) {
     const int cc = it / (CT / 4), q = (it % (CT / 4)) * 4;
-    auto gate = [&](int s) {
-      return __ldg(reinterpret_cast<const float4*>(gates + (size_t)s * d + q));
-    };
+    auto gate = [&](int s) { return ldg4<E>(gates + (size_t)s * d + q); };
     const float4 g0 = gate(0);
     float4 xk[T], y[T], z[T];
 #pragma unroll
     for (int t = 0; t < T; ++t) {
       const int r = t * CW + cc;
-      xk[t] = ld4(&sm.xs[0][r][q]);
-      y[t] = msg(xk[t], g0, sm.m[r]);
-      z[t] = msg(ld4(&sm.xs[3][r][q]), gate(sm.dpn[r]), sm.okpn[r]);
+      xk[t] = R::load4(&sm.xs[0][r][q]);
+      y[t] = msg<E>(xk[t], g0, sm.m[r]);
+      z[t] = msg<E>(R::load4(&sm.xs[3][r][q]), gate(sm.dpn[r]), sm.okpn[r]);
     }
 #pragma unroll
     for (int t = 0; t < T; ++t) {
       const int r = t * CW + cc;
-      const float4 vp = msg(ld4(&sm.xs[1][r][q]), gate(sm.dp[r]), sm.okp[r]);
-      const float4 vn = msg(ld4(&sm.xs[2][r][q]), gate(sm.dn[r]), sm.okn[r]);
+      const float4 vp =
+          msg<E>(R::load4(&sm.xs[1][r][q]), gate(sm.dp[r]), sm.okp[r]);
+      const float4 vn =
+          msg<E>(R::load4(&sm.xs[2][r][q]), gate(sm.dn[r]), sm.okn[r]);
       const float rtr = sm.rtr[r];
-      st4(&sm.a[0][r][q], make_float4((vp.x + vn.x) * rtr, (vp.y + vn.y) * rtr,
-                                      (vp.z + vn.z) * rtr,
-                                      (vp.w + vn.w) * rtr));
-      st4(&sm.a[1][r][q], mul(y[t], sm.single[r]));  // self
-      st4(&sm.a[2][r][q], others(y, t, sm.ron[r]));  // onset
-      st4(&sm.a[3][r][q], others(z, t, sm.rnx[r]));  // next
-      st4(&sm.a[4][r][q], mul(xk[t], sm.m[r]));      // root: x * m
+      st4(&sm.a[0][r][q], make_float4(R::rnd(R::rnd(vp.x + vn.x) * rtr),
+                                      R::rnd(R::rnd(vp.y + vn.y) * rtr),
+                                      R::rnd(R::rnd(vp.z + vn.z) * rtr),
+                                      R::rnd(R::rnd(vp.w + vn.w) * rtr)));
+      st4(&sm.a[1][r][q], mul(y[t], sm.single[r]));     // self
+      st4(&sm.a[2][r][q], others<E>(y, t, sm.ron[r]));  // onset
+      st4(&sm.a[3][r][q], others<E>(z, t, sm.rnx[r]));  // next
+      st4(&sm.a[4][r][q], mul(xk[t], sm.m[r]));         // root: x * m
     }
   }
 }
@@ -149,9 +191,10 @@ __device__ __forceinline__ void rebuild(Smem& sm, const float* gates, int d,
 // 0..ncol-1; tr[tb] is track block 2h + tb, full[i] block T + i. The
 // thread's features are 2 cg, 2 cg + 1, its columns 4 jg..4 jg + 3 and 32 +
 // 4 jg..32 + 4 jg + 3.
+template <typename E>
 __device__ __forceinline__ void tile_ffma(float (&tr)[2][2][8],
                                           float (&full)[4][2][8],
-                                          const Smem& sm, int h, int cg,
+                                          const Smem<E>& sm, int h, int cg,
                                           int jg, int ncol) {
 #pragma unroll
   for (int tb = 0; tb < 2; ++tb) {
@@ -159,8 +202,8 @@ __device__ __forceinline__ void tile_ffma(float (&tr)[2][2][8],
 #pragma unroll 4
     for (int kk = 0; kk < ncol; ++kk) {
       const int k = k0 + kk;
-      const float4 b0 = ld4(&sm.g[k][4 * jg]);
-      const float4 b1 = ld4(&sm.g[k][JT / 2 + 4 * jg]);
+      const float4 b0 = Elem<E>::load4(&sm.g[k][4 * jg]);
+      const float4 b1 = Elem<E>::load4(&sm.g[k][JT / 2 + 4 * jg]);
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
       float2 av[NA];
 #pragma unroll
@@ -206,15 +249,15 @@ __device__ __forceinline__ void add_tile(float (&v)[2][8], const float* p,
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
-gcl_bwd_weight_long_kernel(const float* __restrict__ x,
-                           const float* __restrict__ g,
+gcl_bwd_weight_long_kernel(const E* __restrict__ x, const E* __restrict__ g,
                            const int* __restrict__ aux,
-                           const float* __restrict__ gates,
+                           const E* __restrict__ gates,
                            float* __restrict__ dwbig, int nbar, int S,
                            int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<E>& sm = *reinterpret_cast<Smem<E>*>(smem_raw);
   const int N = T * S;
   const int j0 = blockIdx.x * JT, c0 = blockIdx.y * CT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -232,13 +275,13 @@ gcl_bwd_weight_long_kernel(const float* __restrict__ x,
     }
 
   for (int bar = 0; bar < nbar; ++bar) {
-    const float* xb = x + (size_t)bar * N * d;
-    const float* gb = g + (size_t)bar * N * d;
+    const E* xb = x + (size_t)bar * N * d;
+    const E* gb = g + (size_t)bar * N * d;
     const int* ab = aux + (size_t)bar * N_AUX * N;
     for (int tc0 = 0; tc0 < S; tc0 += CW) {
       // no warp still reads the previous tile's statics, rows or A tiles
       __syncthreads();
-      load_tile_statics<float, CW>(sm, ab, S, tc0, tid, THREADS);
+      load_tile_statics<E, CW>(sm, ab, S, tc0, tid, THREADS);
       __syncthreads();
       load_tile(sm, xb, gb, S, d, tc0, c0, j0, tid);
       cp_async_commit();
@@ -272,34 +315,58 @@ gcl_bwd_weight_long_kernel(const float* __restrict__ x,
     put_tile(out + (size_t)(2 * h + tb) * d * d, pitch, tr[tb], cg, jg);
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory a CTA of the kernel takes.
-extern "C" int gcl_bwd_weight_long_smem_bytes() { return (int)sizeof(Smem); }
-
-// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); all 16-byte
-// aligned, d % 64 == 0, n == d (the square weights only); S a multiple of
-// 4. Writes dwbig (8d, d).
-extern "C" int gcl_bwd_weight_long_launch(const void* x, const void* g,
-                                          const void* aux, const void* gates,
-                                          void* dwbig, int nbar, int S, int d,
-                                          int n, void* stream) {
-  static_assert(sizeof(Smem) <= 232448, "a CTA's shared memory");
+// The launch, the elements of x, g and gates of type E; see
+// `gcl_bwd_weight_long_launch`.
+template <typename E>
+int launch(const void* x, const void* g, const void* aux, const void* gates,
+           void* dwbig, int nbar, int S, int d, int n, cudaStream_t st) {
+  static_assert(sizeof(Smem<E>) <= 232448, "a CTA's shared memory");
   static_assert(4 * CT * JT <= NA * MT * CT,
                 "half 1's full-block sums fit in the A tiles");
   if (d <= 0 || d % JT != 0 || n != d || S < 4 || S % 4 != 0 || nbar < 0 ||
       (long long)gcl::N_AUX * T * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   if (nbar == 0)
     return (int)cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * d, st);
-  const int smem = (int)sizeof(Smem);
+  const int smem = (int)sizeof(Smem<E>);
   cudaError_t err = cudaFuncSetAttribute(
-      gcl_bwd_weight_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      gcl_bwd_weight_long_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gcl_bwd_weight_long_kernel<<<dim3(d / JT, d / CT), THREADS, smem, st>>>(
-      (const float*)x, (const float*)g, (const int*)aux, (const float*)gates,
+  gcl_bwd_weight_long_kernel<E><<<dim3(d / JT, d / CT), THREADS, smem, st>>>(
+      (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
       (float*)dwbig, nbar, S, d);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory a CTA of the kernel takes, fp32 and bf16.
+extern "C" int gcl_bwd_weight_long_smem_bytes() {
+  return (int)sizeof(Smem<float>);
+}
+
+extern "C" int gcl_bwd_weight_long_bf16_smem_bytes() {
+  return (int)sizeof(Smem<__nv_bfloat16>);
+}
+
+// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); fp32, all
+// 16-byte aligned, d % 64 == 0, n == d (the square weights only); S a
+// multiple of 4. Writes dwbig (8d, d).
+extern "C" int gcl_bwd_weight_long_launch(const void* x, const void* g,
+                                          const void* aux, const void* gates,
+                                          void* dwbig, int nbar, int S, int d,
+                                          int n, void* stream) {
+  return launch<float>(x, g, aux, gates, dwbig, nbar, S, d, n,
+                       (cudaStream_t)stream);
+}
+
+// The same with x, g and gates in bf16; dwbig (8d, d) fp32.
+extern "C" int gcl_bwd_weight_long_bf16_launch(const void* x, const void* g,
+                                               const void* aux,
+                                               const void* gates, void* dwbig,
+                                               int nbar, int S, int d, int n,
+                                               void* stream) {
+  return launch<__nv_bfloat16>(x, g, aux, gates, dwbig, nbar, S, d, n,
+                               (cudaStream_t)stream);
 }

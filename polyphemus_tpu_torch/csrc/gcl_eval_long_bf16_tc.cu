@@ -1,26 +1,32 @@
-// One eval GCL layer in bf16, on the tensor cores, for bars of 4 x S cells
-// at any S that is a multiple of 4 above 48 (resolutions 13 and up: 24, the
-// Lakh Pianoroll Dataset's grid, is S = 96). Up to S = 48 the port launches
-// `gcl_eval_grid_bf16_tc.cu`, whose CTA owns whole bars; above that one bar
-// no longer fits a CTA's shared memory, and this source takes the bar in
-// tiles.
+// One eval GCL layer, or one training-forward layer, in bf16, on the tensor
+// cores, for bars of 4 x S cells at any S that is a multiple of 4 above 48
+// (resolutions 13 and up: 24, the Lakh Pianoroll Dataset's grid, is S =
+// 96). Up to S = 48 the port launches `gcl_eval_grid_bf16_tc.cu`, whose CTA
+// owns whole bars; above that one bar no longer fits a CTA's shared memory,
+// and this source takes the bar in tiles.
 //
 // Replaces, in bf16 and at those grids, the Pallas kernels `_kernel` (K =
-// 1, polyphemus_tpu/ops/kernels/gcl_pallas.py:347) with its eval epilogue,
-// and `_kernel_chain` (K >= 2, gcl_pallas.py:440), which read t, s and d
-// from x's shape (`gcl_apply_pallas`, gcl_pallas.py:299-301). A chain is
-// the same function as its layers one after the other: the wrapper
-// (`ops/kernels/gcl.py::gcl_eval`) launches this kernel once a layer. Per
-// bar of N = 4 S cells it computes what `gcl_eval_grid_bf16_tc.cu`
-// computes, with the same roundings, cell by cell:
+// 1, polyphemus_tpu/ops/kernels/gcl_pallas.py:347) with its eval epilogue
+// and without it (the forward of the custom VJP `gcl_fused`,
+// gcl_pallas.py:466-467), and `_kernel_chain` (K >= 2, gcl_pallas.py:440),
+// which read t, s and d from x's shape (`gcl_apply_pallas`,
+// gcl_pallas.py:299-301). A chain is the same function as its layers one
+// after the other: the wrapper (`ops/kernels/gcl.py::gcl_eval`) launches
+// this kernel once a layer. Per bar of N = 4 S cells it computes what
+// `gcl_eval_grid_bf16_tc.cu` computes, with the same roundings, cell by
+// cell:
 //
 //   base = rnd(rnd([h_self | h_onset | h_next | x] @ [W0; W_on; W_next; root])
 //              + bias)
 //   v    = rnd(base + rnd(h_track @ W_t)) * m      (W_t: the row's own track)
-//   out  = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x)
+//   out  = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x)   (the eval form, EPI)
+//   out  = v                                          (the training forward)
 //
-// The products take bf16 operands and sum in fp32 (mma.sync m16n8k16): only
-// the summation order differs from the plain version.
+// The template flag EPI picks the form (`gcl_eval_long_bf16_launch`,
+// `gcl_fwd_long_bf16_launch`), as in `gcl_eval_grid_bf16_tc.cu`; the
+// training form reads neither ea, eb nor x's residual rows. The products
+// take bf16 operands and sum in fp32 (mma.sync m16n8k16): only the
+// summation order differs from the plain versions.
 //
 // What bounds it on an H100: operations, 2 N 5d d flops a bar and layer: a
 // 512-bar layer at d = 512 needs 0.521 ms at S = 96 at 989 TFLOP/s of bf16
@@ -283,11 +289,13 @@ __device__ __forceinline__ void park_track(Smem& sm, float (&acc)[2][8][4],
             pack2(acc[mi][nj][2 * hh], acc[mi][nj][2 * hh + 1]);
 }
 
-// out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x), v = rnd(rnd(rnd(acc) +
-// bias) + track) * m, for this thread's accumulators of column tile n0;
-// row[mi][hh] is the tile row of its rows in m16 tile mi, half hh, cell
-// [mi][hh] their cell in the bar (-1: past the bar, not stored); xb, ob at
-// the bar's first cell.
+// out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x) (EPI) or out = v, v =
+// rnd(rnd(rnd(acc) + bias) + track) * m, for this thread's accumulators of
+// column tile n0; row[mi][hh] is the tile row of its rows in m16 tile mi,
+// half hh, cell [mi][hh] their cell in the bar (-1: past the bar, not
+// stored); xb, ob at the bar's first cell. Without EPI neither ea, eb nor
+// the residual rows are read.
+template <bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[2][8][4],
                                          const bf16* xb, bf16* ob,
@@ -301,6 +309,21 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
   for (int nj = 0; nj < 8; ++nj) {
     const int col = n0 + col0 + nj * 8 + 2 * (lane & 3);
     const float2 bb = bf2(*reinterpret_cast<const uint32_t*>(bias + col));
+    if constexpr (!EPI) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = cell[mi][hh];
+          if (i < 0) continue;
+          const float m = sm.m[row[mi][hh]];
+          const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
+          const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
+          const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
+          *reinterpret_cast<uint32_t*>(ob + (size_t)i * d + col) = pack2(v0, v1);
+        }
+      continue;
+    }
     const float2 aa = bf2(*reinterpret_cast<const uint32_t*>(ea + col));
     const float2 ee = bf2(*reinterpret_cast<const uint32_t*>(eb + col));
 #pragma unroll
@@ -322,6 +345,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
   }
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 2)
 gcl_eval_long_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
                              const bf16* W, const bf16* bias, const bf16* ea,
@@ -401,24 +425,24 @@ gcl_eval_long_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
       for (int seg = 0; seg < NSB; ++seg)
         mma_k16(acc, sm.a[seg], wt, seg * BK, row0, col0, lane);
       if (j == per_tile - 1)
-        epilogue(sm, acc, xb, ob, bias, ea, eb, d, s / per_tile * BN, row,
-                 cell, col0, tid);
+        epilogue<EPI>(sm, acc, xb, ob, bias, ea, eb, d, s / per_tile * BN,
+                      row, cell, col0, tid);
     }
   }
 }
 
 }  // namespace
 
-// One eval layer (folded batch-norm, relu, residual) over bars of 4 x S
-// cells, every float tensor in bf16: x, out (nbar, 4 S, d), gates (S, d),
-// wbig (8d, d), bias, ea, eb (d,); aux (nbar, 14, 4 S) int32. S % 4 == 0,
-// S > 0; d % 128 == 0; the CTAs (nbar ceil(S / 32)) and every cell,
-// feature and aux index within int32.
-extern "C" int gcl_eval_long_bf16_launch(const void* x, const void* aux,
-                                         const void* gates, const void* wbig,
-                                         const void* bias, const void* ea,
-                                         const void* eb, void* out, int nbar,
-                                         int S, int d, void* stream) {
+// One layer of the kernel's EPI form over bars of 4 x S cells, every float
+// tensor in bf16: x, out (nbar, 4 S, d), gates (S, d), wbig (8d, d), bias,
+// ea, eb (d,) (without EPI ea and eb are not read); aux (nbar, 14, 4 S)
+// int32. S % 4 == 0, S > 0; d % 128 == 0; the CTAs (nbar ceil(S / 32)) and
+// every cell, feature and aux index within int32.
+template <bool EPI>
+static int launch(const void* x, const void* aux, const void* gates,
+                  const void* wbig, const void* bias, const void* ea,
+                  const void* eb, void* out, int nbar, int S, int d,
+                  void* stream) {
   if (nbar <= 0) return 0;
   const long long ctas = (long long)nbar * ((S + CW - 1) / CW);
   if (S < 4 || S % 4 != 0 || d <= 0 || d % BN != 0 ||
@@ -427,19 +451,41 @@ extern "C" int gcl_eval_long_bf16_launch(const void* x, const void* aux,
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
-      gcl_eval_long_bf16_tc_kernel,
+      gcl_eval_long_bf16_tc_kernel<EPI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gcl_eval_long_bf16_tc_kernel,
+    err = cudaFuncSetAttribute(gcl_eval_long_bf16_tc_kernel<EPI>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  gcl_eval_long_bf16_tc_kernel<<<(unsigned)ctas, THREADS, smem,
-                                 (cudaStream_t)stream>>>(
+  gcl_eval_long_bf16_tc_kernel<EPI><<<(unsigned)ctas, THREADS, smem,
+                                      (cudaStream_t)stream>>>(
       (const bf16*)x, (const int*)aux, (const bf16*)gates, (const bf16*)wbig,
       (const bf16*)bias, (const bf16*)ea, (const bf16*)eb, (bf16*)out, S, d);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a CTA takes.
+// One eval layer (folded batch-norm, relu, residual); see `launch`.
+extern "C" int gcl_eval_long_bf16_launch(const void* x, const void* aux,
+                                         const void* gates, const void* wbig,
+                                         const void* bias, const void* ea,
+                                         const void* eb, void* out, int nbar,
+                                         int S, int d, void* stream) {
+  return launch<true>(x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d,
+                      stream);
+}
+
+// One training-forward layer, out = v (the bf16 rounding of (gcl(x) +
+// bias) * m above); see `launch`. The output width n must be d (the square
+// weights).
+extern "C" int gcl_fwd_long_bf16_launch(const void* x, const void* aux,
+                                        const void* gates, const void* wbig,
+                                        const void* bias, void* out, int nbar,
+                                        int S, int d, int n, void* stream) {
+  if (n != d) return (int)cudaErrorInvalidValue;
+  return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out,
+                       nbar, S, d, stream);
+}
+
+// Dynamic shared memory a CTA takes, in either form.
 extern "C" int gcl_eval_long_bf16_smem_bytes() { return (int)sizeof(Smem); }

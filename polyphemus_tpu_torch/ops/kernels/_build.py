@@ -64,14 +64,23 @@ SIGNATURES = {
     "gcl_bwd_fused_grid_bf16": ("gcl_bwd_fused_grid_bf16_tc",
                                 "gcl_bwd_fused_grid_bf16_launch",
                                 [VP] * 9 + [INT] * 5 + [VP]),
-    # the fp32 training kernels at bars of 4 x S cells above S = 48
+    # the training kernels at bars of 4 x S cells above S = 48 (bf16: the
+    # training forward and the split backward, as JAX trains there)
     "gcl_fwd_long": ("gcl_eval_long_fp32", "gcl_fwd_long_launch",
                      [VP] * 6 + [INT] * 4 + [VP]),
+    "gcl_fwd_long_bf16": ("gcl_eval_long_bf16_tc", "gcl_fwd_long_bf16_launch",
+                          [VP] * 6 + [INT] * 4 + [VP]),
     "gcl_bwd_data_long": ("gcl_bwd_data_long", "gcl_bwd_data_long_launch",
                           [VP] * 9 + [INT] * 4 + [VP]),
+    "gcl_bwd_data_long_bf16": ("gcl_bwd_data_long",
+                               "gcl_bwd_data_long_bf16_launch",
+                               [VP] * 9 + [INT] * 4 + [VP]),
     "gcl_bwd_weight_long": ("gcl_bwd_weight_long",
                             "gcl_bwd_weight_long_launch",
                             [VP] * 5 + [INT] * 4 + [VP]),
+    "gcl_bwd_weight_long_bf16": ("gcl_bwd_weight_long",
+                                 "gcl_bwd_weight_long_bf16_launch",
+                                 [VP] * 5 + [INT] * 4 + [VP]),
     "gcl_bwd_data": ("gcl_bwd_data", "gcl_bwd_data_launch",
                      [VP] * 8 + [INT] * 3 + [VP]),
     "gcl_bwd_weight": ("gcl_bwd_weight", "gcl_bwd_weight_launch",

@@ -13,10 +13,9 @@ eval form, and their training forward without the epilogue). Above
 `MAX_STEPS` (resolutions 13 and up) `gcl_eval` launches
 `csrc/gcl_eval_long_fp32.cu` or `csrc/gcl_eval_long_bf16_tc.cu` once a
 layer (a CTA holds a tile of a bar, so chained layers cannot meet in one
-launch), and `gcl_fwd` in fp32 with the square weights the training
-forward of `csrc/gcl_eval_long_fp32.cu`; bf16 training and the column
-form refuse that grid (`check_grid`). On a CPU tensor both wrappers run
-their plain PyTorch version:
+launch), and `gcl_fwd` with the square weights the training forward of
+the same sources; the column form refuses that grid (`check_grid`). On a
+CPU tensor both wrappers run their plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S cells),
@@ -60,9 +59,10 @@ N_AUX = 14
 # the bar grids on the card: 4 tracks of S steps, S a multiple of 4;
 # BASE_STEPS = 32 (resolution 8) is the grid of the first kernels, every
 # other one up to MAX_STEPS goes to the `*_grid*.cu` sources, and above it
-# the eval layer to the `gcl_eval_long_*.cu` ones, fp32 training with the
-# square weights to `gcl_eval_long_fp32.cu` and the `gcl_bwd_*_long.cu`
-# ones; bf16 training and the column forms take S up to MAX_STEPS
+# the eval layer to the `gcl_eval_long_*.cu` ones, training with the square
+# weights to those and the `gcl_bwd_*_long.cu` ones (bf16 through the split
+# backward there, as JAX trains in both dtypes); the column forms and the
+# fused backward take S up to MAX_STEPS
 TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 
 # the wrappers count their launches in `counts.launches`; the column-form launches (n < d) among those of every GCL kernel, by the
@@ -71,9 +71,11 @@ COL_KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
                "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16")
 col_launches: dict[str, int] = dict.fromkeys(COL_KERNELS, 0)
 
-# ROADMAP.md Queue 1's items that a refusal above MAX_STEPS names
-BF16_LONG = f"bf16 training at S > {MAX_STEPS}"
+# the ROADMAP.md items that a refusal above MAX_STEPS names: Queue 1's
+# column forms (tensor parallelism), Queue 2's fused backward (on no path
+# there: training runs the split backward above MAX_STEPS)
 COLS_LONG = f"the column forms at S > {MAX_STEPS}"
+FUSED_LONG = f"the bf16 fused backward at S > {MAX_STEPS}"
 
 
 def count_cols(name: str, n: int, d: int) -> None:
@@ -271,28 +273,31 @@ def check_grid(kernel: str, n: int, s: int, dt=torch.float32,
     """Raise unless a training kernel takes bars of n cells on the card in
     dtype dt, with the square weights (`square`, n = d) or a column shard:
     4 x s cells with s a multiple of 4, up to MAX_STEPS (resolutions 1-12)
-    in every form, above it with the square weights and not in bf16, and
-    never for the fused backward (`gcl_bwd_fused`, bf16 on the training
-    path; the fp32 one's grid is 4 x 32 only, `gcl_bwd.check_fused_form`).
-    Another dtype than fp32 and bf16 passes here: no kernel takes it (the
-    wrappers refuse it), and the fp64 training layer runs the plain
-    versions on the card (chip_smoke's fp64 witness)."""
+    in every form, above it with the square weights, and never for the
+    fused backward (`gcl_bwd_fused`, bf16 training's backward up to
+    MAX_STEPS; the fp32 one's grid is 4 x 32 only,
+    `gcl_bwd.check_fused_form`): above MAX_STEPS bf16 training runs the
+    split backward, as JAX's does at every grid. dt changes nothing here:
+    the wrappers refuse a dtype their kernels do not take, and the fp64
+    training layer runs the plain versions on the card (chip_smoke's fp64
+    witness)."""
     _check_tracks(kernel, n, s)
-    fp32_long = kernel != "gcl_bwd_fused"
+    long_ok = kernel != "gcl_bwd_fused"
     if s < 4 or s % 4:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} in every form"
-                         + (", and above it in fp32 with the square weights"
-                            if fp32_long else "") + f", got S={s}")
+                         + (", and above it with the square weights"
+                            if long_ok else "") + f", got S={s}")
     if s <= MAX_STEPS:
         return
-    if not fp32_long or dt == torch.bfloat16:
+    if not long_ok:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} (resolutions "
-                         f"1-{MAX_STEPS // 4}) in bf16, got S={s}: {BF16_LONG}"
-                         f" is not ported yet (ROADMAP.md, Queue 1: "
-                         f"{BF16_LONG}); fp32 training and generation take "
-                         f"every resolution")
+                         f"1-{MAX_STEPS // 4}), got S={s}: {FUSED_LONG} is "
+                         f"not ported yet (ROADMAP.md, Queue 2: "
+                         f"{FUSED_LONG}); training above {MAX_STEPS} steps "
+                         f"runs the split backward (gcl_bwd_data and "
+                         f"gcl_bwd_weight) in both dtypes")
     if not square:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} (resolutions "
@@ -405,9 +410,10 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
         if w != d:
             raise ValueError(f"gcl_eval takes bars of 4 x S cells with S > "
                              f"{MAX_STEPS} with the square weights only (n = "
-                             f"d = {d}), got n = {w}: the column form "
-                             f"(tensor parallelism) trains, at S <= "
-                             f"{MAX_STEPS}")
+                             f"d = {d}), got n = {w}: {COLS_LONG} are not "
+                             f"ported yet (ROADMAP.md, Queue 1: {COLS_LONG}); "
+                             f"the column form (tensor parallelism) takes S "
+                             f"up to {MAX_STEPS}")
         return _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas,
                               ebs)
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
@@ -451,8 +457,8 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
     and bias (w,) in x's dtype, w = d or a column shard's width. Returns
     (gcl(x) + bias) * m, (nbar, n, w) in x's dtype. On the card bars of 4
     x 32 cells go to the eval kernels' training forward, the other grids up
-    to MAX_STEPS to the grid kernels', and above it (fp32 with w = d only)
-    to the long-bar kernel's (`gcl_fwd_long`).
+    to MAX_STEPS to the grid kernels', and above it (w = d only) to the
+    long-bar kernels' (`gcl_fwd_long`, `gcl_fwd_long_bf16`).
     """
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)

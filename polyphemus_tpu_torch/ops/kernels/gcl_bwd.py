@@ -11,12 +11,13 @@ kernels on the tensor cores: dx, dgate and dbias over the dH product, and
 dWbig) in bf16. Bars of 4 x S cells at another S up to 48 (resolutions
 1-12) go to `csrc/gcl_bwd_data_grid.cu`, `csrc/gcl_bwd_weight_grid.cu` and
 `csrc/gcl_bwd_fused_grid_bf16_tc.cu`, and above it (resolutions 13 and
-up) the fp32 pair with the square weights to `csrc/gcl_bwd_data_long.cu`
-and `csrc/gcl_bwd_weight_long.cu`; the bf16 fused backward refuses that
-grid (`gcl.check_grid`), and the fp32 one, on no training path, takes 4 x
-32 only. On a CPU tensor each wrapper runs its
-plain PyTorch version, which follows the equations of the forward
-(`gcl.gcl_fwd`):
+up) the data and weight pair with the square weights, fp32 or bf16, to
+`csrc/gcl_bwd_data_long.cu` and `csrc/gcl_bwd_weight_long.cu` (templates
+on the element type); the bf16 fused backward refuses that grid
+(`gcl.check_grid`), and the fp32 one, on no training path, takes 4 x 32
+only. The pair takes bf16 above 48 steps only: no path runs it in bf16
+below. On a CPU tensor each wrapper runs its plain PyTorch version, which
+follows the equations of the forward (`gcl.gcl_fwd`):
 
     msg_p = relu(x[src_p] * G[dist_p]),  msg_n = relu(x[src_n] * G[dist_n])
     h_track = (msg_p + msg_n) * r_tr * m
@@ -27,9 +28,15 @@ plain PyTorch version, which follows the equations of the forward
     h_self = y0 * single
     out = ([h_track | h_self | h_onset | h_next | x] @ Wbig + b) * m
 
-with the track block of Wbig chosen by each row's own track. The training
-layer takes the data and weight pair in fp32 and the fused single pass in
-bf16; `GclFused` refuses a grid the kernels do not take before its
+with the track block of Wbig chosen by each row's own track. In bf16 every
+plain version carries values in fp32 and rounds them to bf16 where the
+Pallas body casts to its compute dtype (`_bwd_data_kernel`,
+`_bwd_weight_kernel` and `_bwd_fused_kernel` round at the same places:
+`rounded_data`, `rounded_weight`). The training layer takes the data and
+weight pair in fp32, and in bf16 above 48 steps, as JAX's `gcl_fused`
+takes it in both dtypes at every grid (`gcl_pallas.py:493-516`); in bf16
+up to 48 steps it takes the fused single pass, which gives the pair's
+outputs. `GclFused` refuses a grid the kernels do not take before its
 forward.
 
 Column form (tensor parallelism, `parallel.mesh`): Wbig may hold n of the
@@ -56,7 +63,11 @@ def _contract(h, gg):
 
 
 def gcl_bwd_data_plain(x, g, aux, gate_table, wbig):
-    """Plain-PyTorch `gcl_bwd_data`: the same arguments, the same result."""
+    """Plain-PyTorch `gcl_bwd_data`: the same arguments, the same result.
+    A 2-byte x takes `rounded_data` (the Pallas body's bf16 roundings); a
+    wider one is computed op by op in its dtype."""
+    if wide(x.dtype) != x.dtype:
+        return rounded_data(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
     s = gate_table.shape[0]
     t = n // s
@@ -89,7 +100,11 @@ def gcl_bwd_data_plain(x, g, aux, gate_table, wbig):
 
 
 def gcl_bwd_weight_plain(x, g, aux, gate_table):
-    """Plain-PyTorch `gcl_bwd_weight`: the same arguments, the same result."""
+    """Plain-PyTorch `gcl_bwd_weight`: the same arguments, the same result.
+    A 2-byte x takes `rounded_weight` (the Pallas body's bf16 roundings); a
+    wider one is computed op by op in its dtype."""
+    if wide(x.dtype) != x.dtype:
+        return rounded_weight(x, g, aux, gate_table)
     n = x.shape[1]
     s = gate_table.shape[0]
     t = n // s
@@ -102,25 +117,44 @@ def gcl_bwd_weight_plain(x, g, aux, gate_table):
     return torch.cat(blocks, dim=0)
 
 
+def check_split_dtype(kernel: str, dt, s: int) -> None:
+    """Raise unless the data or weight backward's kernels take dtype dt at
+    bars of 4 x s cells: fp32 at every grid, bf16 above MAX_STEPS (the
+    long-bar forms, bf16 training's backward there); bf16 training up to
+    MAX_STEPS runs `gcl_bwd_fused`, and no path runs the pair in bf16."""
+    if dt == torch.float32 or (dt == torch.bfloat16 and s > MAX_STEPS):
+        return
+    if dt == torch.bfloat16:
+        raise ValueError(f"{kernel} takes bfloat16 at bars of more than "
+                         f"{MAX_STEPS} steps only (its long-bar form), got "
+                         f"S={s}: bf16 training up to {MAX_STEPS} steps runs "
+                         f"gcl_bwd_fused")
+    raise ValueError(f"{kernel} takes float32 or bfloat16, got {dt}")
+
+
 def gcl_bwd_data(x, g, aux, gate_table, wbig):
     """Data half of the GCL backward for upstream g (nbar, n, w), w = d or
-    a column shard's width (wbig (8d, w)).
+    a column shard's width (wbig (8d, w)); x, g, gate_table and wbig in one
+    dtype, fp32, or bf16 above MAX_STEPS on a card.
 
-    Returns (dx (nbar, n, d), dgate_table (S, d), dbias (w,)); dgate and
-    dbias sum over every bar, dx and dgate over the w columns. Above
-    MAX_STEPS the long-bar kernel takes an upstream scratch of (nbar, 3, n,
-    d) floats."""
+    Returns (dx (nbar, n, d) in x's dtype, dgate_table (S, d), dbias (w,)),
+    the last two fp32; dgate and dbias sum over every bar, dx and dgate
+    over the w columns. Above MAX_STEPS the long-bar kernel takes an
+    upstream scratch of (nbar, 3, n, d) floats, and in bf16 a fourth such
+    plane for dx before it is rounded."""
     if not on_card("gcl_bwd_data", x):
         return gcl_bwd_data_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
     s = gate_table.shape[0]
     w = wbig.shape[-1]
+    dt = x.dtype
     f32 = torch.float32
+    check_split_dtype("gcl_bwd_data", dt, s)
     check_cuda_args("gcl_bwd_data", x, {
-        "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
+        "x": (x, (nbar, n, d), dt), "g": (g, (nbar, n, w), dt),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (s, d), f32),
-        "wbig": (wbig, (8 * d, w), f32)}, n_out=w, s=s)
+        "gate_table": (gate_table, (s, d), dt),
+        "wbig": (wbig, (8 * d, w), dt)}, n_out=w, s=s)
     dx = torch.empty_like(x)
     part = torch.empty((max(nbar, 1), s * d + w), dtype=f32,
                        device=x.device)
@@ -128,36 +162,42 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
     ptrs = (x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
             wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr())
     if s > MAX_STEPS:
-        # the upstream planes between the long-bar form's two kernels
-        up = torch.empty((nbar, 3, n, d), dtype=f32, device=x.device)
+        # the upstream planes between the long-bar form's two kernels (and
+        # in bf16 dH_root m, which dx takes in fp32 until it is rounded)
+        planes = 3 if dt == f32 else 4
+        up = torch.empty((nbar, planes, n, d), dtype=f32, device=x.device)
         ptrs += (up.data_ptr(),)
     ptrs += (nbar,)
-    launch("gcl_bwd_data", s, ptrs, (d, w), x.device)
-    counts.count("gcl_bwd_data", s)
-    count_cols("gcl_bwd_data", w, d)
+    name = "gcl_bwd_data" if dt == f32 else "gcl_bwd_data_bf16"
+    launch(name, s, ptrs, (d, w), x.device)
+    counts.count(name, s)
+    count_cols(name, w, d)
     return dx, out[:s * d].view(s, d), out[s * d:]
 
 
 def gcl_bwd_weight(x, g, aux, gate_table):
     """Weight half of the GCL backward for upstream g (nbar, n, w), w = d
-    or a column shard's width: dWbig (8d, w), in the packed block order of
-    `pack_weights`."""
+    or a column shard's width: dWbig (8d, w) fp32, in the packed block
+    order of `pack_weights`; x, g and gate_table in one dtype, fp32, or
+    bf16 above MAX_STEPS on a card."""
     if not on_card("gcl_bwd_weight", x):
         return gcl_bwd_weight_plain(x, g, aux, gate_table)
     nbar, n, d = x.shape
     s = gate_table.shape[0]
     w = g.shape[-1]
-    f32 = torch.float32
+    dt = x.dtype
+    check_split_dtype("gcl_bwd_weight", dt, s)
     check_cuda_args("gcl_bwd_weight", x, {
-        "x": (x, (nbar, n, d), f32), "g": (g, (nbar, n, w), f32),
+        "x": (x, (nbar, n, d), dt), "g": (g, (nbar, n, w), dt),
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
-        "gate_table": (gate_table, (s, d), f32)}, n_out=w, s=s)
-    dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
-    launch("gcl_bwd_weight", s, (
+        "gate_table": (gate_table, (s, d), dt)}, n_out=w, s=s)
+    dwbig = torch.empty((8 * d, w), dtype=torch.float32, device=x.device)
+    name = "gcl_bwd_weight" if dt == torch.float32 else "gcl_bwd_weight_bf16"
+    launch(name, s, (
         x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
         dwbig.data_ptr(), nbar), (d, w), x.device)
-    counts.count("gcl_bwd_weight", s)
-    count_cols("gcl_bwd_weight", w, d)
+    counts.count(name, s)
+    count_cols(name, w, d)
     return dwbig
 
 
@@ -193,12 +233,15 @@ def fused_messages(x, st, gate_table, s: int):
     return h_tr, y * st.single.to(f32), h_on, h_nx
 
 
-def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
-    """Plain-PyTorch `gcl_bwd_fused`: the same arguments, the same result.
-
-    The math of `_bwd_fused_kernel` in x's dtype: every value is carried in
-    `wide(x.dtype)` (fp32 for bf16) and `rnd` rounds it to x's dtype where
-    the Pallas body casts to its compute dtype (the identity in fp32)."""
+def rounded_data(x, g, aux, gate_table, wbig):
+    """(dx in x's dtype, dgate, dbias): the data half of the backward as
+    `_bwd_data_kernel` (and `_bwd_fused_kernel`) compute it in x's dtype.
+    Every value is carried in `wide(x.dtype)` (fp32 for bf16) and `rnd`
+    rounds it to x's dtype where the Pallas body casts to its compute dtype
+    (the identity in fp32): the reciprocals, pre = x[src] g and pre0 = x
+    g0, dnx and dcol before their column sums, and the shares relu'(pre) up
+    g and relu'(pre) up x[src] before the scatters; dgate and dbias are
+    sums in `wide(x.dtype)`."""
     cdt = x.dtype
     f32 = wide(cdt)
 
@@ -245,12 +288,36 @@ def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
     # next relation
     dnx = rnd(dh_nx * r_nx)
     scatter(st.src_pn, st.dist_pn, st.ok_pn, st.g_pn, col_sum(dnx, s) - dnx)
+    return dx.to(cdt), dgate, gm.sum(dim=(0, 1))
 
+
+def rounded_weight(x, g, aux, gate_table):
+    """dWbig in `wide(x.dtype)`: the weight half of the backward as
+    `_bwd_weight_kernel` (and `_bwd_fused_kernel`) compute it in x's dtype,
+    the messages rebuilt with their roundings (`fused_messages`) and
+    contracted with the masked upstream in `wide(x.dtype)`."""
+    cdt = x.dtype
+    f32 = wide(cdt)
+    s = gate_table.shape[0]
+    t = x.shape[1] // s
+    gate_table = gate_table.to(cdt)
+    st = bar_statics(aux, gate_table, cdt)
+    gm = g.to(f32) * st.m.to(f32)
     h_tr, h_self, h_on, h_nx = fused_messages(x, st, gate_table, s)
     blocks = [_contract(h_tr[:, i * s:(i + 1) * s], gm[:, i * s:(i + 1) * s])
               for i in range(t)]
-    blocks += [_contract(h, gm) for h in (h_self, h_on, h_nx, xf)]
-    return dx.to(cdt), dgate, gm.sum(dim=(0, 1)), torch.cat(blocks, dim=0)
+    blocks += [_contract(h, gm) for h in (h_self, h_on, h_nx, x.to(f32))]
+    return torch.cat(blocks, dim=0)
+
+
+def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
+    """Plain-PyTorch `gcl_bwd_fused`: the same arguments, the same result.
+
+    The math of `_bwd_fused_kernel` in x's dtype, the two halves of the
+    split backward with their roundings (`rounded_data`,
+    `rounded_weight`)."""
+    return (*rounded_data(x, g, aux, gate_table, wbig),
+            rounded_weight(x, g, aux, gate_table))
 
 
 def fused_chunks(nbar: int, d: int, sms: int) -> int:
@@ -326,8 +393,10 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
 
 class GclFused(torch.autograd.Function):
     """The training GCL layer: `gcl_fwd` forward; backward by `gcl_bwd_data`
-    and `gcl_bwd_weight` in fp32, by `gcl_bwd_fused` in bf16. No message
-    intermediate is saved; the backward kernels recompute them from x.
+    and `gcl_bwd_weight` in fp32 and above MAX_STEPS (JAX's route in both
+    dtypes), by `gcl_bwd_fused` in bf16 up to MAX_STEPS (the same outputs
+    in one pass). No message intermediate is saved; the backward kernels
+    recompute them from x.
     Each grad comes back in its input's dtype. With a column shard of the
     weights (rel_weight (6, d, n), root (d, n), bias (n,)) the output is
     those n columns and the grads of x and gate_table are partial sums."""
@@ -349,7 +418,7 @@ class GclFused(torch.autograd.Function):
         n_tracks = mask.shape[-2]
         d = x.shape[-1]
         g = g.contiguous().to(x.dtype)
-        if x.dtype == torch.float32:
+        if x.dtype == torch.float32 or gate_table.shape[0] > MAX_STEPS:
             dx, dgate, dbias = gcl_bwd_data(x, g, aux, gate_table, wbig)
             dwbig = gcl_bwd_weight(x, g, aux, gate_table)
         else:

@@ -72,7 +72,7 @@ from polyphemus_tpu_torch.convert import to_jax_variables
 from polyphemus_tpu_torch.ops.kernels import counts
 from polyphemus_tpu_torch.train import trainer as ptrainer
 
-from .test_torch_train_step import flatten, jax_reference_step, \
+from .test_torch_train_step import flatten, jax_init, jax_reference_step, \
     microbatch_rngs
 from .torch_port_case import build, jax_tree, port_cfg, small_cfg
 
@@ -101,15 +101,51 @@ def jax_eps_bf16(jmodel, params, rngs, d):
             jnp.float32)) for r in rngs])
 
 
-def setup(accum, use_pallas=False):
+def random_vectors(model, seed):
+    """Every bias, batch-norm scale and running statistic of the port model
+    drawn as `build`'s reference-layout random weights draw them
+    (`tests/torch_ref.py`: biases and batch-norm shifts 0.1 N(0, 1), scales
+    1 + 0.1 N(0, 1), running means 0.1 N(0, 1), variances |1 + 0.1 N(0,
+    1)|). JAX's `model.init` (`jax_init`: the weights at a grid that
+    `build`'s converters do not take) sets them to 0 and 1, and a parameter
+    at 0 moves by +-lr in Adam's first step whichever way its grad points:
+    where bf16 rounding turns the sign of a grad near 0, the params rule
+    (2e-2 x max |JAX|) would compare the signs of that noise."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(v, base, scale):
+        return base + scale * torch.randn(v.shape, generator=g)
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 1:
+                p.copy_(draw(p, 1.0, 0.1) if name.endswith("weight")
+                        else draw(p, 0.0, 0.1))
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(draw(b, 0.0, 0.1))
+            elif name.endswith("running_var"):
+                b.copy_(draw(b, 1.0, 0.1).abs())
+
+
+def setup(accum, use_pallas=False, resolution=8, seed=SEED):
+    """The case at `resolution` (4 x 4r cells a bar) from `seed`: weights by
+    `build` at 8; at another grid from JAX's `model.init` (`jax_init`), its
+    vectors drawn as `build` draws them (`random_vectors`)."""
     mcfg = dataclasses.replace(small_cfg(n_layers=2),
-                               use_pallas_gcl=use_pallas)
+                               use_pallas_gcl=use_pallas,
+                               resolution=resolution)
     cfg = TrainConfig(batch_size=MB * accum, model=mcfg,
                       iters_to_accumulate=accum, bf16=True)
-    variables, jmodel, model = build(mcfg, seed=SEED)
-    toks, mask = synthetic_batch(np.random.default_rng(SEED + 1),
-                                 MB * accum, mcfg.n_bars)
-    rng = jax.random.key(SEED + 7)
+    if resolution == 8:
+        variables, jmodel, model = build(mcfg, seed=seed)
+    else:
+        variables, jmodel, model = jax_init(mcfg, seed)
+        random_vectors(model, seed)
+    toks, mask = synthetic_batch(np.random.default_rng(seed + 1),
+                                 MB * accum, mcfg.n_bars,
+                                 n_timesteps=mcfg.n_timesteps)
+    rng = jax.random.key(seed + 7)
     eps = jax_eps_bf16(jmodel, jax_tree(variables["params"]),
                        microbatch_rngs(rng, accum), mcfg.d)
     pcfg = pconfig.TrainConfig(batch_size=MB * accum, model=port_cfg(mcfg),
@@ -121,11 +157,11 @@ def setup(accum, use_pallas=False):
     return cfg, pcfg, variables, jmodel, model, toks, mask, rng, eps
 
 
-def run_case(accum, use_pallas=False):
+def run_case(accum, use_pallas=False, resolution=8, seed=SEED):
     """(JAX's bf16 step, the port's bf16 and fp32 (losses, accs, model))
     from the same weights, batch and noise."""
     cfg, pcfg, variables, jmodel, model, toks, mask, rng, eps = setup(
-        accum, use_pallas)
+        accum, use_pallas, resolution, seed)
     want = jax_reference_step(jmodel, cfg, variables, toks, mask, rng,
                               mb=MB)
     fp32_model = copy.deepcopy(model)

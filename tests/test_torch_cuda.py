@@ -255,11 +255,12 @@ def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
 
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     """With 3 tracks the eval kernels and the chord tail raise; past
-    resolution 12 (S = 52), which generation and fp32 training take, bf16
-    training (`gcl_fused`, `gcl_fwd`, `gcl_bwd_fused`) and the column form
-    raise before any kernel runs, naming their roadmap items; the fp32
-    fused backward (on no training path) refuses every grid but 4 x 32
-    cells."""
+    resolution 12 (S = 52), which generation and training take in both
+    dtypes, the bf16 fused backward (bf16 training runs the split backward
+    there) and the column form raise before any kernel runs, naming their
+    roadmap items; the split backward refuses bf16 up to 48 steps (bf16
+    training runs the fused backward there); the fp32 fused backward (on
+    no training path) refuses every grid but 4 x 32 cells."""
     s, t = 16, 3
     mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
     x = args[0].reshape(2, 4, s, 128)[:, :t].reshape(2, t * s, 128)
@@ -275,12 +276,8 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     rel = torch.zeros(6, 256, 256, device=cuda)
     before = dict(counts.launches)
     xb, gb, wb, bb = (v.bfloat16() for v in (x, gates, w[0], b[0]))
-    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > 48"):
-        gcl_bwd.gcl_fused(xb.requires_grad_(), gb, rel.bfloat16(),
-                          rel[0].bfloat16(), bb, aux, mask)
-    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > 48"):
-        gcl.gcl_fwd(xb.detach(), aux, gb, wb, bb)
-    with pytest.raises(ValueError, match="up to 48 .*bf16 training at S > 48"):
+    with pytest.raises(ValueError, match="up to 48 .*the bf16 fused backward "
+                                         "at S > 48 .*split backward"):
         gcl_bwd.gcl_bwd_fused(xb.detach(), xb.detach(), aux, gb, wb)
     cols = "up to 48 .*the column forms at S > 48"
     with pytest.raises(ValueError, match=cols):
@@ -299,6 +296,11 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
         2, 128, cuda, 0, 16)
     with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
         gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+    xb, ub, gb, wb = (v.bfloat16() for v in (x, up, gates, wbig))
+    with pytest.raises(ValueError, match="bfloat16 at bars of more than 48"):
+        gcl_bwd.gcl_bwd_data(xb, ub, aux, gb, wb)
+    with pytest.raises(ValueError, match="bfloat16 at bars of more than 48"):
+        gcl_bwd.gcl_bwd_weight(xb, ub, aux, gb)
     assert counts.launches == before
 
 
@@ -374,7 +376,9 @@ def test_long_gcl_eval_refuses_the_column_form(cuda):
     mask, args = chip_smoke.kernel_inputs(2, 256, 1, cuda, 0, 64)
     x, aux, gates, w, b, ea, eb = args
     before = dict(counts.launches)
-    with pytest.raises(ValueError, match="square weights only"):
+    with pytest.raises(ValueError, match="square weights only.*the column "
+                                         "forms at S > 48 are not ported yet "
+                                         "\\(ROADMAP.md, Queue 1"):
         gcl.gcl_eval(x, aux, gates, w[..., :128].contiguous(),
                      *(v[:, :128].contiguous() for v in (b, ea, eb)))
     assert counts.launches == before
@@ -1215,3 +1219,113 @@ def test_one_rank_nccl_train_step_is_the_plain_step(cuda, monkeypatch):
     for n, g in gp.items():
         torch.testing.assert_close(gn[n], g, rtol=1e-6, atol=1e-6 * float(
             g.abs().max()), msg=n)
+
+
+# the bf16 training kernels at bars of more than 48 steps (bf16 training's
+# route there: the long bf16 eval kernel's training form and the split
+# backward's bf16 forms), at the fp32 cases' shapes
+@pytest.mark.parametrize("nbar,d", LONG_TRAIN_CASES)
+@pytest.mark.parametrize("s", LONG_STEPS)
+def test_long_bf16_training_kernels_match_plain(cuda, s, nbar, d):
+    """`gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` on bf16 inputs
+    (phase 2c's rule) against their plain versions over bars of 4 x s
+    cells; no comparison launch counts."""
+    before = dict(counts.launches)
+    chip_smoke.check_gcl_train_long_bf16(nbar, d, cuda, timing=False, s=s)
+    assert counts.launches == before
+
+
+def test_long_bf16_training_kernels_launch_their_long_forms(cuda):
+    """One launch of each training wrapper on bf16 inputs over bars of 4 x
+    96 cells counts one launch of its bf16 kernel at S = 96, and no other
+    (no fused backward); the training forward's long form holds
+    tensor-core instructions, the two backward forms FFMA and none."""
+    from polyphemus_tpu_torch.ops.kernels import _build
+
+    _, args = chip_smoke.train_kernel_inputs(3, 256, cuda, 1, 96)
+    x, up, aux, gates, wbig, bias = [
+        v if v.dtype == torch.int32 else v.bfloat16() for v in args]
+    before = dict(counts.launches)
+    out = gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    dx, dg, db = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    dw = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    torch.cuda.synchronize()
+    assert out.dtype == dx.dtype == torch.bfloat16
+    assert dg.dtype == db.dtype == dw.dtype == torch.float32
+    assert counts.since(before) == {
+        (k, 96, 1): 1 for k in ("gcl_fwd_bf16", "gcl_bwd_data_bf16",
+                                "gcl_bwd_weight_bf16")}
+    for name, sym in chip_smoke.LONG_BF16_TRAIN_FORMS.items():
+        _build.launcher(name)
+        hmma = chip_smoke.sass_instructions(name, sym)
+        ffma = chip_smoke.sass_instructions(name, sym, r"\bFFMA\b")
+        if name == "gcl_fwd_long_bf16":
+            assert hmma > 0, (name, hmma)
+        else:
+            assert hmma == 0 and ffma > 0, (name, hmma, ffma)
+
+
+def test_long_bf16_data_and_weight_backward_repeat_bitwise(cuda):
+    """At S = 96 the bf16 data backward gives dx, dgate and dbias bit for
+    bit in two launches, and the weight backward dWbig."""
+    _, args = chip_smoke.train_kernel_inputs(128, 512, cuda, 3, 96)
+    x, up, aux, gates, wbig, _ = [
+        v if v.dtype == torch.int32 else v.bfloat16() for v in args]
+    first = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    second = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    dw = [gcl_bwd.gcl_bwd_weight(x, up, aux, gates) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(dw[0], dw[1])
+
+
+def test_long_bf16_training_kernels_give_zeros_for_a_bar_without_active_cells(
+        cuda):
+    """At S = 52, bf16, bar 1 of 3 has no active cell while its x and
+    upstream g are not 0: the forward and dx are exactly 0 there; dWbig,
+    dgate and dbias equal those of the other two bars bit for bit (the
+    empty bar adds zeros)."""
+    mask, args = chip_smoke.train_kernel_inputs(3, 384, cuda, 5, 52)
+    x, up, aux, gates, wbig, bias = [
+        v if v.dtype == torch.int32 else v.bfloat16() for v in args]
+    mask = mask.clone()
+    mask[1] = False
+    aux = gcl.build_kernel_aux(mask).reshape(3, gcl.N_AUX, 208).to(cuda)
+    x = x.clone()
+    x[1] = torch.randn(208, 384, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda).bfloat16()
+    assert (x[1] != 0).any() and (up[1] != 0).any()
+    keep = torch.tensor([0, 2], device=cuda)
+
+    def kept(*vs):
+        return [v[keep].contiguous() for v in vs]
+
+    out = gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    got = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
+    ref = gcl_bwd.gcl_bwd_data(*kept(x, up, aux), gates, wbig)
+    dw = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    dw_ref = gcl_bwd.gcl_bwd_weight(*kept(x, up, aux), gates)
+    torch.cuda.synchronize()
+    assert (out[1] == 0).all() and (got[0][1] == 0).all()
+    assert torch.equal(got[0][keep], ref[0])
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert torch.equal(dw, dw_ref)
+
+
+@pytest.mark.parametrize("resolution", [13, 24])
+def test_long_bf16_train_step_on_the_card_matches_the_cpu(cuda, resolution):
+    """A d = 128, 2-layer model at resolution 13 or 24 (S = 52, 96) under
+    the bf16 policy on the card against the CPU at batch 32 (phase 6's
+    rule), through the bf16 long-bar training kernels and no fused
+    backward."""
+    mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=resolution,
+                     batch_norm=True)
+    s = mc.n_timesteps
+    before = dict(counts.launches)
+    chip_smoke.compare_train_step(mc, 32, cuda, seed=resolution, bf16=True)
+    # one microbatch through 2 GNN stacks of 2 layers; the eval steps before
+    # the card's two train steps run the bf16 eval GCL, a layer a launch
+    assert counts.since(before) == {
+        ("gcl_fwd_bf16", s, 1): 4, ("gcl_bwd_data_bf16", s, 1): 4,
+        ("gcl_bwd_weight_bf16", s, 1): 4, ("gcl_eval_bf16", s, 1): 4}

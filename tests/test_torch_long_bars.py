@@ -24,11 +24,11 @@ tensors (`on_card` patched, the C launchers recorded instead of called):
 layer, ping-ponging so that the last layer writes the output, and counts
 each launch at K = 1; S <= 48 keeps one launch of the grid kernel at K;
 the eval column form refuses S > 48 before launching. The training kernels
-take S > 48 in fp32 with the square weights (their route and their plain
-versions against JAX: `tests/test_torch_long_train.py`); bf16 training,
-the fused backward and the column form refuse it before launching, with a
-message that names the roadmap's item. (The eval and chord routes'
-geometry checks at S = 52-192 are
+take S > 48 with the square weights, in fp32 and bf16 (their route and
+their plain versions against JAX: `tests/test_torch_long_train.py`,
+`tests/test_torch_long_bf16_train.py`); the fused backward and the column
+form refuse it before launching, with a message that names the roadmap's
+item. (The eval and chord routes' geometry checks at S = 52-192 are
 `tests/test_torch_resolution.py::test_the_eval_kernels_take_bars_above_48_steps`.)
 """
 import jax.numpy as jnp
@@ -182,19 +182,21 @@ TRAINING_KERNELS = ["gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight",
 @pytest.mark.parametrize("s", STEPS)
 def test_training_kernels_refuse_long_bars(kernel, s):
     """What training at S > 48 still refuses names the limit and the
-    roadmap's item: bf16 (every kernel; the fused backward, the bf16
-    route's, in any dtype), and the column form (tensor parallelism) of
-    the fp32 kernels."""
-    bf16 = f"up to 48 .*{gcl.BF16_LONG} is not ported yet .*ROADMAP"
-    with pytest.raises(ValueError, match=bf16):
-        gcl.check_grid(kernel, 4 * s, s, torch.bfloat16)
+    roadmap's item: the fused backward (bf16 training's route up to 48
+    steps) in any dtype, and the column form (tensor parallelism) of the
+    other kernels in either dtype; with the square weights those take bf16
+    as they take fp32."""
     if kernel == "gcl_bwd_fused":
-        with pytest.raises(ValueError, match=bf16):
-            gcl.check_grid(kernel, 4 * s, s)
+        fused = f"up to 48 .*{gcl.FUSED_LONG} is not ported yet .*ROADMAP"
+        for dt in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match=fused):
+                gcl.check_grid(kernel, 4 * s, s, dt)
         return
-    with pytest.raises(ValueError, match=f"up to 48 .*{gcl.COLS_LONG} are "
-                                         f"not ported yet .*ROADMAP"):
-        gcl.check_grid(kernel, 4 * s, s, torch.float32, square=False)
+    gcl.check_grid(kernel, 4 * s, s, torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match=f"up to 48 .*{gcl.COLS_LONG} "
+                                             f"are not ported yet .*ROADMAP"):
+            gcl.check_grid(kernel, 4 * s, s, dt, square=False)
 
 
 @pytest.mark.parametrize("kernel", [k for k in TRAINING_KERNELS
@@ -278,33 +280,47 @@ def test_gcl_eval_keeps_one_grid_launch_up_to_48_steps(card_route, s):
 
 
 def test_gcl_eval_refuses_the_column_form_above_48_steps(card_route):
-    with pytest.raises(ValueError, match="square weights only"):
+    """The eval step's column form at S > 48 raises before launching, with
+    a message that names its roadmap item, as `check_grid`'s do."""
+    with pytest.raises(ValueError, match=f"square weights only.*"
+                                         f"{gcl.COLS_LONG} are not ported yet "
+                                         f"\\(ROADMAP.md, Queue 1"):
         gcl.gcl_eval(*eval_args(64, 1, d=256, n=128))
     assert card_route == []
 
 
 def test_training_refuses_long_bars_before_any_launch(card_route,
                                                       monkeypatch):
-    """bf16 training and the column form at S = 64 raise before any launch
-    (the training layer, its forward and the fused backward)."""
+    """At S = 64 bf16 training runs (the training layer launches the bf16
+    training forward, then the split backward's bf16 forms, each once; the
+    forward and the pair alone launch theirs), while the fused backward and
+    the column form raise before any launch."""
     monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
     s, d = 64, 256
     bf = torch.bfloat16
     x, aux, gates = eval_args(s, 1, d=d)[:3]
     mask = torch.zeros(2, 4, s, dtype=torch.bool)
+    wb = torch.zeros(8 * d, d, dtype=bf)
     before = dict(counts.launches)
-    with pytest.raises(ValueError, match=gcl.BF16_LONG):
-        gcl_bwd.GclFused.apply(x.to(bf), gates.to(bf),
-                               torch.zeros(6, d, d, dtype=bf,
-                                           requires_grad=True),
-                               torch.zeros(d, d, dtype=bf),
-                               torch.zeros(d, dtype=bf), aux, mask)
-    with pytest.raises(ValueError, match=gcl.BF16_LONG):
-        gcl.gcl_fwd(x.to(bf), aux, gates.to(bf),
-                    torch.zeros(8 * d, d, dtype=bf), torch.zeros(d, dtype=bf))
-    with pytest.raises(ValueError, match=gcl.BF16_LONG):
-        gcl_bwd.gcl_bwd_fused(x.to(bf), x.to(bf), aux, gates.to(bf),
-                              torch.zeros(8 * d, d, dtype=bf))
+    out = gcl_bwd.GclFused.apply(x.to(bf), gates.to(bf),
+                                 torch.zeros(6, d, d, dtype=bf,
+                                             requires_grad=True),
+                                 torch.zeros(d, d, dtype=bf),
+                                 torch.zeros(d, dtype=bf), aux, mask)
+    out.backward(torch.zeros_like(out))
+    gcl.gcl_fwd(x.to(bf), aux, gates.to(bf), wb, torch.zeros(d, dtype=bf))
+    gcl_bwd.gcl_bwd_data(x.to(bf), x.to(bf), aux, gates.to(bf), wb)
+    gcl_bwd.gcl_bwd_weight(x.to(bf), x.to(bf), aux, gates.to(bf))
+    assert [c[0] for c in card_route] == [
+        "gcl_fwd_long_bf16", "gcl_bwd_data_long_bf16",
+        "gcl_bwd_weight_long_bf16"] * 2
+    assert counts.since(before) == {
+        (k, s, 1): 2 for k in ("gcl_fwd_bf16", "gcl_bwd_data_bf16",
+                               "gcl_bwd_weight_bf16")}
+    counts.restore(before)
+    del card_route[:]
+    with pytest.raises(ValueError, match=gcl.FUSED_LONG):
+        gcl_bwd.gcl_bwd_fused(x.to(bf), x.to(bf), aux, gates.to(bf), wb)
     with pytest.raises(ValueError, match=gcl.COLS_LONG):
         gcl_bwd.GclFused.apply(x, gates,
                                torch.zeros(6, d, 128, requires_grad=True),

@@ -24,9 +24,13 @@ The route at S > 48, with a CUDA tensor's path taken on CPU tensors (the
 `card_route` fixture of `tests/test_torch_long_bars.py`: `on_card` patched,
 the C launchers recorded): an fp32 `GclFused` forward and backward with the
 square weights launches `gcl_fwd_long`, `gcl_bwd_data_long` and
-`gcl_bwd_weight_long` once each and counts them at S; in bf16 and in the
-column form it raises before any launch; at S = 12 and 48 it keeps the grid
-kernels. On the CPU the kernels' launch counters stay 0."""
+`gcl_bwd_weight_long` once each and counts them at S; a bf16 one
+`gcl_fwd_long_bf16`, `gcl_bwd_data_long_bf16` and `gcl_bwd_weight_long_bf16`
+(the split backward, as JAX's bf16 layer takes it; no fused backward),
+counted as `gcl_fwd_bf16`, `gcl_bwd_data_bf16`, `gcl_bwd_weight_bf16`; in
+the column form it raises before any launch; at S = 12 and 48 it keeps the
+grid kernels. On the CPU the kernels' launch counters stay 0. (bf16 against
+JAX above 48 steps: `tests/test_torch_long_bf16_train.py`.)"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,10 +160,53 @@ def test_fp32_training_layer_launches_the_long_forms(layer_route):
 @pytest.mark.parametrize("s", STEPS)
 def test_bf16_training_layer_refuses_long_bars_before_any_launch(
         layer_route, s):
+    """Once refused above 48 steps, a bf16 layer now trains there: forward
+    and backward launch the long-bar bf16 training form and the split
+    backward's bf16 forms once each, with the layer's pointers and sizes,
+    each counted at S, and no fused backward. The data backward's scratch
+    differs from the fp32 form's (a fourth plane for dx in fp32)."""
+    d, nbar = 128, 2
+    args = layer_args(s, d, dtype=torch.bfloat16, nbar=nbar)
+    x, gates, aux = args[0], args[1], args[5]
     before = dict(counts.launches)
-    with pytest.raises(ValueError, match=f"up to 48 .*{gcl.BF16_LONG} is not "
-                                         f"ported yet .*ROADMAP"):
-        gcl_bwd.GclFused.apply(*layer_args(s, dtype=torch.bfloat16))
+    out = gcl_bwd.GclFused.apply(*args)
+    assert out.shape == (nbar, T * s, d) and out.dtype == torch.bfloat16
+    out.backward(torch.ones_like(out))
+    assert [c[0] for c in layer_route] == [
+        "gcl_fwd_long_bf16", "gcl_bwd_data_long_bf16",
+        "gcl_bwd_weight_long_bf16"]
+    (_, fwd), (_, data), (_, weight) = layer_route
+    assert fwd[:3] == (x.data_ptr(), aux.data_ptr(), gates.data_ptr())
+    assert fwd[5] == out.data_ptr() and fwd[6:] == (nbar, s, d, d, 0)
+    assert data[0] == x.data_ptr() and data[2:5] == (
+        aux.data_ptr(), gates.data_ptr(), fwd[3])
+    assert len({data[5], data[6], data[7], data[8]}) == 4
+    assert data[9:] == (nbar, s, d, d, 0)
+    assert weight[:4] == (x.data_ptr(), data[1], aux.data_ptr(),
+                          gates.data_ptr())
+    assert weight[5:] == (nbar, s, d, d, 0)
+    assert counts.since(before) == {
+        (k, s, 1): 1 for k in ("gcl_fwd_bf16", "gcl_bwd_data_bf16",
+                               "gcl_bwd_weight_bf16")}
+    assert all(v.grad is not None and v.grad.dtype == torch.bfloat16
+               for v in args[:5])
+
+
+@pytest.mark.parametrize("s", STEPS)
+def test_bf16_fused_backward_refuses_long_bars_before_any_launch(
+        layer_route, s):
+    """The bf16 fused backward (bf16 training's route up to 48 steps) is
+    not ported above 48: called there it raises before any launch, naming
+    its roadmap item and the split backward that training runs instead."""
+    bf = torch.bfloat16
+    x, gates, rel_w, root, _, aux, _ = layer_args(s, dtype=bf)
+    wbig = gcl.pack_weights(rel_w.detach(), root.detach(), T)
+    before = dict(counts.launches)
+    with pytest.raises(ValueError, match=f"up to 48 .*{gcl.FUSED_LONG} is "
+                                         f"not ported yet .*ROADMAP.md, Queue"
+                                         f" 2.*split backward"):
+        gcl_bwd.gcl_bwd_fused(x.detach(), x.detach(), aux, gates.detach(),
+                              wbig)
     assert layer_route == [] and counts.launches == before
 
 
