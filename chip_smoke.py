@@ -1065,16 +1065,18 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
                       s=32) -> dict:
     """The column forms of the GCL kernels that tensor parallelism launches
     (output width n of d, `parallel.mesh`), for every one of the d / n
-    column shards of one layer: `gcl_fwd`, `gcl_eval` at K = 1 and, in
-    fp32, `gcl_bwd_data` and `gcl_bwd_weight`, in bf16 `gcl_bwd_fused`,
-    each against its plain version on the same shard (fp32: rtol = atol =
-    TOL, the sums over bars at SUM_TOL; bf16: BF16_REL of max |plain|). The
-    partial dx and dgate summed over the shards against the square plain
-    version's, at the same tolerances. `equal_to_square` says whether the
-    shards of the forward, eval and weight kernels are bit for bit the
-    square launch's columns. With timing, shard 0's ms per launch, its
-    plain version's and its bound (1 / M of the square launch's work),
-    beside the square launch's ms and bound."""
+    column shards of one layer over bars of 4 x s cells: `gcl_fwd`,
+    `gcl_eval` at K = 1 and the backward that training runs there: in fp32,
+    and in bf16 above 48 steps a bar, `gcl_bwd_data` and `gcl_bwd_weight`;
+    in bf16 up to 48 `gcl_bwd_fused`. Each against its plain version on the
+    same shard (fp32: rtol = atol = TOL, the sums over bars at SUM_TOL;
+    bf16: BF16_REL of max |plain|). The partial dx and dgate summed over the
+    shards (in fp32) against the square plain version's, at the same
+    tolerances. `equal_to_square` says whether the shards of the forward,
+    eval and weight kernels are bit for bit the square launch's columns.
+    With timing, shard 0's ms per launch, its plain version's and its bound
+    (1 / M of the square launch's work: active cells, and every cell for
+    `dense_bound_ms`), beside the square launch's ms and bounds."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import gcl, gcl_bwd
@@ -1089,7 +1091,9 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
     ea, eb = ea.to(dt), eb.to(dt)
     saved = kernel_counts()
     suffix = "_bf16" if bf16 else ""
-    bwd = "gcl_bwd_fused" if bf16 else "gcl_bwd_data"
+    split = not bf16 or s > gcl.MAX_STEPS  # the data and weight pair
+    bwd = f"gcl_bwd_data{suffix}" if split else "gcl_bwd_fused"
+    wgt = f"gcl_bwd_weight{suffix}"
 
     def held(name, a, b, summed):
         return held_rel(name, a, b) if bf16 else held_to(name, a, b,
@@ -1110,27 +1114,27 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
             lambda: gcl.gcl_eval(*eval_args, col0=r * n),
             lambda: gcl.gcl_eval_plain(*eval_args, col0=r * n))}
         gc = up[..., r * n:(r + 1) * n].contiguous()
-        if bf16:
-            out[bwd] = (lambda: gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc),
-                        lambda: gcl_bwd.gcl_bwd_fused_plain(x, gc, aux,
-                                                            gates, wc))
-        else:
+        if split:
             out[bwd] = (lambda: gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc),
                         lambda: gcl_bwd.gcl_bwd_data_plain(x, gc, aux,
                                                            gates, wc))
-            out["gcl_bwd_weight"] = (
+            out[wgt] = (
                 lambda: gcl_bwd.gcl_bwd_weight(x, gc, aux, gates),
                 lambda: gcl_bwd.gcl_bwd_weight_plain(x, gc, aux, gates))
+        else:
+            out[bwd] = (lambda: gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc),
+                        lambda: gcl_bwd.gcl_bwd_fused_plain(x, gc, aux,
+                                                            gates, wc))
         return out
 
     square = {f"gcl_fwd{suffix}": gcl.gcl_fwd(x, aux, gates, wbig, bias),
               f"gcl_eval{suffix}": gcl.gcl_eval(
                   x, aux, gates, wbig[None], bias[None], ea[None], eb[None])}
-    if bf16:
-        square_bwd = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
-    else:
-        square["gcl_bwd_weight"] = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
+    if split:
+        square[wgt] = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
         square_bwd = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)
+    else:
+        square_bwd = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
     res = {k: {"max_abs_err": 0.0, "equal_to_square": True}
            for k in runs(0)}
     res[bwd].pop("equal_to_square")
@@ -1143,18 +1147,19 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
                 outs = ("dx", "dgate", "dbias", "dwbig")
                 errs = [held(f"{name} n={n} shard {r} {o}", a, b,
                              o != "dx") for o, a, b in zip(outs, got, want)]
-                sums = (got[:2] if sums is None
-                        else [a + b.to(a.dtype) for a, b in zip(sums, got)])
+                part = [v.float() for v in got[:2]]
+                sums = (part if sums is None
+                        else [a + b for a, b in zip(sums, part)])
                 err = max(errs)
             else:
-                err = held(f"{name} n={n} shard {r}", got, want,
-                           name == "gcl_bwd_weight")
+                err = held(f"{name} n={n} shard {r}", got, want, name == wgt)
                 res[name]["equal_to_square"] &= torch.equal(
                     got, square[name][..., r * n:(r + 1) * n])
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     for o, a, b in zip(("dx", "dgate"), sums, square_bwd):
         res[bwd][f"{o}_summed_over_shards_max_abs_err"] = held(
-            f"{bwd} n={n} {o} summed over the shards", a, b, o != "dx")
+            f"{bwd} n={n} {o} summed over the shards", a, b.float(),
+            o != "dx")
     if timing:
         active = int(mask.sum())
         esz = x.element_size()
@@ -1162,18 +1167,18 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
         state = x.numel() * esz
         small = aux.numel() * 4 + gates.numel() * esz
 
-        def work(name, w):
+        def work(name, w, cells=active):
             """(flops, bytes) of one launch at output width w."""
-            flops = 2.0 * active * 5 * d * w
+            flops = 2.0 * cells * 5 * d * w
             wbytes = 8 * d * w * esz
             out_b = nbar * 4 * s * w * esz
             if name.startswith("gcl_fwd"):
                 return flops, state + out_b + small + wbytes + w * esz
             if name.startswith("gcl_eval"):
                 return flops, state + out_b + small + wbytes + 3 * w * esz
-            if name == "gcl_bwd_weight":
+            if name.startswith("gcl_bwd_weight"):
                 return flops, state + out_b + small + 8 * d * w * 4
-            if name == "gcl_bwd_data":
+            if name.startswith("gcl_bwd_data"):
                 return flops, 2 * state + out_b + small + wbytes \
                     + (s * d + w) * 4
             return 2 * flops, 2 * state + out_b + small + wbytes \
@@ -1183,9 +1188,8 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
                                                        bias),
               f"gcl_eval{suffix}": lambda: gcl.gcl_eval(
                   x, aux, gates, wbig[None], bias[None], ea[None], eb[None]),
-              "gcl_bwd_weight": lambda: gcl_bwd.gcl_bwd_weight(
-                  x, up, aux, gates),
-              "gcl_bwd_data": lambda: gcl_bwd.gcl_bwd_data(
+              wgt: lambda: gcl_bwd.gcl_bwd_weight(x, up, aux, gates),
+              f"gcl_bwd_data{suffix}": lambda: gcl_bwd.gcl_bwd_data(
                   x, up, aux, gates, wbig),
               "gcl_bwd_fused": lambda: gcl_bwd.gcl_bwd_fused(
                   x, up, aux, gates, wbig)}
@@ -1194,6 +1198,8 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
             r["ms"] = time_ms(kern)
             r["plain_ms"] = time_ms(plain, reps=2)
             r["bound_ms"], r["bound_by"] = bound_ms(*work(name, n), peak)
+            r["dense_bound_ms"] = bound_ms(*work(name, n, mask.numel()),
+                                           peak)[0]
             r["square_ms"] = time_ms(sq[name])
             r["square_bound_ms"] = bound_ms(*work(name, d), peak)[0]
     set_kernel_counts(saved)  # comparison launches do not count
@@ -2959,6 +2965,7 @@ DDP_LOSS_RTOL = 1e-6     # W = 1 NCCL vs non-distributed: the first step's
 DDP_SPREAD = 10.0        # later steps: this x the spread of two runs
 #                          without a group (a share of it, not a tolerance)
 TWO_RANK_STEPS = {False: 2, True: 2}        # 2 gloo ranks, fp32 and bf16
+TWO_RANK_BATCH = 64      # the global batch of the gloo runs at resolution 8
 TWO_RANK_LOSS_RTOL = {False: 1e-4, True: BF16_LOSS_RTOL}
 CHILD_TIMEOUT = 300      # seconds, one torchrun or CLI process
 LAUNCHES_LINE = re.compile(r"^Kernel launches \(rank (\d+)\): (\{.*\})$",
@@ -3132,7 +3139,8 @@ def nccl_step_overhead(device, card, config_path, steps=2) -> dict:
 
 
 def two_rank_batches(mc, batch, steps):
-    """The global batches and eps of the two-rank phase, from SEED."""
+    """The global batches and eps of the two-rank phase at mc's grid, from
+    SEED."""
     import torch
 
     from polyphemus_tpu_torch.data import synthetic_batch
@@ -3140,7 +3148,8 @@ def two_rank_batches(mc, batch, steps):
     rng = np.random.default_rng(SEED + 10)
     out = []
     for _ in range(steps):
-        toks, mask = synthetic_batch(rng, batch, mc.n_bars)
+        toks, mask = synthetic_batch(rng, batch, mc.n_bars,
+                                     n_timesteps=mc.n_timesteps)
         eps = rng.standard_normal((batch, mc.d)).astype(np.float32)
         out.append(tuple(torch.from_numpy(a) for a in (toks, mask, eps)))
     return out
@@ -3183,17 +3192,19 @@ def timed_collectives():
 
 
 def rank_child(spec_path) -> int:
-    """One rank of (ii)-(iv) of phases 10 and 10b, under `torchrun
-    --nproc_per_node W`: gloo on the one card, the spec's model, config (at
-    its model axis M) and global batches, stepped through the `Trainer`
-    (which lays out the mesh, keeps the rank's shards and makes Adam over
-    them) on the rows of the rank's data index (`data.shard_rows`). At M
-    > 1 an eval step on the first batch comes first. Rank 0 writes the
-    grads after the first step, gathered whole. At M = 1 every rank then
-    times one more gradient all-reduce; at M > 1 its last step times every
-    collective (`timed_collectives`), and it saves the checkpoint (rank 0
-    writes the one-process layout). Every rank prints its losses, s/step,
-    those times and its launches."""
+    """One rank of the gloo runs of phases 10 and 10b, under `torchrun
+    --nproc_per_node W`: gloo on the one card, then each run of the spec's
+    `runs` in turn (one launch of W processes serves them all), its model,
+    config (at its model axis M) and global batches stepped through the
+    `Trainer` (which lays out the mesh, keeps the rank's shards and makes
+    Adam over them) on the rows of the rank's data index
+    (`data.shard_rows`). At M > 1 an eval step on the first batch comes
+    first. Rank 0 writes the grads after the first step, gathered whole. At
+    M = 1 every rank then times one more gradient all-reduce; at M > 1 its
+    last step times every collective (`timed_collectives`), and it saves
+    the checkpoint (rank 0 writes the one-process layout). Every rank
+    prints, a run at a time, its losses, s/step, those times and the run's
+    kernel launches (the counts set to 0 before each run)."""
     import dataclasses
 
     import torch
@@ -3204,6 +3215,7 @@ def rank_child(spec_path) -> int:
     from polyphemus_tpu_torch.data import shard_rows
     from polyphemus_tpu_torch.models import VAE
     from polyphemus_tpu_torch.ops import kernels
+    from polyphemus_tpu_torch.ops.kernels import counts, gcl
     from polyphemus_tpu_torch.parallel import mesh as pmesh
     from polyphemus_tpu_torch.train import trainer as tr
 
@@ -3214,69 +3226,74 @@ def rank_child(spec_path) -> int:
           f"the rank child did not join a group of {spec['nproc']}")
     try:
         r = pmesh.rank()
-        cfg = load_train_config(spec["config"])
-        cfg = dataclasses.replace(cfg, parallel=ParallelConfig(
-            model_axis=spec["model_axis"]))
-        model = VAE(cfg.model)
-        model.load_state_dict(torch.load(spec["state"], weights_only=True))
-        # ---- the main path ----
-        trainer = tr.Trainer(spec["model_dir"], model, cfg, device=device)
-        rows = torch.from_numpy(shard_rows(
-            cfg.batch_size, cfg.iters_to_accumulate, pmesh.data_index(),
-            pmesh.data_size()))
-        losses, times = [], []
-        batches = [tuple(t[rows].to(device) for t in b) for b in
-                   two_rank_batches(cfg.model, cfg.batch_size,
-                                    spec["steps"])]
-        res = {"rank": r, "mesh": trainer.layout}
-        if spec["model_axis"] > 1:  # the column-form eval stack
-            ev, _ = tr.eval_step(trainer.model, cfg, *batches[0][:2],
-                                 trainer.step, eps=batches[0][2])
-            res["eval_losses"] = {k: float(v) for k, v in ev.items()}
-        coll = {}
-        for i, (toks, mask, eps) in enumerate(batches):
-            last = i == len(batches) - 1 and spec["model_axis"] > 1
+        for run_index, run in enumerate(spec["runs"]):
+            counts.reset()
+            gcl.col_launches.update(dict.fromkeys(gcl.col_launches, 0))
+            cfg = load_train_config(run["config"])
+            cfg = dataclasses.replace(cfg, parallel=ParallelConfig(
+                model_axis=run["model_axis"]))
+            model = VAE(cfg.model)
+            model.load_state_dict(torch.load(run["state"], weights_only=True))
+            # ---- the main path ----
+            trainer = tr.Trainer(run["model_dir"], model, cfg, device=device)
+            rows = torch.from_numpy(shard_rows(
+                cfg.batch_size, cfg.iters_to_accumulate, pmesh.data_index(),
+                pmesh.data_size()))
+            losses, times = [], []
+            batches = [tuple(t[rows].to(device) for t in b) for b in
+                       two_rank_batches(cfg.model, cfg.batch_size,
+                                        run["steps"])]
+            res = {"rank": r, "run": run_index, "mesh": trainer.layout}
+            if run["model_axis"] > 1:  # the column-form eval stack
+                ev, _ = tr.eval_step(trainer.model, cfg, *batches[0][:2],
+                                     trainer.step, eps=batches[0][2])
+                res["eval_losses"] = {k: float(v) for k, v in ev.items()}
+            coll = {}
+            for i, (toks, mask, eps) in enumerate(batches):
+                last = i == len(batches) - 1 and run["model_axis"] > 1
+                torch.cuda.synchronize()
+                with (timed_collectives() if last
+                      else contextlib.nullcontext({})) as coll:
+                    t0 = time.perf_counter()
+                    lo, _ = trainer.train_step(toks, mask, eps=eps)
+                    lo = {k: float(v) for k, v in lo.items()}
+                    times.append(time.perf_counter() - t0)
+                losses.append(lo)
+                if i == 0:
+                    grads = pmesh.full_state_dict(
+                        {n: p.grad.detach() for n, p in
+                         trainer.model.named_parameters()})
+                    if r == 0:
+                        torch.save({n: g.cpu() for n, g in grads.items()},
+                                   run["grads"])
+            res.update(losses=losses, step_s=times)
             torch.cuda.synchronize()
-            with (timed_collectives() if last
-                  else contextlib.nullcontext({})) as coll:
+            if run["model_axis"] == 1:
                 t0 = time.perf_counter()
-                lo, _ = trainer.train_step(toks, mask, eps=eps)
-                lo = {k: float(v) for k, v in lo.items()}
-                times.append(time.perf_counter() - t0)
-            losses.append(lo)
-            if i == 0:
-                grads = pmesh.full_state_dict(
-                    {n: p.grad.detach() for n, p in
-                     trainer.model.named_parameters()})
+                pmesh.all_reduce_grads(trainer.model.parameters())
+                torch.cuda.synchronize()
+                res["grad_all_reduce_s"] = time.perf_counter() - t0
+            else:
+                res["collectives"] = coll
                 if r == 0:
-                    torch.save({n: g.cpu() for n, g in grads.items()},
-                               spec["grads"])
-        res.update(losses=losses, step_s=times)
-        torch.cuda.synchronize()
-        if spec["model_axis"] == 1:
-            t0 = time.perf_counter()
-            pmesh.all_reduce_grads(trainer.model.parameters())
-            torch.cuda.synchronize()
-            res["grad_all_reduce_s"] = time.perf_counter() - t0
-        else:
-            res["collectives"] = coll
-            if r == 0:
-                save_config(spec["model_dir"], cfg)
-            trainer.save("checkpoint")
-        # one write a line: torchrun's ranks write unbuffered to one pipe
-        sys.stdout.write("TWO_RANK_RESULT " + json.dumps(res) + "\n")
-        sys.stdout.write(f"Kernel launches (rank {r}): "
-                         f"{json.dumps(kernels.launch_counts())}\n")
+                    save_config(run["model_dir"], cfg)
+                trainer.save("checkpoint")
+            res["launches"] = kernels.launch_counts()
+            # one write a line: torchrun's ranks write unbuffered to one pipe
+            sys.stdout.write("TWO_RANK_RESULT " + json.dumps(res) + "\n")
+            del trainer, model, grads, batches
+            torch.cuda.empty_cache()
     finally:
         pmesh.destroy()
     return 0
 
 
 def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
-                one=None) -> tuple:
+                one=None, resolution=8, batch=None) -> tuple:
     """`nproc` gloo ranks on the one card (NCCL refuses two ranks on one
     GPU) at model axis `model_axis`, the flagship config at its global
-    batch of 256, `steps` steps (TWO_RANK_STEPS[bf16] by default), against
+    batch of 256 (or `batch`, its accumulation kept) and at `resolution`
+    (`grid_config`), `steps` steps (TWO_RANK_STEPS[bf16] by default), against
     one process on the same weights, batches and eps (`one`, a previous
     call's one-process results, when given): every step's losses within
     TWO_RANK_LOSS_RTOL[bf16]. In fp32, without `one`, also the grads after
@@ -3286,26 +3303,71 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
     (the encoder's `linear_merge`), so they are no yardstick at 1e-3; the
     largest distance between the ranks' and one process's grads is
     reported. Each rank's training kernels launched as in phases 5 and 6
-    and, at M > 1, every launch in the column form, also an eval step's 16
-    eval GCL launches on the first batch before the steps, whose losses
-    are one process's within the same tolerance; the ranks' checkpoint
-    then loads as one process's and serves. The bf16 weights have `bn_linear_merge`'s input centred on the
+    (above 48 steps a bar as in phase 13: bf16 through the split backward),
+    at the bars' grid, and no other training launch; at M > 1 every launch
+    in the column form, also an eval step's 16 eval GCL launches on the
+    first batch before the steps, whose losses are one process's within
+    the same tolerance; the ranks' checkpoint then loads as one process's
+    and serves. The bf16 weights have `bn_linear_merge`'s input centred on the
     first batch (`centre_merge_input`), as phase 6's card-vs-CPU step.
     Returns (what it prints, the ranks' launches summed, the one-process
-    results)."""
+    results). `ranks_phases` runs several such runs of as many ranks in one
+    launch of the ranks."""
+    return ranks_phases(device, card, [dict(
+        bf16=bf16, nproc=nproc, model_axis=model_axis, steps=steps, one=one,
+        resolution=resolution, batch=batch)])[0]
+
+
+def ranks_phases(device, card, runs) -> list:
+    """`ranks_phase` for each of `runs` (its keyword arguments, each with
+    the same `nproc`), the ranks launched once for all of them (a launch
+    of W processes costs tens of seconds before its first step). Returns
+    `ranks_phase`'s result for each run; `process_s` is the launch's."""
+    import torch
+
+    nproc = runs[0]["nproc"]
+    check(all(r["nproc"] == nproc for r in runs),
+          f"one launch of ranks takes runs of one size, got "
+          f"{[r['nproc'] for r in runs]}")
+    preps = [prepare_ranks(device, **r) for r in runs]
+    spec_path = os.path.join(ROOT, "build", f"chip_smoke_ranks_{nproc}.json")
+    with open(spec_path, "w") as f:
+        json.dump({"nproc": nproc, "runs": [p["spec"] for p in preps]}, f)
+    what = (f"{nproc} ranks on gloo ({len(preps)} runs: "
+            f"{'; '.join(p['what'] for p in preps)})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # ---- the main path ----
+    stdout = run_child(torchrun(nproc, os.path.join(ROOT, "chip_smoke.py"),
+                                "rank_child", spec_path), what)
+    child_s = time.perf_counter() - t0
+    found = [json.loads(x) for x in TWO_RANK_LINE.findall(stdout)]
+    return [check_ranks(device, card, p, sorted(
+        (x for x in found if x["run"] == i), key=lambda x: x["rank"]),
+        child_s) for i, p in enumerate(preps)]
+
+
+def prepare_ranks(device, bf16, nproc=2, model_axis=1, steps=None, one=None,
+                  resolution=8, batch=None) -> dict:
+    """What one run of `ranks_phase` takes before its ranks start: the
+    config at `resolution` and `batch`, the seeded model (its bf16 merge
+    input centred), the global batches, the fp64 witness's grads (fp32,
+    without `one`), and the run's spec for `rank_child` (the weights saved
+    under build/)."""
     import torch
 
     from polyphemus_tpu_torch.config import load_train_config
     from polyphemus_tpu_torch.models import VAE
-    from polyphemus_tpu_torch.ops.kernels import gcl
-    from polyphemus_tpu_torch.train import trainer as tr
 
     name = "training_lmd2_bf16.json" if bf16 else "training_lmd2.json"
-    config_path = os.path.join(ROOT, "examples", name)
+    config_path = (os.path.join(ROOT, "examples", name)
+                   if resolution == 8 and batch is None
+                   else grid_config(resolution, bf16, batch))
     cfg = load_train_config(config_path)
     steps = steps or TWO_RANK_STEPS[bf16]
     work = os.path.join(ROOT, "build", f"chip_smoke_ranks_{nproc}_"
-                                       f"{model_axis}")
+                                       f"{model_axis}_r{resolution}_"
+                                       f"{'bf16' if bf16 else 'fp32'}")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     with torch.random.fork_rng(devices=[]):
@@ -3318,25 +3380,31 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
                            *(t.to(device) for t in batches[0]))
     elif one is None:
         g64 = witness_fp64_grads(model, cfg, *batches[0], device)
-    spec = {"config": config_path, "steps": steps, "nproc": nproc,
-            "model_axis": model_axis,
+    spec = {"config": config_path, "steps": steps, "model_axis": model_axis,
             "state": os.path.join(work, "state.pt"),
             "grads": os.path.join(work, "grads.pt"),
             "model_dir": os.path.join(work, "model")}
     torch.save(model.state_dict(), spec["state"])
-    with open(os.path.join(work, "spec.json"), "w") as f:
-        json.dump(spec, f)
-    torch.cuda.empty_cache()
-    what = (f"{nproc} ranks at model axis {model_axis} on gloo "
-            f"({'bf16' if bf16 else 'fp32'})")
-    t0 = time.perf_counter()
-    # ---- the main path ----
-    stdout = run_child(torchrun(nproc, os.path.join(ROOT, "chip_smoke.py"),
-                                "rank_child",
-                                os.path.join(work, "spec.json")), what)
-    child_s = time.perf_counter() - t0
-    results = sorted((json.loads(s) for s in TWO_RANK_LINE.findall(stdout)),
-                     key=lambda x: x["rank"])
+    what = (f"{nproc} ranks at model axis {model_axis} "
+            f"({'bf16' if bf16 else 'fp32'}, resolution {resolution}, batch "
+            f"{cfg.batch_size})")
+    return {"bf16": bf16, "nproc": nproc, "model_axis": model_axis,
+            "steps": steps, "one": one, "resolution": resolution, "cfg": cfg,
+            "work": work, "model": model, "batches": batches, "g64": g64,
+            "spec": spec, "what": what}
+
+
+def check_ranks(device, card, p, results, child_s) -> tuple:
+    """The checks of `ranks_phase` on one run's results from its ranks
+    (`prepare_ranks`' `p`), sorted by rank; `child_s` the launch's
+    seconds."""
+    import torch
+
+    from polyphemus_tpu_torch.train import trainer as tr
+
+    bf16, nproc, model_axis = p["bf16"], p["nproc"], p["model_axis"]
+    steps, one, cfg, what = p["steps"], p["one"], p["cfg"], p["what"]
+    model, batches, g64, spec = p["model"], p["batches"], p["g64"], p["spec"]
     check([x["rank"] for x in results] == list(range(nproc)),
           f"{what}: results from ranks {[x['rank'] for x in results]}")
     check(all(x["losses"] == results[0]["losses"] for x in results),
@@ -3344,30 +3412,34 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
     check(results[0]["mesh"] == {"data": nproc // model_axis,
                                  "model": model_axis},
           f"{what}: mesh {results[0]['mesh']}")
-    launches = rank_launches(stdout, nproc)
-    train_k = ({"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32} if bf16 else
-               {"gcl_fwd": 64, "gcl_bwd_data": 64, "gcl_bwd_weight": 64})
-    per_step = dict(train_k)
-    keys = list(TRAIN_KERNELS)
+    launches = [x["launches"] for x in results]
+    s = 4 * p["resolution"]
+
+    def at_grid(k):  # `kernels.launch_counts`' name at the bars' grid
+        return k if s == 32 else f"{k}_s{s}"
+
+    train_k = grid_train_kernels(bf16, s)
+    per_step = {at_grid(k): n for k, n in train_k.items()}
     tp = model_axis > 1
     if tp:
         # every training launch in the column form
         col_names = {"gcl_bwd_fused": "gcl_bwd_fused_bf16_cols"}
         per_step.update({col_names.get(k, f"{k}_cols"): n
                          for k, n in train_k.items()})
-        keys += [f"{k}_cols" for k in gcl.COL_KERNELS
-                 if not k.startswith("gcl_eval")]
         ev = "gcl_eval_bf16" if bf16 else "gcl_eval"
     for counts in launches:
-        check_launches({k: counts[k] for k in keys}, per_step, steps)
+        # every training kernel's count, at any grid and in the column form
+        check_launches({k: n for k, n in counts.items()
+                        if k.startswith(("gcl_fwd", "gcl_bwd"))}, per_step,
+                       steps)
         if tp:  # one eval batch: 2 GNN stacks of 8 layers, one a launch
-            check(counts[ev] == counts[f"{ev}_cols"] == 16,
-                  f"{what}: eval launches {counts[ev]}, columns "
-                  f"{counts[f'{ev}_cols']}, not 16")
+            check(counts.get(at_grid(ev), 0) == counts[f"{ev}_cols"] == 16,
+                  f"{what}: eval launches {counts.get(at_grid(ev), 0)}, "
+                  f"columns {counts[f'{ev}_cols']}, not 16")
 
     if one is None:
         # one process on the same weights, batches and eps
-        trainer = tr.Trainer(os.path.join(work, "one"), model, cfg,
+        trainer = tr.Trainer(os.path.join(p["work"], "one"), model, cfg,
                              device=device)
         ev_l, _ = tr.eval_step(trainer.model, cfg,
                                *(t.to(device) for t in batches[0][:2]),
@@ -3395,6 +3467,7 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
     check(rel <= TWO_RANK_LOSS_RTOL[bf16],
           f"{what}: losses {rel:.3e} (relative) from one process's")
     out = {"bf16": bf16, "nproc": nproc, "mesh": results[0]["mesh"],
+           "resolution": p["resolution"], "batch": cfg.batch_size,
            "steps": steps, "max_loss_rel_err": rel,
            "losses_ranks": [x["tot"] for x in results[0]["losses"]],
            "losses_one_process": [x["tot"] for x in one["losses"]][:steps],
@@ -3431,16 +3504,17 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
             (ranks_g[n] - g).abs().max().item() / g.abs().max().item()
             for n, g in one["grads"].items()
             if g.abs().max().item() > GRAD_NOISE * scale)
-    summed = {k: sum(c.get(k, 0) for c in launches)
-              for k in set(per_step) | ({ev, f"{ev}_cols"} if tp else set())}
+    summed = {k: sum(c.get(k, 0) for c in launches) for k in set(per_step)
+              | ({at_grid(ev), f"{ev}_cols"} if tp else set())}
     return out, summed, one
 
 
 def ddp_phase(card, config_path, data_dir, n_samples) -> dict:
     """Phase 10: (i) the train CLI under torchrun at W = 1 on NCCL against
     the non-distributed CLI; (ii), (iii) two gloo ranks on the card against
-    one process, fp32 and bf16. Returns the phase's launches (every rank
-    of the torchrun runs)."""
+    one process, fp32 and bf16 at batch TWO_RANK_BATCH, in one launch of
+    the ranks. Returns the phase's launches (every rank of the torchrun
+    runs)."""
     import torch
 
     # ---- 10. data parallelism: torchrun on the card ----
@@ -3453,21 +3527,33 @@ def ddp_phase(card, config_path, data_dir, n_samples) -> dict:
     overhead = nccl_step_overhead(device, card, config_path)
     print(f"fp32 TrainStep in one process, without a group and in a "
           f"one-rank NCCL group, in turns ({card}):", json.dumps(overhead))
-    for bf16 in (False, True):
-        res, summed, _ = ranks_phase(device, card, bf16)
+    for res, summed, _ in ranks_phases(device, card, [
+            dict(bf16=bf16, nproc=2, batch=TWO_RANK_BATCH)
+            for bf16 in (False, True)]):
         print(f"two gloo ranks on one card against one process "
-              f"({'bf16' if bf16 else 'fp32'}, batch 256, {card}):",
-              json.dumps(res))
+              f"({'bf16' if res['bf16'] else 'fp32'}, batch {res['batch']}, "
+              f"{card}):", json.dumps(res))
         for k, n in summed.items():
             launches[k] = launches.get(k, 0) + n
     return launches
 
 
-# column widths and bars of phase 10b's kernel checks: the fp32 kernels at
-# the microbatch of a rank at D = 2 and D = 1 (64 and 128 bars), the bf16
-# ones at D = 1 (256 bars); n = d / 2 and d / 4
-TP_KERNEL_CASES = [(False, 64), (False, 128), (True, 256)]
+# column widths, bars and steps a bar of phase 10b's kernel checks: the
+# fp32 kernels at the microbatch of a rank at D = 2 and D = 1 (64 and 128
+# bars), the bf16 ones at D = 1 (256 bars), at 4 x 32 cells; above 48
+# steps a bar (4 x 96 cells, resolution 24) the fp32 kernels at 128 bars and
+# the bf16 ones at 256; n = d / 2 and d / 4
+TP_KERNEL_CASES = [(False, 64, 32), (False, 128, 32), (True, 256, 32),
+                   (False, 128, 96), (True, 256, 96)]
 TP_WIDTHS = (256, 128)
+# (v): two ranks at model axis 2 at LONG_MODEL's resolution, at a global
+# batch of TP_LONG_BATCH[bf16] (the configs' accumulation kept: fp32
+# microbatches of 16, bf16 of 16), TP_LONG_STEPS steps in each dtype. fp32
+# takes 64: at 32 (microbatches of 8) one process's own fp32 grads miss the
+# fp64 witness's cosine rule (1 - cosine 3.8e-5 against 1e-5 on an H100),
+# at 64 they keep it (9.4e-6)
+TP_LONG_BATCH = {False: 64, True: 32}
+TP_LONG_STEPS = 2
 
 
 def tp_phase(card) -> tuple:
@@ -3475,35 +3561,57 @@ def tp_phase(card) -> tuple:
     column forms against their plain versions (`check_gcl_columns`) at
     TP_KERNEL_CASES x TP_WIDTHS, timed beside the square launch; (ii) two
     gloo ranks at model axis 2 (D = 1), fp32, 2 steps, against one process
-    and the fp64 witness; (iii) the same in bf16, 2 steps; (iv) four gloo
-    ranks at D = 2 x M = 2, fp32, 2 steps, against (ii)'s one process
-    (`ranks_phase`). Returns (the kernel checks, the ranks' launches
-    summed)."""
+    and the fp64 witness; (iii) the same in bf16, 2 steps; (v) two gloo
+    ranks at model axis 2 at resolution LONG_MODEL (bars of 4 x 96 cells:
+    the long-bar kernels' column forms), batch TP_LONG_BATCH[bf16],
+    TP_LONG_STEPS steps, in fp32 (against one process and the fp64
+    witness) and in bf16 (against one process); (ii), (iii) and (v) in one
+    launch of the ranks; (iv) four gloo ranks at D = 2 x M = 2, fp32, 2
+    steps, against (ii)'s one process (`ranks_phases`); (ii)-(iv) at batch
+    TWO_RANK_BATCH. Returns (the kernel checks, the ranks' launches summed:
+    (v)'s column-form launches as `<kernel>_cols_s96`)."""
     import torch
 
     # ---- 10b. tensor parallelism: column forms, then the mesh ----
     device = torch.device("cuda")
     cols = {}
-    for bf16, nbar in TP_KERNEL_CASES:
+    for bf16, nbar, s in TP_KERNEL_CASES:
         for n in TP_WIDTHS:
-            cols[(bf16, nbar, n)] = check_gcl_columns(nbar, 512, n, device,
-                                                      bf16=bf16)
+            cols[(bf16, nbar, n, s)] = check_gcl_columns(
+                nbar, 512, n, device, bf16=bf16, s=s)
     print(f"GCL column forms against their plain versions (d=512, {card}):",
-          json.dumps({f"{'bf16' if b else 'fp32'}_{nbar}_bars_n{n}": r
-                      for (b, nbar, n), r in cols.items()}))
-    launches, one = {}, None
-    for bf16, nproc, steps in ((False, 2, None), (True, 2, None),
-                               (False, 4, 2)):
-        res, summed, one_r = ranks_phase(
-            device, card, bf16, nproc=nproc, model_axis=2, steps=steps,
-            one=one if nproc == 4 else None)
-        if not bf16 and nproc == 2:
-            one = one_r
-        print(f"{nproc} gloo ranks at model axis 2 on one card against one "
-              f"process ({'bf16' if bf16 else 'fp32'}, batch 256, {card}):",
-              json.dumps(res))
+          json.dumps({f"{'bf16' if b else 'fp32'}_{nbar}_bars_n{n}_s{s}": r
+                      for (b, nbar, n, s), r in cols.items()}))
+    launches = {}
+    s = 4 * LONG_MODEL
+    runs = [dict(bf16=bf16, nproc=2, model_axis=2, batch=TWO_RANK_BATCH)
+            for bf16 in (False, True)]
+    runs += [dict(bf16=bf16, nproc=2, model_axis=2, steps=TP_LONG_STEPS,
+                  resolution=LONG_MODEL, batch=TP_LONG_BATCH[bf16])
+             for bf16 in (False, True)]
+    t0 = time.perf_counter()
+    done = ranks_phases(device, card, runs)
+    done_s = time.perf_counter() - t0
+    one = done[0][2]  # (ii)'s one process, (iv)'s yardstick
+    done.append(ranks_phase(device, card, False, nproc=4, model_axis=2,
+                            steps=2, one=one, batch=TWO_RANK_BATCH))
+    for res, summed, _ in done:
+        at = (f" at resolution {res['resolution']}"
+              if res["resolution"] != 8 else "")
+        print(f"{res['nproc']} gloo ranks at model axis 2{at} on one card "
+              f"against one process ({'bf16' if res['bf16'] else 'fp32'}, "
+              f"batch {res['batch']}, {card}):", json.dumps(res))
         for k, n in summed.items():
+            if res["resolution"] != 8:
+                # every launch of these ranks is a column-form launch at
+                # S = 96: counted under `<kernel>_cols_s96` alone
+                if k.endswith("_cols"):
+                    k = f"{k}_s{s}"
+                else:
+                    continue
             launches[k] = launches.get(k, 0) + n
+    print(f"phase 10b (ii), (iii), (v): {done_s:.1f} s in one launch of the "
+          f"ranks")
     return cols, launches
 
 
@@ -3701,13 +3809,17 @@ def grid_training_kernels(device, card) -> dict:
     return res
 
 
-def grid_config(r, bf16) -> str:
+def grid_config(r, bf16, batch=None) -> str:
     """A copy of `examples/training_lmd2.json` (bf16: `_bf16.json`) at
-    resolution r, under build/; returns its path."""
+    resolution r (and global batch `batch`, its accumulation kept), under
+    build/; returns its path."""
     name = "training_lmd2_bf16.json" if bf16 else "training_lmd2.json"
     with open(os.path.join(ROOT, "examples", name)) as f:
         raw = json.load(f)
     raw["model"]["resolution"] = r
+    if batch is not None:
+        raw["batch_size"] = batch
+        name = f"b{batch}_{name}"
     path = os.path.join(ROOT, "build", f"chip_smoke_r{r}_{name}")
     with open(path, "w") as f:
         json.dump(raw, f)
@@ -3818,34 +3930,59 @@ LONG_MODEL = 24                  # generated end to end: pypianoroll's grid
 
 
 def long_training_refused(device, r) -> dict:
-    """Phase 13 (v): what training at resolution r (S = 4r > 48) still
-    refuses on the card, before any kernel launch and with a message that
-    names the limit and its ROADMAP.md item: one `gcl_fused` layer in the
-    column form, n = d / 2 (the column forms at S > 48). {case: the
-    message}."""
+    """Phase 13 (v): training at resolution r (S = 4r > 48) in the column
+    form, and what it still refuses on the card. One fp32 `gcl_fused` layer
+    at n = d / 2 (tensor parallelism) runs forward and backward through the
+    long-bar kernels' column forms: one launch each of `gcl_fwd`,
+    `gcl_bwd_data` and `gcl_bwd_weight` at S, each counted as a column-form
+    launch, and finite outputs of n columns. The bf16 fused backward (on no
+    path there: training runs the split backward) raises before any kernel
+    launch, with a message that names the limit and its ROADMAP.md item
+    (`gcl.FUSED_LONG`). The launches here are checks and do not count.
+    {case: what it gave}."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
     d = GRID_MODEL["d"]
     n, s = d // 2, 4 * r
-    bar_mask, (x, _, aux, gates, _, _) = train_kernel_inputs(
+    bar_mask, (x, up, aux, gates, wbig, _) = train_kernel_inputs(
         2, d, device, SEED, s)
+    saved = kernel_counts()
     counts.reset()
+    cols0 = dict(gcl.col_launches)
+    xg = x.detach().clone().requires_grad_()
+    rel = (torch.randn(6, d, n, device=device) * d ** -0.5).requires_grad_()
+    out = gcl_bwd.gcl_fused(xg, gates, rel, wbig[-d:, :n].contiguous(),
+                            torch.zeros(n, device=device), aux, bar_mask)
+    out.backward(up[..., :n].contiguous())
+    torch.cuda.synchronize()
+    names = ("gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight")
+    ran = dict(counts.launches)
+    cols = {k: v - cols0[k] for k, v in gcl.col_launches.items()
+            if v != cols0[k]}
+    check(ran == {(k, s, 1): 1 for k in names} and cols == dict.fromkeys(
+        names, 1), f"resolution {r} column-form training launched "
+                   f"{named(ran)}, columns {cols}")
+    check(tuple(out.shape) == (2, 4 * s, n) and all(
+        torch.isfinite(v).all().item() for v in (out, xg.grad, rel.grad)),
+        f"resolution {r} column-form training: output {tuple(out.shape)} "
+        f"or its grads not finite")
+    counts.reset()
+    xb, ub, gb, wb = (v.bfloat16() for v in (x, up, gates, wbig))
     try:
-        gcl_bwd.gcl_fused(
-            x.requires_grad_(), gates, torch.zeros(6, d, n, device=device),
-            torch.zeros(d, n, device=device), torch.zeros(n, device=device),
-            aux, bar_mask)
+        gcl_bwd.gcl_bwd_fused(xb, ub, aux, gb, wb)
     except ValueError as e:
         msg = str(e)
     else:
-        fail(f"the column form at resolution {r} ran on the card")
-    check("up to 48" in msg and gcl.COLS_LONG in msg and "ROADMAP" in msg,
-          f"resolution {r} column-form training raised: {msg}")
-    check(not counts.launches, f"resolution {r} column-form training "
+        fail(f"the bf16 fused backward at resolution {r} ran on the card")
+    check("up to 48" in msg and gcl.FUSED_LONG in msg and "ROADMAP" in msg,
+          f"resolution {r} bf16 fused backward raised: {msg}")
+    check(not counts.launches, f"resolution {r} bf16 fused backward "
                                f"launched {named(counts.launches)} first")
-    return {"fp32_column_form": msg}
+    set_kernel_counts(saved)
+    return {"fp32_column_form_launches": named(ran),
+            "fp32_column_form_cols": cols, "bf16_fused_backward": msg}
 
 
 def long_training_kernels(device, card) -> dict:
@@ -3870,8 +4007,9 @@ def long_phase(device, card) -> tuple:
     """Phase 13: bars of more than 48 steps (resolution 13 and up): the
     generation kernels at LONG_CHECKS against their plain versions and
     timed (`grid_kernels`), LONG_MODEL's generation, service and CLIs
-    (`grid_generation`), what its training refuses
-    (`long_training_refused`), the training kernels at LONG_CHECKS
+    (`grid_generation`), its column-form training layer and what its
+    training refuses (`long_training_refused`), the training kernels at
+    LONG_CHECKS
     (`long_training_kernels`) and LONG_MODEL's training in fp32 and bf16
     (`grid_training`). Returns (kernel checks, training kernel checks,
     generation and training results, launches by `grid_name`)."""
@@ -3881,8 +4019,9 @@ def long_phase(device, card) -> tuple:
     gen, launches = grid_generation(device, card, LONG_MODEL, service=True,
                                     flip_cap=False)
     refused = long_training_refused(device, LONG_MODEL)
-    print(f"resolution {LONG_MODEL}: the column form refused on the card "
-          f"before any launch:", json.dumps(refused))
+    print(f"resolution {LONG_MODEL}: the column-form layer on the card, and "
+          f"the bf16 fused backward refused before any launch:",
+          json.dumps(refused))
     t0 = time.perf_counter()
     train_kern = long_training_kernels(device, card)
     print(f"phase 13 (vi): {time.perf_counter() - t0:.1f} s")
@@ -4348,9 +4487,33 @@ def main() -> int:
              True, 256),
             ("gcl_bwd_fused_bf16", "gcl_bwd_fused_bf16_tc.cu",
              "gcl_pallas_bwd.py:453", True, 256)):
-        r = tp_cols[(bf16, nbar, 256)]["kernels"][
+        r = tp_cols[(bf16, nbar, 256, 32)]["kernels"][
             "gcl_bwd_fused" if name == "gcl_bwd_fused_bf16" else name]
         kernels.append(entry(f"{name}_cols",
+                             f"polyphemus_tpu_torch/csrc/{src}",
+                             f"polyphemus_tpu/ops/kernels/{replaces}", r))
+    # the long-bar column forms at n = 256 (bars of 4 x 96 cells), held and
+    # timed on a rank's microbatch at D = 1 in 10b (i), launched by 10b (v)
+    s = 4 * LONG_MODEL
+    for name, src, replaces, bf16, nbar in (
+            ("gcl_fwd", "gcl_eval_long_fp32.cu", "gcl_pallas.py:347", False,
+             128),
+            ("gcl_eval", "gcl_eval_long_fp32.cu", "gcl_pallas.py:347",
+             False, 128),
+            ("gcl_bwd_data", "gcl_bwd_data_long.cu", "gcl_pallas_bwd.py:528",
+             False, 128),
+            ("gcl_bwd_weight", "gcl_bwd_weight_long.cu",
+             "gcl_pallas_bwd.py:564", False, 128),
+            ("gcl_fwd_bf16", "gcl_eval_long_bf16_tc.cu", "gcl_pallas.py:347",
+             True, 256),
+            ("gcl_eval_bf16", "gcl_eval_long_bf16_tc.cu",
+             "gcl_pallas.py:347", True, 256),
+            ("gcl_bwd_data_bf16", "gcl_bwd_data_long.cu",
+             "gcl_pallas_bwd.py:528", True, 256),
+            ("gcl_bwd_weight_bf16", "gcl_bwd_weight_long.cu",
+             "gcl_pallas_bwd.py:564", True, 256)):
+        r = tp_cols[(bf16, nbar, 256, s)]["kernels"][name]
+        kernels.append(entry(f"{name}_cols_s{s}",
                              f"polyphemus_tpu_torch/csrc/{src}",
                              f"polyphemus_tpu/ops/kernels/{replaces}", r))
     # the generation kernels at the grids of phase 12's models, each held

@@ -441,6 +441,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 static EncodeTiled encode_tiled() {
+  // the encode needs a current context, which a thread that has made no
+  // CUDA call yet lacks (the autograd engine's at its first op: the encode
+  // then fails with CUDA_ERROR_INVALID_CONTEXT); cudaSetDevice makes the
+  // device's primary context current
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

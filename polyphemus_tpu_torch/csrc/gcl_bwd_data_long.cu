@@ -19,7 +19,11 @@
 //   dgate[s] = sum of relu'(pre) * upstream * x[src] at distance s
 //   dbias    = sum of gm over every cell of every bar
 //
-// with the square weights only (Wbig (8d, d), g (nbar, N, d)). The element
+// for Wbig (8d, n) and g (nbar, N, n): the square weights (n = d), or the
+// column form of tensor parallelism, n of the d output columns (n % 128 ==
+// 0), where dH, dx and dgate are partial sums over the shard's n columns
+// (their sum over the shards is the square launch's) and dbias is n wide.
+// The element
 // type E of x, g, the gate table, Wbig and dx is a template parameter
 // (`gcl_bwd_data_long_launch` fp32, `gcl_bwd_data_long_bf16_launch` bf16);
 // dgate and dbias are fp32 sums. In bf16 the operands are widened to fp32
@@ -45,7 +49,7 @@
 //   `gcl_eval_long_fp32.cu`, so the four cells of a column lie in the item.
 //   Its product is `gcl_bwd_data.cu`'s (8 rows x 2 columns x 5 segments a
 //   thread; the item's g rows, one TMA box of [4 tracks][32 columns][128
-//   bytes of features: 32 fp32, 64 bf16] from g seen as (nbar 4, S, d),
+//   bytes of g's n columns: 32 fp32, 64 bf16] from g seen as (nbar 4, S, n),
 //   zero past the bar's last column, and the tile's W rows of the 8 blocks,
 //   128-byte swizzle, two stages on mbarriers running on from item to
 //   item). It writes dH_root m, fp32, into dr (dx itself in fp32, a plane
@@ -207,7 +211,7 @@ template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dr,
                          float* __restrict__ up, int nbar, int S, int d,
-                         int nchunks,
+                         int n, int nchunks,
                          const __grid_constant__ CUtensorMap gmap,
                          const __grid_constant__ CUtensorMap wmap) {
   using R = Elem<E>;
@@ -220,7 +224,7 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dr,
   const int trk = warp >> 1;                   // the track of the rows
   const int r0 = trk * CW + (lane >> 3);       // rows r0 + 4 r
   const int cg = (warp & 1) * 8 + (lane & 7);  // columns cg + 16 c
-  const int nstage = d / BK;
+  const int nstage = n / BK;  // the product's reduction: g's n columns
 
   if (tid == 0) {
     // the swizzle of sw_off needs 1024-byte aligned stage buffers
@@ -322,7 +326,8 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dr,
 // The gather kernel: dx = dH_root m (dr; in fp32 dx itself, updated in
 // place) + the shares the bar's cells take through the relations and the
 // self term, and this bar's row of dgate / dbias partials, part[bar] =
-// [dgate (S, d) | dbias (d)] (zero before).
+// [dgate (S, d) | dbias (n)] (zero before); g rows n wide, the CTAs of
+// features f < n also sum dbias.
 template <typename E>
 __global__ void __launch_bounds__(GATHER_THREADS)
 gcl_bwd_gather_long_kernel(const E* __restrict__ x,
@@ -332,7 +337,7 @@ gcl_bwd_gather_long_kernel(const E* __restrict__ x,
                            const float* __restrict__ up,
                            const float* __restrict__ dr,
                            E* __restrict__ dx, float* __restrict__ part,
-                           int S, int d) {
+                           int S, int d, int n) {
   using R = Elem<E>;
   constexpr bool kInPlace = std::is_same<E, float>::value;
   // src[r][j] = i | dist << 16 for the cell i that reads cell j through
@@ -358,11 +363,12 @@ gcl_bwd_gather_long_kernel(const E* __restrict__ x,
   const int f = blockIdx.y * GATHER_THREADS + tid;
   const size_t plane = (size_t)N * d;
   const E* xb = x + (size_t)bar * plane + f;
-  const E* gb = g + (size_t)bar * plane + f;
+  const bool has_bias = f < n;
+  const E* gb = g + (size_t)bar * N * n + f;
   const float* upb = up + (size_t)bar * NUP * plane + f;
   const float* drb = dr + (size_t)bar * plane + f;
   E* dxb = dx + (size_t)bar * plane + f;
-  float* pb = part + (size_t)bar * ((size_t)S * d + d) + f;
+  float* pb = part + (size_t)bar * ((size_t)S * d + n) + f;
   const float g0 = R::load1(gates + f);
   float db = 0.f;
   for (int j = 0; j < N; ++j) {
@@ -391,9 +397,9 @@ gcl_bwd_gather_long_kernel(const E* __restrict__ x,
       pb[0] += dy0 * xv;
     }
     R::store1(dxb + jd, dxv);
-    db += R::load1(gb + jd) * mj;
+    if (has_bias) db += R::load1(gb + (size_t)j * n) * mj;
   }
-  pb[(size_t)S * d] = db;
+  if (has_bias) pb[(size_t)S * d] = db;
 }
 
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
@@ -406,6 +412,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 EncodeTiled encode_tiled() {
+  // the encode needs a current context, which a thread that has made no
+  // CUDA call yet lacks (the autograd engine's at its first op: the encode
+  // then fails with CUDA_ERROR_INVALID_CONTEXT); cudaSetDevice makes the
+  // device's primary context current
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -452,10 +465,10 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
   static_assert(sizeof(Stage<E>) == (size_t)ES * (MT + NBLK * BC) * BK,
                 "a stage is exactly its two TMA boxes");
   static_assert(sizeof(ProdSmem<E>) <= 232448, "a CTA's shared memory");
-  if (d <= 0 || d % 128 != 0 || n != d || S < 4 || S % 4 != 0 ||
-      T * S >= 65536 || nbar < 0)
+  if (d <= 0 || d % 128 != 0 || n <= 0 || n % 128 != 0 || n > d || S < 4 ||
+      S % 4 != 0 || T * S >= 65536 || nbar < 0)
     return (int)cudaErrorInvalidValue;
-  const long long row = (long long)S * d + d;  // a partial row
+  const long long row = (long long)S * d + n;  // a partial row
   if (nbar == 0)
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * row, st);
   const int N = T * S, ntile = (S + CW - 1) / CW;
@@ -468,16 +481,16 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
-  // g as [nbar 4 tracks][S steps][d features] in boxes of [4][CW][BK] (zero
-  // past a track's last step); wbig as [8 blocks][d rows][d features] in
+  // g as [nbar 4 tracks][S steps][n columns] in boxes of [4][CW][BK] (zero
+  // past a track's last step); wbig as [8 blocks][d rows][n columns] in
   // boxes of [8][BC][BK]
   CUtensorMap gmap, wmap;
-  const cuuint64_t gdims[3] = {(cuuint64_t)d, (cuuint64_t)S,
+  const cuuint64_t gdims[3] = {(cuuint64_t)n, (cuuint64_t)S,
                                (cuuint64_t)nbar * T};
-  const cuuint64_t gstrides[2] = {(cuuint64_t)d * ES, (cuuint64_t)S * d * ES};
+  const cuuint64_t gstrides[2] = {(cuuint64_t)n * ES, (cuuint64_t)S * n * ES};
   const cuuint32_t gbox[3] = {BK, CW, T};
-  const cuuint64_t wdims[3] = {(cuuint64_t)d, (cuuint64_t)d, NBLK};
-  const cuuint64_t wstrides[2] = {(cuuint64_t)d * ES, (cuuint64_t)d * d * ES};
+  const cuuint64_t wdims[3] = {(cuuint64_t)n, (cuuint64_t)d, NBLK};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)n * ES, (cuuint64_t)d * n * ES};
   const cuuint32_t wbox[3] = {BK, BC, NBLK};
   if (!tensor_map<E>(&gmap, g, gdims, gstrides, gbox) ||
       !tensor_map<E>(&wmap, wbig, wdims, wstrides, wbox))
@@ -491,7 +504,7 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
   const int per_tile = sms / tiles > 1 ? sms / tiles : 1;
   const int nchunks = nitem < per_tile ? (int)nitem : per_tile;
   gcl_bwd_data_long_kernel<E><<<dim3(tiles, nchunks), THREADS, smem, st>>>(
-      (const int*)aux, dr, (float*)up, nbar, S, d, nchunks, gmap, wmap);
+      (const int*)aux, dr, (float*)up, nbar, S, d, n, nchunks, gmap, wmap);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = cudaMemsetAsync(part, 0, sizeof(float) * row * nbar, st)) !=
       cudaSuccess)
@@ -504,7 +517,7 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
   gcl_bwd_gather_long_kernel<E><<<dim3(nbar, d / GATHER_THREADS),
                                   GATHER_THREADS, gsmem, st>>>(
       (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
-      (const float*)up, dr, (E*)dx, (float*)part, S, d);
+      (const float*)up, dr, (E*)dx, (float*)part, S, d, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)sum_rows((const float*)part, (float*)out, nbar, row, st);
 }
@@ -521,11 +534,13 @@ extern "C" int gcl_bwd_data_long_bf16_smem_bytes() {
   return (int)sizeof(ProdSmem<__nv_bfloat16>);
 }
 
-// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); wbig (8d, d);
-// fp32, all 16-byte aligned, d % 128 == 0, n == d (the square weights
-// only); S a multiple of 4, 4 S < 65536. Writes dx (nbar, 4 S, d) and out =
-// [dgate (S, d) | dbias (d)], using up (nbar, 3, 4 S, d) as the upstream
-// scratch and part (nbar, S * d + d) for the per-bar partials.
+// x (nbar, 4 S, d), g (nbar, 4 S, n); aux (nbar, N_AUX, 4 S); gates (S,
+// d); wbig (8d, n); fp32, all 16-byte aligned, d % 128 == 0, n % 128 == 0,
+// n <= d (n = d: the square weights; n < d: a column shard, dx and dgate
+// partial over its columns); S a multiple of 4, 4 S < 65536. Writes dx
+// (nbar, 4 S, d) and out = [dgate (S, d) | dbias (n)], using up (nbar, 3,
+// 4 S, d) as the upstream scratch and part (nbar, S * d + n) for the
+// per-bar partials.
 extern "C" int gcl_bwd_data_long_launch(const void* x, const void* g,
                                         const void* aux, const void* gates,
                                         const void* wbig, void* dx, void* part,

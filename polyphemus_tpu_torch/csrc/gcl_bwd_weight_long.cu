@@ -1,6 +1,6 @@
 // GCL training backward, weight half, in fp32 or bf16, for bars of 4 x S
 // cells at any S that is a multiple of 4 above 48 (resolutions 13 and up:
-// 24, the Lakh Pianoroll Dataset's grid, is S = 96): dWbig (8d, d), fp32.
+// 24, the Lakh Pianoroll Dataset's grid, is S = 96): dWbig (8d, n), fp32.
 // Up to S = 48 the port launches `gcl_bwd_weight_grid.cu` (and at S = 32
 // `gcl_bwd_weight.cu`) in fp32 and the fused backward in bf16, which stage
 // whole bars (1760 bytes a cell in fp32: 676 KB at S = 96); above that this
@@ -16,8 +16,10 @@
 //   dW_r = sum over bars and rows of h_r[row, :]^T gm[row, :]
 //
 // for the eight packed blocks; the four track blocks contract only their
-// own track's S rows of each bar, the other four all N = 4 S. The square
-// weights only (g (nbar, N, d), dWbig (8d, d)). The element type E of x, g
+// own track's S rows of each bar, the other four all N = 4 S. g is (nbar,
+// N, n) and dWbig (8d, n): the square weights (n = d), or the column form
+// of tensor parallelism, n of the d output columns (n % 64 == 0), whose
+// dWbig is those columns of the square launch's. The element type E of x, g
 // and the gate table is a template parameter (`gcl_bwd_weight_long_launch`
 // fp32, `gcl_bwd_weight_long_bf16_launch` bf16). In bf16 the rebuilt
 // messages are rounded (`rnd`) where `_bwd_weight_kernel` casts to its
@@ -125,11 +127,11 @@ __device__ __forceinline__ float4 others(const float4 (&v)[T], int t,
 }
 
 // The tile's gathered x rows and g rows by 16-byte copies (xb, gb at the
-// bar's first cell; x rows d wide, g rows d wide); the g rows past the
+// bar's first cell; x rows d wide, g rows n wide); the g rows past the
 // bar's last column are zeroed.
 template <typename E>
 __device__ __forceinline__ void load_tile(Smem<E>& sm, const E* xb,
-                                          const E* gb, int S, int d,
+                                          const E* gb, int S, int d, int n,
                                           int tc0, int c0, int j0, int tid) {
   constexpr int EPC = 16 / (int)sizeof(E);  // elements a 16-byte copy
   constexpr int QX = CT / EPC, QG = JT / EPC;  // 16-byte chunks a row
@@ -141,7 +143,7 @@ __device__ __forceinline__ void load_tile(Smem<E>& sm, const E* xb,
     const int q = (c % QG) * EPC, r = c / QG;
     const int t = r / CW, col = tc0 + r % CW;
     if (col < S)
-      cp_async16(&sm.g[r][q], gb + (size_t)(t * S + col) * d + j0 + q);
+      cp_async16(&sm.g[r][q], gb + (size_t)(t * S + col) * n + j0 + q);
     else
       *reinterpret_cast<uint4*>(&sm.g[r][q]) = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -255,7 +257,7 @@ gcl_bwd_weight_long_kernel(const E* __restrict__ x, const E* __restrict__ g,
                            const int* __restrict__ aux,
                            const E* __restrict__ gates,
                            float* __restrict__ dwbig, int nbar, int S,
-                           int d) {
+                           int d, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<E>& sm = *reinterpret_cast<Smem<E>*>(smem_raw);
   const int N = T * S;
@@ -276,14 +278,14 @@ gcl_bwd_weight_long_kernel(const E* __restrict__ x, const E* __restrict__ g,
 
   for (int bar = 0; bar < nbar; ++bar) {
     const E* xb = x + (size_t)bar * N * d;
-    const E* gb = g + (size_t)bar * N * d;
+    const E* gb = g + (size_t)bar * N * n;
     const int* ab = aux + (size_t)bar * N_AUX * N;
     for (int tc0 = 0; tc0 < S; tc0 += CW) {
       // no warp still reads the previous tile's statics, rows or A tiles
       __syncthreads();
       load_tile_statics<E, CW>(sm, ab, S, tc0, tid, THREADS);
       __syncthreads();
-      load_tile(sm, xb, gb, S, d, tc0, c0, j0, tid);
+      load_tile(sm, xb, gb, S, d, n, tc0, c0, j0, tid);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
@@ -301,18 +303,18 @@ gcl_bwd_weight_long_kernel(const E* __restrict__ x, const E* __restrict__ g,
     for (int i = 0; i < 4; ++i) put_tile(red + i * CT * JT, JT, full[i], cg, jg);
   }
   __syncthreads();
-  const size_t pitch = (size_t)d;
-  float* out = dwbig + (size_t)c0 * d + j0;
+  const size_t pitch = (size_t)n;
+  float* out = dwbig + (size_t)c0 * n + j0;
   if (h == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       add_tile(full[i], red + i * CT * JT, cg, jg);
-      put_tile(out + (size_t)(T + i) * d * d, pitch, full[i], cg, jg);
+      put_tile(out + (size_t)(T + i) * d * n, pitch, full[i], cg, jg);
     }
   }
 #pragma unroll
   for (int tb = 0; tb < 2; ++tb)
-    put_tile(out + (size_t)(2 * h + tb) * d * d, pitch, tr[tb], cg, jg);
+    put_tile(out + (size_t)(2 * h + tb) * d * n, pitch, tr[tb], cg, jg);
 }
 
 // The launch, the elements of x, g and gates of type E; see
@@ -323,19 +325,19 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
   static_assert(sizeof(Smem<E>) <= 232448, "a CTA's shared memory");
   static_assert(4 * CT * JT <= NA * MT * CT,
                 "half 1's full-block sums fit in the A tiles");
-  if (d <= 0 || d % JT != 0 || n != d || S < 4 || S % 4 != 0 || nbar < 0 ||
-      (long long)gcl::N_AUX * T * S > 0x7fffffffLL)
+  if (d <= 0 || d % JT != 0 || n <= 0 || n % JT != 0 || n > d || S < 4 ||
+      S % 4 != 0 || nbar < 0 || (long long)gcl::N_AUX * T * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (nbar == 0)
-    return (int)cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * d, st);
+    return (int)cudaMemsetAsync(dwbig, 0, sizeof(float) * NBLK * d * n, st);
   const int smem = (int)sizeof(Smem<E>);
   cudaError_t err = cudaFuncSetAttribute(
       gcl_bwd_weight_long_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gcl_bwd_weight_long_kernel<E><<<dim3(d / JT, d / CT), THREADS, smem, st>>>(
+  gcl_bwd_weight_long_kernel<E><<<dim3(n / JT, d / CT), THREADS, smem, st>>>(
       (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
-      (float*)dwbig, nbar, S, d);
+      (float*)dwbig, nbar, S, d, n);
   return (int)cudaGetLastError();
 }
 
@@ -350,9 +352,10 @@ extern "C" int gcl_bwd_weight_long_bf16_smem_bytes() {
   return (int)sizeof(Smem<__nv_bfloat16>);
 }
 
-// x, g (nbar, 4 S, d); aux (nbar, N_AUX, 4 S); gates (S, d); fp32, all
-// 16-byte aligned, d % 64 == 0, n == d (the square weights only); S a
-// multiple of 4. Writes dwbig (8d, d).
+// x (nbar, 4 S, d), g (nbar, 4 S, n); aux (nbar, N_AUX, 4 S); gates (S,
+// d); fp32, all 16-byte aligned, d % 64 == 0, n % 64 == 0, n <= d (n = d:
+// the square weights; n < d: a column shard); S a multiple of 4. Writes
+// dwbig (8d, n).
 extern "C" int gcl_bwd_weight_long_launch(const void* x, const void* g,
                                           const void* aux, const void* gates,
                                           void* dwbig, int nbar, int S, int d,
@@ -361,7 +364,7 @@ extern "C" int gcl_bwd_weight_long_launch(const void* x, const void* g,
                        (cudaStream_t)stream);
 }
 
-// The same with x, g and gates in bf16; dwbig (8d, d) fp32.
+// The same with x, g and gates in bf16; dwbig (8d, n) fp32.
 extern "C" int gcl_bwd_weight_long_bf16_launch(const void* x, const void* g,
                                                const void* aux,
                                                const void* gates, void* dwbig,

@@ -26,7 +26,12 @@
 // `gcl_fwd_long_bf16_launch`), as in `gcl_eval_grid_bf16_tc.cu`; the
 // training form reads neither ea, eb nor x's residual rows. The products
 // take bf16 operands and sum in fp32 (mma.sync m16n8k16): only the
-// summation order differs from the plain versions.
+// summation order differs from the plain versions. Either form takes the
+// column form of tensor parallelism: wbig (8d, n) holds n of the d output
+// columns (n % 128 == 0: whole output tiles), bias, ea and eb their n
+// entries, and the launch writes those n columns, the eval form's residual
+// being x's columns c0 .. c0 + n - 1; the gathered source rows keep all d
+// input features.
 //
 // What bounds it on an H100: operations, 2 N 5d d flops a bar and layer: a
 // 512-bar layer at d = 512 needs 0.521 ms at S = 96 at 989 TFLOP/s of bf16
@@ -96,16 +101,17 @@ __device__ __forceinline__ int a_off(int r, int ch) {
 }
 
 // Weight tile of one stage: row b * BK + kk is row f0 + kk of packed block
-// blk0 + b (rows d wide), columns n0 .. n0 + BN.
+// blk0 + b (d rows of n columns each), columns n0 .. n0 + BN.
 __device__ __forceinline__ void load_w(bf16* dst, const bf16* W, int d,
-                                       int blk0, int f0, int n0, int tid) {
+                                       int n, int blk0, int f0, int n0,
+                                       int tid) {
 #pragma unroll
   for (int j = 0; j < WROWS * BN / 8 / THREADS; ++j) {
     const int c = tid + j * THREADS;
     const int r = c >> 4, ch = c & 15;
     const int blk = blk0 + r / BK, kk = r % BK;
     cp_async16(dst + w_off(r, ch),
-               W + ((size_t)blk * d + f0 + kk) * d + n0 + ch * 8);
+               W + ((size_t)blk * d + f0 + kk) * n + n0 + ch * 8);
   }
 }
 
@@ -291,16 +297,18 @@ __device__ __forceinline__ void park_track(Smem& sm, float (&acc)[2][8][4],
 
 // out = rnd(relu(rnd(rnd(v * ea) + eb) * m) + x) (EPI) or out = v, v =
 // rnd(rnd(rnd(acc) + bias) + track) * m, for this thread's accumulators of
-// column tile n0; row[mi][hh] is the tile row of its rows in m16 tile mi,
-// half hh, cell [mi][hh] their cell in the bar (-1: past the bar, not
-// stored); xb, ob at the bar's first cell. Without EPI neither ea, eb nor
-// the residual rows are read.
+// output column tile n0; row[mi][hh] is the tile row of its rows in m16
+// tile mi, half hh, cell [mi][hh] their cell in the bar (-1: past the bar,
+// not stored); xb, ob at the bar's first cell (x rows d wide, out rows n),
+// x's residual columns from oc0 on. Without EPI neither ea, eb nor the
+// residual rows are read.
 template <bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[2][8][4],
                                          const bf16* xb, bf16* ob,
                                          const bf16* bias, const bf16* ea,
-                                         const bf16* eb, int d, int n0,
+                                         const bf16* eb, int d, int n,
+                                         int oc0, int n0,
                                          const int (&row)[2][2],
                                          const int (&cell)[2][2], int col0,
                                          int tid) {
@@ -320,7 +328,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
           const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
           const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
           const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
-          *reinterpret_cast<uint32_t*>(ob + (size_t)i * d + col) = pack2(v0, v1);
+          *reinterpret_cast<uint32_t*>(ob + (size_t)i * n + col) = pack2(v0, v1);
         }
       continue;
     }
@@ -336,11 +344,11 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
         const float2 tk = bf2(sm.park[mi * 16 + nj * 2 + hh][tid]);
         const float v0 = rnd(rnd(rnd(acc[mi][nj][2 * hh]) + bb.x) + tk.x) * m;
         const float v1 = rnd(rnd(rnd(acc[mi][nj][2 * hh + 1]) + bb.y) + tk.y) * m;
-        const size_t off = (size_t)i * d + col;
-        const float2 xr = bf2(*reinterpret_cast<const uint32_t*>(xb + off));
+        const float2 xr = bf2(*reinterpret_cast<const uint32_t*>(
+            xb + (size_t)i * d + oc0 + col));
         const float o0 = fmaxf(rnd(rnd(v0 * aa.x) + ee.x) * m, 0.f) + xr.x;
         const float o1 = fmaxf(rnd(rnd(v1 * aa.y) + ee.y) * m, 0.f) + xr.y;
-        *reinterpret_cast<uint32_t*>(ob + off) = pack2(o0, o1);
+        *reinterpret_cast<uint32_t*>(ob + (size_t)i * n + col) = pack2(o0, o1);
       }
   }
 }
@@ -349,7 +357,8 @@ template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 2)
 gcl_eval_long_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
                              const bf16* W, const bf16* bias, const bf16* ea,
-                             const bf16* eb, bf16* out, int S, int d) {
+                             const bf16* eb, bf16* out, int S, int d, int n,
+                             int oc0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int ntile = (S + CW - 1) / CW, N = T * S;
@@ -373,18 +382,18 @@ gcl_eval_long_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
                                    S, c0, tid, THREADS);
   __syncthreads();
 
-  // Stages: per output column tile, nf stages of the track product (weight
-  // blocks 0-3, sources prev and next) and then nf of the shared product
-  // (blocks 4-7, sources self and pn).
+  // Stages: per output column tile (n / BN of them), nf stages of the track
+  // product (weight blocks 0-3, sources prev and next) and then nf of the
+  // shared product (blocks 4-7, sources self and pn).
   const int nf = d / BK;
   const int per_tile = 2 * nf;
-  const int nstage = (d / BN) * per_tile;
+  const int nstage = (n / BN) * per_tile;
   const bf16* xb = x + (size_t)bar * N * d;
-  bf16* ob = out + (size_t)bar * N * d;
+  bf16* ob = out + (size_t)bar * N * n;
 
   auto fetch_w = [&](int s) {
     const int j = s % per_tile;
-    load_w(sm.w[s & 1], W, d, j < nf ? 0 : T, (j % nf) * BK,
+    load_w(sm.w[s & 1], W, d, n, j < nf ? 0 : T, (j % nf) * BK,
            s / per_tile * BN, tid);
   };
   auto fetch_x = [&](int s) {
@@ -425,8 +434,8 @@ gcl_eval_long_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
       for (int seg = 0; seg < NSB; ++seg)
         mma_k16(acc, sm.a[seg], wt, seg * BK, row0, col0, lane);
       if (j == per_tile - 1)
-        epilogue<EPI>(sm, acc, xb, ob, bias, ea, eb, d, s / per_tile * BN,
-                      row, cell, col0, tid);
+        epilogue<EPI>(sm, acc, xb, ob, bias, ea, eb, d, n, oc0,
+                      s / per_tile * BN, row, cell, col0, tid);
     }
   }
 }
@@ -434,18 +443,22 @@ gcl_eval_long_bf16_tc_kernel(const bf16* x, const int* aux, const bf16* gates,
 }  // namespace
 
 // One layer of the kernel's EPI form over bars of 4 x S cells, every float
-// tensor in bf16: x, out (nbar, 4 S, d), gates (S, d), wbig (8d, d), bias,
-// ea, eb (d,) (without EPI ea and eb are not read); aux (nbar, 14, 4 S)
-// int32. S % 4 == 0, S > 0; d % 128 == 0; the CTAs (nbar ceil(S / 32)) and
-// every cell, feature and aux index within int32.
+// tensor in bf16: x (nbar, 4 S, d), out (nbar, 4 S, n), gates (S, d), wbig
+// (8d, n), bias, ea, eb (n,) (without EPI ea and eb are not read); aux
+// (nbar, 14, 4 S) int32. S % 4 == 0, S > 0; d % 128 == 0 and n % 128 == 0
+// with c0 + n <= d, c0 the first output column (x's residual columns);
+// without EPI c0 = 0. The CTAs (nbar ceil(S / 32)) and every cell, feature
+// and aux index within int32.
 template <bool EPI>
 static int launch(const void* x, const void* aux, const void* gates,
                   const void* wbig, const void* bias, const void* ea,
-                  const void* eb, void* out, int nbar, int S, int d,
-                  void* stream) {
+                  const void* eb, void* out, int nbar, int S, int d, int n,
+                  int c0, void* stream) {
   if (nbar <= 0) return 0;
   const long long ctas = (long long)nbar * ((S + CW - 1) / CW);
-  if (S < 4 || S % 4 != 0 || d <= 0 || d % BN != 0 ||
+  if (S < 4 || S % 4 != 0 || d <= 0 || d % BN != 0 || n <= 0 ||
+      n % BN != 0 || c0 < 0 || c0 % 2 != 0 || c0 + n > d ||
+      (!EPI && c0 != 0) ||
       ctas > 0x7fffffffLL || (long long)S * d > 0x7fffffffLL ||
       (long long)gcl::N_AUX * T * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -461,30 +474,32 @@ static int launch(const void* x, const void* aux, const void* gates,
   gcl_eval_long_bf16_tc_kernel<EPI><<<(unsigned)ctas, THREADS, smem,
                                       (cudaStream_t)stream>>>(
       (const bf16*)x, (const int*)aux, (const bf16*)gates, (const bf16*)wbig,
-      (const bf16*)bias, (const bf16*)ea, (const bf16*)eb, (bf16*)out, S, d);
+      (const bf16*)bias, (const bf16*)ea, (const bf16*)eb, (bf16*)out, S, d,
+      n, c0);
   return (int)cudaGetLastError();
 }
 
-// One eval layer (folded batch-norm, relu, residual); see `launch`.
+// One eval layer (folded batch-norm, relu, residual): output columns c0 ..
+// c0 + n - 1 of the layer; see `launch`.
 extern "C" int gcl_eval_long_bf16_launch(const void* x, const void* aux,
                                          const void* gates, const void* wbig,
                                          const void* bias, const void* ea,
                                          const void* eb, void* out, int nbar,
-                                         int S, int d, void* stream) {
-  return launch<true>(x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d,
-                      stream);
+                                         int S, int d, int n, int c0,
+                                         void* stream) {
+  return launch<true>(x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d, n,
+                      c0, stream);
 }
 
 // One training-forward layer, out = v (the bf16 rounding of (gcl(x) +
-// bias) * m above); see `launch`. The output width n must be d (the square
-// weights).
+// bias) * m above): wbig (8d, n), bias (n,), out (nbar, 4 S, n); see
+// `launch`.
 extern "C" int gcl_fwd_long_bf16_launch(const void* x, const void* aux,
                                         const void* gates, const void* wbig,
                                         const void* bias, void* out, int nbar,
                                         int S, int d, int n, void* stream) {
-  if (n != d) return (int)cudaErrorInvalidValue;
   return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out,
-                       nbar, S, d, stream);
+                       nbar, S, d, n, 0, stream);
 }
 
 // Dynamic shared memory a CTA takes, in either form.

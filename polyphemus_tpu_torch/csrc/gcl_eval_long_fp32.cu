@@ -22,7 +22,11 @@
 //   out = v                                    (the training forward)
 //
 // The template flag EPI picks the form (`gcl_eval_long_launch`,
-// `gcl_fwd_long_launch`), as in `gcl_eval_grid_fp32.cu`.
+// `gcl_fwd_long_launch`), as in `gcl_eval_grid_fp32.cu`. Either form takes
+// the column form of tensor parallelism: wbig (8d, n) holds n of the d
+// output columns (n % 128 == 0), bias, ea and eb their n entries, and the
+// launch writes those n columns, the eval form's residual being x's columns
+// c0 .. c0 + n - 1; the gathered source rows keep all d input features.
 //
 // What bounds it on an H100: operations, 2 N 5d d flops a bar against 2 N
 // d 4 bytes of node state, so a 512-bar layer at d = 512 needs 7.70 ms at S
@@ -46,6 +50,8 @@
 //   kernel stages its bars' x. The gate rows are read by distance from the
 //   gate table (S x d, L1/L2-resident) with __ldg.
 // - No size depends on S: a bar of any length is ceil(S / 32) CTAs.
+// - The output passes run over the n columns of the launch: n / 256 passes
+//   of 256 columns, then one of 128 where n % 256 == 128.
 #include <cuda.h>
 
 #include "gcl_common.cuh"
@@ -210,15 +216,17 @@ __device__ __forceinline__ void gemm_stage(float (&acc)[8][4 * NJ],
 
 // out = relu(((acc + bias) * m * ea + eb) * m) + x (EPI) or out = (acc +
 // bias) * m for this thread's rows r0 .. r0 + nrow - 1 (the bar's cells c0r
-// ..; xb, ob at the bar's first cell) and columns n0 + cb + 32 j .. + 3.
-// Without EPI neither ea, eb nor x is read.
+// ..; xb, ob at the bar's first cell; x rows d wide, out rows n) and output
+// columns n0 + cb + 32 j .. + 3, x's columns oc0 on. Without EPI neither
+// ea, eb nor x is read.
 template <int NJ, bool EPI>
 __device__ __forceinline__ void epilogue(const Smem& sm,
                                          const float (&acc)[8][4 * NJ],
                                          const float* xb, float* ob,
                                          const float* bias, const float* ea,
-                                         const float* eb, int d, int n0,
-                                         int r0, int c0r, int nrow, int cb) {
+                                         const float* eb, int d, int n,
+                                         int oc0, int n0, int r0, int c0r,
+                                         int nrow, int cb) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int col = n0 + cb + j * 32;
@@ -232,7 +240,7 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
         float o[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) o[c] = (acc[r][4 * j + c] + bv[c]) * m;
-        *reinterpret_cast<float4*>(ob + (size_t)(c0r + r) * d + col) =
+        *reinterpret_cast<float4*>(ob + (size_t)(c0r + r) * n + col) =
             make_float4(o[0], o[1], o[2], o[3]);
       }
       continue;
@@ -244,9 +252,10 @@ __device__ __forceinline__ void epilogue(const Smem& sm,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       if (r >= nrow) break;
-      const size_t i = (size_t)(c0r + r) * d + col;
+      const size_t i = (size_t)(c0r + r) * n + col;
       const float m = sm.m[r0 + r];
-      const float4 res = __ldcg(reinterpret_cast<const float4*>(xb + i));
+      const float4 res = __ldcg(reinterpret_cast<const float4*>(
+          xb + (size_t)(c0r + r) * d + oc0 + col));
       const float rv[4] = {res.x, res.y, res.z, res.w};
       float o[4];
 #pragma unroll
@@ -266,7 +275,8 @@ template <int NJ, bool EPI>
 __device__ __forceinline__ void pass(Smem& sm, const float* xb, float* ob,
                                      const float* gates, const CUtensorMap* map,
                                      const float* bias, const float* ea,
-                                     const float* eb, int d, int n0, int tid,
+                                     const float* eb, int d, int n, int oc0,
+                                     int n0, int tid,
                                      int warp, int trk, int r0, int c0r,
                                      int nrow, int cb, unsigned& g) {
   constexpr int NCP = 64 * NJ;
@@ -308,14 +318,15 @@ __device__ __forceinline__ void pass(Smem& sm, const float* xb, float* ob,
     cp_async_wait<0>();
     __syncthreads();
   }
-  epilogue<NJ, EPI>(sm, acc, xb, ob, bias, ea, eb, d, n0, r0, c0r, nrow, cb);
+  epilogue<NJ, EPI>(sm, acc, xb, ob, bias, ea, eb, d, n, oc0, n0, r0, c0r,
+                    nrow, cb);
 }
 
 template <bool EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gcl_eval_long_fp32_kernel(const float* x, const int* aux, const float* gates,
                           const float* bias, const float* ea, const float* eb,
-                          float* out, int S, int d,
+                          float* out, int S, int d, int n, int oc0,
                           const __grid_constant__ CUtensorMap map256,
                           const __grid_constant__ CUtensorMap map128) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -340,14 +351,14 @@ gcl_eval_long_fp32_kernel(const float* x, const int* aux, const float* gates,
   unsigned g = 0;  // stages multiplied so far
 
   const float* xb = x + (size_t)bar * N * d;
-  float* ob = out + (size_t)bar * N * d;
+  float* ob = out + (size_t)bar * N * n;
   int n0 = 0;
-  for (; n0 + NC <= d; n0 += NC)
-    pass<4, EPI>(sm, xb, ob, gates, &map256, bias, ea, eb, d, n0, tid, warp, trk,
-            r0, c0r, nrow, half * (NC / 2) + cx, g);
-  if (n0 < d)  // d % 256 == 128: one pass of 128 columns
-    pass<2, EPI>(sm, xb, ob, gates, &map128, bias, ea, eb, d, n0, tid, warp, trk,
-            r0, c0r, nrow, half * (NC / 4) + cx, g);
+  for (; n0 + NC <= n; n0 += NC)
+    pass<4, EPI>(sm, xb, ob, gates, &map256, bias, ea, eb, d, n, oc0, n0, tid,
+                 warp, trk, r0, c0r, nrow, half * (NC / 2) + cx, g);
+  if (n0 < n)  // n % 256 == 128: one pass of 128 columns
+    pass<2, EPI>(sm, xb, ob, gates, &map128, bias, ea, eb, d, n, oc0, n0, tid,
+                 warp, trk, r0, c0r, nrow, half * (NC / 4) + cx, g);
 }
 
 }  // namespace
@@ -362,6 +373,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 static EncodeTiled encode_tiled() {
+  // the encode needs a current context, which a thread that has made no
+  // CUDA call yet lacks (the autograd engine's at its first op: the encode
+  // then fails with CUDA_ERROR_INVALID_CONTEXT); cudaSetDevice makes the
+  // device's primary context current
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -379,13 +397,14 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The layer's weights as a 3-d tensor [8 blocks][d rows][d columns] of
+// The layer's weights as a 3-d tensor [8 blocks][d rows][n columns] of
 // fp32, read in boxes of [8][BK][ncp].
-static bool weight_map(CUtensorMap* map, const void* wbig, int d, int ncp) {
+static bool weight_map(CUtensorMap* map, const void* wbig, int d, int n,
+                       int ncp) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)d, (cuuint64_t)NBLK};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)d * d * 4};
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)d, (cuuint64_t)NBLK};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * 4, (cuuint64_t)d * n * 4};
   const cuuint32_t box[3] = {(cuuint32_t)ncp, BK, NBLK};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(wbig),
@@ -410,57 +429,62 @@ static cudaError_t allow_smem(int smem) {
 }
 
 // One layer of the kernel's EPI form over bars of 4 x S cells, every float
-// tensor fp32: x, out (nbar, 4 S, d), gates (S, d), wbig (8d, d), bias, ea,
-// eb (d,) (without EPI ea and eb are not read); aux (nbar, 14, 4 S) int32.
-// S % 4 == 0, S > 0; d % 128 == 0; the CTAs (nbar ceil(S / 32)) and every
-// cell, feature and aux index within int32.
+// tensor fp32: x (nbar, 4 S, d), out (nbar, 4 S, n), gates (S, d), wbig
+// (8d, n), bias, ea, eb (n,) (without EPI ea and eb are not read); aux
+// (nbar, 14, 4 S) int32. S % 4 == 0, S > 0; d % 128 == 0 and n % 128 == 0
+// with c0 + n <= d, c0 the first output column (x's residual columns);
+// without EPI c0 = 0. The CTAs (nbar ceil(S / 32)) and every cell, feature
+// and aux index within int32.
 template <bool EPI>
 static int launch(const void* x, const void* aux, const void* gates,
                   const void* wbig, const void* bias, const void* ea,
-                  const void* eb, void* out, int nbar, int S, int d,
-                  void* stream) {
+                  const void* eb, void* out, int nbar, int S, int d, int n,
+                  int c0, void* stream) {
   if (nbar <= 0) return 0;
   const long long ctas = (long long)nbar * ((S + CW - 1) / CW);
-  if (S < 4 || S % 4 != 0 || d <= 0 || d % 128 != 0 ||
+  if (S < 4 || S % 4 != 0 || d <= 0 || d % 128 != 0 || n <= 0 ||
+      n % 128 != 0 || c0 < 0 || c0 % 4 != 0 || c0 + n > d ||
+      (!EPI && c0 != 0) ||
       ctas > 0x7fffffffLL || (long long)S * d > 0x7fffffffLL ||
       (long long)gcl::N_AUX * T * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = allow_smem<EPI>(smem);
   if (err != cudaSuccess) return (int)err;
-  // a map for the full 256-column passes and, where d % 256 == 128, one for
+  // a map for the full 256-column passes and, where n % 256 == 128, one for
   // the last 128-column pass; an unused map stays zero
   CUtensorMap map256 = {}, map128 = {};
-  if ((d >= NC && !weight_map(&map256, wbig, d, NC)) ||
-      (d % NC != 0 && !weight_map(&map128, wbig, d, NC / 2)))
+  if ((n >= NC && !weight_map(&map256, wbig, d, n, NC)) ||
+      (n % NC != 0 && !weight_map(&map128, wbig, d, n, NC / 2)))
     return (int)cudaErrorInvalidValue;
   gcl_eval_long_fp32_kernel<EPI><<<(unsigned)ctas, THREADS, smem,
                                    (cudaStream_t)stream>>>(
       (const float*)x, (const int*)aux, (const float*)gates,
       (const float*)bias, (const float*)ea, (const float*)eb, (float*)out, S,
-      d, map256, map128);
+      d, n, c0, map256, map128);
   return (int)cudaGetLastError();
 }
 
-// One eval layer (folded batch-norm, relu, residual); see `launch`.
+// One eval layer (folded batch-norm, relu, residual): output columns c0 ..
+// c0 + n - 1 of the layer; see `launch`.
 extern "C" int gcl_eval_long_launch(const void* x, const void* aux,
                                     const void* gates, const void* wbig,
                                     const void* bias, const void* ea,
                                     const void* eb, void* out, int nbar,
-                                    int S, int d, void* stream) {
-  return launch<true>(x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d,
-                      stream);
+                                    int S, int d, int n, int c0,
+                                    void* stream) {
+  return launch<true>(x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d, n,
+                      c0, stream);
 }
 
-// One training-forward layer, out = (gcl(x) + bias) * m; see `launch`. The
-// output width n must be d (the square weights).
+// One training-forward layer, out = (gcl(x) + bias) * m: wbig (8d, n),
+// bias (n,), out (nbar, 4 S, n); see `launch`.
 extern "C" int gcl_fwd_long_launch(const void* x, const void* aux,
                                    const void* gates, const void* wbig,
                                    const void* bias, void* out, int nbar,
                                    int S, int d, int n, void* stream) {
-  if (n != d) return (int)cudaErrorInvalidValue;
   return launch<false>(x, aux, gates, wbig, bias, nullptr, nullptr, out,
-                       nbar, S, d, stream);
+                       nbar, S, d, n, 0, stream);
 }
 
 // Dynamic shared memory a CTA takes.

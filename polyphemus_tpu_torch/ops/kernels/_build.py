@@ -46,11 +46,12 @@ SIGNATURES = {
                            "gcl_eval_grid_bf16_launch",
                            [VP] * 9 + [INT] * 6 + [VP]),
     # the eval layer at bars of 4 x S cells above S = 48, one layer a launch
+    # (nbar, S, d, n, c0)
     "gcl_eval_long": ("gcl_eval_long_fp32", "gcl_eval_long_launch",
-                      [VP] * 8 + [INT] * 3 + [VP]),
+                      [VP] * 8 + [INT] * 5 + [VP]),
     "gcl_eval_long_bf16": ("gcl_eval_long_bf16_tc",
                            "gcl_eval_long_bf16_launch",
-                           [VP] * 8 + [INT] * 3 + [VP]),
+                           [VP] * 8 + [INT] * 5 + [VP]),
     # the training kernels at bar grids of 4 x S cells other than S = 32
     "gcl_fwd_grid": ("gcl_eval_grid_fp32", "gcl_fwd_grid_launch",
                      [VP] * 6 + [INT] * 4 + [VP]),

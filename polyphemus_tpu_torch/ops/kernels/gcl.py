@@ -13,9 +13,9 @@ eval form, and their training forward without the epilogue). Above
 `MAX_STEPS` (resolutions 13 and up) `gcl_eval` launches
 `csrc/gcl_eval_long_fp32.cu` or `csrc/gcl_eval_long_bf16_tc.cu` once a
 layer (a CTA holds a tile of a bar, so chained layers cannot meet in one
-launch), and `gcl_fwd` with the square weights the training forward of
-the same sources; the column form refuses that grid (`check_grid`). On a
-CPU tensor both wrappers run their plain PyTorch version:
+launch), and `gcl_fwd` the training forward of the same sources, with the
+square weights or a column shard. On a CPU tensor both wrappers run their
+plain PyTorch version:
 
   * `gcl_eval`: K epilogue-fused layers per launch (generation, and the
     GCN of an eval step). Per layer and bar (n = T*S cells),
@@ -59,22 +59,24 @@ N_AUX = 14
 # the bar grids on the card: 4 tracks of S steps, S a multiple of 4;
 # BASE_STEPS = 32 (resolution 8) is the grid of the first kernels, every
 # other one up to MAX_STEPS goes to the `*_grid*.cu` sources, and above it
-# the eval layer to the `gcl_eval_long_*.cu` ones, training with the square
-# weights to those and the `gcl_bwd_*_long.cu` ones (bf16 through the split
-# backward there, as JAX trains in both dtypes); the column forms and the
-# fused backward take S up to MAX_STEPS
+# the eval layer to the `gcl_eval_long_*.cu` ones, training to those and
+# the `gcl_bwd_*_long.cu` ones (bf16 through the split backward there, as
+# JAX trains in both dtypes), square or in the column form; the fused
+# backward takes S up to MAX_STEPS
 TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 
-# the wrappers count their launches in `counts.launches`; the column-form launches (n < d) among those of every GCL kernel, by the
-# kernel names of `kernels.launch_counts`; counted beside the totals
+# the wrappers count their launches in `counts.launches`; the column-form
+# launches (n < d) among those of every GCL kernel, by the kernel names of
+# `kernels.launch_counts`; counted beside the totals (the split backward's
+# bf16 forms run above MAX_STEPS only)
 COL_KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
-               "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16")
+               "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16",
+               "gcl_bwd_data_bf16", "gcl_bwd_weight_bf16")
 col_launches: dict[str, int] = dict.fromkeys(COL_KERNELS, 0)
 
-# the ROADMAP.md items that a refusal above MAX_STEPS names: Queue 1's
-# column forms (tensor parallelism), Queue 2's fused backward (on no path
-# there: training runs the split backward above MAX_STEPS)
-COLS_LONG = f"the column forms at S > {MAX_STEPS}"
+# the ROADMAP.md item that a refusal above MAX_STEPS names: Queue 2's
+# fused backward (on no path there: training runs the split backward above
+# MAX_STEPS)
 FUSED_LONG = f"the bf16 fused backward at S > {MAX_STEPS}"
 
 
@@ -268,13 +270,11 @@ def _check_tracks(kernel: str, n: int, s: int) -> None:
                          f"got {n} cells of {s} steps")
 
 
-def check_grid(kernel: str, n: int, s: int, dt=torch.float32,
-               square: bool = True) -> None:
+def check_grid(kernel: str, n: int, s: int, dt=torch.float32) -> None:
     """Raise unless a training kernel takes bars of n cells on the card in
-    dtype dt, with the square weights (`square`, n = d) or a column shard:
-    4 x s cells with s a multiple of 4, up to MAX_STEPS (resolutions 1-12)
-    in every form, above it with the square weights, and never for the
-    fused backward (`gcl_bwd_fused`, bf16 training's backward up to
+    dtype dt, with the square weights or a column shard alike: 4 x s cells
+    with s a multiple of 4, and up to MAX_STEPS (resolutions 1-12) only for
+    the fused backward (`gcl_bwd_fused`, bf16 training's backward up to
     MAX_STEPS; the fp32 one's grid is 4 x 32 only,
     `gcl_bwd.check_fused_form`): above MAX_STEPS bf16 training runs the
     split backward, as JAX's does at every grid. dt changes nothing here:
@@ -285,12 +285,10 @@ def check_grid(kernel: str, n: int, s: int, dt=torch.float32,
     long_ok = kernel != "gcl_bwd_fused"
     if s < 4 or s % 4:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
-                         f"a multiple of 4 up to {MAX_STEPS} in every form"
-                         + (", and above it with the square weights"
-                            if long_ok else "") + f", got S={s}")
-    if s <= MAX_STEPS:
-        return
-    if not long_ok:
+                         f"a multiple of 4" + (
+                             "" if long_ok else f" up to {MAX_STEPS}")
+                         + f", got S={s}")
+    if s > MAX_STEPS and not long_ok:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
                          f"a multiple of 4 up to {MAX_STEPS} (resolutions "
                          f"1-{MAX_STEPS // 4}), got S={s}: {FUSED_LONG} is "
@@ -298,20 +296,12 @@ def check_grid(kernel: str, n: int, s: int, dt=torch.float32,
                          f"{FUSED_LONG}); training above {MAX_STEPS} steps "
                          f"runs the split backward (gcl_bwd_data and "
                          f"gcl_bwd_weight) in both dtypes")
-    if not square:
-        raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
-                         f"a multiple of 4 up to {MAX_STEPS} (resolutions "
-                         f"1-{MAX_STEPS // 4}) in the column form (tensor "
-                         f"parallelism), got S={s}: {COLS_LONG} are not "
-                         f"ported yet (ROADMAP.md, Queue 1: {COLS_LONG}); "
-                         f"the square weights take every resolution")
 
 
-def check_eval_grid(kernel: str, n: int, s: int, dt=None,
-                    square: bool = True) -> None:
+def check_eval_grid(kernel: str, n: int, s: int, dt=None) -> None:
     """Raise unless bars of n cells are 4 x s with s a multiple of 4, the
-    grids of the eval layer on the card (every resolution; dt and square
-    are `check_grid`'s, and change nothing here)."""
+    grids of the eval layer on the card (every resolution; dt is
+    `check_grid`'s, and changes nothing here)."""
     _check_tracks(kernel, n, s)
     if s < 4 or s % 4:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
@@ -321,9 +311,8 @@ def check_eval_grid(kernel: str, n: int, s: int, dt=None,
 def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
                     grid=check_grid) -> None:
     """Raise unless x is (nbar, n, d) over bars of n = 4 s cells that
-    `grid` takes in x's dtype at output width n_out (`check_grid`, the
-    training kernels' grids, or `check_eval_grid`; s: the gate table's
-    rows, by default 32) with d %
+    `grid` takes in x's dtype (`check_grid`, the training kernels' grids,
+    or `check_eval_grid`; s: the gate table's rows, by default 32) with d %
     128 == 0, the output width n_out (default d) has n_out % 128 == 0 and
     divides d, and every tensor of `want` ({name: (tensor, shape, dtype)})
     sits on x's device with that shape and dtype, contiguous and 16-byte
@@ -332,7 +321,7 @@ def check_cuda_args(kernel: str, x, want: dict, n_out=None, s=None,
     if d % 128 != 0:
         raise ValueError(f"{kernel} kernel takes d % 128 == 0, got d={d}")
     n_out = d if n_out is None else n_out
-    grid(kernel, n, BASE_STEPS if s is None else s, x.dtype, n_out == d)
+    grid(kernel, n, BASE_STEPS if s is None else s, x.dtype)
     if n_out <= 0 or n_out % 128 != 0 or d % n_out != 0:
         raise ValueError(f"{kernel} kernel takes an output width n with n % "
                          f"128 == 0 dividing d, got n={n_out} d={d}")
@@ -381,7 +370,7 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     (nbar, n, w) in x's dtype. w is d, or at K = 1 the width of the column
     shard that starts at output column col0 (its residual x[..., col0:col0
     + w]). On the card every S % 4 == 0 is taken; above MAX_STEPS the K
-    layers are K launches of the long-bar kernel (square weights only).
+    layers are K launches of the long-bar kernel.
     """
     k, w = wbigs.shape[0], wbigs.shape[-1]
     d = x.shape[-1]
@@ -407,15 +396,8 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
         grid=check_eval_grid)
     name = "gcl_eval" if dt == torch.float32 else "gcl_eval_bf16"
     if s > MAX_STEPS:
-        if w != d:
-            raise ValueError(f"gcl_eval takes bars of 4 x S cells with S > "
-                             f"{MAX_STEPS} with the square weights only (n = "
-                             f"d = {d}), got n = {w}: {COLS_LONG} are not "
-                             f"ported yet (ROADMAP.md, Queue 1: {COLS_LONG}); "
-                             f"the column form (tensor parallelism) takes S "
-                             f"up to {MAX_STEPS}")
         return _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas,
-                              ebs)
+                              ebs, col0)
     out = torch.empty((nbar, n, w), dtype=dt, device=x.device)
     scratch = torch.empty_like(x) if k > 1 else out
     launch(name, s, (x.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
@@ -427,14 +409,16 @@ def gcl_eval(x, aux, gate_table, wbigs, biases, eas, ebs, col0=0):
     return out
 
 
-def _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas, ebs):
+def _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas, ebs,
+                   col0):
     """`gcl_eval` over bars of 4 x S cells, S > MAX_STEPS, on the card: one
     launch of the long-bar kernel a layer, ping-ponging between the output
-    and a scratch buffer so that the last layer writes the output."""
-    nbar, _, d = x.shape
+    and a scratch buffer so that the last layer writes the output; a column
+    shard (width w < d, K = 1) is one launch writing (nbar, n, w)."""
+    nbar, n, d = x.shape
     s = gate_table.shape[0]
-    k = wbigs.shape[0]
-    out = torch.empty_like(x)
+    k, w = wbigs.shape[0], wbigs.shape[-1]
+    out = torch.empty((nbar, n, w), dtype=x.dtype, device=x.device)
     scratch = torch.empty_like(x) if k > 1 else out
     src = x
     for i in range(k):
@@ -442,9 +426,10 @@ def _gcl_eval_long(name, x, aux, gate_table, wbigs, biases, eas, ebs):
         launch(name, s, (src.data_ptr(), aux.data_ptr(),
                          gate_table.data_ptr(), wbigs[i].data_ptr(),
                          biases[i].data_ptr(), eas[i].data_ptr(),
-                         ebs[i].data_ptr(), dst.data_ptr(), nbar), (d,),
-               x.device)
+                         ebs[i].data_ptr(), dst.data_ptr(), nbar),
+               (d, w, col0), x.device)
         counts.count(name, s)
+        count_cols(name, w, d)
         src = dst
     return out
 
@@ -457,8 +442,8 @@ def gcl_fwd(x, aux, gate_table, wbig, bias):
     and bias (w,) in x's dtype, w = d or a column shard's width. Returns
     (gcl(x) + bias) * m, (nbar, n, w) in x's dtype. On the card bars of 4
     x 32 cells go to the eval kernels' training forward, the other grids up
-    to MAX_STEPS to the grid kernels', and above it (w = d only) to the
-    long-bar kernels' (`gcl_fwd_long`, `gcl_fwd_long_bf16`).
+    to MAX_STEPS to the grid kernels', and above it to the long-bar
+    kernels' (`gcl_fwd_long`, `gcl_fwd_long_bf16`).
     """
     if not on_card("gcl_fwd", x):
         return gcl_fwd_plain(x, aux, gate_table, wbig, bias)

@@ -11,9 +11,9 @@ kernels on the tensor cores: dx, dgate and dbias over the dH product, and
 dWbig) in bf16. Bars of 4 x S cells at another S up to 48 (resolutions
 1-12) go to `csrc/gcl_bwd_data_grid.cu`, `csrc/gcl_bwd_weight_grid.cu` and
 `csrc/gcl_bwd_fused_grid_bf16_tc.cu`, and above it (resolutions 13 and
-up) the data and weight pair with the square weights, fp32 or bf16, to
-`csrc/gcl_bwd_data_long.cu` and `csrc/gcl_bwd_weight_long.cu` (templates
-on the element type); the bf16 fused backward refuses that grid
+up) the data and weight pair, fp32 or bf16, square or in the column form,
+to `csrc/gcl_bwd_data_long.cu` and `csrc/gcl_bwd_weight_long.cu`
+(templates on the element type); the bf16 fused backward refuses that grid
 (`gcl.check_grid`), and the fp32 one, on no training path, takes 4 x 32
 only. The pair takes bf16 above 48 steps only: no path runs it in bf16
 below. On a CPU tensor each wrapper runs its plain PyTorch version, which
@@ -404,8 +404,7 @@ class GclFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gate_table, rel_weight, root, bias, aux, mask):
         if on_card("gcl_fused", x):  # refused before the forward runs
-            check_grid("gcl_fused", x.shape[1], gate_table.shape[0], x.dtype,
-                       rel_weight.shape[-1] == x.shape[-1])
+            check_grid("gcl_fused", x.shape[1], gate_table.shape[0], x.dtype)
         n_tracks = mask.shape[-2]
         wbig = pack_weights(rel_weight, root, n_tracks).contiguous()
         ctx.save_for_backward(x, gate_table, wbig, aux, mask)

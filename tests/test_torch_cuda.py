@@ -256,9 +256,9 @@ def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     """With 3 tracks the eval kernels and the chord tail raise; past
     resolution 12 (S = 52), which generation and training take in both
-    dtypes, the bf16 fused backward (bf16 training runs the split backward
-    there) and the column form raise before any kernel runs, naming their
-    roadmap items; the split backward refuses bf16 up to 48 steps (bf16
+    dtypes and both forms, the bf16 fused backward (bf16 training runs the
+    split backward there) raises before any kernel runs, naming its
+    roadmap item; the split backward refuses bf16 up to 48 steps (bf16
     training runs the fused backward there); the fp32 fused backward (on
     no training path) refuses every grid but 4 x 32 cells."""
     s, t = 16, 3
@@ -273,25 +273,11 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
                                      n_slots=15)
     mask, args = chip_smoke.kernel_inputs(2, 256, 1, cuda, 0, 52)
     x, aux, gates, w, b = args[:5]
-    rel = torch.zeros(6, 256, 256, device=cuda)
     before = dict(counts.launches)
     xb, gb, wb, bb = (v.bfloat16() for v in (x, gates, w[0], b[0]))
     with pytest.raises(ValueError, match="up to 48 .*the bf16 fused backward "
                                          "at S > 48 .*split backward"):
         gcl_bwd.gcl_bwd_fused(xb.detach(), xb.detach(), aux, gb, wb)
-    cols = "up to 48 .*the column forms at S > 48"
-    with pytest.raises(ValueError, match=cols):
-        gcl_bwd.gcl_fused(x.requires_grad_(), gates, rel[..., :128],
-                          rel[0, :, :128], b[0, :128], aux, mask)
-    with pytest.raises(ValueError, match=cols):
-        gcl.gcl_fwd(x.detach(), aux, gates, w[0, :, :128].contiguous(),
-                    b[0, :128].contiguous())
-    with pytest.raises(ValueError, match=cols):
-        gcl_bwd.gcl_bwd_data(x.detach(), x.detach()[..., :128].contiguous(),
-                             aux, gates, w[0, :, :128].contiguous())
-    with pytest.raises(ValueError, match=cols):
-        gcl_bwd.gcl_bwd_weight(x.detach(), x.detach()[..., :128].contiguous(),
-                               aux, gates)
     _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
         2, 128, cuda, 0, 16)
     with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
@@ -372,16 +358,82 @@ def test_long_gcl_kernels_are_tensor_core_and_ffma_kernels(cuda):
             assert hmma == 0 and ffma > 0, (name, hmma, ffma)
 
 
-def test_long_gcl_eval_refuses_the_column_form(cuda):
-    mask, args = chip_smoke.kernel_inputs(2, 256, 1, cuda, 0, 64)
-    x, aux, gates, w, b, ea, eb = args
-    before = dict(counts.launches)
-    with pytest.raises(ValueError, match="square weights only.*the column "
-                                         "forms at S > 48 are not ported yet "
-                                         "\\(ROADMAP.md, Queue 1"):
-        gcl.gcl_eval(x, aux, gates, w[..., :128].contiguous(),
-                     *(v[:, :128].contiguous() for v in (b, ea, eb)))
-    assert counts.launches == before
+# the long-bar column forms (tensor parallelism above 48 steps a bar): d =
+# 512 in shards of n = 256 and 128 (the fp32 eval and forward kernels'
+# 256-column passes, and their single 128-column pass)
+@pytest.mark.parametrize("n", [256, 128])
+@pytest.mark.parametrize("s", [52, 96])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_long_column_forms_match_plain(cuda, bf16, s, n):
+    """Every shard of `gcl_fwd`, `gcl_eval` (K = 1), `gcl_bwd_data` and
+    `gcl_bwd_weight` over bars of 4 x s cells against its plain version,
+    the partial dx and dgate summed over the shards against the square
+    plain version (`chip_smoke.check_gcl_columns`); the forward, eval and
+    weight shards bit for bit the square launch's columns; each wrapper
+    counts its launches in the column form; no comparison launch counts."""
+    before = dict(gcl.col_launches), dict(counts.launches)
+    res = chip_smoke.check_gcl_columns(40, 512, n, cuda, bf16=bf16,
+                                       timing=False, s=s)
+    suffix = "_bf16" if bf16 else ""
+    assert set(res["kernels"]) == {f"{k}{suffix}" for k in (
+        "gcl_fwd", "gcl_eval", "gcl_bwd_data", "gcl_bwd_weight")}
+    for name, r in res["kernels"].items():
+        assert r.get("equal_to_square", True), name
+    assert (dict(gcl.col_launches), counts.launches) == before
+    _, (x, up, aux, gates, wbig, bias) = chip_smoke.train_kernel_inputs(
+        2, 512, cuda, 1, s)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x, up, gates, wbig, bias = (v.to(dt) for v in (x, up, gates, wbig,
+                                                   bias))
+    wc, bc, gc = (v[..., :n].contiguous() for v in (wbig, bias, up))
+    gcl.gcl_fwd(x, aux, gates, wc, bc)
+    gcl.gcl_eval(x, aux, gates, wc[None], bc[None], bc[None], bc[None],
+                 col0=512 - n)
+    gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc)
+    gcl_bwd.gcl_bwd_weight(x, gc, aux, gates)
+    torch.cuda.synchronize()
+    names = [f"{k}{suffix}" for k in ("gcl_fwd", "gcl_eval", "gcl_bwd_data",
+                                      "gcl_bwd_weight")]
+    assert counts.since(before[1]) == {(k, s, 1): 1 for k in names}
+    assert {k: v - before[0][k] for k, v in gcl.col_launches.items()
+            if v != before[0][k]} == dict.fromkeys(names, 1)
+
+
+FIRST_BACKWARD = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke
+from polyphemus_tpu_torch.ops.kernels import gcl_bwd
+dev = torch.device("cuda")
+s, d, n = {s}, 512, {n}
+mask, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
+    2, d, dev, 0, s)
+x.requires_grad_()
+rel = (torch.randn(6, d, n, device=dev) * d ** -0.5).requires_grad_()
+out = gcl_bwd.gcl_fused(x, gates, rel, wbig[-d:, :n].contiguous(),
+                        torch.zeros(n, device=dev), aux, mask)
+out.backward(up[..., :n].contiguous())
+torch.cuda.synchronize()
+assert torch.isfinite(x.grad).all() and torch.isfinite(rel.grad).all()
+"""
+
+
+@pytest.mark.parametrize("s,n", [(32, 512), (96, 256)])
+def test_a_layer_backward_runs_as_the_autograd_threads_first_op(cuda, s, n):
+    """In a fresh process whose first backward is one GCL layer's (the
+    autograd engine's thread has made no CUDA call, so no context is
+    current there), the data backward's TMA tensor maps encode: the
+    launchers make the device's context current first (once failed with
+    CUDA_ERROR_INVALID_CONTEXT); square at S = 32, the column form at S =
+    96."""
+    import subprocess
+
+    code = FIRST_BACKWARD.format(root=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), s=s, n=n)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("resolution", [13, 24])

@@ -23,12 +23,14 @@ tensors (`on_card` patched, the C launchers recorded instead of called):
 `gcl_eval` launches `gcl_eval_long` (bf16: `gcl_eval_long_bf16`) once a
 layer, ping-ponging so that the last layer writes the output, and counts
 each launch at K = 1; S <= 48 keeps one launch of the grid kernel at K;
-the eval column form refuses S > 48 before launching. The training kernels
-take S > 48 with the square weights, in fp32 and bf16 (their route and
-their plain versions against JAX: `tests/test_torch_long_train.py`,
-`tests/test_torch_long_bf16_train.py`); the fused backward and the column
-form refuse it before launching, with a message that names the roadmap's
-item. (The eval and chord routes' geometry checks at S = 52-192 are
+the eval column form (tensor parallelism) at S > 48 is one launch of the
+long kernel with its output width n and first column c0. The training
+kernels take S > 48 with the square weights and in the column form, in
+fp32 and bf16 (their route and their plain versions against JAX:
+`tests/test_torch_long_train.py`, `tests/test_torch_long_bf16_train.py`,
+`tests/test_torch_long_tensor_parallel.py`); the fused backward refuses it
+before launching, with a message that names the roadmap's item. (The eval
+and chord routes' geometry checks at S = 52-192 are
 `tests/test_torch_resolution.py::test_the_eval_kernels_take_bars_above_48_steps`.)
 """
 import jax.numpy as jnp
@@ -178,25 +180,78 @@ TRAINING_KERNELS = ["gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight",
                     "gcl_bwd_fused", "gcl_fused"]
 
 
+# the long-bar launcher of each training wrapper, and the position of its
+# first size (nbar) among its arguments
+LONG_LAUNCHERS = {"gcl_fwd": ("gcl_fwd_long", 6),
+                  "gcl_bwd_data": ("gcl_bwd_data_long", 9),
+                  "gcl_bwd_weight": ("gcl_bwd_weight_long", 5)}
+
+
+def column_launches(kernel, s, dt, d=256, n=128, nbar=2):
+    """Run training wrapper `kernel` (or the `gcl_fused` layer, forward and
+    backward) in the column form, output width n of d, over nbar bars of 4
+    x s cells of dtype dt (zeros but aux)."""
+    rng = np.random.default_rng(s)
+    mask = torch.from_numpy(rng.random((nbar, 4, s)) < 0.3)
+    aux = gcl.build_kernel_aux(mask).reshape(nbar, gcl.N_AUX, 4 * s)
+    x = torch.zeros(nbar, 4 * s, d, dtype=dt)
+    gates = torch.zeros(s, d, dtype=dt)
+    wc, gc = torch.zeros(8 * d, n, dtype=dt), x[..., :n].contiguous()
+    if kernel == "gcl_fwd":
+        gcl.gcl_fwd(x, aux, gates, wc, torch.zeros(n, dtype=dt))
+    elif kernel == "gcl_bwd_data":
+        gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc)
+    elif kernel == "gcl_bwd_weight":
+        gcl_bwd.gcl_bwd_weight(x, gc, aux, gates)
+    elif kernel == "gcl_bwd_fused":
+        gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc)
+    else:
+        out = gcl_bwd.gcl_fused(
+            x.requires_grad_(), gates, torch.zeros(6, d, n, dtype=dt),
+            torch.zeros(d, n, dtype=dt), torch.zeros(n, dtype=dt), aux, mask)
+        assert out.shape == (nbar, 4 * s, n)
+        out.backward(torch.zeros_like(out))
+
+
 @pytest.mark.parametrize("kernel", TRAINING_KERNELS)
 @pytest.mark.parametrize("s", STEPS)
-def test_training_kernels_refuse_long_bars(kernel, s):
+def test_training_kernels_refuse_long_bars(card_route, monkeypatch, kernel,
+                                           s):
     """What training at S > 48 still refuses names the limit and the
     roadmap's item: the fused backward (bf16 training's route up to 48
-    steps) in any dtype, and the column form (tensor parallelism) of the
-    other kernels in either dtype; with the square weights those take bf16
-    as they take fp32."""
+    steps) in any dtype, its bf16 column form before any launch. The
+    column form (tensor
+    parallelism, n = 128 of d = 256) of the other kernels runs in either
+    dtype: the card route launches each wrapper's long-bar kernel once
+    (`gcl_fused`: the forward and the split backward) with (nbar, S, d, n),
+    counted at S and as a column-form launch."""
+    monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
     if kernel == "gcl_bwd_fused":
         fused = f"up to 48 .*{gcl.FUSED_LONG} is not ported yet .*ROADMAP"
         for dt in (torch.bfloat16, torch.float32):
             with pytest.raises(ValueError, match=fused):
                 gcl.check_grid(kernel, 4 * s, s, dt)
+        # (the fp32 form takes the square weights only, at 4 x 32 cells)
+        with pytest.raises(ValueError, match=fused):
+            column_launches(kernel, s, torch.bfloat16)
+        assert card_route == []
         return
-    gcl.check_grid(kernel, 4 * s, s, torch.bfloat16)
-    for dt in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match=f"up to 48 .*{gcl.COLS_LONG} "
-                                             f"are not ported yet .*ROADMAP"):
-            gcl.check_grid(kernel, 4 * s, s, dt, square=False)
+    wrappers = list(LONG_LAUNCHERS) if kernel == "gcl_fused" else [kernel]
+    for dt in (torch.float32, torch.bfloat16):
+        gcl.check_grid(kernel, 4 * s, s, dt)
+        bf = "_bf16" if dt == torch.bfloat16 else ""
+        del card_route[:]
+        before = dict(counts.launches), dict(gcl.col_launches)
+        column_launches(kernel, s, dt)
+        assert [c[0] for c in card_route] == [
+            LONG_LAUNCHERS[k][0] + bf for k in wrappers]
+        for k, (_, a) in zip(wrappers, card_route):
+            i = LONG_LAUNCHERS[k][1]
+            assert a[i:] == (2, s, 256, 128, 0)
+        assert counts.since(before[0]) == {(k + bf, s, 1): 1
+                                           for k in wrappers}
+        assert {k: v - before[1][k] for k, v in gcl.col_launches.items()
+                if v != before[1][k]} == {k + bf: 1 for k in wrappers}
 
 
 @pytest.mark.parametrize("kernel", [k for k in TRAINING_KERNELS
@@ -221,15 +276,16 @@ def test_fp32_training_kernels_take_long_bars(kernel, s):
 def card_route(monkeypatch):
     """The wrappers' card path on CPU tensors: `on_card` true, each C
     launcher recorded as (kernel, its arguments) instead of called; the
-    launch counts restored after."""
+    launch counts (the column forms' too) restored after."""
     calls = []
     monkeypatch.setattr(gcl, "on_card", lambda kernel, x: True)
     monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
     monkeypatch.setattr(_build, "launcher",
                         lambda name: lambda *a: calls.append((name, a)) or 0)
-    saved = dict(counts.launches)
+    saved = dict(counts.launches), dict(gcl.col_launches)
     yield calls
-    counts.restore(saved)
+    counts.restore(saved[0])
+    gcl.col_launches.update(saved[1])
 
 
 def eval_args(s, k_layers, dtype=torch.float32, d=128, n=None):
@@ -259,12 +315,13 @@ def test_gcl_eval_launches_the_long_kernel_once_a_layer(card_route, dtype,
     x, wbigs = args[0], args[3]
     src = x.data_ptr()
     for i, (_, a) in enumerate(card_route):
-        # (x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d, stream)
+        # (x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d, n, c0,
+        # stream)
         assert a[0] == src and a[3] == wbigs[i].data_ptr()
         assert a[1] == args[1].data_ptr() and a[2] == args[2].data_ptr()
         assert a[4:7] == tuple(v[i].data_ptr() for v in args[4:])
         assert a[7] not in (src, x.data_ptr())
-        assert a[8:] == (2, s, 128, 0)
+        assert a[8:] == (2, s, 128, 128, 0, 0)
         src = a[7]
     assert src == out.data_ptr()
     assert counts.since(before) == {(name, s, 1): k_layers}
@@ -279,22 +336,36 @@ def test_gcl_eval_keeps_one_grid_launch_up_to_48_steps(card_route, s):
     assert counts.since(before) == {("gcl_eval", s, 2): 1}
 
 
-def test_gcl_eval_refuses_the_column_form_above_48_steps(card_route):
-    """The eval step's column form at S > 48 raises before launching, with
-    a message that names its roadmap item, as `check_grid`'s do."""
-    with pytest.raises(ValueError, match=f"square weights only.*"
-                                         f"{gcl.COLS_LONG} are not ported yet "
-                                         f"\\(ROADMAP.md, Queue 1"):
-        gcl.gcl_eval(*eval_args(64, 1, d=256, n=128))
-    assert card_route == []
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gcl_eval_refuses_the_column_form_above_48_steps(card_route, dtype):
+    """The eval step's column form at S > 48 (n = 128 of d = 256, first
+    column 128) is one launch of the long-bar kernel with (nbar, S, d, n,
+    c0), writing the (nbar, 4 S, n) output; counted at K = 1 and as a
+    column-form launch."""
+    args = eval_args(64, 1, dtype, d=256, n=128)
+    before = dict(counts.launches), dict(gcl.col_launches)
+    out = gcl.gcl_eval(*args, col0=128)
+    name = "gcl_eval" if dtype == torch.float32 else "gcl_eval_bf16"
+    assert [c[0] for c in card_route] == [
+        name.replace("gcl_eval", "gcl_eval_long")]
+    a = card_route[0][1]
+    # (x, aux, gates, wbig, bias, ea, eb, out, nbar, S, d, n, c0, stream)
+    assert a[:7] == (args[0].data_ptr(), args[1].data_ptr(),
+                     args[2].data_ptr(), args[3][0].data_ptr(),
+                     *(v[0].data_ptr() for v in args[4:]))
+    assert a[7] == out.data_ptr() and a[8:] == (2, 64, 256, 128, 128, 0)
+    assert out.shape == (2, 4 * 64, 128) and out.dtype == dtype
+    assert counts.since(before[0]) == {(name, 64, 1): 1}
+    assert gcl.col_launches[name] == before[1][name] + 1
 
 
 def test_training_refuses_long_bars_before_any_launch(card_route,
                                                       monkeypatch):
     """At S = 64 bf16 training runs (the training layer launches the bf16
     training forward, then the split backward's bf16 forms, each once; the
-    forward and the pair alone launch theirs), while the fused backward and
-    the column form raise before any launch."""
+    forward and the pair alone launch theirs), and so does the fp32 column
+    form (n = 128 of d = 256: the layer's three long-bar kernels, then the
+    forward alone), while the fused backward raises before any launch."""
     monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
     s, d = 64, 256
     bf = torch.bfloat16
@@ -321,12 +392,17 @@ def test_training_refuses_long_bars_before_any_launch(card_route,
     del card_route[:]
     with pytest.raises(ValueError, match=gcl.FUSED_LONG):
         gcl_bwd.gcl_bwd_fused(x.to(bf), x.to(bf), aux, gates.to(bf), wb)
-    with pytest.raises(ValueError, match=gcl.COLS_LONG):
-        gcl_bwd.GclFused.apply(x, gates,
-                               torch.zeros(6, d, 128, requires_grad=True),
-                               torch.zeros(d, 128), torch.zeros(128), aux,
-                               mask)
-    with pytest.raises(ValueError, match=gcl.COLS_LONG):
-        gcl.gcl_fwd(x, aux, gates, torch.zeros(8 * d, 128),
-                    torch.zeros(128))
     assert card_route == [] and counts.launches == before
+    out = gcl_bwd.GclFused.apply(x, gates,
+                                 torch.zeros(6, d, 128, requires_grad=True),
+                                 torch.zeros(d, 128), torch.zeros(128), aux,
+                                 mask)
+    out.backward(torch.zeros_like(out))
+    gcl.gcl_fwd(x, aux, gates, torch.zeros(8 * d, 128), torch.zeros(128))
+    assert [c[0] for c in card_route] == [
+        "gcl_fwd_long", "gcl_bwd_data_long", "gcl_bwd_weight_long",
+        "gcl_fwd_long"]
+    assert [c[1][-5:-1] for c in card_route] == [(2, s, d, 128)] * 4
+    assert counts.since(before) == {("gcl_fwd", s, 1): 2,
+                                    ("gcl_bwd_data", s, 1): 1,
+                                    ("gcl_bwd_weight", s, 1): 1}

@@ -28,8 +28,9 @@ square weights launches `gcl_fwd_long`, `gcl_bwd_data_long` and
 `gcl_fwd_long_bf16`, `gcl_bwd_data_long_bf16` and `gcl_bwd_weight_long_bf16`
 (the split backward, as JAX's bf16 layer takes it; no fused backward),
 counted as `gcl_fwd_bf16`, `gcl_bwd_data_bf16`, `gcl_bwd_weight_bf16`; in
-the column form it raises before any launch; at S = 12 and 48 it keeps the
-grid kernels. On the CPU the kernels' launch counters stay 0. (bf16 against
+the column form (tensor parallelism) the same kernels with the shard's
+output width, counted as column-form launches too; at S = 12 and 48 it
+keeps the grid kernels. On the CPU the kernels' launch counters stay 0. (bf16 against
 JAX above 48 steps: `tests/test_torch_long_bf16_train.py`.)"""
 import jax.numpy as jnp
 import numpy as np
@@ -212,11 +213,38 @@ def test_bf16_fused_backward_refuses_long_bars_before_any_launch(
 
 @pytest.mark.parametrize("s", STEPS)
 def test_column_form_refuses_long_bars_before_any_launch(layer_route, s):
-    before = dict(counts.launches)
-    with pytest.raises(ValueError, match=f"up to 48 .*{gcl.COLS_LONG} are "
-                                         f"not ported yet .*ROADMAP"):
-        gcl_bwd.GclFused.apply(*layer_args(s, d=256, n=128))
-    assert layer_route == [] and counts.launches == before
+    """Once refused above 48 steps, the column form (n = 128 of d = 256)
+    of an fp32 and a bf16 layer now trains there: forward and backward
+    launch the long-bar kernels once each with the layer's pointers and
+    (nbar, S, d, n), each counted at S and as a column-form launch; the
+    output and the weights' grads are n wide, x's grad d wide."""
+    d, n, nbar = 256, 128, 2
+    for dt, bf in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        del layer_route[:]
+        args = layer_args(s, d, n, dtype=dt, nbar=nbar)
+        x, gates, aux = args[0], args[1], args[5]
+        before = dict(counts.launches), dict(gcl.col_launches)
+        out = gcl_bwd.GclFused.apply(*args)
+        assert out.shape == (nbar, T * s, n) and out.dtype == dt
+        out.backward(torch.ones_like(out))
+        assert [c[0] for c in layer_route] == [
+            f"gcl_fwd_long{bf}", f"gcl_bwd_data_long{bf}",
+            f"gcl_bwd_weight_long{bf}"]
+        (_, fwd), (_, data), (_, weight) = layer_route
+        assert fwd[:3] == (x.data_ptr(), aux.data_ptr(), gates.data_ptr())
+        assert fwd[5] == out.data_ptr() and fwd[6:] == (nbar, s, d, n, 0)
+        assert data[0] == x.data_ptr() and data[2:5] == (
+            aux.data_ptr(), gates.data_ptr(), fwd[3])
+        assert data[9:] == (nbar, s, d, n, 0)
+        assert weight[:4] == (x.data_ptr(), data[1], aux.data_ptr(),
+                              gates.data_ptr())
+        assert weight[5:] == (nbar, s, d, n, 0)
+        names = [f"gcl_fwd{bf}", f"gcl_bwd_data{bf}", f"gcl_bwd_weight{bf}"]
+        assert counts.since(before[0]) == {(k, s, 1): 1 for k in names}
+        assert {k: v - before[1][k] for k, v in gcl.col_launches.items()
+                if v != before[1][k]} == dict.fromkeys(names, 1)
+        assert x.grad.shape == (nbar, T * s, d)
+        assert args[2].grad.shape == (6, d, n) and args[4].grad.shape == (n,)
 
 
 @pytest.mark.parametrize("s", [12, 48])

@@ -237,15 +237,19 @@ def test_training_kernels_take_every_resolution_up_to_12(kernel,
 def test_training_kernels_refuse_other_grids(kernel, t, s):
     """3 tracks and S % 4 != 0 in every form; above 48 steps (S = 52, 64,
     which fp32 and bf16 take with the square weights,
-    `test_fp32_training_kernels_take_52_and_64_steps`) the fused backward
-    and every kernel's column form."""
+    `test_fp32_training_kernels_take_52_and_64_steps`, and in the column
+    form) the fused backward only."""
     dt = torch.bfloat16 if s > 48 else torch.float32
-    square = s <= 48 or kernel == "gcl_bwd_fused"
+    if s > 48 and kernel != "gcl_bwd_fused":  # both forms train there
+        gcl.check_grid(kernel, t * s, s, dt)
+        x, want = gcl_args(4, s, d=256)
+        want["g"] = (torch.zeros(2, 4 * s, 128), (2, 4 * s, 128),
+                     torch.float32)
+        gcl.check_cuda_args(kernel, x, want, n_out=128, s=s)
+        return
     with pytest.raises(ValueError, match=f"{kernel} kernel takes bars of "
                                          f"(4 tracks|4 x S cells with S a "
-                                         f"multiple of 4 up to 48)"):
-        gcl.check_grid(kernel, t * s, s, dt, square)
-    if not square:  # bf16 with the square weights trains there
+                                         f"multiple of 4)"):
         gcl.check_grid(kernel, t * s, s, dt)
 
 
