@@ -24,7 +24,9 @@
    `csrc/gcl_bwd_fused_grid_bf16_tc.cu`) with its registers, spills,
    dynamic shared memory and SASS counts: each bf16 form must hold
    tensor-core instructions, each fp32 form FFMA and none, without
-   spills. The same for the fp32 weight and data backward
+   spills; so must both product kernels of the long-bar bf16 fused
+   backward (`csrc/gcl_bwd_fused_long_bf16_tc.cu`: dH and dW). The same
+   for the fp32 weight and data backward
    kernels (`csrc/gcl_bwd_weight.cu`, `csrc/gcl_bwd_data.cu`), with their
    ptxas registers and spills and their dynamic shared memory printed; it
    fails if ptxas spilled any bytes of either. ptxas' registers, spills,
@@ -216,7 +218,9 @@
 10b. Tensor parallelism (`parallel.model_axis` 2): (i) the column forms
    of the GCL kernels (output width n of d = 512: `gcl_fwd`, `gcl_eval` at
    K = 1, `gcl_bwd_data`, `gcl_bwd_weight` in fp32 at 64 and 128 bars,
-   `gcl_fwd`, `gcl_eval` and `gcl_bwd_fused` in bf16 at 256 bars; n = 256
+   `gcl_fwd`, `gcl_eval` and `gcl_bwd_fused` in bf16 at 256 bars, at 4 x
+   32 and 4 x 96 cells, at 4 x 96 also the bf16 split pair
+   `gcl_bwd_data`, `gcl_bwd_weight` beside the fused backward; n = 256
    and 128) against their plain versions on every shard (fp32: rtol = atol
    = 2e-4, the sums over bars 1e-4 x max |plain|; bf16: 2e-2), the
    partial dx and dgate summed over the shards against the square plain
@@ -280,23 +284,25 @@
    tie band, so the unconditioned run holds its structure logits within
    2e-2 x max |cpu| of the CPU's instead and compares every bar on the
    CPU's mask, `compare_bf16_with_cpu(flip_cap=False)`), the service, the
-   generate and the reconstruct CLIs; (v) one `gcl_fused` layer in the
-   column form (n = d / 2) at S = 96 raises before any launch, naming its
-   roadmap item; (vi) the three fp32 training kernels (`gcl_fwd`,
+   generate and the reconstruct CLIs; (v) one fp32 `gcl_fused` layer in
+   the column form (n = d / 2) at S = 96, forward and backward, and the
+   bf16 fused backward's column form there held to its plain version;
+   (vi) the three fp32 training kernels (`gcl_fwd`,
    `gcl_bwd_data`, `gcl_bwd_weight`: `csrc/gcl_eval_long_fp32.cu`'s
    training form, `csrc/gcl_bwd_data_long.cu`, `csrc/gcl_bwd_weight_long.cu`)
    against their plain versions at r = 13, 16, 24 and 48, 128 bars, d =
-   512, by phase 2b's rules, each timed beside its bounds, and their bf16
-   forms (`csrc/gcl_eval_long_bf16_tc.cu`'s training form and the bf16
-   instantiations of the two backward sources, bf16 training's split
-   backward above 48 steps) at 256 bars by phase 2c's rule, each timed
-   beside its bounds; (vii) LMD2's fp32 and bf16 training configs at
-   r = 24 as phase 12 (v) runs them: one CLI step, s/step with MFU, exactly
-   64 launches of each fp32 long-bar training kernel a step, and 32 of each
-   bf16 one (`gcl_fwd_bf16`, `gcl_bwd_data_bf16`, `gcl_bwd_weight_bf16`; no
-   `gcl_bwd_fused`), the fp32 step at batch 8 against the CPU with its
-   grads held to an fp64 step's, the bf16 step at batch 32 by phase 6's
-   rule.
+   512, by phase 2b's rules, each timed beside its bounds, and the bf16
+   ones (`csrc/gcl_eval_long_bf16_tc.cu`'s training form and the fused
+   backward, `csrc/gcl_bwd_fused_long_bf16_tc.cu`, bf16 training's route,
+   held to its plain version and to the split pair, the bf16
+   instantiations of the two split sources, on the same inputs; the pair
+   also held to its plain versions) at 256 bars by phase 2c's rule, each
+   timed beside its bounds; (vii) LMD2's fp32 and bf16 training configs
+   at r = 24 as phase 12 (v) runs them: one CLI step, s/step with MFU,
+   exactly 64 launches of each fp32 long-bar training kernel a step, and
+   32 of each bf16 one (`gcl_fwd_bf16`, `gcl_bwd_fused`; no split
+   kernel), the fp32 step at batch 8 against the CPU with its grads held
+   to an fp64 step's, the bf16 step at batch 32 by phase 6's rule.
 11. Prints the LMD16 kernels line (ms, plain ms and bounds at 256 and 4096
    bars, launches in phases 7 and 7b), the `kernels` JSON line (launches
    of every phase, phases 10's and 10b's on every rank; the column forms
@@ -305,7 +311,9 @@
    in 12 (i) and launched in 12 (ii) and (iii), the training kernels timed
    in 12 (iv) and launched in 12 (v); phase 13's generation kernels at S =
    96, the long-bar GCL as `<kernel>_k1_s96`, and its fp32 and bf16
-   training kernels at S = 96, timed in 13 (vi) and launched in 13 (vii)),
+   training kernels at S = 96, timed in 13 (vi) and launched in 13 (vii);
+   the bf16 split pair at S = 96, square and column form, the fused
+   backward's yardstick, listed with its 0 launches on the main path),
    the script's seconds, the card line, and last
    {"ok":
    true, "device": {...}}.
@@ -552,6 +560,10 @@ GRID_FORMS = [
      {"data": LONG_BF16_TRAIN_FORMS["gcl_bwd_data_long_bf16"]}),
     ("bf16_ffma", "gcl_bwd_weight_long", "gcl_bwd_weight_long_bf16",
      {"weight": LONG_BF16_TRAIN_FORMS["gcl_bwd_weight_long_bf16"]})]
+# the two product kernels of the long-bar bf16 fused backward, by part (its
+# third, the gather, is the split data backward's)
+LONG_FUSED_FORMS = {"dH": "gcl_bwd_fused_long_bf16_tc_kernel",
+                    "dW": "gcl_bwd_dw_long_bf16_tc_kernel"}
 GRID_TRAIN_SOURCES = [
     ("fp32", "gcl_bwd_data_grid", "gcl_bwd_data_grid",
      {"data": "gcl_bwd_data_grid_kernel"}),
@@ -567,7 +579,8 @@ def grid_kernel_forms(usage) -> dict:
     """Phase 1's checks of every form of the grid GCL kernels: the eval
     kernels' eval and training-forward forms, the long-bar eval kernels
     (with their training forms) and training backward kernels (fp32 and
-    bf16), and the grid training backward kernels at each S of GRID_STEPS.
+    bf16, the bf16 fused backward's two product kernels too), and the grid
+    training backward kernels at each S of GRID_STEPS.
     Each form's ptxas registers, spills and dynamic shared memory and its
     SASS counts; fails unless each bf16 tensor-core form holds tensor-core
     instructions and each FFMA form (fp32, and "bf16_ffma": the long bf16
@@ -579,6 +592,9 @@ def grid_kernel_forms(usage) -> dict:
                (s,) + ((int(part == "dW"),) if dt == "bf16" else ()))
               for dt, src, kname, syms in GRID_TRAIN_SOURCES
               for part, sym in syms.items() for s in GRID_STEPS]
+    forms += [("bf16", "gcl_bwd_fused_long_bf16_tc", "gcl_bwd_fused_long_bf16",
+               part, sym, (int(part == "dW"),))
+              for part, sym in LONG_FUSED_FORMS.items()]
     out = {}
     for dt, src, kname, part, sym, args in forms:
         funcs = [u for f, u in usage[src].items() if sym in f]
@@ -928,22 +944,26 @@ def check_gcl_train_bf16(nbar, d, device, timing=True, s=32):
 
 
 def check_gcl_train_long_bf16(nbar, d, device, timing=True, s=96):
-    """The bf16 training kernels above 48 steps a bar (`gcl_fwd` and the
-    split backward, `gcl_bwd_data` and `gcl_bwd_weight`, on bf16 inputs:
-    `csrc/gcl_eval_long_bf16_tc.cu`'s training form and the bf16 forms of
-    `csrc/gcl_bwd_data_long.cu` and `csrc/gcl_bwd_weight_long.cu`) against
-    their bf16 plain versions over bars of 4 x s cells, every output within
-    BF16_REL of max |plain|; with timing, ms per launch and the bounds
-    (`bound_ms`: the bf16 tensor cores' rate, the inputs' type;
-    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where the two
-    backward kernels multiply bf16 operands widened to fp32; "dense" and
-    "CE" variants as in 2b). The data backward's scratch (nbar x 4 planes x
-    4s x d floats) is the kernel's own traffic and counts in no bound."""
+    """The bf16 training kernels above 48 steps a bar against their bf16
+    plain versions over bars of 4 x s cells, every output within BF16_REL
+    of max |plain|: `gcl_fwd` (`csrc/gcl_eval_long_bf16_tc.cu`'s training
+    form) and `gcl_bwd_fused` (`csrc/gcl_bwd_fused_long_bf16_tc.cu`), bf16
+    training's route there, and the split pair `gcl_bwd_data`,
+    `gcl_bwd_weight` (the bf16 forms of `csrc/gcl_bwd_data_long.cu` and
+    `csrc/gcl_bwd_weight_long.cu`, JAX's route), the fused kernels'
+    yardstick: every fused output also within BF16_REL of the pair's on
+    the same inputs (`vs_pair_max_abs_err`). With timing, ms per launch and
+    the bounds (`bound_ms`: the bf16 tensor cores' rate, the inputs' type;
+    `cuda_core_bound_ms`: fp32 FMAs on the CUDA cores, where the pair
+    multiplies bf16 operands widened to fp32; "dense" and "CE" variants as
+    in 2b), the fused backward beside the pair (`pair_ms`). The upstream
+    scratch of the fused and the data backward (nbar x 4 planes x 4s x d
+    floats) is their own traffic and counts in no bound."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
 
-    check(s > gcl.MAX_STEPS, f"the bf16 split backward takes S > "
+    check(s > gcl.MAX_STEPS, f"the long-bar kernels take S > "
                              f"{gcl.MAX_STEPS}, got {s}")
     mask, args = train_kernel_inputs(nbar, d, device, SEED + 19, s)
     x, up, aux, gates, wbig, bias = [
@@ -952,6 +972,9 @@ def check_gcl_train_long_bf16(nbar, d, device, timing=True, s=96):
     runs = {
         "gcl_fwd_bf16": (lambda: gcl.gcl_fwd(x, aux, gates, wbig, bias),
                          lambda: gcl.gcl_fwd_plain(x, aux, gates, wbig, bias)),
+        "gcl_bwd_fused": (
+            lambda: gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig),
+            lambda: gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)),
         "gcl_bwd_data_bf16": (
             lambda: gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig),
             lambda: gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)),
@@ -959,22 +982,29 @@ def check_gcl_train_long_bf16(nbar, d, device, timing=True, s=96):
             lambda: gcl_bwd.gcl_bwd_weight(x, up, aux, gates),
             lambda: gcl_bwd.gcl_bwd_weight_plain(x, up, aux, gates)),
     }
-    res = {}
+    parts = {"gcl_bwd_fused": ("dx", "dgate", "dbias", "dwbig"),
+             "gcl_bwd_data_bf16": ("dx", "dgate", "dbias")}
+    res, outs = {}, {}
     for name, (kern, plain) in runs.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        parts = {"gcl_bwd_data_bf16": ("dx", "dgate", "dbias")}.get(
-            name, ("out",))
         check([v.dtype for v in got] == [v.dtype for v in want],
               f"{name} returned {[v.dtype for v in got]}, its plain version "
               f"{[v.dtype for v in want]}")
         errs = {p: held_rel(f"{name} {p}", a, b)
-                for p, a, b in zip(parts, got, want)}
+                for p, a, b in zip(parts.get(name, ("out",)), got, want)}
         res[name] = dict({"max_abs_err": max(errs.values())},
                          **({f"{p}_max_abs_err": e for p, e in errs.items()}
                             if len(errs) > 1 else {}))
+        outs[name] = got
+    pair = outs["gcl_bwd_data_bf16"] + outs["gcl_bwd_weight_bf16"]
+    res["gcl_bwd_fused"]["vs_pair_max_abs_err"] = max(
+        held_rel(f"gcl_bwd_fused {p} against the split pair", a, b)
+        for p, a, b in zip(parts["gcl_bwd_fused"], outs["gcl_bwd_fused"],
+                           pair))
+    del outs, pair
     if timing:
         active = int(mask.sum())
         state = x.numel() * 2
@@ -982,26 +1012,35 @@ def check_gcl_train_long_bf16(nbar, d, device, timing=True, s=96):
         flops = 2.0 * active * 5 * d * d
         dense = 2.0 * mask.numel() * 5 * d * d
         cost_est = 2.0 * mask.numel() * 8 * d * d
+        work = {k: (flops, dense, cost_est) for k in runs}
+        work["gcl_bwd_fused"] = fused_bwd_work(mask, d)
         nbytes = {"gcl_fwd_bf16": 2 * state + small + wbig.numel() * 2
                   + d * 2,
+                  "gcl_bwd_fused": 3 * state + small + wbig.numel() * 2
+                  + wbig.numel() * 4 + (s + 1) * d * 4,
                   "gcl_bwd_data_bf16": 3 * state + small + wbig.numel() * 2
                   + (s + 1) * d * 4,
                   "gcl_bwd_weight_bf16": 2 * state + small
                   + wbig.numel() * 4}
         for name, (kern, plain) in runs.items():
             r = res[name]
+            data, dense_w, ce = work[name]
             r["ms"] = time_ms(kern)
             r["plain_ms"] = time_ms(plain, reps=2)
-            r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes[name],
+            r["bound_ms"], r["bound_by"] = bound_ms(data, nbytes[name],
                                                     peak_tflops(True))
-            r["cuda_core_bound_ms"] = bound_ms(flops, nbytes[name])[0]
-            r["dense_bound_ms"] = bound_ms(dense, nbytes[name],
+            r["cuda_core_bound_ms"] = bound_ms(data, nbytes[name])[0]
+            r["dense_bound_ms"] = bound_ms(dense_w, nbytes[name],
                                            peak_tflops(True))[0]
-            r["dense_cuda_core_bound_ms"] = bound_ms(dense, nbytes[name])[0]
-            r["cost_estimate_bound_ms"] = bound_ms(cost_est, nbytes[name],
+            r["dense_cuda_core_bound_ms"] = bound_ms(dense_w,
+                                                     nbytes[name])[0]
+            r["cost_estimate_bound_ms"] = bound_ms(ce, nbytes[name],
                                                    peak_tflops(True))[0]
-        r = res["gcl_bwd_data_bf16"]
-        r["scratch_bytes"] = nbar * 4 * 4 * s * d * 4
+        r = res["gcl_bwd_fused"]
+        r["pair_ms"] = (res["gcl_bwd_data_bf16"]["ms"]
+                        + res["gcl_bwd_weight_bf16"]["ms"])
+        r["scratch_bytes"] = res["gcl_bwd_data_bf16"]["scratch_bytes"] = \
+            nbar * 4 * 4 * s * d * 4
     counts.restore(before)  # comparison launches do not count
     return res
 
@@ -1066,14 +1105,16 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
     """The column forms of the GCL kernels that tensor parallelism launches
     (output width n of d, `parallel.mesh`), for every one of the d / n
     column shards of one layer over bars of 4 x s cells: `gcl_fwd`,
-    `gcl_eval` at K = 1 and the backward that training runs there: in fp32,
-    and in bf16 above 48 steps a bar, `gcl_bwd_data` and `gcl_bwd_weight`;
-    in bf16 up to 48 `gcl_bwd_fused`. Each against its plain version on the
-    same shard (fp32: rtol = atol = TOL, the sums over bars at SUM_TOL;
-    bf16: BF16_REL of max |plain|). The partial dx and dgate summed over the
-    shards (in fp32) against the square plain version's, at the same
-    tolerances. `equal_to_square` says whether the shards of the forward,
-    eval and weight kernels are bit for bit the square launch's columns.
+    `gcl_eval` at K = 1 and the backward that training runs there: in fp32
+    `gcl_bwd_data` and `gcl_bwd_weight`, in bf16 `gcl_bwd_fused`; in bf16
+    above 48 steps a bar also the split pair `gcl_bwd_data_bf16` and
+    `gcl_bwd_weight_bf16`, the fused backward's yardstick there. Each
+    against its plain version on the same shard (fp32: rtol = atol = TOL,
+    the sums over bars at SUM_TOL; bf16: BF16_REL of max |plain|). Each
+    data backward's partial dx and dgate summed over the shards (in fp32)
+    against its square plain version's, at the same tolerances.
+    `equal_to_square` says whether the shards of the forward, eval and
+    weight kernels are bit for bit the square launch's columns.
     With timing, shard 0's ms per launch, its plain version's and its bound
     (1 / M of the square launch's work: active cells, and every cell for
     `dense_bound_ms`), beside the square launch's ms and bounds."""
@@ -1091,9 +1132,11 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
     ea, eb = ea.to(dt), eb.to(dt)
     saved = kernel_counts()
     suffix = "_bf16" if bf16 else ""
-    split = not bf16 or s > gcl.MAX_STEPS  # the data and weight pair
-    bwd = f"gcl_bwd_data{suffix}" if split else "gcl_bwd_fused"
-    wgt = f"gcl_bwd_weight{suffix}"
+    # the data and weight pair: fp32's route, bf16's yardstick above 48
+    # steps; the fused backward: bf16's route at every grid
+    split = not bf16 or s > gcl.MAX_STEPS
+    data, wgt = f"gcl_bwd_data{suffix}", f"gcl_bwd_weight{suffix}"
+    bwds = ([data] if split else []) + (["gcl_bwd_fused"] if bf16 else [])
 
     def held(name, a, b, summed):
         return held_rel(name, a, b) if bf16 else held_to(name, a, b,
@@ -1115,51 +1158,56 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
             lambda: gcl.gcl_eval_plain(*eval_args, col0=r * n))}
         gc = up[..., r * n:(r + 1) * n].contiguous()
         if split:
-            out[bwd] = (lambda: gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc),
-                        lambda: gcl_bwd.gcl_bwd_data_plain(x, gc, aux,
-                                                           gates, wc))
+            out[data] = (lambda: gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc),
+                         lambda: gcl_bwd.gcl_bwd_data_plain(x, gc, aux,
+                                                            gates, wc))
             out[wgt] = (
                 lambda: gcl_bwd.gcl_bwd_weight(x, gc, aux, gates),
                 lambda: gcl_bwd.gcl_bwd_weight_plain(x, gc, aux, gates))
-        else:
-            out[bwd] = (lambda: gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc),
-                        lambda: gcl_bwd.gcl_bwd_fused_plain(x, gc, aux,
-                                                            gates, wc))
+        if bf16:
+            out["gcl_bwd_fused"] = (
+                lambda: gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc),
+                lambda: gcl_bwd.gcl_bwd_fused_plain(x, gc, aux, gates, wc))
         return out
 
     square = {f"gcl_fwd{suffix}": gcl.gcl_fwd(x, aux, gates, wbig, bias),
               f"gcl_eval{suffix}": gcl.gcl_eval(
                   x, aux, gates, wbig[None], bias[None], ea[None], eb[None])}
+    square_bwd = {}
     if split:
         square[wgt] = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
-        square_bwd = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates, wbig)
-    else:
-        square_bwd = gcl_bwd.gcl_bwd_fused_plain(x, up, aux, gates, wbig)
+        square_bwd[data] = gcl_bwd.gcl_bwd_data_plain(x, up, aux, gates,
+                                                      wbig)
+    if bf16:
+        square_bwd["gcl_bwd_fused"] = gcl_bwd.gcl_bwd_fused_plain(
+            x, up, aux, gates, wbig)
     res = {k: {"max_abs_err": 0.0, "equal_to_square": True}
            for k in runs(0)}
-    res[bwd].pop("equal_to_square")
-    sums = None
+    for b in bwds:
+        res[b].pop("equal_to_square")
+    sums = {}
     for r in range(d // n):
         for name, (kern, plain) in runs(r).items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            if name == bwd:
+            if name in bwds:
                 outs = ("dx", "dgate", "dbias", "dwbig")
                 errs = [held(f"{name} n={n} shard {r} {o}", a, b,
                              o != "dx") for o, a, b in zip(outs, got, want)]
                 part = [v.float() for v in got[:2]]
-                sums = (part if sums is None
-                        else [a + b for a, b in zip(sums, part)])
+                sums[name] = (part if name not in sums
+                              else [a + b for a, b in zip(sums[name], part)])
                 err = max(errs)
             else:
                 err = held(f"{name} n={n} shard {r}", got, want, name == wgt)
                 res[name]["equal_to_square"] &= torch.equal(
                     got, square[name][..., r * n:(r + 1) * n])
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-    for o, a, b in zip(("dx", "dgate"), sums, square_bwd):
-        res[bwd][f"{o}_summed_over_shards_max_abs_err"] = held(
-            f"{bwd} n={n} {o} summed over the shards", a, b.float(),
-            o != "dx")
+    for b in bwds:
+        for o, a, w in zip(("dx", "dgate"), sums[b], square_bwd[b]):
+            res[b][f"{o}_summed_over_shards_max_abs_err"] = held(
+                f"{b} n={n} {o} summed over the shards", a, w.float(),
+                o != "dx")
     if timing:
         active = int(mask.sum())
         esz = x.element_size()
@@ -1189,8 +1237,7 @@ def check_gcl_columns(nbar, d, n, device, bf16=False, timing=True,
               f"gcl_eval{suffix}": lambda: gcl.gcl_eval(
                   x, aux, gates, wbig[None], bias[None], ea[None], eb[None]),
               wgt: lambda: gcl_bwd.gcl_bwd_weight(x, up, aux, gates),
-              f"gcl_bwd_data{suffix}": lambda: gcl_bwd.gcl_bwd_data(
-                  x, up, aux, gates, wbig),
+              data: lambda: gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig),
               "gcl_bwd_fused": lambda: gcl_bwd.gcl_bwd_fused(
                   x, up, aux, gates, wbig)}
         for name, (kern, plain) in runs(0).items():
@@ -3303,9 +3350,9 @@ def ranks_phase(device, card, bf16, nproc=2, model_axis=1, steps=None,
     (the encoder's `linear_merge`), so they are no yardstick at 1e-3; the
     largest distance between the ranks' and one process's grads is
     reported. Each rank's training kernels launched as in phases 5 and 6
-    (above 48 steps a bar as in phase 13: bf16 through the split backward),
-    at the bars' grid, and no other training launch; at M > 1 every launch
-    in the column form, also an eval step's 16 eval GCL launches on the
+    (at every grid: bf16 through the fused backward), at the bars' grid,
+    and no other training launch; at M > 1 every launch in the column
+    form, also an eval step's 16 eval GCL launches on the
     first batch before the steps, whose losses are one process's within
     the same tolerance; the ranks' checkpoint then loads as one process's
     and serves. The bf16 weights have `bn_linear_merge`'s input centred on the
@@ -3418,7 +3465,7 @@ def check_ranks(device, card, p, results, child_s) -> tuple:
     def at_grid(k):  # `kernels.launch_counts`' name at the bars' grid
         return k if s == 32 else f"{k}_s{s}"
 
-    train_k = grid_train_kernels(bf16, s)
+    train_k = GRID_TRAIN_KERNELS[bf16]
     per_step = {at_grid(k): n for k, n in train_k.items()}
     tp = model_axis > 1
     if tp:
@@ -3768,21 +3815,15 @@ def grid_generation(device, card, r, service=False, flip_cap=True) -> tuple:
     return res, launches
 
 
-# the training kernels of a bar grid, by dtype: per optimizer step of the
-# LMD2 configs (16 GCL layers a microbatch, 4 microbatches in fp32, 2 in
-# bf16); bf16 above 48 steps a bar runs the split backward
+# the training kernels of every bar grid, by dtype: per optimizer step of
+# the LMD2 configs (16 GCL layers a microbatch, 4 microbatches in fp32, 2
+# in bf16); bf16 runs the fused backward at every grid
 GRID_TRAIN_KERNELS = {False: {"gcl_fwd": 64, "gcl_bwd_data": 64,
                               "gcl_bwd_weight": 64},
                       True: {"gcl_fwd_bf16": 32, "gcl_bwd_fused": 32}}
-LONG_BF16_TRAIN_KERNELS = {"gcl_fwd_bf16": 32, "gcl_bwd_data_bf16": 32,
-                           "gcl_bwd_weight_bf16": 32}
-
-
-def grid_train_kernels(bf16, s) -> dict:
-    """The training kernels' launches per optimizer step of the LMD2
-    configs (bf16 or not) over bars of 4 x s cells."""
-    return LONG_BF16_TRAIN_KERNELS if bf16 and s > 48 \
-        else GRID_TRAIN_KERNELS[bf16]
+# the bf16 split backward above 48 steps a bar (JAX's bf16 route): on no
+# path of the port, the fused backward's yardstick there
+LONG_BF16_PAIR = ("gcl_bwd_data_bf16", "gcl_bwd_weight_bf16")
 GRID_TRAIN_SAMPLES = 256   # one step a CLI epoch at batch 256
 
 
@@ -3841,7 +3882,7 @@ def grid_training(device, card, r, bf16s=(False, True)) -> tuple:
     the decoder's GCN, the card's kernels' 1.1-1.5 % (H100, PERF.md §6),
     so phase 5's 1e-3 against the CPU would hold the CPU's rounding. The
     counts are set to 0 before the CLI run and before the timed steps and
-    read after each: exactly `grid_train_kernels`' launches a step of the
+    read after each: exactly `GRID_TRAIN_KERNELS`' launches a step of the
     grid's kernels and nothing else. Returns (results, launches by
     `grid_name`)."""
     from polyphemus_tpu_torch import flops
@@ -3857,7 +3898,7 @@ def grid_training(device, card, r, bf16s=(False, True)) -> tuple:
 
         def want(steps):
             return {(name, s, 1): n * steps
-                    for name, n in grid_train_kernels(bf16, s).items()}
+                    for name, n in GRID_TRAIN_KERNELS[bf16].items()}
 
         # ---- the main path: the CLI's step, then the timed steps ----
         t1 = time.perf_counter()
@@ -3929,17 +3970,17 @@ LONG_CHECKS = (13, 16, 24, 48)   # resolutions above 12 held and timed
 LONG_MODEL = 24                  # generated end to end: pypianoroll's grid
 
 
-def long_training_refused(device, r) -> dict:
+def long_training_columns(device, r) -> dict:
     """Phase 13 (v): training at resolution r (S = 4r > 48) in the column
-    form, and what it still refuses on the card. One fp32 `gcl_fused` layer
-    at n = d / 2 (tensor parallelism) runs forward and backward through the
-    long-bar kernels' column forms: one launch each of `gcl_fwd`,
-    `gcl_bwd_data` and `gcl_bwd_weight` at S, each counted as a column-form
-    launch, and finite outputs of n columns. The bf16 fused backward (on no
-    path there: training runs the split backward) raises before any kernel
-    launch, with a message that names the limit and its ROADMAP.md item
-    (`gcl.FUSED_LONG`). The launches here are checks and do not count.
-    {case: what it gave}."""
+    form (n = d / 2, tensor parallelism) on the card. One fp32 `gcl_fused`
+    layer runs forward and backward through the long-bar kernels' column
+    forms: one launch each of `gcl_fwd`, `gcl_bwd_data` and
+    `gcl_bwd_weight` at S, each counted as a column-form launch, and finite
+    outputs of n columns. The bf16 fused backward's column form (bf16
+    training's backward there, once refused) launches once, counted at S
+    and as a column-form launch, every output within BF16_REL of its plain
+    version. The launches here are checks and do not count. {case: what it
+    gave}."""
     import torch
 
     from polyphemus_tpu_torch.ops.kernels import counts, gcl, gcl_bwd
@@ -3969,48 +4010,63 @@ def long_training_refused(device, r) -> dict:
         f"resolution {r} column-form training: output {tuple(out.shape)} "
         f"or its grads not finite")
     counts.reset()
-    xb, ub, gb, wb = (v.bfloat16() for v in (x, up, gates, wbig))
-    try:
-        gcl_bwd.gcl_bwd_fused(xb, ub, aux, gb, wb)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        fail(f"the bf16 fused backward at resolution {r} ran on the card")
-    check("up to 48" in msg and gcl.FUSED_LONG in msg and "ROADMAP" in msg,
-          f"resolution {r} bf16 fused backward raised: {msg}")
-    check(not counts.launches, f"resolution {r} bf16 fused backward "
-                               f"launched {named(counts.launches)} first")
+    cols0 = dict(gcl.col_launches)
+    xb, gb = x.bfloat16(), gates.bfloat16()
+    ub, wb = (v[..., :n].bfloat16().contiguous() for v in (up, wbig))
+    got = gcl_bwd.gcl_bwd_fused(xb, ub, aux, gb, wb)
+    torch.cuda.synchronize()
+    ran16 = dict(counts.launches)
+    cols16 = {k: v - cols0[k] for k, v in gcl.col_launches.items()
+              if v != cols0[k]}
+    check(ran16 == {("gcl_bwd_fused", s, 1): 1}
+          and cols16 == {"gcl_bwd_fused_bf16": 1},
+          f"resolution {r} bf16 fused backward's column form launched "
+          f"{named(ran16)}, columns {cols16}")
+    want = gcl_bwd.gcl_bwd_fused_plain(xb, ub, aux, gb, wb)
+    check(tuple(got[3].shape) == (8 * d, n) and tuple(got[2].shape) == (n,),
+          f"resolution {r} bf16 fused backward's column form: dWbig "
+          f"{tuple(got[3].shape)}, dbias {tuple(got[2].shape)}")
+    errs = {o: held_rel(f"resolution {r} bf16 fused backward n={n} {o}", a,
+                        b) for o, a, b in zip(("dx", "dgate", "dbias",
+                                               "dwbig"), got, want)}
     set_kernel_counts(saved)
     return {"fp32_column_form_launches": named(ran),
-            "fp32_column_form_cols": cols, "bf16_fused_backward": msg}
+            "fp32_column_form_cols": cols,
+            "bf16_fused_column_form_launches": named(ran16),
+            "bf16_fused_column_form_cols": cols16,
+            "bf16_fused_column_form_max_abs_err": errs}
 
 
-def long_training_kernels(device, card) -> dict:
+def long_training_kernels(device, card, fused_forms) -> dict:
     """Phase 13 (vi): the training kernels at bars of 4 x 4r cells for r in
     LONG_CHECKS, d = 512, against their plain versions: fp32 at the fp32
     training microbatch's 128 bars by phase 2b's rules, timed beside their
     bounds (`check_gcl_train`); bf16 at the bf16 microbatch's 256 bars by
-    phase 2c's rule, timed beside their bounds
-    (`check_gcl_train_long_bf16`). {r: {kernel: result}}."""
+    phase 2c's rule, timed beside their bounds, the fused backward beside
+    the split pair (`check_gcl_train_long_bf16`), with its product
+    kernels' ptxas registers, spills, shared memory and SASS counts
+    (`fused_forms`, phase 1's). {r: {kernel: result}}."""
     res = {}
     for r in LONG_CHECKS:
         s = 4 * r
         res[r] = check_gcl_train(128, 512, device, s=s)
         res[r].update(check_gcl_train_long_bf16(256, 512, device, s=s))
+        res[r]["gcl_bwd_fused"]["kernels"] = fused_forms
         print(f"long bars r={r} (4 x {s} cells), the training kernels "
               f"against their plain versions (fp32 128 bars, bf16 256, "
               f"d=512, {card}):", json.dumps(res[r]))
     return res
 
 
-def long_phase(device, card) -> tuple:
+def long_phase(device, card, fused_forms) -> tuple:
     """Phase 13: bars of more than 48 steps (resolution 13 and up): the
     generation kernels at LONG_CHECKS against their plain versions and
     timed (`grid_kernels`), LONG_MODEL's generation, service and CLIs
-    (`grid_generation`), its column-form training layer and what its
-    training refuses (`long_training_refused`), the training kernels at
+    (`grid_generation`), its column-form training layer and bf16 fused
+    backward (`long_training_columns`), the training kernels at
     LONG_CHECKS
-    (`long_training_kernels`) and LONG_MODEL's training in fp32 and bf16
+    (`long_training_kernels`, with `fused_forms`, phase 1's figures of the
+    bf16 fused backward's kernels) and LONG_MODEL's training in fp32 and bf16
     (`grid_training`). Returns (kernel checks, training kernel checks,
     generation and training results, launches by `grid_name`)."""
     t0 = time.perf_counter()
@@ -4018,12 +4074,12 @@ def long_phase(device, card) -> tuple:
     print(f"phase 13 (i): {time.perf_counter() - t0:.1f} s")
     gen, launches = grid_generation(device, card, LONG_MODEL, service=True,
                                     flip_cap=False)
-    refused = long_training_refused(device, LONG_MODEL)
-    print(f"resolution {LONG_MODEL}: the column-form layer on the card, and "
-          f"the bf16 fused backward refused before any launch:",
-          json.dumps(refused))
+    columns = long_training_columns(device, LONG_MODEL)
+    print(f"resolution {LONG_MODEL}: the fp32 column-form layer and the "
+          f"bf16 fused backward's column form on the card ({card}):",
+          json.dumps(columns))
     t0 = time.perf_counter()
-    train_kern = long_training_kernels(device, card)
+    train_kern = long_training_kernels(device, card, fused_forms)
     print(f"phase 13 (vi): {time.perf_counter() - t0:.1f} s")
     train, got = grid_training(device, card, LONG_MODEL,
                                bf16s=(False, True))
@@ -4392,8 +4448,9 @@ def main() -> int:
 
     # ---- 13. bars of more than 48 steps: resolutions 13, 16, 24, 48 ----
     phase("13")
-    long_checks, long_train_checks, _, long_launches = long_phase(device,
-                                                                  card)
+    long_checks, long_train_checks, _, long_launches = long_phase(
+        device, card, {part: grid_k[sym]
+                       for part, sym in LONG_FUSED_FORMS.items()})
 
     # ---- 11. results ----
     phase("11")
@@ -4430,9 +4487,14 @@ def main() -> int:
         name = {"gcl_eval": "gcl_eval_k1"}.get(name, name)
         launches[name] = launches.get(name, 0) + n
 
-    def entry(name, src, replaces, r):
+    def entry(name, src, replaces, r, yardstick=False):
+        """A kernel of the main path, launched there; or with `yardstick`
+        one on no path (0 launches there), held and timed all the same."""
+        n = launches.get(name, 0) if yardstick else launches[name]
+        check(not yardstick or n == 0,
+              f"{name} is on no path but launched {n} times")
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": n,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
@@ -4508,14 +4570,19 @@ def main() -> int:
              True, 256),
             ("gcl_eval_bf16", "gcl_eval_long_bf16_tc.cu",
              "gcl_pallas.py:347", True, 256),
+            ("gcl_bwd_fused_bf16", "gcl_bwd_fused_long_bf16_tc.cu",
+             "gcl_pallas_bwd.py:453", True, 256),
+            # the bf16 split pair: the fused backward's yardstick, on no path
             ("gcl_bwd_data_bf16", "gcl_bwd_data_long.cu",
              "gcl_pallas_bwd.py:528", True, 256),
             ("gcl_bwd_weight_bf16", "gcl_bwd_weight_long.cu",
              "gcl_pallas_bwd.py:564", True, 256)):
-        r = tp_cols[(bf16, nbar, 256, s)]["kernels"][name]
+        r = tp_cols[(bf16, nbar, 256, s)]["kernels"][
+            "gcl_bwd_fused" if name == "gcl_bwd_fused_bf16" else name]
         kernels.append(entry(f"{name}_cols_s{s}",
                              f"polyphemus_tpu_torch/csrc/{src}",
-                             f"polyphemus_tpu/ops/kernels/{replaces}", r))
+                             f"polyphemus_tpu/ops/kernels/{replaces}", r,
+                             yardstick=name in LONG_BF16_PAIR))
     # the generation kernels at the grids of phase 12's models, each held
     # and timed at 512 bars in 12 (i), launched by 12 (ii) and (iii)
     launches.update(grid_launches)
@@ -4575,6 +4642,8 @@ def main() -> int:
             ("gcl_bwd_weight", "gcl_bwd_weight_long.cu",
              "gcl_pallas_bwd.py:564"),
             ("gcl_fwd_bf16", "gcl_eval_long_bf16_tc.cu", "gcl_pallas.py:347"),
+            ("gcl_bwd_fused", "gcl_bwd_fused_long_bf16_tc.cu",
+             "gcl_pallas_bwd.py:453"),
             ("gcl_bwd_data_bf16", "gcl_bwd_data_long.cu",
              "gcl_pallas_bwd.py:528"),
             ("gcl_bwd_weight_bf16", "gcl_bwd_weight_long.cu",
@@ -4582,7 +4651,8 @@ def main() -> int:
         kernels.append(entry(f"{name}_s{s}",
                              f"polyphemus_tpu_torch/csrc/{src}",
                              f"polyphemus_tpu/ops/kernels/{replaces}",
-                             long_train_checks[LONG_MODEL][name]))
+                             long_train_checks[LONG_MODEL][name],
+                             yardstick=name in LONG_BF16_PAIR))
     # the reconstruct encoder's eval layers, one a launch, at the grid of
     # phase 12 (iii)
     s = 4 * GRID_MODELS[0]

@@ -59,20 +59,22 @@
 //   - dnx with dnx = dH_next m r_nx (read by the next relation), dy0 =
 //   colsum(dcol) - dcol + dH_self m single with dcol = dH_onset m r_on (read
 //   by the cell itself); the column sums through shared memory.
-// - The gather kernel. A CTA owns one bar and 128 features, a warp 32 (a
-//   feature a lane); it inverts the bar's relations at the statics' decode
-//   (no atomics) and walks the cells in order, adding to dH_root m the
-//   shares gathered from the scratch (then writing dx), and to this bar's
-//   row of dgate partials in `part` (each element owned by one thread)
-//   their dgate shares; dbias by the same walk. The launcher sums the rows
-//   of `part` in bar order (`gcl::sum_rows`): no float atomics, bitwise
-//   repeatable.
+// - The gather kernel (`gcl_bwd_gather_long.cuh`, shared with the bf16
+//   fused backward's long-bar form). A CTA owns one bar and 128 features, a
+//   warp 32 (a feature a lane); it inverts the bar's relations at the
+//   statics' decode (no atomics) and walks the cells in order, adding to
+//   dH_root m the shares gathered from the scratch (then writing dx), and
+//   to this bar's row of dgate partials in `part` (each element owned by
+//   one thread) their dgate shares; dbias by the same walk. The launcher
+//   sums the rows of `part` in bar order (`gcl::sum_rows`): no float
+//   atomics, bitwise repeatable.
 // - No shared-memory size depends on S but the gather kernel's statics (16
 //   bytes a cell).
 #include <cuda.h>
 
 #include <type_traits>
 
+#include "gcl_bwd_gather_long.cuh"
 #include "gcl_common.cuh"
 
 namespace {
@@ -86,8 +88,6 @@ constexpr int MT = T * CW;       // rows of an item
 constexpr int BC = 32;           // dx features a CTA of the product kernel
 constexpr int RPT = 8;           // rows a thread: r0 + 4 r
 constexpr int CPT = 2;           // columns a thread: cg + 16 c
-constexpr int NUP = 3;           // scratch planes: dmsg, dz, dy0
-constexpr int GATHER_THREADS = 128;  // gather kernel: 4 warps x 32 features
 
 // Contracted features a stage: rows of 128 bytes of element type E, 8
 // chunks of 16 bytes.
@@ -298,7 +298,7 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dr,
     }
     __syncthreads();
     const size_t plane = (size_t)N * d;
-    float* upb = up + (size_t)bar * NUP * plane;
+    float* upb = up + (size_t)bar * UP_PLANES * plane;
     float* drb = dr + (size_t)bar * plane;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
@@ -321,85 +321,6 @@ gcl_bwd_data_long_kernel(const int* __restrict__ aux, float* __restrict__ dr,
       }
     }
   }
-}
-
-// The gather kernel: dx = dH_root m (dr; in fp32 dx itself, updated in
-// place) + the shares the bar's cells take through the relations and the
-// self term, and this bar's row of dgate / dbias partials, part[bar] =
-// [dgate (S, d) | dbias (n)] (zero before); g rows n wide, the CTAs of
-// features f < n also sum dbias.
-template <typename E>
-__global__ void __launch_bounds__(GATHER_THREADS)
-gcl_bwd_gather_long_kernel(const E* __restrict__ x,
-                           const E* __restrict__ g,
-                           const int* __restrict__ aux,
-                           const E* __restrict__ gates,
-                           const float* __restrict__ up,
-                           const float* __restrict__ dr,
-                           E* __restrict__ dx, float* __restrict__ part,
-                           int S, int d, int n) {
-  using R = Elem<E>;
-  constexpr bool kInPlace = std::is_same<E, float>::value;
-  // src[r][j] = i | dist << 16 for the cell i that reads cell j through
-  // relation r (0 previous, 1 next in the track, 2 previous column) and
-  // whose share is not 0, or -1; m[j] the mask
-  extern __shared__ int gsm[];
-  const int N = T * S;
-  int* src = gsm;
-  float* m = reinterpret_cast<float*>(gsm + 3 * N);
-  const int bar = blockIdx.x, tid = threadIdx.x;
-  const int* a = aux + (size_t)bar * N_AUX * N;
-  for (int i = tid; i < 3 * N; i += GATHER_THREADS) src[i] = -1;
-  __syncthreads();
-  for (int i = tid; i < N; i += GATHER_THREADS) {
-    const CellStatics c = cell_statics_grid(a, i, N, S);
-    m[i] = c.m;
-    if (c.m > 0.f && c.okp > 0.f) src[c.ps] = i | c.dp << 16;
-    if (c.m > 0.f && c.okn > 0.f) src[N + c.ns] = i | c.dn << 16;
-    if (c.okpn > 0.f && a[CNT_ON * N + i] + (c.m > 0.f) > 0)
-      src[2 * N + c.pn] = i | c.dpn << 16;
-  }
-  __syncthreads();
-  const int f = blockIdx.y * GATHER_THREADS + tid;
-  const size_t plane = (size_t)N * d;
-  const E* xb = x + (size_t)bar * plane + f;
-  const bool has_bias = f < n;
-  const E* gb = g + (size_t)bar * N * n + f;
-  const float* upb = up + (size_t)bar * NUP * plane + f;
-  const float* drb = dr + (size_t)bar * plane + f;
-  E* dxb = dx + (size_t)bar * plane + f;
-  float* pb = part + (size_t)bar * ((size_t)S * d + n) + f;
-  const float g0 = R::load1(gates + f);
-  float db = 0.f;
-  for (int j = 0; j < N; ++j) {
-    const size_t jd = (size_t)j * d;
-    const float xv = R::load1(xb + jd);
-    float dxv;
-    if constexpr (kInPlace)
-      dxv = dxb[jd];
-    else
-      dxv = drb[jd];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int e = src[r * N + j];
-      if (e < 0) continue;
-      const int i = e & 0xffff, dist = e >> 16;
-      const float gv = R::load1(gates + (size_t)dist * d + f);
-      if (!(R::rnd(xv * gv) > 0.f)) continue;
-      const float u = upb[(r < 2 ? 0 : plane) + (size_t)i * d];
-      dxv += R::rnd(u * gv);
-      pb[(size_t)dist * d] += R::rnd(u * xv);
-    }
-    const float mj = m[j];
-    if (mj > 0.f && R::rnd(xv * g0) > 0.f) {
-      const float dy0 = upb[2 * plane + jd];
-      dxv += dy0 * g0;
-      pb[0] += dy0 * xv;
-    }
-    R::store1(dxb + jd, dxv);
-    if (has_bias) db += R::load1(gb + (size_t)j * n) * mj;
-  }
-  if (has_bias) pb[(size_t)S * d] = db;
 }
 
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
@@ -471,7 +392,7 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
   const long long row = (long long)S * d + n;  // a partial row
   if (nbar == 0)
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * row, st);
-  const int N = T * S, ntile = (S + CW - 1) / CW;
+  const int ntile = (S + CW - 1) / CW;
   const long long nitem = (long long)nbar * ntile;
   if (nitem > 0x7fffffffLL || (long long)nbar * T > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -506,20 +427,9 @@ int launch(const void* x, const void* g, const void* aux, const void* gates,
   gcl_bwd_data_long_kernel<E><<<dim3(tiles, nchunks), THREADS, smem, st>>>(
       (const int*)aux, dr, (float*)up, nbar, S, d, n, nchunks, gmap, wmap);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(part, 0, sizeof(float) * row * nbar, st)) !=
-      cudaSuccess)
-    return (int)err;
-  const int gsmem = (int)(sizeof(int) * 4 * N);
-  if ((err = cudaFuncSetAttribute(gcl_bwd_gather_long_kernel<E>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  gsmem)) != cudaSuccess)
-    return (int)err;
-  gcl_bwd_gather_long_kernel<E><<<dim3(nbar, d / GATHER_THREADS),
-                                  GATHER_THREADS, gsmem, st>>>(
-      (const E*)x, (const E*)g, (const int*)aux, (const E*)gates,
-      (const float*)up, dr, (E*)dx, (float*)part, S, d, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)sum_rows((const float*)part, (float*)out, nbar, row, st);
+  return (int)gather_long<E>((const E*)x, (const E*)g, (const int*)aux,
+                            (const E*)gates, (const float*)up, dr, (E*)dx,
+                            (float*)part, (float*)out, nbar, S, d, n, st);
 }
 
 }  // namespace
@@ -551,8 +461,9 @@ extern "C" int gcl_bwd_data_long_launch(const void* x, const void* g,
 }
 
 // The same in bf16: x, g, gates, wbig and dx bf16, out and part fp32; up
-// holds (nbar, 4, 4 S, d) floats, its last nbar x 4 S x d the fp32 dH_root
-// m that the gather kernel adds its shares to before it rounds dx.
+// holds (4 nbar, 4 S, d) floats: the planes (nbar, 3, 4 S, d), then the
+// fp32 dH_root m (nbar, 4 S, d) that the gather kernel adds its shares to
+// before it rounds dx.
 extern "C" int gcl_bwd_data_long_bf16_launch(const void* x, const void* g,
                                              const void* aux,
                                              const void* gates,
@@ -560,7 +471,7 @@ extern "C" int gcl_bwd_data_long_bf16_launch(const void* x, const void* g,
                                              void* part, void* out, void* up,
                                              int nbar, int S, int d, int n,
                                              void* stream) {
-  float* dr = (float*)up + (size_t)nbar * NUP * T * S * d;
+  float* dr = (float*)up + (size_t)nbar * UP_PLANES * T * S * d;
   return launch<__nv_bfloat16>(x, g, aux, gates, wbig, dx, part, out, up, dr,
                                nbar, S, d, n, (cudaStream_t)stream);
 }

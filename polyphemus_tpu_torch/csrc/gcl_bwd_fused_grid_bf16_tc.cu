@@ -43,6 +43,7 @@
 //   the CTA, a barrier, its rebuild, a barrier. The copies still run one
 //   bar ahead. No dW partials; bitwise repeatable.
 #include "gcl_common.cuh"
+#include "gcl_dw_bf16.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -90,13 +91,6 @@ struct Smem : GridStatics<C::N> {
   alignas(16) bf16 g[2][C::BP * BK];      // g[:, stage] [padded row][k]
   alignas(16) bf16 w[2][NBLK * BC * BK];  // W[blk*d + c0 + n, stage]
 };
-
-// Element offset of 8-element chunk ch (of 4) of row r in a stage tile of
-// 32 features a row: stored at chunk ch ^ ((r / 2) % 4), so the 8 rows of
-// an ldmatrix (64 bytes apart) touch 8 distinct 16-byte bank groups.
-__device__ __forceinline__ int s_off(int r, int ch) {
-  return r * BK + ((ch ^ ((r >> 1) & 3)) << 3);
-}
 
 // Features f0..f0+BK of g (N cells, into their padded rows) and of the W
 // rows of this CTA's columns in all 8 blocks (rows n wide).
@@ -350,14 +344,8 @@ struct DwSmem {
   alignas(16) bf16 gts[C::S][WR];  // gate_table[:, c tile]
 };
 
-static_assert(WR == BK, "the A tiles share s_off with the dH stages");
-
-// Element offset of 8-element chunk ch (of 8) of row r in a g tile of 64
-// features a row: stored at chunk ch ^ (r % 8), so the 8 rows of an
-// ldmatrix (128 bytes apart) touch 8 distinct 16-byte bank groups.
-__device__ __forceinline__ int g_off(int r, int ch) {
-  return r * WJ + ((ch ^ (r & 7)) << 3);
-}
+static_assert(WR == BK && BK == TILE_K && WJ == TILE_G,
+              "the A tiles share s_off with the dH stages, the rows of gcl_dw_bf16.cuh's layouts");
 
 // x[bar][:, c0..c0+31], g[bar][:, j0..j0+63] and aux[bar] by 16-byte
 // copies; x rows d wide, g rows n wide.
@@ -376,61 +364,6 @@ __device__ __forceinline__ void dw_load_stage(DwStage<C>& st, const bf16* xb,
   }
   for (int c = tid; c < N_AUX * C::N / 4; c += THREADS)
     cp_async16(st.aux + c * 4, ab + c * 4);
-}
-
-// Four bf16 values (columns q..q+3) in two pairs, in bf16x2 arithmetic
-// (correctly rounded, as in `gcl_bwd_fused_bf16_tc.cu`).
-struct H4 {
-  bf162 lo, hi;
-};
-
-__device__ __forceinline__ H4 ld4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return {*reinterpret_cast<const bf162*>(&u.x), *reinterpret_cast<const bf162*>(&u.y)};
-}
-
-__device__ __forceinline__ void st4(bf16* p, H4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&v.lo),
-                                            *reinterpret_cast<const uint32_t*>(&v.hi));
-}
-
-__device__ __forceinline__ H4 mul(H4 a, bf162 s) { return {__hmul2(a.lo, s), __hmul2(a.hi, s)}; }
-__device__ __forceinline__ H4 add(H4 a, H4 b) { return {__hadd2(a.lo, b.lo), __hadd2(a.hi, b.hi)}; }
-__device__ __forceinline__ H4 sub(H4 a, H4 b) { return {__hsub2(a.lo, b.lo), __hsub2(a.hi, b.hi)}; }
-
-// relu(rnd(a * b)) * s: a message through a relation, s its 0/1 validity
-__device__ __forceinline__ H4 msg(H4 a, H4 b, bf162 s) {
-  const bf162 z = __float2bfloat162_rn(0.f);
-  return {__hmul2(__hmax2(__hmul2(a.lo, b.lo), z), s),
-          __hmul2(__hmax2(__hmul2(a.hi, b.hi), z), s)};
-}
-
-// rnd(v[0] + v[1] + v[2] + v[3]), the sums in fp32 in this order
-__device__ __forceinline__ H4 col_sum(const H4 (&v)[T]) {
-  float2 lo = __bfloat1622float2(v[0].lo), hi = __bfloat1622float2(v[0].hi);
-#pragma unroll
-  for (int t = 1; t < T; ++t) {
-    const float2 l = __bfloat1622float2(v[t].lo), h = __bfloat1622float2(v[t].hi);
-    lo.x += l.x; lo.y += l.y; hi.x += h.x; hi.y += h.y;
-  }
-  return {__floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(hi.x, hi.y)};
-}
-
-// acc[mt][nt] (rows 16 mt.., columns 8 nt.. of the warp's 32 x 32) += the
-// 16-row k-step of A tile a (k-major, s_off) at rows k0.. times b, the
-// warp's B fragments of that k-step: b[np] holds n8 tiles 2 np, 2 np + 1.
-__device__ __forceinline__ void dw_mma(float (&acc)[2][4][4], const bf16* a_tile,
-                                       int k0, const uint32_t (&b)[2][4],
-                                       int lane) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    uint32_t a[4];
-    ldsm_x4_t(a, a_tile + s_off(k0 + (lane & 7) + ((lane >> 4) << 3),
-                                2 * mt + ((lane >> 3) & 1)));
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      mma_bf16(acc[mt][nt], a, b[nt >> 1][2 * (nt & 1)], b[nt >> 1][2 * (nt & 1) + 1]);
-  }
 }
 
 // The statics of the bar's N cells into sm.rows; the caller synchronises.

@@ -29,8 +29,9 @@ from .ablate_chord_tail import time_ms
 
 KERNEL = "gcl_bwd_fused_bf16"
 OUT = _build.BUILD_DIR.parent / "ablate_gcl_bwd_fused"
-DW_MMA = ("      mma_bf16(acc[mt][nt], a, b[nt >> 1][2 * (nt & 1)], "
-          "b[nt >> 1][2 * (nt & 1) + 1]);")
+# the dW product's MMAs sit in `csrc/gcl_dw_bf16.cuh`: a flag defined
+# before its include leaves them out
+DW_INCLUDE = '#include "gcl_dw_bf16.cuh"'
 H_BUILD = "  for (int it = tid; it < S * WR / 4; it += THREADS) {"
 DW_LAUNCH = "  gcl_bwd_dw_bf16_tc_kernel<<<"
 DH_LAUNCH = "  gcl_bwd_fused_bf16_tc_kernel<<<"
@@ -41,7 +42,7 @@ SCATTERS = """    // ---- 3. relu masks from the recomputed pre-activations, sca
     for (int e = tid; e < N * BC; e += THREADS) {"""
 VARIANTS = {
     "whole": [],
-    "no_dw_mma": [(DW_MMA, "      ;")],
+    "no_dw_mma": [(DW_INCLUDE, "#define GCL_DW_NO_MMA\n" + DW_INCLUDE)],
     "no_h_rebuild": [(H_BUILD, H_BUILD.replace("it = tid", "it = S * WR / 4"))],
     # nbar > 0 where the kernels launch: the condition never holds
     "no_dw_launch": [(DW_LAUNCH, "  if (nbar < 0)" + DW_LAUNCH)],

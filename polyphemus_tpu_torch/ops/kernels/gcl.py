@@ -60,24 +60,20 @@ N_AUX = 14
 # BASE_STEPS = 32 (resolution 8) is the grid of the first kernels, every
 # other one up to MAX_STEPS goes to the `*_grid*.cu` sources, and above it
 # the eval layer to the `gcl_eval_long_*.cu` ones, training to those and
-# the `gcl_bwd_*_long.cu` ones (bf16 through the split backward there, as
-# JAX trains in both dtypes), square or in the column form; the fused
-# backward takes S up to MAX_STEPS
+# the long-bar backward sources (fp32: the split pair `gcl_bwd_*_long.cu`;
+# bf16: the fused `gcl_bwd_fused_long_bf16_tc.cu`), square or in the column
+# form
 TRACKS, MAX_STEPS, BASE_STEPS = 4, 48, 32
 
 # the wrappers count their launches in `counts.launches`; the column-form
 # launches (n < d) among those of every GCL kernel, by the kernel names of
 # `kernels.launch_counts`; counted beside the totals (the split backward's
-# bf16 forms run above MAX_STEPS only)
+# bf16 forms take S > MAX_STEPS only, on no training path: bf16 training
+# runs the fused backward at every grid)
 COL_KERNELS = ("gcl_eval", "gcl_eval_bf16", "gcl_fwd", "gcl_fwd_bf16",
                "gcl_bwd_data", "gcl_bwd_weight", "gcl_bwd_fused_bf16",
                "gcl_bwd_data_bf16", "gcl_bwd_weight_bf16")
 col_launches: dict[str, int] = dict.fromkeys(COL_KERNELS, 0)
-
-# the ROADMAP.md item that a refusal above MAX_STEPS names: Queue 2's
-# fused backward (on no path there: training runs the split backward above
-# MAX_STEPS)
-FUSED_LONG = f"the bf16 fused backward at S > {MAX_STEPS}"
 
 
 def count_cols(name: str, n: int, d: int) -> None:
@@ -273,29 +269,15 @@ def _check_tracks(kernel: str, n: int, s: int) -> None:
 def check_grid(kernel: str, n: int, s: int, dt=torch.float32) -> None:
     """Raise unless a training kernel takes bars of n cells on the card in
     dtype dt, with the square weights or a column shard alike: 4 x s cells
-    with s a multiple of 4, and up to MAX_STEPS (resolutions 1-12) only for
-    the fused backward (`gcl_bwd_fused`, bf16 training's backward up to
-    MAX_STEPS; the fp32 one's grid is 4 x 32 only,
-    `gcl_bwd.check_fused_form`): above MAX_STEPS bf16 training runs the
-    split backward, as JAX's does at every grid. dt changes nothing here:
-    the wrappers refuse a dtype their kernels do not take, and the fp64
-    training layer runs the plain versions on the card (chip_smoke's fp64
-    witness)."""
+    with s a multiple of 4, every resolution (the fused backward in bf16;
+    the fp32 one's grid is 4 x 32 only, `gcl_bwd.check_fused_form`). dt
+    changes nothing here: the wrappers refuse a dtype their kernels do not
+    take, and the fp64 training layer runs the plain versions on the card
+    (chip_smoke's fp64 witness)."""
     _check_tracks(kernel, n, s)
-    long_ok = kernel != "gcl_bwd_fused"
     if s < 4 or s % 4:
         raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
-                         f"a multiple of 4" + (
-                             "" if long_ok else f" up to {MAX_STEPS}")
-                         + f", got S={s}")
-    if s > MAX_STEPS and not long_ok:
-        raise ValueError(f"{kernel} kernel takes bars of 4 x S cells with S "
-                         f"a multiple of 4 up to {MAX_STEPS} (resolutions "
-                         f"1-{MAX_STEPS // 4}), got S={s}: {FUSED_LONG} is "
-                         f"not ported yet (ROADMAP.md, Queue 2: "
-                         f"{FUSED_LONG}); training above {MAX_STEPS} steps "
-                         f"runs the split backward (gcl_bwd_data and "
-                         f"gcl_bwd_weight) in both dtypes")
+                         f"a multiple of 4, got S={s}")
 
 
 def check_eval_grid(kernel: str, n: int, s: int, dt=None) -> None:

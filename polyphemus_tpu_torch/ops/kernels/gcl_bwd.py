@@ -11,13 +11,17 @@ kernels on the tensor cores: dx, dgate and dbias over the dH product, and
 dWbig) in bf16. Bars of 4 x S cells at another S up to 48 (resolutions
 1-12) go to `csrc/gcl_bwd_data_grid.cu`, `csrc/gcl_bwd_weight_grid.cu` and
 `csrc/gcl_bwd_fused_grid_bf16_tc.cu`, and above it (resolutions 13 and
-up) the data and weight pair, fp32 or bf16, square or in the column form,
+up), square or in the column form, the data and weight pair, fp32 or bf16,
 to `csrc/gcl_bwd_data_long.cu` and `csrc/gcl_bwd_weight_long.cu`
-(templates on the element type); the bf16 fused backward refuses that grid
-(`gcl.check_grid`), and the fp32 one, on no training path, takes 4 x 32
-only. The pair takes bf16 above 48 steps only: no path runs it in bf16
-below. On a CPU tensor each wrapper runs its plain PyTorch version, which
-follows the equations of the forward (`gcl.gcl_fwd`):
+(templates on the element type) and the bf16 fused backward to
+`csrc/gcl_bwd_fused_long_bf16_tc.cu` (three kernels: the dH product on the
+tensor cores into an upstream scratch, the data backward's gather, and the
+dW product on the tensor cores); the fp32 fused backward, on no training
+path, takes 4 x 32 only. The pair takes bf16 above 48 steps only, where it
+is JAX's bf16 route and the fused kernels' yardstick on the card; no
+training path runs it in bf16. On a CPU tensor each wrapper runs its plain
+PyTorch version, which follows the equations of the forward
+(`gcl.gcl_fwd`):
 
     msg_p = relu(x[src_p] * G[dist_p]),  msg_n = relu(x[src_n] * G[dist_n])
     h_track = (msg_p + msg_n) * r_tr * m
@@ -33,11 +37,10 @@ plain version carries values in fp32 and rounds them to bf16 where the
 Pallas body casts to its compute dtype (`_bwd_data_kernel`,
 `_bwd_weight_kernel` and `_bwd_fused_kernel` round at the same places:
 `rounded_data`, `rounded_weight`). The training layer takes the data and
-weight pair in fp32, and in bf16 above 48 steps, as JAX's `gcl_fused`
-takes it in both dtypes at every grid (`gcl_pallas.py:493-516`); in bf16
-up to 48 steps it takes the fused single pass, which gives the pair's
-outputs. `GclFused` refuses a grid the kernels do not take before its
-forward.
+weight pair in fp32, as JAX's `gcl_fused` takes it in both dtypes at every
+grid (`gcl_pallas.py:493-516`); in bf16 it takes the fused single pass at
+every grid, which gives the pair's outputs. `GclFused` refuses a grid the
+kernels do not take before its forward.
 
 Column form (tensor parallelism, `parallel.mesh`): Wbig may hold n of the
 d output columns, (8d, n) with n % 128 == 0 dividing d, and g those n
@@ -120,15 +123,15 @@ def gcl_bwd_weight_plain(x, g, aux, gate_table):
 def check_split_dtype(kernel: str, dt, s: int) -> None:
     """Raise unless the data or weight backward's kernels take dtype dt at
     bars of 4 x s cells: fp32 at every grid, bf16 above MAX_STEPS (the
-    long-bar forms, bf16 training's backward there); bf16 training up to
-    MAX_STEPS runs `gcl_bwd_fused`, and no path runs the pair in bf16."""
+    long-bar forms, JAX's bf16 route and the yardstick of the fused
+    backward there); bf16 training runs `gcl_bwd_fused` at every grid, and
+    no training path runs the pair in bf16."""
     if dt == torch.float32 or (dt == torch.bfloat16 and s > MAX_STEPS):
         return
     if dt == torch.bfloat16:
         raise ValueError(f"{kernel} takes bfloat16 at bars of more than "
                          f"{MAX_STEPS} steps only (its long-bar form), got "
-                         f"S={s}: bf16 training up to {MAX_STEPS} steps runs "
-                         f"gcl_bwd_fused")
+                         f"S={s}: bf16 training runs gcl_bwd_fused")
     raise ValueError(f"{kernel} takes float32 or bfloat16, got {dt}")
 
 
@@ -140,8 +143,8 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
     Returns (dx (nbar, n, d) in x's dtype, dgate_table (S, d), dbias (w,)),
     the last two fp32; dgate and dbias sum over every bar, dx and dgate
     over the w columns. Above MAX_STEPS the long-bar kernel takes an
-    upstream scratch of (nbar, 3, n, d) floats, and in bf16 a fourth such
-    plane for dx before it is rounded."""
+    upstream scratch of (nbar, 3, n, d) floats, and in bf16 after it
+    (nbar, n, d) more for dx before it is rounded."""
     if not on_card("gcl_bwd_data", x):
         return gcl_bwd_data_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
@@ -162,10 +165,11 @@ def gcl_bwd_data(x, g, aux, gate_table, wbig):
     ptrs = (x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
             wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr())
     if s > MAX_STEPS:
-        # the upstream planes between the long-bar form's two kernels (and
-        # in bf16 dH_root m, which dx takes in fp32 until it is rounded)
+        # the upstream planes (nbar, 3, n, d) between the long-bar form's
+        # two kernels, and in bf16 after them dH_root m (nbar, n, d), which
+        # dx takes in fp32 until it is rounded
         planes = 3 if dt == f32 else 4
-        up = torch.empty((nbar, planes, n, d), dtype=f32, device=x.device)
+        up = torch.empty((planes * nbar, n, d), dtype=f32, device=x.device)
         ptrs += (up.data_ptr(),)
     ptrs += (nbar,)
     name = "gcl_bwd_data" if dt == f32 else "gcl_bwd_data_bf16"
@@ -321,16 +325,18 @@ def gcl_bwd_fused_plain(x, g, aux, gate_table, wbig):
 
 
 def fused_chunks(nbar: int, d: int, sms: int) -> int:
-    """Bar chunks of `gcl_bwd_fused` (of its dH kernel in bf16): one CTA per
-    SM over the (d / 32) column tiles times the chunks."""
+    """Bar chunks of `gcl_bwd_fused` (of its dH kernel in bf16) up to
+    MAX_STEPS: one CTA per SM over the (d / 32) column tiles times the
+    chunks."""
     return max(1, min(nbar, sms // (d // 32)))
 
 
 def check_fused_form(dt, s: int, w: int, d: int) -> None:
     """Raise unless the fused backward's kernels take dtype dt at bars of 4
     x s cells and output width w of d: bf16 at every grid `gcl.check_grid`
-    takes, fp32 (`csrc/gcl_bwd_fused.cu`, on no training path) at 4 x 32
-    cells and w = d only."""
+    takes (above MAX_STEPS `csrc/gcl_bwd_fused_long_bf16_tc.cu`), fp32
+    (`csrc/gcl_bwd_fused.cu`, on no training path) at 4 x 32 cells and w =
+    d only."""
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcl_bwd_fused takes float32 or bfloat16, got {dt}")
     if dt == torch.float32 and w != d:
@@ -350,7 +356,10 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
     x, g, gate_table (S, d) and wbig in one dtype, fp32 or bf16. Returns
     (dx (nbar, n, d) in x's dtype, dgate_table (S, d), dbias (w,), dwbig
     (8d, w) in the block order of `pack_weights`), the last three fp32 sums
-    over every bar; dx and dgate sum over the w columns."""
+    over every bar; dx and dgate sum over the w columns. Above MAX_STEPS
+    the bf16 kernels take an upstream scratch of (4 nbar, n, d) floats
+    (the data backward's three planes (nbar, 3, n, d), then dH_root m
+    (nbar, n, d)) and a row of dgate / dbias partials a bar."""
     if not on_card("gcl_bwd_fused", x):
         return gcl_bwd_fused_plain(x, g, aux, gate_table, wbig)
     nbar, n, d = x.shape
@@ -364,12 +373,23 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
         "aux": (aux, (nbar, N_AUX, n), torch.int32),
         "gate_table": (gate_table, (s, d), dt),
         "wbig": (wbig, (8 * d, w), dt)}, n_out=w, s=s)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks = fused_chunks(nbar, d, sms)
     dx = torch.empty_like(x)
-    part_gb = torch.empty((chunks, s * d + w), dtype=f32, device=x.device)
     dwbig = torch.empty((8 * d, w), dtype=f32, device=x.device)
     out = torch.empty(s * d + w, dtype=f32, device=x.device)
+    if s > MAX_STEPS:  # bf16 (`check_fused_form`): the long-bar form
+        part = torch.empty((max(nbar, 1), s * d + w), dtype=f32,
+                           device=x.device)
+        up = torch.empty((4 * nbar, n, d), dtype=f32, device=x.device)
+        launch("gcl_bwd_fused_bf16", s, (
+            x.data_ptr(), g.data_ptr(), aux.data_ptr(), gate_table.data_ptr(),
+            wbig.data_ptr(), dx.data_ptr(), part.data_ptr(), dwbig.data_ptr(),
+            out.data_ptr(), up.data_ptr(), nbar), (d, w), x.device)
+        counts.count("gcl_bwd_fused", s)
+        count_cols("gcl_bwd_fused_bf16", w, d)
+        return dx, out[:s * d].view(s, d), out[s * d:], dwbig
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    chunks = fused_chunks(nbar, d, sms)
+    part_gb = torch.empty((chunks, s * d + w), dtype=f32, device=x.device)
     if dt == f32:
         # the fp32 form sums dWbig over per-chunk partials
         name = "gcl_bwd_fused"
@@ -393,10 +413,10 @@ def gcl_bwd_fused(x, g, aux, gate_table, wbig):
 
 class GclFused(torch.autograd.Function):
     """The training GCL layer: `gcl_fwd` forward; backward by `gcl_bwd_data`
-    and `gcl_bwd_weight` in fp32 and above MAX_STEPS (JAX's route in both
-    dtypes), by `gcl_bwd_fused` in bf16 up to MAX_STEPS (the same outputs
-    in one pass). No message intermediate is saved; the backward kernels
-    recompute them from x.
+    and `gcl_bwd_weight` in fp32 (JAX's route in both dtypes), by
+    `gcl_bwd_fused` in bf16 at every grid (the same outputs in one pass).
+    No message intermediate is saved; the backward kernels recompute them
+    from x.
     Each grad comes back in its input's dtype. With a column shard of the
     weights (rel_weight (6, d, n), root (d, n), bias (n,)) the output is
     those n columns and the grads of x and gate_table are partial sums."""
@@ -417,7 +437,7 @@ class GclFused(torch.autograd.Function):
         n_tracks = mask.shape[-2]
         d = x.shape[-1]
         g = g.contiguous().to(x.dtype)
-        if x.dtype == torch.float32 or gate_table.shape[0] > MAX_STEPS:
+        if x.dtype == torch.float32:
             dx, dgate, dbias = gcl_bwd_data(x, g, aux, gate_table, wbig)
             dwbig = gcl_bwd_weight(x, g, aux, gate_table)
         else:

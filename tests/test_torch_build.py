@@ -142,11 +142,15 @@ def test_fp32_data_backward_walks_its_bars_without_atomics():
 def test_ablation_anchors_are_in_their_sources(module):
     """Each patch of each variant replaces text that occurs exactly once in
     the source the module ablates, so no later edit of the source turns a
-    variant silently into the whole kernel (or patches two places)."""
+    variant silently into the whole kernel (or patches two places); a flag
+    that a patch defines is tested by a header under `csrc/`."""
     source = _build.SIGNATURES[module.KERNEL][0]
     text = (_build.CSRC / f"{source}.cu").read_text()
+    headers = "".join(p.read_text() for p in _build.CSRC.glob("*.cuh"))
     assert module.VARIANTS["whole"] == []
     for name, patches in module.VARIANTS.items():
         for old, new in patches:
             assert text.count(old) == 1, (name, old)
             assert new != old, name
+            for flag in re.findall(r"#define (\w+)", new):
+                assert f"#ifndef {flag}" in headers, (name, flag)

@@ -256,11 +256,10 @@ def test_grid_generator_on_the_card_matches_the_cpu(cuda, tmp_path,
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     """With 3 tracks the eval kernels and the chord tail raise; past
     resolution 12 (S = 52), which generation and training take in both
-    dtypes and both forms, the bf16 fused backward (bf16 training runs the
-    split backward there) raises before any kernel runs, naming its
-    roadmap item; the split backward refuses bf16 up to 48 steps (bf16
-    training runs the fused backward there); the fp32 fused backward (on
-    no training path) refuses every grid but 4 x 32 cells."""
+    dtypes and both forms, the fp32 fused backward (on no training path)
+    raises before any kernel runs, as at every grid but 4 x 32 cells; the
+    split backward refuses bf16 up to 48 steps (bf16 training runs the
+    fused backward at every grid)."""
     s, t = 16, 3
     mask, args = chip_smoke.kernel_inputs(2, 128, 1, cuda, 0, s)
     x = args[0].reshape(2, 4, s, 128)[:, :t].reshape(2, t * s, 128)
@@ -272,12 +271,10 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
         chord_tail.chord_tail_tokens(args[0][:, :t].contiguous(), *args[1:],
                                      n_slots=15)
     mask, args = chip_smoke.kernel_inputs(2, 256, 1, cuda, 0, 52)
-    x, aux, gates, w, b = args[:5]
+    x, aux, gates, w = args[:4]
     before = dict(counts.launches)
-    xb, gb, wb, bb = (v.bfloat16() for v in (x, gates, w[0], b[0]))
-    with pytest.raises(ValueError, match="up to 48 .*the bf16 fused backward "
-                                         "at S > 48 .*split backward"):
-        gcl_bwd.gcl_bwd_fused(xb.detach(), xb.detach(), aux, gb, wb)
+    with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
+        gcl_bwd.gcl_bwd_fused(x, x, aux, gates, w[0])
     _, (x, up, aux, gates, wbig, _) = chip_smoke.train_kernel_inputs(
         2, 128, cuda, 0, 16)
     with pytest.raises(ValueError, match="fp32 fused backward.*resolution 8"):
@@ -366,17 +363,22 @@ def test_long_gcl_kernels_are_tensor_core_and_ffma_kernels(cuda):
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_long_column_forms_match_plain(cuda, bf16, s, n):
     """Every shard of `gcl_fwd`, `gcl_eval` (K = 1), `gcl_bwd_data` and
-    `gcl_bwd_weight` over bars of 4 x s cells against its plain version,
-    the partial dx and dgate summed over the shards against the square
-    plain version (`chip_smoke.check_gcl_columns`); the forward, eval and
-    weight shards bit for bit the square launch's columns; each wrapper
-    counts its launches in the column form; no comparison launch counts."""
+    `gcl_bwd_weight` (in bf16 the split pair, the fused backward's
+    yardstick) and in bf16 `gcl_bwd_fused` (training's backward) over bars
+    of 4 x s cells against its plain version, each data backward's partial
+    dx and dgate summed over the shards against the square plain version
+    (`chip_smoke.check_gcl_columns`); the forward, eval and weight shards
+    bit for bit the square launch's columns; each wrapper counts its
+    launches in the column form; no comparison launch counts."""
     before = dict(gcl.col_launches), dict(counts.launches)
     res = chip_smoke.check_gcl_columns(40, 512, n, cuda, bf16=bf16,
                                        timing=False, s=s)
     suffix = "_bf16" if bf16 else ""
-    assert set(res["kernels"]) == {f"{k}{suffix}" for k in (
-        "gcl_fwd", "gcl_eval", "gcl_bwd_data", "gcl_bwd_weight")}
+    bwd = (f"gcl_bwd_data{suffix}", f"gcl_bwd_weight{suffix}") + (
+        ("gcl_bwd_fused",) if bf16 else ())
+    assert set(res["kernels"]) == {f"gcl_fwd{suffix}", f"gcl_eval{suffix}",
+                                   *bwd}
+    assert res["kernels"][f"gcl_bwd_weight{suffix}"]["equal_to_square"]
     for name, r in res["kernels"].items():
         assert r.get("equal_to_square", True), name
     assert (dict(gcl.col_launches), counts.launches) == before
@@ -391,12 +393,15 @@ def test_long_column_forms_match_plain(cuda, bf16, s, n):
                  col0=512 - n)
     gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc)
     gcl_bwd.gcl_bwd_weight(x, gc, aux, gates)
+    if bf16:
+        gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc)
     torch.cuda.synchronize()
-    names = [f"{k}{suffix}" for k in ("gcl_fwd", "gcl_eval", "gcl_bwd_data",
-                                      "gcl_bwd_weight")]
+    names = [f"gcl_fwd{suffix}", f"gcl_eval{suffix}", *bwd]
     assert counts.since(before[1]) == {(k, s, 1): 1 for k in names}
+    cols = [f"gcl_fwd{suffix}", f"gcl_eval{suffix}", *bwd[:2]] + (
+        ["gcl_bwd_fused_bf16"] if bf16 else [])
     assert {k: v - before[0][k] for k, v in gcl.col_launches.items()
-            if v != before[0][k]} == dict.fromkeys(names, 1)
+            if v != before[0][k]} == dict.fromkeys(cols, 1)
 
 
 FIRST_BACKWARD = """
@@ -1274,24 +1279,61 @@ def test_one_rank_nccl_train_step_is_the_plain_step(cuda, monkeypatch):
 
 
 # the bf16 training kernels at bars of more than 48 steps (bf16 training's
-# route there: the long bf16 eval kernel's training form and the split
-# backward's bf16 forms), at the fp32 cases' shapes
+# route there: the long bf16 eval kernel's training form and the long-bar
+# fused backward; the split backward's bf16 forms, its yardstick), at the
+# fp32 cases' shapes
 @pytest.mark.parametrize("nbar,d", LONG_TRAIN_CASES)
 @pytest.mark.parametrize("s", LONG_STEPS)
 def test_long_bf16_training_kernels_match_plain(cuda, s, nbar, d):
-    """`gcl_fwd`, `gcl_bwd_data` and `gcl_bwd_weight` on bf16 inputs
-    (phase 2c's rule) against their plain versions over bars of 4 x s
-    cells; no comparison launch counts."""
+    """`gcl_fwd`, `gcl_bwd_fused`, `gcl_bwd_data` and `gcl_bwd_weight` on
+    bf16 inputs (phase 2c's rule) against their plain versions over bars
+    of 4 x s cells, and the fused backward against the split pair on the
+    same inputs; no comparison launch counts."""
     before = dict(counts.launches)
-    chip_smoke.check_gcl_train_long_bf16(nbar, d, cuda, timing=False, s=s)
+    res = chip_smoke.check_gcl_train_long_bf16(nbar, d, cuda, timing=False,
+                                               s=s)
+    assert res["gcl_bwd_fused"]["vs_pair_max_abs_err"] >= 0.0
     assert counts.launches == before
+
+
+# the long-bar bf16 fused backward's column form (tensor parallelism: n = d
+# / 2)
+@pytest.mark.parametrize("nbar,d", [(3, 256), (40, 512), (133, 512)])
+@pytest.mark.parametrize("s", LONG_STEPS)
+def test_long_bf16_fused_backward_column_form_matches_plain(cuda, s, nbar,
+                                                            d):
+    """`gcl_bwd_fused` on bf16 inputs with n = d / 2 of the output columns:
+    dx, dgate, dbias and dWbig within BF16_REL of its plain version and of
+    the split pair's column form on the same inputs; counted once at S and
+    as a column-form launch."""
+    n = d // 2
+    _, args = chip_smoke.train_kernel_inputs(nbar, d, cuda, s + 2, s)
+    x, up, aux, gates, wbig, _ = [
+        v if v.dtype == torch.int32 else v.bfloat16() for v in args]
+    wc, gc = wbig[:, :n].contiguous(), up[..., :n].contiguous()
+    before = dict(counts.launches), dict(gcl.col_launches)
+    got = gcl_bwd.gcl_bwd_fused(x, gc, aux, gates, wc)
+    torch.cuda.synchronize()
+    assert counts.since(before[0]) == {("gcl_bwd_fused", s, 1): 1}
+    assert gcl.col_launches["gcl_bwd_fused_bf16"] == \
+        before[1]["gcl_bwd_fused_bf16"] + 1
+    assert got[2].shape == (n,) and got[3].shape == (8 * d, n)
+    want = gcl_bwd.gcl_bwd_fused_plain(x, gc, aux, gates, wc)
+    pair = (*gcl_bwd.gcl_bwd_data(x, gc, aux, gates, wc),
+            gcl_bwd.gcl_bwd_weight(x, gc, aux, gates))
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dx", "dgate", "dbias", "dwbig"), got, want,
+                             pair):
+        chip_smoke.held_rel(f"gcl_bwd_fused n={n} {name}", a, b)
+        chip_smoke.held_rel(f"gcl_bwd_fused n={n} {name} vs the pair", a, c)
 
 
 def test_long_bf16_training_kernels_launch_their_long_forms(cuda):
     """One launch of each training wrapper on bf16 inputs over bars of 4 x
-    96 cells counts one launch of its bf16 kernel at S = 96, and no other
-    (no fused backward); the training forward's long form holds
-    tensor-core instructions, the two backward forms FFMA and none."""
+    96 cells counts one launch of its bf16 kernel at S = 96, and no other;
+    the training forward's long form and both product kernels of the fused
+    backward hold tensor-core instructions, the two split backward forms
+    FFMA and none."""
     from polyphemus_tpu_torch.ops.kernels import _build
 
     _, args = chip_smoke.train_kernel_inputs(3, 256, cuda, 1, 96)
@@ -1299,14 +1341,16 @@ def test_long_bf16_training_kernels_launch_their_long_forms(cuda):
         v if v.dtype == torch.int32 else v.bfloat16() for v in args]
     before = dict(counts.launches)
     out = gcl.gcl_fwd(x, aux, gates, wbig, bias)
+    fused = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
     dx, dg, db = gcl_bwd.gcl_bwd_data(x, up, aux, gates, wbig)
     dw = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
     torch.cuda.synchronize()
-    assert out.dtype == dx.dtype == torch.bfloat16
+    assert out.dtype == dx.dtype == fused[0].dtype == torch.bfloat16
     assert dg.dtype == db.dtype == dw.dtype == torch.float32
+    assert all(v.dtype == torch.float32 for v in fused[1:])
     assert counts.since(before) == {
-        (k, 96, 1): 1 for k in ("gcl_fwd_bf16", "gcl_bwd_data_bf16",
-                                "gcl_bwd_weight_bf16")}
+        (k, 96, 1): 1 for k in ("gcl_fwd_bf16", "gcl_bwd_fused",
+                                "gcl_bwd_data_bf16", "gcl_bwd_weight_bf16")}
     for name, sym in chip_smoke.LONG_BF16_TRAIN_FORMS.items():
         _build.launcher(name)
         hmma = chip_smoke.sass_instructions(name, sym)
@@ -1315,6 +1359,23 @@ def test_long_bf16_training_kernels_launch_their_long_forms(cuda):
             assert hmma > 0, (name, hmma)
         else:
             assert hmma == 0 and ffma > 0, (name, hmma, ffma)
+    for part, sym in chip_smoke.LONG_FUSED_FORMS.items():
+        hmma = chip_smoke.sass_instructions("gcl_bwd_fused_long_bf16", sym)
+        assert hmma > 0, (part, hmma)
+
+
+def test_long_bf16_fused_backward_repeats_bitwise(cuda):
+    """At S = 96 and 52 the bf16 fused backward gives dgate, dbias and
+    dWbig bit for bit in two launches (no atomics), and dx too."""
+    for s in (96, 52):
+        _, args = chip_smoke.train_kernel_inputs(128, 512, cuda, 3, s)
+        x, up, aux, gates, wbig, _ = [
+            v if v.dtype == torch.int32 else v.bfloat16() for v in args]
+        first = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+        second = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), s
 
 
 def test_long_bf16_data_and_weight_backward_repeat_bitwise(cuda):
@@ -1335,9 +1396,10 @@ def test_long_bf16_data_and_weight_backward_repeat_bitwise(cuda):
 def test_long_bf16_training_kernels_give_zeros_for_a_bar_without_active_cells(
         cuda):
     """At S = 52, bf16, bar 1 of 3 has no active cell while its x and
-    upstream g are not 0: the forward and dx are exactly 0 there; dWbig,
-    dgate and dbias equal those of the other two bars bit for bit (the
-    empty bar adds zeros)."""
+    upstream g are not 0: the forward and dx are exactly 0 there, of the
+    split pair and of the fused backward; dWbig, dgate and dbias equal
+    those of the other two bars bit for bit (the empty bar adds zeros),
+    each form's its own."""
     mask, args = chip_smoke.train_kernel_inputs(3, 384, cuda, 5, 52)
     x, up, aux, gates, wbig, bias = [
         v if v.dtype == torch.int32 else v.bfloat16() for v in args]
@@ -1358,19 +1420,25 @@ def test_long_bf16_training_kernels_give_zeros_for_a_bar_without_active_cells(
     ref = gcl_bwd.gcl_bwd_data(*kept(x, up, aux), gates, wbig)
     dw = gcl_bwd.gcl_bwd_weight(x, up, aux, gates)
     dw_ref = gcl_bwd.gcl_bwd_weight(*kept(x, up, aux), gates)
+    fused = gcl_bwd.gcl_bwd_fused(x, up, aux, gates, wbig)
+    fused_ref = gcl_bwd.gcl_bwd_fused(*kept(x, up, aux), gates, wbig)
     torch.cuda.synchronize()
     assert (out[1] == 0).all() and (got[0][1] == 0).all()
     assert torch.equal(got[0][keep], ref[0])
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
     assert torch.equal(dw, dw_ref)
+    assert (fused[0][1] == 0).all()
+    assert torch.equal(fused[0][keep], fused_ref[0])
+    for a, b in zip(fused[1:], fused_ref[1:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("resolution", [13, 24])
 def test_long_bf16_train_step_on_the_card_matches_the_cpu(cuda, resolution):
     """A d = 128, 2-layer model at resolution 13 or 24 (S = 52, 96) under
     the bf16 policy on the card against the CPU at batch 32 (phase 6's
-    rule), through the bf16 long-bar training kernels and no fused
-    backward."""
+    rule), through the bf16 long-bar training forward and fused backward
+    and no split kernel."""
     mc = ModelConfig(d=128, gnn_n_layers=2, n_bars=2, resolution=resolution,
                      batch_norm=True)
     s = mc.n_timesteps
@@ -1379,5 +1447,5 @@ def test_long_bf16_train_step_on_the_card_matches_the_cpu(cuda, resolution):
     # one microbatch through 2 GNN stacks of 2 layers; the eval steps before
     # the card's two train steps run the bf16 eval GCL, a layer a launch
     assert counts.since(before) == {
-        ("gcl_fwd_bf16", s, 1): 4, ("gcl_bwd_data_bf16", s, 1): 4,
-        ("gcl_bwd_weight_bf16", s, 1): 4, ("gcl_eval_bf16", s, 1): 4}
+        ("gcl_fwd_bf16", s, 1): 4, ("gcl_bwd_fused", s, 1): 4,
+        ("gcl_eval_bf16", s, 1): 4}

@@ -28,8 +28,9 @@ long kernel with its output width n and first column c0. The training
 kernels take S > 48 with the square weights and in the column form, in
 fp32 and bf16 (their route and their plain versions against JAX:
 `tests/test_torch_long_train.py`, `tests/test_torch_long_bf16_train.py`,
-`tests/test_torch_long_tensor_parallel.py`); the fused backward refuses it
-before launching, with a message that names the roadmap's item. (The eval
+`tests/test_torch_long_tensor_parallel.py`): bf16 training through the
+fused backward's long form, fp32 through the split pair; the fp32 fused
+backward (on no training path) refuses it before launching. (The eval
 and chord routes' geometry checks at S = 52-192 are
 `tests/test_torch_resolution.py::test_the_eval_kernels_take_bars_above_48_steps`.)
 """
@@ -184,7 +185,12 @@ TRAINING_KERNELS = ["gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight",
 # first size (nbar) among its arguments
 LONG_LAUNCHERS = {"gcl_fwd": ("gcl_fwd_long", 6),
                   "gcl_bwd_data": ("gcl_bwd_data_long", 9),
-                  "gcl_bwd_weight": ("gcl_bwd_weight_long", 5)}
+                  "gcl_bwd_weight": ("gcl_bwd_weight_long", 5),
+                  "gcl_bwd_fused": ("gcl_bwd_fused_long", 10)}
+# the wrappers a training layer launches, by dtype
+LAYER_WRAPPERS = {torch.float32: ("gcl_fwd", "gcl_bwd_data",
+                                  "gcl_bwd_weight"),
+                  torch.bfloat16: ("gcl_fwd", "gcl_bwd_fused")}
 
 
 def column_launches(kernel, s, dt, d=256, n=128, nbar=2):
@@ -217,29 +223,26 @@ def column_launches(kernel, s, dt, d=256, n=128, nbar=2):
 @pytest.mark.parametrize("s", STEPS)
 def test_training_kernels_refuse_long_bars(card_route, monkeypatch, kernel,
                                            s):
-    """What training at S > 48 still refuses names the limit and the
-    roadmap's item: the fused backward (bf16 training's route up to 48
-    steps) in any dtype, its bf16 column form before any launch. The
-    column form (tensor
-    parallelism, n = 128 of d = 256) of the other kernels runs in either
-    dtype: the card route launches each wrapper's long-bar kernel once
-    (`gcl_fused`: the forward and the split backward) with (nbar, S, d, n),
-    counted at S and as a column-form launch."""
+    """Training at S > 48 in the column form (tensor parallelism, n = 128
+    of d = 256): the card route launches each wrapper's long-bar kernel
+    once (`gcl_fused`: the forward, then the split backward in fp32 and
+    the fused backward in bf16) with (nbar, S, d, n), counted at S and as a
+    column-form launch. The fused backward takes bf16 only there: its fp32
+    form (on no training path, 4 x 32 cells and the square weights only)
+    refuses before any launch."""
     monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
+    dts = (torch.bfloat16,) if kernel == "gcl_bwd_fused" else (
+        torch.float32, torch.bfloat16)
     if kernel == "gcl_bwd_fused":
-        fused = f"up to 48 .*{gcl.FUSED_LONG} is not ported yet .*ROADMAP"
-        for dt in (torch.bfloat16, torch.float32):
-            with pytest.raises(ValueError, match=fused):
-                gcl.check_grid(kernel, 4 * s, s, dt)
-        # (the fp32 form takes the square weights only, at 4 x 32 cells)
-        with pytest.raises(ValueError, match=fused):
-            column_launches(kernel, s, torch.bfloat16)
+        with pytest.raises(ValueError, match="fp32 fused backward takes the "
+                                             "square weights only"):
+            column_launches(kernel, s, torch.float32)
         assert card_route == []
-        return
-    wrappers = list(LONG_LAUNCHERS) if kernel == "gcl_fused" else [kernel]
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in dts:
         gcl.check_grid(kernel, 4 * s, s, dt)
         bf = "_bf16" if dt == torch.bfloat16 else ""
+        wrappers = (LAYER_WRAPPERS[dt] if kernel == "gcl_fused"
+                    else [kernel])
         del card_route[:]
         before = dict(counts.launches), dict(gcl.col_launches)
         column_launches(kernel, s, dt)
@@ -248,7 +251,9 @@ def test_training_kernels_refuse_long_bars(card_route, monkeypatch, kernel,
         for k, (_, a) in zip(wrappers, card_route):
             i = LONG_LAUNCHERS[k][1]
             assert a[i:] == (2, s, 256, 128, 0)
-        assert counts.since(before[0]) == {(k + bf, s, 1): 1
+        counted = {k: k if k == "gcl_bwd_fused" else k + bf
+                   for k in wrappers}
+        assert counts.since(before[0]) == {(counted[k], s, 1): 1
                                            for k in wrappers}
         assert {k: v - before[1][k] for k, v in gcl.col_launches.items()
                 if v != before[1][k]} == {k + bf: 1 for k in wrappers}
@@ -362,10 +367,12 @@ def test_gcl_eval_refuses_the_column_form_above_48_steps(card_route, dtype):
 def test_training_refuses_long_bars_before_any_launch(card_route,
                                                       monkeypatch):
     """At S = 64 bf16 training runs (the training layer launches the bf16
-    training forward, then the split backward's bf16 forms, each once; the
-    forward and the pair alone launch theirs), and so does the fp32 column
-    form (n = 128 of d = 256: the layer's three long-bar kernels, then the
-    forward alone), while the fused backward raises before any launch."""
+    training forward, then the fused backward's long form, each once; the
+    forward, the fused backward and the split pair, the fused kernels'
+    yardstick, alone launch theirs), and so does the fp32 column form (n =
+    128 of d = 256: the layer's three long-bar kernels, then the forward
+    alone), while the fp32 fused backward (on no training path) raises
+    before any launch."""
     monkeypatch.setattr(gcl_bwd, "on_card", lambda kernel, x: True)
     s, d = 64, 256
     bf = torch.bfloat16
@@ -380,18 +387,20 @@ def test_training_refuses_long_bars_before_any_launch(card_route,
                                  torch.zeros(d, dtype=bf), aux, mask)
     out.backward(torch.zeros_like(out))
     gcl.gcl_fwd(x.to(bf), aux, gates.to(bf), wb, torch.zeros(d, dtype=bf))
+    gcl_bwd.gcl_bwd_fused(x.to(bf), x.to(bf), aux, gates.to(bf), wb)
     gcl_bwd.gcl_bwd_data(x.to(bf), x.to(bf), aux, gates.to(bf), wb)
     gcl_bwd.gcl_bwd_weight(x.to(bf), x.to(bf), aux, gates.to(bf))
     assert [c[0] for c in card_route] == [
-        "gcl_fwd_long_bf16", "gcl_bwd_data_long_bf16",
-        "gcl_bwd_weight_long_bf16"] * 2
+        "gcl_fwd_long_bf16", "gcl_bwd_fused_long_bf16"] * 2 + [
+        "gcl_bwd_data_long_bf16", "gcl_bwd_weight_long_bf16"]
     assert counts.since(before) == {
-        (k, s, 1): 2 for k in ("gcl_fwd_bf16", "gcl_bwd_data_bf16",
-                               "gcl_bwd_weight_bf16")}
+        ("gcl_fwd_bf16", s, 1): 2, ("gcl_bwd_fused", s, 1): 2,
+        ("gcl_bwd_data_bf16", s, 1): 1, ("gcl_bwd_weight_bf16", s, 1): 1}
     counts.restore(before)
     del card_route[:]
-    with pytest.raises(ValueError, match=gcl.FUSED_LONG):
-        gcl_bwd.gcl_bwd_fused(x.to(bf), x.to(bf), aux, gates.to(bf), wb)
+    with pytest.raises(ValueError, match="fp32 fused backward .*resolution "
+                                         "8"):
+        gcl_bwd.gcl_bwd_fused(x, x, aux, gates, wb.float())
     assert card_route == [] and counts.launches == before
     out = gcl_bwd.GclFused.apply(x, gates,
                                  torch.zeros(6, d, 128, requires_grad=True),

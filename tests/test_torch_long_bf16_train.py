@@ -5,22 +5,26 @@ the CPU.
 JAX trains under the bf16 policy through `gcl_fused`'s custom VJP, whose
 backward is the split pair of Pallas kernels (`gcl_backward_pallas`:
 `_bwd_data_kernel`, `_bwd_weight_kernel`) in both dtypes and at every grid
-(`gcl_pallas.py:493-516`). Above 48 steps the port's bf16 training layer
-takes the same route: the forward `gcl_fwd` and the split backward
-`gcl_bwd_data`, `gcl_bwd_weight` (on the card their long-bar bf16 forms).
-Their plain versions, what a CPU tensor runs and what the card's kernels
-are held to, must give JAX's bf16 results:
+(`gcl_pallas.py:493-516`); its single-pass `gcl_backward_fused`
+(`_bwd_fused_kernel`) computes the same outputs. Above 48 steps the port's
+bf16 training layer takes the forward `gcl_fwd` and the fused backward
+`gcl_bwd_fused` (on the card `csrc/gcl_eval_long_bf16_tc.cu`'s training
+form and `csrc/gcl_bwd_fused_long_bf16_tc.cu`); the split pair
+`gcl_bwd_data`, `gcl_bwd_weight` stays, JAX's route and the fused kernels'
+yardstick on the card. Their plain versions, what a CPU tensor runs and
+what the card's kernels are held to, must give JAX's bf16 results:
 
   * at S = 52, 64, 96 and 192 (d = 32, 3 bars from a numpy seed:
     `tests/test_torch_grid_train.py`'s `layer_case`, an empty, a
     single-node and a full bar): the bf16 plain `gcl_fwd` against bf16
     `gcl_apply_pallas` without its epilogue, and the bf16 plain split
-    backward against bf16 `gcl_backward_pallas` (interpret mode); every
-    output within BF16_REL (2e-2) of its max |JAX|, the bound of
-    `tests/test_torch_gcl_fused_bwd.py`;
-  * one bf16 `GclFused` layer at S = 96: its grads (x, gate table, relation
-    and root weights, bias) against `jax.grad` of JAX's bf16 `gcl_fused`,
-    to the same bound;
+    backward against bf16 `gcl_backward_pallas` and the bf16 plain fused
+    backward `gcl_bwd_fused_plain` against bf16 `gcl_backward_fused`
+    (interpret mode); every output within BF16_REL (2e-2) of its max |JAX|,
+    the bound of `tests/test_torch_gcl_fused_bwd.py`;
+  * one bf16 `GclFused` layer at S = 96 (the plain forward and fused
+    backward): its grads (x, gate table, relation and root weights, bias)
+    against `jax.grad` of JAX's bf16 `gcl_fused`, to the same bound;
   * one bf16 train step of a small model (d = 32, 2 layers, 2 bars, one
     microbatch of 32) at r = 13 and 24 against JAX's step under the policy,
     by the rules of `tests/test_torch_bf16_train.py` (`check_step`), the
@@ -106,9 +110,31 @@ def test_bf16_split_plain_matches_pallas_backward_above_48_steps(s):
         ("dx", "dgate", "dbias", "dwbig"))
 
 
+@pytest.mark.parametrize("s", STEPS)
+def test_bf16_fused_plain_matches_pallas_fused_backward_above_48_steps(s):
+    """The bf16 plain fused backward (what the card's long-bar fused kernels
+    are held to) against JAX's single-pass `gcl_backward_fused` on the same
+    bf16 inputs, output by output."""
+    mask, (x, g, gate, rel_w, root, _), t = bf16_case(s, seed=s + 32)
+    dx_j, dg_j, dw_j, db_j = gcl_pallas_bwd.gcl_backward_fused(
+        x, gcl_pallas.build_kernel_aux(jnp.asarray(mask)), gate,
+        gcl_pallas.pack_weights(rel_w, root, T, dtype=BF), g)
+    before = dict(counts.launches)
+    dx, dg, db, dw = gcl_bwd.gcl_bwd_fused(t[0], t[1], port_aux(mask), t[2],
+                                           gcl.pack_weights(t[3], t[4], T))
+    assert counts.launches == before
+    assert dx.dtype == torch.bfloat16 and dx_j.dtype == BF
+    assert all(v.dtype == torch.float32 for v in (dg, db, dw))
+    assert dg.shape == (s, D) and dw.shape == (8 * D, D)
+    assert_bf16_close(
+        [f32(dx).reshape(x.shape), f32(dg), f32(db), f32(dw)],
+        [f32(dx_j), f32(dg_j), f32(db_j), f32(dw_j)],
+        ("dx", "dgate", "dbias", "dwbig"))
+
+
 def test_bf16_gcl_fused_matches_jax_grad_at_96_steps():
     """The bf16 training layer's grads at S = 96: the port's `gcl_fused`
-    (plain forward, plain split backward) against `jax.grad` of JAX's bf16
+    (plain forward, plain fused backward) against `jax.grad` of JAX's bf16
     `gcl_fused` (Pallas forward and split backward, interpret mode)."""
     s = 96
     mask, (x, g, gate, rel_w, root, bias), t = bf16_case(s, seed=7)

@@ -9,10 +9,13 @@ on the CPU, with the helpers of tests/test_torch_tensor_parallel.py:
       columns (fp32: rtol = atol = 1e-5; bf16: 2e-2 x max |square|), the
       partial dx and dgate summed over the shards are the square form's
       (fp32: 1e-5 x max |square|; bf16: 2e-2). The backward is the split
-      pair in both dtypes, as training runs it above 48 steps. The square
-      form is held to JAX's Pallas kernels in interpret mode on the same
-      numpy inputs (fp32: forward 2e-4, backward 5e-4; bf16: 2e-2 x max
-      |JAX|);
+      pair in both dtypes (fp32 training's route, and bf16's yardstick),
+      and in bf16 also the fused backward, bf16 training's route: its
+      shards' dbias and dWbig the square fused form's columns, their dx
+      and dgate summed over the shards its dx and dgate. The square form
+      is held to JAX's Pallas kernels in interpret mode on the same numpy
+      inputs (fp32: forward 2e-4, backward 5e-4; bf16: 2e-2 x max |JAX|;
+      the fused form to the split backward's JAX outputs);
   (b) one fp32 `TrainStep` (d = 32, 2 layers, batch 8, accumulate 2) at
       resolution 13 and M = 2 over 2 gloo ranks, against JAX's step on
       `make_mesh(2)` with `param_sharding` at the same resolution and
@@ -125,8 +128,9 @@ def square_case(bf16, s):
 
 def port_forms(p, lo, hi):
     """The port's plain forms on output columns lo..hi-1 (all d of them:
-    the square form): fwd, eval (K = 1, first column lo) and the split
-    backward (dx, dgate, dbias, dWbig), each as fp32 tensors."""
+    the square form): fwd, eval (K = 1, first column lo), the split
+    backward (dx, dgate, dbias, dWbig) and, in bf16, the fused backward
+    (the same outputs), each as fp32 tensors."""
     c = slice(lo, hi)
     wbig = gcl.pack_weights(p["rel_w"][..., c], p["root"][:, c], T)
     g = p["g"][..., c].contiguous()
@@ -138,6 +142,9 @@ def port_forms(p, lo, hi):
            "split": list(gcl_bwd.gcl_bwd_data(p["x"], g, p["aux"],
                                               p["gate"], wbig)) + [
                gcl_bwd.gcl_bwd_weight(p["x"], g, p["aux"], p["gate"])]}
+    if p["x"].dtype == torch.bfloat16:
+        out["fused"] = list(gcl_bwd.gcl_bwd_fused(p["x"], g, p["aux"],
+                                                  p["gate"], wbig))
     return {k: [t.float() for t in v] if isinstance(v, list) else v.float()
             for k, v in out.items()}
 
@@ -151,11 +158,13 @@ def test_long_column_forms_are_the_square_forms_shards(bf16, s, m):
     square = port_forms(p, 0, D)
     close(square["fwd"], want["fwd"], bf16, FWD_TOL, "fwd vs Pallas")
     close(square["eval"], want["eval"], bf16, FWD_TOL, "eval vs Pallas")
-    for o, a, b in zip(("dx", "dgate", "dbias", "dwbig"), square["split"],
-                       want["split"]):
-        close(a, b, bf16, BWD_TOL, f"split {o} vs Pallas")
+    bwds = ("split", "fused") if bf16 else ("split",)
+    outs = ("dx", "dgate", "dbias", "dwbig")
+    for bwd in bwds:
+        for o, a, b in zip(outs, square[bwd], want["split"]):
+            close(a, b, bf16, BWD_TOL, f"{bwd} {o} vs Pallas")
     n = D // m
-    dx_sum, dgate_sum = 0.0, 0.0
+    sums = {bwd: [0.0, 0.0] for bwd in bwds}
     for r in range(m):
         lo, hi = r * n, (r + 1) * n
         shard = port_forms(p, lo, hi)
@@ -163,19 +172,22 @@ def test_long_column_forms_are_the_square_forms_shards(bf16, s, m):
             assert shard[name].shape == (NBAR, T * s, n)
             close(shard[name], square[name][..., lo:hi], bf16, COL_TOL,
                   f"{name} shard {r}")
-        dx, dgate, dbias, dwbig = shard["split"]
-        sq = square["split"]
-        assert dx.shape == sq[0].shape and dgate.shape == (s, D)
-        assert dbias.shape == (n,) and dwbig.shape == (8 * D, n)
-        close(dbias, sq[2][lo:hi], bf16, COL_TOL, f"dbias shard {r}")
-        close(dwbig, sq[3][:, lo:hi], bf16, COL_TOL, f"dW shard {r}")
-        dx_sum, dgate_sum = dx_sum + dx, dgate_sum + dgate
-    for o, a, b in (("dx", dx_sum, square["split"][0]),
-                    ("dgate", dgate_sum, square["split"][1])):
-        scale = float(b.abs().max())
-        err = float((a - b).abs().max())
-        assert err <= (BF16_REL if bf16 else SUM_REL) * scale, (
-            f"{o} summed over {m} shards", err, scale)
+        for bwd in bwds:
+            dx, dgate, dbias, dwbig = shard[bwd]
+            sq = square[bwd]
+            assert dx.shape == sq[0].shape and dgate.shape == (s, D)
+            assert dbias.shape == (n,) and dwbig.shape == (8 * D, n)
+            close(dbias, sq[2][lo:hi], bf16, COL_TOL,
+                  f"{bwd} dbias shard {r}")
+            close(dwbig, sq[3][:, lo:hi], bf16, COL_TOL,
+                  f"{bwd} dW shard {r}")
+            sums[bwd] = [sums[bwd][0] + dx, sums[bwd][1] + dgate]
+    for bwd in bwds:
+        for o, a, b in zip(("dx", "dgate"), sums[bwd], square[bwd]):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            assert err <= (BF16_REL if bf16 else SUM_REL) * scale, (
+                f"{bwd} {o} summed over {m} shards", err, scale)
     assert gcl.col_launches == before  # the CPU takes the plain path
 
 

@@ -25,12 +25,12 @@ The route at S > 48, with a CUDA tensor's path taken on CPU tensors (the
 the C launchers recorded): an fp32 `GclFused` forward and backward with the
 square weights launches `gcl_fwd_long`, `gcl_bwd_data_long` and
 `gcl_bwd_weight_long` once each and counts them at S; a bf16 one
-`gcl_fwd_long_bf16`, `gcl_bwd_data_long_bf16` and `gcl_bwd_weight_long_bf16`
-(the split backward, as JAX's bf16 layer takes it; no fused backward),
-counted as `gcl_fwd_bf16`, `gcl_bwd_data_bf16`, `gcl_bwd_weight_bf16`; in
-the column form (tensor parallelism) the same kernels with the shard's
-output width, counted as column-form launches too; at S = 12 and 48 it
-keeps the grid kernels. On the CPU the kernels' launch counters stay 0. (bf16 against
+`gcl_fwd_long_bf16` and `gcl_bwd_fused_long_bf16` (the fused backward,
+as bf16 training takes it at every grid; no split kernel), counted as
+`gcl_fwd_bf16`, `gcl_bwd_fused`; the bf16 fused backward alone launches
+its long form once with (nbar, S, d, n); in the column form (tensor
+parallelism) the same kernels with the shard's output width, counted as
+column-form launches too; at S = 12 and 48 it keeps the grid kernels. On the CPU the kernels' launch counters stay 0. (bf16 against
 JAX above 48 steps: `tests/test_torch_long_bf16_train.py`.)"""
 import jax.numpy as jnp
 import numpy as np
@@ -162,10 +162,9 @@ def test_fp32_training_layer_launches_the_long_forms(layer_route):
 def test_bf16_training_layer_refuses_long_bars_before_any_launch(
         layer_route, s):
     """Once refused above 48 steps, a bf16 layer now trains there: forward
-    and backward launch the long-bar bf16 training form and the split
-    backward's bf16 forms once each, with the layer's pointers and sizes,
-    each counted at S, and no fused backward. The data backward's scratch
-    differs from the fp32 form's (a fourth plane for dx in fp32)."""
+    and backward launch the long-bar bf16 training form and the long-bar
+    bf16 fused backward once each, with the layer's pointers and sizes,
+    each counted at S, and no split kernel."""
     d, nbar = 128, 2
     args = layer_args(s, d, dtype=torch.bfloat16, nbar=nbar)
     x, gates, aux = args[0], args[1], args[5]
@@ -174,21 +173,18 @@ def test_bf16_training_layer_refuses_long_bars_before_any_launch(
     assert out.shape == (nbar, T * s, d) and out.dtype == torch.bfloat16
     out.backward(torch.ones_like(out))
     assert [c[0] for c in layer_route] == [
-        "gcl_fwd_long_bf16", "gcl_bwd_data_long_bf16",
-        "gcl_bwd_weight_long_bf16"]
-    (_, fwd), (_, data), (_, weight) = layer_route
+        "gcl_fwd_long_bf16", "gcl_bwd_fused_long_bf16"]
+    (_, fwd), (_, fused) = layer_route
     assert fwd[:3] == (x.data_ptr(), aux.data_ptr(), gates.data_ptr())
     assert fwd[5] == out.data_ptr() and fwd[6:] == (nbar, s, d, d, 0)
-    assert data[0] == x.data_ptr() and data[2:5] == (
+    # (x, g, aux, gates, wbig, dx, part, dwbig, out, up, nbar, S, d, n,
+    # stream)
+    assert fused[0] == x.data_ptr() and fused[2:5] == (
         aux.data_ptr(), gates.data_ptr(), fwd[3])
-    assert len({data[5], data[6], data[7], data[8]}) == 4
-    assert data[9:] == (nbar, s, d, d, 0)
-    assert weight[:4] == (x.data_ptr(), data[1], aux.data_ptr(),
-                          gates.data_ptr())
-    assert weight[5:] == (nbar, s, d, d, 0)
+    assert len({fused[5], fused[6], fused[7], fused[8], fused[9]}) == 5
+    assert fused[10:] == (nbar, s, d, d, 0)
     assert counts.since(before) == {
-        (k, s, 1): 1 for k in ("gcl_fwd_bf16", "gcl_bwd_data_bf16",
-                               "gcl_bwd_weight_bf16")}
+        (k, s, 1): 1 for k in ("gcl_fwd_bf16", "gcl_bwd_fused")}
     assert all(v.grad is not None and v.grad.dtype == torch.bfloat16
                for v in args[:5])
 
@@ -196,28 +192,39 @@ def test_bf16_training_layer_refuses_long_bars_before_any_launch(
 @pytest.mark.parametrize("s", STEPS)
 def test_bf16_fused_backward_refuses_long_bars_before_any_launch(
         layer_route, s):
-    """The bf16 fused backward (bf16 training's route up to 48 steps) is
-    not ported above 48: called there it raises before any launch, naming
-    its roadmap item and the split backward that training runs instead."""
+    """Once refused above 48 steps, the bf16 fused backward (bf16
+    training's route at every grid) launches its long-bar form once with
+    its arguments' pointers and (nbar, S, d, n), counted at S, no column
+    form; its scratch (the upstream planes, 4 x nbar x 4S x d floats, and
+    the per-bar partials) apart from its outputs."""
     bf = torch.bfloat16
     x, gates, rel_w, root, _, aux, _ = layer_args(s, dtype=bf)
+    x, gates = x.detach(), gates.detach()
     wbig = gcl.pack_weights(rel_w.detach(), root.detach(), T)
-    before = dict(counts.launches)
-    with pytest.raises(ValueError, match=f"up to 48 .*{gcl.FUSED_LONG} is "
-                                         f"not ported yet .*ROADMAP.md, Queue"
-                                         f" 2.*split backward"):
-        gcl_bwd.gcl_bwd_fused(x.detach(), x.detach(), aux, gates.detach(),
-                              wbig)
-    assert layer_route == [] and counts.launches == before
+    before = dict(counts.launches), dict(gcl.col_launches)
+    dx, dgate, dbias, dwbig = gcl_bwd.gcl_bwd_fused(x, x, aux, gates, wbig)
+    assert [c[0] for c in layer_route] == ["gcl_bwd_fused_long_bf16"]
+    a = layer_route[0][1]
+    assert a[:5] == (x.data_ptr(), x.data_ptr(), aux.data_ptr(),
+                     gates.data_ptr(), wbig.data_ptr())
+    assert a[5] == dx.data_ptr() and a[7] == dwbig.data_ptr()
+    assert a[8] == dgate.data_ptr() and a[10:] == (2, s, 128, 128, 0)
+    assert dx.shape == x.shape and dx.dtype == bf
+    assert dgate.shape == (s, 128) and dbias.shape == (128,)
+    assert dwbig.shape == (8 * 128, 128)
+    assert counts.since(before[0]) == {("gcl_bwd_fused", s, 1): 1}
+    assert gcl.col_launches == before[1]
 
 
 @pytest.mark.parametrize("s", STEPS)
 def test_column_form_refuses_long_bars_before_any_launch(layer_route, s):
     """Once refused above 48 steps, the column form (n = 128 of d = 256)
     of an fp32 and a bf16 layer now trains there: forward and backward
-    launch the long-bar kernels once each with the layer's pointers and
-    (nbar, S, d, n), each counted at S and as a column-form launch; the
-    output and the weights' grads are n wide, x's grad d wide."""
+    launch the long-bar kernels once each (fp32: the forward and the split
+    pair; bf16: the forward and the fused backward) with the layer's
+    pointers and (nbar, S, d, n), each counted at S and as a column-form
+    launch; the output and the weights' grads are n wide, x's grad d
+    wide."""
     d, n, nbar = 256, 128, 2
     for dt, bf in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         del layer_route[:]
@@ -227,22 +234,26 @@ def test_column_form_refuses_long_bars_before_any_launch(layer_route, s):
         out = gcl_bwd.GclFused.apply(*args)
         assert out.shape == (nbar, T * s, n) and out.dtype == dt
         out.backward(torch.ones_like(out))
-        assert [c[0] for c in layer_route] == [
-            f"gcl_fwd_long{bf}", f"gcl_bwd_data_long{bf}",
-            f"gcl_bwd_weight_long{bf}"]
-        (_, fwd), (_, data), (_, weight) = layer_route
+        bwd = (["gcl_bwd_fused_long_bf16"] if bf else
+               ["gcl_bwd_data_long", "gcl_bwd_weight_long"])
+        assert [c[0] for c in layer_route] == [f"gcl_fwd_long{bf}"] + bwd
+        (_, fwd), (_, data) = layer_route[:2]
         assert fwd[:3] == (x.data_ptr(), aux.data_ptr(), gates.data_ptr())
         assert fwd[5] == out.data_ptr() and fwd[6:] == (nbar, s, d, n, 0)
         assert data[0] == x.data_ptr() and data[2:5] == (
             aux.data_ptr(), gates.data_ptr(), fwd[3])
-        assert data[9:] == (nbar, s, d, n, 0)
-        assert weight[:4] == (x.data_ptr(), data[1], aux.data_ptr(),
-                              gates.data_ptr())
-        assert weight[5:] == (nbar, s, d, n, 0)
-        names = [f"gcl_fwd{bf}", f"gcl_bwd_data{bf}", f"gcl_bwd_weight{bf}"]
+        assert data[-5:] == (nbar, s, d, n, 0)
+        if not bf:
+            weight = layer_route[2][1]
+            assert weight[:4] == (x.data_ptr(), data[1], aux.data_ptr(),
+                                  gates.data_ptr())
+            assert weight[5:] == (nbar, s, d, n, 0)
+        names = ([f"gcl_fwd{bf}", "gcl_bwd_fused"] if bf else
+                 ["gcl_fwd", "gcl_bwd_data", "gcl_bwd_weight"])
         assert counts.since(before[0]) == {(k, s, 1): 1 for k in names}
+        cols = (["gcl_fwd_bf16", "gcl_bwd_fused_bf16"] if bf else names)
         assert {k: v - before[1][k] for k, v in gcl.col_launches.items()
-                if v != before[1][k]} == dict.fromkeys(names, 1)
+                if v != before[1][k]} == dict.fromkeys(cols, 1)
         assert x.grad.shape == (nbar, T * s, d)
         assert args[2].grad.shape == (6, d, n) and args[4].grad.shape == (n,)
 

@@ -238,9 +238,9 @@ def test_training_kernels_refuse_other_grids(kernel, t, s):
     """3 tracks and S % 4 != 0 in every form; above 48 steps (S = 52, 64,
     which fp32 and bf16 take with the square weights,
     `test_fp32_training_kernels_take_52_and_64_steps`, and in the column
-    form) the fused backward only."""
+    form) nothing: bf16 takes the fused backward there too."""
     dt = torch.bfloat16 if s > 48 else torch.float32
-    if s > 48 and kernel != "gcl_bwd_fused":  # both forms train there
+    if s > 48:  # both forms train there
         gcl.check_grid(kernel, t * s, s, dt)
         x, want = gcl_args(4, s, d=256)
         want["g"] = (torch.zeros(2, 4 * s, 128), (2, 4 * s, 128),
